@@ -94,14 +94,10 @@ def level_inputs(cfg, R: int, mode: str, seed: int, device):
     Gaussians, view PE."""
     import torch
 
-    from nerf_or_nothing_tpu_torch.kernels.fused_level import (
-        padded_location_features,
-    )
     from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype
     from nerf_or_nothing_tpu_torch.ops import ipe, sampling
     from nerf_or_nothing_tpu_torch.ops.render import interval_lengths
 
-    assert padded_location_features(cfg) >= cfg.location_features
     g = torch.Generator().manual_seed(seed)
     theta = torch.rand(R, generator=g) * 2 * math.pi
     origins = torch.stack([4 * torch.cos(theta), 4 * torch.sin(theta),

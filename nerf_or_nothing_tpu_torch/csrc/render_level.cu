@@ -19,10 +19,15 @@
 //    [64, W] live in shared memory; each layer accumulates the whole K in
 //    registers, then the block synchronises and writes the epilogue
 //    (bias, ReLU in f32, rounding to the compute type) back in place;
-//  - bf16: tensor-core mma.sync.m16n8k16 with f32 accumulators; weights
-//    are pre-packed by the wrapper in fragment order, so each lane loads
-//    one 8-byte word per 8x16 weight fragment (read through L1/L2; the
-//    ~1.1 MB of weights stay resident in L2);
+//  - bf16: tensor-core mma.sync.m16n8k16 with f32 accumulators, A
+//    fragments by ldmatrix from shared memory; weights are pre-packed by
+//    the wrapper in fragment order, so each lane loads one 8-byte word per
+//    8x16 weight fragment, straight from L2 (the ~1.1 MB of weights stay
+//    resident there). Weight reads are what limits this design, so each
+//    warp owns all 64 rows of the sub-tile and a disjoint set of n8
+//    column tiles: every weight fragment is read once per 64 rows (a
+//    2 x 4 warp grid that read it twice was 1.43x slower), and the next
+//    k-step's fragments load while the current one multiplies;
 //  - f32: plain FMA loops (no TF32), for checking the algorithm in f32;
 //  - the skip layer is one accumulation over [h | x]; the view layer's
 //    direction term d @ W_bot is computed once per ray and added in the
@@ -46,7 +51,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBM = 64;        // rows per sub-tile
-constexpr int kMaxNT = 8;      // n8 tiles per warp (N <= 256)
+constexpr int kMI = kBM / 16;  // bf16: a warp owns all rows, 4 m16 tiles
+constexpr int kMaxNT = 4;      // bf16: n8 tiles warp + 8j per warp (N <= 256)
 constexpr int kMaxNJ = 16;     // f32 path: columns per thread (N <= 256)
 
 typedef __nv_bfloat16 bf16;
@@ -211,59 +217,71 @@ __device__ void load_features(const Params& p, const Smem<T>& sm, long long grow
 }
 
 // ---- one dense layer: acc = [H[:, :kh] | X[:, :kx]] @ Wl ----
-// bf16: warps 2 (rows) x 4 (cols); a warp owns 32 rows x N/4 columns.
+// bf16: each warp owns all 64 rows and the n8 column tiles warp + 8j, so
+// a weight fragment is read once per 64 rows.
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-struct AccBF16 { float v[2][kMaxNT][4]; };
+// The 16x16 A fragment at p (row-major, 16-byte aligned rows): lanes 0-15
+// address rows 0-15 at column 0, lanes 16-31 the same rows at column 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+struct AccBF16 { float v[kMI][kMaxNT][4]; };
 struct AccF32 { float v[4][kMaxNJ]; };
 
 __device__ __forceinline__ void gemm(const Params& p, const Smem<bf16>& sm, int kh,
                                      int kx, const bf16* wl, int N, AccBF16& acc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int NT = N >> 5;
+  const int NTT = N >> 3;
   const int KT = (kh + kx) >> 4;
-  const uint2* wp = reinterpret_cast<const uint2*>(wl);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
     for (int j = 0; j < kMaxNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc.v[mi][j][e] = 0.0f;
 
+  // n8 tile warp + 8j of the fragment-ordered weights; the fragments of
+  // step kt+1 load while step kt multiplies.
+  const uint2* wl_lane = reinterpret_cast<const uint2*>(wl) + (size_t)warp * KT * 32 + lane;
+  uint2 bcur[kMaxNT], bnxt[kMaxNT];
+#pragma unroll
+  for (int j = 0; j < kMaxNT; ++j)
+    if (warp + 8 * j < NTT) bcur[j] = __ldg(wl_lane + (size_t)j * 8 * KT * 32);
+  const int arow = lane & 15, acol = (lane >> 4) * 8;
   for (int kt = 0; kt < KT; ++kt) {
-    const bf16* A;
-    int lda, kk;
-    if ((kt << 4) < kh) {
-      A = sm.H; lda = p.ldh; kk = kt << 4;
-    } else {
-      A = sm.X; lda = p.ldx; kk = (kt << 4) - kh;
-    }
-    uint2 bfr[kMaxNT];
-#pragma unroll
-    for (int j = 0; j < kMaxNT; ++j)
-      if (j < NT) bfr[j] = __ldg(wp + ((size_t)(wn * NT + j) * KT + kt) * 32 + lane);
-    uint32_t afr[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const bf16* a0 = A + (wm * 32 + mi * 16 + g) * lda + kk + 2 * t;
-      afr[mi][0] = *reinterpret_cast<const uint32_t*>(a0);
-      afr[mi][1] = *reinterpret_cast<const uint32_t*>(a0 + 8 * lda);
-      afr[mi][2] = *reinterpret_cast<const uint32_t*>(a0 + 8);
-      afr[mi][3] = *reinterpret_cast<const uint32_t*>(a0 + 8 * lda + 8);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    if (kt + 1 < KT) {
 #pragma unroll
       for (int j = 0; j < kMaxNT; ++j)
-        if (j < NT) mma_bf16(acc.v[mi][j], afr[mi], bfr[j]);
+        if (warp + 8 * j < NTT)
+          bnxt[j] = __ldg(wl_lane + ((size_t)j * 8 * KT + kt + 1) * 32);
+    }
+    const bf16* a0;
+    int lda;
+    if ((kt << 4) < kh) {
+      a0 = sm.H + arow * p.ldh + (kt << 4) + acol; lda = p.ldh;
+    } else {
+      a0 = sm.X + arow * p.ldx + (kt << 4) - kh + acol; lda = p.ldx;
+    }
+    uint32_t afr[kMI][4];
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi) ldmatrix_x4(afr[mi], a0 + mi * 16 * lda);
+#pragma unroll
+    for (int mi = 0; mi < kMI; ++mi)
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j)
+        if (warp + 8 * j < NTT) mma_bf16(acc.v[mi][j], afr[mi], bcur[j]);
+#pragma unroll
+    for (int j = 0; j < kMaxNT; ++j) bcur[j] = bnxt[j];
   }
 }
 
@@ -273,19 +291,18 @@ __device__ __forceinline__ void epilogue(const Params& p, const Smem<bf16>& sm,
                                          const float* dc, int sub0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int NT = N >> 5;
+  const int NTT = N >> 3;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int row = wm * 32 + mi * 16 + g + 8 * hh;
+      const int row = mi * 16 + g + 8 * hh;
       const float* dcr = nullptr;
       if (dc) dcr = dc + min((sub0 + row) / p.S, p.RB - 1) * p.Wc;
 #pragma unroll
       for (int j = 0; j < kMaxNT; ++j) {
-        if (j < NT) {
-          const int col = (wn * NT + j) * 8 + 2 * t;
+        if (warp + 8 * j < NTT) {
+          const int col = (warp + 8 * j) * 8 + 2 * t;
           float v0 = acc.v[mi][j][2 * hh];
           float v1 = acc.v[mi][j][2 * hh + 1];
           if (dcr) { v0 += dcr[col]; v1 += dcr[col + 1]; }
@@ -439,7 +456,7 @@ __device__ void composite(const Params& p, const Smem<T>& sm, int ray0, int nr) 
 }
 
 template <class T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 render_level_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem<T> sm = carve<T>(smem_raw, p);

@@ -1,25 +1,21 @@
-"""Dataset framework: load renderings -> generate rays -> batches.
+"""Dataset framework: load renderings -> generate rays -> per-image grids.
 
-Same contract as ``nerf_or_nothing_tpu/datasets/base.py``: subclasses fill
-``images`` [N,H,W,3] and ``rays`` (leaves [N,H,W,C]); the test split
-serves per-image ray grids (``image_rays``), the train split random-pixel
-batches from a background prefetch thread. Everything is numpy on the
-host. Until the parallel slice the process is rank 0 of a world of 1, so
-the pixel pool is not striped.
+Same contract as ``nerf_or_nothing_tpu/datasets/base.py`` for the test
+split: subclasses fill ``images`` [N,H,W,3] and ``rays`` (leaves
+[N,H,W,C]) in ``_load``; ``image_rays`` serves one image's flat ray grid
+and ground truth. Everything is numpy on the host. The train split's
+random-pixel batches, its prefetch thread and per-rank striping come with
+the train slice.
 """
 
 from __future__ import annotations
 
-import queue
-import threading
-from typing import Iterator, Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
 from nerf_or_nothing_tpu_torch.config import Config, DatasetType
 from nerf_or_nothing_tpu_torch.rays import Rays
-
-RANK, WORLD_SIZE = 0, 1
 
 
 class Dataset:
@@ -35,102 +31,28 @@ class Dataset:
         self._load()
         if cfg.linear_color:
             self._linearize()
-        self._flatten()
-        self._rng = np.random.default_rng(
-            cfg.seed + 17 * RANK + (0 if split == "train" else 1)
-        )
-        self._queue: "queue.Queue" = queue.Queue(maxsize=4)
-        self._thread: Optional[threading.Thread] = None
-        self._peeked: Optional[Tuple[Rays, np.ndarray]] = None
-        self._stop = threading.Event()
+        self.num_images, self.height, self.width = self.images.shape[:3]
 
-    # -- subclass API -------------------------------------------------------
     def _load(self) -> None:
         raise NotImplementedError
 
     def _linearize(self) -> None:
-        """Train in linear radiance (Config.linear_color)."""
+        """Linear radiance (Config.linear_color): decode the sRGB pixels."""
         from nerf_or_nothing_tpu_torch.ops.math_utils import srgb_to_linear
 
         self.images = np.asarray(
             srgb_to_linear(self.images).numpy(), np.float32
         )
 
-    # -- internals ----------------------------------------------------------
-    def _flatten(self) -> None:
-        n, h, w = self.images.shape[:3]
-        self.num_images, self.height, self.width = n, h, w
-        flat_rays = Rays(*[np.asarray(x).reshape(n * h * w, -1)
-                           for x in self.rays])
-        flat_pixels = self.images.reshape(n * h * w, 3)
-        if WORLD_SIZE > 1:
-            flat_rays = Rays(*[x[RANK::WORLD_SIZE] for x in flat_rays])
-            flat_pixels = flat_pixels[RANK::WORLD_SIZE]
-        self._flat_rays = flat_rays
-        self._flat_pixels = flat_pixels
-        self.pool_size = flat_pixels.shape[0]
-
-    def _sample_batch(self) -> Tuple[Rays, np.ndarray]:
-        idx = self._rng.integers(0, self.pool_size, size=(self.cfg.batch_size,))
-        rays = Rays(*[x[idx] for x in self._flat_rays])
-        return rays, self._flat_pixels[idx]
-
-    # -- public API ---------------------------------------------------------
-    def __iter__(self) -> Iterator[Tuple[Rays, np.ndarray]]:
-        return self
-
-    def __next__(self) -> Tuple[Rays, np.ndarray]:
-        """Next training batch, from a background prefetch thread."""
-        if self._peeked is not None:
-            batch, self._peeked = self._peeked, None
-            return batch
-        if self._thread is None:
-            if self._stop.is_set():
-                raise RuntimeError("dataset is closed")
-            self._thread = threading.Thread(target=self._worker, daemon=True)
-            self._thread.start()
-        return self._queue.get()
-
-    def _worker(self) -> None:
-        while not self._stop.is_set():
-            batch = self._sample_batch()
-            while not self._stop.is_set():
-                try:
-                    self._queue.put(batch, timeout=0.1)
-                    break
-                except queue.Full:
-                    continue
-
     def close(self) -> None:
-        """Stop the prefetch worker and join it (idempotent)."""
-        self._stop.set()
-        thread, self._thread = self._thread, None
-        if thread is not None:
-            thread.join(timeout=5.0)
+        """Nothing to release on the test split (the context-manager form
+        matches the train split's, which owns a prefetch thread)."""
 
     def __enter__(self) -> "Dataset":
         return self
 
     def __exit__(self, *exc) -> None:
         self.close()
-
-    def __del__(self) -> None:
-        try:
-            self.close()
-        except Exception:
-            pass  # interpreter teardown: modules may already be gone
-
-    def peek(self) -> Tuple[Rays, np.ndarray]:
-        """The batch ``__next__`` will return, without consuming it."""
-        if self._peeked is not None:
-            return self._peeked
-        if self._thread is None:
-            rng_state = self._rng.bit_generator.state
-            batch = self._sample_batch()
-            self._rng.bit_generator.state = rng_state
-            return batch
-        self._peeked = self._queue.get()
-        return self._peeked
 
     def image_rays(self, index: int) -> Tuple[Rays, np.ndarray]:
         """Full ray grid + ground truth for one image (test/eval split)."""

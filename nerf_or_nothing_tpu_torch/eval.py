@@ -52,6 +52,10 @@ def render_image(render_fn, params, rays: Rays, height: int, width: int,
                  chunk: int = 8192, device="cuda"):
     """Render a full image in fixed-size chunks on ``device``.
 
+    The image's rays go to the device in one copy and the chunks' results
+    stay there until the end, so the host queues chunk k+1 while the
+    device renders chunk k.
+
     Args:
       rays: flattened leaves [H*W, C] (numpy or tensors).
     Returns:
@@ -59,7 +63,7 @@ def render_image(render_fn, params, rays: Rays, height: int, width: int,
     """
     device = resolve_device(device)
     rays = Rays(*[torch.as_tensor(np.asarray(x), dtype=torch.float32)
-                  for x in rays])
+                  .to(device) for x in rays])
     n = rays.origins.shape[0]
     rgbs, dists, accs = [], [], []
     for start in range(0, n, chunk):
@@ -69,14 +73,13 @@ def render_image(render_fn, params, rays: Rays, height: int, width: int,
         if pad:
             chunk_rays = [torch.cat([x, x[-1:].expand(pad, -1)])
                           for x in chunk_rays]
-        chunk_rays = Rays(*[x.to(device) for x in chunk_rays])
-        rgb, dist, acc = render_fn(params, chunk_rays)
-        rgbs.append(rgb[: end - start].cpu().numpy())
-        dists.append(dist[: end - start].cpu().numpy())
-        accs.append(acc[: end - start].cpu().numpy())
-    rgb = np.concatenate(rgbs).reshape(height, width, 3)
-    dist = np.concatenate(dists).reshape(height, width)
-    acc = np.concatenate(accs).reshape(height, width)
+        rgb, dist, acc = render_fn(params, Rays(*chunk_rays))
+        rgbs.append(rgb[: end - start])
+        dists.append(dist[: end - start])
+        accs.append(acc[: end - start])
+    rgb = torch.cat(rgbs).reshape(height, width, 3).cpu().numpy()
+    dist = torch.cat(dists).reshape(height, width).cpu().numpy()
+    acc = torch.cat(accs).reshape(height, width).cpu().numpy()
     return rgb, dist, acc
 
 

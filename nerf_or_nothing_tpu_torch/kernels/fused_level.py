@@ -189,9 +189,26 @@ def pack_params(params: Params, cfg: Config, dt: torch.dtype):
     return w_flat, b_flat
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape: Sequence[int]):
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+def packed_sizes(cfg: Config) -> Tuple[int, int]:
+    """Lengths of ``pack_params``'s weight and bias buffers."""
+    D, Dc = cfg.net_depth, cfg.net_depth_condition
+    W, Wc, kx = cfg.net_width, cfg.net_width_condition, \
+        padded_location_features(cfg)
+    trunk = sum(
+        ((0 if i == 0 else W) + (kx if i == 0 or i % cfg.skip_layer == 0
+                                 else 0)) * W
+        for i in range(D)
+    )
+    n_w = (trunk + W + W * Wc + cfg.direction_features * Wc
+           + (Dc - 1) * Wc * Wc + 3 * Wc)
+    n_b = D * W + 1 + Dc * Wc + 3
+    return n_w, n_b
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape: Sequence[int],
+           device: torch.device):
+    if t.device != device:
+        raise ValueError(f"{name} must be on {device}, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -226,25 +243,28 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     R, S = delta.shape
     N = R * S
     lx, fd = cfg.location_features, cfg.direction_features
-    _check("delta", delta, torch.float32, (R, S))
     device = delta.device
+    if device.type != "cuda":
+        raise ValueError(f"delta must be a CUDA tensor, got {device}")
+    _check("delta", delta, torch.float32, (R, S), device)
     if mode == "mv":
         means, variances = xs
-        _check("means", means, torch.float32, (N, 3))
-        _check("variances", variances, torch.float32, (N, 3))
+        _check("means", means, torch.float32, (N, 3), device)
+        _check("variances", variances, torch.float32, (N, 3), device)
         x_ptr = 0
         if lx % 6:
             raise ValueError("mode mv needs location_features = 6F")
     else:
-        _check("x", xs, dt, (N, lx))
+        _check("x", xs, dt, (N, lx), device)
         means = variances = None
         x_ptr = xs.data_ptr()
-    _check("d", d, dt, (R, fd))
+    _check("d", d, dt, (R, fd), device)
     if packed is None:
         packed = pack_params(params, cfg, dt)
     w_flat, b_flat = packed
-    _check("packed weights", w_flat, dt, tuple(w_flat.shape))
-    _check("packed biases", b_flat, torch.float32, tuple(b_flat.shape))
+    n_w, n_b = packed_sizes(cfg)
+    _check("packed weights", w_flat, dt, (n_w,), device)
+    _check("packed biases", b_flat, torch.float32, (n_b,), device)
 
     comp = torch.empty((R, 3), dtype=torch.float32, device=device)
     acc = torch.empty((R,), dtype=torch.float32, device=device)

@@ -80,15 +80,6 @@ def level_weight(cfg: Config, i_level: int) -> float:
     return 1.0 if i_level == cfg.num_levels - 1 else cfg.coarse_loss_mult
 
 
-def use_fused_render(cfg: Config) -> bool:
-    """Whether the inference path runs each level as one render kernel."""
-    return (
-        cfg.use_pallas and cfg.fuse_level
-        and cfg.num_rgb_channels == 3 and cfg.num_density_channels == 1
-        and (not cfg.fuse_ipe or cfg.diag_covariance)
-    )
-
-
 def render_rays(
     params: mlp_lib.Params,
     cfg: Config,
@@ -98,7 +89,6 @@ def render_rays(
     mlp_apply=None,
     inference: bool = False,
     generator: Optional[torch.Generator] = None,
-    uniforms: Optional[List[torch.Tensor]] = None,
 ) -> List[render.RenderResult]:
     """Full hierarchical forward; one RenderResult per level.
 
@@ -108,13 +98,14 @@ def render_rays(
         (params, cfg, x, dir_enc) -> (raw_rgb, raw_density).
       inference: render-only call; with ``use_pallas`` and ``fuse_level``
         each level is one ``fused_level_render`` call.
-      generator / uniforms: the random draws of a randomized render, from
-        ``generator`` or given per level (see ``ops/sampling.py``).
+      generator: source of a randomized render's draws.
     """
     dt = mlp_lib.compute_dtype(cfg)
     device = rays.origins.device
     fused_render = None
-    if mlp_apply is None and inference and use_fused_render(cfg):
+    if (mlp_apply is None and inference and cfg.use_pallas and cfg.fuse_level
+            and cfg.num_rgb_channels == 3 and cfg.num_density_channels == 1
+            and (not cfg.fuse_ipe or cfg.diag_covariance)):
         from nerf_or_nothing_tpu_torch.kernels.fused_level import (
             fused_level_render,
             pack_params,
@@ -137,10 +128,9 @@ def render_rays(
     t_vals = None
     weights = None
     for i_level in range(cfg.num_levels):
-        u = uniforms[i_level] if uniforms is not None else None
         t_vals, (means, covs) = sample_level(
             cfg, rays, i_level, t_vals, weights, randomized,
-            stop_grad=cfg.stop_level_grad, u=u, generator=generator,
+            stop_grad=cfg.stop_level_grad, generator=generator,
         )
 
         if fused_render is not None:

@@ -33,13 +33,6 @@ class Rays(NamedTuple):
         return self.origins.shape[-2]
 
 
-def flatten_rays(r: Rays) -> Rays:
-    """Collapse grid leaves [..., C] to a flat ray list [N, C] (numpy)."""
-    return Rays(*[
-        np.asarray(x).reshape(-1, np.asarray(x).shape[-1]) for x in r
-    ])
-
-
 def generate_rays(
     pix_to_cam: np.ndarray,
     cam_to_world: np.ndarray,

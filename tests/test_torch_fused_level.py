@@ -1,6 +1,7 @@
 """The port's render level (render_level_plain through fused_level_render
 on the CPU) against the JAX ``fused_level_render`` (Pallas, interpret
-mode), the kernel's flat weight layout, and the kernel itself on a card.
+mode) and the kernel's flat weight layout; the kernel itself is held
+against the plain version on a card in ``test_torch_kernel_cuda.py``.
 
 Tolerances: f32 rtol 1e-4 / atol 1e-5; bf16 within the bf16 parity band
 (2e-3, 3e-2) of ``utils/parity.py`` as a normalized error < 1.
@@ -152,6 +153,7 @@ def test_pack_params_matches_kernel_layout(dtype):
                       max_deg_point=4)
     params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg)
     w_flat, b_flat = fl.pack_params(params, cfg, dtype)
+    assert (w_flat.numel(), b_flat.numel()) == fl.packed_sizes(cfg)
     got = unpack_like_kernel(w_flat.float().numpy(), cfg,
                              fragments=dtype == torch.bfloat16)
     lx, kx, W = cfg.location_features, fl.padded_location_features(cfg), 64
@@ -185,40 +187,3 @@ def test_kernel_wrapper_checks_inputs():
         fl.check_kernel_config(cfg.replace(net_width_condition=64))
     fl.check_kernel_config(tiny_config())
 
-
-def test_kernel_matches_plain_on_cuda():
-    """The CUDA kernel against its plain version on the card (the kernel
-    has no CPU mode); chip_smoke.py holds it at full width."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel runs only on the card")
-    dev = torch.device("cuda")
-    for dtype in ("float32", "bfloat16"):
-        for mode in ("mv", "t"):
-            cfg = tiny_config(**dict(SMALL, compute_dtype=dtype))
-            params = [(w.to(dev), b.to(dev)) for w, b in tmlp.init_mlp(
-                torch.Generator().manual_seed(0), cfg)]
-            means, covs, dir_enc, t_vals, dirs = level_inputs(9, 8, 1)
-            T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-            kw = dict(means_covs=(T(means), T(covs))) if mode == "mv" else {}
-            x = None
-            if mode == "t":
-                from nerf_or_nothing_tpu_torch.ops.ipe import (
-                    integrated_pos_enc as t_ipe,
-                )
-                x = t_ipe((T(means), T(covs)), 0, 4, fast=True)
-            before = fl.render_level.launches
-            out = fl.fused_level_render(params, cfg, x, T(dir_enc), T(t_vals),
-                                        T(dirs), True, **kw)
-            torch.cuda.synchronize()
-            assert fl.render_level.launches == before + 1
-            xs = (T(means).reshape(-1, 3), T(covs).reshape(-1, 3)) \
-                if mode == "mv" else x.reshape(72, -1)
-            from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype
-            from nerf_or_nothing_tpu_torch.ops.render import interval_lengths
-            ref = fl.render_level_plain(
-                params, cfg, xs, T(dir_enc).to(compute_dtype(cfg)),
-                interval_lengths(T(t_vals), T(dirs)), True, mode)
-            atol, rtol = PARITY_BANDS[dtype]
-            for a, b in zip(out, ref):
-                assert normalized_err(a.cpu().numpy(), b.cpu().numpy(), atol,
-                                      rtol) < 1.0

@@ -14,7 +14,6 @@ import pathlib
 import subprocess
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -83,6 +82,17 @@ def test_render_image_matches_jax(dtype):
             assert normalized_err(a, b, atol, rtol) < 1.0
 
 
+def test_level_weight_matches_jax():
+    from nerf_or_nothing_tpu.models.mipnerf import level_weight as j_weight
+    from nerf_or_nothing_tpu_torch.models.mipnerf import level_weight
+
+    for levels, mult in [(2, 0.1), (3, 0.25)]:
+        jc = jtiny(num_levels=levels, coarse_loss_mult=mult)
+        tc = tiny_config(num_levels=levels, coarse_loss_mult=mult)
+        assert [level_weight(tc, i) for i in range(levels)] == [
+            j_weight(jc, i) for i in range(levels)]
+
+
 def test_evaluate_image_matches_jax():
     rng = np.random.default_rng(1)
     gt = rng.uniform(size=(16, 12, 3)).astype(np.float32)
@@ -109,8 +119,10 @@ def scene_and_ckpt(tmp_path_factory):
     return scene, ckpt, flags
 
 
-def test_run_eval_matches_jax(scene_and_ckpt, capsys):
+@pytest.mark.parametrize("linear_color", [False, True])
+def test_run_eval_matches_jax(scene_and_ckpt, capsys, linear_color):
     _, _, flags = scene_and_ckpt
+    flags = [*flags, f"--linear-color={linear_color}"]
     assert trun.main(["eval", *flags, "--device=cpu"]) == 0
     line = [ln for ln in capsys.readouterr().out.splitlines()
             if ln.startswith('{"eval"')][-1]
@@ -149,8 +161,14 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(scene_and_ckpt):
     assert trun.main(["frobnicate"]) == 2
 
 
+SCRIPTS = ["chip_smoke", "compare_kernels", "profile_render"]
+# Runs on the card, where only PyTorch is installed.
+CARD_TESTS = [REPO / "tests" / "test_torch_kernel_cuda.py"]
+
+
 def _port_sources():
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [REPO / f"{m}.py" for m in SCRIPTS]
+            + CARD_TESTS)
 
 
 def test_port_imports_no_jax_ast():
@@ -181,7 +199,7 @@ def test_port_imports_without_jax_subprocess():
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['nerf_or_nothing_tpu'] = None\n"
-        f"for m in {mods!r} + ['chip_smoke']:\n"
+        f"for m in {mods + SCRIPTS!r}:\n"
         "    importlib.import_module(m)\n"
         "print('imported', len(sys.modules))\n"
     )
