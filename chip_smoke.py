@@ -125,6 +125,18 @@ def level_inputs(cfg, R: int, mode: str, seed: int, device):
     return xs, d, delta
 
 
+def level_flops(cfg, R: int, S: int) -> int:
+    """FLOPs of one level's MLP products over R rays of S samples: every
+    layer once per sample, except the first view layer's direction rows,
+    which both the TPU kernel and this one multiply once per ray
+    (d @ W_bot, broadcast over the ray's samples)."""
+    from nerf_or_nothing_tpu_torch.models.mlp import layer_dims
+
+    per_sample = sum(i * o for i, o in layer_dims(cfg))
+    per_ray = cfg.direction_features * cfg.net_width_condition
+    return 2 * ((per_sample - per_ray) * R * S + per_ray * R)
+
+
 def bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
     """Least time for one launch: FLOPs of the MLP products over the peak
     of the compute type, bytes read and written over the memory rate."""
@@ -132,7 +144,7 @@ def bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
 
     bf16_peak, f32_peak, bw = peaks
     n = R * S
-    flops = 2 * sum(i * o for i, o in layer_dims(cfg)) * n
+    flops = level_flops(cfg, R, S)
     esize = 2 if cfg.compute_dtype == "bfloat16" else 4
     x_bytes = n * 6 * 4 if mode == "mv" else n * cfg.location_features * esize
     w_bytes = sum(i * o for i, o in layer_dims(cfg)) * esize
@@ -220,7 +232,7 @@ def main_path(peaks, device, size: int = 400, base=None):
     from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
     from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
     from nerf_or_nothing_tpu_torch.kernels.fused_level import render_level
-    from nerf_or_nothing_tpu_torch.models.mlp import init_mlp, layer_dims
+    from nerf_or_nothing_tpu_torch.models.mlp import init_mlp
     from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
 
     n_test = 2
@@ -285,8 +297,7 @@ def main_path(peaks, device, size: int = 400, base=None):
         raise AssertionError("non-finite render")
     sec = sorted(times)[1]
     rays_per_s = size * size / sec
-    flop_per_ray = 2 * sum(i * o for i, o in layer_dims(cfg)) * (
-        cfg.num_samples * cfg.num_levels)
+    flop_per_ray = cfg.num_levels * level_flops(cfg, 1, cfg.num_samples)
     bound_rays_per_s = peaks[0] / flop_per_ray
 
     # The rendered path against the plain path on the CPU, small slice.
@@ -357,7 +368,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load("render_level")
-    info = build.BUILD_INFO["render_level"]
+    info = build.BUILD_INFO[str(build.source_path("render_level"))]
     emit({
         "phase": "build", "source": "nerf_or_nothing_tpu_torch/csrc/"
         "render_level.cu", "seconds": time.perf_counter() - t0,

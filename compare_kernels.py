@@ -6,44 +6,22 @@
 
 With one source, the checkout's ``csrc/render_level.cu`` is the second.
 All must keep the C interface ``render_level_launch`` and the weight
-layout of ``pack_params``. Each is built with the same nvcc flags as the
-package, checked against ``render_level_plain`` (as a fraction of the
-band), and timed by CUDA events in the order given and then in reverse
-(median of 7 launches each) on Config() shapes: bf16 R=16384 x S=128 mode
-"mv" (the render path's launch), bf16 R=1000 x S=64 mode "t", f32
-R=2048 x S=128. Prints one JSON line per build and case; a source's name
-is its file name without the suffix.
+layout of ``pack_params``. Each is built by ``kernels/build.py`` with the
+package's nvcc flags, launched through ``render_level_cuda(source=...)``,
+checked against ``render_level_plain`` (as a fraction of the band), and
+timed by CUDA events in the order given and then in reverse (median of 7
+launches each) on Config() shapes: bf16 R=16384 x S=128 mode "mv" (the
+render path's launch), bf16 R=1000 x S=64 mode "t", f32 R=2048 x S=128.
+Prints one JSON line per build and case; a source's name is its file name
+without the suffix.
 """
 
 from __future__ import annotations
 
-import ctypes
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 import chip_smoke as cs
-
-
-def load(src: Path, out_dir: Path, name: str):
-    from nerf_or_nothing_tpu_torch.kernels import build
-
-    so = out_dir / f"lib{name}.so"
-    proc = subprocess.run(
-        [build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(src)],
-        capture_output=True, text=True,
-    )
-    cs.emit({"build": name, "source": str(src), "rc": proc.returncode,
-             "ptxas": [ln.strip() for ln in (proc.stdout + proc.stderr)
-                       .splitlines() if "registers" in ln or "spill" in ln]})
-    if proc.returncode != 0:
-        raise RuntimeError(proc.stderr)
-    fn = ctypes.CDLL(str(so)).render_level_launch
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [i, i] + [p] * 10 + [i] * 12 + [f, f, i, p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def main(argv) -> int:
@@ -57,14 +35,19 @@ def main(argv) -> int:
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
     from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype, init_mlp
 
-    srcs = [Path(a) for a in argv]
+    srcs = [Path(a).resolve() for a in argv]
     if len(srcs) == 1:
-        srcs.append(build.CSRC_DIR / "render_level.cu")
+        srcs.append(build.source_path("render_level"))
     names = [src.stem for src in srcs]
     if len(set(names)) != len(names):
         raise SystemExit(f"sources need distinct file names: {names}")
-    out_dir = Path(tempfile.mkdtemp(prefix="compare_kernels_"))
-    fns = {n: load(src, out_dir, n) for n, src in zip(names, srcs)}
+    sources = dict(zip(names, srcs))
+    for name, src in sources.items():
+        build.load("render_level", src)
+        log = build.BUILD_INFO[str(src)]["log"]
+        cs.emit({"build": name, "source": str(src),
+                 "ptxas": [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln]})
     print(cs.nvidia_smi_line(), flush=True)
     device = torch.device("cuda")
     cases = [
@@ -73,7 +56,7 @@ def main(argv) -> int:
         ("f32_r2048_s128_mv", Config(compute_dtype="float32"), 2048, "mv",
          True),
     ]
-    for name, cfg, R, mode, white_bkgd in cases:
+    for case, cfg, R, mode, white_bkgd in cases:
         params = init_mlp(torch.Generator().manual_seed(0), cfg, device=device)
         xs, d, delta = cs.level_inputs(cfg, R, mode, 1, device)
         packed = fl.pack_params(params, cfg, compute_dtype(cfg))
@@ -81,19 +64,19 @@ def main(argv) -> int:
                                     mode)
         atol, rtol = cs.BANDS[cfg.compute_dtype]
 
-        def run(which):
-            fl._library = lambda: fns[which]
+        def run(name):
             return fl.render_level_cuda(params, cfg, xs, d, delta, white_bkgd,
-                                        mode, packed=packed)
+                                        mode, packed=packed,
+                                        source=sources[name])
 
-        res = {"case": name}
-        for which in names:
-            out = run(which)
+        res = {"case": case}
+        for name in names:
+            out = run(name)
             torch.cuda.synchronize()
-            res[f"{which}_err"] = max(cs.normalized_err(a, b, atol, rtol)
-                                      for a, b in zip(out, ref))
-        for turn, which in enumerate(names + names[::-1]):
-            res[f"{which}_ms_{turn}"] = cs.median_ms(lambda: run(which))
+            res[f"{name}_err"] = max(cs.normalized_err(a, b, atol, rtol)
+                                     for a, b in zip(out, ref))
+        for turn, name in enumerate(names + names[::-1]):
+            res[f"{name}_ms_{turn}"] = cs.median_ms(lambda: run(name))
         cs.emit(res)
     return 0
 

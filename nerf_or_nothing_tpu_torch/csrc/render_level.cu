@@ -5,11 +5,12 @@
 // (launched by _fused_render_impl through fused_level_render).
 //
 // Bound: operations. At the default config one sample row costs
-// 2 * sum(fan_in * fan_out) = 1,089,536 FLOP of bf16 matrix products, while
-// it moves about 32 bytes (mean/var and delta in, its weight out); at
-// 16384 rays x 128 samples that is 2.28 TFLOP against ~69 MB, far above the
-// card's ~295 FLOP/byte ridge. Everything between the inputs and the three
-// outputs stays on chip.
+// 2 * (sum(fan_in * fan_out) - 27 * 128) = 1,082,624 FLOP of bf16 matrix
+// products (the view layer's 27 direction rows, 6,912 FLOP, are multiplied
+// once per ray), while it moves about 32 bytes (mean/var and delta in, its
+// weight out); at 16384 rays x 128 samples that is 2.27 TFLOP against
+// ~69 MB, far above the card's ~295 FLOP/byte ridge. Everything between
+// the inputs and the three outputs stays on chip.
 //
 // Design (simple first version):
 //  - one block of 256 threads owns whole rays (RB = max(1, 64 / S) rays)

@@ -16,6 +16,7 @@ import torch
 from nerf_or_nothing_tpu_torch.config import Config
 from nerf_or_nothing_tpu_torch.device import resolve_device
 from nerf_or_nothing_tpu_torch.models import mipnerf
+from nerf_or_nothing_tpu_torch.models import mlp as mlp_lib
 from nerf_or_nothing_tpu_torch.ops.math_utils import (
     compute_avg_error,
     compute_ssim,
@@ -34,13 +35,35 @@ def to_display(cfg: Config, img: np.ndarray) -> np.ndarray:
 
 
 def make_render_fn(cfg: Config, mlp_apply=None):
-    """Deterministic forward returning the fine level's rgb/dist/acc."""
+    """Deterministic forward returning the fine level's rgb/dist/acc.
+
+    On the card the render kernel's packed weights are kept between calls
+    with the same weight tensors, unchanged in place, so the chunks of a
+    view (and the views of a dataset) pack them once."""
+    fused = mipnerf.uses_fused_render(cfg, mlp_apply, inference=True)
+    kept = {}  # "key": tensor ids and versions, "tensors", "packed"
+
+    def packed_for(params):
+        tensors = [t for wb in params for t in wb]
+        key = [(id(t), t._version) for t in tensors]
+        if kept.get("key") != key:
+            from nerf_or_nothing_tpu_torch.kernels.fused_level import (
+                pack_params,
+            )
+
+            # Holding the tensors keeps their ids from being reused.
+            kept.update(key=key, tensors=tensors, packed=pack_params(
+                params, cfg, mlp_lib.compute_dtype(cfg)))
+        return kept["packed"]
 
     @torch.no_grad()
     def render_fn(params, rays: Rays):
+        packed = None
+        if fused and rays.origins.device.type == "cuda":
+            packed = packed_for(params)
         results = mipnerf.render_rays(
             params, cfg, rays, randomized=False, white_bkgd=cfg.white_bkgd,
-            mlp_apply=mlp_apply, inference=True,
+            mlp_apply=mlp_apply, inference=True, packed=packed,
         )
         fine = results[-1]
         return fine.rgb, fine.distance, fine.acc

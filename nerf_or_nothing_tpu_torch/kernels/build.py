@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -29,8 +29,8 @@ NVCC_FLAGS = [
 ]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# name -> {"seconds": build time (0.0 when loaded from the cache),
-#          "log": nvcc/ptxas output}
+# source path -> {"seconds": build time (0.0 when loaded from the cache),
+#                 "log": nvcc/ptxas output}
 BUILD_INFO: Dict[str, dict] = {}
 
 
@@ -48,42 +48,52 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+def source_path(name: str, source: Optional[os.PathLike] = None) -> Path:
+    """``source`` (another version of a kernel, for timing versions in
+    turns), else ``csrc/<name>.cu``."""
+    return Path(source).resolve() if source else CSRC_DIR / f"{name}.cu"
+
+
+def library_path(name: str, source: Optional[os.PathLike] = None) -> Path:
+    src = source_path(name, source)
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
+def build(name: str, source: Optional[os.PathLike] = None) -> Path:
+    """Compile the source unless its library is already built."""
+    src = source_path(name, source)
+    out = library_path(name, source)
     if out.exists():
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "cached"})
+        BUILD_INFO.setdefault(str(src), {"seconds": 0.0, "log": "cached"})
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
-            f"nvcc failed for {name}.cu ({proc.returncode}):\n"
+            f"nvcc failed for {src.name} ({proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, out)
-    BUILD_INFO[name] = {"seconds": seconds, "log": proc.stdout + proc.stderr}
+    BUILD_INFO[str(src)] = {"seconds": seconds,
+                            "log": proc.stdout + proc.stderr}
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
+def load(name: str, source: Optional[os.PathLike] = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (or of ``source``), built
+    on first use."""
+    key = str(source_path(name, source))
+    lib = _LIBS.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _LIBS[name] = lib
+        lib = ctypes.CDLL(str(build(name, source)))
+        _LIBS[key] = lib
     return lib

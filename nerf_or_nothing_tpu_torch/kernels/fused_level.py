@@ -218,10 +218,10 @@ def _check(name: str, t: torch.Tensor, dtype, shape: Sequence[int],
         raise ValueError(f"{name} must be contiguous")
 
 
-def _library():
+def _library(source=None):
     from nerf_or_nothing_tpu_torch.kernels import build
 
-    lib = build.load("render_level")
+    lib = build.load("render_level", source)
     fn = lib.render_level_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -232,10 +232,13 @@ def _library():
 
 def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
                       white_bkgd: bool, mode: str,
-                      packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                      packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      source=None):
     """Launch the CUDA kernel on the current stream. Same arguments and
     outputs as ``render_level_plain``; ``packed`` is ``pack_params``'s
-    result when the caller already has it."""
+    result when the caller already has it; ``source`` is another version
+    of ``csrc/render_level.cu`` with the same C interface, to time versions
+    in turns (``compare_kernels.py``)."""
     check_kernel_config(cfg)
     if mode not in _MODE_CODE:
         raise ValueError(f"unknown input mode {mode!r}")
@@ -271,7 +274,7 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     weights = torch.empty((R, S), dtype=torch.float32, device=device)
     if R == 0:
         return comp, acc, weights
-    fn = _library()
+    fn = _library(source)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(
         _DTYPE_CODE[dt], _MODE_CODE[mode],

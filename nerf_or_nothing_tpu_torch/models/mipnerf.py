@@ -80,6 +80,16 @@ def level_weight(cfg: Config, i_level: int) -> float:
     return 1.0 if i_level == cfg.num_levels - 1 else cfg.coarse_loss_mult
 
 
+def uses_fused_render(cfg: Config, mlp_apply=None,
+                      inference: bool = False) -> bool:
+    """Whether ``render_rays`` runs each level as one
+    ``fused_level_render`` call."""
+    return (mlp_apply is None and inference and cfg.use_pallas
+            and cfg.fuse_level and cfg.num_rgb_channels == 3
+            and cfg.num_density_channels == 1
+            and (not cfg.fuse_ipe or cfg.diag_covariance))
+
+
 def render_rays(
     params: mlp_lib.Params,
     cfg: Config,
@@ -89,6 +99,7 @@ def render_rays(
     mlp_apply=None,
     inference: bool = False,
     generator: Optional[torch.Generator] = None,
+    packed=None,
 ) -> List[render.RenderResult]:
     """Full hierarchical forward; one RenderResult per level.
 
@@ -99,21 +110,21 @@ def render_rays(
       inference: render-only call; with ``use_pallas`` and ``fuse_level``
         each level is one ``fused_level_render`` call.
       generator: source of a randomized render's draws.
+      packed: the kernel's weights from ``fused_level.pack_params``, when
+        the caller keeps them across calls; else packed here for CUDA.
     """
     dt = mlp_lib.compute_dtype(cfg)
     device = rays.origins.device
     fused_render = None
-    if (mlp_apply is None and inference and cfg.use_pallas and cfg.fuse_level
-            and cfg.num_rgb_channels == 3 and cfg.num_density_channels == 1
-            and (not cfg.fuse_ipe or cfg.diag_covariance)):
+    if uses_fused_render(cfg, mlp_apply, inference):
         from nerf_or_nothing_tpu_torch.kernels.fused_level import (
             fused_level_render,
             pack_params,
         )
 
         fused_render = fused_level_render
-        # Pack the weights for the kernel once for all levels.
-        packed = pack_params(params, cfg, dt) if device.type == "cuda" else None
+        if packed is None and device.type == "cuda":
+            packed = pack_params(params, cfg, dt)  # once for all levels
     if mlp_apply is None:
         if cfg.use_pallas and fused_render is None and device.type == "cuda":
             raise NotImplementedError(FUSED_MLP_ROADMAP)

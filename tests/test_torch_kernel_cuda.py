@@ -91,3 +91,43 @@ def test_kernel_matches_plain_on_cuda(width):
             for a, b in zip(out, ref):
                 assert bool(torch.isfinite(a).all())
                 assert normalized_err(a, b, atol, rtol) < 1.0, (dtype, mode)
+
+
+def test_render_fn_packs_weights_once_per_params(monkeypatch):
+    """``make_render_fn`` packs the kernel's weights once for all chunks of
+    a view, and again only after the weights change in place."""
+    from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
+    from nerf_or_nothing_tpu_torch.rays import Rays
+
+    dev = cuda_device()
+    cfg = tiny_config(**dict(SMALL, num_levels=2, randomized=False))
+    params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg, device=dev)
+    calls = []
+    pack = fl.pack_params
+    monkeypatch.setattr(fl, "pack_params",
+                        lambda *a: calls.append(1) or pack(*a))
+    rng = np.random.default_rng(2)
+    n = 40
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    rays = Rays(
+        origins=np.zeros((n, 3), np.float32), directions=dirs,
+        viewdirs=dirs / np.linalg.norm(dirs, axis=-1, keepdims=True),
+        radii=np.full((n, 1), 1e-3, np.float32),
+        loss_mult=np.ones((n, 1), np.float32),
+        near=np.full((n, 1), 2.0, np.float32),
+        far=np.full((n, 1), 6.0, np.float32),
+    )
+    render_fn = make_render_fn(cfg)
+    launches = fl.render_level.launches
+    rgb, _, _ = render_image(render_fn, params, rays, n, 1, chunk=16,
+                             device=dev)
+    assert fl.render_level.launches == launches + 2 * 3  # 2 levels, 3 chunks
+    assert len(calls) == 1
+    render_image(render_fn, params, rays, n, 1, chunk=16, device=dev)
+    assert len(calls) == 1
+    with torch.no_grad():
+        params[-1][1].add_(1.0)  # rgb head bias: every colour changes
+    rgb2, _, _ = render_image(render_fn, params, rays, n, 1, chunk=16,
+                              device=dev)
+    assert len(calls) == 2
+    assert not np.allclose(rgb, rgb2)
