@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line:
   env      torch / CUDA / nvcc versions, the card, whether triton imports;
-  build    nvcc builds csrc/render_level.cu (the render-level kernel);
-  kernel   the kernel against its plain PyTorch version (render_level_plain)
+  build    nvcc builds csrc/render_level.cu and csrc/train_level.cu, one
+           process each, started together (ptxas register/spill lines);
+  kernel   the render kernel against its plain PyTorch version (render_level_plain)
            at Config() width: bf16 and f32, R=16384 x S=128 in mode "mv",
            R=1000 x S=64 in mode "t" without white background, and a narrow
            config with S=8; errors as a fraction of the band
@@ -17,7 +18,23 @@ Phases, each printing one JSON line:
            ``run.main(["render", ...])`` on the card; the kernel's launch
            counter must rise by 2 (levels) per 16384-ray chunk; render rays/s
            beside the bound; the rendered path checked against the plain
-           path on the CPU on a small slice of rays.
+           path on the CPU on a small slice of rays;
+  train_kernel  the train kernel (train_level_cuda) against level_train_plain:
+           Config() width R=1024 x S=128 mode "t" in bf16 and f32 and mode
+           "mv" in bf16, R=1000 x S=64 and R=37 x S=256 at a narrow width in
+           both dtypes, and a masked ragged batch (R=777, some g_scale 0);
+           normalized errors of comp, acc, weights and every dW/db; times by
+           CUDA events (median of 7 after warm-up) beside the bound
+           (train_level_flops); two launches must give bit-equal dW;
+  train    a synthetic 400x400 Blender scene (4 train views, 1 test view),
+           ``run.main(["train", ...])`` at Config() for 40 steps with
+           logging, checkpoints and a test render inside the run; the train
+           kernel's launch counter must rise by exactly 2 per step; the loss
+           is finite, the final checkpoint exists and ``run.main(["eval",
+           ...])`` restores it on the card; steady-state train rays/s
+           (batch_size / median host-clock step, each step synchronised)
+           beside the bound; one step on the card against the same step on
+           the CPU (randomized=false, 256 rays).
 Then the ``kernels`` line, the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises: non-zero exit and
 no ``ok`` line. Without a CUDA device the script exits 1 at once.
@@ -36,6 +53,8 @@ import time
 
 BANDS = {"float32": (1e-6, 1e-3), "bfloat16": (2e-3, 3e-2)}
 TPU_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:652"  # _render_kernel
+TPU_TRAIN_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:374"  # _level_kernel
+TRAIN_STEPS = 40
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s,
 # f32 (non-tensor) FLOP/s, HBM bytes/s.
 PEAKS = {
@@ -159,6 +178,36 @@ def bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
             flops, in_bytes + out_bytes)
 
 
+def train_level_flops(cfg, R: int, S: int) -> int:
+    """FLOPs one train level needs: the forward (``level_flops``), dW (the
+    same count again) and the g-chain, which is the forward without layer
+    0, the skip layers' x rows and the view layer's direction rows (there
+    is no dX or dD)."""
+    from nerf_or_nothing_tpu_torch.models.mlp import layer_dims
+
+    lx, W = cfg.location_features, cfg.net_width
+    n_skip = sum(1 for i in range(1, cfg.net_depth) if i % cfg.skip_layer == 0)
+    chain = (sum(i * o for i, o in layer_dims(cfg)) - lx * W * (1 + n_skip)
+             - cfg.direction_features * cfg.net_width_condition)
+    return 2 * level_flops(cfg, R, S) + 2 * chain * R * S
+
+
+def train_bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
+    """Least time for one train level: its FLOPs over the compute type's
+    peak, or the bytes it must move (inputs once, outputs once) over the
+    memory rate, whichever is larger."""
+    from nerf_or_nothing_tpu_torch.models.mlp import num_params
+
+    bf16_peak, f32_peak, bw = peaks
+    _, _, _, nbytes = bound_ms(cfg, R, S, mode, peaks)
+    nbytes += R * 3 * 4 + R * 4 + num_params(cfg) * 4  # pixels, g_scale, dW/db
+    flops = train_level_flops(cfg, R, S)
+    peak = bf16_peak if cfg.compute_dtype == "bfloat16" else f32_peak
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops, nbytes)
+
+
 def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
     import torch
 
@@ -206,6 +255,204 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
         raise AssertionError(f"{name}: kernel disagrees with plain, "
                              f"normalized error {worst}")
     return res
+
+
+def train_inputs(cfg, R: int, seed: int, device):
+    """Pixels and a g_scale (level weight 1, every seventh ray masked)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    pixels = torch.rand(R, 3, generator=g)
+    mask = torch.rand(R, generator=g) + 0.5
+    mask[::7] = 0.0
+    g_scale = (2.0 * mask / mask.sum())[:, None]
+    return pixels.to(device), g_scale.to(device)
+
+
+def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
+                      bit_check=False):
+    import torch
+
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+    from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype, init_mlp
+
+    params = init_mlp(torch.Generator().manual_seed(seed), cfg, device=device)
+    xs, d, delta = level_inputs(cfg, R, mode, seed + 1, device)
+    pixels, g_scale = train_inputs(cfg, R, seed + 2, device)
+    packed = fl.pack_train_params(params, cfg, compute_dtype(cfg))
+
+    def kernel():
+        return fl.train_level_cuda(params, cfg, xs, d, delta, pixels, g_scale,
+                                   white_bkgd, mode, packed=packed)
+
+    def plain():
+        return fl.level_train_plain(params, cfg, xs, d, delta, pixels,
+                                    g_scale, white_bkgd, mode)
+
+    out_k = kernel()
+    torch.cuda.synchronize()
+    out_p = plain()
+    torch.cuda.synchronize()
+    atol, rtol = BANDS[cfg.compute_dtype]
+    pairs = [("comp", out_k[0], out_p[0]), ("acc", out_k[1], out_p[1]),
+             ("weights", out_k[2], out_p[2])]
+    for i, ((dw, db), (rw, rb)) in enumerate(zip(out_k[3], out_p[3])):
+        pairs += [(f"dW{i}", dw, rw), (f"db{i}", db, rb)]
+    errs, max_abs = {}, 0.0
+    for key, a, b in pairs:
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: non-finite kernel output {key}")
+        errs[key] = normalized_err(a, b, atol, rtol)
+        max_abs = max(max_abs, float((a - b).abs().max()))
+    bit_equal = None
+    if bit_check:
+        again = kernel()
+        bit_equal = all(torch.equal(a, b) for (a, _), (b, _) in
+                        zip(out_k[3], again[3])) and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(out_k[3], again[3]))
+    ms = median_ms(kernel)
+    plain_ms = median_ms(plain, reps=5, warmup=1)
+    b_ms, b_by, flops, nbytes = train_bound_ms(cfg, R, cfg.num_samples, mode,
+                                               peaks)
+    res = {
+        "phase": "train_kernel", "case": name, "dtype": cfg.compute_dtype,
+        "mode": mode, "R": R, "S": cfg.num_samples, "white_bkgd": white_bkgd,
+        "band": [atol, rtol], "worst": max(errs, key=errs.get),
+        "normalized_err": errs, "max_abs_err": max_abs,
+        "dw_bit_equal": bit_equal, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "flop": flops, "bytes": nbytes,
+        "bound_share": b_ms / ms,
+    }
+    emit(res)
+    worst = max(errs.values())
+    if not worst < 1.0:
+        raise AssertionError(f"{name}: train kernel disagrees with plain, "
+                             f"normalized error {worst} ({res['worst']})")
+    if bit_check and not bit_equal:
+        raise AssertionError(f"{name}: two launches gave different dW")
+    return res
+
+
+def train_path(peaks, device, size: int = 400, steps: int = TRAIN_STEPS,
+               model_args=()):
+    """``run train`` at Config() on the card, then ``run eval`` of its
+    checkpoint; train rays/s; one step against the CPU."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.config import Config
+    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
+    from nerf_or_nothing_tpu_torch.kernels.fused_level import train_level
+    from nerf_or_nothing_tpu_torch.rays import Rays
+    from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    scene = os.path.join(work, "scene")
+    ckpt = os.path.join(work, "ckpt")
+    t0 = time.perf_counter()
+    write_scene(scene, n_train=4, n_test=1, size=size)
+    setup_s = time.perf_counter() - t0
+    args = [f"--data-dir={scene}", f"--checkpoint-dir={ckpt}",
+            f"--max-steps={steps}", "--print-every=10", "--save-every=20",
+            f"--test-render-interval={steps}", *model_args,
+            f"--device={device.type}"]
+
+    train_level.launches = 0
+    t0 = time.perf_counter()
+    rc = run.main(["train", *args])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = train_level.launches
+    if rc != 0:
+        raise AssertionError(f"run.main(train) returned {rc}")
+    if launches != 2 * steps:
+        raise AssertionError(f"train_level launched {launches} times in "
+                             f"{steps} steps, expected {2 * steps}")
+    with open(os.path.join(ckpt, "train_stats.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    if [int(r["step"]) for r in rows] != list(range(10, steps + 1, 10)):
+        raise AssertionError(f"unexpected log steps {[r['step'] for r in rows]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss {losses}")
+    latest = ckpt_lib.latest_checkpoint(ckpt)
+    if latest is None or not latest.endswith(f"checkpoint_{steps:09d}.npz"):
+        raise AssertionError(f"final checkpoint missing: {latest}")
+    cfg = run.parse_flags([a for a in args if not a.startswith("--device")])
+    state = ckpt_lib.restore_checkpoint(latest, cfg, device=device)
+    restored = run.load_params(cfg, device)
+    for (w, b), (rw, rb) in zip(state.params, restored):
+        if not (torch.equal(w, rw) and torch.equal(b, rb)):
+            raise AssertionError("run eval's restore differs from the checkpoint")
+    t0 = time.perf_counter()
+    rc = run.main(["eval", *args])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"run.main(eval) returned {rc}")
+
+    # Steady-state train rays/s: the train step from the trained state,
+    # each step synchronised, host clock.
+    step_fn = train_lib.make_train_step(cfg)
+    with create_dataset("train", scene, cfg) as ds:
+        batches = []
+        for _ in range(13):
+            rays, pixels = next(ds)
+            batches.append((Rays(*[torch.from_numpy(np.asarray(x)).to(device)
+                                   for x in rays]),
+                            torch.from_numpy(np.asarray(pixels)).to(device)))
+    times = []
+    for i, (rays, pixels) in enumerate(batches):
+        t0 = time.perf_counter()
+        state, stats = step_fn(state, rays, pixels)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(time.perf_counter() - t0)
+    if not math.isfinite(float(stats.loss)):
+        raise AssertionError("non-finite loss in the timed steps")
+    step_s = sorted(times)[len(times) // 2]
+    rays_per_s = cfg.batch_size / step_s
+    bound_step_ms = 2 * train_level_flops(cfg, cfg.batch_size,
+                                          cfg.num_samples) / peaks[0] * 1e3
+    bound_rays_per_s = cfg.batch_size / (bound_step_ms / 1e3)
+
+    # One step on the card against the same step on the CPU.
+    small = cfg.replace(randomized=False, batch_size=256)
+    rays, pixels = batches[0]
+    rays = Rays(*[x[:256] for x in rays])
+    pixels = pixels[:256]
+    out = []
+    for dev in (device, torch.device("cpu")):
+        st = train_lib.init_train_state(small, dev)
+        out.append(train_lib.make_train_step(small)(
+            st, Rays(*[x.to(dev) for x in rays]), pixels.to(dev)))
+    atol, rtol = BANDS["bfloat16"]
+    (gs, gst), (cs, cst) = out
+    checks = {k: normalized_err(getattr(gst, k).cpu().reshape(-1),
+                                getattr(cst, k).reshape(-1), atol, rtol)
+              for k in ("loss", "losses", "grad_norm")}
+    checks["params"] = max(
+        normalized_err(a.cpu(), b, atol, rtol)
+        for wa, wb in zip(gs.params, cs.params) for a, b in zip(wa, wb))
+    emit({
+        "phase": "train", "config": "Config()", "image": [size, size],
+        "train_images": 4, "steps": steps, "setup_s": setup_s,
+        "train_s": train_s, "eval_s": eval_s, "launches": launches,
+        "expected_launches": 2 * steps, "logged_losses": losses,
+        "step_s": times, "train_rays_per_s": rays_per_s,
+        "bound_step_ms": bound_step_ms, "bound_rays_per_s": bound_rays_per_s,
+        "bound_share": rays_per_s / bound_rays_per_s,
+        "step_vs_cpu": checks,
+    })
+    if not max(checks.values()) < 1.0:
+        raise AssertionError(f"train step on the card disagrees with the CPU: "
+                             f"{checks}")
+    return launches, rays_per_s
 
 
 def write_checkpoint(ckpt_dir: str, params) -> str:
@@ -367,15 +614,18 @@ def main() -> int:
     })
 
     t0 = time.perf_counter()
-    build.load("render_level")
-    info = build.BUILD_INFO[str(build.source_path("render_level"))]
-    emit({
-        "phase": "build", "source": "nerf_or_nothing_tpu_torch/csrc/"
-        "render_level.cu", "seconds": time.perf_counter() - t0,
-        "nvcc_seconds": info["seconds"],
-        "ptxas": [ln.strip() for ln in info["log"].splitlines()
-                  if "registers" in ln or "spill" in ln],
-    })
+    sources = ("render_level", "train_level")
+    build.build_all(sources)
+    seconds = time.perf_counter() - t0
+    for src in sources:
+        info = build.BUILD_INFO[str(build.source_path(src))]
+        emit({
+            "phase": "build",
+            "source": f"nerf_or_nothing_tpu_torch/csrc/{src}.cu",
+            "seconds": seconds, "nvcc_seconds": info["seconds"],
+            "ptxas": [ln.strip() for ln in info["log"].splitlines()
+                      if "registers" in ln or "spill" in ln],
+        })
 
     base = Config()
     main_case = kernel_case("config_r16384_s128_mv", base, 16384, "mv", True,
@@ -398,19 +648,40 @@ def main() -> int:
 
     launches = main_path(peaks, device)
 
-    emit({"kernels": [{
-        "name": "render_level",
-        "route": "cuda",
-        "source": "nerf_or_nothing_tpu_torch/csrc/render_level.cu",
-        "replaces": TPU_KERNEL,
-        "launches": launches,
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": None,
-    }]})
+    train_case = train_kernel_case("config_r1024_s128_t", base, 1024, "t",
+                                   True, peaks, device, bit_check=True)
+    train_kernel_case("config_r1024_s128_t_f32",
+                      base.replace(compute_dtype="float32"), 1024, "t", True,
+                      peaks, device)
+    train_kernel_case("config_r1024_s128_mv", base.replace(fuse_ipe=True),
+                      1024, "mv", True, peaks, device, seed=4)
+    train_kernel_case("config_r777_s128_t_masked", base, 777, "t", False,
+                      peaks, device, seed=5, bit_check=True)
+    tnarrow = base.replace(net_depth=3, net_width=64, net_width_condition=32,
+                           skip_layer=2, max_deg_point=4)
+    for dtype in ("bfloat16", "float32"):
+        train_kernel_case(f"narrow_r1000_s64_t_{dtype}",
+                          tnarrow.replace(num_samples=64, compute_dtype=dtype),
+                          1000, "t", False, peaks, device, seed=6)
+        train_kernel_case(f"narrow_r37_s256_mv_{dtype}",
+                          tnarrow.replace(num_samples=256, compute_dtype=dtype),
+                          37, "mv", True, peaks, device, seed=7)
+    train_launches, _ = train_path(peaks, device)
+
+    def entry(name, case, n, replaces):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"nerf_or_nothing_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": n,
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": None,
+        }
+
+    emit({"kernels": [
+        entry("render_level", main_case, launches, TPU_KERNEL),
+        entry("train_level", train_case, train_launches, TPU_TRAIN_KERNEL),
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

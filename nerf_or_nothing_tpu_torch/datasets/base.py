@@ -1,16 +1,22 @@
-"""Dataset framework: load renderings -> generate rays -> per-image grids.
+"""Dataset framework: load renderings -> generate rays -> batch iterator.
 
-Same contract as ``nerf_or_nothing_tpu/datasets/base.py`` for the test
-split: subclasses fill ``images`` [N,H,W,3] and ``rays`` (leaves
-[N,H,W,C]) in ``_load``; ``image_rays`` serves one image's flat ray grid
-and ground truth. Everything is numpy on the host. The train split's
-random-pixel batches, its prefetch thread and per-rank striping come with
-the train slice.
+Same contract as ``nerf_or_nothing_tpu/datasets/base.py`` on one process:
+subclasses fill ``images`` [N,H,W,3] and ``rays`` (leaves [N,H,W,C]) in
+``_load``; the images flatten to a pixel pool, and ``next()`` serves
+``batch_size`` pixels drawn with replacement from
+``np.random.default_rng(seed + 17 * rank + (0 if train else 1))``
+(rank 0 here), so the batches are byte-equal to the JAX package's. A
+background thread prefetches batches into a bounded queue; ``peek``,
+``close`` and the context manager behave as there. ``image_rays`` serves
+one image's flat ray grid and ground truth. Everything is numpy on the
+host.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import queue
+import threading
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -31,7 +37,15 @@ class Dataset:
         self._load()
         if cfg.linear_color:
             self._linearize()
-        self.num_images, self.height, self.width = self.images.shape[:3]
+        self._flatten()
+        rank = 0  # one process; per-rank striping comes with ROADMAP A.5
+        self._rng = np.random.default_rng(
+            cfg.seed + 17 * rank + (0 if split == "train" else 1)
+        )
+        self._queue: "queue.Queue" = queue.Queue(maxsize=4)
+        self._thread: Optional[threading.Thread] = None
+        self._peeked: Optional[Tuple[Rays, np.ndarray]] = None
+        self._stop = threading.Event()
 
     def _load(self) -> None:
         raise NotImplementedError
@@ -44,15 +58,79 @@ class Dataset:
             srgb_to_linear(self.images).numpy(), np.float32
         )
 
+    def _flatten(self) -> None:
+        """Flatten [N,H,W,...] to a pixel pool."""
+        n, h, w = self.images.shape[:3]
+        self.num_images, self.height, self.width = n, h, w
+        self._flat_rays = Rays(*[np.asarray(x).reshape(n * h * w, -1)
+                                 for x in self.rays])
+        self._flat_pixels = self.images.reshape(n * h * w, 3)
+        self.pool_size = self._flat_pixels.shape[0]
+
+    def _sample_batch(self) -> Tuple[Rays, np.ndarray]:
+        idx = self._rng.integers(0, self.pool_size,
+                                 size=(self.cfg.batch_size,))
+        rays = Rays(*[x[idx] for x in self._flat_rays])
+        return rays, self._flat_pixels[idx]
+
+    def __iter__(self) -> Iterator[Tuple[Rays, np.ndarray]]:
+        return self
+
+    def __next__(self) -> Tuple[Rays, np.ndarray]:
+        """Next training batch, from the background prefetch thread."""
+        if self._peeked is not None:
+            batch, self._peeked = self._peeked, None
+            return batch
+        if self._thread is None:
+            if self._stop.is_set():
+                raise RuntimeError("dataset is closed")
+            self._thread = threading.Thread(target=self._worker, daemon=True)
+            self._thread.start()
+        return self._queue.get()
+
+    def _worker(self) -> None:
+        # Bounded puts, so that close() can always join the thread.
+        while not self._stop.is_set():
+            batch = self._sample_batch()
+            while not self._stop.is_set():
+                try:
+                    self._queue.put(batch, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    def peek(self) -> Tuple[Rays, np.ndarray]:
+        """The batch ``next()`` will return, without consuming it: before
+        the worker starts, a draw with the generator's state restored;
+        after, the next queued batch, kept for ``next()``."""
+        if self._peeked is not None:
+            return self._peeked
+        if self._thread is None:
+            rng_state = self._rng.bit_generator.state
+            batch = self._sample_batch()
+            self._rng.bit_generator.state = rng_state
+            return batch
+        self._peeked = self._queue.get()
+        return self._peeked
+
     def close(self) -> None:
-        """Nothing to release on the test split (the context-manager form
-        matches the train split's, which owns a prefetch thread)."""
+        """Stop the prefetch worker and join it (idempotent)."""
+        self._stop.set()
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=5.0)
 
     def __enter__(self) -> "Dataset":
         return self
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass  # interpreter teardown: modules may already be gone
 
     def image_rays(self, index: int) -> Tuple[Rays, np.ndarray]:
         """Full ray grid + ground truth for one image (test/eval split)."""

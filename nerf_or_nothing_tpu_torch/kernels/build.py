@@ -2,8 +2,10 @@
 
 Each source compiles on first use into a shared library with a plain C
 interface, under ``nerf_or_nothing_tpu_torch/build/`` (listed in
-``.gitignore``), named by a hash of the source and flags, so an edited
-source rebuilds and an unchanged one loads at once. Nothing here runs at
+``.gitignore``), named by a hash of the source, the shared headers in
+``csrc/`` and the flags, so an edited source or header rebuilds and an
+unchanged one loads at once. ``build_all`` starts one nvcc per source, all
+at once. Nothing here runs at
 import time: the CPU tests import every module of the package on hosts
 without nvcc.
 """
@@ -18,7 +20,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -56,36 +58,56 @@ def source_path(name: str, source: Optional[os.PathLike] = None) -> Path:
 
 def library_path(name: str, source: Optional[os.PathLike] = None) -> Path:
     src = source_path(name, source)
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str, source: Optional[os.PathLike] = None):
+    """Start nvcc for one source; None when its library is already built."""
+    src, out = source_path(name, source), library_path(name, source)
+    if out.exists():
+        BUILD_INFO.setdefault(str(src), {"seconds": 0.0, "log": "cached"})
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return src, out, tmp, proc, time.perf_counter()
+
+
+def _finish(started) -> Optional[str]:
+    """Wait for one nvcc; the error text if it failed."""
+    if started is None:
+        return None
+    src, out, tmp, proc, t0 = started
+    log, _ = proc.communicate()
+    BUILD_INFO[str(src)] = {"seconds": time.perf_counter() - t0, "log": log}
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        return f"nvcc failed for {src.name} ({proc.returncode}):\n{log}"
+    os.replace(tmp, out)
+    return None
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile the sources ``csrc/<name>.cu`` that are not built yet, one
+    nvcc process per source, all started together."""
+    errors = [e for e in map(_finish, [_start(n) for n in names]) if e]
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: library_path(name) for name in names}
 
 
 def build(name: str, source: Optional[os.PathLike] = None) -> Path:
     """Compile the source unless its library is already built."""
-    src = source_path(name, source)
-    out = library_path(name, source)
-    if out.exists():
-        BUILD_INFO.setdefault(str(src), {"seconds": 0.0, "log": "cached"})
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed for {src.name} ({proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    BUILD_INFO[str(src)] = {"seconds": seconds,
-                            "log": proc.stdout + proc.stderr}
-    return out
+    error = _finish(_start(name, source))
+    if error:
+        raise RuntimeError(error)
+    return library_path(name, source)
 
 
 def load(name: str, source: Optional[os.PathLike] = None) -> ctypes.CDLL:

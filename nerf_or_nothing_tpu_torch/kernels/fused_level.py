@@ -1,27 +1,37 @@
-"""One render level (IPE + MLP forward + activations + compositing) as one
-hand-written CUDA kernel, with its plain PyTorch version beside it.
+"""One render level (IPE + MLP forward + activations + compositing) and
+one train level (the same, then the loss gradient, the compositing
+backward and the MLP backward with dW/db) as hand-written CUDA kernels,
+each with its plain PyTorch version beside it.
 
-The kernel (``csrc/render_level.cu``) replaces the TPU kernel
-``nerf_or_nothing_tpu/kernels/fused_level.py::_render_kernel``. It takes
+The render kernel (``csrc/render_level.cu``) replaces the TPU kernel
+``nerf_or_nothing_tpu/kernels/fused_level.py::_render_kernel``; the train
+kernel (``csrc/train_level.cu``) replaces ``_level_kernel``. Both take
 the sample means/variances [N, 3] and runs the IPE itself (mode ``"mv"``),
 or takes encoded features [N, location_features] (mode ``"t"``); rows are
 ray-major (row = ray * S + sample), features in the interleaved
 [sin3, cos3]-per-frequency order, so no weight permutation is needed.
 
-``render_level`` dispatches on the device of its inputs: CPU tensors go to
-``render_level_plain``; CUDA tensors launch the kernel, or raise. There is
-no fallback from the card to the plain version.
+``render_level`` and ``train_level`` dispatch on the device of their
+inputs: CPU tensors go to the plain version; CUDA tensors launch the
+kernel, or raise. There is no fallback from the card to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from nerf_or_nothing_tpu_torch.config import Config
-from nerf_or_nothing_tpu_torch.models.mlp import Params, compute_dtype, dense
+from nerf_or_nothing_tpu_torch.models.mlp import (
+    Params,
+    compute_dtype,
+    dense,
+    layer_dims,
+    num_params,
+)
 from nerf_or_nothing_tpu_torch.ops.fastmath import fast_exp_neg, fast_sincos
 from nerf_or_nothing_tpu_torch.ops.math_utils import exact_f32, softplus
 from nerf_or_nothing_tpu_torch.ops.render import (
@@ -148,45 +158,108 @@ def _pack_mma(w: torch.Tensor, k_pad: int) -> torch.Tensor:
     return wt.permute(0, 2, 1, 4, 3, 5).reshape(-1)
 
 
-def pack_params(params: Params, cfg: Config, dt: torch.dtype):
-    """Weights and biases in the kernel's flat layout (layer order; see
-    ``csrc/render_level.cu``): trunk layers as [K_pad, W] (x rows padded to
-    ``padded_location_features``), density head [W], first view layer's
+def _pack_mat(w: torch.Tensor, k_pad: int, fragments: bool) -> torch.Tensor:
+    """A [K, N] matrix the kernels multiply on tensor cores: fragment order
+    (bf16) or row-major (f32), K zero-padded to ``k_pad``."""
+    if fragments:
+        return _pack_mma(w, k_pad)
+    wp = torch.zeros((k_pad, w.shape[1]), dtype=w.dtype, device=w.device)
+    wp[: w.shape[0]] = w
+    return wp.reshape(-1)
+
+
+def _layout(params: Params, cfg: Config, fragments: bool):
+    """The render kernel's weight layout of ``params`` (layer order; see
+    ``csrc/render_level.cu``): trunk layers as [K_pad, W] (x rows padded
+    to ``padded_location_features``), density head [W], first view layer's
     h-rows [W, Wc] then d-rows [Fd, Wc] row-major, further view layers
-    [Wc, Wc], rgb head transposed [3, Wc]. Matrices the kernel multiplies
-    on tensor cores are in fragment order for bf16, row-major for f32."""
+    [Wc, Wc], rgb head transposed [3, Wc]."""
     D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
     lx, kx = cfg.location_features, padded_location_features(cfg)
-
-    def mat(w, k_pad):
-        w = w.to(dt)
-        if dt == torch.bfloat16:
-            return _pack_mma(w, k_pad)
-        wp = torch.zeros((k_pad, w.shape[1]), dtype=dt, device=w.device)
-        wp[: w.shape[0]] = w
-        return wp.reshape(-1)
-
     parts = []
     for i in range(D):
         w = params[i][0]
         if i == 0:
-            parts.append(mat(w, kx))
+            parts.append(_pack_mat(w, kx, fragments))
         elif i % cfg.skip_layer == 0:
             xrows = torch.zeros((kx, nw), dtype=w.dtype, device=w.device)
             xrows[:lx] = w[nw:]
-            parts.append(mat(torch.cat([w[:nw], xrows]), nw + kx))
+            parts.append(_pack_mat(torch.cat([w[:nw], xrows]), nw + kx,
+                                   fragments))
         else:
-            parts.append(mat(w, nw))
-    parts.append(params[D][0][:, 0].to(dt))
+            parts.append(_pack_mat(w, nw, fragments))
+    parts.append(params[D][0][:, 0])
     w_v0 = params[D + 1][0]
-    parts.append(mat(w_v0[:nw], nw))
-    parts.append(w_v0[nw:].to(dt).reshape(-1))
+    parts.append(_pack_mat(w_v0[:nw], nw, fragments))
+    parts.append(w_v0[nw:].reshape(-1))
     for j in range(1, Dc):
-        parts.append(mat(params[D + 1 + j][0], cfg.net_width_condition))
-    parts.append(params[D + 1 + Dc][0].t().to(dt).reshape(-1))
-    w_flat = torch.cat(parts).contiguous()
-    b_flat = torch.cat([b.float().reshape(-1) for _, b in params]).contiguous()
-    return w_flat, b_flat
+        parts.append(_pack_mat(params[D + 1 + j][0], cfg.net_width_condition,
+                               fragments))
+    parts.append(params[D + 1 + Dc][0].t().reshape(-1))
+    return torch.cat(parts)
+
+
+def _layout_t(params: Params, cfg: Config, fragments: bool):
+    """W^T of the layers the train kernel's g-chain multiplies through:
+    trunk layers 1..D-1 (their h rows) as [W, W], the first view layer's h
+    rows as [Wc, W], further view layers as [Wc, Wc]
+    (``csrc/train_level.cu``: wt_off)."""
+    D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
+    nwc = cfg.net_width_condition
+    parts = [_pack_mat(params[i][0][:nw].t(), nw, fragments)
+             for i in range(1, D)]
+    parts.append(_pack_mat(params[D + 1][0][:nw].t(), nwc, fragments))
+    for j in range(1, Dc):
+        parts.append(_pack_mat(params[D + 1 + j][0].t(), nwc, fragments))
+    return torch.cat(parts)
+
+
+@functools.lru_cache(maxsize=16)
+def _pack_index(cfg: Config, fragments: bool, transposed: bool,
+                device: torch.device) -> torch.Tensor:
+    """Where each element of a packed layout comes from: 1 + its index in
+    the weights flattened in layer order, 0 for padding. Built once per
+    config by running the layout on index tensors."""
+    idx, off = [], 1
+    for i, o in layer_dims(cfg):
+        idx.append((torch.arange(off, off + i * o).view(i, o), None))
+        off += i * o
+    lay = _layout_t if transposed else _layout
+    return lay(idx, cfg, fragments).to(device)
+
+
+def _gather(params: Params, cfg: Config, dt: torch.dtype, transposed: bool):
+    w = params[0][0]
+    flat = torch.cat([w.new_zeros(1)] + [p.reshape(-1) for p, _ in params])
+    idx = _pack_index(cfg, dt == torch.bfloat16, transposed, w.device)
+    return flat.to(dt)[idx]
+
+
+def pack_params(params: Params, cfg: Config, dt: torch.dtype):
+    """Weights and biases in the render kernel's flat layout (``_layout``),
+    matrices the kernel multiplies on tensor cores in fragment order for
+    bf16 and row-major for f32; one gather with a cached index."""
+    b_flat = torch.cat([b.float().reshape(-1) for _, b in params])
+    return _gather(params, cfg, dt, False), b_flat
+
+
+def pack_params_t(params: Params, cfg: Config, dt: torch.dtype):
+    """W^T of the chained layers in ``_layout_t``'s layout, one gather."""
+    return _gather(params, cfg, dt, True)
+
+
+def packed_t_size(cfg: Config) -> int:
+    """Length of ``pack_params_t``'s buffer."""
+    W, Wc = cfg.net_width, cfg.net_width_condition
+    return ((cfg.net_depth - 1) * W * W + W * Wc
+            + (cfg.net_depth_condition - 1) * Wc * Wc)
+
+
+def pack_train_params(params: Params, cfg: Config, dt: torch.dtype):
+    """(weights, biases, W^T) in the train kernel's layouts: pack once per
+    step for both levels."""
+    w_flat, b_flat = pack_params(params, cfg, dt)
+    return w_flat, b_flat, pack_params_t(params, cfg, dt)
 
 
 def packed_sizes(cfg: Config) -> Tuple[int, int]:
@@ -335,3 +408,285 @@ def fused_level_render(params: Params, cfg: Config, x_enc, dir_enc, t_vals,
     delta = interval_lengths(t_vals, dirs).float().contiguous()
     return render_level(params, cfg, xs, d2d, delta, white_bkgd, mode,
                         packed=packed)
+
+
+# ---------------------------------------------------------------------------
+# The train level
+# ---------------------------------------------------------------------------
+
+
+def _composite_backward(cfg: Config, raw_rgb, raw_den, delta, pixels,
+                        g_scale, white_bkgd: bool):
+    """Composite, loss gradient g_scale * (comp - pixel) and the composite /
+    activation backward of ``_composite_planes``. Returns comp [R,3],
+    acc [R], weights [R,S], g_rgb [N,3] and g_den [N] (f32)."""
+    R, S = delta.shape
+    p = cfg.rgb_padding
+    sig = torch.sigmoid(raw_rgb).view(R, S, 3)
+    rgb = sig * (1.0 + 2.0 * p) - p
+    sp_in = (raw_den + cfg.density_bias).view(R, S)
+    alpha, trans, weights = composite_weights(softplus(sp_in), delta)
+    acc = torch.sum(weights, dim=-1)
+    comp = torch.einsum("rs,rsc->rc", weights, rgb)
+    if white_bkgd:
+        comp = comp + (1.0 - acc[:, None])
+    g_comp = g_scale.reshape(R, 1) * (comp - pixels)
+    dl_dw = (g_comp[:, None, 0] * rgb[..., 0] + g_comp[:, None, 1] * rgb[..., 1]
+             + g_comp[:, None, 2] * rgb[..., 2])
+    if white_bkgd:
+        dl_dw = dl_dw - torch.sum(g_comp, dim=-1, keepdim=True)
+    wdw = dl_dw * weights
+    suffix = torch.sum(wdw, dim=-1, keepdim=True) - torch.cumsum(wdw, dim=-1)
+    dl_dalpha = dl_dw * trans - suffix / torch.clamp(1.0 - alpha, min=1e-10)
+    dl_dsigma = dl_dalpha * (1.0 - alpha) * delta
+    g_rgb = ((g_comp[:, None, :] * weights[..., None])
+             * (sig * (1.0 - sig) * (1.0 + 2.0 * p))).reshape(R * S, 3)
+    g_den = (dl_dsigma * torch.sigmoid(sp_in)).reshape(R * S)
+    return comp, acc, weights, g_rgb, g_den
+
+
+def level_train_plain(params: Params, cfg: Config, xs, d, delta, pixels,
+                      g_scale, white_bkgd: bool, mode: str):
+    """The train kernel's function in plain PyTorch, written out step by
+    step with the kernel's rounding points (not autograd, which would round
+    elsewhere): the forward of ``render_level_plain`` keeping the
+    activations in the compute dtype; the composite backward in f32; the
+    g-chain rounded to the compute dtype after every product (the head
+    cotangents rounded as operands); ReLU masks ``activation > 0``; dW
+    from compute-dtype operands with f32 sums; db summed in f32; the view
+    layer's direction rows from the per-ray f32 sum of g.
+
+    Args: as ``render_level_plain``, plus pixels [R, 3] f32 and g_scale
+      [R, 1] f32 (level_weight * 2 * mask / sum(mask)).
+    Returns:
+      comp [R, 3], acc [R], weights [R, S], and d_params: a list of
+      (dW [fan_in, fan_out], db [fan_out]) f32 in layer order.
+    """
+    dt = compute_dtype(cfg)
+    exact_f32(delta.device)
+    R, S = delta.shape
+    D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
+    x = encode_mv(cfg, *xs, dt) if mode == "mv" else xs.to(dt)
+
+    hs = []
+    h = x
+    for i in range(D):
+        w, b = params[i]
+        if i % cfg.skip_layer == 0 and i > 0:
+            z = dense(h, w[:nw], dt) + dense(x, w[nw:], dt)
+        else:
+            z = dense(h, w, dt)
+        h = torch.relu(z + b).to(dt)
+        hs.append(h)
+    w, b = params[D]
+    raw_den = (dense(h, w, dt) + b)[:, 0]
+    vs = []
+    for j in range(Dc):
+        w, b = params[D + 1 + j]
+        if j == 0:
+            dc = dense(d, w[nw:], dt)
+            z = (dense(h, w[:nw], dt).view(R, S, -1) + dc[:, None, :])
+            z = z.view(R * S, -1)
+        else:
+            z = dense(h, w, dt)
+        h = torch.relu(z + b).to(dt)
+        vs.append(h)
+    w, b = params[D + 1 + Dc]
+    raw_rgb = dense(h, w, dt) + b
+    comp, acc, weights, g_rgb, g_den = _composite_backward(
+        cfg, raw_rgb, raw_den, delta, pixels.float(), g_scale.float(),
+        white_bkgd)
+
+    def chain(g, w):
+        """round(g @ w^T), compute-dtype operands, f32 sum."""
+        return dense(g, w.t(), dt).to(dt)
+
+    def dw(a, g):
+        return dense(a.t(), g, dt)
+
+    d_params = [None] * len(params)
+    i_rgb = D + 1 + Dc
+    d_params[i_rgb] = (dw(vs[-1], g_rgb), g_rgb.sum(0))
+    g = chain(g_rgb, params[i_rgb][0])
+    for j in reversed(range(Dc)):
+        i = D + 1 + j
+        g = g * (vs[j] > 0)
+        db = g.float().sum(0)
+        if j == 0:
+            g_ray = g.float().view(R, S, -1).sum(1)
+            d_params[i] = (torch.cat([dw(hs[-1], g), dw(d, g_ray)]), db)
+            g = chain(g, params[i][0][:nw])
+        else:
+            d_params[i] = (dw(vs[j - 1], g), db)
+            g = chain(g, params[i][0])
+    d_params[D] = (dw(hs[-1], g_den[:, None]), g_den.sum(0, keepdim=True))
+    g = (g.float() + chain(g_den[:, None], params[D][0]).float()).to(dt)
+    for i in reversed(range(D)):
+        g = g * (hs[i] > 0)
+        db = g.float().sum(0)
+        if i == 0:
+            d_params[i] = (dw(x, g), db)
+        elif i % cfg.skip_layer == 0:
+            d_params[i] = (torch.cat([dw(hs[i - 1], g), dw(x, g)]), db)
+            g = chain(g, params[i][0][:nw])
+        else:
+            d_params[i] = (dw(hs[i - 1], g), db)
+            g = chain(g, params[i][0])
+    return comp, acc, weights, d_params
+
+
+def unpack_grads(flat: torch.Tensor, cfg: Config) -> Params:
+    """The train kernel's flat f32 output (every dW as [fan_in, fan_out]
+    row-major in layer order, then every db) as a list of (dW, db)."""
+    dims = layer_dims(cfg)
+    sizes = [i * o for i, o in dims] + [o for _, o in dims]
+    parts = torch.split(flat, sizes)
+    n = len(dims)
+    return [(parts[k].view(dims[k]), parts[n + k]) for k in range(n)]
+
+
+def train_splits(rows: int) -> int:
+    """Row chunks of the dW products: about 4096 rows each, at most 32."""
+    return max(1, min(32, -(-rows // 4096)))
+
+
+def _train_library(source=None):
+    from nerf_or_nothing_tpu_torch.kernels import build
+
+    lib = build.load("train_level", source)
+    fn = lib.train_level_launch
+    if fn.argtypes is None:
+        p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_longlong)
+        fn.argtypes = [i, i] + [p] * 14 + [ll, p] + [i] * 12 + [f, f, i, i, p]
+        fn.restype = ctypes.c_int
+        ws = lib.train_level_workspace
+        ws.argtypes = [i] * 9 + [ll]
+        ws.restype = ll
+    return lib
+
+
+def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
+                     g_scale, white_bkgd: bool, mode: str, packed=None,
+                     source=None):
+    """Launch the train kernel on the current stream. Same arguments and
+    outputs as ``level_train_plain``; ``packed`` is ``pack_train_params``'
+    result when the caller already has it (once per step for both
+    levels); ``source`` is another version of ``csrc/train_level.cu`` with
+    the same C interface, to time versions in turns
+    (``compare_kernels.py --train``)."""
+    check_kernel_config(cfg)
+    if mode not in _MODE_CODE:
+        raise ValueError(f"unknown input mode {mode!r}")
+    dt = compute_dtype(cfg)
+    R, S = delta.shape
+    N = R * S
+    lx, fd = cfg.location_features, cfg.direction_features
+    device = delta.device
+    if device.type != "cuda":
+        raise ValueError(f"delta must be a CUDA tensor, got {device}")
+    _check("delta", delta, torch.float32, (R, S), device)
+    if mode == "mv":
+        means, variances = xs
+        _check("means", means, torch.float32, (N, 3), device)
+        _check("variances", variances, torch.float32, (N, 3), device)
+        ptrs = (means.data_ptr(), variances.data_ptr(), 0)
+        if lx % 6:
+            raise ValueError("mode mv needs location_features = 6F")
+    else:
+        _check("x", xs, dt, (N, lx), device)
+        ptrs = (0, 0, xs.data_ptr())
+    _check("d", d, dt, (R, fd), device)
+    _check("pixels", pixels, torch.float32, (R, 3), device)
+    gsc = g_scale.reshape(R)
+    _check("g_scale", gsc, torch.float32, (R,), device)
+    if packed is None:
+        packed = pack_train_params(params, cfg, dt)
+    w_flat, b_flat, wt_flat = packed
+    n_w, n_b = packed_sizes(cfg)
+    _check("packed weights", w_flat, dt, (n_w,), device)
+    _check("packed biases", b_flat, torch.float32, (n_b,), device)
+    _check("packed W^T", wt_flat, dt, (packed_t_size(cfg),), device)
+
+    comp = torch.empty((R, 3), dtype=torch.float32, device=device)
+    acc = torch.empty((R,), dtype=torch.float32, device=device)
+    weights = torch.empty((R, S), dtype=torch.float32, device=device)
+    n_out = num_params(cfg)
+    grads = torch.empty((n_out,), dtype=torch.float32, device=device)
+    if R == 0:
+        return comp, acc, weights, unpack_grads(grads.zero_(), cfg)
+    lib = _train_library(source)
+    kx, splits = padded_location_features(cfg), train_splits(N)
+    D, W, Wc, Dc = (cfg.net_depth, cfg.net_width, cfg.net_width_condition,
+                    cfg.net_depth_condition)
+    ws_bytes = lib.train_level_workspace(_DTYPE_CODE[dt], R, S, D, W, Wc, Dc,
+                                         kx, splits, n_out)
+    workspace = torch.empty((ws_bytes,), dtype=torch.uint8, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.train_level_launch(
+        _DTYPE_CODE[dt], _MODE_CODE[mode], *ptrs, d.data_ptr(),
+        delta.data_ptr(), pixels.data_ptr(), gsc.data_ptr(), w_flat.data_ptr(),
+        wt_flat.data_ptr(), b_flat.data_ptr(), comp.data_ptr(),
+        acc.data_ptr(), weights.data_ptr(), grads.data_ptr(), n_out,
+        workspace.data_ptr(), R, S, D, W, cfg.skip_layer, Wc, Dc, lx, kx, fd,
+        cfg.min_deg_point, int(cfg.fast_ipe), float(cfg.density_bias),
+        float(cfg.rgb_padding), int(white_bkgd), splits, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"train_level kernel launch failed: CUDA error {err}")
+    train_level.launches += 1
+    return comp, acc, weights, unpack_grads(grads, cfg)
+
+
+def train_level(params: Params, cfg: Config, xs, d, delta, pixels, g_scale,
+                white_bkgd: bool, mode: str, packed=None):
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    if delta.is_cuda:
+        return train_level_cuda(params, cfg, xs, d, delta, pixels, g_scale,
+                                white_bkgd, mode, packed=packed)
+    return level_train_plain(params, cfg, xs, d, delta, pixels, g_scale,
+                             white_bkgd, mode)
+
+
+train_level.launches = 0
+
+
+def fused_level_train(params: Params, cfg: Config, x_enc, dir_enc, t_vals,
+                      dirs, pixels, g_scale, white_bkgd: bool,
+                      means_covs=None, packed=None):
+    """One level's full train pass (forward, loss gradient, backward) as
+    one ``train_level`` call.
+
+    Args:
+      x_enc: [R, S, F] IPE features, or None with ``means_covs``
+        ([R, S, 3] means, [R, S, 3] diagonal covariances; the IPE then runs
+        inside the kernel, mode "mv");
+      dir_enc: [R, Fd]; t_vals: [R, S+1]; dirs: [R, 3] (unnormalized);
+      pixels: [R, 3]; g_scale: [R, 1] per-ray dL/dcomp scale
+        (level_weight * 2 * mask / sum(mask));
+      packed: ``pack_train_params``' result, once per step.
+    Returns:
+      comp_rgb [R, 3], acc [R], weights [R, S], d_params (list of
+      (dW [fan_in, fan_out], db [fan_out]), f32).
+
+    Valid only with ``stop_level_grad``: the sampled Gaussians are
+    constants with respect to the parameters.
+    """
+    num_rays, s = t_vals.shape[0], t_vals.shape[1] - 1
+    dt = compute_dtype(cfg)
+    if means_covs is not None:
+        means, covs = means_covs
+        n = num_rays * s
+        xs = (means.reshape(n, 3).float().contiguous(),
+              covs.reshape(n, 3).float().contiguous())
+        mode = "mv"
+    else:
+        xs = x_enc.reshape(num_rays * s, x_enc.shape[-1]).to(dt).contiguous()
+        mode = "t"
+    d2d = dir_enc.reshape(num_rays, dir_enc.shape[-1]).to(dt).contiguous()
+    delta = interval_lengths(t_vals, dirs).float().contiguous()
+    return train_level(
+        params, cfg, xs, d2d, delta, pixels.float().contiguous(),
+        g_scale.float().reshape(num_rays, 1).contiguous(), white_bkgd, mode,
+        packed=packed,
+    )

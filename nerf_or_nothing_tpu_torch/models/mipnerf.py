@@ -8,7 +8,10 @@ density = softplus(raw + density_bias); compositing.
 
 On the inference path with ``use_pallas`` and ``fuse_level`` each level
 is one ``fused_level_render`` call: the CUDA render kernel on the card,
-its plain version on the CPU.
+its plain version on the CPU. Off it, the levels run the plain MLP and the
+autograd ``composite``, differentiable in the parameters (the training
+step's autograd branch, ``train.make_train_step``); on the card that path
+needs the fused MLP kernel, not ported yet, unless ``use_pallas`` is off.
 """
 
 from __future__ import annotations
@@ -78,6 +81,33 @@ def encode_samples(cfg: Config, means, covs, in_kernel: bool, dtype=None,
 def level_weight(cfg: Config, i_level: int) -> float:
     """Loss weight of one level: coarse_loss_mult below the fine level."""
     return 1.0 if i_level == cfg.num_levels - 1 else cfg.coarse_loss_mult
+
+
+def loss_normalizer(cfg: Config, loss_mult: torch.Tensor):
+    """Multiscale-loss mask [R] and normalizer max(sum(mask), 1e-10) on one
+    device."""
+    mask = loss_mult[..., 0]
+    if cfg.disable_multiscale_loss:
+        mask = torch.ones_like(mask)
+    return mask, torch.clamp(torch.sum(mask), min=1e-10)
+
+
+def total_from_level_losses(cfg: Config, losses: torch.Tensor):
+    """Total loss from stacked per-level MSEs: coarse_loss_mult times the
+    coarse levels' sum, plus the fine level."""
+    return cfg.coarse_loss_mult * torch.sum(losses[:-1]) + losses[-1]
+
+
+def multiscale_loss(results: List[render.RenderResult], pixels: torch.Tensor,
+                    loss_mult: torch.Tensor, cfg: Config):
+    """Masked multiscale MSE: per level sum(mask * |rgb - pixel|^2) /
+    sum(mask). Returns (total_loss, per_level_mses [levels])."""
+    mask, denom = loss_normalizer(cfg, loss_mult)
+    losses = torch.stack([
+        torch.sum(mask * torch.sum((res.rgb - pixels) ** 2, dim=-1)) / denom
+        for res in results
+    ])
+    return total_from_level_losses(cfg, losses), losses
 
 
 def uses_fused_render(cfg: Config, mlp_apply=None,
@@ -166,4 +196,5 @@ def render_rays(
         results.append(render.volumetric_rendering(
             rgb, density, t_vals, rays.directions, white_bkgd
         ))
+        weights = results[-1].weights
     return results

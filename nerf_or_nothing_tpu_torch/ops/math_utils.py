@@ -1,4 +1,5 @@
-"""Metric / init math: PSNR, SSIM, avg-error, sRGB, Glorot init.
+"""Metric / init math: PSNR, SSIM, avg-error, sRGB, Glorot init, the
+learning-rate schedule.
 
 Same formulas as ``nerf_or_nothing_tpu/ops/math_utils.py``. SSIM's
 separable Gaussian blur runs as two ``conv2d`` passes; cuDNN would run an
@@ -73,6 +74,24 @@ def srgb_to_linear(srgb):
         srgb / 12.92,
         (torch.clamp(srgb, min=0.0) / 1.055 + 0.055 / 1.055) ** 2.4,
     )
+
+
+def learning_rate_decay(step, lr_init: float, lr_final: float,
+                        max_steps: int, lr_delay_steps: int = 0,
+                        lr_delay_mult: float = 1.0) -> torch.Tensor:
+    """Log-lerp learning rate with a sine warm-up delay, in f32 on the
+    step as the JAX package computes it (a 0-dim f32 tensor)."""
+    step = torch.as_tensor(step, dtype=torch.float32)
+    if lr_delay_steps > 0:
+        delay_progress = torch.clamp(step / lr_delay_steps, 0.0, 1.0)
+        delay_rate = lr_delay_mult + (1.0 - lr_delay_mult) * torch.sin(
+            0.5 * np.pi * delay_progress
+        )
+    else:
+        delay_rate = 1.0
+    t = torch.clamp(step / max_steps, 0.0, 1.0)
+    log_lerp = torch.exp(np.log(lr_init) * (1.0 - t) + np.log(lr_final) * t)
+    return delay_rate * log_lerp
 
 
 def _gaussian_filter_1d(size: int, sigma: float) -> np.ndarray:

@@ -1,15 +1,16 @@
-"""Eval / render entry points of the PyTorch/CUDA port.
+"""Train / eval / render entry points of the PyTorch/CUDA port.
 
 CLI (same config flags as ``nerf_or_nothing_tpu.run``):
+  python -m nerf_or_nothing_tpu_torch.run train  --data-dir=... --max-steps=...
   python -m nerf_or_nothing_tpu_torch.run eval   --data-dir=... --checkpoint-dir=...
   python -m nerf_or_nothing_tpu_torch.run render --data-dir=... --out=...
 Extra flags: --out=DIR, --max-images=N, --device=cuda|cpu (default cuda;
 without a card the run raises unless --device=cpu is given).
-``train`` is not ported yet and exits with 2.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import sys
@@ -24,11 +25,25 @@ from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
 from nerf_or_nothing_tpu_torch.device import resolve_device
 from nerf_or_nothing_tpu_torch.eval import (
     evaluate_dataset,
+    evaluate_image,
     make_render_fn,
     render_image,
     to_display,
 )
+from nerf_or_nothing_tpu_torch.metrics import MetricsLogger
 from nerf_or_nothing_tpu_torch.models.mlp import Params, init_mlp
+from nerf_or_nothing_tpu_torch.rays import Rays
+from nerf_or_nothing_tpu_torch.train import (
+    TrainState,
+    init_train_state,
+    make_multi_step,
+    make_train_step,
+)
+
+MULTI_DEVICE_ROADMAP = (
+    "training on more than one device (mesh_shape, the per-level gradient "
+    "all-reduce) is not ported yet: ROADMAP queue A item 5"
+)
 
 
 def load_params(cfg: Config, device) -> Params:
@@ -41,6 +56,113 @@ def load_params(cfg: Config, device) -> Params:
             cfg.checkpoint_dir, cfg, params, device=device
         )
     return params
+
+
+def _chunk_len(step: int, cfg: Config, spc: int) -> int:
+    """Steps until the next loop boundary (log/save/test-render/gc/end),
+    capped at ``spc``: a multi-step chunk never skips a side-effect step."""
+    nxt = cfg.max_steps - step
+    for interval in (cfg.print_every, cfg.save_every,
+                     cfg.test_render_interval, cfg.gc_every):
+        if interval > 0:
+            nxt = min(nxt, (step // interval + 1) * interval - step)
+    return max(1, min(spc, nxt))
+
+
+def _check_train_config(cfg: Config) -> None:
+    """Raise NotImplementedError for what the port cannot do yet."""
+    mesh = tuple(cfg.mesh_shape)
+    if mesh and int(np.prod(mesh)) > 1:
+        raise NotImplementedError(MULTI_DEVICE_ROADMAP)
+    if cfg.check_numerics or cfg.debug_nans:
+        raise NotImplementedError(
+            "check_numerics / debug_nans are not ported yet (ROADMAP queue A, "
+            "the train slice's deferred items)")
+    if cfg.profile_dir:
+        raise NotImplementedError(
+            "profile_dir is not ported yet (ROADMAP queue A item 7, "
+            "utils/profiling.py)")
+
+
+def _to_device(device, rays, pixels):
+    return (Rays(*[torch.as_tensor(np.asarray(x)).to(device) for x in rays]),
+            torch.as_tensor(np.asarray(pixels)).to(device))
+
+
+def train(cfg: Config, log_dir: Optional[str] = None,
+          device="cuda") -> TrainState:
+    """The training loop of ``nerf_or_nothing_tpu.run.train`` on one
+    device: multi-step chunks cut at every side-effect step, logging every
+    ``print_every``, checkpoints every ``save_every`` and at the end,
+    resume from the newest checkpoint, a held-out render of test view 0
+    every ``test_render_interval`` (switched off with a message when the
+    data has no test split) and ``gc_every``."""
+    _check_train_config(cfg)
+    device = resolve_device(device)
+    dataset = create_dataset("train", cfg.data_dir, cfg)
+    state = init_train_state(cfg, device)
+    if cfg.checkpoint_dir and cfg.resume:
+        state = ckpt_lib.maybe_restore(cfg.checkpoint_dir, cfg, state,
+                                       device=device)
+        if state.step:
+            print(f"resumed from step {state.step}", flush=True)
+    step_fn = make_train_step(cfg)
+    spc = max(1, cfg.steps_per_call)
+    multi_fn = make_multi_step(cfg) if spc > 1 else None
+    logger = MetricsLogger(log_dir, batch_size=cfg.batch_size)
+    test_ds = None
+    render_fn = None
+    step = state.step
+    try:
+        while step < cfg.max_steps:
+            k = _chunk_len(step, cfg, spc)
+            if k > 1:
+                batches = [_to_device(device, *next(dataset))
+                           for _ in range(k)]
+                state, stats = multi_fn(state, batches)
+            else:
+                state, stats = step_fn(state,
+                                       *_to_device(device, *next(dataset)))
+            step = state.step
+            if step % cfg.print_every == 0:
+                logger.log(step, stats)
+            if cfg.checkpoint_dir and step % cfg.save_every == 0:
+                ckpt_lib.save_checkpoint(cfg.checkpoint_dir, state, cfg)
+            if (cfg.test_render_interval > 0
+                    and step % cfg.test_render_interval == 0):
+                try:
+                    if test_ds is None:
+                        test_ds = create_dataset("test", cfg.data_dir, cfg)
+                        render_fn = make_render_fn(cfg)
+                except OSError as e:  # no test split: say so once, stop
+                    print(f"test render disabled: {type(e).__name__}: {e}",
+                          flush=True)
+                    cfg = cfg.replace(test_render_interval=0)
+                else:
+                    trays, tgt = test_ds.image_rays(0)
+                    th, tw = test_ds.image_dims(0)
+                    rgb, _, _ = render_image(
+                        render_fn, state.params, trays, th, tw,
+                        cfg.render_chunk_size, device=device,
+                    )
+                    m = evaluate_image(
+                        to_display(cfg, rgb),
+                        to_display(cfg, np.asarray(tgt).reshape(th, tw, 3)),
+                        device=device,
+                    )
+                    print(f"step {step:>7d}  test view 0: "
+                          f"psnr {m['psnr']:.2f} ssim {m['ssim']:.3f}",
+                          flush=True)
+            if cfg.gc_every > 0 and step % cfg.gc_every == 0:
+                gc.collect()
+        if cfg.checkpoint_dir:
+            ckpt_lib.save_checkpoint(cfg.checkpoint_dir, state, cfg)
+        logger.close()
+    finally:
+        dataset.close()
+        if test_ds is not None:
+            test_ds.close()
+    return state
 
 
 def evaluate(cfg: Config, max_images: Optional[int] = None,
@@ -92,10 +214,6 @@ def main(argv=None):
         print(__doc__)
         return 2
     command, rest = argv[0], argv[1:]
-    if command == "train":
-        print("train is not ported to the PyTorch package yet "
-              "(ROADMAP queue A: the train slice)")
-        return 2
     out = None
     max_images = None
     device = "cuda"
@@ -110,7 +228,9 @@ def main(argv=None):
         else:
             filtered.append(a)
     cfg = parse_flags(filtered)
-    if command == "eval":
+    if command == "train":
+        train(cfg, log_dir=cfg.checkpoint_dir or None, device=device)
+    elif command == "eval":
         evaluate(cfg, max_images, device=device)
     else:
         render(cfg, out or "renders", max_images, device=device)

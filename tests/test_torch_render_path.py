@@ -157,11 +157,12 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(scene_and_ckpt):
         trun.main(["eval", *flags])
     with pytest.raises(RuntimeError, match="CUDA"):
         teval.evaluate_image(np.zeros((4, 4, 3)), np.zeros((4, 4, 3)))
-    assert trun.main(["train", *flags]) == 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trun.main(["train", *flags])
     assert trun.main(["frobnicate"]) == 2
 
 
-SCRIPTS = ["chip_smoke", "compare_kernels", "profile_render"]
+SCRIPTS = ["chip_smoke", "compare_kernels", "profile_render", "profile_train"]
 # Runs on the card, where only PyTorch is installed.
 CARD_TESTS = [REPO / "tests" / "test_torch_kernel_cuda.py"]
 
