@@ -1,25 +1,19 @@
 #!/usr/bin/env python3
-"""Time versions of the render-level or train-level CUDA kernel on one
-card, in turns.
+"""Time versions of the render-level CUDA kernel on one card, in turns.
 
     git show <commit>:nerf_or_nothing_tpu_torch/csrc/render_level.cu > old.cu
     python3 compare_kernels.py old.cu [other.cu ...]
-    python3 compare_kernels.py --train old_train.cu [other.cu ...]
 
-With one source, the checkout's ``csrc/render_level.cu`` (with
-``--train``: ``csrc/train_level.cu``) is the second. A source that
-includes ``level_common.cuh`` finds it beside itself first. All must keep
-the C interface (``render_level_launch`` / ``train_level_launch``) and
-the weight layouts of ``pack_params`` / ``pack_train_params``. Each is
-built by ``kernels/build.py`` with the package's nvcc flags, launched
-through ``render_level_cuda(source=...)`` / ``train_level_cuda(source=...)``,
-checked against the plain version (as a fraction of the band), and timed
-by CUDA events in the order given and then in reverse (median of 7
-launches each) on Config() shapes. Render: bf16 R=16384 x S=128 mode "mv"
-(the render path's launch), bf16 R=1000 x S=64 mode "t", f32 R=2048 x
-S=128. Train: bf16 R=1024 x S=128 mode "t" (the train step's launch),
-bf16 R=1000 x S=64 mode "t", f32 R=256 x S=128. Prints one JSON line per
-build and case; a source's name is its file name without the suffix.
+With one source, the checkout's ``csrc/render_level.cu`` is the second.
+All must keep the C interface ``render_level_launch`` and the weight
+layout of ``pack_params``. Each is built by ``kernels/build.py`` with the
+package's nvcc flags, launched through ``render_level_cuda(source=...)``,
+checked against ``render_level_plain`` (as a fraction of the band), and
+timed by CUDA events in the order given and then in reverse (median of 7
+launches each) on Config() shapes: bf16 R=16384 x S=128 mode "mv" (the
+render path's launch), bf16 R=1000 x S=64 mode "t", f32 R=2048 x S=128.
+Prints one JSON line per build and case; a source's name is its file name
+without the suffix.
 """
 
 from __future__ import annotations
@@ -41,25 +35,21 @@ def main(argv) -> int:
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
     from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype, init_mlp
 
-    train = "--train" in argv
-    kernel = "train_level" if train else "render_level"
-    srcs = [Path(a).resolve() for a in argv if a != "--train"]
+    srcs = [Path(a).resolve() for a in argv]
     if len(srcs) == 1:
-        srcs.append(build.source_path(kernel))
+        srcs.append(build.source_path("render_level"))
     names = [src.stem for src in srcs]
     if len(set(names)) != len(names):
         raise SystemExit(f"sources need distinct file names: {names}")
     sources = dict(zip(names, srcs))
     for name, src in sources.items():
-        build.load(kernel, src)
+        build.load("render_level", src)
         log = build.BUILD_INFO[str(src)]["log"]
         cs.emit({"build": name, "source": str(src),
                  "ptxas": [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln]})
     print(cs.nvidia_smi_line(), flush=True)
     device = torch.device("cuda")
-    if train:
-        return compare_train(names, sources, device)
     cases = [
         ("bf16_r16384_s128_mv", Config(), 16384, "mv", True),
         ("bf16_r1000_s64_t", Config(num_samples=64), 1000, "t", False),
@@ -85,47 +75,6 @@ def main(argv) -> int:
             torch.cuda.synchronize()
             res[f"{name}_err"] = max(cs.normalized_err(a, b, atol, rtol)
                                      for a, b in zip(out, ref))
-        for turn, name in enumerate(names + names[::-1]):
-            res[f"{name}_ms_{turn}"] = cs.median_ms(lambda: run(name))
-        cs.emit(res)
-    return 0
-
-
-def compare_train(names, sources, device) -> int:
-    import torch
-
-    from nerf_or_nothing_tpu_torch.config import Config
-    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
-    from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype, init_mlp
-
-    cases = [
-        ("bf16_r1024_s128_t", Config(), 1024, "t", True),
-        ("bf16_r1000_s64_t", Config(num_samples=64), 1000, "t", False),
-        ("f32_r256_s128_t", Config(compute_dtype="float32"), 256, "t", True),
-    ]
-    for case, cfg, R, mode, white_bkgd in cases:
-        params = init_mlp(torch.Generator().manual_seed(0), cfg, device=device)
-        xs, d, delta = cs.level_inputs(cfg, R, mode, 1, device)
-        pixels, g_scale = cs.train_inputs(cfg, R, 2, device)
-        packed = fl.pack_train_params(params, cfg, compute_dtype(cfg))
-        ref = fl.level_train_plain(params, cfg, xs, d, delta, pixels, g_scale,
-                                   white_bkgd, mode)
-        atol, rtol = cs.BANDS[cfg.compute_dtype]
-
-        def flat(out):
-            return list(out[:3]) + [t for wb in out[3] for t in wb]
-
-        def run(name):
-            return fl.train_level_cuda(params, cfg, xs, d, delta, pixels,
-                                       g_scale, white_bkgd, mode,
-                                       packed=packed, source=sources[name])
-
-        res = {"case": case}
-        for name in names:
-            out = run(name)
-            torch.cuda.synchronize()
-            res[f"{name}_err"] = max(cs.normalized_err(a, b, atol, rtol)
-                                     for a, b in zip(flat(out), flat(ref)))
         for turn, name in enumerate(names + names[::-1]):
             res[f"{name}_ms_{turn}"] = cs.median_ms(lambda: run(name))
         cs.emit(res)

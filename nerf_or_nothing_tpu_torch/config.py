@@ -4,13 +4,16 @@ Field-for-field the same frozen dataclass as ``nerf_or_nothing_tpu.config``
 (same names, types and defaults), so one set of flags drives either
 package. The execution fields keep their names:
 
-- ``use_pallas`` / ``fuse_level``: use the hand-written CUDA kernel for the
-  whole render level (``kernels/fused_level.py``) on CUDA tensors;
-- ``fuse_ipe`` / ``fuse_ipe_render``: compute the IPE inside that kernel
-  (input mode ``"mv"``);
+- ``use_pallas`` / ``fuse_level``: use the hand-written CUDA kernels for
+  the whole render level and the whole train level
+  (``kernels/fused_level.py``) on CUDA tensors;
+- ``fuse_ipe`` / ``fuse_ipe_render``: compute the IPE inside the train /
+  render kernel (input mode ``"mv"``);
 - ``pair_ipe`` / ``xt_ipe``: TPU layout probes, not ported;
-- ``kernel_probes``, ``mesh_shape``, ``donate_params``, ``remat``: kept for
-  flag compatibility; the render slice does not read them.
+- ``mesh_shape``: training on more than one device is not ported, so
+  ``run train`` raises for a mesh;
+- ``kernel_probes``, ``donate_params``, ``remat``: kept for flag
+  compatibility; the port does not read them.
 """
 
 from __future__ import annotations

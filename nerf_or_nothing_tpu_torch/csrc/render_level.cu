@@ -40,6 +40,9 @@
 //    explicitly rounded operations (no FMA contraction), so they are
 //    bit-equal to the plain PyTorch version.
 //
+// The device functions (IPE, layers, heads, composite) live in
+// level_common.cuh, shared with the train-level kernel.
+//
 // Plain C interface (loaded with ctypes): render_level_launch returns the
 // cudaError_t of the launch; it launches on the given stream, allocates
 // nothing and does not synchronise.

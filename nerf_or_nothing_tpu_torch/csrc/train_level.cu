@@ -745,8 +745,7 @@ inline long long output_offsets(const Params& p, long long* w_off, long long* b_
   return off;
 }
 
-template <class T>
-cudaError_t set_smem(const void* kernel, size_t smem) {
+inline cudaError_t set_smem(const void* kernel, size_t smem) {
   if (smem > 232448) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
@@ -765,14 +764,14 @@ cudaError_t launch_train(Params p, Extra e, const Layout& l, unsigned char* ws, 
   // 1. forward, composite and its backward
   const size_t smem_f = smem_bytes<T>(p.ldh, p.ldx, p.RB, p.Wc, p.S) +
                         sizeof(float) * p.RB * p.S * 4;
-  if ((err = set_smem<T>((const void*)train_fwd_kernel<T>, smem_f)) != cudaSuccess) return err;
+  if ((err = set_smem((const void*)train_fwd_kernel<T>, smem_f)) != cudaSuccess) return err;
   train_fwd_kernel<T><<<blocks, kThreads, smem_f, st>>>(p, e);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // 2. g-chain
   const size_t smem_c = align16(sizeof(T) * kBM * p.ldh) +
                         sizeof(float) * (kBM * 4 + p.RB * p.Wc);
-  if ((err = set_smem<T>((const void*)train_chain_kernel<T>, smem_c)) != cudaSuccess)
+  if ((err = set_smem((const void*)train_chain_kernel<T>, smem_c)) != cudaSuccess)
     return err;
   train_chain_kernel<T><<<blocks, kThreads, smem_c, st>>>(p, e);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

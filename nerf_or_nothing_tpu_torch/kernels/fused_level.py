@@ -550,10 +550,10 @@ def train_splits(rows: int) -> int:
     return max(1, min(32, -(-rows // 4096)))
 
 
-def _train_library(source=None):
+def _train_library():
     from nerf_or_nothing_tpu_torch.kernels import build
 
-    lib = build.load("train_level", source)
+    lib = build.load("train_level")
     fn = lib.train_level_launch
     if fn.argtypes is None:
         p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
@@ -567,14 +567,11 @@ def _train_library(source=None):
 
 
 def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
-                     g_scale, white_bkgd: bool, mode: str, packed=None,
-                     source=None):
+                     g_scale, white_bkgd: bool, mode: str, packed=None):
     """Launch the train kernel on the current stream. Same arguments and
     outputs as ``level_train_plain``; ``packed`` is ``pack_train_params``'
     result when the caller already has it (once per step for both
-    levels); ``source`` is another version of ``csrc/train_level.cu`` with
-    the same C interface, to time versions in turns
-    (``compare_kernels.py --train``)."""
+    levels)."""
     check_kernel_config(cfg)
     if mode not in _MODE_CODE:
         raise ValueError(f"unknown input mode {mode!r}")
@@ -615,7 +612,7 @@ def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
     grads = torch.empty((n_out,), dtype=torch.float32, device=device)
     if R == 0:
         return comp, acc, weights, unpack_grads(grads.zero_(), cfg)
-    lib = _train_library(source)
+    lib = _train_library()
     kx, splits = padded_location_features(cfg), train_splits(N)
     D, W, Wc, Dc = (cfg.net_depth, cfg.net_width, cfg.net_width_condition,
                     cfg.net_depth_condition)

@@ -69,10 +69,13 @@ def _chunk_len(step: int, cfg: Config, spc: int) -> int:
     return max(1, min(spc, nxt))
 
 
-def _check_train_config(cfg: Config) -> None:
-    """Raise NotImplementedError for what the port cannot do yet."""
-    mesh = tuple(cfg.mesh_shape)
-    if mesh and int(np.prod(mesh)) > 1:
+def _check_train_config(cfg: Config, device: torch.device) -> None:
+    """Raise NotImplementedError for what the port cannot do yet: a mesh,
+    or an unindexed CUDA device on a host with several cards (the JAX
+    package would train on all of them; ``--device=cuda:0`` takes one)."""
+    if tuple(cfg.mesh_shape) or (
+            device.type == "cuda" and device.index is None
+            and torch.cuda.device_count() > 1):
         raise NotImplementedError(MULTI_DEVICE_ROADMAP)
     if cfg.check_numerics or cfg.debug_nans:
         raise NotImplementedError(
@@ -97,8 +100,8 @@ def train(cfg: Config, log_dir: Optional[str] = None,
     resume from the newest checkpoint, a held-out render of test view 0
     every ``test_render_interval`` (switched off with a message when the
     data has no test split) and ``gc_every``."""
-    _check_train_config(cfg)
     device = resolve_device(device)
+    _check_train_config(cfg, device)
     dataset = create_dataset("train", cfg.data_dir, cfg)
     state = init_train_state(cfg, device)
     if cfg.checkpoint_dir and cfg.resume:

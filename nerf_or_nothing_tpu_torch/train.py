@@ -24,7 +24,7 @@ draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch

@@ -297,6 +297,7 @@ def test_run_train_needs_a_card_unless_cpu_is_asked(scene, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         trun.main(["train", *flags])
     for extra, match in (("--mesh-shape=2", "more than one device"),
+                         ("--mesh-shape=1", "more than one device"),
                          ("--check-numerics=true", "check_numerics"),
                          ("--debug-nans=true", "debug_nans"),
                          (f"--profile-dir={tmp_path}", "profile_dir")):
