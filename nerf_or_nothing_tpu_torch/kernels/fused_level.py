@@ -291,6 +291,31 @@ def _check(name: str, t: torch.Tensor, dtype, shape: Sequence[int],
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_level_inputs(cfg: Config, xs, d, delta, mode: str):
+    """Validate one level's kernel inputs (both kernels take the same);
+    returns the (means, variances, x) pointers, 0 where absent."""
+    check_kernel_config(cfg)
+    if mode not in _MODE_CODE:
+        raise ValueError(f"unknown input mode {mode!r}")
+    dt = compute_dtype(cfg)
+    R, S = delta.shape
+    N = R * S
+    device = delta.device
+    if device.type != "cuda":
+        raise ValueError(f"delta must be a CUDA tensor, got {device}")
+    _check("delta", delta, torch.float32, (R, S), device)
+    _check("d", d, dt, (R, cfg.direction_features), device)
+    if mode == "t":
+        _check("x", xs, dt, (N, cfg.location_features), device)
+        return 0, 0, xs.data_ptr()
+    if cfg.location_features % 6:
+        raise ValueError("mode mv needs location_features = 6F")
+    means, variances = xs
+    _check("means", means, torch.float32, (N, 3), device)
+    _check("variances", variances, torch.float32, (N, 3), device)
+    return means.data_ptr(), variances.data_ptr(), 0
+
+
 def _library(source=None):
     from nerf_or_nothing_tpu_torch.kernels import build
 
@@ -312,29 +337,11 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     result when the caller already has it; ``source`` is another version
     of ``csrc/render_level.cu`` with the same C interface, to time versions
     in turns (``compare_kernels.py``)."""
-    check_kernel_config(cfg)
-    if mode not in _MODE_CODE:
-        raise ValueError(f"unknown input mode {mode!r}")
+    ptrs = _check_level_inputs(cfg, xs, d, delta, mode)
     dt = compute_dtype(cfg)
     R, S = delta.shape
-    N = R * S
     lx, fd = cfg.location_features, cfg.direction_features
     device = delta.device
-    if device.type != "cuda":
-        raise ValueError(f"delta must be a CUDA tensor, got {device}")
-    _check("delta", delta, torch.float32, (R, S), device)
-    if mode == "mv":
-        means, variances = xs
-        _check("means", means, torch.float32, (N, 3), device)
-        _check("variances", variances, torch.float32, (N, 3), device)
-        x_ptr = 0
-        if lx % 6:
-            raise ValueError("mode mv needs location_features = 6F")
-    else:
-        _check("x", xs, dt, (N, lx), device)
-        means = variances = None
-        x_ptr = xs.data_ptr()
-    _check("d", d, dt, (R, fd), device)
     if packed is None:
         packed = pack_params(params, cfg, dt)
     w_flat, b_flat = packed
@@ -350,10 +357,8 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     fn = _library(source)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(
-        _DTYPE_CODE[dt], _MODE_CODE[mode],
-        means.data_ptr() if means is not None else 0,
-        variances.data_ptr() if variances is not None else 0,
-        x_ptr, d.data_ptr(), delta.data_ptr(), w_flat.data_ptr(),
+        _DTYPE_CODE[dt], _MODE_CODE[mode], *ptrs,
+        d.data_ptr(), delta.data_ptr(), w_flat.data_ptr(),
         b_flat.data_ptr(), comp.data_ptr(), acc.data_ptr(),
         weights.data_ptr(),
         R, S, cfg.net_depth, cfg.net_width, cfg.skip_layer,
@@ -572,28 +577,12 @@ def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
     outputs as ``level_train_plain``; ``packed`` is ``pack_train_params``'
     result when the caller already has it (once per step for both
     levels)."""
-    check_kernel_config(cfg)
-    if mode not in _MODE_CODE:
-        raise ValueError(f"unknown input mode {mode!r}")
+    ptrs = _check_level_inputs(cfg, xs, d, delta, mode)
     dt = compute_dtype(cfg)
     R, S = delta.shape
     N = R * S
     lx, fd = cfg.location_features, cfg.direction_features
     device = delta.device
-    if device.type != "cuda":
-        raise ValueError(f"delta must be a CUDA tensor, got {device}")
-    _check("delta", delta, torch.float32, (R, S), device)
-    if mode == "mv":
-        means, variances = xs
-        _check("means", means, torch.float32, (N, 3), device)
-        _check("variances", variances, torch.float32, (N, 3), device)
-        ptrs = (means.data_ptr(), variances.data_ptr(), 0)
-        if lx % 6:
-            raise ValueError("mode mv needs location_features = 6F")
-    else:
-        _check("x", xs, dt, (N, lx), device)
-        ptrs = (0, 0, xs.data_ptr())
-    _check("d", d, dt, (R, fd), device)
     _check("pixels", pixels, torch.float32, (R, 3), device)
     gsc = g_scale.reshape(R)
     _check("g_scale", gsc, torch.float32, (R,), device)

@@ -311,3 +311,25 @@ def test_unpack_grads_layout():
         assert db.shape == (o,) and float(db[0]) == off
         off += o
     assert off == flat.numel()
+
+
+def test_train_kernel_wrapper_checks_inputs():
+    """CPU tensors, wrong shapes and unsupported widths are refused before
+    any launch; the dispatcher sends CPU tensors to the plain version."""
+    cfg = Config(**dict(SMALL, net_width_condition=32))
+    params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg)
+    R, S = 3, cfg.num_samples
+    xs = torch.zeros(R * S, cfg.location_features, dtype=torch.bfloat16)
+    d = torch.zeros(R, 27, dtype=torch.bfloat16)
+    delta, pixels, gsc = torch.zeros(R, S), torch.zeros(R, 3), torch.zeros(R, 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fl.train_level_cuda(params, cfg, xs, d, delta, pixels, gsc, True, "t")
+    with pytest.raises(ValueError, match="unknown input mode"):
+        fl.train_level_cuda(params, cfg, xs, d, delta, pixels, gsc, True, "x")
+    with pytest.raises(ValueError, match="not supported"):
+        fl.train_level_cuda(params, cfg.replace(net_width=48), xs, d, delta,
+                            pixels, gsc, True, "t")
+    before = fl.train_level.launches
+    out = fl.train_level(params, cfg, xs, d, delta, pixels, gsc, True, "t")
+    assert fl.train_level.launches == before
+    assert [tuple(dw.shape) for dw, _ in out[3]] == tmlp.layer_dims(cfg)
