@@ -5,8 +5,9 @@
 
 Phases, each printing one JSON line:
   env      torch / CUDA / nvcc versions, the card, whether triton imports;
-  build    nvcc builds csrc/render_level.cu and csrc/train_level.cu, one
-           process each, started together (ptxas register/spill lines);
+  build    nvcc builds csrc/render_level.cu, csrc/train_level.cu,
+           csrc/mlp_fwd.cu and csrc/mlp_bwd.cu, one process each, started
+           together (ptxas register/spill lines);
   kernel   the render kernel against its plain PyTorch version (render_level_plain)
            at Config() width: bf16 and f32, R=16384 x S=128 in mode "mv",
            R=1000 x S=64 in mode "t" without white background, and a narrow
@@ -34,7 +35,25 @@ Phases, each printing one JSON line:
            ...])`` restores it on the card; steady-state train rays/s
            (batch_size / median host-clock step, each step synchronised)
            beside the bound; one step on the card against the same step on
-           the CPU (randomized=false, 256 rays).
+           the CPU (randomized=false, 256 rays);
+  mlp_kernel  the MLP kernels against their plain versions: mlp_fwd at
+           Config() width, mode "t" features, R=16384 x S=128 in bf16 and
+           f32 and R=1024 x S=128 in bf16, and a narrow ragged config with
+           4 rgb / 2 density heads; mlp_bwd at R=1024 x S=128 in bf16 with
+           input_grads False and True and in f32, and narrow R=37 x S=256,
+           with head cotangents from the composite backward of the plain
+           forward (the train level's); normalized errors of the heads,
+           every dW/db, dX and dD; times by CUDA events beside the bound
+           (mlp_fwd_flops, mlp_bwd_flops); two launches must give bit-equal
+           dW/db, dX and dD;
+  train_full_grad  the train phase at Config(fuse_level=False,
+           stop_level_grad=False) for 20 steps: launch counters must rise
+           by exactly 2 mlp_fwd + 2 mlp_bwd per step plus 2 mlp_fwd per
+           16384-ray chunk of the test render, and 0 train_level /
+           render_level; ``run eval`` at the same flags (2 mlp_fwd per
+           chunk); train rays/s beside the bound of the work a step needs
+           (full_grad_step_flops); one step on the card against the CPU,
+           every gradient included.
 Then the ``kernels`` line, the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises: non-zero exit and
 no ``ok`` line. Without a CUDA device the script exits 1 at once.
@@ -54,7 +73,11 @@ import time
 BANDS = {"float32": (1e-6, 1e-3), "bfloat16": (2e-3, 3e-2)}
 TPU_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:652"  # _render_kernel
 TPU_TRAIN_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:374"  # _level_kernel
+TPU_MLP_FWD = "nerf_or_nothing_tpu/kernels/fused_mlp.py:239"  # _fwd_kernel
+TPU_MLP_BWD = "nerf_or_nothing_tpu/kernels/fused_mlp.py:673"  # _bwd_kernel
 TRAIN_STEPS = 40
+FULL_GRAD_STEPS = 20
+FULL_GRAD_ARGS = ("--fuse-level=false", "--stop-level-grad=false")
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s,
 # f32 (non-tensor) FLOP/s, HBM bytes/s.
 PEAKS = {
@@ -208,6 +231,207 @@ def train_bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
             flops, nbytes)
 
 
+def mlp_fwd_flops(cfg, R: int, S: int) -> int:
+    """FLOPs of one ``mlp_fwd`` launch: ``level_flops`` (the direction
+    rows once per ray)."""
+    return level_flops(cfg, R, S)
+
+
+def dx_flops(cfg, R: int, S: int) -> int:
+    """The chain into layer 0 and the skip layers' x rows (dX) and the
+    direction rows' product (dD), which only ``input_grads`` needs."""
+    n_x = 1 + sum(1 for i in range(1, cfg.net_depth) if i % cfg.skip_layer == 0)
+    return 2 * (cfg.location_features * cfg.net_width * n_x * R * S
+                + cfg.direction_features * cfg.net_width_condition * R)
+
+
+def mlp_bwd_flops(cfg, R: int, S: int, input_grads: bool) -> int:
+    """FLOPs of one ``mlp_bwd`` launch: the forward it recomputes, dW and
+    the g-chain (``train_level_flops``), and with ``input_grads`` dX/dD."""
+    return (mlp_fwd_flops(cfg, R, S) + train_level_flops(cfg, R, S)
+            + (dx_flops(cfg, R, S) if input_grads else 0))
+
+
+def full_grad_step_flops(cfg, R: int, S: int) -> int:
+    """The work one train step at stop_level_grad=False needs: per level
+    the forward, the g-chain and dW (no recompute), and dX/dD for every
+    level but the first."""
+    return (cfg.num_levels * train_level_flops(cfg, R, S)
+            + (cfg.num_levels - 1) * dx_flops(cfg, R, S))
+
+
+def mlp_bound_ms(cfg, R: int, S: int, flops: int, in_bytes: int,
+                 out_bytes: int, peaks) -> tuple:
+    """The larger of the FLOPs over the compute type's peak and the bytes
+    (inputs read once, outputs written once) over the memory rate."""
+    bf16_peak, f32_peak, bw = peaks
+    peak = bf16_peak if cfg.compute_dtype == "bfloat16" else f32_peak
+    t_ops, t_bytes = flops / peak * 1e3, (in_bytes + out_bytes) / bw * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops, in_bytes + out_bytes)
+
+
+def mlp_bytes(cfg, R: int, S: int):
+    """Bytes of the MLP kernels' inputs x, d, weights and biases."""
+    from nerf_or_nothing_tpu_torch.models.mlp import layer_dims
+
+    esize = 2 if cfg.compute_dtype == "bfloat16" else 4
+    dims = layer_dims(cfg)
+    return (R * S * cfg.location_features * esize
+            + R * cfg.direction_features * esize
+            + sum(i * o for i, o in dims) * esize + sum(o for _, o in dims) * 4)
+
+
+def mlp_case_inputs(cfg, R: int, seed: int, device):
+    """Features, directions and, for the backward, the head cotangents the
+    train level would give: the composite backward of the plain forward
+    (pixels and g_scale of ``train_inputs``, white background)."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+    from nerf_or_nothing_tpu_torch.models.mlp import init_mlp
+
+    params = init_mlp(torch.Generator().manual_seed(seed), cfg, device=device)
+    x, d, delta = level_inputs(cfg, R, "t", seed + 1, device)
+    S = cfg.num_samples
+    g_rgb = g_den = None
+    if cfg.num_rgb_channels == 3 and cfg.num_density_channels == 1:
+        pixels, g_scale = train_inputs(cfg, R, seed + 2, device)
+        raw_rgb, raw_den = fm.mlp_fwd_plain(params, cfg, x, d, S)
+        g_rgb, g_den = fl._composite_backward(
+            cfg, raw_rgb, raw_den[:, 0], delta, pixels, g_scale, True)[3:]
+        g_den = g_den[:, None].contiguous()
+    return params, x, d, g_rgb, g_den
+
+
+def check_pairs(name, pairs, dtype):
+    """Normalized errors and the max abs error of (kernel, plain) pairs."""
+    import torch
+
+    atol, rtol = BANDS[dtype]
+    errs, max_abs = {}, 0.0
+    for key, a, b in pairs:
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}: non-finite kernel output {key}")
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: {key} shape {tuple(a.shape)} != "
+                                 f"{tuple(b.shape)}")
+        errs[key] = normalized_err(a.float(), b.float(), atol, rtol)
+        max_abs = max(max_abs, float((a.float() - b.float()).abs().max()))
+    return errs, max_abs
+
+
+def mlp_fwd_case(name, cfg, R, peaks, device, seed=0):
+    import torch
+
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+    from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype
+
+    S = cfg.num_samples
+    params, x, d, _, _ = mlp_case_inputs(cfg, R, seed, device)
+    packed = fm.pack_mlp_params(params, cfg, compute_dtype(cfg), backward=False)
+
+    def kernel():
+        return fm.mlp_fwd_cuda(params, cfg, x, d, packed=packed)
+
+    def plain():
+        return fm.mlp_fwd_plain(params, cfg, x, d, S)
+
+    out_k = kernel()
+    torch.cuda.synchronize()
+    out_p = plain()
+    torch.cuda.synchronize()
+    errs, max_abs = check_pairs(name, [("raw_rgb", out_k[0], out_p[0]),
+                                       ("raw_den", out_k[1], out_p[1])],
+                                cfg.compute_dtype)
+    ms = median_ms(kernel)
+    plain_ms = median_ms(plain, reps=5, warmup=1)
+    out_bytes = R * S * (cfg.num_rgb_channels + cfg.num_density_channels) * 4
+    b_ms, b_by, flops, nbytes = mlp_bound_ms(
+        cfg, R, S, mlp_fwd_flops(cfg, R, S), mlp_bytes(cfg, R, S), out_bytes,
+        peaks)
+    res = {
+        "phase": "mlp_kernel", "kernel": "mlp_fwd", "case": name,
+        "dtype": cfg.compute_dtype, "R": R, "S": S,
+        "heads": [cfg.num_rgb_channels, cfg.num_density_channels],
+        "band": list(BANDS[cfg.compute_dtype]), "normalized_err": errs,
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "flop": flops, "bytes": nbytes,
+        "bound_share": b_ms / ms,
+    }
+    emit(res)
+    if not max(errs.values()) < 1.0:
+        raise AssertionError(f"{name}: mlp_fwd disagrees with plain: {errs}")
+    return res
+
+
+def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
+                 bit_check=False):
+    import torch
+
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+    from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype, num_params
+
+    S = cfg.num_samples
+    params, x, d, g_rgb, g_den = mlp_case_inputs(cfg, R, seed, device)
+    packed = fm.pack_mlp_params(params, cfg, compute_dtype(cfg))
+
+    def kernel():
+        return fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den, input_grads,
+                               packed=packed)
+
+    def plain():
+        return fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, S,
+                                input_grads)
+
+    out_k = kernel()
+    torch.cuda.synchronize()
+    out_p = plain()
+    torch.cuda.synchronize()
+    pairs = []
+    for i, ((dw, db), (rw, rb)) in enumerate(zip(out_k[0], out_p[0])):
+        pairs += [(f"dW{i}", dw, rw), (f"db{i}", db, rb)]
+    if input_grads:
+        pairs += [("dX", out_k[1], out_p[1]), ("dD", out_k[2], out_p[2])]
+    errs, max_abs = check_pairs(name, pairs, cfg.compute_dtype)
+    bit_equal = None
+    if bit_check:
+        again = kernel()
+        flat = lambda o: [t for wb in o[0] for t in wb] + [  # noqa: E731
+            t for t in o[1:] if t is not None]
+        bit_equal = all(torch.equal(a, b)
+                        for a, b in zip(flat(out_k), flat(again)))
+    ms = median_ms(kernel)
+    plain_ms = median_ms(plain, reps=5, warmup=1)
+    esize = 2 if cfg.compute_dtype == "bfloat16" else 4
+    in_bytes = mlp_bytes(cfg, R, S) + R * S * 4 * (
+        cfg.num_rgb_channels + cfg.num_density_channels)
+    out_bytes = num_params(cfg) * 4 + (
+        R * S * cfg.location_features * esize
+        + R * cfg.direction_features * 4 if input_grads else 0)
+    b_ms, b_by, flops, nbytes = mlp_bound_ms(
+        cfg, R, S, mlp_bwd_flops(cfg, R, S, input_grads), in_bytes, out_bytes,
+        peaks)
+    res = {
+        "phase": "mlp_kernel", "kernel": "mlp_bwd", "case": name,
+        "dtype": cfg.compute_dtype, "R": R, "S": S,
+        "input_grads": input_grads, "band": list(BANDS[cfg.compute_dtype]),
+        "worst": max(errs, key=errs.get), "normalized_err": errs,
+        "max_abs_err": max_abs, "bit_equal": bit_equal, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "flop": flops, "bytes": nbytes, "bound_share": b_ms / ms,
+    }
+    emit(res)
+    if not max(errs.values()) < 1.0:
+        raise AssertionError(f"{name}: mlp_bwd disagrees with plain, "
+                             f"normalized error {max(errs.values())} "
+                             f"({res['worst']})")
+    if bit_check and not bit_equal:
+        raise AssertionError(f"{name}: two mlp_bwd launches differ")
+    return res
+
+
 def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
     import torch
 
@@ -333,10 +557,35 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
     return res
 
 
+def launch_counts():
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    return {"train_level": fl.train_level.launches,
+            "render_level": fl.render_level.launches,
+            "mlp_fwd": fm.mlp_fwd.launches, "mlp_bwd": fm.mlp_bwd.launches}
+
+
+def reset_launch_counts():
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    for fn in (fl.train_level, fl.render_level, fm.mlp_fwd, fm.mlp_bwd):
+        fn.launches = 0
+
+
+def check_launches(what, got, expected):
+    if got != expected:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{expected}")
+
+
 def train_path(peaks, device, size: int = 400, steps: int = TRAIN_STEPS,
-               model_args=()):
-    """``run train`` at Config() on the card, then ``run eval`` of its
-    checkpoint; train rays/s; one step against the CPU."""
+               model_args=(), phase: str = "train"):
+    """``run train`` on the card at Config() with ``model_args``, then ``run
+    eval`` of its checkpoint, with exact launch counts of every kernel;
+    train rays/s; one step and its gradients against the CPU. Returns the
+    launch counts of the train run."""
     import csv
 
     import numpy as np
@@ -345,9 +594,8 @@ def train_path(peaks, device, size: int = 400, steps: int = TRAIN_STEPS,
     from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
     from nerf_or_nothing_tpu_torch import run
     from nerf_or_nothing_tpu_torch import train as train_lib
-    from nerf_or_nothing_tpu_torch.config import Config
     from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
-    from nerf_or_nothing_tpu_torch.kernels.fused_level import train_level
+    from nerf_or_nothing_tpu_torch.models.mlp import init_mlp
     from nerf_or_nothing_tpu_torch.rays import Rays
     from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
 
@@ -361,18 +609,29 @@ def train_path(peaks, device, size: int = 400, steps: int = TRAIN_STEPS,
             f"--max-steps={steps}", "--print-every=10", "--save-every=20",
             f"--test-render-interval={steps}", *model_args,
             f"--device={device.type}"]
+    cfg = run.parse_flags([a for a in args if not a.startswith("--device")])
+    fused = train_lib.use_fused_level(cfg)
+    chunks = math.ceil(size * size / cfg.render_chunk_size)
+    render = {"render_level": 0, "mlp_fwd": 0, "mlp_bwd": 0, "train_level": 0}
+    render["render_level" if cfg.fuse_level else "mlp_fwd"] = (
+        cfg.num_levels * chunks)
+    expected = dict(render)
+    if fused:
+        expected["train_level"] = cfg.num_levels * steps
+    else:
+        expected["mlp_fwd"] += cfg.num_levels * steps
+        expected["mlp_bwd"] = cfg.num_levels * steps
 
-    train_level.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     rc = run.main(["train", *args])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = train_level.launches
+    launches = launch_counts()
     if rc != 0:
         raise AssertionError(f"run.main(train) returned {rc}")
-    if launches != 2 * steps:
-        raise AssertionError(f"train_level launched {launches} times in "
-                             f"{steps} steps, expected {2 * steps}")
+    check_launches(f"{phase}: run train ({steps} steps, test render)",
+                   launches, expected)
     with open(os.path.join(ckpt, "train_stats.csv")) as f:
         rows = list(csv.DictReader(f))
     losses = [float(r["loss"]) for r in rows]
@@ -383,18 +642,20 @@ def train_path(peaks, device, size: int = 400, steps: int = TRAIN_STEPS,
     latest = ckpt_lib.latest_checkpoint(ckpt)
     if latest is None or not latest.endswith(f"checkpoint_{steps:09d}.npz"):
         raise AssertionError(f"final checkpoint missing: {latest}")
-    cfg = run.parse_flags([a for a in args if not a.startswith("--device")])
     state = ckpt_lib.restore_checkpoint(latest, cfg, device=device)
     restored = run.load_params(cfg, device)
     for (w, b), (rw, rb) in zip(state.params, restored):
         if not (torch.equal(w, rw) and torch.equal(b, rb)):
             raise AssertionError("run eval's restore differs from the checkpoint")
+    reset_launch_counts()
     t0 = time.perf_counter()
     rc = run.main(["eval", *args])
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"run.main(eval) returned {rc}")
+    eval_launches = launch_counts()
+    check_launches(f"{phase}: run eval", eval_launches, render)
 
     # Steady-state train rays/s: the train step from the trained state,
     # each step synchronised, host clock.
@@ -417,20 +678,31 @@ def train_path(peaks, device, size: int = 400, steps: int = TRAIN_STEPS,
         raise AssertionError("non-finite loss in the timed steps")
     step_s = sorted(times)[len(times) // 2]
     rays_per_s = cfg.batch_size / step_s
-    bound_step_ms = 2 * train_level_flops(cfg, cfg.batch_size,
-                                          cfg.num_samples) / peaks[0] * 1e3
+    step_flops = (cfg.num_levels * train_level_flops(cfg, cfg.batch_size,
+                                                     cfg.num_samples)
+                  if fused else full_grad_step_flops(cfg, cfg.batch_size,
+                                                     cfg.num_samples))
+    bound_step_ms = step_flops / peaks[0] * 1e3
     bound_rays_per_s = cfg.batch_size / (bound_step_ms / 1e3)
 
-    # One step on the card against the same step on the CPU.
+    # One step, and the gradients of the same step, on the card against
+    # the CPU.
     small = cfg.replace(randomized=False, batch_size=256)
     rays, pixels = batches[0]
     rays = Rays(*[x[:256] for x in rays])
     pixels = pixels[:256]
-    out = []
+    value_and_grad = (train_lib._fused_level_value_and_grad if fused
+                      else train_lib._autograd_value_and_grad)
+    out, grads = [], []
     for dev in (device, torch.device("cpu")):
+        dev_rays = Rays(*[x.to(dev) for x in rays])
         st = train_lib.init_train_state(small, dev)
-        out.append(train_lib.make_train_step(small)(
-            st, Rays(*[x.to(dev) for x in rays]), pixels.to(dev)))
+        out.append(train_lib.make_train_step(small)(st, dev_rays,
+                                                     pixels.to(dev)))
+        params = init_mlp(torch.Generator().manual_seed(small.seed), small,
+                          device=dev)
+        grads.append(value_and_grad(small, params, None, dev_rays,
+                                    pixels.to(dev))[2])
     atol, rtol = BANDS["bfloat16"]
     (gs, gst), (cs, cst) = out
     checks = {k: normalized_err(getattr(gst, k).cpu().reshape(-1),
@@ -439,17 +711,25 @@ def train_path(peaks, device, size: int = 400, steps: int = TRAIN_STEPS,
     checks["params"] = max(
         normalized_err(a.cpu(), b, atol, rtol)
         for wa, wb in zip(gs.params, cs.params) for a, b in zip(wa, wb))
+    checks["grads"] = {
+        f"{kind}{i}": normalized_err(a.cpu(), b, atol, rtol)
+        for i, (ga, gb) in enumerate(zip(*grads))
+        for kind, a, b in (("dW", ga[0], gb[0]), ("db", ga[1], gb[1]))}
+    worst = max([v for k, v in checks.items() if k != "grads"]
+                + list(checks["grads"].values()))
     emit({
-        "phase": "train", "config": "Config()", "image": [size, size],
-        "train_images": 4, "steps": steps, "setup_s": setup_s,
-        "train_s": train_s, "eval_s": eval_s, "launches": launches,
-        "expected_launches": 2 * steps, "logged_losses": losses,
+        "phase": phase, "config": "Config()", "flags": list(model_args),
+        "image": [size, size], "train_images": 4, "steps": steps,
+        "setup_s": setup_s, "train_s": train_s, "eval_s": eval_s,
+        "launches": launches, "expected_launches": expected,
+        "eval_launches": eval_launches, "logged_losses": losses,
         "step_s": times, "train_rays_per_s": rays_per_s,
-        "bound_step_ms": bound_step_ms, "bound_rays_per_s": bound_rays_per_s,
+        "bound_step_flop": step_flops, "bound_step_ms": bound_step_ms,
+        "bound_rays_per_s": bound_rays_per_s,
         "bound_share": rays_per_s / bound_rays_per_s,
         "step_vs_cpu": checks,
     })
-    if not max(checks.values()) < 1.0:
+    if not worst < 1.0:
         raise AssertionError(f"train step on the card disagrees with the CPU: "
                              f"{checks}")
     return launches, rays_per_s
@@ -478,7 +758,6 @@ def main_path(peaks, device, size: int = 400, base=None):
     from nerf_or_nothing_tpu_torch.config import Config
     from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
     from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
-    from nerf_or_nothing_tpu_torch.kernels.fused_level import render_level
     from nerf_or_nothing_tpu_torch.models.mlp import init_mlp
     from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
 
@@ -502,7 +781,7 @@ def main_path(peaks, device, size: int = 400, base=None):
     chunks = n_test * math.ceil(size * size / cfg.render_chunk_size)
     expected = 2 * cfg.num_levels * chunks  # eval + render
 
-    render_level.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     rc_eval = run.main(["eval", *args])
     torch.cuda.synchronize()
@@ -511,12 +790,13 @@ def main_path(peaks, device, size: int = 400, base=None):
     rc_render = run.main(["render", *args, f"--out={out_dir}"])
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    launches = render_level.launches
+    counts = launch_counts()
+    launches = counts["render_level"]
     if rc_eval != 0 or rc_render != 0:
         raise AssertionError(f"run.main returned {rc_eval}, {rc_render}")
-    if launches != expected:
-        raise AssertionError(f"render_level launched {launches} times, "
-                             f"expected {expected}")
+    check_launches("main: run eval + render", counts,
+                   {"train_level": 0, "render_level": expected, "mlp_fwd": 0,
+                    "mlp_bwd": 0})
     pngs = sorted(os.listdir(out_dir))
     if pngs != [f"render_{i:03d}.png" for i in range(n_test)]:
         raise AssertionError(f"unexpected renders {pngs}")
@@ -614,7 +894,7 @@ def main() -> int:
     })
 
     t0 = time.perf_counter()
-    sources = ("render_level", "train_level")
+    sources = build.SOURCES
     build.build_all(sources)
     seconds = time.perf_counter() - t0
     for src in sources:
@@ -668,6 +948,32 @@ def main() -> int:
                           37, "mv", True, peaks, device, seed=7)
     train_launches, _ = train_path(peaks, device)
 
+    mlp_fwd_main = mlp_fwd_case("config_r16384_s128", base, 16384, peaks,
+                                device)
+    mlp_fwd_case("config_r16384_s128_f32", base.replace(compute_dtype="float32"),
+                 16384, peaks, device)
+    mlp_fwd_case("config_r1024_s128", base, 1024, peaks, device, seed=1)
+    heads = narrow.replace(num_rgb_channels=4, num_density_channels=2,
+                           net_depth=5, num_samples=24)
+    for dtype in ("bfloat16", "float32"):
+        mlp_fwd_case(f"narrow_heads_4_2_r37_s24_{dtype}",
+                     heads.replace(compute_dtype=dtype), 37, peaks, device,
+                     seed=2)
+    mlp_bwd_main = mlp_bwd_case("config_r1024_s128_dx", base, 1024, True,
+                                peaks, device, bit_check=True)
+    mlp_bwd_case("config_r1024_s128", base, 1024, False, peaks, device,
+                 seed=3)
+    mlp_bwd_case("config_r1024_s128_dx_f32",
+                 base.replace(compute_dtype="float32"), 1024, True, peaks,
+                 device, seed=4)
+    for dtype in ("bfloat16", "float32"):
+        mlp_bwd_case(f"narrow_r37_s256_dx_{dtype}",
+                     tnarrow.replace(num_samples=256, compute_dtype=dtype),
+                     37, True, peaks, device, seed=5, bit_check=True)
+    full_launches, _ = train_path(peaks, device, steps=FULL_GRAD_STEPS,
+                                  model_args=FULL_GRAD_ARGS,
+                                  phase="train_full_grad")
+
     def entry(name, case, n, replaces):
         return {
             "name": name, "route": "cuda",
@@ -680,7 +986,10 @@ def main() -> int:
 
     emit({"kernels": [
         entry("render_level", main_case, launches, TPU_KERNEL),
-        entry("train_level", train_case, train_launches, TPU_TRAIN_KERNEL),
+        entry("train_level", train_case, train_launches["train_level"],
+              TPU_TRAIN_KERNEL),
+        entry("mlp_fwd", mlp_fwd_main, full_launches["mlp_fwd"], TPU_MLP_FWD),
+        entry("mlp_bwd", mlp_bwd_main, full_launches["mlp_bwd"], TPU_MLP_BWD),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,11 +2,21 @@
 
 Field-for-field the same frozen dataclass as ``nerf_or_nothing_tpu.config``
 (same names, types and defaults), so one set of flags drives either
-package. The execution fields keep their names:
+package. The execution fields keep their names. On CUDA tensors they select
+the hand-written kernels (the CPU runs each kernel's plain version):
 
-- ``use_pallas`` / ``fuse_level``: use the hand-written CUDA kernels for
-  the whole render level and the whole train level
-  (``kernels/fused_level.py``) on CUDA tensors;
+- ``use_pallas``: use the kernels at all; off, the plain ``apply_mlp``
+  and autograd run everywhere;
+- ``fuse_level`` (with ``use_pallas``): a whole level in one kernel call:
+  ``render_level`` (``kernels/fused_level.py``) for eval and render, and
+  ``train_level`` per level of a train step when ``stop_level_grad`` is
+  also on and the heads are 3 rgb / 1 density. Off, every level's MLP is
+  ``fused_mlp_apply`` (``kernels/fused_mlp.py``): the ``mlp_fwd`` kernel,
+  and ``mlp_bwd`` for its gradient;
+- ``stop_level_grad``: off, the fine level's loss also reaches the coarse
+  level's weights through resampling, so the train step takes the autograd
+  branch, whose levels run ``mlp_fwd`` / ``mlp_bwd`` (the fine level's
+  ``mlp_bwd`` with dX and dD);
 - ``fuse_ipe`` / ``fuse_ipe_render``: compute the IPE inside the train /
   render kernel (input mode ``"mv"``);
 - ``pair_ipe`` / ``xt_ipe``: TPU layout probes, not ported;
@@ -102,7 +112,7 @@ class Config:
 
     # ---- execution ----
     use_pallas: bool = True         # hand-written CUDA kernels on the hot path
-    fuse_level: bool = True         # whole level (MLP + composite) in one kernel
+    fuse_level: bool = True         # whole level in one kernel, else the MLP kernels
     fuse_ipe: bool = False          # IPE inside the level kernel (train path)
     fast_ipe: bool = True           # polynomial sin/cos/exp (ops/fastmath.py)
     pair_ipe: bool = False          # TPU layout probe; not ported

@@ -1,8 +1,9 @@
-// Device functions shared by the render-level and train-level kernels
-// (render_level.cu, train_level.cu): the kernel parameter block, the
+// Device functions shared by the hand-written kernels (render_level.cu,
+// train_level.cu, mlp_fwd.cu, mlp_bwd.cu): the kernel parameter block, the
 // in-kernel IPE with the polynomial transcendentals of ops/fastmath.py,
 // the MLP forward layer (bf16 mma.sync or f32 FMA) and its ReLU epilogue,
-// the two heads, and the forward composite.
+// the two heads, the forward of one 64-row sub-tile, and the forward
+// composite.
 
 #pragma once
 
@@ -36,6 +37,7 @@ struct Params {
   int R, S, RB;
   int D, W, skip, Wc, Dc, LX, KX, Fd;
   int min_deg, F, mode, fast, white_bkgd;
+  int Cr, Cd;           // head channels: rgb, density
   float density_bias, rgb_padding;
   int ldh, ldx;
 };
@@ -343,10 +345,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// OUT[sub0 + row][c0 + c] = H[row, :K] . w[c, :K] + b[c] for c < nc
+// out[row * ld + c] = H[row, :K] . w[c, :K] + b[c] for c < nc
 template <class T>
 __device__ void head(const Params& p, const Smem<T>& sm, const T* w, const float* b,
-                     int K, int nc, int c0, int sub0, int nvalid) {
+                     int K, int nc, float* out, int ld, int nvalid) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int row = warp; row < nvalid; row += kThreads / 32) {
     const T* h = sm.H + row * p.ldh;
@@ -355,9 +357,90 @@ __device__ void head(const Params& p, const Smem<T>& sm, const T* w, const float
       float s = 0.0f;
       for (int k = lane; k < K; k += 32) s = fmaf(to_f(h[k]), to_f(wc[k]), s);
       s = warp_sum(s);
-      if (lane == 0) sm.OUT[(sub0 + row) * 4 + c0 + c] = s + b[c];
+      if (lane == 0) out[row * ld + c] = s + b[c];
     }
   }
+}
+
+// DC[r, :] = d[ray0 + r, :] @ W_bot of the first view layer, once per
+// ray (f32 sum of compute-type products), for the block's nr rays.
+template <class T>
+__device__ void direction_term(const Params& p, const Smem<T>& sm, int ray0, int nr) {
+  const T* d = static_cast<const T*>(p.d);
+  const T* wb = static_cast<const T*>(p.w) + p.w_v0_bot;
+  for (int idx = threadIdx.x; idx < p.RB * p.Wc; idx += kThreads) {
+    const int r = idx / p.Wc, n = idx - r * p.Wc;
+    float s = 0.0f;
+    if (r < nr) {
+      const T* dr = d + (long long)(ray0 + r) * p.Fd;
+      for (int k = 0; k < p.Fd; ++k) s = fmaf(to_f(dr[k]), to_f(wb[k * p.Wc + n]), s);
+    }
+    sm.DC[idx] = s;
+  }
+}
+
+__host__ __device__ inline long long act_off(const Params& p, long long N, int layer) {
+  // trunk layer i < D at i * N * W; view layer j at D * N * W + j * N * Wc
+  return layer < p.D ? (long long)layer * N * p.W
+                     : (long long)p.D * N * p.W + (long long)(layer - p.D) * N * p.Wc;
+}
+
+// rows [0, nvalid) of a shared tile -> dst rows grow0.., 16 bytes a thread
+template <class T>
+__device__ void store_rows(const T* src, int ld, int width, T* dst, long long grow0,
+                           int nvalid) {
+  constexpr int vec = 16 / sizeof(T);
+  const int per_row = width / vec;
+  for (int idx = threadIdx.x; idx < nvalid * per_row; idx += kThreads) {
+    const int row = idx / per_row, c = idx - row * per_row;
+    *reinterpret_cast<uint4*>(dst + (grow0 + row) * width + c * vec) =
+        *reinterpret_cast<const uint4*>(src + row * ld + c * vec);
+  }
+}
+
+// The MLP forward of one sub-tile of rows [grow0, grow0 + nvalid): the
+// features into X, the trunk (layer 0 reads X, skip layers [H | X], the
+// rest H), the density head, the view branch (its first layer adds DC of
+// the row's ray) and the rgb head; ends with a barrier. Head outputs go to
+// den / rgb (row stride den_ld / rgb_ld) unless null. kStore: the
+// features (padded to KX) go to xs and every layer's activations to
+// acts + act_off (N rows per layer).
+template <class T, bool kStore>
+__device__ void forward_tile(const Params& p, const Smem<T>& sm, int sub0, int nvalid,
+                             long long grow0, float* den, int den_ld, float* rgb,
+                             int rgb_ld, T* xs, T* acts, long long N) {
+  const T* w = static_cast<const T*>(p.w);
+  load_features<T>(p, sm, grow0, nvalid);
+  __syncthreads();
+  if (kStore) store_rows<T>(sm.X, p.ldx, p.KX, xs, grow0, nvalid);
+
+  typename AccOf<T>::type acc;
+  const T* wl = w;
+  const float* bl = p.b;
+  for (int i = 0; i < p.D; ++i) {
+    const int kh = i == 0 ? 0 : p.W;
+    const int kx = (i == 0 || i % p.skip == 0) ? p.KX : 0;
+    gemm(p, sm, kh, kx, wl, p.W, acc);
+    __syncthreads();
+    epilogue(p, sm, acc, bl, p.W, nullptr, sub0);
+    __syncthreads();
+    if (kStore) store_rows<T>(sm.H, p.ldh, p.W, acts + act_off(p, N, i), grow0, nvalid);
+    wl += (long long)(kh + kx) * p.W;
+    bl += p.W;
+  }
+
+  if (den) head<T>(p, sm, w + p.w_den, p.b + p.b_den, p.W, p.Cd, den, den_ld, nvalid);
+  for (int j = 0; j < p.Dc; ++j) {
+    const T* wv = j == 0 ? w + p.w_v0_top : w + p.w_v1 + (long long)(j - 1) * p.Wc * p.Wc;
+    gemm(p, sm, j == 0 ? p.W : p.Wc, 0, wv, p.Wc, acc);
+    __syncthreads();
+    epilogue(p, sm, acc, p.b + p.b_v0 + j * p.Wc, p.Wc, j == 0 ? sm.DC : nullptr, sub0);
+    __syncthreads();
+    if (kStore)
+      store_rows<T>(sm.H, p.ldh, p.Wc, acts + act_off(p, N, p.D + j), grow0, nvalid);
+  }
+  if (rgb) head<T>(p, sm, w + p.w_rgb, p.b + p.b_rgb, p.Wc, p.Cr, rgb, rgb_ld, nvalid);
+  __syncthreads();
 }
 
 __device__ __forceinline__ float softplus(float x) {
@@ -421,16 +504,18 @@ __device__ void composite(const Params& p, const Smem<T>& sm, int ray0, int nr) 
 // The kernel parameters of one level (weight offsets of pack_params'
 // layout, row strides of the shared-memory tiles); false for widths the
 // kernels do not take: W, Wc multiples of 32 up to 256, Wc <= W, KX a
-// multiple of 16 >= LX, LX = 6F in mode "mv". dtype: 0 = float32,
-// 1 = bfloat16; mode: 0 = "mv" (IPE in the kernel), 1 = "t" (features).
+// multiple of 16 >= LX, LX = 6F in mode "mv", heads of 1-8 channels.
+// dtype: 0 = float32, 1 = bfloat16; mode: 0 = "mv" (IPE in the kernel),
+// 1 = "t" (features).
 inline bool init_params(Params& p, int dtype, int mode, const float* means,
                         const float* vars, const void* x, const void* d,
                         const float* delta, const void* w, const float* b, int R, int S,
                         int D, int W, int skip, int Wc, int Dc, int LX, int KX, int Fd,
                         int min_deg, int fast, float density_bias, float rgb_padding,
-                        int white_bkgd) {
+                        int white_bkgd, int Cr = 3, int Cd = 1) {
   if (W % 32 || Wc % 32 || W > 256 || Wc > 256 || Wc > W || KX % 16 || KX < LX ||
-      D < 1 || Dc < 1 || skip < 1 || S < 1 || (mode == 0 && 6 * (LX / 6) != LX))
+      D < 1 || Dc < 1 || skip < 1 || S < 1 || (mode == 0 && 6 * (LX / 6) != LX) ||
+      Cr < 1 || Cr > 8 || Cd < 1 || Cd > 8)
     return false;
   p.means = means; p.vars = vars; p.x = x; p.d = d; p.delta = delta;
   p.w = w; p.b = b; p.comp = nullptr; p.acc = nullptr; p.weights = nullptr;
@@ -439,17 +524,18 @@ inline bool init_params(Params& p, int dtype, int mode, const float* means,
     const int K = (i == 0 ? 0 : W) + ((i == 0 || i % skip == 0) ? KX : 0);
     off += (long long)K * W;
   }
-  p.w_den = off;      off += W;
+  p.w_den = off;      off += (long long)Cd * W;
   p.w_v0_top = off;   off += (long long)W * Wc;
   p.w_v0_bot = off;   off += (long long)Fd * Wc;
   p.w_v1 = off;       off += (long long)(Dc - 1) * Wc * Wc;
   p.w_rgb = off;
   p.b_den = D * W;
-  p.b_v0 = p.b_den + 1;
+  p.b_v0 = p.b_den + Cd;
   p.b_rgb = p.b_v0 + Dc * Wc;
   p.R = R; p.S = S; p.RB = S >= kBM ? 1 : kBM / S;
   p.D = D; p.W = W; p.skip = skip; p.Wc = Wc; p.Dc = Dc; p.LX = LX; p.KX = KX; p.Fd = Fd;
   p.min_deg = min_deg; p.F = LX / 6; p.mode = mode; p.fast = fast;
+  p.Cr = Cr; p.Cd = Cd;
   p.white_bkgd = white_bkgd; p.density_bias = density_bias; p.rgb_padding = rgb_padding;
   p.ldh = W + (dtype == 1 ? 8 : 4);
   p.ldx = KX + (dtype == 1 ? 8 : 4);

@@ -40,8 +40,8 @@
 //    explicitly rounded operations (no FMA contraction), so they are
 //    bit-equal to the plain PyTorch version.
 //
-// The device functions (IPE, layers, heads, composite) live in
-// level_common.cuh, shared with the train-level kernel.
+// The device functions (IPE, layers, heads, the sub-tile forward,
+// composite) live in level_common.cuh, shared with the other kernels.
 //
 // Plain C interface (loaded with ctypes): render_level_launch returns the
 // cudaError_t of the launch; it launches on the given stream, allocates
@@ -56,58 +56,16 @@ __global__ void __launch_bounds__(kThreads, 2)
 render_level_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem<T> sm = carve<T>(smem_raw, p);
-  const T* w = static_cast<const T*>(p.w);
   const int ray0 = blockIdx.x * p.RB;
   const int nr = min(p.RB, p.R - ray0);
   const int rows = nr * p.S;
-  const int tid = threadIdx.x;
 
   // Direction term of the first view layer, once per ray: d @ W_bot.
-  {
-    const T* d = static_cast<const T*>(p.d);
-    const T* wb = w + p.w_v0_bot;
-    for (int idx = tid; idx < p.RB * p.Wc; idx += kThreads) {
-      const int r = idx / p.Wc, n = idx - r * p.Wc;
-      float s = 0.0f;
-      if (r < nr) {
-        const T* dr = d + (long long)(ray0 + r) * p.Fd;
-        for (int k = 0; k < p.Fd; ++k) s = fmaf(to_f(dr[k]), to_f(wb[k * p.Wc + n]), s);
-      }
-      sm.DC[idx] = s;
-    }
-  }
-
-  typename AccOf<T>::type acc;
+  direction_term<T>(p, sm, ray0, nr);
   for (int sub0 = 0; sub0 < rows; sub0 += kBM) {
-    const int nvalid = min(kBM, rows - sub0);
-    load_features<T>(p, sm, (long long)ray0 * p.S + sub0, nvalid);
-    __syncthreads();
-
-    // Trunk: layer 0 reads X; skip layers read [H | X]; the rest read H.
-    const T* wl = w;
-    const float* bl = p.b;
-    for (int i = 0; i < p.D; ++i) {
-      const int kh = i == 0 ? 0 : p.W;
-      const int kx = (i == 0 || i % p.skip == 0) ? p.KX : 0;
-      gemm(p, sm, kh, kx, wl, p.W, acc);
-      __syncthreads();
-      epilogue(p, sm, acc, bl, p.W, nullptr, sub0);
-      __syncthreads();
-      wl += (long long)(kh + kx) * p.W;
-      bl += p.W;
-    }
-
-    // Density head, then the view branch (its first layer adds d @ W_bot).
-    head<T>(p, sm, w + p.w_den, p.b + p.b_den, p.W, 1, 3, sub0, nvalid);
-    for (int j = 0; j < p.Dc; ++j) {
-      const T* wv = j == 0 ? w + p.w_v0_top : w + p.w_v1 + (long long)(j - 1) * p.Wc * p.Wc;
-      gemm(p, sm, j == 0 ? p.W : p.Wc, 0, wv, p.Wc, acc);
-      __syncthreads();
-      epilogue(p, sm, acc, p.b + p.b_v0 + j * p.Wc, p.Wc, j == 0 ? sm.DC : nullptr, sub0);
-      __syncthreads();
-    }
-    head<T>(p, sm, w + p.w_rgb, p.b + p.b_rgb, p.Wc, 3, 0, sub0, nvalid);
-    __syncthreads();
+    float* out = sm.OUT + sub0 * 4;  // raw r, g, b, density per row
+    forward_tile<T, false>(p, sm, sub0, min(kBM, rows - sub0), (long long)ray0 * p.S + sub0,
+                           out + 3, 4, out, 4, nullptr, nullptr, 0);
   }
   composite<T>(p, sm, ray0, nr);
 }

@@ -37,10 +37,11 @@ def to_display(cfg: Config, img: np.ndarray) -> np.ndarray:
 def make_render_fn(cfg: Config, mlp_apply=None):
     """Deterministic forward returning the fine level's rgb/dist/acc.
 
-    On the card the render kernel's packed weights are kept between calls
-    with the same weight tensors, unchanged in place, so the chunks of a
-    view (and the views of a dataset) pack them once."""
-    fused = mipnerf.uses_fused_render(cfg, mlp_apply, inference=True)
+    On the card the kernels' packed weights (the render-level kernel's,
+    or the same layout for the fused-MLP forward kernel) are kept between
+    calls with the same weight tensors, unchanged in place, so the chunks
+    of a view (and the views of a dataset) pack them once."""
+    kernels = mlp_apply is None and cfg.use_pallas
     kept = {}  # "key": tensor ids and versions, "tensors", "packed"
 
     def packed_for(params):
@@ -59,7 +60,7 @@ def make_render_fn(cfg: Config, mlp_apply=None):
     @torch.no_grad()
     def render_fn(params, rays: Rays):
         packed = None
-        if fused and rays.origins.device.type == "cuda":
+        if kernels and rays.origins.device.type == "cuda":
             packed = packed_for(params)
         results = mipnerf.render_rays(
             params, cfg, rays, randomized=False, white_bkgd=cfg.white_bkgd,

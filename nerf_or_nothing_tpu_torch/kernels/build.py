@@ -5,9 +5,9 @@ interface, under ``nerf_or_nothing_tpu_torch/build/`` (listed in
 ``.gitignore``), named by a hash of the source, the shared headers in
 ``csrc/`` and the flags, so an edited source or header rebuilds and an
 unchanged one loads at once. ``build_all`` starts one nvcc per source, all
-at once. Nothing here runs at
-import time: the CPU tests import every module of the package on hosts
-without nvcc.
+at once; the first ``load`` of any kernel builds all of ``SOURCES`` that
+way. Nothing here runs at import time: the CPU tests import every module
+of the package on hosts without nvcc.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+SOURCES = ("render_level", "train_level", "mlp_fwd", "mlp_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # source path -> {"seconds": build time (0.0 when loaded from the cache),
@@ -112,10 +114,13 @@ def build(name: str, source: Optional[os.PathLike] = None) -> Path:
 
 def load(name: str, source: Optional[os.PathLike] = None) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (or of ``source``), built
-    on first use."""
+    on first use, together with the other ``SOURCES`` that are not built
+    yet."""
     key = str(source_path(name, source))
     lib = _LIBS.get(key)
     if lib is None:
+        if source is None and name in SOURCES:
+            build_all(SOURCES)
         lib = ctypes.CDLL(str(build(name, source)))
         _LIBS[key] = lib
     return lib

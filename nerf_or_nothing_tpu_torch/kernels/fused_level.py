@@ -81,31 +81,10 @@ def render_level_plain(params: Params, cfg: Config, xs, d, delta,
     dt = compute_dtype(cfg)
     exact_f32(delta.device)
     R, S = delta.shape
-    D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
     x = encode_mv(cfg, *xs, dt) if mode == "mv" else xs.to(dt)
-
-    h = x
-    for i in range(D):
-        w, b = params[i]
-        if i % cfg.skip_layer == 0 and i > 0:
-            z = dense(h, w[:nw], dt) + dense(x, w[nw:], dt)
-        else:
-            z = dense(h, w, dt)
-        h = torch.relu(z + b).to(dt)
-    w, b = params[D]
-    raw_den = (dense(h, w, dt) + b)[:, 0]
-
-    for j in range(Dc):
-        w, b = params[D + 1 + j]
-        if j == 0:
-            dc = dense(d, w[nw:], dt)                      # [R, Wc], per ray
-            z = (dense(h, w[:nw], dt).view(R, S, -1) + dc[:, None, :])
-            z = z.view(R * S, -1)
-        else:
-            z = dense(h, w, dt)
-        h = torch.relu(z + b).to(dt)
-    w, b = params[D + 1 + Dc]
-    raw_rgb = dense(h, w, dt) + b
+    raw_rgb, raw_den, _, _ = mlp_forward_acts(params, cfg, x, d, R, S, dt,
+                                              keep=False)
+    raw_den = raw_den[:, 0]
 
     p = cfg.rgb_padding
     rgb = (torch.sigmoid(raw_rgb) * (1.0 + 2.0 * p) - p).view(R, S, 3)
@@ -128,8 +107,11 @@ def padded_location_features(cfg: Config) -> int:
     return -(-cfg.location_features // 16) * 16
 
 
-def check_kernel_config(cfg: Config) -> None:
-    """Raise ValueError for configs the CUDA kernel does not take."""
+def check_kernel_config(cfg: Config, max_head: int = 0) -> None:
+    """Raise ValueError for configs the CUDA kernels do not take. The level
+    kernels composite 3 rgb / 1 density channels (``max_head`` 0); the MLP
+    kernels (``kernels/fused_mlp.py``) take heads of 1 to ``max_head``
+    channels each."""
     problems = []
     if cfg.net_width % 32 or not 32 <= cfg.net_width <= 256:
         problems.append("net_width must be a multiple of 32 in [32, 256]")
@@ -138,12 +120,15 @@ def check_kernel_config(cfg: Config) -> None:
         problems.append(
             "net_width_condition must be a multiple of 32 in [32, net_width]"
         )
-    if cfg.num_rgb_channels != 3 or cfg.num_density_channels != 1:
+    heads = (cfg.num_rgb_channels, cfg.num_density_channels)
+    if max_head == 0 and heads != (3, 1):
         problems.append("heads must be 3 rgb / 1 density")
+    if max_head and not all(1 <= c <= max_head for c in heads):
+        problems.append(f"heads must have 1 to {max_head} channels each")
     if cfg.net_depth < 1 or cfg.net_depth_condition < 1:
         problems.append("net_depth and net_depth_condition must be >= 1")
     if problems:
-        raise ValueError("config not supported by the CUDA render kernel: "
+        raise ValueError("config not supported by the CUDA kernels: "
                          + "; ".join(problems))
 
 
@@ -171,9 +156,10 @@ def _pack_mat(w: torch.Tensor, k_pad: int, fragments: bool) -> torch.Tensor:
 def _layout(params: Params, cfg: Config, fragments: bool):
     """The render kernel's weight layout of ``params`` (layer order; see
     ``csrc/render_level.cu``): trunk layers as [K_pad, W] (x rows padded
-    to ``padded_location_features``), density head [W], first view layer's
-    h-rows [W, Wc] then d-rows [Fd, Wc] row-major, further view layers
-    [Wc, Wc], rgb head transposed [3, Wc]."""
+    to ``padded_location_features``), density head transposed
+    [C_den, W], first view layer's h-rows [W, Wc] then d-rows [Fd, Wc]
+    row-major, further view layers [Wc, Wc], rgb head transposed
+    [C_rgb, Wc]."""
     D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
     lx, kx = cfg.location_features, padded_location_features(cfg)
     parts = []
@@ -188,7 +174,7 @@ def _layout(params: Params, cfg: Config, fragments: bool):
                                    fragments))
         else:
             parts.append(_pack_mat(w, nw, fragments))
-    parts.append(params[D][0][:, 0])
+    parts.append(params[D][0].t().reshape(-1))
     w_v0 = params[D + 1][0]
     parts.append(_pack_mat(w_v0[:nw], nw, fragments))
     parts.append(w_v0[nw:].reshape(-1))
@@ -214,8 +200,27 @@ def _layout_t(params: Params, cfg: Config, fragments: bool):
     return torch.cat(parts)
 
 
-@functools.lru_cache(maxsize=16)
-def _pack_index(cfg: Config, fragments: bool, transposed: bool,
+def _layout_tx(params: Params, cfg: Config, fragments: bool):
+    """W^T of the x rows, for the MLP backward's dX (``csrc/
+    level_backward.cuh``: wtx_off): layer 0, then each skip layer's x rows,
+    zero-padded to ``padded_location_features`` and transposed to [W, KX]."""
+    D, nw = cfg.net_depth, cfg.net_width
+    lx, kx = cfg.location_features, padded_location_features(cfg)
+    parts = []
+    for i in range(D):
+        if i == 0 or i % cfg.skip_layer == 0:
+            w = params[i][0]
+            xrows = torch.zeros((kx, nw), dtype=w.dtype, device=w.device)
+            xrows[:lx] = w if i == 0 else w[nw:]
+            parts.append(_pack_mat(xrows.t(), nw, fragments))
+    return torch.cat(parts)
+
+
+_LAYOUTS = {"fwd": _layout, "t": _layout_t, "tx": _layout_tx}
+
+
+@functools.lru_cache(maxsize=32)
+def _pack_index(cfg: Config, fragments: bool, kind: str,
                 device: torch.device) -> torch.Tensor:
     """Where each element of a packed layout comes from: 1 + its index in
     the weights flattened in layer order, 0 for padding. Built once per
@@ -224,14 +229,13 @@ def _pack_index(cfg: Config, fragments: bool, transposed: bool,
     for i, o in layer_dims(cfg):
         idx.append((torch.arange(off, off + i * o).view(i, o), None))
         off += i * o
-    lay = _layout_t if transposed else _layout
-    return lay(idx, cfg, fragments).to(device)
+    return _LAYOUTS[kind](idx, cfg, fragments).to(device)
 
 
-def _gather(params: Params, cfg: Config, dt: torch.dtype, transposed: bool):
+def _gather(params: Params, cfg: Config, dt: torch.dtype, kind: str):
     w = params[0][0]
     flat = torch.cat([w.new_zeros(1)] + [p.reshape(-1) for p, _ in params])
-    idx = _pack_index(cfg, dt == torch.bfloat16, transposed, w.device)
+    idx = _pack_index(cfg, dt == torch.bfloat16, kind, w.device)
     return flat.to(dt)[idx]
 
 
@@ -240,12 +244,23 @@ def pack_params(params: Params, cfg: Config, dt: torch.dtype):
     matrices the kernel multiplies on tensor cores in fragment order for
     bf16 and row-major for f32; one gather with a cached index."""
     b_flat = torch.cat([b.float().reshape(-1) for _, b in params])
-    return _gather(params, cfg, dt, False), b_flat
+    return _gather(params, cfg, dt, "fwd"), b_flat
 
 
 def pack_params_t(params: Params, cfg: Config, dt: torch.dtype):
     """W^T of the chained layers in ``_layout_t``'s layout, one gather."""
-    return _gather(params, cfg, dt, True)
+    return _gather(params, cfg, dt, "t")
+
+
+def pack_params_tx(params: Params, cfg: Config, dt: torch.dtype):
+    """W^T of the x rows in ``_layout_tx``'s layout, one gather."""
+    return _gather(params, cfg, dt, "tx")
+
+
+def packed_tx_size(cfg: Config) -> int:
+    """Length of ``pack_params_tx``'s buffer."""
+    n_x = 1 + sum(1 for i in range(1, cfg.net_depth) if i % cfg.skip_layer == 0)
+    return n_x * cfg.net_width * padded_location_features(cfg)
 
 
 def packed_t_size(cfg: Config) -> int:
@@ -272,9 +287,10 @@ def packed_sizes(cfg: Config) -> Tuple[int, int]:
                                  else 0)) * W
         for i in range(D)
     )
-    n_w = (trunk + W + W * Wc + cfg.direction_features * Wc
-           + (Dc - 1) * Wc * Wc + 3 * Wc)
-    n_b = D * W + 1 + Dc * Wc + 3
+    c_rgb, c_den = cfg.num_rgb_channels, cfg.num_density_channels
+    n_w = (trunk + c_den * W + W * Wc + cfg.direction_features * Wc
+           + (Dc - 1) * Wc * Wc + c_rgb * Wc)
+    n_b = D * W + c_den + Dc * Wc + c_rgb
     return n_w, n_b
 
 
@@ -450,30 +466,20 @@ def _composite_backward(cfg: Config, raw_rgb, raw_den, delta, pixels,
     return comp, acc, weights, g_rgb, g_den
 
 
-def level_train_plain(params: Params, cfg: Config, xs, d, delta, pixels,
-                      g_scale, white_bkgd: bool, mode: str):
-    """The train kernel's function in plain PyTorch, written out step by
-    step with the kernel's rounding points (not autograd, which would round
-    elsewhere): the forward of ``render_level_plain`` keeping the
-    activations in the compute dtype; the composite backward in f32; the
-    g-chain rounded to the compute dtype after every product (the head
-    cotangents rounded as operands); ReLU masks ``activation > 0``; dW
-    from compute-dtype operands with f32 sums; db summed in f32; the view
-    layer's direction rows from the per-ray f32 sum of g.
+def mlp_forward_acts(params: Params, cfg: Config, x, d, R: int, S: int,
+                     dt: torch.dtype, keep: bool = True):
+    """The kernels' MLP forward in plain PyTorch: operands rounded to ``dt``
+    and multiplied in f32 (no TF32), ``relu(z + b)`` in f32 then rounded,
+    the skip layer as ``h @ W_top + x @ W_bot``, the first view layer's
+    ``d @ W_bot`` once per ray and broadcast to its S rows, f32 heads.
 
-    Args: as ``render_level_plain``, plus pixels [R, 3] f32 and g_scale
-      [R, 1] f32 (level_weight * 2 * mask / sum(mask)).
-    Returns:
-      comp [R, 3], acc [R], weights [R, S], and d_params: a list of
-      (dW [fan_in, fan_out], db [fan_out]) f32 in layer order.
+    Args: x [R*S, location_features] and d [R, direction_features] in
+      ``dt``. Returns raw_rgb [N, C_rgb], raw_den [N, C_den] (f32) and the
+      trunk and view activations (lists of [N, width] in ``dt``, empty
+      unless ``keep``).
     """
-    dt = compute_dtype(cfg)
-    exact_f32(delta.device)
-    R, S = delta.shape
     D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
-    x = encode_mv(cfg, *xs, dt) if mode == "mv" else xs.to(dt)
-
-    hs = []
+    hs, vs = [], []
     h = x
     for i in range(D):
         w, b = params[i]
@@ -482,10 +488,10 @@ def level_train_plain(params: Params, cfg: Config, xs, d, delta, pixels,
         else:
             z = dense(h, w, dt)
         h = torch.relu(z + b).to(dt)
-        hs.append(h)
+        if keep:
+            hs.append(h)
     w, b = params[D]
-    raw_den = (dense(h, w, dt) + b)[:, 0]
-    vs = []
+    raw_den = dense(h, w, dt) + b
     for j in range(Dc):
         w, b = params[D + 1 + j]
         if j == 0:
@@ -495,12 +501,34 @@ def level_train_plain(params: Params, cfg: Config, xs, d, delta, pixels,
         else:
             z = dense(h, w, dt)
         h = torch.relu(z + b).to(dt)
-        vs.append(h)
+        if keep:
+            vs.append(h)
     w, b = params[D + 1 + Dc]
     raw_rgb = dense(h, w, dt) + b
-    comp, acc, weights, g_rgb, g_den = _composite_backward(
-        cfg, raw_rgb, raw_den, delta, pixels.float(), g_scale.float(),
-        white_bkgd)
+    return raw_rgb, raw_den, hs, vs
+
+
+def mlp_backward_plain(params: Params, cfg: Config, x, d, hs, vs, g_rgb,
+                       g_den, R: int, S: int, dt: torch.dtype,
+                       input_grads: bool = False):
+    """The kernels' MLP backward in plain PyTorch, written out step by step
+    with their rounding points (not autograd, which would round
+    elsewhere): the f32 head cotangents rounded to ``dt`` as operands; the
+    g-chain rounded to ``dt`` after every product; the density head's term
+    added to the view chain in ``dt``; ReLU masks ``activation > 0``; dW
+    from ``dt`` operands with f32 sums; db summed in f32; the view layer's
+    direction rows from the per-ray f32 sum g_ray of its g.
+
+    With ``input_grads``, also dX [N, location_features] in ``dt``,
+    accumulated in ``dt`` (the skip layers' x-row terms from the deepest
+    skip up, layer 0's chain last) and dD = round(g_ray) @ W_d^T
+    [R, direction_features] in f32; else both are None.
+
+    Args: ``mlp_forward_acts``' inputs and activations, g_rgb [N, C_rgb]
+      and g_den [N, C_den] f32. Returns (d_params, dx, dd), d_params a
+      list of (dW [fan_in, fan_out], db [fan_out]) f32 in layer order.
+    """
+    D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
 
     def chain(g, w):
         """round(g @ w^T), compute-dtype operands, f32 sum."""
@@ -513,6 +541,7 @@ def level_train_plain(params: Params, cfg: Config, xs, d, delta, pixels,
     i_rgb = D + 1 + Dc
     d_params[i_rgb] = (dw(vs[-1], g_rgb), g_rgb.sum(0))
     g = chain(g_rgb, params[i_rgb][0])
+    dd = None
     for j in reversed(range(Dc)):
         i = D + 1 + j
         g = g * (vs[j] > 0)
@@ -520,23 +549,59 @@ def level_train_plain(params: Params, cfg: Config, xs, d, delta, pixels,
         if j == 0:
             g_ray = g.float().view(R, S, -1).sum(1)
             d_params[i] = (torch.cat([dw(hs[-1], g), dw(d, g_ray)]), db)
+            if input_grads:
+                dd = dense(g_ray, params[i][0][nw:].t(), dt)
             g = chain(g, params[i][0][:nw])
         else:
             d_params[i] = (dw(vs[j - 1], g), db)
             g = chain(g, params[i][0])
-    d_params[D] = (dw(hs[-1], g_den[:, None]), g_den.sum(0, keepdim=True))
-    g = (g.float() + chain(g_den[:, None], params[D][0]).float()).to(dt)
+    d_params[D] = (dw(hs[-1], g_den), g_den.sum(0))
+    g = (g.float() + chain(g_den, params[D][0]).float()).to(dt)
+    dx = None
+
+    def add_dx(term):
+        return term if dx is None else (dx.float() + term.float()).to(dt)
+
     for i in reversed(range(D)):
         g = g * (hs[i] > 0)
         db = g.float().sum(0)
         if i == 0:
             d_params[i] = (dw(x, g), db)
+            if input_grads:
+                dx = add_dx(chain(g, params[i][0]))
         elif i % cfg.skip_layer == 0:
             d_params[i] = (torch.cat([dw(hs[i - 1], g), dw(x, g)]), db)
+            if input_grads:
+                dx = add_dx(chain(g, params[i][0][nw:]))
             g = chain(g, params[i][0][:nw])
         else:
             d_params[i] = (dw(hs[i - 1], g), db)
             g = chain(g, params[i][0])
+    return d_params, dx, dd
+
+
+def level_train_plain(params: Params, cfg: Config, xs, d, delta, pixels,
+                      g_scale, white_bkgd: bool, mode: str):
+    """The train kernel's function in plain PyTorch with the kernel's
+    rounding points: ``mlp_forward_acts`` keeping the activations, the
+    composite backward in f32, then ``mlp_backward_plain`` (no dX or dD).
+
+    Args: as ``render_level_plain``, plus pixels [R, 3] f32 and g_scale
+      [R, 1] f32 (level_weight * 2 * mask / sum(mask)).
+    Returns:
+      comp [R, 3], acc [R], weights [R, S], and d_params: a list of
+      (dW [fan_in, fan_out], db [fan_out]) f32 in layer order.
+    """
+    dt = compute_dtype(cfg)
+    exact_f32(delta.device)
+    R, S = delta.shape
+    x = encode_mv(cfg, *xs, dt) if mode == "mv" else xs.to(dt)
+    raw_rgb, raw_den, hs, vs = mlp_forward_acts(params, cfg, x, d, R, S, dt)
+    comp, acc, weights, g_rgb, g_den = _composite_backward(
+        cfg, raw_rgb, raw_den[:, 0], delta, pixels.float(), g_scale.float(),
+        white_bkgd)
+    d_params, _, _ = mlp_backward_plain(params, cfg, x, d, hs, vs, g_rgb,
+                                        g_den[:, None], R, S, dt)
     return comp, acc, weights, d_params
 
 

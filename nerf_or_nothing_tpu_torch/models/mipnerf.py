@@ -6,12 +6,20 @@ level's weights (blurpool + PDF, stop-gradient); IPE over frustum
 Gaussians; view PE of the viewdir; rgb = sigmoid(raw)*(1+2p) - p;
 density = softplus(raw + density_bias); compositing.
 
-On the inference path with ``use_pallas`` and ``fuse_level`` each level
-is one ``fused_level_render`` call: the CUDA render kernel on the card,
-its plain version on the CPU. Off it, the levels run the plain MLP and the
-autograd ``composite``, differentiable in the parameters (the training
-step's autograd branch, ``train.make_train_step``); on the card that path
-needs the fused MLP kernel, not ported yet, unless ``use_pallas`` is off.
+Which kernel runs each level (on the card; the CPU runs each kernel's
+plain version):
+
+- inference with ``use_pallas`` and ``fuse_level`` (3 rgb / 1 density
+  heads): one ``fused_level_render`` call, the ``render_level`` kernel;
+- otherwise with ``use_pallas`` (``fuse_level=False``, the training step's
+  autograd branch, which ``stop_level_grad=False`` selects, other head
+  widths): ``fused_mlp_apply``, the ``mlp_fwd`` kernel forward and the
+  ``mlp_bwd`` kernel in its backward, then the autograd ``composite``;
+- ``use_pallas=False``: the plain ``apply_mlp`` and the autograd
+  ``composite``.
+
+The training step's fused branch (``train.use_fused_level``) does not come
+here: it runs the ``train_level`` kernel per level.
 """
 
 from __future__ import annotations
@@ -25,13 +33,6 @@ from nerf_or_nothing_tpu_torch.models import mlp as mlp_lib
 from nerf_or_nothing_tpu_torch.ops import ipe, render, sampling
 from nerf_or_nothing_tpu_torch.ops.math_utils import softplus
 from nerf_or_nothing_tpu_torch.rays import Rays
-
-FUSED_MLP_ROADMAP = (
-    "the fused MLP kernel (fused_mlp.py::_fwd_kernel/_bwd_kernel, ROADMAP "
-    "queue B items 3-4) is not ported yet; on CUDA use the fused render "
-    "level (use_pallas, fuse_level, inference) or --use-pallas=false"
-)
-
 
 def encode_dirs(cfg: Config, rays: Rays) -> torch.Tensor:
     """View-direction PE of viewdirs (or the raw direction)."""
@@ -140,12 +141,15 @@ def render_rays(
       inference: render-only call; with ``use_pallas`` and ``fuse_level``
         each level is one ``fused_level_render`` call.
       generator: source of a randomized render's draws.
-      packed: the kernel's weights from ``fused_level.pack_params``, when
-        the caller keeps them across calls; else packed here for CUDA.
+      packed: the kernels' weights (``fused_level.pack_params`` or
+        ``fused_mlp.pack_mlp_params``), when the caller keeps them across
+        calls; else packed here for CUDA, once for all levels and, on the
+        fused-MLP route, for both directions.
     """
     dt = mlp_lib.compute_dtype(cfg)
     device = rays.origins.device
     fused_render = None
+    fused_mlp = False
     if uses_fused_render(cfg, mlp_apply, inference):
         from nerf_or_nothing_tpu_torch.kernels.fused_level import (
             fused_level_render,
@@ -155,11 +159,17 @@ def render_rays(
         fused_render = fused_level_render
         if packed is None and device.type == "cuda":
             packed = pack_params(params, cfg, dt)  # once for all levels
-    if mlp_apply is None:
-        if cfg.use_pallas and fused_render is None and device.type == "cuda":
-            raise NotImplementedError(FUSED_MLP_ROADMAP)
+    elif mlp_apply is None and cfg.use_pallas:
+        from nerf_or_nothing_tpu_torch.kernels.fused_mlp import (
+            fused_mlp_apply,
+            pack_mlp_params,
+        )
 
-        # The plain MLP (also the CPU stand-in of the fused MLP kernel).
+        mlp_apply, fused_mlp = fused_mlp_apply, True
+        if packed is None and device.type == "cuda":
+            packed = pack_mlp_params(params, cfg, dt,
+                                     backward=torch.is_grad_enabled())
+    elif mlp_apply is None:
         def mlp_apply(p, c, x, d):
             return mlp_lib.apply_mlp(p, c, x, d, compute_dtype=dt)
 
@@ -187,8 +197,18 @@ def render_rays(
                 render.RenderResult(comp_rgb, distance, acc, weights)
             )
             continue
-        x_enc, _ = encode_samples(cfg, means, covs, in_kernel=False)
-        raw_rgb, raw_density = mlp_apply(params, cfg, x_enc, dir_enc)
+        x_enc, _ = encode_samples(cfg, means, covs, in_kernel=False,
+                                  dtype=dt if fused_mlp else None)
+        if fused_mlp:
+            # dX / dD reach a parameter only through a later level's
+            # resampling: only level > 0 without stop_level_grad needs them.
+            raw_rgb, raw_density = mlp_apply(
+                params, cfg, x_enc, dir_enc,
+                input_grads=i_level > 0 and not cfg.stop_level_grad,
+                packed=packed,
+            )
+        else:
+            raw_rgb, raw_density = mlp_apply(params, cfg, x_enc, dir_enc)
 
         rgb = torch.sigmoid(raw_rgb)
         rgb = rgb * (1.0 + 2.0 * cfg.rgb_padding) - cfg.rgb_padding

@@ -12,6 +12,16 @@ gather: the index of the largest ``cdf[i] <= u``, which is what the TPU
 version's masked max/min reduction over the bin axis selects (``cdf`` and
 ``bins`` are non-decreasing, so the masked max over the prefix is its last
 element and the masked min over the rest is its first).
+
+With ``stop_grad=False`` the resampled t-values are differentiable in the
+previous level's weights and t-values, and the gradients match JAX's
+(``tests/test_torch_fused_mlp.py``): the gather sends each gradient to the
+one element that the masked reduction selects (the reductions would split
+it between ties, which strictly increasing ``bins`` and ``cdf`` do not
+have). ``torch.clamp`` passes the whole gradient where a value equals a
+bound, ``jnp.clip`` half; the interpolation weight meets its lower bound
+only where u equals a ``cdf`` entry (the first non-randomized sample,
+u = cdf[0] = 0), and there its gradient is 0 either way.
 """
 
 from __future__ import annotations

@@ -83,7 +83,7 @@ def _check_train_config(cfg: Config, device: torch.device) -> None:
             "the train slice's deferred items)")
     if cfg.profile_dir:
         raise NotImplementedError(
-            "profile_dir is not ported yet (ROADMAP queue A item 7, "
+            "profile_dir is not ported yet (ROADMAP queue A item 6, "
             "utils/profiling.py)")
 
 

@@ -8,7 +8,9 @@ Same contract as ``nerf_or_nothing_tpu/train.py`` on one device:
 - ``make_train_step``: with ``use_fused_level`` (the default config) each
   level is one ``fused_level_train`` call (the train kernel on the card,
   its plain version on the CPU) and the per-level dW/db are summed;
-  otherwise ``torch.autograd`` over ``render_rays`` + ``multiscale_loss``;
+  otherwise ``torch.autograd`` over ``render_rays`` + ``multiscale_loss``,
+  whose levels (with ``use_pallas``) run the ``mlp_fwd`` kernel and, in
+  the backward, ``mlp_bwd``, with the weights packed once per step;
 - ``make_multi_step``: the same step K times, returning the last step's
   stats, as the JAX package's ``lax.scan`` multi-step does.
 
@@ -194,7 +196,9 @@ def _fused_level_value_and_grad(cfg: Config, params, generator, rays: Rays,
 def _autograd_value_and_grad(cfg: Config, params, generator, rays: Rays,
                              pixels, mlp_apply=None):
     """Loss and gradients by ``torch.autograd`` over ``render_rays`` +
-    ``multiscale_loss`` (the JAX package's ``jax.value_and_grad`` branch)."""
+    ``multiscale_loss`` (the JAX package's ``jax.value_and_grad`` branch).
+    ``render_rays`` packs the kernels' weights once for both levels and
+    both directions."""
     leaves = [t.detach().requires_grad_() for t in _leaves(params)]
     p = list(zip(leaves[0::2], leaves[1::2]))
     with torch.enable_grad():

@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
 """Where the train step's time goes on one card: a torch.profiler trace of
-a few train steps at Config() (1024 rays, 128 + 128 samples, bf16) on a
-synthetic 400x400 Blender scene, through ``train.make_train_step``.
+a few train steps on a synthetic 400x400 Blender scene, through
+``train.make_train_step``, at Config() (1024 rays, 128 + 128 samples, bf16)
+with the model flags given.
 
     python3 profile_train.py
+    python3 profile_train.py --fuse-level=false --stop-level-grad=false
 
 Prints one JSON line: the steps' wall time (host clock, each step
 synchronised; also without the profiler), the device time summed over all
 kernels and copies and its share of the wall time (the rest is the device
-idle), the device time of each of the train kernel's launches by name, the
-rest of the device time, and, timed alone with CUDA events (median of 7),
-the weight packing of one step (``pack_train_params``), the gradient
-clipping plus Adam update of one step, and one ``train_level`` call.
+idle), the device time of the hand-written kernels' launches by name per
+step and per launch of the wrapper (``train_level``: 5 launches,
+``mlp_bwd``: 5, ``mlp_fwd``: 1), the rest of the device time, the device
+time of the autograd backward nodes (inclusive of their kernels; the
+fused MLP's node holds the ``mlp_bwd`` launches, the others are the eager
+backward of the composite, IPE, cast_rays and resampling), and, timed
+alone with CUDA events (median of 7), the weight packing of one step, the
+gradient clipping plus Adam update of one step, and one call of each
+kernel wrapper the step uses.
 """
 
 from __future__ import annotations
@@ -21,11 +28,17 @@ import sys
 import tempfile
 import time
 
-TRAIN_KERNELS = ("train_fwd_kernel", "train_chain_kernel", "dw_gemm",
-                 "small_tn_kernel", "reduce_kernel")
+KERNELS = {
+    "train_level": ("train_fwd_kernel", "chain_kernel", "dw_gemm",
+                    "small_tn_kernel", "reduce_kernel"),
+    "mlp_bwd": ("mlp_act_kernel", "chain_kernel", "dw_gemm",
+                "small_tn_kernel", "reduce_kernel"),
+    "mlp_fwd": ("mlp_fwd_kernel",),
+}
+BACKWARD_NODE = "autograd::engine::evaluate_function: "
 
 
-def main() -> int:
+def main(argv) -> int:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -33,18 +46,27 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import level_inputs, median_ms, nvidia_smi_line, train_inputs
+    from chip_smoke import (
+        level_inputs,
+        median_ms,
+        mlp_case_inputs,
+        nvidia_smi_line,
+        train_inputs,
+    )
     from nerf_or_nothing_tpu_torch import train as train_lib
-    from nerf_or_nothing_tpu_torch.config import Config
+    from nerf_or_nothing_tpu_torch.config import Config, parse_flags
     from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
     from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype
     from nerf_or_nothing_tpu_torch.rays import Rays
     from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
 
     scene = tempfile.mkdtemp(prefix="profile_train_")
     write_scene(scene, n_train=2, n_test=1, size=400)
-    cfg = Config(data_dir=scene)
+    cfg = parse_flags(argv, Config(data_dir=scene))
+    fused = train_lib.use_fused_level(cfg)
+    wrappers = ("train_level",) if fused else ("mlp_fwd", "mlp_bwd")
     device = torch.device("cuda")
     state = train_lib.init_train_state(cfg, device)
     step_fn = train_lib.make_train_step(cfg)
@@ -64,29 +86,50 @@ def main() -> int:
     steps(batches[:3])  # warm-up: builds the kernels, allocator, handles
     plain_wall = steps(batches[3:6])
     n = 4
+    counts = {w: getattr(fl if w == "train_level" else fm, w).launches
+              for w in wrappers}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = steps(batches[6:6 + n])
+    calls = {w: (getattr(fl if w == "train_level" else fm, w).launches
+                 - counts[w]) / n for w in wrappers}
 
-    rows = []
+    def device_us(ev, inclusive=False):
+        name = "device_time_total" if inclusive else "self_device_time_total"
+        us = getattr(ev, name, None)
+        if us is None:
+            us = ev.cuda_time_total if inclusive else ev.self_cuda_time_total
+        return us
+
+    rows, backward = [], []
     for ev in prof.key_averages():
+        if ev.key.startswith(BACKWARD_NODE) and device_us(ev, True) > 0:
+            backward.append((ev.key[len(BACKWARD_NODE):],
+                             device_us(ev, True), ev.count))
         if (ev.device_type != torch.autograd.DeviceType.CUDA
                 or ev.key.startswith("aten::")):
             continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((ev.key, dev_us, ev.count))
+        if device_us(ev) > 0:
+            rows.append((ev.key, device_us(ev), ev.count))
     rows.sort(key=lambda r: -r[1])
+    backward.sort(key=lambda r: -r[1])
     device_s = sum(r[1] for r in rows) / 1e6
+    names = [k for w in wrappers for k in KERNELS[w]]
     by_kernel = {k: sum(r[1] for r in rows if k in r[0]) / 1e6 / n
-                 for k in TRAIN_KERNELS}
+                 for k in names}
     kernel_s = sum(by_kernel.values())
+    per_call = {w: sum(by_kernel[k] for k in KERNELS[w]) / calls[w] * 1e3
+                for w in wrappers}
 
     # Parts timed alone with CUDA events.
     dt = compute_dtype(cfg)
-    pack_ms = median_ms(lambda: fl.pack_train_params(state.params, cfg, dt))
+    alone = {}
+    if fused:
+        alone["pack_train_params"] = median_ms(
+            lambda: fl.pack_train_params(state.params, cfg, dt))
+    else:
+        alone["pack_mlp_params"] = median_ms(
+            lambda: fm.pack_mlp_params(state.params, cfg, dt))
     grads = [(torch.randn_like(w) * 1e-3, torch.randn_like(b) * 1e-3)
              for w, b in state.params]
     mu = [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in state.params]
@@ -97,24 +140,40 @@ def main() -> int:
         g, *_ = train_lib.clip_grads(grads, cfg)
         train_lib.adam_update(params, g, mu, nu, 1e-4, 10, cfg)
 
-    adam_ms = median_ms(adam)
-    xs, d, delta = level_inputs(cfg, cfg.batch_size, "t", 1, device)
-    pixels, g_scale = train_inputs(cfg, cfg.batch_size, 2, device)
-    packed = fl.pack_train_params(state.params, cfg, dt)
-    level_ms = median_ms(lambda: fl.train_level_cuda(
-        state.params, cfg, xs, d, delta, pixels, g_scale, True, "t",
-        packed=packed))
+    alone["clip_and_adam"] = median_ms(adam)
+    R = cfg.batch_size
+    if fused:
+        xs, d, delta = level_inputs(cfg, R, "t", 1, device)
+        pixels, g_scale = train_inputs(cfg, R, 2, device)
+        packed = fl.pack_train_params(state.params, cfg, dt)
+        alone["train_level_call"] = median_ms(lambda: fl.train_level_cuda(
+            state.params, cfg, xs, d, delta, pixels, g_scale, True, "t",
+            packed=packed))
+    else:
+        p, x, d, g_rgb, g_den = mlp_case_inputs(cfg, R, 1, device)
+        packed = fm.pack_mlp_params(p, cfg, dt)
+        alone["mlp_fwd_call"] = median_ms(
+            lambda: fm.mlp_fwd_cuda(p, cfg, x, d, packed=packed))
+        for ig in (False, True):
+            alone[f"mlp_bwd_call_input_grads_{ig}"] = median_ms(
+                lambda: fm.mlp_bwd_cuda(p, cfg, x, d, g_rgb, g_den, ig,
+                                        packed=packed))
     print(json.dumps({
-        "config": "Config()", "batch_size": cfg.batch_size, "steps": n,
+        "config": "Config()", "flags": argv, "fused_level": fused,
+        "batch_size": cfg.batch_size, "steps": n,
         "step_wall_s": wall / n, "step_wall_s_unprofiled": plain_wall / 3,
         "device_busy_s_per_step": device_s / n,
         "device_busy_share": device_s / wall,
         "device_idle_share": 1.0 - device_s / wall,
-        "train_kernels_s_per_step": kernel_s,
+        "kernels_s_per_step": kernel_s,
         "by_kernel_s_per_step": by_kernel,
+        "launches_per_step": calls, "ms_per_launch": per_call,
         "other_device_s_per_step": device_s / n - kernel_s,
-        "alone_ms": {"pack_train_params": pack_ms, "clip_and_adam": adam_ms,
-                     "train_level_call": level_ms},
+        "backward_nodes_ms_per_step": {
+            nm[:60]: us / 1e3 / n for nm, us, _ in backward[:12]},
+        "eager_backward_ms_per_step": sum(
+            us for nm, us, _ in backward if "_FusedMLP" not in nm) / 1e3 / n,
+        "alone_ms": alone,
         "top": [{"name": nm[:80], "device_ms": us / 1e3 / n, "count": c}
                 for nm, us, c in rows[:15]],
         "card": nvidia_smi_line(),
@@ -123,4 +182,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

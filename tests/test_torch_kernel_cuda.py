@@ -1,5 +1,6 @@
-"""The render-level and train-level CUDA kernels against their plain
-PyTorch versions, on a card.
+"""The render-level, train-level and MLP forward / backward CUDA kernels
+against their plain PyTorch versions, on a card, and a full-gradient train
+step on the card against the CPU.
 
 The kernel has no CPU mode, so these tests skip on a host without CUDA.
 The module imports neither JAX nor the JAX package, so it also runs where
@@ -257,3 +258,155 @@ def test_train_step_then_render_repacks_on_cuda(monkeypatch):
                               device=dev)
     assert len(calls) == 1
     assert not np.allclose(rgb, rgb2)
+
+
+def mlp_inputs(cfg, params, R, seed, dev):
+    """The MLP kernels' inputs as a train level makes them: IPE features
+    [R*S, F] and view PE [R, Fd] in the compute dtype and, with 3 rgb / 1
+    density heads, the head cotangents of the composite backward of the
+    plain forward (others: random, from numpy). Random cotangents on
+    random features at full width put the f32 comparison at the mercy of
+    single ReLU masks that the two f32 forwards round to opposite sides of
+    zero."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    S = cfg.num_samples
+    dt = tmlp.compute_dtype(cfg)
+    means, covs, dir_enc, t_vals, dirs, pixels, g_scale = train_inputs(
+        R, S, seed, dev)
+    x = integrated_pos_enc((means, covs), cfg.min_deg_point,
+                           cfg.max_deg_point, fast=True)
+    x, d = x.reshape(R * S, -1).to(dt), dir_enc.to(dt)
+    if (cfg.num_rgb_channels, cfg.num_density_channels) == (3, 1):
+        raw_rgb, raw_den = fm.mlp_fwd_plain(params, cfg, x, d, S)
+        g_rgb, g_den = fl._composite_backward(
+            cfg, raw_rgb, raw_den[:, 0], interval_lengths(t_vals, dirs),
+            pixels, g_scale, True)[3:]
+        return x, d, g_rgb.contiguous(), g_den[:, None].contiguous()
+    rng = np.random.default_rng(seed)
+    g = [torch.from_numpy(rng.normal(size=(R * S, c)).astype(np.float32)
+                          * 1e-3).to(dev)
+         for c in (cfg.num_rgb_channels, cfg.num_density_channels)]
+    return x, d, g[0], g[1]
+
+
+MLP_CASES = [
+    ("small", dict(SMALL), 13),
+    ("small_heads_4_2", dict(SMALL, num_rgb_channels=4,
+                             num_density_channels=2, net_depth=5), 7),
+    ("config", dict(), 21),
+]
+
+
+@pytest.mark.parametrize("name,kw,R", MLP_CASES)
+def test_mlp_kernels_match_plain_on_cuda(name, kw, R):
+    """mlp_fwd and mlp_bwd (input_grads both ways) against their plain
+    versions, both dtypes, S = 8 and 64 at the narrow widths."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    for dtype in ("float32", "bfloat16"):
+        for S in ((8, 64) if name != "config" else (128,)):
+            cfg = Config(**dict(kw, compute_dtype=dtype, num_samples=S))
+            params = tmlp.init_mlp(torch.Generator().manual_seed(1), cfg,
+                                   device=dev)
+            x, d, g_rgb, g_den = mlp_inputs(cfg, params, R, 3, dev)
+            atol, rtol = BANDS[dtype]
+            launches = (fm.mlp_fwd.launches, fm.mlp_bwd.launches)
+            out = fm.mlp_fwd(params, cfg, x, d)
+            ref = fm.mlp_fwd_plain(params, cfg, x, d, S)
+            for a, b in zip(out, ref):
+                assert bool(torch.isfinite(a).all())
+                assert normalized_err(a, b, atol, rtol) < 1.0, (name, dtype)
+            for input_grads in (False, True):
+                got = fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, input_grads)
+                exp = fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, S,
+                                       input_grads)
+                torch.cuda.synchronize()
+                pairs = [(a, b) for wa, wb in zip(got[0], exp[0])
+                         for a, b in zip(wa, wb)]
+                if input_grads:
+                    pairs += [(got[1].float(), exp[1].float()),
+                              (got[2], exp[2])]
+                for k, (a, b) in enumerate(pairs):
+                    assert a.shape == b.shape
+                    assert bool(torch.isfinite(a).all())
+                    err = normalized_err(a, b, atol, rtol)
+                    assert err < 1.0, (name, dtype, S, input_grads, k, err)
+            assert (fm.mlp_fwd.launches, fm.mlp_bwd.launches) == (
+                launches[0] + 1, launches[1] + 2)
+
+
+def test_mlp_bwd_bit_equal_on_cuda():
+    """No atomics: two mlp_bwd launches give the same dW/db, dX and dD."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    cfg = Config()
+    params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg, device=dev)
+    x, d, g_rgb, g_den = mlp_inputs(cfg, params, 96, 4, dev)
+    a = fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, True)
+    b = fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, True)
+    for (wa, ba), (wb, bb) in zip(a[0], b[0]):
+        assert torch.equal(wa, wb) and torch.equal(ba, bb)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+def test_full_grad_step_on_cuda_matches_cpu():
+    """One train step at Config(fuse_level=False, stop_level_grad=False)
+    (full width, 64 rays) on the card against the same step on the CPU:
+    2 mlp_fwd and 2 mlp_bwd launches, no level kernel; loss, grad norm,
+    every gradient and the updated params within the bf16 band."""
+    from nerf_or_nothing_tpu_torch import train as ttrain
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+    from nerf_or_nothing_tpu_torch.rays import Rays
+
+    dev = cuda_device()
+    cfg = Config(fuse_level=False, stop_level_grad=False, randomized=False,
+                 batch_size=64)
+    rng = np.random.default_rng(5)
+    n = 64
+    o = (rng.normal(size=(n, 3)) * 0.3).astype(np.float32)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    rays = Rays(
+        origins=o, directions=dirs,
+        viewdirs=dirs / np.linalg.norm(dirs, axis=-1, keepdims=True),
+        radii=np.full((n, 1), 1e-3, np.float32),
+        near=np.full((n, 1), 2.0, np.float32),
+        far=np.full((n, 1), 6.0, np.float32),
+        loss_mult=rng.uniform(0.5, 2.0, (n, 1)).astype(np.float32),
+    )
+    pixels = rng.uniform(size=(n, 3)).astype(np.float32)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        before = (fm.mlp_fwd.launches, fm.mlp_bwd.launches,
+                  fl.train_level.launches, fl.render_level.launches)
+        state = ttrain.init_train_state(cfg, device)
+        state, stats = ttrain.make_train_step(cfg)(
+            state, Rays(*[torch.from_numpy(a).to(device) for a in rays]),
+            torch.from_numpy(pixels).to(device))
+        after = (fm.mlp_fwd.launches, fm.mlp_bwd.launches,
+                 fl.train_level.launches, fl.render_level.launches)
+        grown = tuple(b - a for a, b in zip(before, after))
+        assert grown == ((2, 2, 0, 0) if device.type == "cuda"
+                         else (0, 0, 0, 0)), grown
+        out.append((state, stats))
+    (gs, gst), (cs, cst) = out
+    atol, rtol = BANDS["bfloat16"]
+    for k in ("loss", "losses", "grad_norm"):
+        a, b = getattr(gst, k).reshape(-1), getattr(cst, k).reshape(-1)
+        assert normalized_err(a, b, atol, rtol) < 1.0, k
+    for (wa, ba), (wb, bb) in zip(gs.params, cs.params):
+        assert normalized_err(wa, wb, atol, rtol) < 1.0
+        assert normalized_err(ba, bb, atol, rtol) < 1.0
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        params = tmlp.init_mlp(torch.Generator().manual_seed(cfg.seed), cfg,
+                               device=device)
+        grads.append(ttrain._autograd_value_and_grad(
+            cfg, params, None,
+            Rays(*[torch.from_numpy(a).to(device) for a in rays]),
+            torch.from_numpy(pixels).to(device))[2])
+    for i, ((ga, gb), (ca, cb)) in enumerate(zip(*grads)):
+        assert normalized_err(ga, ca, atol, rtol) < 1.0, ("dW", i)
+        assert normalized_err(gb, cb, atol, rtol) < 1.0, ("db", i)

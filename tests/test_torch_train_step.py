@@ -81,15 +81,21 @@ def port_state(jstate, cfg):
 
 
 @pytest.mark.parametrize("branch", ["fused_level", "autograd",
-                                    "autograd_pallas_cfg"])
+                                    "autograd_pallas_cfg", "full_grad"])
 def test_two_train_steps_match_jax(branch):
     """Loss, per-level losses, grad norm, params, mu and nu after each of
-    two steps (different batches, non-uniform loss_mult, weight decay)."""
+    two steps (different batches, non-uniform loss_mult, weight decay).
+    The fused-MLP branches run JAX's fused MLP kernels (interpret mode) and
+    the port's fused_mlp_apply Function (plain versions on the CPU);
+    ``full_grad`` (stop_level_grad=False) also takes the fine level's loss
+    through dX, the IPE and resampling into the coarse level's weights."""
     kw = dict(TINY, weight_decay_mult=1e-4)
     if branch == "autograd":
         kw["use_pallas"] = False
     elif branch == "autograd_pallas_cfg":
-        kw["fuse_level"] = False  # JAX: fused MLP kernel; port on CPU: plain
+        kw["fuse_level"] = False
+    elif branch == "full_grad":
+        kw["stop_level_grad"] = False
     jc, tc = jtiny(**kw), tiny_config(**kw)
     assert ttrain.use_fused_level(tc) == (branch == "fused_level")
     jstate = jtrain.init_train_state(jc)
