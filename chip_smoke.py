@@ -6,8 +6,8 @@
 Phases, each printing one JSON line:
   env      torch / CUDA / nvcc versions, the card, whether triton imports;
   build    nvcc builds csrc/render_level.cu, csrc/train_level.cu,
-           csrc/mlp_fwd.cu and csrc/mlp_bwd.cu, one process each, started
-           together (ptxas register/spill lines);
+           csrc/train_level_twopass.cu, csrc/mlp_fwd.cu and csrc/mlp_bwd.cu,
+           one process each, started together (ptxas register/spill lines);
   kernel   the render kernel against its plain PyTorch version (render_level_plain)
            at Config() width: bf16 and f32, R=16384 x S=128 in mode "mv",
            R=1000 x S=64 in mode "t" without white background, and a narrow
@@ -53,7 +53,34 @@ Phases, each printing one JSON line:
            render_level; ``run eval`` at the same flags (2 mlp_fwd per
            chunk); train rays/s beside the bound of the work a step needs
            (full_grad_step_flops); one step on the card against the CPU,
-           every gradient included.
+           every gradient included;
+  twopass_kernel  the two-pass train kernel (train_level_twopass_cuda,
+           mode "t") against level_train_plain: Config() width R=1024 x
+           S=128 in bf16 and f32, a masked ragged batch (R=777, every
+           seventh g_scale 0, the others weighted by Multicam's 1/4/16/64),
+           and R=37 x S=256 at depth 5 with skips at 2 and 4, in both
+           dtypes; two launches bit-equal; train_level_cuda on the same
+           inputs, its error against the two-pass kernel and both times
+           beside the shared bound;
+  multicam the train phase on the Blender scene's 4-scale Multicam pyramid
+           (loss_mult 1/4/16/64) with kernel_probes fl_variant=twopass for
+           20 steps: exactly 2 train_level_twopass launches per step and no
+           train_level; ``run eval --max-images=4`` (the four scales of the
+           test view: 2 render_level launches per 16384-ray chunk of each);
+           ``run render --render-path --max-images=2`` (the orbit at
+           400x400); train rays/s; one step on a Multicam batch against
+           the CPU;
+  llff     a forward-facing LLFF layout (9 views at 400x400, written by
+           write_llff_scene from the synthetic renderer): the train phase at
+           --white-bkgd=false for 10 steps (train_level, NDC rays), ``run
+           render --render-path --max-images=2`` (the spiral) and ``run
+           eval --spherify=true``;
+  bin      the Blender scene's train rays as a 64-byte-record dump, the
+           train phase with --dataset-loader=bin --test-render-interval=0
+           for 10 steps: the native C++ loader (built from
+           native/ray_loader.cpp into nerf_or_nothing_tpu_torch/build/) must
+           serve every batch.
+The train phases share one 400x400 scene.
 Then the ``kernels`` line, the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises: non-zero exit and
 no ``ok`` line. Without a CUDA device the script exits 1 at once.
@@ -75,9 +102,16 @@ TPU_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:652"  # _render_kernel
 TPU_TRAIN_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:374"  # _level_kernel
 TPU_MLP_FWD = "nerf_or_nothing_tpu/kernels/fused_mlp.py:239"  # _fwd_kernel
 TPU_MLP_BWD = "nerf_or_nothing_tpu/kernels/fused_mlp.py:673"  # _bwd_kernel
+# _level_kernel_twopass
+TPU_TWOPASS_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:500"
 TRAIN_STEPS = 40
 FULL_GRAD_STEPS = 20
 FULL_GRAD_ARGS = ("--fuse-level=false", "--stop-level-grad=false")
+MULTICAM_STEPS = 20
+MULTICAM_ARGS = ("--dataset-loader=multicam",
+                 "--kernel-probes=fl_variant=twopass")
+LOADER_STEPS = 10  # the LLFF and bin-dump phases
+TIMED_BATCHES = 13  # steps of the rays/s measurement, the first 3 warm-up
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s,
 # f32 (non-tensor) FLOP/s, HBM bytes/s.
 PEAKS = {
@@ -481,20 +515,29 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
     return res
 
 
-def train_inputs(cfg, R: int, seed: int, device):
-    """Pixels and a g_scale (level weight 1, every seventh ray masked)."""
+def train_inputs(cfg, R: int, seed: int, device, multicam: bool = False):
+    """Pixels and a g_scale (level weight 1, every seventh ray masked; the
+    others weighted 0.5-1.5, or with ``multicam`` by a Multicam pyramid's
+    loss_mult, 1, 4, 16 or 64)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     pixels = torch.rand(R, 3, generator=g)
-    mask = torch.rand(R, generator=g) + 0.5
+    if multicam:
+        mask = 4.0 ** torch.randint(0, 4, (R,), generator=g).float()
+    else:
+        mask = torch.rand(R, generator=g) + 0.5
     mask[::7] = 0.0
     g_scale = (2.0 * mask / mask.sum())[:, None]
     return pixels.to(device), g_scale.to(device)
 
 
 def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
-                      bit_check=False):
+                      bit_check=False, twopass=False, multicam=False):
+    """One train kernel (``train_level_cuda``, or with ``twopass``
+    ``train_level_twopass_cuda``, mode "t") against ``level_train_plain``;
+    with ``twopass`` also ``train_level_cuda`` on the same inputs, its
+    error against the two-pass kernel and its time."""
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
@@ -502,32 +545,38 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
 
     params = init_mlp(torch.Generator().manual_seed(seed), cfg, device=device)
     xs, d, delta = level_inputs(cfg, R, mode, seed + 1, device)
-    pixels, g_scale = train_inputs(cfg, R, seed + 2, device)
+    pixels, g_scale = train_inputs(cfg, R, seed + 2, device, multicam)
     packed = fl.pack_train_params(params, cfg, compute_dtype(cfg))
 
-    def kernel():
+    def one_pass():
         return fl.train_level_cuda(params, cfg, xs, d, delta, pixels, g_scale,
                                    white_bkgd, mode, packed=packed)
+
+    def two_pass():
+        return fl.train_level_twopass_cuda(params, cfg, xs, d, delta, pixels,
+                                           g_scale, white_bkgd, packed=packed)
+
+    kernel = two_pass if twopass else one_pass
+    kname = "train_level_twopass" if twopass else "train_level"
 
     def plain():
         return fl.level_train_plain(params, cfg, xs, d, delta, pixels,
                                     g_scale, white_bkgd, mode)
+
+    def level_pairs(out_a, out_b):
+        pairs = [("comp", out_a[0], out_b[0]), ("acc", out_a[1], out_b[1]),
+                 ("weights", out_a[2], out_b[2])]
+        for i, ((dw, db), (rw, rb)) in enumerate(zip(out_a[3], out_b[3])):
+            pairs += [(f"dW{i}", dw, rw), (f"db{i}", db, rb)]
+        return pairs
 
     out_k = kernel()
     torch.cuda.synchronize()
     out_p = plain()
     torch.cuda.synchronize()
     atol, rtol = BANDS[cfg.compute_dtype]
-    pairs = [("comp", out_k[0], out_p[0]), ("acc", out_k[1], out_p[1]),
-             ("weights", out_k[2], out_p[2])]
-    for i, ((dw, db), (rw, rb)) in enumerate(zip(out_k[3], out_p[3])):
-        pairs += [(f"dW{i}", dw, rw), (f"db{i}", db, rb)]
-    errs, max_abs = {}, 0.0
-    for key, a, b in pairs:
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"{name}: non-finite kernel output {key}")
-        errs[key] = normalized_err(a, b, atol, rtol)
-        max_abs = max(max_abs, float((a - b).abs().max()))
+    errs, max_abs = check_pairs(name, level_pairs(out_k, out_p),
+                                cfg.compute_dtype)
     bit_equal = None
     if bit_check:
         again = kernel()
@@ -538,39 +587,56 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
     plain_ms = median_ms(plain, reps=5, warmup=1)
     b_ms, b_by, flops, nbytes = train_bound_ms(cfg, R, cfg.num_samples, mode,
                                                peaks)
+    one_pass_vs = one_pass_ms = turns = None
+    if twopass:
+        one_pass_vs, _ = check_pairs(name, level_pairs(one_pass(), out_k),
+                                     cfg.compute_dtype)
+        # In turns: two-pass (above), one-pass, one-pass, two-pass.
+        turns = {"train_level": [median_ms(one_pass), median_ms(one_pass)],
+                 "train_level_twopass": [ms, median_ms(two_pass)]}
+        one_pass_ms = sum(turns["train_level"]) / 2
+        ms = sum(turns["train_level_twopass"]) / 2
     res = {
-        "phase": "train_kernel", "case": name, "dtype": cfg.compute_dtype,
+        "phase": "twopass_kernel" if twopass else "train_kernel",
+        "kernel": kname, "case": name, "dtype": cfg.compute_dtype,
         "mode": mode, "R": R, "S": cfg.num_samples, "white_bkgd": white_bkgd,
         "band": [atol, rtol], "worst": max(errs, key=errs.get),
         "normalized_err": errs, "max_abs_err": max_abs,
         "dw_bit_equal": bit_equal, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "flop": flops, "bytes": nbytes,
-        "bound_share": b_ms / ms,
+        "bound_share": b_ms / ms, "train_level_ms": one_pass_ms,
+        "ms_in_turns": turns, "train_level_vs_twopass": one_pass_vs,
     }
     emit(res)
     worst = max(errs.values())
     if not worst < 1.0:
-        raise AssertionError(f"{name}: train kernel disagrees with plain, "
-                             f"normalized error {worst} ({res['worst']})")
+        raise AssertionError(f"{name}: {kname} disagrees with "
+                             f"plain, normalized error {worst} "
+                             f"({res['worst']})")
     if bit_check and not bit_equal:
         raise AssertionError(f"{name}: two launches gave different dW")
     return res
 
 
-def launch_counts():
+KERNELS = ("render_level", "train_level", "train_level_twopass", "mlp_fwd",
+           "mlp_bwd")
+
+
+def _counted():
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
 
-    return {"train_level": fl.train_level.launches,
-            "render_level": fl.render_level.launches,
-            "mlp_fwd": fm.mlp_fwd.launches, "mlp_bwd": fm.mlp_bwd.launches}
+    return {"render_level": fl.render_level, "train_level": fl.train_level,
+            "train_level_twopass": fl.train_level_twopass,
+            "mlp_fwd": fm.mlp_fwd, "mlp_bwd": fm.mlp_bwd}
+
+
+def launch_counts():
+    return {k: fn.launches for k, fn in _counted().items()}
 
 
 def reset_launch_counts():
-    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
-    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
-
-    for fn in (fl.train_level, fl.render_level, fm.mlp_fwd, fm.mlp_bwd):
+    for fn in _counted().values():
         fn.launches = 0
 
 
@@ -580,12 +646,74 @@ def check_launches(what, got, expected):
                              f"{expected}")
 
 
-def train_path(peaks, device, size: int = 400, steps: int = TRAIN_STEPS,
-               model_args=(), phase: str = "train"):
-    """``run train`` on the card at Config() with ``model_args``, then ``run
-    eval`` of its checkpoint, with exact launch counts of every kernel;
-    train rays/s; one step and its gradients against the CPU. Returns the
-    launch counts of the train run."""
+def render_launches(cfg, dims):
+    """Kernel launches of ``render_image`` over images of ``dims``: each
+    level one launch per ``render_chunk_size`` rays (the render level, or
+    the MLP forward off the fused level)."""
+    n = cfg.num_levels * sum(math.ceil(h * w / cfg.render_chunk_size)
+                             for h, w in dims)
+    out = dict.fromkeys(KERNELS, 0)
+    out["render_level" if cfg.fuse_level else "mlp_fwd"] = n
+    return out
+
+
+def step_launches(cfg, steps: int):
+    """Kernel launches of ``steps`` train steps: per level one train level
+    (the two-pass kernel with its probe in mode "t"), or the MLP forward and
+    backward off the fused level."""
+    from nerf_or_nothing_tpu_torch import train as train_lib
+
+    out = dict.fromkeys(KERNELS, 0)
+    n = cfg.num_levels * steps
+    if train_lib.use_fused_level(cfg):
+        twopass = (cfg.probe("fl_variant") == "twopass" and not cfg.fuse_ipe)
+        out["train_level_twopass" if twopass else "train_level"] = n
+    else:
+        out["mlp_fwd"] = out["mlp_bwd"] = n
+    return out
+
+
+def added(a, b):
+    return {k: a[k] + b[k] for k in KERNELS}
+
+
+def run_main(what, argv, expected):
+    """``run.main(argv)`` on the card with exact launch counts; seconds."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch import run
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = run.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{what}: run.main returned {rc}")
+    check_launches(what, launch_counts(), expected)
+    return seconds
+
+
+def test_dims(data, cfg, n=None):
+    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
+
+    with create_dataset("test", data, cfg) as ds:
+        k = ds.num_images if n is None else min(n, ds.num_images)
+        return [ds.image_dims(i) for i in range(k)]
+
+
+def train_path(peaks, device, data: str, steps: int, model_args=(),
+               phase: str = "train", eval_args=(), path_frames: int = 0,
+               setup_s: float = 0.0, extra=None):
+    """``run train`` on the card at Config() with ``model_args`` on
+    ``data``, exact launch counts of every kernel (its test render of test
+    view 0 included, unless ``--test-render-interval=0``), the logged
+    losses and the final checkpoint; ``run eval`` of the checkpoint with
+    ``eval_args`` (skipped when None) and ``run render --render-path`` of
+    ``path_frames`` frames at the train images' size, each with exact
+    launch counts; train rays/s from the loader's batches; one step and
+    its gradients against the CPU on one of them. Returns the launch counts
+    of the train run and the emitted record."""
     import csv
 
     import numpy as np
@@ -597,41 +725,21 @@ def train_path(peaks, device, size: int = 400, steps: int = TRAIN_STEPS,
     from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
     from nerf_or_nothing_tpu_torch.models.mlp import init_mlp
     from nerf_or_nothing_tpu_torch.rays import Rays
-    from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    scene = os.path.join(work, "scene")
-    ckpt = os.path.join(work, "ckpt")
-    t0 = time.perf_counter()
-    write_scene(scene, n_train=4, n_test=1, size=size)
-    setup_s = time.perf_counter() - t0
-    args = [f"--data-dir={scene}", f"--checkpoint-dir={ckpt}",
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    args = [f"--data-dir={data}", f"--checkpoint-dir={ckpt}",
             f"--max-steps={steps}", "--print-every=10", "--save-every=20",
             f"--test-render-interval={steps}", *model_args,
             f"--device={device.type}"]
     cfg = run.parse_flags([a for a in args if not a.startswith("--device")])
     fused = train_lib.use_fused_level(cfg)
-    chunks = math.ceil(size * size / cfg.render_chunk_size)
-    render = {"render_level": 0, "mlp_fwd": 0, "mlp_bwd": 0, "train_level": 0}
-    render["render_level" if cfg.fuse_level else "mlp_fwd"] = (
-        cfg.num_levels * chunks)
-    expected = dict(render)
-    if fused:
-        expected["train_level"] = cfg.num_levels * steps
-    else:
-        expected["mlp_fwd"] += cfg.num_levels * steps
-        expected["mlp_bwd"] = cfg.num_levels * steps
-
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    rc = run.main(["train", *args])
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    expected = step_launches(cfg, steps)
+    if cfg.test_render_interval > 0:
+        expected = added(expected, render_launches(cfg, test_dims(data, cfg,
+                                                                  1)))
+    train_s = run_main(f"{phase}: run train ({steps} steps)",
+                       ["train", *args], expected)
     launches = launch_counts()
-    if rc != 0:
-        raise AssertionError(f"run.main(train) returned {rc}")
-    check_launches(f"{phase}: run train ({steps} steps, test render)",
-                   launches, expected)
     with open(os.path.join(ckpt, "train_stats.csv")) as f:
         rows = list(csv.DictReader(f))
     losses = [float(r["loss"]) for r in rows]
@@ -647,22 +755,38 @@ def train_path(peaks, device, size: int = 400, steps: int = TRAIN_STEPS,
     for (w, b), (rw, rb) in zip(state.params, restored):
         if not (torch.equal(w, rw) and torch.equal(b, rb)):
             raise AssertionError("run eval's restore differs from the checkpoint")
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    rc = run.main(["eval", *args])
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
-    if rc != 0:
-        raise AssertionError(f"run.main(eval) returned {rc}")
-    eval_launches = launch_counts()
-    check_launches(f"{phase}: run eval", eval_launches, render)
+    record = {"phase": phase, "config": "Config()", "flags": list(model_args),
+              "steps": steps, "setup_s": setup_s, "train_s": train_s,
+              "launches": launches, "expected_launches": expected,
+              "logged_losses": losses}
+    if eval_args is not None:
+        ecfg = run.parse_flags([*args[:-1], *[
+            a for a in eval_args if not a.startswith("--max-images=")]])
+        n = [int(a.split("=")[1]) for a in eval_args
+             if a.startswith("--max-images=")]
+        dims = test_dims(data, ecfg, n[0] if n else None)
+        record["eval_images"] = dims
+        record["eval_s"] = run_main(f"{phase}: run eval {list(eval_args)}",
+                                    ["eval", *args, *eval_args],
+                                    render_launches(ecfg, dims))
+    if path_frames:  # at the size of test view 0
+        img = test_dims(data, cfg, 1) * path_frames
+        record["render_path_s"] = run_main(
+            f"{phase}: run render --render-path",
+            ["render", *args, "--render-path=true",
+             f"--max-images={path_frames}",
+             f"--out={os.path.join(ckpt, 'path')}"],
+            render_launches(cfg, img))
+        pngs = sorted(os.listdir(os.path.join(ckpt, "path")))
+        if pngs != [f"render_{i:03d}.png" for i in range(path_frames)]:
+            raise AssertionError(f"unexpected render-path frames {pngs}")
 
-    # Steady-state train rays/s: the train step from the trained state,
-    # each step synchronised, host clock.
+    # Steady-state train rays/s: the train step from the trained state on
+    # the loader's batches, each step synchronised, host clock.
     step_fn = train_lib.make_train_step(cfg)
-    with create_dataset("train", scene, cfg) as ds:
+    with create_dataset("train", data, cfg) as ds:
         batches = []
-        for _ in range(13):
+        for _ in range(TIMED_BATCHES):
             rays, pixels = next(ds)
             batches.append((Rays(*[torch.from_numpy(np.asarray(x)).to(device)
                                    for x in rays]),
@@ -717,22 +841,54 @@ def train_path(peaks, device, size: int = 400, steps: int = TRAIN_STEPS,
         for kind, a, b in (("dW", ga[0], gb[0]), ("db", ga[1], gb[1]))}
     worst = max([v for k, v in checks.items() if k != "grads"]
                 + list(checks["grads"].values()))
-    emit({
-        "phase": phase, "config": "Config()", "flags": list(model_args),
-        "image": [size, size], "train_images": 4, "steps": steps,
-        "setup_s": setup_s, "train_s": train_s, "eval_s": eval_s,
-        "launches": launches, "expected_launches": expected,
-        "eval_launches": eval_launches, "logged_losses": losses,
+    record.update({
         "step_s": times, "train_rays_per_s": rays_per_s,
         "bound_step_flop": step_flops, "bound_step_ms": bound_step_ms,
         "bound_rays_per_s": bound_rays_per_s,
         "bound_share": rays_per_s / bound_rays_per_s,
-        "step_vs_cpu": checks,
+        "loss_mult": sorted({float(v) for v in
+                             batches[0][0].loss_mult.reshape(-1).tolist()}),
+        "step_vs_cpu": checks, **(extra or {}),
     })
+    emit(record)
     if not worst < 1.0:
         raise AssertionError(f"train step on the card disagrees with the CPU: "
                              f"{checks}")
-    return launches, rays_per_s
+    return launches, record
+
+
+def write_llff_scene(root: str, n_images: int = 9, size: int = 400,
+                     camera_angle_x: float = 0.8) -> str:
+    """A forward-facing LLFF layout (``images/`` + ``poses_bounds.npy``)
+    of the synthetic scene: cameras 4 units out on a small patch of
+    azimuths and elevations, all looking at the origin; bounds 2 and 6."""
+    import numpy as np
+    from PIL import Image
+
+    from nerf_or_nothing_tpu_torch.rays import generate_rays, pinhole_pix_to_cam
+    from nerf_or_nothing_tpu_torch.utils import synthetic
+
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    focal = 0.5 * size / np.tan(0.5 * camera_angle_x)
+    pix_to_cam = pinhole_pix_to_cam(focal, size, size)
+    rows = []
+    for i in range(n_images):
+        theta = -0.5 * np.pi + 0.3 * (i / (n_images - 1) - 0.5)
+        el = 0.35 + 0.05 * (i % 3 - 1)
+        eye = 4.0 * np.array([np.cos(theta) * np.cos(el),
+                              np.sin(theta) * np.cos(el), np.sin(el)])
+        c2w = synthetic._look_at(eye)  # columns right, up, back, eye
+        rays = generate_rays(pix_to_cam, c2w[:3], size, size, 2.0, 6.0)
+        rgb = synthetic.render_rays_analytic(rays.origins.reshape(-1, 3),
+                                             rays.directions.reshape(-1, 3))
+        Image.fromarray((rgb.reshape(size, size, 3) * 255).astype(np.uint8)
+                        ).save(os.path.join(root, "images", f"im_{i:03d}.png"))
+        # LLFF pose columns: down, right, back, position, then (h, w, f).
+        pose = np.stack([-c2w[:3, 1], c2w[:3, 0], c2w[:3, 2], c2w[:3, 3],
+                         [size, size, focal]], axis=1)
+        rows.append(np.concatenate([pose.ravel(), [2.0, 6.0]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows))
+    return root
 
 
 def write_checkpoint(ckpt_dir: str, params) -> str:
@@ -795,8 +951,7 @@ def main_path(peaks, device, size: int = 400, base=None):
     if rc_eval != 0 or rc_render != 0:
         raise AssertionError(f"run.main returned {rc_eval}, {rc_render}")
     check_launches("main: run eval + render", counts,
-                   {"train_level": 0, "render_level": expected, "mlp_fwd": 0,
-                    "mlp_bwd": 0})
+                   {**dict.fromkeys(KERNELS, 0), "render_level": expected})
     pngs = sorted(os.listdir(out_dir))
     if pngs != [f"render_{i:03d}.png" for i in range(n_test)]:
         raise AssertionError(f"unexpected renders {pngs}")
@@ -859,6 +1014,42 @@ def main_path(peaks, device, size: int = 400, base=None):
         if not max(errs.values()) < 1.0:
             raise AssertionError(f"render path ({dtype}) disagrees with the "
                                  f"plain CPU path: {errs}")
+    return launches
+
+
+def bin_path(peaks, device, scene: str, work: str):
+    """The Blender scene's train rays as a bin dump (``write_bin_dump``),
+    then ``run train --dataset-loader=bin`` without test renders; the
+    native C++ loader must serve every batch (the run's and the timed
+    steps'). Returns the train run's launch counts."""
+    from nerf_or_nothing_tpu_torch.config import Config
+    from nerf_or_nothing_tpu_torch.datasets import native_loader
+    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
+    from nerf_or_nothing_tpu_torch.datasets.bin_dump import write_bin_dump
+
+    t0 = time.perf_counter()
+    dump = os.path.join(work, "rays.bin")
+    with create_dataset("train", scene, Config()) as ds:
+        write_bin_dump(dump, ds._flat_rays, ds._flat_pixels)
+        records = ds.pool_size
+    setup_s = time.perf_counter() - t0
+    served = []
+    loader_next = native_loader.NativeRayLoader.__next__
+    native_loader.NativeRayLoader.__next__ = (
+        lambda self: served.append(1) or loader_next(self))
+    try:
+        launches, _ = train_path(
+            peaks, device, dump, LOADER_STEPS,
+            ("--dataset-loader=bin", "--test-render-interval=0"), "bin",
+            eval_args=None, setup_s=setup_s,
+            extra={"records": records,
+                   "native_library": str(native_loader.library_path())})
+    finally:
+        native_loader.NativeRayLoader.__next__ = loader_next
+    if len(served) != LOADER_STEPS + TIMED_BATCHES:
+        raise AssertionError(f"bin: the native loader served {len(served)} "
+                             f"batches, expected "
+                             f"{LOADER_STEPS + TIMED_BATCHES}")
     return launches
 
 
@@ -946,7 +1137,15 @@ def main() -> int:
         train_kernel_case(f"narrow_r37_s256_mv_{dtype}",
                           tnarrow.replace(num_samples=256, compute_dtype=dtype),
                           37, "mv", True, peaks, device, seed=7)
-    train_launches, _ = train_path(peaks, device)
+    from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    scene = os.path.join(work, "scene")
+    t0 = time.perf_counter()
+    write_scene(scene, n_train=4, n_test=1, size=400)
+    scene_s = time.perf_counter() - t0
+    train_launches, _ = train_path(peaks, device, scene, TRAIN_STEPS,
+                                   setup_s=scene_s)
 
     mlp_fwd_main = mlp_fwd_case("config_r16384_s128", base, 16384, peaks,
                                 device)
@@ -970,9 +1169,36 @@ def main() -> int:
         mlp_bwd_case(f"narrow_r37_s256_dx_{dtype}",
                      tnarrow.replace(num_samples=256, compute_dtype=dtype),
                      37, True, peaks, device, seed=5, bit_check=True)
-    full_launches, _ = train_path(peaks, device, steps=FULL_GRAD_STEPS,
-                                  model_args=FULL_GRAD_ARGS,
-                                  phase="train_full_grad")
+    full_launches, _ = train_path(peaks, device, scene, FULL_GRAD_STEPS,
+                                  FULL_GRAD_ARGS, "train_full_grad")
+
+    twopass_main = train_kernel_case("config_r1024_s128_t", base, 1024, "t",
+                                     True, peaks, device, bit_check=True,
+                                     twopass=True)
+    train_kernel_case("config_r1024_s128_t_f32",
+                      base.replace(compute_dtype="float32"), 1024, "t", True,
+                      peaks, device, twopass=True)
+    train_kernel_case("config_r777_s128_t_masked_multicam", base, 777, "t",
+                      False, peaks, device, seed=5, bit_check=True,
+                      twopass=True, multicam=True)
+    deep = tnarrow.replace(net_depth=5, num_samples=256)
+    for dtype in ("bfloat16", "float32"):
+        train_kernel_case(f"narrow_d5_r37_s256_t_{dtype}",
+                          deep.replace(compute_dtype=dtype), 37, "t", True,
+                          peaks, device, seed=7, bit_check=True, twopass=True)
+    multicam_launches, _ = train_path(
+        peaks, device, scene, MULTICAM_STEPS, MULTICAM_ARGS, "multicam",
+        eval_args=("--max-images=4",), path_frames=2)
+
+    llff = os.path.join(work, "llff")
+    t0 = time.perf_counter()
+    write_llff_scene(llff)
+    train_path(peaks, device, llff, LOADER_STEPS,
+               ("--dataset-loader=llff", "--white-bkgd=false"), "llff",
+               eval_args=("--spherify=true",), path_frames=2,
+               setup_s=time.perf_counter() - t0)
+
+    bin_launches = bin_path(peaks, device, scene, work)
 
     def entry(name, case, n, replaces):
         return {
@@ -990,6 +1216,8 @@ def main() -> int:
               TPU_TRAIN_KERNEL),
         entry("mlp_fwd", mlp_fwd_main, full_launches["mlp_fwd"], TPU_MLP_FWD),
         entry("mlp_bwd", mlp_bwd_main, full_launches["mlp_bwd"], TPU_MLP_BWD),
+        entry("train_level_twopass", twopass_main,
+              multicam_launches["train_level_twopass"], TPU_TWOPASS_KERNEL),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

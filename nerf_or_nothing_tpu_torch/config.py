@@ -22,8 +22,20 @@ the hand-written kernels (the CPU runs each kernel's plain version):
 - ``pair_ipe`` / ``xt_ipe``: TPU layout probes, not ported;
 - ``mesh_shape``: training on more than one device is not ported, so
   ``run train`` raises for a mesh;
-- ``kernel_probes``, ``donate_params``, ``remat``: kept for flag
-  compatibility; the port does not read them.
+- ``kernel_probes`` (comma-separated ``key=value`` entries, read by
+  ``probe``): ``fl_variant=twopass`` runs each train level as
+  ``train_level_twopass`` (``kernels/fused_level.py``) where the JAX package
+  takes ``_level_kernel_twopass``: the fused-level train branch in input
+  mode ``"t"`` (with ``fuse_ipe``, mode ``"mv"``, the level stays
+  ``train_level``). The values with which the JAX kernels compute filler
+  values or round dW to bf16 (``FILLER_PROBES``) raise
+  ``NotImplementedError`` where a kernel would read them. The TPU tile,
+  interleave and schedule knobs (``fl_tile``, ``fl_il``, ``fr_tile``,
+  ``fr_il``, ``fm_acc``, ``fl_comp``, ``fm_heads``,
+  ``fm_bwd=phased|phasedbar|accper``, ``fl_enc``) leave the function as it
+  is and have no effect on the card;
+- ``donate_params``, ``remat``: kept for flag compatibility; the port does
+  not read them.
 """
 
 from __future__ import annotations
@@ -31,6 +43,14 @@ from __future__ import annotations
 import dataclasses
 import enum
 from typing import Any, Sequence
+
+# kernel_probes values with which the JAX kernels compute something other
+# than the level's function: filler values for timing attribution
+# (fused_level.py, fused_mlp.py) or dW accumulated in bf16.
+FILLER_PROBES = {
+    "fl_variant": ("nobwd", "nocomp"),
+    "fm_bwd": ("nodw", "nogchain", "bf16acc"),
+}
 
 
 class RayShape(enum.Enum):
@@ -166,6 +186,18 @@ class Config:
             if k.strip() == key:
                 return v.strip()
         return default
+
+    def check_probes(self, *keys: str) -> None:
+        """Raise NotImplementedError for a ``FILLER_PROBES`` value under
+        ``keys``: the port has no kernel that computes those values, and
+        does not compute the true function in their place."""
+        for key in keys:
+            value = self.probe(key)
+            if value in FILLER_PROBES.get(key, ()):
+                raise NotImplementedError(
+                    f"kernel_probes {key}={value} makes the JAX kernels "
+                    "compute attribution fillers or bf16 dW in place of "
+                    "the gradients; the port does not (ROADMAP section C)")
 
 
 def tiny_config(**overrides: Any) -> Config:

@@ -1,10 +1,14 @@
-// The MLP backward passes shared by the train-level and MLP-backward
-// kernels (train_level.cu, mlp_bwd.cu). Given the head cotangents and the
-// activations that the forward stored, launch_backward runs:
-//  2. chain_kernel: the g-chain, 64 rows at a time, in the compute type
-//     after every product: rgb head, view branch, density head, trunk;
-//     each layer's g is masked by its activation > 0 and stored; the view
-//     layer's per-ray f32 sum g_ray is kept in shared memory. The chain
+// The MLP backward passes shared by the train-level, two-pass train-level
+// and MLP-backward kernels (train_level.cu, train_level_twopass.cu,
+// mlp_bwd.cu), and the train level's composite backward (composite_train).
+// Given the head cotangents and the activations that the forward stored,
+// launch_backward runs:
+//  2. chain_kernel (the device function chain_rays, which the two-pass
+//     kernel's phase 0 also calls): the g-chain, 64 rows at a time, in
+//     the compute type after every product: rgb head, view branch,
+//     density head, trunk; each layer's g is masked by its activation > 0
+//     and stored; the view layer's per-ray f32 sum g_ray is kept in
+//     shared memory (and with a db accumulator, every layer's db). The chain
 //     multiplies g by W^T, packed once per step in the same mma fragment
 //     order as the forward weights. With dx, the chain also runs into
 //     layer 0 and each skip layer's x rows (W^T of the x rows, packed the
@@ -18,6 +22,7 @@
 //  4. small_tn_kernel: the heads' dW/db from the f32 cotangents and the
 //     view layer's direction rows d^T g_ray, 8 warps per 32 outputs;
 //  5. reduce_kernel: the split partials summed in a fixed order.
+// launch_products runs passes 3-5 alone (the two-pass kernel's phase 1).
 // No atomics: every partial is written by exactly one block and reduced in
 // order, so two launches on the same inputs give bit-equal dW. f32: the
 // same passes with FMA loops (no TF32), for checking the algorithm in f32.
@@ -75,6 +80,111 @@ __device__ void forward_store(const Params& p, const Extra& e, const Smem<T>& sm
     forward_tile<T, true>(p, sm, sub0, min(kBM, rows - sub0), (long long)ray0 * p.S + sub0,
                           heads ? out + 3 : nullptr, 4, out, 4, static_cast<T*>(e.xs),
                           static_cast<T*>(e.acts), e.N);
+  }
+}
+
+// The train level's composite (train_level.cu, train_level_twopass.cu):
+// one warp per ray, the forward composite (as composite()), then the loss
+// gradient, the composite backward and the activation VJPs. EX holds per
+// sample w, trans, alpha, dL/dw.
+template <class T>
+__device__ void composite_train(const Params& p, const Extra& e, const Smem<T>& sm,
+                                float* EX, int ray0, int nr) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float pad = p.rgb_padding, scale = 1.0f + 2.0f * pad;
+  for (int r = warp; r < nr; r += kThreads / 32) {
+    const long long ray = ray0 + r;
+    const float* out = sm.OUT + r * p.S * 4;
+    float* ex = EX + r * p.S * 4;
+    float carry = 0.0f, a_acc = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
+    for (int s0 = 0; s0 < p.S; s0 += 32) {
+      const int s = s0 + lane;
+      const bool valid = s < p.S;
+      float sd = 0.0f, rr = 0.0f, rg = 0.0f, rb = 0.0f;
+      if (valid) {
+        const float* o = out + s * 4;
+        sd = softplus(o[3] + p.density_bias) * p.delta[ray * p.S + s];
+        rr = sigmoid(o[0]) * scale - pad;
+        rg = sigmoid(o[1]) * scale - pad;
+        rb = sigmoid(o[2]) * scale - pad;
+      }
+      float incl = sd;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.0f;
+      const float trans = expf(-(carry + excl));
+      const float alpha = 1.0f - expf(-sd);
+      const float w = valid ? alpha * trans : 0.0f;
+      if (valid) {
+        p.weights[ray * p.S + s] = w;
+        ex[s * 4 + 0] = w;
+        ex[s * 4 + 1] = trans;
+        ex[s * 4 + 2] = alpha;
+      }
+      a_acc += w;
+      cr += w * rr;
+      cg += w * rg;
+      cb += w * rb;
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    a_acc = warp_sum(a_acc);
+    const float bg = p.white_bkgd ? 1.0f - a_acc : 0.0f;
+    const float c0 = warp_sum(cr) + bg, c1 = warp_sum(cg) + bg, c2 = warp_sum(cb) + bg;
+    if (lane == 0) {
+      p.comp[ray * 3 + 0] = c0;
+      p.comp[ray * 3 + 1] = c1;
+      p.comp[ray * 3 + 2] = c2;
+      p.acc[ray] = a_acc;
+    }
+    // dL/dcomp, then dL/dw and the total of w * dL/dw.
+    const float gs = e.gsc[ray];
+    const float g0 = gs * (c0 - e.pixels[ray * 3 + 0]);
+    const float g1 = gs * (c1 - e.pixels[ray * 3 + 1]);
+    const float g2 = gs * (c2 - e.pixels[ray * 3 + 2]);
+    float total = 0.0f;
+    for (int s = lane; s < p.S; s += 32) {
+      const float* o = out + s * 4;
+      float dl = g0 * (sigmoid(o[0]) * scale - pad) + g1 * (sigmoid(o[1]) * scale - pad) +
+                 g2 * (sigmoid(o[2]) * scale - pad);
+      if (p.white_bkgd) dl -= g0 + g1 + g2;
+      ex[s * 4 + 3] = dl;
+      total += dl * ex[s * 4 + 0];
+    }
+    total = warp_sum(total);
+    // suffix_s = total - inclusive prefix of w * dL/dw
+    carry = 0.0f;
+    for (int s0 = 0; s0 < p.S; s0 += 32) {
+      const int s = s0 + lane;
+      const bool valid = s < p.S;
+      const float wdw = valid ? ex[s * 4 + 3] * ex[s * 4 + 0] : 0.0f;
+      float incl = wdw;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (valid) {
+        const float w = ex[s * 4 + 0], trans = ex[s * 4 + 1], alpha = ex[s * 4 + 2];
+        const float dl = ex[s * 4 + 3];
+        const float suffix = total - (carry + incl);
+        const float dalpha = dl * trans - suffix / fmaxf(1.0f - alpha, 1e-10f);
+        const float dsigma = dalpha * (1.0f - alpha) * p.delta[ray * p.S + s];
+        const float* o = out + s * 4;
+        const long long row = ray * p.S + s;
+        const float gk[3] = {g0, g1, g2};
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const float sg = sigmoid(o[k]);
+          e.g_rgb[row * 3 + k] = (gk[k] * w) * (sg * (1.0f - sg) * scale);
+        }
+        e.g_den[row] = dsigma * sigmoid(o[3] + p.density_bias);
+      }
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
   }
 }
 
@@ -207,11 +317,29 @@ __host__ __device__ inline size_t chain_smem(const Params& p, bool dx) {
          sizeof(float) * (kBM * (p.Cr + p.Cd) + p.RB * p.Wc);
 }
 
-// Pass 2: the g-chain of the block's rays, 64 rows at a time.
+// Biases of the flat bias layout (layer order; the Params b_* offsets).
+__host__ __device__ inline int num_biases(const Params& p) { return p.b_rgb + p.Cr; }
+
+// DB[col] += sum over the 64 rows of H[:, col] (f32), col < width; rows
+// past the sub-tile's valid rows are 0 after mask_store.
 template <class T>
-__global__ void __launch_bounds__(kThreads, 2)
-chain_kernel(Params p, Extra e) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+__device__ __forceinline__ void db_rows(const Params& p, const Smem<T>& sm, int width,
+                                        float* DB) {
+  if (threadIdx.x < width) {
+    float s = 0.0f;
+    for (int row = 0; row < kBM; ++row) s += to_f(sm.H[row * p.ldh + threadIdx.x]);
+    DB[threadIdx.x] += s;
+  }
+}
+
+// The g-chain of rays [ray0, ray0 + nr), 64 rows at a time, in the
+// chain_smem bytes at smem_raw (pass 2, and phase 0 of
+// train_level_twopass.cu). DB (shared, num_biases floats, or null): every
+// layer's db, summed in f32 from each sub-tile's masked g as the chain
+// makes it, the heads' from the f32 cotangents; ends with a barrier.
+template <class T>
+__device__ void chain_rays(const Params& p, const Extra& e, unsigned char* smem_raw, int ray0,
+                           int nr, float* DB) {
   Smem<T> sm;
   size_t off = align16(sizeof(T) * kBM * p.ldh);
   sm.H = reinterpret_cast<T*>(smem_raw);
@@ -229,12 +357,12 @@ chain_kernel(Params p, Extra e) {
   const T* acts = static_cast<const T*>(e.acts);
   T* grads = static_cast<T*>(e.grads);
   T* dx = static_cast<T*>(e.dx);
-  const int ray0 = blockIdx.x * p.RB;
-  const int nr = min(p.RB, p.R - ray0);
   const int rows = nr * p.S;
   const int tid = threadIdx.x;
   const int Cg = p.Cr + p.Cd;
   for (int idx = tid; idx < p.RB * p.Wc; idx += kThreads) GRAY[idx] = 0.0f;
+  if (DB)
+    for (int idx = tid; idx < num_biases(p); idx += kThreads) DB[idx] = 0.0f;
 
   typename AccOf<T>::type acc;
   for (int sub0 = 0; sub0 < rows; sub0 += kBM) {
@@ -251,6 +379,12 @@ chain_kernel(Params p, Extra e) {
     if (dx)
       for (int idx = tid; idx < kBM * p.ldx; idx += kThreads) sm.X[idx] = from_f<T>(0.0f);
     __syncthreads();
+    if (DB && tid < Cg) {  // the heads' db from the f32 cotangents
+      float s = 0.0f;
+      for (int row = 0; row < nvalid; ++row)
+        s += tid < p.Cr ? GR[row * p.Cr + tid] : GD[row * p.Cd + tid - p.Cr];
+      DB[tid < p.Cr ? p.b_rgb + tid : p.b_den + tid - p.Cr] += s;
+    }
     // rgb head: g = round(round(g_rgb) @ W_rgb^T)
     {
       const T* wr = w + p.w_rgb;  // [Cr, Wc]
@@ -267,6 +401,7 @@ chain_kernel(Params p, Extra e) {
       const long long off_j = act_off(p, e.N, p.D + j);
       mask_store<T>(p, sm, p.Wc, acts + off_j, grads + off_j, grow0, nvalid);
       __syncthreads();
+      if (DB) db_rows<T>(p, sm, p.Wc, DB + p.b_v0 + j * p.Wc);
       if (j == 0) {
         for (int idx = tid; idx < nr * p.Wc; idx += kThreads) {
           const int r = idx / p.Wc, col = idx - r * p.Wc;
@@ -287,6 +422,7 @@ chain_kernel(Params p, Extra e) {
       const long long off_i = act_off(p, e.N, i);
       mask_store<T>(p, sm, p.W, acts + off_i, grads + off_i, grow0, nvalid);
       __syncthreads();
+      if (DB) db_rows<T>(p, sm, p.W, DB + i * p.W);
       if (dx && (i == 0 || i % p.skip == 0)) {
         // X += round(g @ W_x^T); gemm reads only H
         gemm(p, sm, p.W, 0, wtx + wtx_off(p, i), p.KX, acc);
@@ -321,6 +457,16 @@ chain_kernel(Params p, Extra e) {
       e.dd[(long long)(ray0 + r) * p.Fd + f] = s;
     }
   }
+  __syncthreads();
+}
+
+// Pass 2: the g-chain of the block's rays.
+template <class T>
+__global__ void __launch_bounds__(kThreads, 2)
+chain_kernel(Params p, Extra e) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ray0 = blockIdx.x * p.RB;
+  chain_rays<T>(p, e, smem_raw, ray0, min(p.RB, p.R - ray0), nullptr);
 }
 
 // ---- dW = A^T B over the rows, split into chunks of rows ----
@@ -650,26 +796,23 @@ inline cudaError_t set_smem(const void* kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// Passes 2-5 on the stored activations and e.g_rgb / e.g_den; the summed
-// dW/db go to out (output_offsets' layout).
+// Passes 3-5 on the stored activations, masked g and e.g_rgb / e.g_den /
+// e.g_ray; the summed dW/db go to out (output_offsets' layout). db is
+// taken as column sums of g in passes 3 and 4, or, with dbpart, is the
+// column sums of the per-block partials dbpart [db_blocks, num_biases] that
+// the chain took (train_level_twopass.cu), and passes 3-4 multiply only.
 template <class T>
-cudaError_t launch_backward(Params p, Extra e, const Layout& l, unsigned char* ws,
-                            float* out, long long n_out, int splits, cudaStream_t st) {
+cudaError_t launch_products(Params p, Extra e, const Layout& l, unsigned char* ws,
+                            float* out, long long n_out, int splits, const float* dbpart,
+                            int db_blocks, cudaStream_t st) {
   const int L = p.D + 2 + p.Dc;
   if (L > 64) return cudaErrorInvalidValue;
   const long long N = e.N;
-  const int blocks = (p.R + p.RB - 1) / p.RB;
   const T* acts = reinterpret_cast<const T*>(ws + l.acts);
   const T* grads = reinterpret_cast<const T*>(ws + l.grads);
   cudaError_t err;
 
-  // 2. g-chain (and dX, dD)
-  const size_t smem_c = chain_smem<T>(p, e.dx != nullptr);
-  if ((err = set_smem((const void*)chain_kernel<T>, smem_c)) != cudaSuccess) return err;
-  chain_kernel<T><<<blocks, kThreads, smem_c, st>>>(p, e);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  // 3. dW / db GEMMs over the rows
+  // 3. dW (/ db) GEMMs over the rows
   long long w_off[64], b_off[64];
   output_offsets(p, w_off, b_off);
   float* part = reinterpret_cast<float*>(ws + l.part);
@@ -683,7 +826,7 @@ cudaError_t launch_backward(Params p, Extra e, const Layout& l, unsigned char* w
                  int out_ld, long long db_off) {
     GemmJob& j = gj.job[gj.n++];
     j.A = A; j.B = B; j.lda = lda; j.ldb = ldb; j.M = M; j.Nn = Nn; j.K = (int)N;
-    j.out_off = out_off; j.out_ld = out_ld; j.db_off = db_off;
+    j.out_off = out_off; j.out_ld = out_ld; j.db_off = dbpart ? -1 : db_off;
     j.tiles_m = (M + tile - 1) / tile;
     j.block0 = nblocks;
     nblocks += j.tiles_m * ((Nn + tile - 1) / tile) * splits;
@@ -715,7 +858,7 @@ cudaError_t launch_backward(Params p, Extra e, const Layout& l, unsigned char* w
     dw_gemm_f32_kernel<<<nblocks, kGemmThreads, 0, st>>>(gj);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // 4. heads and the view layer's direction rows
+  // 4. heads, the view layer's direction rows (and db)
   SmallJobs sj;
   sj.part = part; sj.n_out = n_out; sj.n = 0; sj.splits = splits;
   int sblocks = 0;
@@ -731,11 +874,16 @@ cudaError_t launch_backward(Params p, Extra e, const Layout& l, unsigned char* w
   const T* h_last = acts + (long long)(p.D - 1) * tW;
   const T* v_last = acts + act_off(p, N, p.D + p.Dc - 1);
   add_small(h_last, p.W, e.g_den, p.Cd, p.W, p.Cd, (int)N, w_off[p.D], p.Cd);
-  add_small(nullptr, 0, e.g_den, p.Cd, 1, p.Cd, (int)N, b_off[p.D], p.Cd);
   add_small(static_cast<const T*>(p.d), p.Fd, e.g_ray, p.Wc, p.Fd, p.Wc, p.R,
             w_off[p.D + 1] + (long long)p.W * p.Wc, p.Wc);
   add_small(v_last, p.Wc, e.g_rgb, p.Cr, p.Wc, p.Cr, (int)N, w_off[L - 1], p.Cr);
-  add_small(nullptr, 0, e.g_rgb, p.Cr, 1, p.Cr, (int)N, b_off[L - 1], p.Cr);
+  if (dbpart) {
+    const int nb = num_biases(p);
+    add_small(nullptr, 0, dbpart, nb, 1, nb, db_blocks, b_off[0], nb);
+  } else {
+    add_small(nullptr, 0, e.g_den, p.Cd, 1, p.Cd, (int)N, b_off[p.D], p.Cd);
+    add_small(nullptr, 0, e.g_rgb, p.Cr, 1, p.Cr, (int)N, b_off[L - 1], p.Cr);
+  }
   small_tn_kernel<T><<<sblocks, kSmallThreads, 0, st>>>(sj);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
@@ -744,6 +892,21 @@ cudaError_t launch_backward(Params p, Extra e, const Layout& l, unsigned char* w
   reduce_kernel<<<(int)(rblocks < 4096 ? rblocks : 4096), 256, 0, st>>>(part, out, n_out,
                                                                         splits);
   return cudaGetLastError();
+}
+
+// Passes 2-5 on the stored activations and e.g_rgb / e.g_den; the summed
+// dW/db go to out (output_offsets' layout).
+template <class T>
+cudaError_t launch_backward(Params p, Extra e, const Layout& l, unsigned char* ws,
+                            float* out, long long n_out, int splits, cudaStream_t st) {
+  // 2. g-chain (and dX, dD)
+  const int blocks = (p.R + p.RB - 1) / p.RB;
+  const size_t smem_c = chain_smem<T>(p, e.dx != nullptr);
+  cudaError_t err;
+  if ((err = set_smem((const void*)chain_kernel<T>, smem_c)) != cudaSuccess) return err;
+  chain_kernel<T><<<blocks, kThreads, smem_c, st>>>(p, e);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_products<T>(p, e, l, ws, out, n_out, splits, nullptr, 0, st);
 }
 
 // The workspace and the Extra block of one backward launch: activations,

@@ -39,110 +39,6 @@
 
 namespace {
 
-// One warp per ray: forward composite (as composite()), then the loss
-// gradient, the composite backward and the activation VJPs. EX holds per
-// sample w, trans, alpha, dL/dw.
-template <class T>
-__device__ void composite_train(const Params& p, const Extra& e, const Smem<T>& sm,
-                                float* EX, int ray0, int nr) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float pad = p.rgb_padding, scale = 1.0f + 2.0f * pad;
-  for (int r = warp; r < nr; r += kThreads / 32) {
-    const long long ray = ray0 + r;
-    const float* out = sm.OUT + r * p.S * 4;
-    float* ex = EX + r * p.S * 4;
-    float carry = 0.0f, a_acc = 0.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
-    for (int s0 = 0; s0 < p.S; s0 += 32) {
-      const int s = s0 + lane;
-      const bool valid = s < p.S;
-      float sd = 0.0f, rr = 0.0f, rg = 0.0f, rb = 0.0f;
-      if (valid) {
-        const float* o = out + s * 4;
-        sd = softplus(o[3] + p.density_bias) * p.delta[ray * p.S + s];
-        rr = sigmoid(o[0]) * scale - pad;
-        rg = sigmoid(o[1]) * scale - pad;
-        rb = sigmoid(o[2]) * scale - pad;
-      }
-      float incl = sd;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float y = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += y;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = 0.0f;
-      const float trans = expf(-(carry + excl));
-      const float alpha = 1.0f - expf(-sd);
-      const float w = valid ? alpha * trans : 0.0f;
-      if (valid) {
-        p.weights[ray * p.S + s] = w;
-        ex[s * 4 + 0] = w;
-        ex[s * 4 + 1] = trans;
-        ex[s * 4 + 2] = alpha;
-      }
-      a_acc += w;
-      cr += w * rr;
-      cg += w * rg;
-      cb += w * rb;
-      carry += __shfl_sync(0xffffffffu, incl, 31);
-    }
-    a_acc = warp_sum(a_acc);
-    const float bg = p.white_bkgd ? 1.0f - a_acc : 0.0f;
-    const float c0 = warp_sum(cr) + bg, c1 = warp_sum(cg) + bg, c2 = warp_sum(cb) + bg;
-    if (lane == 0) {
-      p.comp[ray * 3 + 0] = c0;
-      p.comp[ray * 3 + 1] = c1;
-      p.comp[ray * 3 + 2] = c2;
-      p.acc[ray] = a_acc;
-    }
-    // dL/dcomp, then dL/dw and the total of w * dL/dw.
-    const float gs = e.gsc[ray];
-    const float g0 = gs * (c0 - e.pixels[ray * 3 + 0]);
-    const float g1 = gs * (c1 - e.pixels[ray * 3 + 1]);
-    const float g2 = gs * (c2 - e.pixels[ray * 3 + 2]);
-    float total = 0.0f;
-    for (int s = lane; s < p.S; s += 32) {
-      const float* o = out + s * 4;
-      float dl = g0 * (sigmoid(o[0]) * scale - pad) + g1 * (sigmoid(o[1]) * scale - pad) +
-                 g2 * (sigmoid(o[2]) * scale - pad);
-      if (p.white_bkgd) dl -= g0 + g1 + g2;
-      ex[s * 4 + 3] = dl;
-      total += dl * ex[s * 4 + 0];
-    }
-    total = warp_sum(total);
-    // suffix_s = total - inclusive prefix of w * dL/dw
-    carry = 0.0f;
-    for (int s0 = 0; s0 < p.S; s0 += 32) {
-      const int s = s0 + lane;
-      const bool valid = s < p.S;
-      const float wdw = valid ? ex[s * 4 + 3] * ex[s * 4 + 0] : 0.0f;
-      float incl = wdw;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float y = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += y;
-      }
-      if (valid) {
-        const float w = ex[s * 4 + 0], trans = ex[s * 4 + 1], alpha = ex[s * 4 + 2];
-        const float dl = ex[s * 4 + 3];
-        const float suffix = total - (carry + incl);
-        const float dalpha = dl * trans - suffix / fmaxf(1.0f - alpha, 1e-10f);
-        const float dsigma = dalpha * (1.0f - alpha) * p.delta[ray * p.S + s];
-        const float* o = out + s * 4;
-        const long long row = ray * p.S + s;
-        const float gk[3] = {g0, g1, g2};
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const float sg = sigmoid(o[k]);
-          e.g_rgb[row * 3 + k] = (gk[k] * w) * (sg * (1.0f - sg) * scale);
-        }
-        e.g_den[row] = dsigma * sigmoid(o[3] + p.density_bias);
-      }
-      carry += __shfl_sync(0xffffffffu, incl, 31);
-    }
-  }
-}
-
 // Pass 1: the render kernel's forward, keeping the activations, then the
 // composite and its backward.
 template <class T>

@@ -4,12 +4,13 @@ Same contract as ``nerf_or_nothing_tpu/datasets/base.py`` on one process:
 subclasses fill ``images`` [N,H,W,3] and ``rays`` (leaves [N,H,W,C]) in
 ``_load``; the images flatten to a pixel pool, and ``next()`` serves
 ``batch_size`` pixels drawn with replacement from
-``np.random.default_rng(seed + 17 * rank + (0 if train else 1))``
-(rank 0 here), so the batches are byte-equal to the JAX package's. A
-background thread prefetches batches into a bounded queue; ``peek``,
-``close`` and the context manager behave as there. ``image_rays`` serves
-one image's flat ray grid and ground truth. Everything is numpy on the
-host.
+``np.random.default_rng(seed + 17 * rank + (0 if train else 1))``, so the
+batches are byte-equal to the JAX package's. Each process takes the
+stripe ``rank::count`` of the pool (``stripe``: rank 0 of 1 until the port
+trains on several processes). A background thread prefetches batches into
+a bounded queue; ``peek``, ``close`` and the context manager behave as
+there. ``image_rays`` serves one image's flat ray grid and ground truth.
+Everything is numpy on the host.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ class Dataset:
         if cfg.linear_color:
             self._linearize()
         self._flatten()
-        rank = 0  # one process; per-rank striping comes with ROADMAP A.5
+        rank, _ = self.stripe()
         self._rng = np.random.default_rng(
             cfg.seed + 17 * rank + (0 if split == "train" else 1)
         )
@@ -50,6 +51,12 @@ class Dataset:
     def _load(self) -> None:
         raise NotImplementedError
 
+    @staticmethod
+    def stripe() -> Tuple[int, int]:
+        """(rank, count): this process draws from pool rows rank::count.
+        One process: training on several is ROADMAP queue A item 5."""
+        return 0, 1
+
     def _linearize(self) -> None:
         """Linear radiance (Config.linear_color): decode the sRGB pixels."""
         from nerf_or_nothing_tpu_torch.ops.math_utils import srgb_to_linear
@@ -59,12 +66,17 @@ class Dataset:
         )
 
     def _flatten(self) -> None:
-        """Flatten [N,H,W,...] to a pixel pool."""
+        """Flatten [N,H,W,...] to a pixel pool, this process's stripe."""
         n, h, w = self.images.shape[:3]
         self.num_images, self.height, self.width = n, h, w
-        self._flat_rays = Rays(*[np.asarray(x).reshape(n * h * w, -1)
-                                 for x in self.rays])
-        self._flat_pixels = self.images.reshape(n * h * w, 3)
+        self._set_pool(Rays(*[np.asarray(x).reshape(n * h * w, -1)
+                              for x in self.rays]),
+                       self.images.reshape(n * h * w, 3))
+
+    def _set_pool(self, flat_rays: Rays, flat_pixels: np.ndarray) -> None:
+        rank, count = self.stripe()
+        self._flat_rays = Rays(*[x[rank::count] for x in flat_rays])
+        self._flat_pixels = flat_pixels[rank::count]
         self.pool_size = self._flat_pixels.shape[0]
 
     def _sample_batch(self) -> Tuple[Rays, np.ndarray]:
@@ -144,13 +156,18 @@ class Dataset:
 
 
 def create_dataset(split: str, data_dir: str, cfg: Config) -> Dataset:
-    """Dataset factory. The render slice ports the Blender loader; LLFF,
-    Multicam and the bin dump come with the datasets slice."""
-    from nerf_or_nothing_tpu_torch.datasets import blender
+    """The loader of ``cfg.dataset_loader``."""
+    from nerf_or_nothing_tpu_torch.datasets import (
+        bin_dump,
+        blender,
+        llff,
+        multicam,
+    )
 
-    if cfg.dataset_loader != DatasetType.BLENDER:
-        raise NotImplementedError(
-            f"dataset loader {cfg.dataset_loader.value!r} is not ported yet "
-            "(ROADMAP queue A, datasets)"
-        )
-    return blender.Blender(split, data_dir, cfg)
+    loaders = {
+        DatasetType.BLENDER: blender.Blender,
+        DatasetType.LLFF: llff.LLFF,
+        DatasetType.MULTICAM: multicam.Multicam,
+        DatasetType.BIN: bin_dump.BinDataset,
+    }
+    return loaders[cfg.dataset_loader](split, data_dir, cfg)

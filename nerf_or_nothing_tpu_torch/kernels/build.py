@@ -30,7 +30,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-SOURCES = ("render_level", "train_level", "mlp_fwd", "mlp_bwd")
+SOURCES = ("render_level", "train_level", "train_level_twopass", "mlp_fwd",
+           "mlp_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # source path -> {"seconds": build time (0.0 when loaded from the cache),

@@ -5,15 +5,19 @@ each with its plain PyTorch version beside it.
 
 The render kernel (``csrc/render_level.cu``) replaces the TPU kernel
 ``nerf_or_nothing_tpu/kernels/fused_level.py::_render_kernel``; the train
-kernel (``csrc/train_level.cu``) replaces ``_level_kernel``. Both take
-the sample means/variances [N, 3] and runs the IPE itself (mode ``"mv"``),
-or takes encoded features [N, location_features] (mode ``"t"``); rows are
-ray-major (row = ray * S + sample), features in the interleaved
-[sin3, cos3]-per-frequency order, so no weight permutation is needed.
+kernel (``csrc/train_level.cu``) replaces ``_level_kernel``, and the
+two-pass train kernel (``csrc/train_level_twopass.cu``, kernel_probes
+``fl_variant=twopass``) replaces ``_level_kernel_twopass``. The first two
+take the sample means/variances [N, 3] and run the IPE themselves (mode
+``"mv"``), or take encoded features [N, location_features] (mode ``"t"``,
+the only mode of the two-pass kernel); rows are ray-major (row = ray * S +
+sample), features in the interleaved [sin3, cos3]-per-frequency order, so
+no weight permutation is needed.
 
-``render_level`` and ``train_level`` dispatch on the device of their
-inputs: CPU tensors go to the plain version; CUDA tensors launch the
-kernel, or raise. There is no fallback from the card to the plain version.
+``render_level``, ``train_level`` and ``train_level_twopass`` dispatch on
+the device of their inputs: CPU tensors go to the plain version; CUDA
+tensors launch the kernel, or raise. There is no fallback from the card to
+the plain version.
 """
 
 from __future__ import annotations
@@ -582,9 +586,20 @@ def mlp_backward_plain(params: Params, cfg: Config, x, d, hs, vs, g_rgb,
 
 def level_train_plain(params: Params, cfg: Config, xs, d, delta, pixels,
                       g_scale, white_bkgd: bool, mode: str):
-    """The train kernel's function in plain PyTorch with the kernel's
+    """The train kernels' function in plain PyTorch with the kernels'
     rounding points: ``mlp_forward_acts`` keeping the activations, the
     composite backward in f32, then ``mlp_backward_plain`` (no dX or dD).
+
+    It is also the plain version of the two-pass kernel
+    (``_level_kernel_twopass``, ``csrc/train_level_twopass.cu``): the two
+    passes split where the products run, not where they round. Its g-chain
+    rounds g to the compute type after every product as here, its masked g
+    and activations are parked in the compute type (which they already
+    are), db is summed in f32 from those g and from the f32 head
+    cotangents, and g_ray is rounded to the compute type before ``d^T
+    g_ray``, as ``dense`` rounds its operands
+    (``tests/test_torch_twopass.py`` holds this against the interpreted JAX
+    kernel).
 
     Args: as ``render_level_plain``, plus pixels [R, 3] f32 and g_scale
       [R, 1] f32 (level_weight * 2 * mask / sum(mask)).
@@ -620,28 +635,29 @@ def train_splits(rows: int) -> int:
     return max(1, min(32, -(-rows // 4096)))
 
 
-def _train_library():
+def _train_library(name: str):
+    """(launch, workspace) C functions of ``csrc/<name>.cu``; both train
+    kernels have the same C interface."""
     from nerf_or_nothing_tpu_torch.kernels import build
 
-    lib = build.load("train_level")
-    fn = lib.train_level_launch
+    lib = build.load(name)
+    fn = getattr(lib, f"{name}_launch")
+    ws = getattr(lib, f"{name}_workspace")
     if fn.argtypes is None:
         p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                        ctypes.c_longlong)
         fn.argtypes = [i, i] + [p] * 14 + [ll, p] + [i] * 12 + [f, f, i, i, p]
         fn.restype = ctypes.c_int
-        ws = lib.train_level_workspace
         ws.argtypes = [i] * 9 + [ll]
         ws.restype = ll
-    return lib
+    return fn, ws
 
 
-def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
-                     g_scale, white_bkgd: bool, mode: str, packed=None):
-    """Launch the train kernel on the current stream. Same arguments and
-    outputs as ``level_train_plain``; ``packed`` is ``pack_train_params``'
-    result when the caller already has it (once per step for both
-    levels)."""
+def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
+                  delta, pixels, g_scale, white_bkgd: bool, mode: str,
+                  packed):
+    """Check the inputs, launch ``csrc/<name>.cu`` on the current stream
+    and add one to ``counted.launches``."""
     ptrs = _check_level_inputs(cfg, xs, d, delta, mode)
     dt = compute_dtype(cfg)
     R, S = delta.shape
@@ -666,15 +682,15 @@ def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
     grads = torch.empty((n_out,), dtype=torch.float32, device=device)
     if R == 0:
         return comp, acc, weights, unpack_grads(grads.zero_(), cfg)
-    lib = _train_library()
+    launch, workspace_bytes = _train_library(name)
     kx, splits = padded_location_features(cfg), train_splits(N)
     D, W, Wc, Dc = (cfg.net_depth, cfg.net_width, cfg.net_width_condition,
                     cfg.net_depth_condition)
-    ws_bytes = lib.train_level_workspace(_DTYPE_CODE[dt], R, S, D, W, Wc, Dc,
-                                         kx, splits, n_out)
+    ws_bytes = workspace_bytes(_DTYPE_CODE[dt], R, S, D, W, Wc, Dc, kx,
+                               splits, n_out)
     workspace = torch.empty((ws_bytes,), dtype=torch.uint8, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.train_level_launch(
+    err = launch(
         _DTYPE_CODE[dt], _MODE_CODE[mode], *ptrs, d.data_ptr(),
         delta.data_ptr(), pixels.data_ptr(), gsc.data_ptr(), w_flat.data_ptr(),
         wt_flat.data_ptr(), b_flat.data_ptr(), comp.data_ptr(),
@@ -684,9 +700,30 @@ def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
         float(cfg.rgb_padding), int(white_bkgd), splits, stream,
     )
     if err != 0:
-        raise RuntimeError(f"train_level kernel launch failed: CUDA error {err}")
-    train_level.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    counted.launches += 1
     return comp, acc, weights, unpack_grads(grads, cfg)
+
+
+def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
+                     g_scale, white_bkgd: bool, mode: str, packed=None):
+    """Launch the train kernel on the current stream. Same arguments and
+    outputs as ``level_train_plain``; ``packed`` is ``pack_train_params``'
+    result when the caller already has it (once per step for both
+    levels)."""
+    return _launch_train("train_level", train_level, params, cfg, xs, d,
+                         delta, pixels, g_scale, white_bkgd, mode, packed)
+
+
+def train_level_twopass_cuda(params: Params, cfg: Config, x, d, delta,
+                             pixels, g_scale, white_bkgd: bool, packed=None):
+    """Launch the two-pass train kernel (``csrc/train_level_twopass.cu``)
+    on the current stream: ``train_level_cuda`` in mode ``"t"``, the same
+    outputs, in the TPU kernel's two phases (forward, composite and g-chain
+    with db; then the dW products)."""
+    return _launch_train("train_level_twopass", train_level_twopass, params,
+                         cfg, x, d, delta, pixels, g_scale, white_bkgd, "t",
+                         packed)
 
 
 def train_level(params: Params, cfg: Config, xs, d, delta, pixels, g_scale,
@@ -702,11 +739,28 @@ def train_level(params: Params, cfg: Config, xs, d, delta, pixels, g_scale,
 train_level.launches = 0
 
 
+def train_level_twopass(params: Params, cfg: Config, x, d, delta, pixels,
+                        g_scale, white_bkgd: bool, packed=None):
+    """Plain version (``level_train_plain`` in mode ``"t"``) for CPU
+    tensors; the two-pass CUDA kernel for CUDA tensors."""
+    if delta.is_cuda:
+        return train_level_twopass_cuda(params, cfg, x, d, delta, pixels,
+                                        g_scale, white_bkgd, packed=packed)
+    return level_train_plain(params, cfg, x, d, delta, pixels, g_scale,
+                             white_bkgd, "t")
+
+
+train_level_twopass.launches = 0
+
+
 def fused_level_train(params: Params, cfg: Config, x_enc, dir_enc, t_vals,
                       dirs, pixels, g_scale, white_bkgd: bool,
                       means_covs=None, packed=None):
     """One level's full train pass (forward, loss gradient, backward) as
-    one ``train_level`` call.
+    one ``train_level`` call, or one ``train_level_twopass`` call with
+    kernel_probes ``fl_variant=twopass`` in mode "t" (as the JAX package
+    picks ``_level_kernel_twopass``). Probe values whose JAX kernels
+    compute filler values raise NotImplementedError (``Config.check_probes``).
 
     Args:
       x_enc: [R, S, F] IPE features, or None with ``means_covs``
@@ -723,6 +777,7 @@ def fused_level_train(params: Params, cfg: Config, x_enc, dir_enc, t_vals,
     Valid only with ``stop_level_grad``: the sampled Gaussians are
     constants with respect to the parameters.
     """
+    cfg.check_probes("fl_variant", "fm_bwd")
     num_rays, s = t_vals.shape[0], t_vals.shape[1] - 1
     dt = compute_dtype(cfg)
     if means_covs is not None:
@@ -736,8 +791,10 @@ def fused_level_train(params: Params, cfg: Config, x_enc, dir_enc, t_vals,
         mode = "t"
     d2d = dir_enc.reshape(num_rays, dir_enc.shape[-1]).to(dt).contiguous()
     delta = interval_lengths(t_vals, dirs).float().contiguous()
-    return train_level(
-        params, cfg, xs, d2d, delta, pixels.float().contiguous(),
-        g_scale.float().reshape(num_rays, 1).contiguous(), white_bkgd, mode,
-        packed=packed,
-    )
+    pixels = pixels.float().contiguous()
+    g_scale = g_scale.float().reshape(num_rays, 1).contiguous()
+    if mode == "t" and cfg.probe("fl_variant") == "twopass":
+        return train_level_twopass(params, cfg, xs, d2d, delta, pixels,
+                                   g_scale, white_bkgd, packed=packed)
+    return train_level(params, cfg, xs, d2d, delta, pixels, g_scale,
+                       white_bkgd, mode, packed=packed)

@@ -262,7 +262,10 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
 
 def mlp_bwd(params: Params, cfg: Config, x, d, g_rgb, g_den,
             input_grads: bool, packed=None):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors.
+    The ``fm_bwd`` probe values whose JAX kernel computes filler values
+    raise NotImplementedError (``Config.check_probes``)."""
+    cfg.check_probes("fm_bwd")
     if x.is_cuda:
         return mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den, input_grads,
                             packed=packed)

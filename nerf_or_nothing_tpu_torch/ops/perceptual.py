@@ -4,8 +4,9 @@ Same metric as ``nerf_or_nothing_tpu/ops/perceptual.py``: three scales of
 3x3 conv + ReLU with fixed He-scaled Gaussian filters drawn from
 ``np.random.default_rng(1905)``, channel unit-normalisation, squared
 feature difference, spatial + channel mean, summed over scales, with 2x2
-average pooling between scales. Not the trained LPIPS metric: it is
-reported as ``lpips_proxy``.
+average pooling between scales (odd edges dropped; a scale with no pixels
+left, below 4 pixels a side, gives NaN, as the mean over no pixels does
+in JAX). Not the trained LPIPS metric: it is reported as ``lpips_proxy``.
 """
 
 from __future__ import annotations
@@ -41,19 +42,29 @@ def _normalize_channels(feat, eps=1e-10):
     return feat / torch.clamp(norm, min=eps)
 
 
+def _avg_pool2(x):
+    """2x2 average pooling, odd edges dropped; no pixels below 2."""
+    if min(x.shape[-2:]) < 2:
+        return x[..., : x.shape[-2] // 2, : x.shape[-1] // 2]
+    return F.avg_pool2d(x, 2)
+
+
 def perceptual_distance(img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
     """Distance of two [H, W, 3] images in [0, 1]; 0 for identical images."""
     exact_f32(img0.device)
     x0 = img0.float().permute(2, 0, 1)[None] * 2.0 - 1.0   # NCHW
     x1 = img1.float().permute(2, 0, 1)[None] * 2.0 - 1.0
     total = torch.zeros((), dtype=torch.float32, device=img0.device)
-    for f in _filters():
+    for i, f in enumerate(_filters()):
+        if i:
+            x0, x1 = _avg_pool2(x0), _avg_pool2(x1)
+        if min(x0.shape[-2:]) == 0:
+            total = total + float("nan")
+            continue
         k = torch.from_numpy(f).permute(3, 2, 0, 1).contiguous()  # OIHW
         k = k.to(img0.device)
         x0 = torch.relu(F.conv2d(x0, k, padding=1))
         x1 = torch.relu(F.conv2d(x1, k, padding=1))
         d = _normalize_channels(x0) - _normalize_channels(x1)
         total = total + torch.mean(torch.sum(d * d, dim=1))
-        x0 = F.avg_pool2d(x0, 2)
-        x1 = F.avg_pool2d(x1, 2)
     return total

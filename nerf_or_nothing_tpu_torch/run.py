@@ -4,6 +4,8 @@ CLI (same config flags as ``nerf_or_nothing_tpu.run``):
   python -m nerf_or_nothing_tpu_torch.run train  --data-dir=... --max-steps=...
   python -m nerf_or_nothing_tpu_torch.run eval   --data-dir=... --checkpoint-dir=...
   python -m nerf_or_nothing_tpu_torch.run render --data-dir=... --out=...
+Loaders: --dataset-loader=blender|llff|multicam|bin (bin: --data-dir is
+the dump file); --render-path renders the loader's novel-view path.
 Extra flags: --out=DIR, --max-images=N, --device=cuda|cpu (default cuda;
 without a card the run raises unless --device=cpu is given).
 """
@@ -181,24 +183,26 @@ def evaluate(cfg: Config, max_images: Optional[int] = None,
 
 def render(cfg: Config, out_dir: str, max_images: Optional[int] = None,
            device="cuda"):
-    """Render the test split to ``out_dir/render_XXX.png``."""
+    """Render the test split, or with ``cfg.render_path`` the loader's
+    novel-view camera path (Blender and Multicam orbit, LLFF spiral, or
+    circle when spherified), to ``out_dir/render_XXX.png``."""
     from PIL import Image
 
-    if cfg.render_path:
-        raise NotImplementedError(
-            "render_path (novel-view camera paths) is not ported yet"
-        )
     device = resolve_device(device)
     params = load_params(cfg, device)
     with create_dataset("test", cfg.data_dir, cfg) as dataset:
         render_fn = make_render_fn(cfg)
         os.makedirs(out_dir, exist_ok=True)
-        n = dataset.num_images if max_images is None else min(
-            max_images, dataset.num_images
-        )
-        for i in range(n):
-            rays = dataset.image_rays(i)[0]
-            h, w = dataset.image_dims(i)
+        if cfg.render_path and hasattr(dataset, "render_path_rays"):
+            # [(flat rays, (h, w)), ...]: the image_rays contract.
+            frames = dataset.render_path_rays()[:max_images]
+        else:
+            n = dataset.num_images if max_images is None else min(
+                max_images, dataset.num_images
+            )
+            frames = ((dataset.image_rays(i)[0], dataset.image_dims(i))
+                      for i in range(n))
+        for i, (rays, (h, w)) in enumerate(frames):
             rgb, _, _ = render_image(
                 render_fn, params, rays, h, w, cfg.render_chunk_size,
                 device=device,

@@ -6,13 +6,16 @@ with the model flags given.
 
     python3 profile_train.py
     python3 profile_train.py --fuse-level=false --stop-level-grad=false
+    python3 profile_train.py --dataset-loader=multicam \
+        --kernel-probes=fl_variant=twopass
 
 Prints one JSON line: the steps' wall time (host clock, each step
 synchronised; also without the profiler), the device time summed over all
 kernels and copies and its share of the wall time (the rest is the device
 idle), the device time of the hand-written kernels' launches by name per
 step and per launch of the wrapper (``train_level``: 5 launches,
-``mlp_bwd``: 5, ``mlp_fwd``: 1), the rest of the device time, the device
+``train_level_twopass``: 4, ``mlp_bwd``: 5, ``mlp_fwd``: 1), the rest of
+the device time, the device
 time of the autograd backward nodes (inclusive of their kernels; the
 fused MLP's node holds the ``mlp_bwd`` launches, the others are the eager
 backward of the composite, IPE, cast_rays and resampling), and, timed
@@ -31,6 +34,8 @@ import time
 KERNELS = {
     "train_level": ("train_fwd_kernel", "chain_kernel", "dw_gemm",
                     "small_tn_kernel", "reduce_kernel"),
+    "train_level_twopass": ("twopass_chain_kernel", "dw_gemm",
+                            "small_tn_kernel", "reduce_kernel"),
     "mlp_bwd": ("mlp_act_kernel", "chain_kernel", "dw_gemm",
                 "small_tn_kernel", "reduce_kernel"),
     "mlp_fwd": ("mlp_fwd_kernel",),
@@ -66,7 +71,12 @@ def main(argv) -> int:
     write_scene(scene, n_train=2, n_test=1, size=400)
     cfg = parse_flags(argv, Config(data_dir=scene))
     fused = train_lib.use_fused_level(cfg)
-    wrappers = ("train_level",) if fused else ("mlp_fwd", "mlp_bwd")
+    twopass = (fused and cfg.probe("fl_variant") == "twopass"
+               and not cfg.fuse_ipe)
+    wrappers = (("train_level_twopass" if twopass else "train_level",)
+                if fused else ("mlp_fwd", "mlp_bwd"))
+    module = {"train_level": fl, "train_level_twopass": fl, "mlp_fwd": fm,
+              "mlp_bwd": fm}
     device = torch.device("cuda")
     state = train_lib.init_train_state(cfg, device)
     step_fn = train_lib.make_train_step(cfg)
@@ -86,13 +96,12 @@ def main(argv) -> int:
     steps(batches[:3])  # warm-up: builds the kernels, allocator, handles
     plain_wall = steps(batches[3:6])
     n = 4
-    counts = {w: getattr(fl if w == "train_level" else fm, w).launches
-              for w in wrappers}
+    counts = {w: getattr(module[w], w).launches for w in wrappers}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = steps(batches[6:6 + n])
-    calls = {w: (getattr(fl if w == "train_level" else fm, w).launches
-                 - counts[w]) / n for w in wrappers}
+    calls = {w: (getattr(module[w], w).launches - counts[w]) / n
+             for w in wrappers}
 
     def device_us(ev, inclusive=False):
         name = "device_time_total" if inclusive else "self_device_time_total"
@@ -146,6 +155,11 @@ def main(argv) -> int:
         xs, d, delta = level_inputs(cfg, R, "t", 1, device)
         pixels, g_scale = train_inputs(cfg, R, 2, device)
         packed = fl.pack_train_params(state.params, cfg, dt)
+        if twopass:
+            alone["train_level_twopass_call"] = median_ms(
+                lambda: fl.train_level_twopass_cuda(
+                    state.params, cfg, xs, d, delta, pixels, g_scale, True,
+                    packed=packed))
         alone["train_level_call"] = median_ms(lambda: fl.train_level_cuda(
             state.params, cfg, xs, d, delta, pixels, g_scale, True, "t",
             packed=packed))

@@ -1,6 +1,6 @@
-"""The render-level, train-level and MLP forward / backward CUDA kernels
-against their plain PyTorch versions, on a card, and a full-gradient train
-step on the card against the CPU.
+"""The render-level, train-level (one- and two-pass) and MLP forward /
+backward CUDA kernels against their plain PyTorch versions, on a card, and
+a full-gradient train step on the card against the CPU.
 
 The kernel has no CPU mode, so these tests skip on a host without CUDA.
 The module imports neither JAX nor the JAX package, so it also runs where
@@ -147,7 +147,11 @@ def train_inputs(R, S, seed, dev):
 
 
 def check_train(cfg, R, mode, white_bkgd, dev, seed=1):
+    """``fused_level_train`` on the card (one launch of the kernel the
+    config selects) against ``level_train_plain``."""
     S = cfg.num_samples
+    kernel = (fl.train_level_twopass if mode == "t"
+              and cfg.probe("fl_variant") == "twopass" else fl.train_level)
     params = tmlp.init_mlp(torch.Generator().manual_seed(seed), cfg, device=dev)
     means, covs, dir_enc, t_vals, dirs, pixels, g_scale = train_inputs(
         R, S, seed, dev)
@@ -157,11 +161,13 @@ def check_train(cfg, R, mode, white_bkgd, dev, seed=1):
     else:
         x = integrated_pos_enc((means, covs), cfg.min_deg_point,
                                cfg.max_deg_point, fast=True)
-    before = fl.train_level.launches
+    before = (fl.train_level.launches, fl.train_level_twopass.launches)
     out = fl.fused_level_train(params, cfg, x, dir_enc, t_vals, dirs, pixels,
                                g_scale, white_bkgd, **kw)
     torch.cuda.synchronize()
-    assert fl.train_level.launches == before + 1
+    grown = tuple(a - b for a, b in zip(
+        (fl.train_level.launches, fl.train_level_twopass.launches), before))
+    assert grown == ((0, 1) if kernel is fl.train_level_twopass else (1, 0))
     dt = tmlp.compute_dtype(cfg)
     xs = ((means.reshape(-1, 3), covs.reshape(-1, 3)) if mode == "mv"
           else x.reshape(R * S, -1).to(dt))
@@ -211,6 +217,42 @@ def test_train_kernel_dw_bit_equal_on_cuda():
                              g_scale, True)
     b = fl.fused_level_train(params, cfg, x, dir_enc, t_vals, dirs, pixels,
                              g_scale, True)
+    for (wa, ba), (wb, bb) in zip(a[3], b[3]):
+        assert torch.equal(wa, wb) and torch.equal(ba, bb)
+    for ta, tb in zip(a[:3], b[:3]):
+        assert torch.equal(ta, tb)
+
+
+@pytest.mark.parametrize("width", ["small", "config"])
+def test_twopass_kernel_matches_plain_on_cuda(width):
+    """The two-pass kernel (kernel_probes fl_variant=twopass, mode "t")
+    through ``fused_level_train``: both compute dtypes, S = 8, 64 and 256
+    at the narrow width (ragged R=13, masked rays), 128 at Config() width."""
+    dev = cuda_device()
+    for dtype in ("float32", "bfloat16"):
+        for S in ((8, 64, 256) if width == "small" else (128,)):
+            kw = dict(compute_dtype=dtype, num_samples=S,
+                      kernel_probes="fl_variant=twopass")
+            if width == "small":
+                cfg, R = tiny_config(**dict(SMALL, **kw)), 13
+            else:
+                cfg, R = Config(**kw), 21
+            check_train(cfg, R, "t", S != 64, dev)
+
+
+def test_twopass_kernel_bit_equal_on_cuda():
+    """No atomics: two launches at a narrow width and a ragged ray count
+    give the same bits."""
+    dev = cuda_device()
+    cfg = tiny_config(**dict(SMALL, net_depth=5, num_samples=256,
+                             kernel_probes="fl_variant=twopass"))
+    R, S = 37, cfg.num_samples
+    params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg, device=dev)
+    means, covs, dir_enc, t_vals, dirs, pixels, g_scale = train_inputs(
+        R, S, 3, dev)
+    x = integrated_pos_enc((means, covs), 0, cfg.max_deg_point, fast=True)
+    a, b = (fl.fused_level_train(params, cfg, x, dir_enc, t_vals, dirs,
+                                 pixels, g_scale, True) for _ in range(2))
     for (wa, ba), (wb, bb) in zip(a[3], b[3]):
         assert torch.equal(wa, wb) and torch.equal(ba, bb)
     for ta, tb in zip(a[:3], b[:3]):
