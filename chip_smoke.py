@@ -104,6 +104,10 @@ TPU_MLP_FWD = "nerf_or_nothing_tpu/kernels/fused_mlp.py:239"  # _fwd_kernel
 TPU_MLP_BWD = "nerf_or_nothing_tpu/kernels/fused_mlp.py:673"  # _bwd_kernel
 # _level_kernel_twopass
 TPU_TWOPASS_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:500"
+# The forward kernels before wgmma (mma.sync), timed in turns with the
+# wgmma ones: their commit, and where their copies are written (gitignored)
+MMA_COMMIT = "815018d"
+MMA_DIR = ".local_runs/mma_sync"
 TRAIN_STEPS = 40
 FULL_GRAD_STEPS = 20
 FULL_GRAD_ARGS = ("--fuse-level=false", "--stop-level-grad=false")
@@ -475,7 +479,7 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
     gen = torch.Generator().manual_seed(seed)
     params = init_mlp(gen, cfg, device=device)
     xs, d, delta = level_inputs(cfg, R, mode, seed + 1, device)
-    packed = fl.pack_params(params, cfg, compute_dtype(cfg))
+    packed = fl.pack_forward(params, cfg, compute_dtype(cfg))
 
     def kernel():
         return fl.render_level_cuda(params, cfg, xs, d, delta, white_bkgd,
@@ -513,6 +517,99 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
         raise AssertionError(f"{name}: kernel disagrees with plain, "
                              f"normalized error {worst}")
     return res
+
+
+def mma_sources():
+    """The ``mma.sync`` versions of ``render_level.cu`` and ``mlp_fwd.cu``
+    (commit ``MMA_COMMIT``), by kernel name: the copies in ``MMA_DIR``, else
+    written there from git (``git show MMA_COMMIT:...``); None where neither
+    exists (a
+    checkout without history and without the copies)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name in ("render_level", "mlp_fwd"):
+        path = os.path.join(root, MMA_DIR, f"{name}_mma.cu")
+        if not os.path.exists(path):
+            got = subprocess.run(
+                ["git", "show",
+                 f"{MMA_COMMIT}:nerf_or_nothing_tpu_torch/csrc/{name}.cu"],
+                cwd=root, capture_output=True, text=True)
+            if got.returncode != 0:
+                return None
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                f.write(got.stdout)
+        out[name] = path
+    return out
+
+
+def matmul_ms(cfg, R: int, device) -> float:
+    """The MLP's layer products at ``cfg`` over R rays as ``torch.matmul``
+    calls on random bf16 operands (the view layer's direction rows once
+    per ray), median by CUDA events: a yardstick of the products alone,
+    which the port never calls."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch.models.mlp import layer_dims
+
+    g = torch.Generator(device=device).manual_seed(0)
+    N, W, D = R * cfg.num_samples, cfg.net_width, cfg.net_depth
+    pairs = []
+    for k, (fan_in, fan_out) in enumerate(layer_dims(cfg)):
+        rows = [(N, fan_in)]
+        if k == D + 1:  # first view layer: h rows per sample, d rows per ray
+            rows = [(N, W), (R, fan_in - W)]
+        for n, kin in rows:
+            pairs.append((torch.randn(n, kin, generator=g, device=device,
+                                      dtype=torch.bfloat16),
+                          torch.randn(kin, fan_out, generator=g,
+                                      device=device, dtype=torch.bfloat16)))
+
+    def run():
+        for a, w in pairs:
+            torch.matmul(a, w)
+
+    return median_ms(run)
+
+
+def turns_phase(device):
+    """The ``mma.sync`` forward kernels (``mma_sources``) and the ``wgmma``
+    ones on the same inputs, timed in turns (mma, wgmma, wgmma, mma;
+    ``compare_kernels.in_turns``): render_level bf16 R=16384 x S=128 mode
+    "mv", mlp_fwd bf16 R=16384 and R=1024 x S=128. First the same layer
+    products as ``torch.matmul`` calls at those shapes, a yardstick only.
+    Both versions must agree with the plain version; which is faster is
+    recorded, not required."""
+    import compare_kernels as ck
+    from nerf_or_nothing_tpu_torch.kernels import build
+
+    old = mma_sources()
+    if old is None:
+        emit({"phase": "turns", "skipped": "no copy of the mma.sync sources "
+              f"in {MMA_DIR} and no git history to write one"})
+        return None
+    from nerf_or_nothing_tpu_torch.config import Config
+
+    for R in (16384, 1024):
+        emit({"phase": "turns", "yardstick": "torch.matmul of the layer "
+              "products", "R": R, "S": Config().num_samples,
+              "ms": matmul_ms(Config(), R, device)})
+    out = []
+    for kernel, k in (("render_level", 0), ("mlp_fwd", 0), ("mlp_fwd", 1)):
+        sources = {"mma": old[kernel], "wgmma": build.source_path(kernel)}
+        res = ck.in_turns(kernel, sources, ck.cases(kernel)[k], device)
+        mma_ms = (res["mma_ms_0"] + res["mma_ms_3"]) / 2
+        wgmma_ms = (res["wgmma_ms_1"] + res["wgmma_ms_2"]) / 2
+        res.update({"phase": "turns", "mma_ms": mma_ms, "wgmma_ms": wgmma_ms,
+                    "speedup": mma_ms / wgmma_ms,
+                    "wgmma_not_slower": wgmma_ms <= mma_ms})
+        emit(res)
+        for name in sources:
+            if not res[f"{name}_err"] < 1.0:
+                raise AssertionError(f"turns: {kernel} {name} disagrees with "
+                                     f"plain: {res[f'{name}_err']}")
+        out.append(res)
+    return out
 
 
 def train_inputs(cfg, R: int, seed: int, device, multicam: bool = False):
@@ -1086,16 +1183,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     sources = build.SOURCES
-    build.build_all(sources)
+    old = mma_sources() or {}
+    build.build_all(sources, list(old.items()))
     seconds = time.perf_counter() - t0
-    for src in sources:
-        info = build.BUILD_INFO[str(build.source_path(src))]
+    for src in [build.source_path(n) for n in sources] + list(old.values()):
+        info = build.BUILD_INFO[str(src)]
         emit({
-            "phase": "build",
-            "source": f"nerf_or_nothing_tpu_torch/csrc/{src}.cu",
+            "phase": "build", "source": os.path.relpath(src),
             "seconds": seconds, "nvcc_seconds": info["seconds"],
             "ptxas": [ln.strip() for ln in info["log"].splitlines()
-                      if "registers" in ln or "spill" in ln],
+                      if "registers" in ln or "spill" in ln
+                      or "C7511" in ln],
         })
 
     base = Config()
@@ -1116,6 +1214,8 @@ def main() -> int:
         kernel_case(f"narrow_r37_s8_mv_{dtype}",
                     narrow.replace(compute_dtype=dtype), 37, "mv", True,
                     peaks, device, seed=3)
+
+    turns_phase(device)
 
     launches = main_path(peaks, device)
 

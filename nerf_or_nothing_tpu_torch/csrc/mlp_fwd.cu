@@ -11,51 +11,58 @@
 // out: 1024 rays x 128 samples are 141.9 GFLOP against ~27 MB, far above
 // the card's ~295 FLOP/byte ridge.
 //
-// Design (simple first version): the render kernel (render_level.cu)
-// without its composite. One block of 256 threads owns whole rays
-// (RB = max(1, 64 / S) rays) and walks their rows in 64-row sub-tiles;
-// features [64, KX] and one activation buffer [64, W] live in shared
-// memory; every layer is bf16 mma.sync with f32 accumulators (weights in
-// fragment order, straight from L2) and a ReLU epilogue rounded to bf16;
-// the skip layer is one accumulation over [h | x]; the view layer's
-// d @ W_bot is computed once per ray and added in the epilogue; the heads
-// (1-8 channels each) are f32 dot products of bf16 values, one warp per
-// row, written straight to the outputs. f32: FMA loops (no TF32), for
-// checking the algorithm in f32. Shared device code: level_common.cuh.
+// bf16: forward_wg.cuh, the render kernel's forward (render_level.cu)
+// without its composite: one persistent block per SM, a producer thread
+// streaming the packed weights (pack_params_wg) slab by slab into a ring
+// with cp.async.bulk, two consumer warpgroups of 64 rows multiplying each
+// slab with wgmma from shared memory (weights read from L2 once per 128
+// rows; the earlier mma.sync version read them per 64 rows), sums started
+// from the bias, one-instruction epilogues in place behind a warpgroup
+// barrier, the heads (1-8 channels each) as N=8 wgmma products written
+// straight to raw_rgb / raw_den. Helper warps load the next round's
+// features and each unit's direction term d @ W_dir while the consumers
+// multiply.
+// f32 (checking the algorithm only): level_common.cuh's FMA
+// forward_tile<float> on pack_params' row-major layout, one block of 256
+// threads per RB = max(1, 64 / S) rays.
 //
 // Plain C interface (loaded with ctypes): mlp_fwd_launch returns the
 // cudaError_t of the launch; it launches on the given stream, allocates
 // nothing and does not synchronise.
 
-#include "level_common.cuh"
+#include "forward_wg.cuh"
 
 namespace {
 
-template <class T>
 __global__ void __launch_bounds__(kThreads, 2)
 mlp_fwd_kernel(Params p, float* raw_rgb, float* raw_den) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> sm = carve<T>(smem_raw, p);
+  const Smem<float> sm = carve<float>(smem_raw, p);
   const int ray0 = blockIdx.x * p.RB;
   const int nr = min(p.RB, p.R - ray0);
   const int rows = nr * p.S;
-  direction_term<T>(p, sm, ray0, nr);
+  direction_term<float>(p, sm, ray0, nr);
   for (int sub0 = 0; sub0 < rows; sub0 += kBM) {
     const long long grow0 = (long long)ray0 * p.S + sub0;
-    forward_tile<T, false>(p, sm, sub0, min(kBM, rows - sub0), grow0, raw_den + grow0 * p.Cd,
-                           p.Cd, raw_rgb + grow0 * p.Cr, p.Cr, nullptr, nullptr, 0);
+    forward_tile<float, false>(p, sm, sub0, min(kBM, rows - sub0), grow0,
+                               raw_den + grow0 * p.Cd, p.Cd, raw_rgb + grow0 * p.Cr, p.Cr,
+                               nullptr, nullptr, 0);
   }
 }
 
-template <class T>
-cudaError_t launch(Params p, float* raw_rgb, float* raw_den, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(p.ldh, p.ldx, p.RB, p.Wc, 0);
+__global__ void __launch_bounds__(kWgThreads, 1) mlp_fwd_wg_kernel(WgParams q) {
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  forward_wg<false>(q, smem_wg);
+}
+
+cudaError_t launch_f32(Params p, float* raw_rgb, float* raw_den, cudaStream_t stream) {
+  const size_t smem = smem_bytes<float>(p.ldh, p.ldx, p.RB, p.Wc, 0);
   if (smem > 232448) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (p.R + p.RB - 1) / p.RB;
-  mlp_fwd_kernel<T><<<blocks, kThreads, smem, stream>>>(p, raw_rgb, raw_den);
+  mlp_fwd_kernel<<<blocks, kThreads, smem, stream>>>(p, raw_rgb, raw_den);
   return cudaGetLastError();
 }
 
@@ -64,7 +71,8 @@ cudaError_t launch(Params p, float* raw_rgb, float* raw_den, cudaStream_t stream
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. x: [R * S, LX] and d: [R, Fd] in the
-// compute type; w, b: pack_params' layout; raw_rgb [R * S, Cr] and
+// compute type; w: pack_params_wg's slabs (bf16) or pack_params' layout
+// (f32), b: the biases in layer order; raw_rgb [R * S, Cr] and
 // raw_den [R * S, Cd] f32. Widths must satisfy the wrapper's checks (W, Wc
 // multiples of 32 up to 256; KX a multiple of 16 >= LX; heads of 1-8).
 int mlp_fwd_launch(int dtype, const void* x, const void* d, const void* w, const float* b,
@@ -77,8 +85,16 @@ int mlp_fwd_launch(int dtype, const void* x, const void* d, const void* w, const
       (long long)R * S > 2147483647LL)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? (int)launch<bf16>(p, raw_rgb, raw_den, st)
-                    : (int)launch<float>(p, raw_rgb, raw_den, st);
+  if (dtype != 1) return (int)launch_f32(p, raw_rgb, raw_den, st);
+  WgParams q{};
+  q.p = p;
+  q.raw_rgb = raw_rgb;
+  q.raw_den = raw_den;
+  if (!init_wg(q, false)) return cudaErrorInvalidValue;
+  return (int)launch_wg(mlp_fwd_wg_kernel, q, st);
 }
+
+// The weight layout the bf16 kernel reads: pack_params_wg's slab stream.
+const char* mlp_fwd_weight_layout() { return "wg"; }
 
 }  // extern "C"

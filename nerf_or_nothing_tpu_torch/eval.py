@@ -37,10 +37,10 @@ def to_display(cfg: Config, img: np.ndarray) -> np.ndarray:
 def make_render_fn(cfg: Config, mlp_apply=None):
     """Deterministic forward returning the fine level's rgb/dist/acc.
 
-    On the card the kernels' packed weights (the render-level kernel's,
-    or the same layout for the fused-MLP forward kernel) are kept between
-    calls with the same weight tensors, unchanged in place, so the chunks
-    of a view (and the views of a dataset) pack them once."""
+    On the card the forward kernels' packed weights (``pack_forward``: the
+    render-level kernel's, the same for the fused-MLP forward kernel) are
+    kept between calls with the same weight tensors, unchanged in place, so
+    the chunks of a view (and the views of a dataset) pack them once."""
     kernels = mlp_apply is None and cfg.use_pallas
     kept = {}  # "key": tensor ids and versions, "tensors", "packed"
 
@@ -49,11 +49,11 @@ def make_render_fn(cfg: Config, mlp_apply=None):
         key = [(id(t), t._version) for t in tensors]
         if kept.get("key") != key:
             from nerf_or_nothing_tpu_torch.kernels.fused_level import (
-                pack_params,
+                pack_forward,
             )
 
             # Holding the tensors keeps their ids from being reused.
-            kept.update(key=key, tensors=tensors, packed=pack_params(
+            kept.update(key=key, tensors=tensors, packed=pack_forward(
                 params, cfg, mlp_lib.compute_dtype(cfg)))
         return kept["packed"]
 

@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -96,10 +96,13 @@ def _finish(started) -> Optional[str]:
     return None
 
 
-def build_all(names: Sequence[str]) -> Dict[str, Path]:
-    """Compile the sources ``csrc/<name>.cu`` that are not built yet, one
-    nvcc process per source, all started together."""
-    errors = [e for e in map(_finish, [_start(n) for n in names]) if e]
+def build_all(names: Sequence[str],
+              others: Sequence[Tuple[str, os.PathLike]] = ()) -> Dict[str, Path]:
+    """Compile the sources ``csrc/<name>.cu`` that are not built yet, and
+    the other versions ``(name, source)`` given, one nvcc process per
+    source, all started together."""
+    started = [_start(n) for n in names] + [_start(n, s) for n, s in others]
+    errors = [e for e in map(_finish, started) if e]
     if errors:
         raise RuntimeError("\n".join(errors))
     return {name: library_path(name) for name in names}

@@ -220,7 +220,60 @@ def _layout_tx(params: Params, cfg: Config, fragments: bool):
     return torch.cat(parts)
 
 
-_LAYOUTS = {"fwd": _layout, "t": _layout_t, "tx": _layout_tx}
+WG_SLAB_K = 64    # K rows of one weight slab: 128 bytes of bf16
+WG_HEAD_N = 8     # the heads' columns, zero-padded: one m64n8k16 product
+
+
+def _wg_slabs(w: torch.Tensor) -> torch.Tensor:
+    """A [K, N] matrix as the ``wgmma`` B operand of ``csrc/forward_wg.cuh``:
+    K zero-padded to whole slabs of ``WG_SLAB_K``; slab s holds W^T rows
+    n = 0..N-1 of 64 k-values each (128 bytes), the 16-byte chunk c of row n
+    stored at chunk position c ^ (n % 8) (the 128-byte swizzle)."""
+    K, N = w.shape
+    ns = -(-K // WG_SLAB_K)
+    wp = torch.zeros((ns * WG_SLAB_K, N), dtype=w.dtype, device=w.device)
+    wp[:K] = w
+    t = wp.t().reshape(N, ns, 8, 8)                  # [n, slab, chunk, e]
+    pos = torch.arange(8, device=w.device)
+    src = pos[None, :] ^ (torch.arange(N, device=w.device)[:, None] % 8)
+    t = t[torch.arange(N, device=w.device)[:, None], :, src]  # [n, pos, slab, e]
+    return t.permute(2, 0, 1, 3).reshape(-1)
+
+
+def _wg_head(w: torch.Tensor) -> torch.Tensor:
+    """A head [K, C] padded to ``WG_HEAD_N`` columns, as slabs."""
+    wp = torch.zeros((w.shape[0], WG_HEAD_N), dtype=w.dtype, device=w.device)
+    wp[:, : w.shape[1]] = w
+    return _wg_slabs(wp)
+
+
+def _layout_wg(params: Params, cfg: Config, fragments: bool):
+    """The bf16 forward's weight stream (``csrc/forward_wg.cuh``): every
+    matrix as ``_wg_slabs`` in the order the kernel multiplies them, so one
+    block reads the pack front to back once per 128 rows. Trunk layer i:
+    its h rows, then (layer 0 and skip layers) its x rows padded to whole
+    slabs; the density head (8 columns); the first view layer's h rows;
+    further view layers; the rgb head (8 columns). Then the first view
+    layer's direction rows, row-major [Fd, Wc], for the per-ray term.
+    ``fragments`` is unused: the layout is the same for every dtype."""
+    D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
+    parts = []
+    for i in range(D):
+        w = params[i][0]
+        if i > 0:
+            parts.append(_wg_slabs(w[:nw]))
+        if i == 0 or i % cfg.skip_layer == 0:
+            parts.append(_wg_slabs(w if i == 0 else w[nw:]))
+    parts.append(_wg_head(params[D][0]))
+    parts.append(_wg_slabs(params[D + 1][0][:nw]))
+    for j in range(1, Dc):
+        parts.append(_wg_slabs(params[D + 1 + j][0]))
+    parts.append(_wg_head(params[D + 1 + Dc][0]))
+    parts.append(params[D + 1][0][nw:].reshape(-1))
+    return torch.cat(parts)
+
+
+_LAYOUTS = {"fwd": _layout, "t": _layout_t, "tx": _layout_tx, "wg": _layout_wg}
 
 
 @functools.lru_cache(maxsize=32)
@@ -259,6 +312,84 @@ def pack_params_t(params: Params, cfg: Config, dt: torch.dtype):
 def pack_params_tx(params: Params, cfg: Config, dt: torch.dtype):
     """W^T of the x rows in ``_layout_tx``'s layout, one gather."""
     return _gather(params, cfg, dt, "tx")
+
+
+def pack_params_wg(params: Params, cfg: Config, dt: torch.dtype):
+    """Weights in ``_layout_wg``'s slab stream and the biases, one gather.
+    The bf16 forward kernels read it; any ``dt`` packs (the CPU tests run
+    the slab stream in f32)."""
+    b_flat = torch.cat([b.float().reshape(-1) for _, b in params])
+    return _gather(params, cfg, dt, "wg"), b_flat
+
+
+def pack_forward(params: Params, cfg: Config, dt: torch.dtype):
+    """The forward kernels' (``render_level``, ``mlp_fwd``) weights: the
+    ``"wg"`` slab stream for bf16, ``pack_params``' row-major layout for
+    the f32 instantiation."""
+    if dt == torch.bfloat16:
+        return pack_params_wg(params, cfg, dt)
+    return pack_params(params, cfg, dt)
+
+
+def _slabs(k: int) -> int:
+    return -(-k // WG_SLAB_K)
+
+
+def packed_wg_size(cfg: Config) -> int:
+    """Length of ``pack_params_wg``'s weight buffer."""
+    D, Dc = cfg.net_depth, cfg.net_depth_condition
+    W, Wc, S = cfg.net_width, cfg.net_width_condition, WG_SLAB_K
+    nx = _slabs(cfg.location_features)
+    trunk = sum((0 if i == 0 else _slabs(W))
+                + (nx if i == 0 or i % cfg.skip_layer == 0 else 0)
+                for i in range(D)) * W * S
+    return (trunk + _slabs(W) * WG_HEAD_N * S + _slabs(W) * Wc * S
+            + (Dc - 1) * _slabs(Wc) * Wc * S + _slabs(Wc) * WG_HEAD_N * S
+            + cfg.direction_features * Wc)
+
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block may have (sm_90)
+WG_ROWS = 128        # rows of one round: two consumer warpgroups x 64
+
+
+def wg_rays_per_group(cfg: Config, S: int) -> int:
+    """Rays of one work unit of the bf16 forward (``forward_wg.cuh``:
+    ``wg_rays``): whole rays filling 128 rows, with each of the two
+    buffers of the per-ray direction term [rays, Wc] f32 held to 16 KB."""
+    return max(1, min(WG_ROWS // S, 4096 // cfg.net_width_condition))
+
+
+def wg_smem(cfg: Config, S: int, composite: bool):
+    """(bytes, ring stages) of the bf16 forward's shared memory, as
+    ``forward_wg.cuh::init_wg`` computes it: the ring of weight slabs
+    (``stages`` x W x 128 bytes), two activation tiles [64, W] and two
+    feature tiles [64, KX padded to 64] in bf16, the raw heads of two
+    rounds (render only), the direction terms of two units, the barriers
+    and 1 KB for the alignment of the tiles. The ring takes 4 stages, else
+    3, else 2; bytes is None when not even 2 fit."""
+    W = cfg.net_width
+    nx = _slabs(padded_location_features(cfg))
+    fixed = (1024 + 2 * 8192 * _slabs(W) + 2 * 8192 * nx
+             + (2 * WG_ROWS * 16 if composite else 0)
+             + 2 * wg_rays_per_group(cfg, S) * cfg.net_width_condition * 4)
+    for stages in (4, 3, 2):
+        total = fixed + stages * W * 128 + 16 * stages
+        if total <= SMEM_LIMIT:
+            return total, stages
+    return None, 0
+
+
+def check_wg_config(cfg: Config, S: int, composite: bool) -> None:
+    """Raise ValueError when the bf16 forward's shared memory does not fit
+    a block (``wg_smem``); nothing to check for f32."""
+    if compute_dtype(cfg) != torch.bfloat16:
+        return
+    if wg_smem(cfg, S, composite)[0] is None:
+        raise ValueError(
+            "config not supported by the bf16 forward kernel: its shared "
+            "memory (two [64, net_width] and two [64, location_features] "
+            "tiles, a ring of 2 weight slabs) exceeds "
+            f"{SMEM_LIMIT} bytes")
 
 
 def packed_tx_size(cfg: Config) -> int:
@@ -311,10 +442,15 @@ def _check(name: str, t: torch.Tensor, dtype, shape: Sequence[int],
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_level_inputs(cfg: Config, xs, d, delta, mode: str):
-    """Validate one level's kernel inputs (both kernels take the same);
-    returns the (means, variances, x) pointers, 0 where absent."""
+def _check_level_inputs(cfg: Config, xs, d, delta, mode: str,
+                        wg: Optional[bool] = None):
+    """Validate one level's kernel inputs (the level kernels take the
+    same); with ``wg`` (True: the render kernel's composite) also the bf16
+    forward's shared memory (``check_wg_config``). Returns the (means,
+    variances, x) pointers, 0 where absent."""
     check_kernel_config(cfg)
+    if wg is not None:
+        check_wg_config(cfg, delta.shape[1], wg)
     if mode not in _MODE_CODE:
         raise ValueError(f"unknown input mode {mode!r}")
     dt = compute_dtype(cfg)
@@ -336,7 +472,30 @@ def _check_level_inputs(cfg: Config, xs, d, delta, mode: str):
     return means.data_ptr(), variances.data_ptr(), 0
 
 
+def weight_layout(lib, name: str) -> str:
+    """The weights a built forward kernel reads in bf16: ``"wg"`` when its
+    library exports ``<name>_weight_layout`` (``pack_params_wg``'s slab
+    stream), else ``"fwd"`` (``pack_params``' fragments, which the
+    earlier ``mma.sync`` kernels read)."""
+    try:
+        fn = getattr(lib, f"{name}_weight_layout")
+    except AttributeError:
+        return "fwd"
+    fn.restype = ctypes.c_char_p
+    return fn().decode()
+
+
+def forward_weights_size(cfg: Config, layout: str) -> int:
+    """Length of the packed weights of a forward kernel reading ``layout``
+    in ``cfg``'s compute dtype (f32 always reads ``pack_params``)."""
+    if layout == "wg" and compute_dtype(cfg) == torch.bfloat16:
+        return packed_wg_size(cfg)
+    return packed_sizes(cfg)[0]
+
+
 def _library(source=None):
+    """(launch function, weight layout) of ``csrc/render_level.cu`` or of
+    another version of it."""
     from nerf_or_nothing_tpu_torch.kernels import build
 
     lib = build.load("render_level", source)
@@ -345,7 +504,7 @@ def _library(source=None):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [i, i] + [p] * 10 + [i] * 12 + [f, f, i, p]
         fn.restype = ctypes.c_int
-    return fn
+    return fn, weight_layout(lib, "render_level")
 
 
 def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
@@ -353,28 +512,29 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
                       packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                       source=None):
     """Launch the CUDA kernel on the current stream. Same arguments and
-    outputs as ``render_level_plain``; ``packed`` is ``pack_params``'s
+    outputs as ``render_level_plain``; ``packed`` is ``pack_forward``'s
     result when the caller already has it; ``source`` is another version
     of ``csrc/render_level.cu`` with the same C interface, to time versions
-    in turns (``compare_kernels.py``)."""
-    ptrs = _check_level_inputs(cfg, xs, d, delta, mode)
+    in turns (``compare_kernels.py``; ``packed`` then in the layout that
+    version reads, ``weight_layout``)."""
+    ptrs = _check_level_inputs(cfg, xs, d, delta, mode, wg=True)
     dt = compute_dtype(cfg)
     R, S = delta.shape
     lx, fd = cfg.location_features, cfg.direction_features
     device = delta.device
-    if packed is None:
-        packed = pack_params(params, cfg, dt)
-    w_flat, b_flat = packed
-    n_w, n_b = packed_sizes(cfg)
-    _check("packed weights", w_flat, dt, (n_w,), device)
-    _check("packed biases", b_flat, torch.float32, (n_b,), device)
-
     comp = torch.empty((R, 3), dtype=torch.float32, device=device)
     acc = torch.empty((R,), dtype=torch.float32, device=device)
     weights = torch.empty((R, S), dtype=torch.float32, device=device)
     if R == 0:
         return comp, acc, weights
-    fn = _library(source)
+    fn, layout = _library(source)
+    if packed is None:
+        packed = pack_forward(params, cfg, dt)
+    w_flat, b_flat = packed
+    _check("packed weights", w_flat, dt, (forward_weights_size(cfg, layout),),
+           device)
+    _check("packed biases", b_flat, torch.float32, (packed_sizes(cfg)[1],),
+           device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = fn(
         _DTYPE_CODE[dt], _MODE_CODE[mode], *ptrs,

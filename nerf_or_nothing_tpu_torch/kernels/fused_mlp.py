@@ -35,8 +35,11 @@ from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     _DTYPE_CODE,
     _check,
     check_kernel_config,
+    check_wg_config,
+    forward_weights_size,
     mlp_backward_plain,
     mlp_forward_acts,
+    pack_forward,
     pack_params,
     pack_params_t,
     pack_params_tx,
@@ -46,6 +49,7 @@ from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     padded_location_features,
     train_splits,
     unpack_grads,
+    weight_layout,
 )
 from nerf_or_nothing_tpu_torch.models.mlp import (
     Params,
@@ -103,41 +107,51 @@ def mlp_bwd_plain(params: Params, cfg: Config, x, d, g_rgb, g_den, s: int,
 
 def pack_mlp_params(params: Params, cfg: Config, dt: torch.dtype,
                     backward: bool = True):
-    """The kernels' weights, packed once for both levels: (weights, biases)
-    in ``pack_params``' layout for the forward, and with ``backward`` also
+    """The kernels' weights, packed once for both levels: (weights,
+    biases) of ``pack_forward`` for ``mlp_fwd`` (bf16: the ``"wg"`` slab
+    stream), and with ``backward`` also ``mlp_bwd``'s recompute weights
+    (``pack_params``' fragments; for f32 the same tensor as the forward's),
     the chained layers' W^T (``pack_params_t``) and the x rows' W^T
-    (``pack_params_tx``) for the backward. No autograd graph is kept."""
+    (``pack_params_tx``). No autograd graph is kept."""
     with torch.no_grad():
-        w_flat, b_flat = pack_params(params, cfg, dt)
+        w_fwd, b_flat = pack_forward(params, cfg, dt)
         if not backward:
-            return w_flat, b_flat
-        return (w_flat, b_flat, pack_params_t(params, cfg, dt),
+            return w_fwd, b_flat
+        w_flat = (pack_params(params, cfg, dt)[0] if dt == torch.bfloat16
+                  else w_fwd)
+        return (w_fwd, b_flat, w_flat, pack_params_t(params, cfg, dt),
                 pack_params_tx(params, cfg, dt))
 
 
-def _check_mlp_inputs(cfg: Config, x, d):
-    """Validate the kernels' x and d; returns (R, S)."""
+def _check_mlp_inputs(cfg: Config, x, d, wg: bool = False):
+    """Validate the kernels' x and d, with ``wg`` also the bf16 forward's
+    shared memory (``check_wg_config``); returns (R, S)."""
     check_kernel_config(cfg, max_head=MAX_HEAD)
+    R, N = d.shape[0], x.shape[0]
+    if R == 0 or N % R:
+        raise ValueError(f"x has {N} rows, not a multiple of the {R} rays "
+                         "of d")
+    if wg:
+        check_wg_config(cfg, N // R, False)
     dt = compute_dtype(cfg)
     device = x.device
     if device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {device}")
-    R = d.shape[0]
-    N = x.shape[0]
-    if R == 0 or N % R:
-        raise ValueError(f"x has {N} rows, not a multiple of the {R} rays "
-                         "of d")
     _check("x", x, dt, (N, cfg.location_features), device)
     _check("d", d, dt, (R, cfg.direction_features), device)
     return R, N // R
 
 
-def _check_packed(cfg: Config, packed: Sequence[torch.Tensor], device):
+def _check_packed(cfg: Config, packed: Sequence[torch.Tensor], device,
+                  fwd_layout: str = "wg"):
+    """``pack_mlp_params``' tensors (the first two, or all five), the
+    forward's weights in ``fwd_layout``."""
     dt = compute_dtype(cfg)
     n_w, n_b = packed_sizes(cfg)
-    sizes = (n_w, n_b, packed_t_size(cfg), packed_tx_size(cfg))
-    names = ("packed weights", "packed biases", "packed W^T",
-             "packed x-row W^T")
+    sizes = (forward_weights_size(cfg, fwd_layout), n_b, n_w,
+             packed_t_size(cfg), packed_tx_size(cfg))
+    names = ("packed forward weights", "packed biases", "packed weights",
+             "packed W^T", "packed x-row W^T")
     for k, t in enumerate(packed):
         _check(names[k], t, torch.float32 if k == 1 else dt, (sizes[k],),
                device)
@@ -152,35 +166,42 @@ def _dims(cfg: Config):
             cfg.num_density_channels)
 
 
-def _fwd_library():
+def _fwd_library(source=None):
+    """(launch function, weight layout) of ``csrc/mlp_fwd.cu`` or of
+    another version of it."""
     from nerf_or_nothing_tpu_torch.kernels import build
 
-    fn = build.load("mlp_fwd").mlp_fwd_launch
+    lib = build.load("mlp_fwd", source)
+    fn = lib.mlp_fwd_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i] + [p] * 6 + [i] * 12 + [p]
         fn.restype = ctypes.c_int
-    return fn
+    return fn, weight_layout(lib, "mlp_fwd")
 
 
-def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None):
+def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
+                 source=None):
     """Launch ``mlp_fwd`` on the current stream. Same inputs and outputs as
     ``mlp_fwd_plain`` (S is the rows of x over the rays of d);
-    ``packed`` starts with ``pack_params``' result when the caller already
-    has it."""
-    R, S = _check_mlp_inputs(cfg, x, d)
+    ``packed`` starts with ``pack_forward``'s result when the caller
+    already has it; ``source`` is another version of ``csrc/mlp_fwd.cu``
+    with the same C interface, to time versions in turns
+    (``compare_kernels.py``; ``packed`` then in the layout it reads)."""
+    R, S = _check_mlp_inputs(cfg, x, d, wg=True)
     dt = compute_dtype(cfg)
     device = x.device
+    fn, layout = _fwd_library(source)
     if packed is None:
         packed = pack_mlp_params(params, cfg, dt, backward=False)
     w_flat, b_flat = packed[:2]
-    _check_packed(cfg, (w_flat, b_flat), device)
+    _check_packed(cfg, (w_flat, b_flat), device, layout)
     N = R * S
     raw_rgb = torch.empty((N, cfg.num_rgb_channels), dtype=torch.float32,
                           device=device)
     raw_den = torch.empty((N, cfg.num_density_channels), dtype=torch.float32,
                           device=device)
-    err = _fwd_library()(
+    err = fn(
         _DTYPE_CODE[dt], x.data_ptr(), d.data_ptr(), w_flat.data_ptr(),
         b_flat.data_ptr(), raw_rgb.data_ptr(), raw_den.data_ptr(), R, S,
         *_dims(cfg), torch.cuda.current_stream(device).cuda_stream,
@@ -228,10 +249,10 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     _check("g_rgb", g_rgb, torch.float32, (N, cfg.num_rgb_channels), device)
     _check("g_den", g_den, torch.float32, (N, cfg.num_density_channels),
            device)
-    if packed is None or len(packed) < 4:
+    if packed is None or len(packed) < 5:
         packed = pack_mlp_params(params, cfg, dt)
     _check_packed(cfg, packed, device)
-    w_flat, b_flat, wt_flat, wtx_flat = packed
+    _, b_flat, w_flat, wt_flat, wtx_flat = packed
     n_out = num_params(cfg)
     grads = torch.empty((n_out,), dtype=torch.float32, device=device)
     dx = dd = None

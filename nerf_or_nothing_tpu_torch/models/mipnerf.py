@@ -141,7 +141,7 @@ def render_rays(
       inference: render-only call; with ``use_pallas`` and ``fuse_level``
         each level is one ``fused_level_render`` call.
       generator: source of a randomized render's draws.
-      packed: the kernels' weights (``fused_level.pack_params`` or
+      packed: the kernels' weights (``fused_level.pack_forward`` or
         ``fused_mlp.pack_mlp_params``), when the caller keeps them across
         calls; else packed here for CUDA, once for all levels and, on the
         fused-MLP route, for both directions.
@@ -153,12 +153,12 @@ def render_rays(
     if uses_fused_render(cfg, mlp_apply, inference):
         from nerf_or_nothing_tpu_torch.kernels.fused_level import (
             fused_level_render,
-            pack_params,
+            pack_forward,
         )
 
         fused_render = fused_level_render
         if packed is None and device.type == "cuda":
-            packed = pack_params(params, cfg, dt)  # once for all levels
+            packed = pack_forward(params, cfg, dt)  # once for all levels
     elif mlp_apply is None and cfg.use_pallas:
         from nerf_or_nothing_tpu_torch.kernels.fused_mlp import (
             fused_mlp_apply,

@@ -6,8 +6,10 @@ one 400x400 view at Config() through ``eval.render_image``.
 
 Prints one JSON line: the view's wall time (host clock, synchronised;
 also without the profiler), the device time summed over all kernels and
-copies and its share of the wall time (the rest is the device idle), the
-render kernel's share, and the top device events with their counts.
+copies, its share of the wall time and the rest (the device idle share),
+the render kernel's device time in all and per launch (bf16: the wgmma
+forward of ``csrc/forward_wg.cuh``), and the top device events with their
+counts.
 """
 
 from __future__ import annotations
@@ -72,12 +74,16 @@ def main() -> int:
     rows.sort(key=lambda r: -r[1])
     device_s = sum(r[1] for r in rows) / 1e6
     kernel_s = sum(r[1] for r in rows if "render_level" in r[0]) / 1e6
+    kernel_n = sum(r[2] for r in rows if "render_level" in r[0])
     print(json.dumps({
         "view": [size, size], "config": "Config()",
         "wall_s": wall, "wall_s_unprofiled": plain_wall,
         "device_busy_s": device_s,
         "device_busy_share": device_s / wall,
+        "device_idle_share": 1.0 - device_s / wall,
         "render_level_s": kernel_s,
+        "render_level_launches": kernel_n,
+        "render_level_ms_per_launch": kernel_s * 1e3 / max(kernel_n, 1),
         "other_device_s": device_s - kernel_s,
         "top": [{"name": n[:80], "device_ms": us / 1e3, "count": c}
                 for n, us, c in rows[:15]],

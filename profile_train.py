@@ -38,7 +38,7 @@ KERNELS = {
                             "small_tn_kernel", "reduce_kernel"),
     "mlp_bwd": ("mlp_act_kernel", "chain_kernel", "dw_gemm",
                 "small_tn_kernel", "reduce_kernel"),
-    "mlp_fwd": ("mlp_fwd_kernel",),
+    "mlp_fwd": ("mlp_fwd_wg_kernel", "mlp_fwd_kernel"),  # bf16, f32
 }
 BACKWARD_NODE = "autograd::engine::evaluate_function: "
 

@@ -96,8 +96,9 @@ def test_kernel_matches_plain_on_cuda(width):
 
 
 def test_render_fn_packs_weights_once_per_params(monkeypatch):
-    """``make_render_fn`` packs the kernel's weights once for all chunks of
-    a view, and again only after the weights change in place."""
+    """``make_render_fn`` packs the kernel's weights (``pack_forward``:
+    the bf16 slab stream or the f32 layout) once for all chunks of a view,
+    and again only after the weights change in place."""
     from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
     from nerf_or_nothing_tpu_torch.rays import Rays
 
@@ -105,8 +106,8 @@ def test_render_fn_packs_weights_once_per_params(monkeypatch):
     cfg = tiny_config(**dict(SMALL, num_levels=2, randomized=False))
     params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg, device=dev)
     calls = []
-    pack = fl.pack_params
-    monkeypatch.setattr(fl, "pack_params",
+    pack = fl.pack_forward
+    monkeypatch.setattr(fl, "pack_forward",
                         lambda *a: calls.append(1) or pack(*a))
     rng = np.random.default_rng(2)
     n = 40
@@ -260,8 +261,9 @@ def test_twopass_kernel_bit_equal_on_cuda():
 
 
 def test_train_step_then_render_repacks_on_cuda(monkeypatch):
-    """A train step on the card (two train-kernel launches) updates the
-    weights in place; ``make_render_fn`` then packs them again."""
+    """A train step on the card (two train-kernel launches, which read
+    ``pack_train_params``' layouts) updates the weights in place;
+    ``make_render_fn`` then packs the forward's layout again, once."""
     from nerf_or_nothing_tpu_torch import train as ttrain
     from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
     from nerf_or_nothing_tpu_torch.rays import Rays
@@ -282,8 +284,8 @@ def test_train_step_then_render_repacks_on_cuda(monkeypatch):
         loss_mult=np.ones((n, 1), np.float32),
     )
     calls = []
-    pack = fl.pack_params
-    monkeypatch.setattr(fl, "pack_params",
+    pack = fl.pack_forward
+    monkeypatch.setattr(fl, "pack_forward",
                         lambda *a: calls.append(1) or pack(*a))
     render_fn = make_render_fn(cfg)
     rgb, _, _ = render_image(render_fn, state.params, rays, n, 1, chunk=16,
@@ -452,3 +454,69 @@ def test_full_grad_step_on_cuda_matches_cpu():
     for i, ((ga, gb), (ca, cb)) in enumerate(zip(*grads)):
         assert normalized_err(ga, ca, atol, rtol) < 1.0, ("dW", i)
         assert normalized_err(gb, cb, atol, rtol) < 1.0, ("db", i)
+
+
+WG_CASES = [
+    # (name, config overrides, rays, render mode or None for mlp_fwd only)
+    ("config_r2048_s128_mv", dict(), 2048, "mv"),
+    ("config_r1000_s64_t", dict(num_samples=64), 1000, "t"),
+    ("narrow_r37_s8_mv", dict(net_width=64, net_width_condition=32,
+                              num_samples=8, net_depth=3, skip_layer=2,
+                              max_deg_point=4), 37, "mv"),
+    ("heads_4_2_r37_s24", dict(net_width=64, net_width_condition=32,
+                               num_samples=24, net_depth=5, skip_layer=2,
+                               max_deg_point=4, num_rgb_channels=4,
+                               num_density_channels=2), 37, None),
+    # S > 128: each ray over two rounds, the composite carried between them
+    ("config_r37_s256_mv", dict(num_samples=256), 37, "mv"),
+    # widths that are not whole 64-column slabs (N = 224, 192, 96, 32) and
+    # S = 24, which fills 120 of a round's 128 rows
+    ("w224_192_r77_s16_t", dict(net_width=224, net_width_condition=192,
+                                num_samples=16), 77, "t"),
+    ("w96_32_r50_s24_mv", dict(net_width=96, net_width_condition=32,
+                               num_samples=24), 50, "mv"),
+]
+
+
+@pytest.mark.parametrize("name,kw,R,mode", WG_CASES)
+def test_wg_forward_kernels_match_plain_on_cuda(name, kw, R, mode):
+    """The bf16 wgmma forward (``csrc/forward_wg.cuh``) of ``render_level``
+    and ``mlp_fwd`` on ``pack_forward``'s slab stream: at Config() width
+    and on ragged shapes (rays that fill no whole 128-row round, S = 8 and
+    64, 8-column heads cut to 4 and 2 channels), one launch each."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    cfg = Config(**kw)
+    dt = tmlp.compute_dtype(cfg)
+    assert dt == torch.bfloat16
+    S = cfg.num_samples
+    params = tmlp.init_mlp(torch.Generator().manual_seed(2), cfg, device=dev)
+    means, covs, dir_enc, t_vals, dirs = level_inputs(R, S, 4, dev)
+    packed = fl.pack_forward(params, cfg, dt)
+    assert packed[0].shape == (fl.packed_wg_size(cfg),)
+    x = integrated_pos_enc((means, covs), cfg.min_deg_point,
+                           cfg.max_deg_point, fast=True).reshape(R * S, -1)
+    x, d = x.to(dt), dir_enc.to(dt)
+    atol, rtol = BANDS["bfloat16"]
+    before = fm.mlp_fwd.launches
+    out = fm.mlp_fwd(params, cfg, x, d, packed=packed)
+    ref = fm.mlp_fwd_plain(params, cfg, x, d, S)
+    torch.cuda.synchronize()
+    assert fm.mlp_fwd.launches == before + 1
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert normalized_err(a, b, atol, rtol) < 1.0, name
+    if mode is None:
+        return
+    xs = (means.reshape(-1, 3), covs.reshape(-1, 3)) if mode == "mv" else x
+    delta = interval_lengths(t_vals, dirs)
+    before = fl.render_level.launches
+    out = fl.render_level(params, cfg, xs, d, delta, True, mode,
+                          packed=packed)
+    ref = fl.render_level_plain(params, cfg, xs, d, delta, True, mode)
+    torch.cuda.synchronize()
+    assert fl.render_level.launches == before + 1
+    for a, b in zip(out, ref):
+        assert bool(torch.isfinite(a).all())
+        assert normalized_err(a, b, atol, rtol) < 1.0, name
