@@ -7,13 +7,18 @@ Phases, each printing one JSON line:
   env      torch / CUDA / nvcc versions, the card, whether triton imports;
   build    nvcc builds csrc/render_level.cu, csrc/train_level.cu,
            csrc/train_level_twopass.cu, csrc/mlp_fwd.cu and csrc/mlp_bwd.cu,
-           one process each, started together (ptxas register/spill lines);
+           and the mma.sync versions of render_level, mlp_fwd and
+           train_level at commit 815018d (mma_sources), one process each,
+           started together (ptxas register/spill lines);
   kernel   the render kernel against its plain PyTorch version (render_level_plain)
            at Config() width: bf16 and f32, R=16384 x S=128 in mode "mv",
            R=1000 x S=64 in mode "t" without white background, and a narrow
            config with S=8; errors as a fraction of the band
            atol + rtol*|ref| + rtol*max|ref|; kernel and plain times by CUDA
            events (median of 7 launches after warm-up) beside the bound;
+  turns    the mma.sync and wgmma versions of render_level, mlp_fwd and
+           train_level on the same inputs, timed in turns with the SM clock
+           and power draw beside each time (turns_phase);
   main     a synthetic 400x400 Blender scene and a seeded checkpoint at
            Config(), then the port's ``run.main(["eval", ...])`` and
            ``run.main(["render", ...])`` on the card; the kernel's launch
@@ -22,8 +27,9 @@ Phases, each printing one JSON line:
            path on the CPU on a small slice of rays;
   train_kernel  the train kernel (train_level_cuda) against level_train_plain:
            Config() width R=1024 x S=128 mode "t" in bf16 and f32 and mode
-           "mv" in bf16, R=1000 x S=64 and R=37 x S=256 at a narrow width in
-           both dtypes, and a masked ragged batch (R=777, some g_scale 0);
+           "mv" in bf16, R=1000 x S=64 with two view layers and R=37 x
+           S=256 at a narrow width in both dtypes, and a masked ragged batch
+           (R=777, some g_scale 0);
            normalized errors of comp, acc, weights and every dW/db; times by
            CUDA events (median of 7 after warm-up) beside the bound
            (train_level_flops); two launches must give bit-equal dW;
@@ -92,6 +98,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -138,6 +145,18 @@ def card_peaks(name: str):
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def clock_power() -> str:
+    """The card's SM clock and power draw now, as ``nvidia-smi
+    --query-gpu=clocks.sm,power.draw`` gives them (a card held at its power
+    limit runs at a lower clock under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
@@ -520,14 +539,14 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
 
 
 def mma_sources():
-    """The ``mma.sync`` versions of ``render_level.cu`` and ``mlp_fwd.cu``
-    (commit ``MMA_COMMIT``), by kernel name: the copies in ``MMA_DIR``, else
-    written there from git (``git show MMA_COMMIT:...``); None where neither
-    exists (a
-    checkout without history and without the copies)."""
+    """The ``mma.sync`` versions of ``render_level.cu``, ``mlp_fwd.cu`` and
+    ``train_level.cu`` (commit ``MMA_COMMIT``), by kernel name: the copies
+    in ``MMA_DIR``, else written there from git (``git show
+    MMA_COMMIT:...``); None where neither exists (a checkout without
+    history and without the copies)."""
     root = os.path.dirname(os.path.abspath(__file__))
     out = {}
-    for name in ("render_level", "mlp_fwd"):
+    for name in ("render_level", "mlp_fwd", "train_level"):
         path = os.path.join(root, MMA_DIR, f"{name}_mma.cu")
         if not os.path.exists(path):
             got = subprocess.run(
@@ -573,13 +592,16 @@ def matmul_ms(cfg, R: int, device) -> float:
 
 
 def turns_phase(device):
-    """The ``mma.sync`` forward kernels (``mma_sources``) and the ``wgmma``
-    ones on the same inputs, timed in turns (mma, wgmma, wgmma, mma;
-    ``compare_kernels.in_turns``): render_level bf16 R=16384 x S=128 mode
-    "mv", mlp_fwd bf16 R=16384 and R=1024 x S=128. First the same layer
-    products as ``torch.matmul`` calls at those shapes, a yardstick only.
-    Both versions must agree with the plain version; which is faster is
-    recorded, not required."""
+    """The ``mma.sync`` kernels (``mma_sources``) and the ``wgmma`` ones on
+    the same inputs, timed in turns (mma, wgmma, wgmma, mma;
+    ``compare_kernels.in_turns``, the SM clock and power draw beside each
+    time): render_level bf16 R=16384 x S=128 mode "mv", mlp_fwd bf16
+    R=16384 and R=1024 x S=128, train_level bf16 R=1024 x S=128 mode "t"
+    and R=777 with Multicam's loss weights. First the same layer products
+    as ``torch.matmul`` calls at those shapes, a yardstick only. Both
+    versions must agree with the plain version (train_level: and give
+    bit-equal dW/db over two launches); which is faster is recorded, not
+    required."""
     import compare_kernels as ck
     from nerf_or_nothing_tpu_torch.kernels import build
 
@@ -595,7 +617,8 @@ def turns_phase(device):
               "products", "R": R, "S": Config().num_samples,
               "ms": matmul_ms(Config(), R, device)})
     out = []
-    for kernel, k in (("render_level", 0), ("mlp_fwd", 0), ("mlp_fwd", 1)):
+    for kernel, k in (("render_level", 0), ("mlp_fwd", 0), ("mlp_fwd", 1),
+                      ("train_level", 0), ("train_level", 1)):
         sources = {"mma": old[kernel], "wgmma": build.source_path(kernel)}
         res = ck.in_turns(kernel, sources, ck.cases(kernel)[k], device)
         mma_ms = (res["mma_ms_0"] + res["mma_ms_3"]) / 2
@@ -608,6 +631,9 @@ def turns_phase(device):
             if not res[f"{name}_err"] < 1.0:
                 raise AssertionError(f"turns: {kernel} {name} disagrees with "
                                      f"plain: {res[f'{name}_err']}")
+            if res.get(f"{name}_bit_equal") is False:
+                raise AssertionError(f"turns: two {kernel} {name} launches "
+                                     "gave different dW/db")
         out.append(res)
     return out
 
@@ -643,15 +669,18 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
     params = init_mlp(torch.Generator().manual_seed(seed), cfg, device=device)
     xs, d, delta = level_inputs(cfg, R, mode, seed + 1, device)
     pixels, g_scale = train_inputs(cfg, R, seed + 2, device, multicam)
-    packed = fl.pack_train_params(params, cfg, compute_dtype(cfg))
+    dt = compute_dtype(cfg)
+    packed_one = fl.pack_train_level(params, cfg, dt)
+    packed_two = fl.pack_train_params(params, cfg, dt)
 
     def one_pass():
         return fl.train_level_cuda(params, cfg, xs, d, delta, pixels, g_scale,
-                                   white_bkgd, mode, packed=packed)
+                                   white_bkgd, mode, packed=packed_one)
 
     def two_pass():
         return fl.train_level_twopass_cuda(params, cfg, xs, d, delta, pixels,
-                                           g_scale, white_bkgd, packed=packed)
+                                           g_scale, white_bkgd,
+                                           packed=packed_two)
 
     kernel = two_pass if twopass else one_pass
     kname = "train_level_twopass" if twopass else "train_level"
@@ -759,11 +788,12 @@ def step_launches(cfg, steps: int):
     (the two-pass kernel with its probe in mode "t"), or the MLP forward and
     backward off the fused level."""
     from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
 
     out = dict.fromkeys(KERNELS, 0)
     n = cfg.num_levels * steps
     if train_lib.use_fused_level(cfg):
-        twopass = (cfg.probe("fl_variant") == "twopass" and not cfg.fuse_ipe)
+        twopass = fl.uses_twopass(cfg)
         out["train_level_twopass" if twopass else "train_level"] = n
     else:
         out["mlp_fwd"] = out["mlp_bwd"] = n
@@ -1150,6 +1180,34 @@ def bin_path(peaks, device, scene: str, work: str):
     return launches
 
 
+def ptxas_lines(log: str):
+    """ptxas's register, spill and serialized-wgmma (C7511) lines of a
+    build, each kernel's under its name."""
+    out = []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            out.append("kernel " + kernel_name(ln))
+        elif "registers" in ln or "spill" in ln or "C7511" in ln:
+            out.append(ln.strip())
+    return out
+
+
+def kernel_name(line: str) -> str:
+    """The ``..._kernel`` name in a ptxas line's mangled symbol (the
+    length-prefixed names after ``_ZN``), else the line."""
+    sym = line.split("'")[1] if line.count("'") >= 2 else line
+    i, names = sym.find("_ZN") + 3, []
+    while 2 < i < len(sym):
+        m = re.match(r"\d+", sym[i:])
+        if m is None:
+            i += 1
+            continue
+        i += len(m.group())
+        names.append(sym[i:i + int(m.group())])
+        i += int(m.group())
+    return next((n for n in names if n.endswith("_kernel")), line.strip())
+
+
 def main() -> int:
     import torch
 
@@ -1191,9 +1249,7 @@ def main() -> int:
         emit({
             "phase": "build", "source": os.path.relpath(src),
             "seconds": seconds, "nvcc_seconds": info["seconds"],
-            "ptxas": [ln.strip() for ln in info["log"].splitlines()
-                      if "registers" in ln or "spill" in ln
-                      or "C7511" in ln],
+            "ptxas": ptxas_lines(info["log"]),
         })
 
     base = Config()
@@ -1231,8 +1287,9 @@ def main() -> int:
     tnarrow = base.replace(net_depth=3, net_width=64, net_width_condition=32,
                            skip_layer=2, max_deg_point=4)
     for dtype in ("bfloat16", "float32"):
-        train_kernel_case(f"narrow_r1000_s64_t_{dtype}",
-                          tnarrow.replace(num_samples=64, compute_dtype=dtype),
+        train_kernel_case(f"narrow_r1000_s64_t_dc2_{dtype}",
+                          tnarrow.replace(num_samples=64, net_depth_condition=2,
+                                          compute_dtype=dtype),
                           1000, "t", False, peaks, device, seed=6)
         train_kernel_case(f"narrow_r37_s256_mv_{dtype}",
                           tnarrow.replace(num_samples=256, compute_dtype=dtype),

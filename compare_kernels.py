@@ -1,27 +1,34 @@
 #!/usr/bin/env python3
-"""Time versions of a forward CUDA kernel (render_level or mlp_fwd) on one
-card, in turns.
+"""Time versions of a CUDA kernel (render_level, mlp_fwd or train_level)
+on one card, in turns.
 
     git show <commit>:nerf_or_nothing_tpu_torch/csrc/render_level.cu > old.cu
     python3 compare_kernels.py old.cu [other.cu ...]
     python3 compare_kernels.py --kernel=mlp_fwd old_mlp_fwd.cu
+    python3 compare_kernels.py --kernel=train_level old_train_level.cu
 
 With one source, the checkout's ``csrc/<kernel>.cu`` is the second. All
-must keep the C interface (``render_level_launch`` / ``mlp_fwd_launch``).
-Each version reads the weight layout it declares: a library that exports
-``<kernel>_weight_layout`` reads ``pack_params_wg``'s slab stream in bf16,
-one that does not (the earlier ``mma.sync`` versions) ``pack_params``'
-fragments; f32 reads
-``pack_params``' row-major layout in every version. Each is built by
-``kernels/build.py`` with the package's nvcc flags, launched through
-``render_level_cuda`` / ``mlp_fwd_cuda`` with ``source=...``, checked
-against the plain version (as a fraction of the band), and timed by CUDA
-events in the order given and then in reverse (median of 7 launches each)
-on Config() shapes: render_level bf16 R=16384 x S=128 mode "mv" (the
-render path's launch), bf16 R=1000 x S=64 mode "t", f32 R=2048 x S=128;
-mlp_fwd bf16 R=16384 x S=128 (a render chunk) and R=1024 x S=128 (a train
-level), f32 R=2048 x S=128. Prints one JSON line per build and case; a
-source's name is its file name without the suffix.
+must keep the C interface (``<kernel>_launch``). Each version reads the
+weight layout it declares: a library that exports
+``<kernel>_weight_layout`` reads the bf16 slab streams (``pack_forward``;
+``pack_train_level``, which adds the g-chain's stream), one that does not
+(the earlier ``mma.sync`` versions) ``pack_params``' fragments (and
+``pack_params_t``'s for train_level); f32 reads the row-major layouts in
+every version. Each is built by ``kernels/build.py`` with the package's
+nvcc flags, launched through ``render_level_cuda`` / ``mlp_fwd_cuda`` /
+``train_level_cuda`` with ``source=...``, checked against the plain
+version (as a fraction of the band; train_level also for bit-equal dW/db
+over two launches), and timed by CUDA events in the order given and then
+in reverse (median of 7 launches each, the card's SM clock and power draw
+read after each) on Config() shapes: render_level bf16 R=16384 x S=128
+mode "mv" (the render path's launch), bf16 R=1000 x S=64 mode "t", f32
+R=2048 x S=128; mlp_fwd bf16 R=16384 x S=128 (a render chunk) and R=1024 x
+S=128 (a train level), f32 R=2048 x S=128; train_level bf16 R=1024 x S=128
+mode "t" (a train step's level) and R=777 with Multicam's loss weights
+(1/4/16/64, every seventh ray masked). Prints one JSON line per build and
+case; a source's name is its file name without the suffix. With
+``--profile``, each case also gives every version's device time per launch
+by kernel name (``torch.profiler``, 5 calls).
 """
 
 from __future__ import annotations
@@ -31,15 +38,18 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-KERNELS = ("render_level", "mlp_fwd")
+KERNELS = ("render_level", "mlp_fwd", "train_level")
 
 
-def packs_by_layout(params, cfg):
-    """The forward weights in both layouts the versions may read."""
+def packs_by_layout(kernel, params, cfg):
+    """The weights in both layouts the versions of ``kernel`` may read."""
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
     from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype
 
     dt = compute_dtype(cfg)
+    if kernel == "train_level":
+        return {k: fl.pack_train_level(params, cfg, dt, k)
+                for k in ("wg", "fwd")}
     return {"wg": fl.pack_forward(params, cfg, dt),
             "fwd": fl.pack_params(params, cfg, dt)}
 
@@ -56,35 +66,62 @@ def layouts(kernel: str, sources: dict) -> dict:
 
 
 def cases(kernel: str):
-    """(case, Config, R, mode, white_bkgd) of ``kernel``'s timed shapes."""
+    """(case, Config, R, mode, white_bkgd, multicam) of ``kernel``'s timed
+    shapes (``multicam``: train_level's g_scale, ``chip_smoke.
+    train_inputs``)."""
     from nerf_or_nothing_tpu_torch.config import Config
 
+    if kernel == "train_level":
+        return [("bf16_r1024_s128_t", Config(), 1024, "t", True, False),
+                ("bf16_r777_s128_t_multicam", Config(), 777, "t", False,
+                 True)]
     if kernel == "render_level":
-        return [("bf16_r16384_s128_mv", Config(), 16384, "mv", True),
-                ("bf16_r1000_s64_t", Config(num_samples=64), 1000, "t", False),
+        return [("bf16_r16384_s128_mv", Config(), 16384, "mv", True, False),
+                ("bf16_r1000_s64_t", Config(num_samples=64), 1000, "t", False,
+                 False),
                 ("f32_r2048_s128_mv", Config(compute_dtype="float32"), 2048,
-                 "mv", True)]
-    return [("bf16_r16384_s128", Config(), 16384, "t", None),
-            ("bf16_r1024_s128", Config(), 1024, "t", None),
+                 "mv", True, False)]
+    return [("bf16_r16384_s128", Config(), 16384, "t", None, False),
+            ("bf16_r1024_s128", Config(), 1024, "t", None, False),
             ("f32_r2048_s128", Config(compute_dtype="float32"), 2048, "t",
-             None)]
+             None, False)]
 
 
-def in_turns(kernel: str, sources: dict, case, device, seed: int = 0):
-    """Check each version against the plain version and time them in the
-    order given, then in reverse. Returns the case's record."""
+def flat(out):
+    """A version's outputs as tensors (train_level's dW/db flattened)."""
+    if len(out) == 4:
+        return [*out[:3], *[t for wb in out[3] for t in wb]]
+    return list(out)
+
+
+def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
+             profile: bool = False):
+    """Check each version against the plain version (train_level: and two
+    launches for bit-equal dW/db) and time them in the order given, then in
+    reverse, reading the SM clock and power draw after each. Returns the
+    case's record."""
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
     from nerf_or_nothing_tpu_torch.models.mlp import init_mlp
 
-    name_, cfg, R, mode, white_bkgd = case
+    name_, cfg, R, mode, white_bkgd, multicam = case
     kinds = layouts(kernel, sources)
     params = init_mlp(torch.Generator().manual_seed(seed), cfg, device=device)
     xs, d, delta = cs.level_inputs(cfg, R, mode, seed + 1, device)
-    packs = packs_by_layout(params, cfg)
-    if kernel == "render_level":
+    packs = packs_by_layout(kernel, params, cfg)
+    if kernel == "train_level":
+        pixels, g_scale = cs.train_inputs(cfg, R, seed + 2, device, multicam)
+        ref = fl.level_train_plain(params, cfg, xs, d, delta, pixels, g_scale,
+                                   white_bkgd, mode)
+
+        def run(name):
+            return fl.train_level_cuda(params, cfg, xs, d, delta, pixels,
+                                       g_scale, white_bkgd, mode,
+                                       packed=packs[kinds[name]],
+                                       source=sources[name])
+    elif kernel == "render_level":
         ref = fl.render_level_plain(params, cfg, xs, d, delta, white_bkgd,
                                     mode)
 
@@ -108,10 +145,44 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0):
         out = run(name)
         torch.cuda.synchronize()
         res[f"{name}_err"] = max(cs.normalized_err(a, b, atol, rtol)
-                                 for a, b in zip(out, ref))
+                                 for a, b in zip(flat(out), flat(ref)))
+        if kernel == "train_level":
+            again = run(name)
+            res[f"{name}_bit_equal"] = all(
+                torch.equal(a, b) for a, b in zip(flat(out), flat(again)))
     for turn, name in enumerate(names + names[::-1]):
         res[f"{name}_ms_{turn}"] = cs.median_ms(lambda: run(name))
+        res[f"{name}_clock_power_{turn}"] = cs.clock_power()
+    if profile:
+        for name in names:
+            res[f"{name}_device_ms_by_kernel"] = device_ms_by_kernel(
+                lambda: run(name))
     return res
+
+
+def device_ms_by_kernel(fn, n: int = 5) -> dict:
+    """Device time per call of each kernel that ``fn`` launches, by name
+    (``torch.profiler`` over n calls after one warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            out[ev.key[:80]] = us / n / 1e3
+    return out
 
 
 def main(argv) -> int:
@@ -124,9 +195,12 @@ def main(argv) -> int:
 
     kernel = "render_level"
     args = []
+    profile = False
     for a in argv:
         if a.startswith("--kernel="):
             kernel = a.split("=", 1)[1]
+        elif a == "--profile":
+            profile = True
         else:
             args.append(a)
     if kernel not in KERNELS:
@@ -146,7 +220,7 @@ def main(argv) -> int:
     print(cs.nvidia_smi_line(), flush=True)
     device = torch.device("cuda")
     for case in cases(kernel):
-        cs.emit(in_turns(kernel, sources, case, device))
+        cs.emit(in_turns(kernel, sources, case, device, profile=profile))
     return 0
 
 

@@ -38,6 +38,11 @@
 // A work unit is RB whole rays (wg_rays: 128 rows, fewer when S does not
 // divide 128, or S rows in several rounds when S > 128); the grid walks
 // the units.
+// forward_wg<false, true> is the train level's forward (train_wg.cuh): it
+// also copies every activation tile and feature tile into the row-major
+// workspace, stores each hidden layer's ReLU mask as bits in the wgmma
+// accumulator layout (what the g-chain's epilogue reads), and writes the
+// raw heads as [N, 4] rows.
 
 #pragma once
 
@@ -89,7 +94,36 @@ struct WgParams {
   int RB, ngroups, stages, nh, nc, nx;
   int off_h, off_x, off_out, off_dc, off_bar, h_bytes, x_bytes, slot;
   int bytes;          // dynamic shared memory of the launch
+  // train level only (forward_wg<false, true>)
+  bf16* acts;         // per layer [N, width] (act_off)
+  bf16* xs;           // [N, KX]
+  uint32_t* mask;     // ReLU bits per layer and sub-tile (mask_words)
+  float* heads;       // [N, 4]: raw r, g, b, density
+  long long N;
 };
+
+// Sub-tiles of 64 rows of the whole level: every unit counts as full, so a
+// sub-tile's index depends only on its unit and round (the forward and the
+// g-chain walk the units alike).
+__host__ __device__ inline long long wg_subtiles(const WgParams& q) {
+  return 2LL * q.ngroups * cdiv(q.RB * q.p.S, kWgRows);
+}
+
+// u32 words of one layer's ReLU mask for one thread of one sub-tile: a bit
+// per accumulator value of its m64nN product (N / 2 values).
+__host__ __device__ constexpr int mask_nw(int N) { return (N + 63) / 64; }
+
+// Offset (in words) of layer L's masks: [layer][sub-tile][word][thread].
+__host__ __device__ inline long long mask_off(const WgParams& q, int L) {
+  const Params& p = q.p;
+  const long long per = L < p.D ? (long long)L * mask_nw(p.W)
+                                : (long long)p.D * mask_nw(p.W) + (long long)(L - p.D) * mask_nw(p.Wc);
+  return per * 128 * wg_subtiles(q);
+}
+
+__host__ __device__ inline long long mask_words(const WgParams& q) {
+  return mask_off(q, q.p.D + q.p.Dc);
+}
 
 // Rays of one unit: whole rays filling 128 rows, each buffer of the
 // direction term [rays, Wc] f32 held to 16 KB (fused_level.wg_rays_per_group).
@@ -587,6 +621,80 @@ __device__ __forceinline__ void epilogue_wg(const float* acc, unsigned char* H, 
   bar_sync(bar_id, 128);
 }
 
+// layer_gemm that runs after() once the first slab's products are issued:
+// the train forward copies the tile before out while the tensor cores
+// work (the next epilogue_store waits for every warp's copy). A copy split
+// into one band of rows after each slab measured slower.
+template <int N, class F>
+__device__ __forceinline__ void layer_gemm_then(Ring& r, uint32_t a0, int n0, uint32_t a1,
+                                                int n1, float* acc, F&& after) {
+  int pending = slab_mma<N>(r, acc, n0 > 0 ? a0 : a1);
+  after();
+#pragma unroll 1
+  for (int s = 1; s < n0 + n1; ++s) {
+    const int stage =
+        slab_mma<N>(r, acc, s < n0 ? a0 + s * kTileSlab : a1 + (s - n0) * kTileSlab);
+    wgmma_wait<1>();
+    release(r, pending);
+    pending = stage;
+  }
+  wgmma_wait<0>();
+  release(r, pending);
+  fence_acc<N / 2>(acc);
+}
+
+// epilogue_wg of the train forward: first waits until every warp of the
+// warpgroup has copied the tile out (store_tile), then also stores the
+// ReLU mask: bit i of word i / 32 is set when the rounded value of acc[i]
+// is > 0, words [mask_nw(N)][128 threads] at mask.
+template <int N>
+__device__ __forceinline__ void epilogue_store(const float* acc, unsigned char* H, int bar_id,
+                                               uint32_t* mask) {
+  bar_sync(bar_id, 128);
+  const int t = threadIdx.x & 127;
+  const int row0 = (t >> 5) * 16 + ((t & 31) >> 2), qd = t & 3, r7 = row0 & 7;
+  unsigned char* h = H + row0 * kSlabBytes + 4 * qd;
+  uint32_t bits[mask_nw(N)];
+#pragma unroll
+  for (int w = 0; w < mask_nw(N); ++w) bits[w] = 0u;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    unsigned char* dst = h + (j >> 3) * kTileSlab + (((j & 7) ^ r7) << 4);
+    const uint32_t lo = relu_bf16x2(acc[4 * j], acc[4 * j + 1]);
+    const uint32_t hi = relu_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+    *reinterpret_cast<uint32_t*>(dst) = lo;
+    *reinterpret_cast<uint32_t*>(dst + 8 * kSlabBytes) = hi;
+    const uint32_t b4 = (uint32_t)((lo & 0x7FFFu) != 0u) |
+                        ((uint32_t)((lo & 0x7FFF0000u) != 0u) << 1) |
+                        ((uint32_t)((hi & 0x7FFFu) != 0u) << 2) |
+                        ((uint32_t)((hi & 0x7FFF0000u) != 0u) << 3);
+    bits[j >> 3] |= b4 << (4 * (j & 7));
+  }
+#pragma unroll
+  for (int w = 0; w < mask_nw(N); ++w) mask[w * 128 + t] = bits[w];
+  fence_proxy_async();
+  bar_sync(bar_id, 128);
+}
+
+// Rows < nvalid of a swizzled [64, width] tile T to dst (row-major, width
+// a multiple of 8), 16 bytes a thread, by threads t = 0 .. n - 1.
+__device__ __forceinline__ void store_tile(const unsigned char* T, bf16* dst, int width,
+                                           int nvalid, int t, int n) {
+  const int C = width >> 3, drow = n / C, dc = n - drow * C;
+  int row = t / C, c = t - row * C;  // chunk t, then every n-th
+  while (row < nvalid) {
+    *reinterpret_cast<uint4*>(dst + (long long)row * width + c * 8) =
+        *reinterpret_cast<const uint4*>(T + (c >> 3) * kTileSlab + row * kSlabBytes +
+                                        (((c & 7) ^ (row & 7)) << 4));
+    row += drow;
+    c += dc;
+    if (c >= C) {
+      c -= C;
+      ++row;
+    }
+  }
+}
+
 // Head columns c < nc of rows < nvalid: out[row * ld + c] = acc + b[c].
 __device__ __forceinline__ void head_out(const float* acc, const float* b, int nc, float* out,
                                          int ld, int nvalid) {
@@ -792,6 +900,7 @@ constexpr int kBarXReady = 4;  // + w: helpers wrote X[w] (consumer w waits)
 constexpr int kBarXFree = 6;   // + w: consumer w's products read X[w] (helpers wait)
 constexpr int kBarOutFull = 8;    // + b: both consumers wrote the heads to OUT[b]
 constexpr int kBarOutEmpty = 10;  // + b: the helpers composited OUT[b]
+constexpr int kBarHelp = 12;   // the helpers alone
 constexpr int kXSync = 128 + kHelpers;
 constexpr int kOutSync = 256 + kHelpers;
 
@@ -807,8 +916,9 @@ __device__ __forceinline__ int block_rounds(const WgParams& q) {
 // unit and both feature tiles as soon as the consumers' last products that
 // read them are done; then (render) the composite of the round before,
 // from the raw heads in OUT: one warp a ray, or warp 0 carrying one ray
-// over several rounds when S > 128.
-template <bool kRender>
+// over several rounds when S > 128. kStore: each feature tile also goes to
+// q.xs once the consumer may read it.
+template <bool kRender, bool kStore>
 __device__ __forceinline__ void help(const WgParams& q, unsigned char* X0, float* OUT,
                                      float* DC) {
   const Params& p = q.p;
@@ -855,6 +965,11 @@ __device__ __forceinline__ void help(const WgParams& q, unsigned char* X0, float
                   max(0, min(64, rows - sub0)), h);
         WG_PHASE(4, t_x);
         bar_arrive(kBarXReady + w, kXSync);
+        if constexpr (kStore) {  // every helper's part of the tile is written
+          bar_sync(kBarHelp, kHelpers);
+          store_tile(X0 + w * q.x_bytes, q.xs + ((long long)ray0 * p.S + sub0) * p.KX, p.KX,
+                     max(0, min(64, rows - sub0)), h, kHelpers);
+        }
       }
       if (kRender && k > 0) composite_round(k - 1);
       pend_ray0 = ray0; pend_nr = nr; pend_r0 = r0; pend_rows = rows;
@@ -865,9 +980,10 @@ __device__ __forceinline__ void help(const WgParams& q, unsigned char* X0, float
 }
 
 // The whole kernel body; kRender: composite into comp/acc/weights, else
-// the raw heads to raw_rgb/raw_den. Launch with kWgThreads threads and
-// q.bytes of dynamic shared memory.
-template <bool kRender>
+// the raw heads to raw_rgb/raw_den, or with kStore (the train level) to
+// q.heads with the activations, features and masks. Launch with
+// kWgThreads threads and q.bytes of dynamic shared memory.
+template <bool kRender, bool kStore = false>
 __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* smem_raw) {
   const Params& p = q.p;
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -895,7 +1011,7 @@ __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* sme
   if (threadIdx.x >= 256) {  // producer warpgroup: the producer and the helpers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     if (threadIdx.x == 256) produce(q, slots, full, empty);
-    if (threadIdx.x >= kHelperBase) help<kRender>(q, X0, OUT, DC);
+    if (threadIdx.x >= kHelperBase) help<kRender, kStore>(q, X0, OUT, DC);
     return;
   }
   // consumer warpgroups 0 and 1
@@ -923,6 +1039,13 @@ __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* sme
       const int nvalid = max(0, min(64, rows - sub0));
       const long long grow0 = (long long)ray0 * p.S + sub0;
       float* out = OUT + (k & 1) * kWgRows * 4 + (wg * 64) * 4;
+      // kStore: this sub-tile's masks, and the copy of layer L's tile (in
+      // H while the next products read it) to the workspace
+      const long long sid = ((long long)grp * cdiv(q.RB * p.S, kWgRows) + r0 / kWgRows) * 2 + wg;
+      auto copy_out = [&](int L, int width) {
+        if constexpr (kStore)
+          store_tile(H, q.acts + act_off(p, q.N, L) + grow0 * width, width, nvalid, t, 128);
+      };
       WG_CLOCK(t_ready);
       bar_sync(kBarXReady + wg, kXSync);
       WG_PHASE(3, t_ready);
@@ -932,19 +1055,32 @@ __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* sme
           const bool xin = i == 0 || i % p.skip == 0;
           WG_CLOCK(t_mma);
           init_acc<N>(acc, b + i * p.W, nullptr, nullptr);
-          layer_gemm<N>(ring, hs, i == 0 ? 0 : q.nh, xs, xin ? q.nx : 0, acc);
+          if constexpr (kStore)
+            layer_gemm_then<N>(ring, hs, i == 0 ? 0 : q.nh, xs, xin ? q.nx : 0, acc, [&] {
+              if (i > 0) copy_out(i - 1, p.W);
+            });
+          else
+            layer_gemm<N>(ring, hs, i == 0 ? 0 : q.nh, xs, xin ? q.nx : 0, acc);
           WG_PHASE(5, t_mma);
           if (i == last_x && k + 1 < K) bar_arrive(kBarXFree + wg, kXSync);
           WG_CLOCK(t_epi);
-          epilogue_wg<N>(acc, H, bar_id);
+          if constexpr (kStore)
+            epilogue_store<N>(acc, H, bar_id, q.mask + mask_off(q, i) + sid * mask_nw(N) * 128);
+          else
+            epilogue_wg<N>(acc, H, bar_id);
           WG_PHASE(4, t_epi);
         }
       });
       WG_CLOCK(t_den);
       zero_acc<kHeadN>(acc);
-      layer_gemm<kHeadN>(ring, hs, q.nh, 0, 0, acc);
+      if constexpr (kStore)
+        layer_gemm_then<kHeadN>(ring, hs, q.nh, 0, 0, acc, [&] { copy_out(p.D - 1, p.W); });
+      else
+        layer_gemm<kHeadN>(ring, hs, q.nh, 0, 0, acc);
       WG_PHASE(2, t_den);
-      if (kRender) {
+      if constexpr (kStore) {
+        head_out(acc, b + p.b_den, p.Cd, q.heads + grow0 * 4 + 3, 4, nvalid);
+      } else if (kRender) {
         WG_CLOCK(t_empty);
         if (k >= 2) bar_sync(kBarOutEmpty + (k & 1), kOutSync);
         WG_PHASE(6, t_empty);
@@ -961,18 +1097,33 @@ __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* sme
           WG_CLOCK(t_mma);
           init_acc<N>(acc, b + p.b_v0 + j * p.Wc, j == 0 ? dc0 : nullptr,
                       j == 0 ? dc1 : nullptr);
-          layer_gemm<N>(ring, hs, j == 0 ? q.nh : q.nc, 0, 0, acc);
+          if constexpr (kStore)
+            layer_gemm_then<N>(ring, hs, j == 0 ? q.nh : q.nc, 0, 0, acc, [&] {
+              if (j > 0) copy_out(p.D + j - 1, p.Wc);
+            });
+          else
+            layer_gemm<N>(ring, hs, j == 0 ? q.nh : q.nc, 0, 0, acc);
           WG_PHASE(5, t_mma);
           WG_CLOCK(t_epi);
-          epilogue_wg<N>(acc, H, bar_id);
+          if constexpr (kStore)
+            epilogue_store<N>(acc, H, bar_id,
+                              q.mask + mask_off(q, p.D + j) + sid * mask_nw(N) * 128);
+          else
+            epilogue_wg<N>(acc, H, bar_id);
           WG_PHASE(4, t_epi);
         }
       });
       WG_CLOCK(t_rgb);
       zero_acc<kHeadN>(acc);
-      layer_gemm<kHeadN>(ring, hs, q.nc, 0, 0, acc);
+      if constexpr (kStore)
+        layer_gemm_then<kHeadN>(ring, hs, q.nc, 0, 0, acc,
+                                [&] { copy_out(p.D + p.Dc - 1, p.Wc); });
+      else
+        layer_gemm<kHeadN>(ring, hs, q.nc, 0, 0, acc);
       WG_PHASE(2, t_rgb);
-      if (kRender) {
+      if constexpr (kStore) {
+        head_out(acc, b + p.b_rgb, p.Cr, q.heads + grow0 * 4, 4, nvalid);
+      } else if (kRender) {
         head_out(acc, b + p.b_rgb, p.Cr, out, 4, nvalid);
         bar_arrive(kBarOutFull + (k & 1), kOutSync);
       } else {

@@ -801,16 +801,15 @@ inline cudaError_t set_smem(const void* kernel, size_t smem) {
 // taken as column sums of g in passes 3 and 4, or, with dbpart, is the
 // column sums of the per-block partials dbpart [db_blocks, num_biases] that
 // the chain took (train_level_twopass.cu), and passes 3-4 multiply only.
+// launch_dw is pass 3, launch_small_reduce passes 4-5, launch_products both.
 template <class T>
-cudaError_t launch_products(Params p, Extra e, const Layout& l, unsigned char* ws,
-                            float* out, long long n_out, int splits, const float* dbpart,
-                            int db_blocks, cudaStream_t st) {
+cudaError_t launch_dw(Params p, Extra e, const Layout& l, unsigned char* ws, long long n_out,
+                      int splits, const float* dbpart, cudaStream_t st) {
   const int L = p.D + 2 + p.Dc;
   if (L > 64) return cudaErrorInvalidValue;
   const long long N = e.N;
   const T* acts = reinterpret_cast<const T*>(ws + l.acts);
   const T* grads = reinterpret_cast<const T*>(ws + l.grads);
-  cudaError_t err;
 
   // 3. dW (/ db) GEMMs over the rows
   long long w_off[64], b_off[64];
@@ -856,7 +855,23 @@ cudaError_t launch_products(Params p, Extra e, const Layout& l, unsigned char* w
     dw_gemm_bf16_kernel<<<nblocks, kBThreads, 0, st>>>(gj);
   else
     dw_gemm_f32_kernel<<<nblocks, kGemmThreads, 0, st>>>(gj);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Passes 4-5 of launch_products.
+template <class T>
+cudaError_t launch_small_reduce(Params p, Extra e, const Layout& l, unsigned char* ws,
+                                float* out, long long n_out, int splits, const float* dbpart,
+                                int db_blocks, cudaStream_t st) {
+  const int L = p.D + 2 + p.Dc;
+  if (L > 64) return cudaErrorInvalidValue;
+  const long long N = e.N;
+  const T* acts = reinterpret_cast<const T*>(ws + l.acts);
+  const long long tW = (long long)N * p.W;
+  long long w_off[64], b_off[64];
+  output_offsets(p, w_off, b_off);
+  float* part = reinterpret_cast<float*>(ws + l.part);
+  cudaError_t err;
 
   // 4. heads, the view layer's direction rows (and db)
   SmallJobs sj;
@@ -892,6 +907,15 @@ cudaError_t launch_products(Params p, Extra e, const Layout& l, unsigned char* w
   reduce_kernel<<<(int)(rblocks < 4096 ? rblocks : 4096), 256, 0, st>>>(part, out, n_out,
                                                                         splits);
   return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_products(Params p, Extra e, const Layout& l, unsigned char* ws,
+                            float* out, long long n_out, int splits, const float* dbpart,
+                            int db_blocks, cudaStream_t st) {
+  cudaError_t err = launch_dw<T>(p, e, l, ws, n_out, splits, dbpart, st);
+  if (err != cudaSuccess) return err;
+  return launch_small_reduce<T>(p, e, l, ws, out, n_out, splits, dbpart, db_blocks, st);
 }
 
 // Passes 2-5 on the stored activations and e.g_rgb / e.g_den; the summed

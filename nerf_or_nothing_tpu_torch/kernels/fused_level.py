@@ -273,7 +273,24 @@ def _layout_wg(params: Params, cfg: Config, fragments: bool):
     return torch.cat(parts)
 
 
-_LAYOUTS = {"fwd": _layout, "t": _layout_t, "tx": _layout_tx, "wg": _layout_wg}
+def _layout_wgt(params: Params, cfg: Config, fragments: bool):
+    """The bf16 train kernel's g-chain stream (``csrc/train_wg.cuh``): each
+    chained layer's W^T as ``_wg_slabs`` (its K-major form is W's own rows)
+    in the chain's order, top layer first: view layers Dc-1 .. 1 [Wc, Wc],
+    the first view layer's h rows [Wc, W], trunk layers D-1 .. 1 [W, W].
+    Then the heads' W^T row-major: rgb [C_rgb, Wc], density [C_den, W].
+    ``fragments`` is unused."""
+    D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
+    parts = [_wg_slabs(params[D + 1 + j][0].t()) for j in range(Dc - 1, 0, -1)]
+    parts.append(_wg_slabs(params[D + 1][0][:nw].t()))
+    parts += [_wg_slabs(params[i][0][:nw].t()) for i in range(D - 1, 0, -1)]
+    parts.append(params[D + 1 + Dc][0].t().reshape(-1))
+    parts.append(params[D][0].t().reshape(-1))
+    return torch.cat(parts)
+
+
+_LAYOUTS = {"fwd": _layout, "t": _layout_t, "tx": _layout_tx, "wg": _layout_wg,
+            "wgt": _layout_wgt}
 
 
 @functools.lru_cache(maxsize=32)
@@ -322,6 +339,11 @@ def pack_params_wg(params: Params, cfg: Config, dt: torch.dtype):
     return _gather(params, cfg, dt, "wg"), b_flat
 
 
+def pack_params_wgt(params: Params, cfg: Config, dt: torch.dtype):
+    """The g-chain stream of ``_layout_wgt``, one gather."""
+    return _gather(params, cfg, dt, "wgt")
+
+
 def pack_forward(params: Params, cfg: Config, dt: torch.dtype):
     """The forward kernels' (``render_level``, ``mlp_fwd``) weights: the
     ``"wg"`` slab stream for bf16, ``pack_params``' row-major layout for
@@ -346,6 +368,15 @@ def packed_wg_size(cfg: Config) -> int:
     return (trunk + _slabs(W) * WG_HEAD_N * S + _slabs(W) * Wc * S
             + (Dc - 1) * _slabs(Wc) * Wc * S + _slabs(Wc) * WG_HEAD_N * S
             + cfg.direction_features * Wc)
+
+
+def packed_wgt_size(cfg: Config) -> int:
+    """Length of ``pack_params_wgt``'s buffer."""
+    D, Dc = cfg.net_depth, cfg.net_depth_condition
+    W, Wc, S = cfg.net_width, cfg.net_width_condition, WG_SLAB_K
+    nh, nc = _slabs(W), _slabs(Wc)
+    return (((Dc - 1) * nc * Wc + nc * W + (D - 1) * nh * W) * S
+            + cfg.num_rgb_channels * Wc + cfg.num_density_channels * W)
 
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (sm_90)
@@ -392,6 +423,37 @@ def check_wg_config(cfg: Config, S: int, composite: bool) -> None:
             f"{SMEM_LIMIT} bytes")
 
 
+def chain_wg_smem(cfg: Config):
+    """(bytes, ring stages) of the bf16 g-chain's shared memory, as
+    ``train_wg.cuh::init_chain`` computes it: the ring (``stages`` x W x
+    128 bytes), two masked-g tiles [64, W] in bf16, the helpers' column
+    partials (2 x 96 x 8 f32), the block's db (every bias, f32), the
+    barriers and 1 KB of alignment. bytes is None when not even 2 stages
+    fit."""
+    W = cfg.net_width
+    n_b = packed_sizes(cfg)[1]
+    fixed = 1024 + 2 * 8192 * _slabs(W) + 2 * 96 * 8 * 4 + -(-n_b * 4 // 16) * 16
+    for stages in (4, 3, 2):
+        total = fixed + stages * W * 128 + 16 * stages
+        if total <= SMEM_LIMIT:
+            return total, stages
+    return None, 0
+
+
+def check_train_wg_config(cfg: Config, S: int) -> None:
+    """Raise ValueError when the bf16 train kernel's forward (``wg_smem``)
+    or g-chain (``chain_wg_smem``) does not fit a block; nothing to check
+    for f32."""
+    if compute_dtype(cfg) != torch.bfloat16:
+        return
+    check_wg_config(cfg, S, False)
+    if chain_wg_smem(cfg)[0] is None:
+        raise ValueError(
+            "config not supported by the bf16 train kernel: the g-chain's "
+            "shared memory (two [64, net_width] tiles, every bias, a ring "
+            f"of 2 weight slabs) exceeds {SMEM_LIMIT} bytes")
+
+
 def packed_tx_size(cfg: Config) -> int:
     """Length of ``pack_params_tx``'s buffer."""
     n_x = 1 + sum(1 for i in range(1, cfg.net_depth) if i % cfg.skip_layer == 0)
@@ -406,10 +468,47 @@ def packed_t_size(cfg: Config) -> int:
 
 
 def pack_train_params(params: Params, cfg: Config, dt: torch.dtype):
-    """(weights, biases, W^T) in the train kernel's layouts: pack once per
-    step for both levels."""
+    """(weights, biases, W^T) in the two-pass train kernel's layouts (and
+    the f32 train kernel's): ``pack_params``' and ``pack_params_t``'."""
     w_flat, b_flat = pack_params(params, cfg, dt)
     return w_flat, b_flat, pack_params_t(params, cfg, dt)
+
+
+def pack_train_level(params: Params, cfg: Config, dt: torch.dtype,
+                     layout: str = "wg"):
+    """(weights, biases, chain weights) of ``train_level`` reading
+    ``layout`` (``weight_layout``): in bf16 with ``"wg"`` the forward's slab
+    stream (``pack_params_wg``) and the g-chain's (``pack_params_wgt``),
+    else ``pack_train_params``' layouts (f32, and the earlier ``mma.sync``
+    kernel)."""
+    if layout == "wg" and dt == torch.bfloat16:
+        w_flat, b_flat = pack_params_wg(params, cfg, dt)
+        return w_flat, b_flat, pack_params_wgt(params, cfg, dt)
+    return pack_train_params(params, cfg, dt)
+
+
+def train_weight_sizes(cfg: Config, layout: str) -> Tuple[int, int]:
+    """Lengths of ``pack_train_level``'s weight and chain-weight buffers
+    in ``cfg``'s compute dtype."""
+    if layout == "wg" and compute_dtype(cfg) == torch.bfloat16:
+        return packed_wg_size(cfg), packed_wgt_size(cfg)
+    return packed_sizes(cfg)[0], packed_t_size(cfg)
+
+
+def uses_twopass(cfg: Config) -> bool:
+    """Whether ``fused_level_train`` launches the two-pass kernel: the
+    probe ``fl_variant=twopass`` in mode "t" (not the in-kernel IPE)."""
+    return (cfg.probe("fl_variant") == "twopass"
+            and not (cfg.fuse_ipe and cfg.diag_covariance))
+
+
+def pack_train(params: Params, cfg: Config, dt: torch.dtype):
+    """One train step's packing, once for both levels, for the kernel the
+    step launches: ``pack_train_params`` for the two-pass kernel,
+    ``pack_train_level`` for ``train_level``."""
+    if uses_twopass(cfg):
+        return pack_train_params(params, cfg, dt)
+    return pack_train_level(params, cfg, dt)
 
 
 def packed_sizes(cfg: Config) -> Tuple[int, int]:
@@ -795,12 +894,15 @@ def train_splits(rows: int) -> int:
     return max(1, min(32, -(-rows // 4096)))
 
 
-def _train_library(name: str):
-    """(launch, workspace) C functions of ``csrc/<name>.cu``; both train
-    kernels have the same C interface."""
+def _train_library(name: str, source=None):
+    """(launch, workspace, weight layout) of ``csrc/<name>.cu`` or of
+    another version of it (``source``); both train kernels have the same C
+    interface, and each reads the layout its library declares
+    (``weight_layout``: ``"wg"`` for ``train_level``'s bf16 ``wgmma``
+    passes, ``"fwd"`` for ``pack_train_params``)."""
     from nerf_or_nothing_tpu_torch.kernels import build
 
-    lib = build.load(name)
+    lib = build.load(name, source)
     fn = getattr(lib, f"{name}_launch")
     ws = getattr(lib, f"{name}_workspace")
     if fn.argtypes is None:
@@ -810,14 +912,14 @@ def _train_library(name: str):
         fn.restype = ctypes.c_int
         ws.argtypes = [i] * 9 + [ll]
         ws.restype = ll
-    return fn, ws
+    return fn, ws, weight_layout(lib, name)
 
 
 def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
                   delta, pixels, g_scale, white_bkgd: bool, mode: str,
-                  packed):
-    """Check the inputs, launch ``csrc/<name>.cu`` on the current stream
-    and add one to ``counted.launches``."""
+                  packed, source=None):
+    """Check the inputs, launch ``csrc/<name>.cu`` (or ``source``) on the
+    current stream and add one to ``counted.launches``."""
     ptrs = _check_level_inputs(cfg, xs, d, delta, mode)
     dt = compute_dtype(cfg)
     R, S = delta.shape
@@ -827,13 +929,6 @@ def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
     _check("pixels", pixels, torch.float32, (R, 3), device)
     gsc = g_scale.reshape(R)
     _check("g_scale", gsc, torch.float32, (R,), device)
-    if packed is None:
-        packed = pack_train_params(params, cfg, dt)
-    w_flat, b_flat, wt_flat = packed
-    n_w, n_b = packed_sizes(cfg)
-    _check("packed weights", w_flat, dt, (n_w,), device)
-    _check("packed biases", b_flat, torch.float32, (n_b,), device)
-    _check("packed W^T", wt_flat, dt, (packed_t_size(cfg),), device)
 
     comp = torch.empty((R, 3), dtype=torch.float32, device=device)
     acc = torch.empty((R,), dtype=torch.float32, device=device)
@@ -842,7 +937,15 @@ def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
     grads = torch.empty((n_out,), dtype=torch.float32, device=device)
     if R == 0:
         return comp, acc, weights, unpack_grads(grads.zero_(), cfg)
-    launch, workspace_bytes = _train_library(name)
+    launch, workspace_bytes, layout = _train_library(name, source)
+    if packed is None:
+        packed = pack_train_level(params, cfg, dt, layout)
+    w_flat, b_flat, wt_flat = packed
+    n_w, n_wt = train_weight_sizes(cfg, layout)
+    _check("packed weights", w_flat, dt, (n_w,), device)
+    _check("packed biases", b_flat, torch.float32, (packed_sizes(cfg)[1],),
+           device)
+    _check("packed chain weights", wt_flat, dt, (n_wt,), device)
     kx, splits = padded_location_features(cfg), train_splits(N)
     D, W, Wc, Dc = (cfg.net_depth, cfg.net_width, cfg.net_width_condition,
                     cfg.net_depth_condition)
@@ -866,13 +969,20 @@ def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
 
 
 def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
-                     g_scale, white_bkgd: bool, mode: str, packed=None):
+                     g_scale, white_bkgd: bool, mode: str, packed=None,
+                     source=None):
     """Launch the train kernel on the current stream. Same arguments and
-    outputs as ``level_train_plain``; ``packed`` is ``pack_train_params``'
+    outputs as ``level_train_plain``; ``packed`` is ``pack_train_level``'s
     result when the caller already has it (once per step for both
-    levels)."""
+    levels); ``source`` is another version of ``csrc/train_level.cu`` with
+    the same C interface, to time versions in turns (``packed`` then in
+    the layout that version reads). Configs whose shared memory the bf16
+    kernels cannot take raise ValueError before anything runs."""
+    if source is None:
+        check_train_wg_config(cfg, delta.shape[1])
     return _launch_train("train_level", train_level, params, cfg, xs, d,
-                         delta, pixels, g_scale, white_bkgd, mode, packed)
+                         delta, pixels, g_scale, white_bkgd, mode, packed,
+                         source)
 
 
 def train_level_twopass_cuda(params: Params, cfg: Config, x, d, delta,
@@ -929,7 +1039,7 @@ def fused_level_train(params: Params, cfg: Config, x_enc, dir_enc, t_vals,
       dir_enc: [R, Fd]; t_vals: [R, S+1]; dirs: [R, 3] (unnormalized);
       pixels: [R, 3]; g_scale: [R, 1] per-ray dL/dcomp scale
         (level_weight * 2 * mask / sum(mask));
-      packed: ``pack_train_params``' result, once per step.
+      packed: ``pack_train``'s result, once per step.
     Returns:
       comp_rgb [R, 3], acc [R], weights [R, S], d_params (list of
       (dW [fan_in, fan_out], db [fan_out]), f32).

@@ -141,19 +141,20 @@ def _fused_level_value_and_grad(cfg: Config, params, generator, rays: Rays,
     Valid with ``stop_level_grad``: each level's loss gradient is then
     independent, so the total gradient is the sum of the levels' dW/db,
     each level's loss weight folded into its per-ray g_scale. The weights
-    are packed into the kernel's layouts once for both levels.
+    are packed once for both levels, in the layouts of the kernel the
+    step launches (``pack_train``).
 
     Returns (loss, (level_losses, fine_rgb, weight_l2), grads).
     """
     from nerf_or_nothing_tpu_torch.kernels.fused_level import (
         fused_level_train,
-        pack_train_params,
+        pack_train,
     )
 
     dt = mlp_lib.compute_dtype(cfg)
     packed = None
     if rays.origins.is_cuda:
-        packed = pack_train_params(params, cfg, dt)
+        packed = pack_train(params, cfg, dt)
     dir_enc = mipnerf.encode_dirs(cfg, rays)
     mask, denom = mipnerf.loss_normalizer(cfg, rays.loss_mult)
     grads = None

@@ -13,8 +13,10 @@ Prints one JSON line: the steps' wall time (host clock, each step
 synchronised; also without the profiler), the device time summed over all
 kernels and copies and its share of the wall time (the rest is the device
 idle), the device time of the hand-written kernels' launches by name per
-step and per launch of the wrapper (``train_level``: 5 launches,
-``train_level_twopass``: 4, ``mlp_bwd``: 5, ``mlp_fwd``: 1), the rest of
+step and per launch of the wrapper (``train_level`` in bf16: 7 launches,
+the wgmma forward, the composite, the wgmma g-chain, the per-ray sums, the
+dW GEMM, the small products and the reduction; ``train_level_twopass``:
+4, ``mlp_bwd``: 5, ``mlp_fwd``: 1), the rest of
 the device time, the device
 time of the autograd backward nodes (inclusive of their kernels; the
 fused MLP's node holds the ``mlp_bwd`` launches, the others are the eager
@@ -32,7 +34,8 @@ import tempfile
 import time
 
 KERNELS = {
-    "train_level": ("train_fwd_kernel", "chain_kernel", "dw_gemm",
+    "train_level": ("train_fwd_wg_kernel", "train_composite_kernel",
+                    "chain_wg_kernel", "g_ray_kernel", "dw_wg_kernel",
                     "small_tn_kernel", "reduce_kernel"),
     "train_level_twopass": ("twopass_chain_kernel", "dw_gemm",
                             "small_tn_kernel", "reduce_kernel"),
@@ -71,8 +74,7 @@ def main(argv) -> int:
     write_scene(scene, n_train=2, n_test=1, size=400)
     cfg = parse_flags(argv, Config(data_dir=scene))
     fused = train_lib.use_fused_level(cfg)
-    twopass = (fused and cfg.probe("fl_variant") == "twopass"
-               and not cfg.fuse_ipe)
+    twopass = fused and fl.uses_twopass(cfg)
     wrappers = (("train_level_twopass" if twopass else "train_level",)
                 if fused else ("mlp_fwd", "mlp_bwd"))
     module = {"train_level": fl, "train_level_twopass": fl, "mlp_fwd": fm,
@@ -134,8 +136,8 @@ def main(argv) -> int:
     dt = compute_dtype(cfg)
     alone = {}
     if fused:
-        alone["pack_train_params"] = median_ms(
-            lambda: fl.pack_train_params(state.params, cfg, dt))
+        alone["pack_train"] = median_ms(
+            lambda: fl.pack_train(state.params, cfg, dt))
     else:
         alone["pack_mlp_params"] = median_ms(
             lambda: fm.pack_mlp_params(state.params, cfg, dt))
@@ -154,12 +156,13 @@ def main(argv) -> int:
     if fused:
         xs, d, delta = level_inputs(cfg, R, "t", 1, device)
         pixels, g_scale = train_inputs(cfg, R, 2, device)
-        packed = fl.pack_train_params(state.params, cfg, dt)
         if twopass:
+            packed2 = fl.pack_train_params(state.params, cfg, dt)
             alone["train_level_twopass_call"] = median_ms(
                 lambda: fl.train_level_twopass_cuda(
                     state.params, cfg, xs, d, delta, pixels, g_scale, True,
-                    packed=packed))
+                    packed=packed2))
+        packed = fl.pack_train_level(state.params, cfg, dt)
         alone["train_level_call"] = median_ms(lambda: fl.train_level_cuda(
             state.params, cfg, xs, d, delta, pixels, g_scale, True, "t",
             packed=packed))

@@ -224,6 +224,84 @@ def test_train_kernel_dw_bit_equal_on_cuda():
         assert torch.equal(ta, tb)
 
 
+TRAIN_WG_CASES = [
+    ("r777_masked_t", dict(), 777, "t"),
+    ("r777_masked_mv", dict(fuse_ipe=True), 777, "mv"),
+    ("s64_two_view_layers", dict(num_samples=64, net_depth_condition=2), 37,
+     "mv"),
+    ("s256", dict(num_samples=256), 19, "t"),
+] + [(f"w{w}", dict(net_width=w, net_width_condition=min(w, 128),
+                    num_samples=24), 21, "t") for w in range(32, 257, 32)]
+
+
+@pytest.mark.parametrize("name,kw,R,mode", TRAIN_WG_CASES)
+def test_train_kernel_wg_cases_on_cuda(name, kw, R, mode):
+    """The bf16 train kernel's wgmma passes: a masked ragged batch in both
+    modes, S=64 with two view layers, S=256, and every width 32-256 (the
+    chain's products of every N, ragged last units)."""
+    dev = cuda_device()
+    check_train(Config(**kw), R, mode, True, dev)
+
+
+def test_train_kernel_bit_equal_ragged_on_cuda():
+    """No atomics in the wgmma passes either: a ragged masked batch in
+    mode "mv" gives the same bits twice."""
+    dev = cuda_device()
+    cfg = Config(fuse_ipe=True)
+    R, S = 777, cfg.num_samples
+    params = tmlp.init_mlp(torch.Generator().manual_seed(4), cfg, device=dev)
+    means, covs, dir_enc, t_vals, dirs, pixels, g_scale = train_inputs(
+        R, S, 5, dev)
+    a, b = (fl.fused_level_train(params, cfg, None, dir_enc, t_vals, dirs,
+                                 pixels, g_scale, False,
+                                 means_covs=(means, covs)) for _ in range(2))
+    for (wa, ba), (wb, bb) in zip(a[3], b[3]):
+        assert torch.equal(wa, wb) and torch.equal(ba, bb)
+    for ta, tb in zip(a[:3], b[:3]):
+        assert torch.equal(ta, tb)
+
+
+@pytest.mark.parametrize("probes", ["", "fl_variant=twopass"])
+def test_train_step_packs_its_route_once_on_cuda(monkeypatch, probes):
+    """A train step packs once for both levels (``pack_train``), in the
+    layouts of the kernel it launches."""
+    from nerf_or_nothing_tpu_torch import train as ttrain
+    from nerf_or_nothing_tpu_torch.rays import Rays
+
+    dev = cuda_device()
+    cfg = tiny_config(**dict(SMALL, num_levels=2, batch_size=40,
+                             kernel_probes=probes))
+    state = ttrain.init_train_state(cfg, dev)
+    calls = []
+    pack = fl.pack_train
+    monkeypatch.setattr(fl, "pack_train",
+                        lambda *a: calls.append(pack(*a)) or calls[-1])
+    rng = np.random.default_rng(3)
+    n = 40
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    rays = Rays(
+        origins=np.zeros((n, 3), np.float32), directions=dirs,
+        viewdirs=dirs / np.linalg.norm(dirs, axis=-1, keepdims=True),
+        radii=np.full((n, 1), 1e-3, np.float32),
+        near=np.full((n, 1), 2.0, np.float32),
+        far=np.full((n, 1), 6.0, np.float32),
+        loss_mult=np.ones((n, 1), np.float32),
+    )
+    rays = Rays(*[torch.from_numpy(x).to(dev) for x in rays])
+    pixels = torch.from_numpy(rng.uniform(size=(n, 3)).astype(np.float32))
+    before = (fl.train_level.launches, fl.train_level_twopass.launches)
+    state, stats = ttrain.make_train_step(cfg)(state, rays, pixels.to(dev))
+    assert np.isfinite(float(stats.loss))
+    assert len(calls) == 1
+    twopass = probes != ""
+    grown = (fl.train_level.launches - before[0],
+             fl.train_level_twopass.launches - before[1])
+    assert grown == ((0, 2) if twopass else (2, 0))
+    sizes = ((fl.packed_sizes(cfg)[0], fl.packed_t_size(cfg)) if twopass
+             else fl.train_weight_sizes(cfg, "wg"))
+    assert (calls[0][0].numel(), calls[0][2].numel()) == sizes
+
+
 @pytest.mark.parametrize("width", ["small", "config"])
 def test_twopass_kernel_matches_plain_on_cuda(width):
     """The two-pass kernel (kernel_probes fl_variant=twopass, mode "t")
