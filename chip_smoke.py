@@ -7,18 +7,18 @@ Phases, each printing one JSON line:
   env      torch / CUDA / nvcc versions, the card, whether triton imports;
   build    nvcc builds csrc/render_level.cu, csrc/train_level.cu,
            csrc/train_level_twopass.cu, csrc/mlp_fwd.cu and csrc/mlp_bwd.cu,
-           and the mma.sync versions of render_level, mlp_fwd and
-           train_level at commit 815018d (mma_sources), one process each,
-           started together (ptxas register/spill lines);
+           and the mma.sync versions of all five at commit 815018d
+           (mma_sources), one process each, started together (ptxas
+           register/spill lines);
   kernel   the render kernel against its plain PyTorch version (render_level_plain)
            at Config() width: bf16 and f32, R=16384 x S=128 in mode "mv",
            R=1000 x S=64 in mode "t" without white background, and a narrow
            config with S=8; errors as a fraction of the band
            atol + rtol*|ref| + rtol*max|ref|; kernel and plain times by CUDA
            events (median of 7 launches after warm-up) beside the bound;
-  turns    the mma.sync and wgmma versions of render_level, mlp_fwd and
-           train_level on the same inputs, timed in turns with the SM clock
-           and power draw beside each time (turns_phase);
+  turns    the mma.sync and wgmma versions of every kernel on the same
+           inputs, timed in turns with the SM clock and power draw beside
+           each time (turns_phase);
   main     a synthetic 400x400 Blender scene and a seeded checkpoint at
            Config(), then the port's ``run.main(["eval", ...])`` and
            ``run.main(["render", ...])`` on the card; the kernel's launch
@@ -115,6 +115,7 @@ TPU_TWOPASS_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:500"
 # wgmma ones: their commit, and where their copies are written (gitignored)
 MMA_COMMIT = "815018d"
 MMA_DIR = ".local_runs/mma_sync"
+MMA_HEADERS = ("level_common.cuh", "level_backward.cuh")
 TRAIN_STEPS = 40
 FULL_GRAD_STEPS = 20
 FULL_GRAD_ARGS = ("--fuse-level=false", "--stop-level-grad=false")
@@ -304,8 +305,9 @@ def dx_flops(cfg, R: int, S: int) -> int:
 
 def mlp_bwd_flops(cfg, R: int, S: int, input_grads: bool) -> int:
     """FLOPs of one ``mlp_bwd`` launch: the forward it recomputes, dW and
-    the g-chain (``train_level_flops``), and with ``input_grads`` dX/dD."""
-    return (mlp_fwd_flops(cfg, R, S) + train_level_flops(cfg, R, S)
+    the g-chain (``train_level_flops``, which counts the forward once), and
+    with ``input_grads`` dX/dD."""
+    return (train_level_flops(cfg, R, S)
             + (dx_flops(cfg, R, S) if input_grads else 0))
 
 
@@ -539,27 +541,29 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
 
 
 def mma_sources():
-    """The ``mma.sync`` versions of ``render_level.cu``, ``mlp_fwd.cu`` and
-    ``train_level.cu`` (commit ``MMA_COMMIT``), by kernel name: the copies
-    in ``MMA_DIR``, else written there from git (``git show
-    MMA_COMMIT:...``); None where neither exists (a checkout without
-    history and without the copies)."""
+    """The ``mma.sync`` versions of every kernel (commit ``MMA_COMMIT``),
+    by kernel name: the copies in ``MMA_DIR``, else written there from git
+    (``git show MMA_COMMIT:...``) with the headers they include, which a
+    quoted include finds beside them before ``csrc/`` (the checkout's
+    headers no longer hold their bf16 ``mma.sync`` passes); None where
+    neither exists (a checkout without history and without the copies)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    out = {}
-    for name in ("render_level", "mlp_fwd", "train_level"):
-        path = os.path.join(root, MMA_DIR, f"{name}_mma.cu")
+    files = {f"{name}_mma.cu": f"{name}.cu" for name in KERNELS}
+    files.update({h: h for h in MMA_HEADERS})
+    for dst, src in files.items():
+        path = os.path.join(root, MMA_DIR, dst)
         if not os.path.exists(path):
             got = subprocess.run(
                 ["git", "show",
-                 f"{MMA_COMMIT}:nerf_or_nothing_tpu_torch/csrc/{name}.cu"],
+                 f"{MMA_COMMIT}:nerf_or_nothing_tpu_torch/csrc/{src}"],
                 cwd=root, capture_output=True, text=True)
             if got.returncode != 0:
                 return None
             os.makedirs(os.path.dirname(path), exist_ok=True)
             with open(path, "w") as f:
                 f.write(got.stdout)
-        out[name] = path
-    return out
+    return {name: os.path.join(root, MMA_DIR, f"{name}_mma.cu")
+            for name in KERNELS}
 
 
 def matmul_ms(cfg, R: int, device) -> float:
@@ -596,12 +600,13 @@ def turns_phase(device):
     the same inputs, timed in turns (mma, wgmma, wgmma, mma;
     ``compare_kernels.in_turns``, the SM clock and power draw beside each
     time): render_level bf16 R=16384 x S=128 mode "mv", mlp_fwd bf16
-    R=16384 and R=1024 x S=128, train_level bf16 R=1024 x S=128 mode "t"
-    and R=777 with Multicam's loss weights. First the same layer products
-    as ``torch.matmul`` calls at those shapes, a yardstick only. Both
-    versions must agree with the plain version (train_level: and give
-    bit-equal dW/db over two launches); which is faster is recorded, not
-    required."""
+    R=16384 and R=1024 x S=128, train_level and train_level_twopass bf16
+    R=1024 x S=128 mode "t" and R=777 with Multicam's loss weights,
+    mlp_bwd bf16 R=1024 x S=128 with and without input_grads. First the
+    same layer products as ``torch.matmul`` calls at those shapes, a
+    yardstick only. Both versions must agree with the plain version (the
+    backward kernels: and give bit-equal outputs over two launches); which
+    is faster is recorded, not required."""
     import compare_kernels as ck
     from nerf_or_nothing_tpu_torch.kernels import build
 
@@ -618,7 +623,9 @@ def turns_phase(device):
               "ms": matmul_ms(Config(), R, device)})
     out = []
     for kernel, k in (("render_level", 0), ("mlp_fwd", 0), ("mlp_fwd", 1),
-                      ("train_level", 0), ("train_level", 1)):
+                      ("train_level", 0), ("train_level", 1),
+                      ("train_level_twopass", 0), ("train_level_twopass", 1),
+                      ("mlp_bwd", 0), ("mlp_bwd", 1)):
         sources = {"mma": old[kernel], "wgmma": build.source_path(kernel)}
         res = ck.in_turns(kernel, sources, ck.cases(kernel)[k], device)
         mma_ms = (res["mma_ms_0"] + res["mma_ms_3"]) / 2
@@ -633,7 +640,7 @@ def turns_phase(device):
                                      f"plain: {res[f'{name}_err']}")
             if res.get(f"{name}_bit_equal") is False:
                 raise AssertionError(f"turns: two {kernel} {name} launches "
-                                     "gave different dW/db")
+                                     "gave different outputs")
         out.append(res)
     return out
 
@@ -669,18 +676,15 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
     params = init_mlp(torch.Generator().manual_seed(seed), cfg, device=device)
     xs, d, delta = level_inputs(cfg, R, mode, seed + 1, device)
     pixels, g_scale = train_inputs(cfg, R, seed + 2, device, multicam)
-    dt = compute_dtype(cfg)
-    packed_one = fl.pack_train_level(params, cfg, dt)
-    packed_two = fl.pack_train_params(params, cfg, dt)
+    packed = fl.pack_train_level(params, cfg, compute_dtype(cfg))
 
     def one_pass():
         return fl.train_level_cuda(params, cfg, xs, d, delta, pixels, g_scale,
-                                   white_bkgd, mode, packed=packed_one)
+                                   white_bkgd, mode, packed=packed)
 
     def two_pass():
         return fl.train_level_twopass_cuda(params, cfg, xs, d, delta, pixels,
-                                           g_scale, white_bkgd,
-                                           packed=packed_two)
+                                           g_scale, white_bkgd, packed=packed)
 
     kernel = two_pass if twopass else one_pass
     kname = "train_level_twopass" if twopass else "train_level"

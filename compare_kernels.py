@@ -1,34 +1,44 @@
 #!/usr/bin/env python3
-"""Time versions of a CUDA kernel (render_level, mlp_fwd or train_level)
-on one card, in turns.
+"""Time versions of a CUDA kernel (render_level, mlp_fwd, train_level,
+train_level_twopass or mlp_bwd) on one card, in turns.
 
     git show <commit>:nerf_or_nothing_tpu_torch/csrc/render_level.cu > old.cu
     python3 compare_kernels.py old.cu [other.cu ...]
+    # a version that needs its commit's headers takes them beside it:
+    # chip_smoke.mma_sources() writes the mma.sync versions so
+    # (.local_runs/mma_sync/)
     python3 compare_kernels.py --kernel=mlp_fwd old_mlp_fwd.cu
     python3 compare_kernels.py --kernel=train_level old_train_level.cu
+    python3 compare_kernels.py --kernel=train_level_twopass --profile old.cu
+    python3 compare_kernels.py --kernel=mlp_bwd --profile old_mlp_bwd.cu
 
 With one source, the checkout's ``csrc/<kernel>.cu`` is the second. All
 must keep the C interface (``<kernel>_launch``). Each version reads the
 weight layout it declares: a library that exports
 ``<kernel>_weight_layout`` reads the bf16 slab streams (``pack_forward``;
-``pack_train_level``, which adds the g-chain's stream), one that does not
-(the earlier ``mma.sync`` versions) ``pack_params``' fragments (and
-``pack_params_t``'s for train_level); f32 reads the row-major layouts in
-every version. Each is built by ``kernels/build.py`` with the package's
-nvcc flags, launched through ``render_level_cuda`` / ``mlp_fwd_cuda`` /
-``train_level_cuda`` with ``source=...``, checked against the plain
-version (as a fraction of the band; train_level also for bit-equal dW/db
-over two launches), and timed by CUDA events in the order given and then
-in reverse (median of 7 launches each, the card's SM clock and power draw
-read after each) on Config() shapes: render_level bf16 R=16384 x S=128
-mode "mv" (the render path's launch), bf16 R=1000 x S=64 mode "t", f32
-R=2048 x S=128; mlp_fwd bf16 R=16384 x S=128 (a render chunk) and R=1024 x
-S=128 (a train level), f32 R=2048 x S=128; train_level bf16 R=1024 x S=128
-mode "t" (a train step's level) and R=777 with Multicam's loss weights
-(1/4/16/64, every seventh ray masked). Prints one JSON line per build and
-case; a source's name is its file name without the suffix. With
-``--profile``, each case also gives every version's device time per launch
-by kernel name (``torch.profiler``, 5 calls).
+``pack_train_level``, which adds the g-chain's stream; ``pack_mlp_params``,
+whose chain stream holds the x rows), one that does not (the earlier
+``mma.sync`` versions) ``pack_params``' fragments (and ``pack_params_t``'s
+for the train kernels and mlp_bwd, ``pack_params_tx``'s for mlp_bwd); f32
+reads the row-major layouts in every version. Each is built by
+``kernels/build.py`` with the package's nvcc flags, launched through
+``render_level_cuda`` / ``mlp_fwd_cuda`` / ``train_level_cuda`` /
+``train_level_twopass_cuda`` / ``mlp_bwd_cuda`` with ``source=...``,
+checked against the plain version (as a fraction of the band; the
+backward kernels also for bit-equal outputs over two launches), and timed
+by CUDA events in the order given and then in reverse (median of 7
+launches each, the card's SM clock and power draw read after each) on
+Config() shapes: render_level bf16 R=16384 x S=128 mode "mv" (the render
+path's launch), bf16 R=1000 x S=64 mode "t", f32 R=2048 x S=128; mlp_fwd
+bf16 R=16384 x S=128 (a render chunk) and R=1024 x S=128 (a train level),
+f32 R=2048 x S=128; train_level and train_level_twopass bf16 R=1024 x
+S=128 mode "t" (a train step's level) and R=777 with Multicam's loss
+weights (1/4/16/64, every seventh ray masked); mlp_bwd bf16 R=1024 x S=128
+with input_grads (level 1 of the slice config) and without (level 0).
+Prints one JSON line per build and case; a source's name is its file name
+without the suffix. With ``--profile``, each case also gives every
+version's device time per launch by kernel name (``torch.profiler``, 5
+calls).
 """
 
 from __future__ import annotations
@@ -38,17 +48,23 @@ from pathlib import Path
 
 import chip_smoke as cs
 
-KERNELS = ("render_level", "mlp_fwd", "train_level")
+KERNELS = ("render_level", "mlp_fwd", "train_level", "train_level_twopass",
+           "mlp_bwd")
+TRAIN = ("train_level", "train_level_twopass")
 
 
 def packs_by_layout(kernel, params, cfg):
     """The weights in both layouts the versions of ``kernel`` may read."""
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
     from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype
 
     dt = compute_dtype(cfg)
-    if kernel == "train_level":
+    if kernel in TRAIN:
         return {k: fl.pack_train_level(params, cfg, dt, k)
+                for k in ("wg", "fwd")}
+    if kernel == "mlp_bwd":
+        return {k: fm.pack_mlp_params(params, cfg, dt, layout=k)
                 for k in ("wg", "fwd")}
     return {"wg": fl.pack_forward(params, cfg, dt),
             "fwd": fl.pack_params(params, cfg, dt)}
@@ -66,12 +82,16 @@ def layouts(kernel: str, sources: dict) -> dict:
 
 
 def cases(kernel: str):
-    """(case, Config, R, mode, white_bkgd, multicam) of ``kernel``'s timed
-    shapes (``multicam``: train_level's g_scale, ``chip_smoke.
+    """(case, Config, R, mode, flag, multicam) of ``kernel``'s timed shapes:
+    ``flag`` is white_bkgd for the level kernels and input_grads for
+    mlp_bwd; ``multicam``: the train kernels' g_scale (``chip_smoke.
     train_inputs``)."""
     from nerf_or_nothing_tpu_torch.config import Config
 
-    if kernel == "train_level":
+    if kernel == "mlp_bwd":
+        return [("bf16_r1024_s128_dx", Config(), 1024, "t", True, False),
+                ("bf16_r1024_s128", Config(), 1024, "t", False, False)]
+    if kernel in TRAIN:
         return [("bf16_r1024_s128_t", Config(), 1024, "t", True, False),
                 ("bf16_r777_s128_t_multicam", Config(), 777, "t", False,
                  True)]
@@ -88,18 +108,22 @@ def cases(kernel: str):
 
 
 def flat(out):
-    """A version's outputs as tensors (train_level's dW/db flattened)."""
+    """A version's outputs as tensors (the train kernels' and mlp_bwd's
+    dW/db flattened, mlp_bwd's dX and dD when present)."""
     if len(out) == 4:
         return [*out[:3], *[t for wb in out[3] for t in wb]]
+    if isinstance(out[0], list):
+        return [t for wb in out[0] for t in wb] + [
+            t for t in out[1:] if t is not None]
     return list(out)
 
 
 def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
              profile: bool = False):
-    """Check each version against the plain version (train_level: and two
-    launches for bit-equal dW/db) and time them in the order given, then in
-    reverse, reading the SM clock and power draw after each. Returns the
-    case's record."""
+    """Check each version against the plain version (the backward
+    kernels: and two launches for bit-equal outputs) and time them in the
+    order given, then in reverse, reading the SM clock and power draw after
+    each. Returns the case's record."""
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
@@ -111,16 +135,29 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
     params = init_mlp(torch.Generator().manual_seed(seed), cfg, device=device)
     xs, d, delta = cs.level_inputs(cfg, R, mode, seed + 1, device)
     packs = packs_by_layout(kernel, params, cfg)
-    if kernel == "train_level":
+    if kernel in TRAIN:
         pixels, g_scale = cs.train_inputs(cfg, R, seed + 2, device, multicam)
         ref = fl.level_train_plain(params, cfg, xs, d, delta, pixels, g_scale,
                                    white_bkgd, mode)
 
         def run(name):
-            return fl.train_level_cuda(params, cfg, xs, d, delta, pixels,
-                                       g_scale, white_bkgd, mode,
-                                       packed=packs[kinds[name]],
-                                       source=sources[name])
+            kw = dict(packed=packs[kinds[name]], source=sources[name])
+            if kernel == "train_level":
+                return fl.train_level_cuda(params, cfg, xs, d, delta, pixels,
+                                           g_scale, white_bkgd, mode, **kw)
+            return fl.train_level_twopass_cuda(params, cfg, xs, d, delta,
+                                               pixels, g_scale, white_bkgd,
+                                               **kw)
+    elif kernel == "mlp_bwd":
+        input_grads = white_bkgd
+        _, _, _, g_rgb, g_den = cs.mlp_case_inputs(cfg, R, seed, device)
+        ref = fm.mlp_bwd_plain(params, cfg, xs, d, g_rgb, g_den,
+                               cfg.num_samples, input_grads)
+
+        def run(name):
+            return fm.mlp_bwd_cuda(params, cfg, xs, d, g_rgb, g_den,
+                                   input_grads, packed=packs[kinds[name]],
+                                   source=sources[name])
     elif kernel == "render_level":
         ref = fl.render_level_plain(params, cfg, xs, d, delta, white_bkgd,
                                     mode)
@@ -146,7 +183,7 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
         torch.cuda.synchronize()
         res[f"{name}_err"] = max(cs.normalized_err(a, b, atol, rtol)
                                  for a, b in zip(flat(out), flat(ref)))
-        if kernel == "train_level":
+        if kernel in TRAIN or kernel == "mlp_bwd":
             again = run(name)
             res[f"{name}_bit_equal"] = all(
                 torch.equal(a, b) for a, b in zip(flat(out), flat(again)))
@@ -157,7 +194,38 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
         for name in names:
             res[f"{name}_device_ms_by_kernel"] = device_ms_by_kernel(
                 lambda: run(name))
+            res[f"{name}_timeline"] = timeline(lambda: run(name))
     return res
+
+
+def timeline(fn) -> dict:
+    """One call of ``fn`` on the device's clock (``torch.profiler``, after
+    one warm-up): each kernel's name, start and duration in ms from the
+    first kernel's start, the gaps between consecutive kernels, and their
+    sum, the device's idle time between the launches of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted(
+        (ev.time_range.start, ev.time_range.end, ev.name)
+        for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA
+        and ev.time_range.end > ev.time_range.start)
+    if not kernels:
+        return {}
+    t0 = kernels[0][0]
+    gaps = [b[0] - a[1] for a, b in zip(kernels, kernels[1:])]
+    return {"kernels": [[nm[:48], (s - t0) / 1e3, (e - s) / 1e3]
+                        for s, e, nm in kernels],
+            "gaps_ms": [g / 1e3 for g in gaps],
+            "gap_sum_ms": sum(gaps) / 1e3,
+            "span_ms": (kernels[-1][1] - t0) / 1e3}
 
 
 def device_ms_by_kernel(fn, n: int = 5) -> dict:

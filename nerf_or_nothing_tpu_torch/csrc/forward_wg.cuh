@@ -42,7 +42,10 @@
 // also copies every activation tile and feature tile into the row-major
 // workspace, stores each hidden layer's ReLU mask as bits in the wgmma
 // accumulator layout (what the g-chain's epilogue reads), and writes the
-// raw heads as [N, 4] rows.
+// raw heads as [N, 4] rows. forward_wg<false, true, false> is mlp_bwd.cu's
+// recomputed forward: the same stores without the heads, which its
+// backward does not read (heads of up to 8 channels each would not fit
+// [N, 4]).
 
 #pragma once
 
@@ -981,9 +984,10 @@ __device__ __forceinline__ void help(const WgParams& q, unsigned char* X0, float
 
 // The whole kernel body; kRender: composite into comp/acc/weights, else
 // the raw heads to raw_rgb/raw_den, or with kStore (the train level) to
-// q.heads with the activations, features and masks. Launch with
-// kWgThreads threads and q.bytes of dynamic shared memory.
-template <bool kRender, bool kStore = false>
+// q.heads (unless kHeads is false) with the activations, features and
+// masks. Launch with kWgThreads threads and q.bytes of dynamic shared
+// memory.
+template <bool kRender, bool kStore = false, bool kHeads = true>
 __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* smem_raw) {
   const Params& p = q.p;
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -1079,7 +1083,7 @@ __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* sme
         layer_gemm<kHeadN>(ring, hs, q.nh, 0, 0, acc);
       WG_PHASE(2, t_den);
       if constexpr (kStore) {
-        head_out(acc, b + p.b_den, p.Cd, q.heads + grow0 * 4 + 3, 4, nvalid);
+        if constexpr (kHeads) head_out(acc, b + p.b_den, p.Cd, q.heads + grow0 * 4 + 3, 4, nvalid);
       } else if (kRender) {
         WG_CLOCK(t_empty);
         if (k >= 2) bar_sync(kBarOutEmpty + (k & 1), kOutSync);
@@ -1122,7 +1126,7 @@ __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* sme
         layer_gemm<kHeadN>(ring, hs, q.nc, 0, 0, acc);
       WG_PHASE(2, t_rgb);
       if constexpr (kStore) {
-        head_out(acc, b + p.b_rgb, p.Cr, q.heads + grow0 * 4, 4, nvalid);
+        if constexpr (kHeads) head_out(acc, b + p.b_rgb, p.Cr, q.heads + grow0 * 4, 4, nvalid);
       } else if (kRender) {
         head_out(acc, b + p.b_rgb, p.Cr, out, 4, nvalid);
         bar_arrive(kBarOutFull + (k & 1), kOutSync);

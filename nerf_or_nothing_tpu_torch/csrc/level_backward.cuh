@@ -1,31 +1,29 @@
 // The MLP backward passes shared by the train-level, two-pass train-level
 // and MLP-backward kernels (train_level.cu, train_level_twopass.cu,
 // mlp_bwd.cu), and the train level's composite backward (composite_train).
-// Given the head cotangents and the activations that the forward stored,
-// launch_backward runs:
+// Their f32 instantiations, which check the algorithm in f32 with FMA loops
+// (no TF32), run launch_backward on the activations the forward stored:
 //  2. chain_kernel (the device function chain_rays, which the two-pass
-//     kernel's phase 0 also calls): the g-chain, 64 rows at a time, in
-//     the compute type after every product: rgb head, view branch,
-//     density head, trunk; each layer's g is masked by its activation > 0
-//     and stored; the view layer's per-ray f32 sum g_ray is kept in
-//     shared memory (and with a db accumulator, every layer's db). The chain
-//     multiplies g by W^T, packed once per step in the same mma fragment
-//     order as the forward weights. With dx, the chain also runs into
-//     layer 0 and each skip layer's x rows (W^T of the x rows, packed the
-//     same way) and accumulates dX in the compute type, the deepest skip
-//     layer first and layer 0 last; with dd, each block multiplies its
-//     rays' g_ray (rounded) by the view layer's direction rows;
-//  3. dw_gemm_*_kernel: dW = act^T g for every layer as a tiled GEMM over
-//     the rows (bf16: 128 x 128 output tiles, two cp.async stages,
-//     ldmatrix.trans fragments), split over the rows into a fixed number
-//     of chunks, with db as column sums of g in the same pass;
+//     kernel's phase 0 also calls): the g-chain, 64 rows at a time: rgb
+//     head, view branch, density head, trunk; each layer's g is masked by
+//     its activation > 0 and stored; the view layer's per-ray f32 sum g_ray
+//     is kept in shared memory (and with a db accumulator, every layer's
+//     db). The chain multiplies g by W^T, packed once per step row-major.
+//     With dx, the chain also runs into layer 0 and each skip layer's x
+//     rows (W^T of the x rows, packed the same way) and accumulates dX, the
+//     deepest skip layer first and layer 0 last; with dd, each block
+//     multiplies its rays' g_ray by the view layer's direction rows;
+//  3. dw_gemm_f32_kernel: dW = act^T g for every layer as a tiled GEMM over
+//     the rows, split over the rows into a fixed number of chunks, with db
+//     as column sums of g in the same pass;
 //  4. small_tn_kernel: the heads' dW/db from the f32 cotangents and the
 //     view layer's direction rows d^T g_ray, 8 warps per 32 outputs;
 //  5. reduce_kernel: the split partials summed in a fixed order.
 // launch_products runs passes 3-5 alone (the two-pass kernel's phase 1).
+// The bf16 routes (train_wg.cuh) share the composite, passes 4-5
+// (launch_small_reduce), the workspace layout and the output offsets.
 // No atomics: every partial is written by exactly one block and reduced in
-// order, so two launches on the same inputs give bit-equal dW. f32: the
-// same passes with FMA loops (no TF32), for checking the algorithm in f32.
+// order, so two launches on the same inputs give bit-equal dW.
 
 #pragma once
 
@@ -188,43 +186,9 @@ __device__ void composite_train(const Params& p, const Extra& e, const Smem<T>& 
   }
 }
 
-// H[:, :N] = round(acc) (+ round(sum_k round(gd[row, k]) * wden[k, col]),
-// then rounded): the chain product of one layer, in the compute type, with
-// the density head's term on the view chain. Call after a barrier.
-__device__ __forceinline__ void chain_epilogue(const Params& p, const Smem<bf16>& sm,
-                                               const AccBF16& acc, int N, const float* gd,
-                                               const bf16* wden) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int NTT = N >> 3;
-#pragma unroll
-  for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = mi * 16 + g + 8 * hh;
-#pragma unroll
-      for (int j = 0; j < kMaxNT; ++j) {
-        if (warp + 8 * j < NTT) {
-          const int col = (warp + 8 * j) * 8 + 2 * t;
-          float v0 = __bfloat162float(__float2bfloat16_rn(acc.v[mi][j][2 * hh]));
-          float v1 = __bfloat162float(__float2bfloat16_rn(acc.v[mi][j][2 * hh + 1]));
-          if (gd) {
-            float t0 = 0.0f, t1 = 0.0f;
-            for (int k = 0; k < p.Cd; ++k) {
-              const float gr = __bfloat162float(__float2bfloat16_rn(gd[row * p.Cd + k]));
-              t0 += gr * __bfloat162float(wden[k * p.W + col]);
-              t1 += gr * __bfloat162float(wden[k * p.W + col + 1]);
-            }
-            v0 += __bfloat162float(__float2bfloat16_rn(t0));
-            v1 += __bfloat162float(__float2bfloat16_rn(t1));
-          }
-          *reinterpret_cast<__nv_bfloat162*>(sm.H + row * p.ldh + col) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-}
-
+// H[:, :N] = acc (+ sum_k gd[row, k] * wden[k, col]): the chain product
+// of one layer, with the density head's term on the view chain. Call
+// after a barrier.
 __device__ __forceinline__ void chain_epilogue(const Params& p, const Smem<float>& sm,
                                                const AccF32& acc, int N, const float* gd,
                                                const float* wden) {
@@ -246,32 +210,7 @@ __device__ __forceinline__ void chain_epilogue(const Params& p, const Smem<float
   }
 }
 
-// X[:, :KX] = round(X + round(acc)): one term of dX, in the compute type.
-__device__ __forceinline__ void dx_epilogue(const Params& p, const Smem<bf16>& sm,
-                                            const AccBF16& acc) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int NTT = p.KX >> 3;
-#pragma unroll
-  for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = mi * 16 + g + 8 * hh;
-#pragma unroll
-      for (int j = 0; j < kMaxNT; ++j) {
-        if (warp + 8 * j < NTT) {
-          const int col = (warp + 8 * j) * 8 + 2 * t;
-          __nv_bfloat162* xp = reinterpret_cast<__nv_bfloat162*>(sm.X + row * p.ldx + col);
-          const float2 cur = __bfloat1622float2(*xp);
-          const float v0 = cur.x + __bfloat162float(__float2bfloat16_rn(acc.v[mi][j][2 * hh]));
-          const float v1 =
-              cur.y + __bfloat162float(__float2bfloat16_rn(acc.v[mi][j][2 * hh + 1]));
-          *xp = __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-}
-
+// X[:, :KX] += acc: one term of dX.
 __device__ __forceinline__ void dx_epilogue(const Params& p, const Smem<float>& sm,
                                             const AccF32& acc) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
@@ -364,7 +303,7 @@ __device__ void chain_rays(const Params& p, const Extra& e, unsigned char* smem_
   if (DB)
     for (int idx = tid; idx < num_biases(p); idx += kThreads) DB[idx] = 0.0f;
 
-  typename AccOf<T>::type acc;
+  AccF32 acc;
   for (int sub0 = 0; sub0 < rows; sub0 += kBM) {
     const int nvalid = min(kBM, rows - sub0);
     const long long grow0 = (long long)ray0 * p.S + sub0;
@@ -563,121 +502,12 @@ dw_gemm_f32_kernel(GemmJobs js) {
   if (want_db && tid < kTN && n0 + tid < jb.Nn) part[jb.db_off + n0 + tid] = dbs;
 }
 
-// bf16: 128 x 128 tiles, 8 warps of 64 x 32 outputs; each 32-row stage of
-// A[:, m0:] and B[:, n0:] is copied as stored (row-major, 16 bytes a
-// thread by cp.async, two stages in flight) and read as mma fragments by
-// ldmatrix.trans.
-constexpr int kBT = 128, kBK = 32, kBThreads = 256, kBLd = kBT + 8;
-
+// 16 bytes from global to shared memory (zeros with !pred); the dW
+// stages of train_wg.cuh.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// Rows [k0, k0 + kBK): 8-column chunks past lda / ldb and rows past k_hi
-// are zero-filled.
-__device__ __forceinline__ void dw_load(bf16 (*As)[kBLd], bf16 (*Bs)[kBLd], const GemmJob& jb,
-                                        const bf16* A, const bf16* B, long long k0,
-                                        long long k_hi, int m0, int n0) {
-  for (int idx = threadIdx.x; idx < kBK * (kBT / 8); idx += kBThreads) {
-    const int r = idx / (kBT / 8), c = (idx - r * (kBT / 8)) * 8;
-    const bool rv = k0 + r < k_hi;
-    const bool av = rv && m0 + c < jb.lda, bv = rv && n0 + c < jb.ldb;
-    cp_async16(&As[r][c], av ? A + (k0 + r) * jb.lda + m0 + c : A, av);
-    cp_async16(&Bs[r][c], bv ? B + (k0 + r) * jb.ldb + n0 + c : B, bv);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__global__ void __launch_bounds__(kBThreads, 2)
-dw_gemm_bf16_kernel(GemmJobs js) {
-  __shared__ __align__(16) bf16 As[2][kBK][kBLd];
-  __shared__ __align__(16) bf16 Bs[2][kBK][kBLd];
-  const int bid = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  int jn = 0;
-  while (jn + 1 < js.n && bid >= js.job[jn + 1].block0) ++jn;
-  const GemmJob jb = js.job[jn];
-  const int local = bid - jb.block0;
-  const int split = local % js.splits, tile = local / js.splits;
-  const int tm = tile % jb.tiles_m, tn = tile / jb.tiles_m;
-  const int m0 = tm * kBT, n0 = tn * kBT;
-  const long long chunk = split_rows(jb.K, js.splits);
-  const long long k_lo = split * chunk;
-  const long long k_hi = min((long long)jb.K, k_lo + chunk);
-  const bf16* A = static_cast<const bf16*>(jb.A);
-  const bf16* B = static_cast<const bf16*>(jb.B);
-  const bool want_db = jb.db_off >= 0 && tm == 0;
-  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
-  const int q = lane >> 3, i8 = lane & 7;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.0f;
-  float dbs = 0.0f;
-  const int nk = k_hi > k_lo ? (int)((k_hi - k_lo + kBK - 1) / kBK) : 0;
-  if (nk > 0) dw_load(As[0], Bs[0], jb, A, B, k_lo, k_hi, m0, n0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      dw_load(As[st ^ 1], Bs[st ^ 1], jb, A, B, k_lo + (long long)(kt + 1) * kBK, k_hi,
-              m0, n0);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();
-    if (want_db && tid < kBT) {
-#pragma unroll 8
-      for (int r = 0; r < kBK; ++r) dbs += __bfloat162float(Bs[st][r][tid]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[4][4], b[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4_trans(a[mi], &As[st][kk + i8 + ((q >> 1) << 3)][wm + mi * 16 + ((q & 1) << 3)]);
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb)
-        ldmatrix_x4_trans(b[nb], &Bs[st][kk + i8 + ((q & 1) << 3)][wn + nb * 16 + ((q >> 1) << 3)]);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          uint2 bb;
-          bb.x = b[nj >> 1][(nj & 1) * 2];
-          bb.y = b[nj >> 1][(nj & 1) * 2 + 1];
-          mma_bf16(acc[mi][nj], a[mi], bb);
-        }
-    }
-    __syncthreads();
-  }
-  float* part = js.part + split * js.n_out;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm + mi * 16 + g + 8 * (e >> 1);
-        const int n = n0 + wn + nj * 8 + 2 * t + (e & 1);
-        if (m < jb.M && n < jb.Nn)
-          part[jb.out_off + (long long)m * jb.out_ld + n] = acc[mi][nj][e];
-      }
-  if (want_db && tid < kBT && n0 + tid < jb.Nn) part[jb.db_off + n0 + tid] = dbs;
 }
 
 // ---- small products: out[a, c] = sum_rows round(A[r, a]) round(B[r, c]) ----
@@ -817,7 +647,7 @@ cudaError_t launch_dw(Params p, Extra e, const Layout& l, unsigned char* ws, lon
   float* part = reinterpret_cast<float*>(ws + l.part);
   const T* x = reinterpret_cast<const T*>(ws + l.xs);
   const int ldx = p.KX;
-  const int tile = sizeof(T) == 2 ? kBT : kTM;
+  const int tile = kTM;
   GemmJobs gj;
   gj.part = part; gj.n_out = n_out; gj.n = 0; gj.splits = splits;
   int nblocks = 0;
@@ -851,10 +681,7 @@ cudaError_t launch_dw(Params p, Extra e, const Layout& l, unsigned char* ws, lon
     add(a, j == 0 ? p.W : p.Wc, g, p.Wc, j == 0 ? p.W : p.Wc, p.Wc, w_off[layer], p.Wc,
         b_off[layer]);
   }
-  if (sizeof(T) == 2)
-    dw_gemm_bf16_kernel<<<nblocks, kBThreads, 0, st>>>(gj);
-  else
-    dw_gemm_f32_kernel<<<nblocks, kGemmThreads, 0, st>>>(gj);
+  dw_gemm_f32_kernel<<<nblocks, kGemmThreads, 0, st>>>(gj);
   return cudaGetLastError();
 }
 

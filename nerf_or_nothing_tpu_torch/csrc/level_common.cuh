@@ -1,9 +1,10 @@
 // Device functions shared by the hand-written kernels (render_level.cu,
 // train_level.cu, mlp_fwd.cu, mlp_bwd.cu): the kernel parameter block, the
 // in-kernel IPE with the polynomial transcendentals of ops/fastmath.py,
-// the MLP forward layer (bf16 mma.sync or f32 FMA) and its ReLU epilogue,
-// the two heads, the forward of one 64-row sub-tile, and the forward
-// composite.
+// and the f32 instantiations' forward (the MLP layer as FMA loops and its
+// ReLU epilogue, the two heads, the forward of one 64-row sub-tile, the
+// forward composite), which check the algorithm in f32; the bf16 routes
+// run forward_wg.cuh and train_wg.cuh.
 
 #pragma once
 
@@ -15,8 +16,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBM = 64;        // rows per sub-tile
-constexpr int kMI = kBM / 16;  // bf16: a warp owns all rows, 4 m16 tiles
-constexpr int kMaxNT = 4;      // bf16: n8 tiles warp + 8j per warp (N <= 256)
 constexpr int kMaxNJ = 16;     // f32 path: columns per thread (N <= 256)
 
 typedef __nv_bfloat16 bf16;
@@ -182,105 +181,9 @@ __device__ void load_features(const Params& p, const Smem<T>& sm, long long grow
 }
 
 // ---- one dense layer: acc = [H[:, :kh] | X[:, :kx]] @ Wl ----
-// bf16: each warp owns all 64 rows and the n8 column tiles warp + 8j, so
-// a weight fragment is read once per 64 rows.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint2 b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// The 16x16 A fragment at p (row-major, 16-byte aligned rows): lanes 0-15
-// address rows 0-15 at column 0, lanes 16-31 the same rows at column 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-struct AccBF16 { float v[kMI][kMaxNT][4]; };
+// 16 x 16 threads; a thread owns rows 4*ty..4*ty+3, columns tx + 16*j.
 struct AccF32 { float v[4][kMaxNJ]; };
 
-__device__ __forceinline__ void gemm(const Params& p, const Smem<bf16>& sm, int kh,
-                                     int kx, const bf16* wl, int N, AccBF16& acc) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int NTT = N >> 3;
-  const int KT = (kh + kx) >> 4;
-#pragma unroll
-  for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-    for (int j = 0; j < kMaxNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc.v[mi][j][e] = 0.0f;
-
-  // n8 tile warp + 8j of the fragment-ordered weights; the fragments of
-  // step kt+1 load while step kt multiplies.
-  const uint2* wl_lane = reinterpret_cast<const uint2*>(wl) + (size_t)warp * KT * 32 + lane;
-  uint2 bcur[kMaxNT], bnxt[kMaxNT];
-#pragma unroll
-  for (int j = 0; j < kMaxNT; ++j)
-    if (warp + 8 * j < NTT) bcur[j] = __ldg(wl_lane + (size_t)j * 8 * KT * 32);
-  const int arow = lane & 15, acol = (lane >> 4) * 8;
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-#pragma unroll
-      for (int j = 0; j < kMaxNT; ++j)
-        if (warp + 8 * j < NTT)
-          bnxt[j] = __ldg(wl_lane + ((size_t)j * 8 * KT + kt + 1) * 32);
-    }
-    const bf16* a0;
-    int lda;
-    if ((kt << 4) < kh) {
-      a0 = sm.H + arow * p.ldh + (kt << 4) + acol; lda = p.ldh;
-    } else {
-      a0 = sm.X + arow * p.ldx + (kt << 4) - kh + acol; lda = p.ldx;
-    }
-    uint32_t afr[kMI][4];
-#pragma unroll
-    for (int mi = 0; mi < kMI; ++mi) ldmatrix_x4(afr[mi], a0 + mi * 16 * lda);
-#pragma unroll
-    for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-      for (int j = 0; j < kMaxNT; ++j)
-        if (warp + 8 * j < NTT) mma_bf16(acc.v[mi][j], afr[mi], bcur[j]);
-#pragma unroll
-    for (int j = 0; j < kMaxNT; ++j) bcur[j] = bnxt[j];
-  }
-}
-
-// H[:, :N] = round(relu(acc (+ DC[ray]) + bias)); call after a barrier.
-__device__ __forceinline__ void epilogue(const Params& p, const Smem<bf16>& sm,
-                                         const AccBF16& acc, const float* bias, int N,
-                                         const float* dc, int sub0) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int NTT = N >> 3;
-#pragma unroll
-  for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = mi * 16 + g + 8 * hh;
-      const float* dcr = nullptr;
-      if (dc) dcr = dc + min((sub0 + row) / p.S, p.RB - 1) * p.Wc;
-#pragma unroll
-      for (int j = 0; j < kMaxNT; ++j) {
-        if (warp + 8 * j < NTT) {
-          const int col = (warp + 8 * j) * 8 + 2 * t;
-          float v0 = acc.v[mi][j][2 * hh];
-          float v1 = acc.v[mi][j][2 * hh + 1];
-          if (dcr) { v0 += dcr[col]; v1 += dcr[col + 1]; }
-          v0 = fmaxf(v0 + bias[col], 0.0f);
-          v1 = fmaxf(v1 + bias[col + 1], 0.0f);
-          *reinterpret_cast<__nv_bfloat162*>(sm.H + row * p.ldh + col) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-}
-
-// f32: 16 x 16 threads; a thread owns rows 4*ty..4*ty+3, columns tx + 16*j.
 __device__ __forceinline__ void gemm(const Params& p, const Smem<float>& sm, int kh,
                                      int kx, const float* wl, int N, AccF32& acc) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
@@ -334,10 +237,6 @@ __device__ __forceinline__ void epilogue(const Params& p, const Smem<float>& sm,
     }
   }
 }
-
-template <class T> struct AccOf;
-template <> struct AccOf<bf16> { typedef AccBF16 type; };
-template <> struct AccOf<float> { typedef AccF32 type; };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -414,7 +313,7 @@ __device__ void forward_tile(const Params& p, const Smem<T>& sm, int sub0, int n
   __syncthreads();
   if (kStore) store_rows<T>(sm.X, p.ldx, p.KX, xs, grow0, nvalid);
 
-  typename AccOf<T>::type acc;
+  AccF32 acc;
   const T* wl = w;
   const float* bl = p.b;
   for (int i = 0; i < p.D; ++i) {

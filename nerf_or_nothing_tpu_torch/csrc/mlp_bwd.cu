@@ -7,35 +7,52 @@
 //
 // Bound: operations. At the default config (1024 rays x 128 samples) it
 // needs 141.9 GFLOP to recompute the forward, 141.9 of dW products and
-// 129.0 of g-chain products, and with input_grads another 12.9 for the
-// chain into layer 0 and the skip layer's x rows and 0.007 for dD:
-// 554.7 / 567.6 GFLOP against ~30 MB of inputs and outputs.
+// 129.0 of g-chain products (412.8 GFLOP, train_level.cu's count), and
+// with input_grads another 12.9 for the chain into layer 0 and the skip
+// layer's x rows and 0.007 for dD: 412.8 / 425.7 GFLOP (0.4174 / 0.4305
+// ms at 989 TFLOP/s) against ~30 MB of inputs and outputs.
 //
-// Design (simple first version): the train-level kernel's passes with the
-// composite taken out, since the contract gives only (x, d, g_rgb, g_den)
-// and the forward must be recomputed, as the TPU kernel does:
-//  1. mlp_act_kernel: the forward (level_common.cuh: mma.sync layers),
-//     storing the features (padded to KX) and every layer's post-ReLU
-//     activations to a global workspace (bf16: ~570 MB at 131,072 rows;
-//     the workspace is sized for the rows of this call, never for a
-//     render chunk, which runs no backward);
-//  2-5. level_backward.cuh (shared with train_level.cu): the g-chain with
-//     dX accumulated in bf16 (the deepest skip layer's x-row term first,
-//     layer 0's chain last) and dD from the per-ray g sums, the dW GEMM
-//     over the rows, the heads' and direction rows' small products, and
-//     the fixed-order reduction. No atomics: two launches on the same
-//     inputs give bit-equal dW/db.
-// f32: the same passes with FMA loops (no TF32), for checking in f32.
+// Design. The contract gives only (x, d, g_rgb, g_den), so the forward is
+// recomputed, as the TPU kernel does; the rest is the train level's
+// backward without the composite. bf16, on train_wg.cuh's passes:
+//  1. mlp_act_wg_kernel: forward_wg<false, true, false> in mode "t" on the
+//     "wg" slab stream mlp_fwd.cu reads: the activations, the features
+//     (padded to KX) and the ReLU mask bits to the workspace (~570 MB at
+//     131,072 rows; sized for the rows of this call), not the raw heads,
+//     which the backward does not read;
+//  2. chain_wg_kernel<kCr, kCd, kDx>: the warp-specialised wgmma g-chain
+//     from the f32 head cotangents (heads of 1-8 channels each; 3 rgb / 1
+//     density is its own instantiation) on the "wgx" stream
+//     (fused_level.pack_params_wgx: the train level's chain slabs with
+//     W_x^T of layer 0 and the skip layers among them); per-block db
+//     partials; with input_grads (kDx) dX accumulated in bf16 in shared
+//     memory, the deepest skip layer's x-row term first, layer 0's last,
+//     written once to dx;
+//  3. g_ray_kernel: the first view layer's masked g summed per ray (f32);
+//  4. with input_grads, mlp_dd_kernel: dD = round(g_ray) @ W_d^T, f32;
+//  5. dw_wg_kernel: dW over the rows on wgmma (the skip layers' x rows
+//     from the stored features);
+//  6-7. level_backward.cuh's small products (the heads' dW from the f32
+//     cotangents, the direction rows, db from the chain's partials) and
+//     the fixed-order reduction.
+// No atomics: two launches on the same inputs give bit-equal dW, db, dX
+// and dD.
+// f32 (checking the algorithm only), FMA loops (no TF32): mlp_act_kernel
+// (level_common.cuh's forward storing the activations), then passes 2-5 of
+// level_backward.cuh (the g-chain with dX and dD, the dW GEMM, the small
+// products, the reduction).
 //
 // Plain C interface (loaded with ctypes): mlp_bwd_workspace gives the
 // workspace size; mlp_bwd_launch returns the first failing cudaError_t; it
 // launches on the given stream, allocates nothing and does not synchronise.
 
-#include "level_backward.cuh"
+#include "train_wg.cuh"
 
 namespace {
 
-// Pass 1: the forward of the block's rays, storing the activations.
+constexpr int kMaxHeads = 16;  // rgb + density channels the workspace's dbpart holds
+
+// f32 pass 1: the forward of the block's rays, storing the activations.
 template <class T>
 __global__ void __launch_bounds__(kThreads, 2)
 mlp_act_kernel(Params p, Extra e) {
@@ -45,9 +62,9 @@ mlp_act_kernel(Params p, Extra e) {
   forward_store<T>(p, e, sm, ray0, min(p.RB, p.R - ray0), false);
 }
 
-template <class T>
-cudaError_t launch_mlp_bwd(Params p, Extra e, const Layout& l, unsigned char* ws, float* out,
-                           long long n_out, int splits, cudaStream_t st) {
+cudaError_t launch_mlp_bwd_f32(Params p, Extra e, const Layout& l, unsigned char* ws,
+                               float* out, long long n_out, int splits, cudaStream_t st) {
+  typedef float T;
   const int blocks = (p.R + p.RB - 1) / p.RB;
   const size_t smem = smem_bytes<T>(p.ldh, p.ldx, p.RB, p.Wc, 0);
   cudaError_t err;
@@ -57,22 +74,99 @@ cudaError_t launch_mlp_bwd(Params p, Extra e, const Layout& l, unsigned char* ws
   return launch_backward<T>(p, e, l, ws, out, n_out, splits, st);
 }
 
+// bf16 pass 1: the wgmma forward keeping its activations, features and
+// masks (no heads).
+__global__ void __launch_bounds__(kWgThreads, 1) mlp_act_wg_kernel(WgParams q) {
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  forward_wg<false, true, false>(q, smem_wg);
+}
+
+// dD[ray, f] = round(g_ray[ray, :]) . W_d[f, :], an f32 sum in column
+// order, one warp a ray (wd: the direction rows [Fd, Wc] of the "wg"
+// stream).
+__global__ void mlp_dd_kernel(const float* g_ray, const bf16* wd, float* dd, int R, int Wc,
+                              int Fd) {
+  const int ray = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (ray >= R) return;
+  const float* g = g_ray + (long long)ray * Wc;
+  for (int f = threadIdx.x & 31; f < Fd; f += 32) {
+    float s = 0.0f;
+    for (int n = 0; n < Wc; ++n) s = fmaf(round_bf(g[n]), __bfloat162float(wd[f * Wc + n]), s);
+    dd[(long long)ray * Fd + f] = s;
+  }
+}
+
+template <int kCr, int kCd>
+cudaError_t launch_chain_of(const ChainParams& c, bool dx, int* grid, cudaStream_t st) {
+  return dx ? launch_chain<kCr, kCd, true>(c, grid, st)
+            : launch_chain<kCr, kCd, false>(c, grid, st);
+}
+
+// Passes 1-7 of the bf16 route on the workspace (l, then x). p.w: the
+// "wg" forward stream; e.wt: the "wgx" chain stream.
+cudaError_t launch_mlp_bwd_wg(Params p, Extra e, const Layout& l, const WgLayout& x,
+                              unsigned char* ws, float* out, long long n_out, int splits,
+                              cudaStream_t st) {
+  WgParams q{};
+  q.p = p;
+  if (!init_wg(q, false)) return cudaErrorInvalidValue;
+  q.acts = static_cast<bf16*>(e.acts);
+  q.xs = static_cast<bf16*>(e.xs);
+  q.mask = reinterpret_cast<uint32_t*>(ws + x.mask);
+  q.heads = nullptr;
+  q.N = e.N;
+  ChainParams c;
+  const bool dx = e.dx != nullptr;
+  if (!init_chain(c, q, true, dx)) return cudaErrorInvalidValue;
+  c.wt = static_cast<const bf16*>(e.wt);
+  c.mask = q.mask;
+  c.g_rgb = e.g_rgb;
+  c.g_den = e.g_den;
+  c.grads = static_cast<bf16*>(e.grads);
+  c.dbpart = reinterpret_cast<float*>(ws + x.dbpart);
+  c.dx = static_cast<bf16*>(e.dx);
+
+  // 1. forward, keeping the activations
+  cudaError_t err = launch_wg(mlp_act_wg_kernel, q, st);
+  if (err != cudaSuccess) return err;
+  // 2. g-chain with db (and dX), then the view layer's per-ray sums (and dD)
+  int grid = 0;
+  err = p.Cr == 3 && p.Cd == 1 ? launch_chain_of<3, 1>(c, dx, &grid, st)
+                               : launch_chain_of<0, 0>(c, dx, &grid, st);
+  if (err != cudaSuccess) return err;
+  g_ray_kernel<<<p.R, p.Wc, 0, st>>>(c.grads + act_off(p, e.N, p.D), e.g_ray, p.S, p.Wc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (e.dd) {
+    const bf16* wd = static_cast<const bf16*>(p.w) + q.w_dir;
+    mlp_dd_kernel<<<cdiv(p.R, 8), 256, 0, st>>>(e.g_ray, wd, e.dd, p.R, p.Wc, p.Fd);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  // 5. dW GEMM; 6-7. small products (db from the partials), reduction
+  if ((err = launch_dw_wg(p, e, l, ws, n_out, splits, st)) != cudaSuccess) return err;
+  return launch_small_reduce<bf16>(p, e, l, ws, out, n_out, splits, c.dbpart, grid, st);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of workspace mlp_bwd_launch needs for these shapes.
+// Bytes of workspace mlp_bwd_launch needs for these shapes (bf16: with
+// the mask bits and db partials of heads of up to 8 + 8 channels).
 long long mlp_bwd_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc, int KX,
                             int splits, long long n_out) {
-  return layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, false).total;
+  const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, false);
+  if (dtype == 1) return wg_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads, false).total;
+  return l.total;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. x: [R * S, LX] and d: [R, Fd] in the
-// compute type; g_rgb [R * S, Cr] and g_den [R * S, Cd] f32; w, b:
-// pack_params' layout; wt: pack_params_t; wtx: pack_params_tx; grads: the
-// flat f32 dW/db output of n_out values (output_offsets); dx [R * S, LX]
-// in the compute type and dd [R, Fd] f32 when input_grads (else unused);
-// workspace: mlp_bwd_workspace bytes, 256-byte aligned.
+// compute type; g_rgb [R * S, Cr] and g_den [R * S, Cd] f32; bf16: w the
+// "wg" forward slab stream (fused_level.pack_params_wg), wt the "wgx"
+// chain stream (pack_params_wgx), wtx unused; f32: w, b pack_params'
+// layout, wt pack_params_t, wtx pack_params_tx; grads: the flat f32 dW/db
+// output of n_out values (output_offsets); dx [R * S, LX] in the compute
+// type and dd [R, Fd] f32 when input_grads (else unused); workspace:
+// mlp_bwd_workspace bytes, 256-byte aligned.
 int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
                    const float* g_den, const void* w, const void* wt, const void* wtx,
                    const float* b, float* grads, long long n_out, void* dx, float* dd,
@@ -83,7 +177,8 @@ int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
   Params p;
   if (!init_params(p, dtype, 1, nullptr, nullptr, x, d, nullptr, w, b, R, S, D, W, skip, Wc,
                    Dc, LX, KX, Fd, 0, 0, 0.0f, 0.0f, 0, Cr, Cd) ||
-      splits < 1 || (long long)R * S > 2147483647LL || (input_grads && (!dx || !dd)))
+      splits < 1 || (long long)R * S > 2147483647LL || (input_grads && (!dx || !dd)) ||
+      (input_grads && LX % 2))
     return cudaErrorInvalidValue;
   long long w_off[64], b_off[64];
   if (D + 2 + Dc > 64 || output_offsets(p, w_off, b_off) != n_out)
@@ -94,8 +189,15 @@ int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
                              const_cast<float*>(g_den), input_grads ? dx : nullptr,
                              input_grads ? dd : nullptr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? (int)launch_mlp_bwd<bf16>(p, e, l, ws, grads, n_out, splits, st)
-                    : (int)launch_mlp_bwd<float>(p, e, l, ws, grads, n_out, splits, st);
+  if (dtype == 1)
+    return (int)launch_mlp_bwd_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads,
+                                                     false),
+                                  ws, grads, n_out, splits, st);
+  return (int)launch_mlp_bwd_f32(p, e, l, ws, grads, n_out, splits, st);
 }
+
+// The weights the bf16 route reads: the "wg" forward slab stream and the
+// "wgx" chain stream (fused_mlp.pack_mlp_params).
+const char* mlp_bwd_weight_layout() { return "wg"; }
 
 }  // extern "C"

@@ -20,49 +20,44 @@
 // parks the activations and masked g in VMEM scratch; phase 1 runs only the
 // dW products of that tile. Here a 2048-row tile's activations (4,352 B a
 // row in bf16) do not fit on chip, so they go to a global workspace, and
-// the phases are launches:
-//  A. twopass_chain_kernel (phase 0): each block owns whole rays, as
-//     train_level.cu's pass 1: the forward storing the features and every
-//     layer's activations (forward_store), the composite and its backward
-//     (composite_train), then, in the same launch, the g-chain of its own
-//     rays (chain_rays, level_backward.cuh, shared with train_level.cu's
-//     chain_kernel), which reads back the activations the block has just
-//     written and stores the masked g in the compute type. The chain also
-//     takes every layer's db where the TPU kernel takes it, in f32 from the
-//     masked g (the heads' from the f32 cotangents), into one partial per
-//     block. The per-ray f32 g_ray is stored in f32 and rounded to the
-//     compute type where it is multiplied, which gives the values the TPU
-//     kernel's compute-type scratch holds. This removes train_level's
-//     separate chain launch, its reload of the head cotangents and one
-//     grid-wide wait. One ray a block (RB = 1 at S >= 64): the ray's
-//     activations (557 KB at the default config) are written and read back
-//     within one block's life; with two blocks on each of the 132 SMs about
-//     147 MB are in flight against the 50 MB L2, so most of the read-back
-//     comes from HBM.
+// the phases are launches.
+// bf16: train_wg.cuh's passes (launch_train_wg), which already run in that
+// order: phase 0 is the wgmma forward keeping its activations and ReLU
+// masks, the composite and its backward, the warp-specialised wgmma
+// g-chain with per-block db partials and the per-ray sums; phase 1 is the
+// wgmma dW GEMM over the rows, the small head and direction-row products
+// (db summed from the chain's partials) and the fixed-order reduction.
+// The chain reads only the forward's mask bits, not its activations, and
+// no dW product shares an SM with it. The function and the launches are
+// train_level.cu's bf16 ones, so both give the same bits.
+// f32 (checking the algorithm only), with FMA loops (no TF32):
+//  A. twopass_chain_kernel (phase 0): each block owns whole rays: the
+//     forward storing the features and every layer's activations
+//     (forward_store), the composite and its backward (composite_train),
+//     then, in the same launch, the g-chain of its own rays (chain_rays,
+//     level_backward.cuh), which reads back the activations the block has
+//     just written, stores the masked g and takes every layer's db into
+//     one partial per block (the heads' from the f32 cotangents);
 //  B. the dW products only (launch_products in level_backward.cuh): the dW
-//     GEMM over the rows for every layer (act^T g, the skip layers' x rows,
-//     the view layer's h rows) and the small products (both heads from the
-//     f32 cotangents, the view layer's direction rows d^T g_ray), with no
-//     db in the GEMM; the small-product launch also sums the per-block db
-//     partials over the blocks, in order, split as the dW rows are.
+//     GEMM over the rows for every layer, the small products, and the sum
+//     of the per-block db partials over the blocks, in order;
 //  C. the fixed-order reduction of the split partials (reduce_kernel).
 // The TPU kernel adds dW across tiles in its resident outputs because its
 // grid runs in order; blocks here run in no order, so the cross-block sums
-// are passes B and C. No atomics: two launches on the same inputs give
-// bit-equal dW/db. f32: the same launches with FMA loops (no TF32), for
-// checking the algorithm only.
+// are separate passes. No atomics: two launches on the same inputs give
+// bit-equal dW/db.
 //
 // Plain C interface (loaded with ctypes), the same as train_level.cu's:
 // train_level_twopass_workspace gives the workspace size;
 // train_level_twopass_launch returns the first failing cudaError_t; it
 // launches on the given stream, allocates nothing and does not synchronise.
 
-#include "level_backward.cuh"
+#include "train_wg.cuh"
 
 namespace {
 
-// Phase 0: forward, composite and its backward, the g-chain and db of the
-// block's rays; dbpart [blocks, num_biases] gets the block's db.
+// f32 phase 0: forward, composite and its backward, the g-chain and db of
+// the block's rays; dbpart [blocks, num_biases] gets the block's db.
 template <class T>
 __global__ void __launch_bounds__(kThreads, 2)
 twopass_chain_kernel(Params p, Extra e, float* dbpart) {
@@ -112,16 +107,21 @@ cudaError_t launch_twopass(Params p, Extra e, const Layout& l, unsigned char* ws
 extern "C" {
 
 // Bytes of workspace train_level_twopass_launch needs for these shapes:
-// train_level's, then the per-block db partials (3 rgb / 1 density head).
+// bf16, train_level's (the backward's layout, then the bf16 passes'
+// areas); f32, the backward's layout, then the per-block db partials (3
+// rgb / 1 density head).
 long long train_level_twopass_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc,
                                         int KX, int splits, long long n_out) {
+  const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, true);
+  if (dtype == 1) return wg_layout(l.total, R, S, D, W, Wc, Dc).total;
   const long long nb = (long long)D * W + 1 + (long long)Dc * Wc + 3;
-  return layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, true).total +
-         round256((long long)blocks_of(R, S) * nb * 4);
+  return l.total + round256((long long)blocks_of(R, S) * nb * 4);
 }
 
 // The arguments of train_level_launch; mode must be 1 ("t"): the means and
-// vars pointers are not read.
+// vars pointers are not read. w, wt: bf16 pack_params_wg's forward slab
+// stream and pack_params_wgt's chain stream (fused_level.
+// pack_train_level); f32 pack_params' layout and pack_params_t.
 int train_level_twopass_launch(int dtype, int mode, const float* means, const float* vars,
                                const void* x, const void* d, const float* delta,
                                const float* pixels, const float* gsc, const void* w,
@@ -148,11 +148,16 @@ int train_level_twopass_launch(int dtype, int mode, const float* means, const fl
                        reinterpret_cast<float*>(ws + l.g_rgb),
                        reinterpret_cast<float*>(ws + l.g_den), nullptr, nullptr);
   e.pixels = pixels; e.gsc = gsc;
-  float* dbpart = reinterpret_cast<float*>(ws + l.total);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 1
-             ? (int)launch_twopass<bf16>(p, e, l, ws, dbpart, grads, n_out, splits, st)
-             : (int)launch_twopass<float>(p, e, l, ws, dbpart, grads, n_out, splits, st);
+  if (dtype == 1)
+    return (int)launch_train_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc), ws, grads,
+                                n_out, splits, st);
+  float* dbpart = reinterpret_cast<float*>(ws + l.total);
+  return (int)launch_twopass<float>(p, e, l, ws, dbpart, grads, n_out, splits, st);
 }
+
+// The weights the bf16 route reads: the "wg" forward slab stream and the
+// "wgt" chain stream (fused_level.pack_train_level), as train_level.
+const char* train_level_twopass_weight_layout() { return "wg"; }
 
 }  // extern "C"

@@ -35,6 +35,15 @@
 //     block's db (f32, in a fixed order); each block writes its db
 //     partial row to dbpart, which pass 6 reduces with the rest (no
 //     atomics: bit-equal dW/db over two launches).
+//     chain_wg_kernel<kCr, kCd, kDx> is also mlp_bwd.cu's chain: heads of
+//     1-8 channels each (kCr = kCd = 0: read from the Params; 3 and 1 is
+//     the train level's instantiation), and with kDx the chain's stream
+//     (fused_level.pack_params_wgx) also holds W_x^T of layer 0 and of each
+//     skip layer, zero-padded to nxw columns (KX rounded up to 32, a width
+//     by_width has): after the epilogue of such a layer the masked g tile
+//     is also the A operand of g @ W_x^T, whose rounded sum each consumer
+//     thread adds to its own part of the sub-tile's dX in shared memory
+//     (bf16, the deepest skip layer first), layer 0's last, straight to dX.
 //  4. g_ray_kernel: the first view layer's masked g summed per ray (f32),
 //     for the direction rows' dW.
 //  5. dw_wg_kernel: dW = act^T g of every layer over the rows, split into
@@ -58,14 +67,18 @@ constexpr int kGSync = 128 + kHelpers;
 
 struct ChainParams {
   WgParams q;          // the forward's units and Params
-  const bf16* wt;      // pack_params_wgt: the chain's slabs, W_rgb^T [Cr, Wc], W_den^T [Cd, W]
+  const bf16* wt;      // pack_params_wgt (or _wgx): the chain's slabs, then
+                       // W_rgb^T [Cr, Wc], W_den^T [Cd, W]
   long long w_rgb, w_den;  // element offsets of the two head matrices in wt
   const uint32_t* mask;    // the forward's ReLU bits
-  const float* g_rgb;  // [N, 3]
-  const float* g_den;  // [N]
+  const float* g_rgb;  // [N, Cr]
+  const float* g_den;  // [N, Cd]
   bf16* grads;         // masked g per layer [N, width] (act_off)
   float* dbpart;       // [gridDim.x, nb]
+  bf16* dx;            // kDx: [N, LX]
   int nb, stages, slot, g_bytes, off_g, off_part, off_db, off_bar, bytes;
+  int nxw;             // columns of the x rows' slabs in the stream (0: none)
+  int dx_bytes, off_dx;  // kDx: one consumer's dX partial [64, nxw] bf16
 };
 
 // Elements of the chain's slabs: views Dc-1 .. 1 (K = Wc, N = Wc), view 0
@@ -76,22 +89,43 @@ __host__ __device__ inline long long chain_slab_elems(const Params& p) {
           (long long)(p.D - 1) * nh * p.W) * 64;
 }
 
-// Shared memory: the ring (slots of the widest slab, W x 128 bytes), two
-// g tiles [64, W], the helpers' column partials (two buffers of kHelpers x
-// 8 f32), the block's db, the barriers and 1 KB of alignment
-// (fused_level.chain_wg_smem). False when not even a ring of two slots
-// fits.
-inline bool init_chain(ChainParams& c, const WgParams& q) {
+// Whether layer i multiplies the features x: layer 0 and the skip layers.
+__host__ __device__ inline bool x_layer(const Params& p, int i) {
+  return i == 0 || i % p.skip == 0;
+}
+
+// Elements of the x rows' slabs in a pack_params_wgx stream: W_x^T
+// [W, nxw] of every x layer.
+__host__ __device__ inline long long chain_x_elems(const Params& p, int nxw) {
+  int n = 0;
+  for (int i = 0; i < p.D; ++i) n += x_layer(p, i);
+  return (long long)n * cdiv(p.W, 64) * nxw * 64;
+}
+
+// Shared memory: the ring (slots of the widest slab, W or with dx nxw x
+// 128 bytes), two g tiles [64, W], with dx two dX partials [64, nxw]
+// bf16, the helpers' column partials (two buffers of kHelpers x 8 f32),
+// the block's db, the barriers and 1 KB of alignment
+// (fused_level.chain_wg_smem). x_stream: the stream holds the x rows'
+// slabs (pack_params_wgx), which only dx multiplies. False when not even
+// a ring of two slots fits, or the x rows are wider than 256.
+inline bool init_chain(ChainParams& c, const WgParams& q, bool x_stream = false,
+                       bool dx = false) {
   const Params& p = q.p;
   c.q = q;
   c.nb = num_biases(p);
-  c.slot = p.W * kSlabBytes;
+  c.nxw = x_stream ? cdiv(p.KX, 32) * 32 : 0;
+  if (c.nxw > 256) return false;
+  c.slot = (dx && c.nxw > p.W ? c.nxw : p.W) * kSlabBytes;
   c.g_bytes = q.nh * kTileSlab;
-  c.w_rgb = chain_slab_elems(p);
+  c.dx_bytes = dx ? 64 * c.nxw * 2 : 0;
+  c.dx = nullptr;
+  c.w_rgb = chain_slab_elems(p) + chain_x_elems(p, c.nxw);
   c.w_den = c.w_rgb + (long long)p.Cr * p.Wc;
   for (int stages = 4; stages >= 2; --stages) {
     int off = stages * c.slot;
     c.off_g = off;    off += 2 * c.g_bytes;
+    c.off_dx = off;   off += 2 * c.dx_bytes;
     c.off_part = off; off += 2 * kHelpers * 8 * 4;
     c.off_db = off;   off += (c.nb * 4 + 15) / 16 * 16;
     c.off_bar = off;  off += 16 * stages;
@@ -109,9 +143,10 @@ __device__ __forceinline__ float round_bf(float v) {
 }
 
 // The producer: the chain's slabs, once per round of every unit of this
-// block, in the consumers' order.
+// block, in the consumers' order; a stream's x rows are skipped unless
+// the consumers multiply them (dx).
 __device__ __forceinline__ void produce_chain(const ChainParams& c, uint32_t slots,
-                                              uint32_t full, uint32_t empty) {
+                                              uint32_t full, uint32_t empty, bool dx) {
   const WgParams& q = c.q;
   const Params& p = q.p;
   const unsigned char* w = reinterpret_cast<const unsigned char*>(c.wt);
@@ -134,7 +169,15 @@ __device__ __forceinline__ void produce_chain(const ChainParams& c, uint32_t slo
       };
       for (int j = p.Dc - 1; j >= 1; --j) put(q.nc, p.Wc * kSlabBytes);
       put(q.nc, p.W * kSlabBytes);
-      for (int i = p.D - 1; i >= 1; --i) put(q.nh, p.W * kSlabBytes);
+      for (int i = p.D - 1; i >= 0; --i) {
+        if (c.nxw && x_layer(p, i)) {
+          if (dx)
+            put(q.nh, c.nxw * kSlabBytes);
+          else
+            off += (long long)q.nh * c.nxw * kSlabBytes;
+        }
+        if (i >= 1) put(q.nh, p.W * kSlabBytes);
+      }
     }
   }
 }
@@ -162,14 +205,45 @@ __device__ __forceinline__ void rgb_term(float* acc, const float* gr0, const flo
     }
 }
 
+// rgb_term for Cr channels read from the Params (heads of any width):
+// acc = round(g_rgb) @ W_rgb^T of rows grow0 + row0 (valid v0) and
+// + row0 + 8 (v1), summed over the channels in order.
+template <int N>
+__device__ __forceinline__ void rgb_term_any(float* acc, const float* g_rgb, long long r0,
+                                             bool v0, bool v1, int Cr, const bf16* wrgb,
+                                             int Wc) {
+  const int qd = threadIdx.x & 3;
+  zero_acc<N>(acc);
+  for (int k = 0; k < Cr; ++k) {
+    const float g0 = v0 ? round_bf(g_rgb[r0 * Cr + k]) : 0.0f;
+    const float g1 = v1 ? round_bf(g_rgb[(r0 + 8) * Cr + k]) : 0.0f;
+    const bf16* wr = wrgb + k * Wc;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float w = __bfloat162float(wr[8 * j + 2 * qd + e]);
+        acc[4 * j + e] = fmaf(g0, w, acc[4 * j + e]);
+        acc[4 * j + 2 + e] = fmaf(g1, w, acc[4 * j + 2 + e]);
+      }
+  }
+}
+
 // The masked g tile G[:, :N]: round(acc) (kDen: + round(gd * W_den^T),
 // rounded again), zero where the mask bit of the value is clear. Waits
 // until the helpers have read the tile before (unless first), then makes
-// the tile visible to the warpgroup's products and hands it over.
-template <int N, bool kDen>
+// the tile visible to the warpgroup's products and hands it over. kCd 1:
+// one density channel, gd0 / gd1 of the thread's two rows (rounded);
+// kCd 0: Cd channels from the rows' f32 cotangents gp0 / gp1 (null past
+// the valid rows), W_den^T rows ldw apart, each term summed over the
+// channels in f32 and rounded once.
+template <int N, bool kDen, int kCd = 1>
 __device__ __forceinline__ void chain_epi(const float* acc, unsigned char* G,
                                           const uint32_t* words, float gd0, float gd1,
-                                          const bf16* wden, int bar_id, int wg, bool first) {
+                                          const bf16* wden, int bar_id, int wg, bool first,
+                                          const float* gp0 = nullptr,
+                                          const float* gp1 = nullptr, int Cd = 1,
+                                          int ldw = 0) {
   if (!first) bar_sync(kBarGFree + wg, kGSync);
   const int t = threadIdx.x & 127;
   const int row0 = (t >> 5) * 16 + ((t & 31) >> 2), qd = t & 3, r7 = row0 & 7;
@@ -178,13 +252,29 @@ __device__ __forceinline__ void chain_epi(const float* acc, unsigned char* G,
   for (int j = 0; j < N / 8; ++j) {
     float v0 = round_bf(acc[4 * j]), v1 = round_bf(acc[4 * j + 1]);
     float v2 = round_bf(acc[4 * j + 2]), v3 = round_bf(acc[4 * j + 3]);
-    if constexpr (kDen) {
+    if constexpr (kDen && kCd == 1) {
       const int col = 8 * j + 2 * qd;
       const float w0 = __bfloat162float(wden[col]), w1 = __bfloat162float(wden[col + 1]);
       v0 += round_bf(gd0 * w0);
       v1 += round_bf(gd0 * w1);
       v2 += round_bf(gd1 * w0);
       v3 += round_bf(gd1 * w1);
+    } else if constexpr (kDen) {
+      const int col = 8 * j + 2 * qd;
+      float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f, t3 = 0.0f;
+      for (int k = 0; k < Cd; ++k) {
+        const float w0 = __bfloat162float(wden[k * ldw + col]);
+        const float w1 = __bfloat162float(wden[k * ldw + col + 1]);
+        const float a = gp0 ? round_bf(gp0[k]) : 0.0f, b = gp1 ? round_bf(gp1[k]) : 0.0f;
+        t0 = fmaf(a, w0, t0);
+        t1 = fmaf(a, w1, t1);
+        t2 = fmaf(b, w0, t2);
+        t3 = fmaf(b, w1, t3);
+      }
+      v0 += round_bf(t0);
+      v1 += round_bf(t1);
+      v2 += round_bf(t2);
+      v3 += round_bf(t3);
     }
     const uint32_t m = words[j >> 3] >> (4 * (j & 7));
     unsigned char* dst = h + (j >> 3) * kTileSlab + (((j & 7) ^ r7) << 4);
@@ -207,8 +297,53 @@ __device__ __forceinline__ void load_words(const ChainParams& c, int L, long lon
   for (int i = 0; i < NW; ++i) w[i] = __ldg(m + i * 128);
 }
 
+// One dX term of x layer i (kDx): acc = G @ W_x^T over the next nh slabs
+// (N = NX columns, nxw), then, for each of the thread's values, t =
+// round(acc) and, unless first (the deepest x layer), t = round(dX + t)
+// with the thread's partial dX (bf16x2 words [NX / 4][128 threads] at DX);
+// the last term (layer 0) goes to dx (rows < nvalid, columns < LX), the
+// others back to DX. Only the thread itself reads its words: no barrier.
+template <int NX>
+__device__ __forceinline__ void dx_layer(Ring& ring, uint32_t gs, int nh, float* acc,
+                                         uint32_t* DX, bool first, bool last, bf16* dx,
+                                         long long grow0, int nvalid, int LX) {
+  zero_acc<NX>(acc);
+  layer_gemm<NX>(ring, gs, nh, 0, 0, acc);
+  const int t = threadIdx.x & 127;
+  const int row0 = (t >> 5) * 16 + ((t & 31) >> 2), qd = t & 3;
+  bf16* d0 = dx + (grow0 + row0) * LX;
+  bf16* d1 = d0 + 8LL * LX;
+#pragma unroll
+  for (int j = 0; j < NX / 8; ++j) {
+    float v0 = round_bf(acc[4 * j]), v1 = round_bf(acc[4 * j + 1]);
+    float v2 = round_bf(acc[4 * j + 2]), v3 = round_bf(acc[4 * j + 3]);
+    if (!first) {
+      const uint32_t lo = DX[(2 * j) * 128 + t], hi = DX[(2 * j + 1) * 128 + t];
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&lo));
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+      v0 = a.x + v0;
+      v1 = a.y + v1;
+      v2 = b.x + v2;
+      v3 = b.y + v3;
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v0, v1), hi = __floats2bfloat162_rn(v2, v3);
+    if (last) {
+      const int col = 8 * j + 2 * qd;
+      if (col < LX) {
+        if (row0 < nvalid) *reinterpret_cast<__nv_bfloat162*>(d0 + col) = lo;
+        if (row0 + 8 < nvalid) *reinterpret_cast<__nv_bfloat162*>(d1 + col) = hi;
+      }
+    } else {
+      DX[(2 * j) * 128 + t] = *reinterpret_cast<const uint32_t*>(&lo);
+      DX[(2 * j + 1) * 128 + t] = *reinterpret_cast<const uint32_t*>(&hi);
+    }
+  }
+}
+
 // Consumer warpgroups 0 and 1: per round, the rgb head's term, then every
-// chained layer top first, each product's epilogue writing the next tile.
+// chained layer top first, each product's epilogue writing the next tile;
+// with kDx, after the epilogue of each x layer, its dX term (dx_layer).
+template <int kCr, int kCd, bool kDx>
 __device__ __forceinline__ void chain_consume(const ChainParams& c, unsigned char* base,
                                               uint32_t slots, uint32_t full, uint32_t empty) {
   const WgParams& q = c.q;
@@ -220,6 +355,8 @@ __device__ __forceinline__ void chain_consume(const ChainParams& c, unsigned cha
   const int row0 = (t >> 5) * 16 + ((t & 31) >> 2);
   const bf16* wrgb = c.wt + c.w_rgb;
   const bf16* wden = c.wt + c.w_den;
+  uint32_t* DX = reinterpret_cast<uint32_t*>(base + c.off_dx + wg * c.dx_bytes);
+  const int last_x = ((p.D - 1) / p.skip) * p.skip;  // the deepest x layer
   const int rpu = cdiv(q.RB * p.S, kWgRows);
   Ring ring{slots, full, empty, c.slot, c.stages, 0, 0u};
   float acc[128];
@@ -237,13 +374,17 @@ __device__ __forceinline__ void chain_consume(const ChainParams& c, unsigned cha
         constexpr int N = decltype(w)::value;
         uint32_t mw[mask_nw(N)];
         load_words<mask_nw(N)>(c, p.D + p.Dc - 1, sid, mw);
-        float gr0[3], gr1[3];
+        if constexpr (kCr > 0) {
+          float gr0[kCr], gr1[kCr];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          gr0[k] = v0 ? round_bf(c.g_rgb[(grow0 + row0) * 3 + k]) : 0.0f;
-          gr1[k] = v1 ? round_bf(c.g_rgb[(grow0 + row0 + 8) * 3 + k]) : 0.0f;
+          for (int k = 0; k < kCr; ++k) {
+            gr0[k] = v0 ? round_bf(c.g_rgb[(grow0 + row0) * kCr + k]) : 0.0f;
+            gr1[k] = v1 ? round_bf(c.g_rgb[(grow0 + row0 + 8) * kCr + k]) : 0.0f;
+          }
+          rgb_term<N>(acc, gr0, gr1, wrgb, p.Wc);
+        } else {
+          rgb_term_any<N>(acc, c.g_rgb, grow0 + row0, v0, v1, p.Cr, wrgb, p.Wc);
         }
-        rgb_term<N>(acc, gr0, gr1, wrgb, p.Wc);
         chain_epi<N, false>(acc, G, mw, 0.0f, 0.0f, nullptr, bar_id, wg, first);
         first = false;
         for (int j = p.Dc - 1; j >= 1; --j) {
@@ -253,22 +394,64 @@ __device__ __forceinline__ void chain_consume(const ChainParams& c, unsigned cha
           chain_epi<N, false>(acc, G, mw, 0.0f, 0.0f, nullptr, bar_id, wg, false);
         }
       });
-      by_width(p.W, [&](auto w) {
+      // The view chain into trunk layer D-1, with the density head's term.
+      auto den_layer = [&](auto w) {
         constexpr int N = decltype(w)::value;
         uint32_t mw[mask_nw(N)];
         load_words<mask_nw(N)>(c, p.D - 1, sid, mw);
-        const float gd0 = v0 ? round_bf(c.g_den[grow0 + row0]) : 0.0f;
-        const float gd1 = v1 ? round_bf(c.g_den[grow0 + row0 + 8]) : 0.0f;
-        zero_acc<N>(acc);
-        layer_gemm<N>(ring, gs, q.nc, 0, 0, acc);
-        chain_epi<N, true>(acc, G, mw, gd0, gd1, wden, bar_id, wg, false);
-        for (int i = p.D - 1; i >= 1; --i) {
-          load_words<mask_nw(N)>(c, i - 1, sid, mw);
+        if constexpr (kCd > 0) {
+          const float gd0 = v0 ? round_bf(c.g_den[grow0 + row0]) : 0.0f;
+          const float gd1 = v1 ? round_bf(c.g_den[grow0 + row0 + 8]) : 0.0f;
           zero_acc<N>(acc);
-          layer_gemm<N>(ring, gs, q.nh, 0, 0, acc);
-          chain_epi<N, false>(acc, G, mw, 0.0f, 0.0f, nullptr, bar_id, wg, false);
+          layer_gemm<N>(ring, gs, q.nc, 0, 0, acc);
+          chain_epi<N, true>(acc, G, mw, gd0, gd1, wden, bar_id, wg, false);
+        } else {
+          zero_acc<N>(acc);
+          layer_gemm<N>(ring, gs, q.nc, 0, 0, acc);
+          chain_epi<N, true, 0>(acc, G, mw, 0.0f, 0.0f, wden, bar_id, wg, false,
+                                v0 ? c.g_den + (grow0 + row0) * p.Cd : nullptr,
+                                v1 ? c.g_den + (grow0 + row0 + 8) * p.Cd : nullptr, p.Cd,
+                                p.W);
         }
-      });
+      };
+      if constexpr (!kDx && kCd > 0) {
+        by_width(p.W, [&](auto w) {
+          constexpr int N = decltype(w)::value;
+          uint32_t mw[mask_nw(N)];
+          load_words<mask_nw(N)>(c, p.D - 1, sid, mw);
+          const float gd0 = v0 ? round_bf(c.g_den[grow0 + row0]) : 0.0f;
+          const float gd1 = v1 ? round_bf(c.g_den[grow0 + row0 + 8]) : 0.0f;
+          zero_acc<N>(acc);
+          layer_gemm<N>(ring, gs, q.nc, 0, 0, acc);
+          chain_epi<N, true>(acc, G, mw, gd0, gd1, wden, bar_id, wg, false);
+          for (int i = p.D - 1; i >= 1; --i) {
+            load_words<mask_nw(N)>(c, i - 1, sid, mw);
+            zero_acc<N>(acc);
+            layer_gemm<N>(ring, gs, q.nh, 0, 0, acc);
+            chain_epi<N, false>(acc, G, mw, 0.0f, 0.0f, nullptr, bar_id, wg, false);
+          }
+        });
+      } else {
+        by_width(p.W, den_layer);
+        for (int i = p.D - 1; i >= 0; --i) {
+          if constexpr (kDx) {
+            if (x_layer(p, i))
+              by_width(c.nxw, [&](auto w) {
+                dx_layer<decltype(w)::value>(ring, gs, q.nh, acc, DX, i == last_x, i == 0,
+                                             c.dx, grow0, nvalid, p.LX);
+              });
+          }
+          if (i == 0) break;
+          by_width(p.W, [&](auto w) {
+            constexpr int N = decltype(w)::value;
+            uint32_t mw[mask_nw(N)];
+            load_words<mask_nw(N)>(c, i - 1, sid, mw);
+            zero_acc<N>(acc);
+            layer_gemm<N>(ring, gs, q.nh, 0, 0, acc);
+            chain_epi<N, false>(acc, G, mw, 0.0f, 0.0f, nullptr, bar_id, wg, false);
+          });
+        }
+      }
     }
   }
 }
@@ -279,8 +462,10 @@ __device__ __forceinline__ void chain_consume(const ChainParams& c, unsigned cha
 // / C row groups): it copies each chunk out and sums its 8 columns in f32;
 // once the tile is read the consumer may overwrite it, and the row groups'
 // partials (double-buffered) are added into DB in order, one column per
-// helper. Per sub-tile, warp 0 adds the heads' db from the f32 cotangents.
-// Every sum has a fixed order: two launches give the same bits.
+// helper. Per sub-tile, warp 0 adds the heads' db from the f32 cotangents
+// (kCr, kCd 3 and 1, or 0: the Params' channel counts). Every sum has a
+// fixed order: two launches give the same bits.
+template <int kCr, int kCd>
 __device__ __forceinline__ void chain_help(const ChainParams& c, unsigned char* base) {
   const WgParams& q = c.q;
   const Params& p = q.p;
@@ -304,7 +489,20 @@ __device__ __forceinline__ void chain_help(const ChainParams& c, unsigned char* 
           const int sub0 = r0 + w * 64;
           const int nvalid = max(0, min(64, rows - sub0));
           const long long grow0 = (long long)ray0 * p.S + sub0;
-          if (e == 0 && warp == 0) {
+          if (kCr == 0 && e == 0 && warp == 0) {
+            for (int ch = 0; ch < p.Cr + p.Cd; ++ch) {  // rows lane and lane + 32
+              float v[2];
+#pragma unroll
+              for (int k = 0; k < 2; ++k) {
+                const int row = lane + 32 * k;
+                v[k] = row >= nvalid  ? 0.0f
+                       : ch < p.Cr    ? c.g_rgb[(grow0 + row) * p.Cr + ch]
+                                      : c.g_den[(grow0 + row) * p.Cd + ch - p.Cr];
+              }
+              const float s = warp_sum(v[0] + v[1]);
+              if (lane == 0) DB[ch < p.Cr ? p.b_rgb + ch : p.b_den + ch - p.Cr] += s;
+            }
+          } else if (e == 0 && warp == 0) {
             float v[8];
 #pragma unroll
             for (int k = 0; k < 8; ++k) {  // rows lane and lane + 32, 4 channels
@@ -368,7 +566,10 @@ __global__ void g_ray_kernel(const bf16* gv, float* g_ray, int S, int Wc) {
   g_ray[(long long)blockIdx.x * Wc + threadIdx.x] = s;
 }
 
+template <int kCr, int kCd, bool kDx>
 __global__ void __launch_bounds__(kWgThreads, 1) chain_wg_kernel(ChainParams c) {
+  static_assert((kCr == 3 && kCd == 1) || (kCr == 0 && kCd == 0),
+                "heads: the train level's 3 and 1, or any width (0)");
   extern __shared__ __align__(1024) unsigned char smem_wg[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_wg) + 1023) & ~uintptr_t(1023));
@@ -389,12 +590,12 @@ __global__ void __launch_bounds__(kWgThreads, 1) chain_wg_kernel(ChainParams c) 
   __syncthreads();
   if (threadIdx.x >= 256) {  // producer warpgroup: the producer and the helpers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
-    if (threadIdx.x == 256) produce_chain(c, slots, full, empty);
-    if (threadIdx.x >= kHelperBase) chain_help(c, base);
+    if (threadIdx.x == 256) produce_chain(c, slots, full, empty, kDx);
+    if (threadIdx.x >= kHelperBase) chain_help<kCr, kCd>(c, base);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
-  chain_consume(c, base, slots, full, empty);
+  chain_consume<kCr, kCd, kDx>(c, base, slots, full, empty);
 }
 
 // ---- wgmma m64nNk16 with both operands MN-major (imm-trans-a/b = 1) ----
@@ -768,25 +969,44 @@ __global__ void __launch_bounds__(kThreads) train_composite_kernel(Params p, Ext
 }
 
 // Byte offsets of the bf16 passes' own areas, after the backward's layout
-// (level_backward.cuh::layout, which ends at base): the raw heads, the
-// ReLU masks and the chain's db partials.
+// (level_backward.cuh::layout, which ends at base): the raw heads (unless
+// heads is false), the ReLU masks and the chain's db partials (Cg head
+// channels: 3 rgb and 1 density in the train level).
 struct WgLayout {
   long long heads, mask, dbpart, total;
 };
 
-inline WgLayout wg_layout(long long base, int R, int S, int D, int W, int Wc, int Dc) {
+inline WgLayout wg_layout(long long base, int R, int S, int D, int W, int Wc, int Dc,
+                          int Cg = 4, bool heads = true) {
   WgParams q{};
   q.p.R = R; q.p.S = S; q.p.D = D; q.p.W = W; q.p.Wc = Wc; q.p.Dc = Dc;
   q.RB = wg_rays(S, Wc);
   q.ngroups = cdiv(R, q.RB);
-  const long long nb = (long long)D * W + Dc * Wc + 4;  // 3 rgb, 1 density
+  const long long nb = (long long)D * W + Dc * Wc + Cg;
   WgLayout x;
   long long off = base;
-  x.heads = off;  off += round256((long long)R * S * 16);
+  x.heads = off;  off += heads ? round256((long long)R * S * 16) : 0;
   x.mask = off;   off += round256(mask_words(q) * 4);
   x.dbpart = off; off += round256(kMaxChainBlocks * nb * 4);
   x.total = off;
   return x;
+}
+
+// Launch chain_wg_kernel<kCr, kCd, kDx>: one persistent block per SM, at
+// most one per unit and kMaxChainBlocks; the grid (the rows of dbpart)
+// goes to *grid.
+template <int kCr, int kCd, bool kDx>
+inline cudaError_t launch_chain(const ChainParams& c, int* grid, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(chain_wg_kernel<kCr, kCd, kDx>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, c.bytes);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  *grid = min(min(c.q.ngroups, sms), kMaxChainBlocks);
+  chain_wg_kernel<kCr, kCd, kDx><<<*grid, kWgThreads, c.bytes, st>>>(c);
+  return cudaGetLastError();
 }
 
 // Passes 1-6 of the bf16 train level on the workspace (l, then x). w: the
@@ -820,16 +1040,8 @@ inline cudaError_t launch_train_wg(Params p, Extra e, const Layout& l, const WgL
   train_composite_kernel<<<cdiv(p.R, kThreads / 32), kThreads, smem_c, st>>>(p, e, q.heads);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // 3. g-chain with db, then the view layer's per-ray sums
-  if ((err = cudaFuncSetAttribute(chain_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  c.bytes)) != cudaSuccess)
-    return err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  const int grid = min(min(q.ngroups, sms), kMaxChainBlocks);
-  chain_wg_kernel<<<grid, kWgThreads, c.bytes, st>>>(c);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  int grid = 0;
+  if ((err = launch_chain<3, 1, false>(c, &grid, st)) != cudaSuccess) return err;
   g_ray_kernel<<<p.R, p.Wc, 0, st>>>(c.grads + act_off(p, e.N, p.D), e.g_ray, p.S, p.Wc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // 5. dW GEMM; 6-7. small products (db from the partials), reduction

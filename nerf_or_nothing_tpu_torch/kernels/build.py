@@ -60,9 +60,12 @@ def source_path(name: str, source: Optional[os.PathLike] = None) -> Path:
 
 
 def library_path(name: str, source: Optional[os.PathLike] = None) -> Path:
+    """The library's path, named by a hash of the source, the flags and the
+    headers of ``csrc/`` and of the source's own directory (a quoted
+    include finds those first)."""
     src = source_path(name, source)
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
+    for header in sorted({*CSRC_DIR.glob("*.cuh"), *src.parent.glob("*.cuh")}):
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -289,8 +289,40 @@ def _layout_wgt(params: Params, cfg: Config, fragments: bool):
     return torch.cat(parts)
 
 
+def dx_width(cfg: Config) -> int:
+    """Columns of the x rows' W^T in ``_layout_wgx`` (the dX product's N):
+    ``padded_location_features`` rounded up to 32, a width the kernels'
+    ``wgmma`` products have."""
+    return -(-padded_location_features(cfg) // 32) * 32
+
+
+def _layout_wgx(params: Params, cfg: Config, fragments: bool):
+    """``mlp_bwd``'s bf16 g-chain stream (``csrc/train_wg.cuh``, kDx): the
+    chain stream of ``_layout_wgt`` with, in the chain's order, W_x^T of
+    layer 0 and of each skip layer ([W, LX] zero-padded to ``dx_width``
+    columns) as slabs before that layer's h rows: view layers Dc-1 .. 1,
+    the first view layer's h rows, then for trunk layer i = D-1 .. 0 its
+    x rows (layer 0 and skip layers) and its h rows (i >= 1). Then the
+    heads' W^T row-major. ``fragments`` is unused."""
+    D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
+    lx, nxw = cfg.location_features, dx_width(cfg)
+    parts = [_wg_slabs(params[D + 1 + j][0].t()) for j in range(Dc - 1, 0, -1)]
+    parts.append(_wg_slabs(params[D + 1][0][:nw].t()))
+    for i in range(D - 1, -1, -1):
+        w = params[i][0]
+        if i == 0 or i % cfg.skip_layer == 0:
+            xt = torch.zeros((nw, nxw), dtype=w.dtype, device=w.device)
+            xt[:, :lx] = (w if i == 0 else w[nw:]).t()
+            parts.append(_wg_slabs(xt))
+        if i > 0:
+            parts.append(_wg_slabs(w[:nw].t()))
+    parts.append(params[D + 1 + Dc][0].t().reshape(-1))
+    parts.append(params[D][0].t().reshape(-1))
+    return torch.cat(parts)
+
+
 _LAYOUTS = {"fwd": _layout, "t": _layout_t, "tx": _layout_tx, "wg": _layout_wg,
-            "wgt": _layout_wgt}
+            "wgt": _layout_wgt, "wgx": _layout_wgx}
 
 
 @functools.lru_cache(maxsize=32)
@@ -344,6 +376,11 @@ def pack_params_wgt(params: Params, cfg: Config, dt: torch.dtype):
     return _gather(params, cfg, dt, "wgt")
 
 
+def pack_params_wgx(params: Params, cfg: Config, dt: torch.dtype):
+    """The g-chain stream with the x rows, ``_layout_wgx``, one gather."""
+    return _gather(params, cfg, dt, "wgx")
+
+
 def pack_forward(params: Params, cfg: Config, dt: torch.dtype):
     """The forward kernels' (``render_level``, ``mlp_fwd``) weights: the
     ``"wg"`` slab stream for bf16, ``pack_params``' row-major layout for
@@ -377,6 +414,18 @@ def packed_wgt_size(cfg: Config) -> int:
     nh, nc = _slabs(W), _slabs(Wc)
     return (((Dc - 1) * nc * Wc + nc * W + (D - 1) * nh * W) * S
             + cfg.num_rgb_channels * Wc + cfg.num_density_channels * W)
+
+
+def _x_layers(cfg: Config) -> int:
+    """Layers that multiply the features: layer 0 and the skip layers."""
+    return 1 + sum(1 for i in range(1, cfg.net_depth)
+                   if i % cfg.skip_layer == 0)
+
+
+def packed_wgx_size(cfg: Config) -> int:
+    """Length of ``pack_params_wgx``'s buffer."""
+    return packed_wgt_size(cfg) + (_x_layers(cfg) * _slabs(cfg.net_width)
+                                   * dx_width(cfg) * WG_SLAB_K)
 
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (sm_90)
@@ -423,18 +472,24 @@ def check_wg_config(cfg: Config, S: int, composite: bool) -> None:
             f"{SMEM_LIMIT} bytes")
 
 
-def chain_wg_smem(cfg: Config):
+def chain_wg_smem(cfg: Config, dx: bool = False):
     """(bytes, ring stages) of the bf16 g-chain's shared memory, as
-    ``train_wg.cuh::init_chain`` computes it: the ring (``stages`` x W x
-    128 bytes), two masked-g tiles [64, W] in bf16, the helpers' column
-    partials (2 x 96 x 8 f32), the block's db (every bias, f32), the
-    barriers and 1 KB of alignment. bytes is None when not even 2 stages
-    fit."""
+    ``train_wg.cuh::init_chain`` computes it: the ring (``stages`` slots of
+    the widest slab: W, with ``dx`` also ``dx_width`` rows of 128 bytes),
+    two masked-g tiles [64, W] in bf16, with ``dx`` the two consumers' dX
+    partials [64, dx_width] in bf16, the helpers' column partials (2 x 96 x
+    8 f32), the block's db (every bias, f32), the barriers and 1 KB of
+    alignment. bytes is None when not even 2 stages fit, or (``dx``) the x
+    rows are wider than 256."""
     W = cfg.net_width
+    nxw = dx_width(cfg) if dx else 0
+    if nxw > 256:
+        return None, 0
     n_b = packed_sizes(cfg)[1]
-    fixed = 1024 + 2 * 8192 * _slabs(W) + 2 * 96 * 8 * 4 + -(-n_b * 4 // 16) * 16
+    fixed = (1024 + 2 * 8192 * _slabs(W) + 2 * 64 * nxw * 2 + 2 * 96 * 8 * 4
+             + -(-n_b * 4 // 16) * 16)
     for stages in (4, 3, 2):
-        total = fixed + stages * W * 128 + 16 * stages
+        total = fixed + stages * max(W, nxw) * 128 + 16 * stages
         if total <= SMEM_LIMIT:
             return total, stages
     return None, 0
@@ -468,15 +523,17 @@ def packed_t_size(cfg: Config) -> int:
 
 
 def pack_train_params(params: Params, cfg: Config, dt: torch.dtype):
-    """(weights, biases, W^T) in the two-pass train kernel's layouts (and
-    the f32 train kernel's): ``pack_params``' and ``pack_params_t``'."""
+    """(weights, biases, W^T) in the f32 train kernels' layouts (and the
+    earlier ``mma.sync`` kernels'): ``pack_params``' and
+    ``pack_params_t``'."""
     w_flat, b_flat = pack_params(params, cfg, dt)
     return w_flat, b_flat, pack_params_t(params, cfg, dt)
 
 
 def pack_train_level(params: Params, cfg: Config, dt: torch.dtype,
                      layout: str = "wg"):
-    """(weights, biases, chain weights) of ``train_level`` reading
+    """(weights, biases, chain weights) of ``train_level`` (and
+    ``train_level_twopass``) reading
     ``layout`` (``weight_layout``): in bf16 with ``"wg"`` the forward's slab
     stream (``pack_params_wg``) and the g-chain's (``pack_params_wgt``),
     else ``pack_train_params``' layouts (f32, and the earlier ``mma.sync``
@@ -503,11 +560,9 @@ def uses_twopass(cfg: Config) -> bool:
 
 
 def pack_train(params: Params, cfg: Config, dt: torch.dtype):
-    """One train step's packing, once for both levels, for the kernel the
-    step launches: ``pack_train_params`` for the two-pass kernel,
-    ``pack_train_level`` for ``train_level``."""
-    if uses_twopass(cfg):
-        return pack_train_params(params, cfg, dt)
+    """One train step's packing, once for both levels: ``pack_train_level``,
+    which both train kernels read (the two-pass kernel's bf16 route runs
+    ``train_level``'s passes)."""
     return pack_train_level(params, cfg, dt)
 
 
@@ -898,8 +953,9 @@ def _train_library(name: str, source=None):
     """(launch, workspace, weight layout) of ``csrc/<name>.cu`` or of
     another version of it (``source``); both train kernels have the same C
     interface, and each reads the layout its library declares
-    (``weight_layout``: ``"wg"`` for ``train_level``'s bf16 ``wgmma``
-    passes, ``"fwd"`` for ``pack_train_params``)."""
+    (``weight_layout``: ``"wg"`` for the bf16 ``wgmma`` passes of
+    ``train_level`` and ``train_level_twopass``, ``"fwd"`` for
+    ``pack_train_params``, which the earlier ``mma.sync`` versions read)."""
     from nerf_or_nothing_tpu_torch.kernels import build
 
     lib = build.load(name, source)
@@ -986,14 +1042,20 @@ def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
 
 
 def train_level_twopass_cuda(params: Params, cfg: Config, x, d, delta,
-                             pixels, g_scale, white_bkgd: bool, packed=None):
+                             pixels, g_scale, white_bkgd: bool, packed=None,
+                             source=None):
     """Launch the two-pass train kernel (``csrc/train_level_twopass.cu``)
     on the current stream: ``train_level_cuda`` in mode ``"t"``, the same
     outputs, in the TPU kernel's two phases (forward, composite and g-chain
-    with db; then the dW products)."""
+    with db; then the dW products), on ``train_level``'s bf16 passes;
+    ``packed`` is ``pack_train_level``'s result, ``source`` another version
+    of the source, as for ``train_level_cuda``. Configs whose shared memory
+    the bf16 passes cannot take raise ValueError before anything runs."""
+    if source is None:
+        check_train_wg_config(cfg, delta.shape[1])
     return _launch_train("train_level_twopass", train_level_twopass, params,
                          cfg, x, d, delta, pixels, g_scale, white_bkgd, "t",
-                         packed)
+                         packed, source)
 
 
 def train_level(params: Params, cfg: Config, xs, d, delta, pixels, g_scale,

@@ -26,14 +26,16 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from nerf_or_nothing_tpu_torch.config import Config
 from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     _DTYPE_CODE,
+    SMEM_LIMIT,
     _check,
+    chain_wg_smem,
     check_kernel_config,
     check_wg_config,
     forward_weights_size,
@@ -43,9 +45,11 @@ from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     pack_params,
     pack_params_t,
     pack_params_tx,
+    pack_params_wgx,
     packed_sizes,
     packed_t_size,
     packed_tx_size,
+    packed_wgx_size,
     padded_location_features,
     train_splits,
     unpack_grads,
@@ -106,26 +110,56 @@ def mlp_bwd_plain(params: Params, cfg: Config, x, d, g_rgb, g_den, s: int,
 
 
 def pack_mlp_params(params: Params, cfg: Config, dt: torch.dtype,
-                    backward: bool = True):
+                    backward: bool = True, layout: str = "wg"):
     """The kernels' weights, packed once for both levels: (weights,
     biases) of ``pack_forward`` for ``mlp_fwd`` (bf16: the ``"wg"`` slab
-    stream), and with ``backward`` also ``mlp_bwd``'s recompute weights
-    (``pack_params``' fragments; for f32 the same tensor as the forward's),
+    stream), and with ``backward`` what ``mlp_bwd`` reading ``layout``
+    (``weight_layout``) needs besides: in bf16 with ``"wg"`` the g-chain
+    stream with the x rows (``pack_params_wgx``; the recomputed forward
+    reads the forward's stream); else its recompute weights
+    (``pack_params``' layout; for f32 the same tensor as the forward's),
     the chained layers' W^T (``pack_params_t``) and the x rows' W^T
-    (``pack_params_tx``). No autograd graph is kept."""
+    (``pack_params_tx``): f32, and the earlier ``mma.sync`` kernel. No
+    autograd graph is kept."""
     with torch.no_grad():
         w_fwd, b_flat = pack_forward(params, cfg, dt)
         if not backward:
             return w_fwd, b_flat
+        if _bwd_wg(cfg, layout):
+            return w_fwd, b_flat, pack_params_wgx(params, cfg, dt)
         w_flat = (pack_params(params, cfg, dt)[0] if dt == torch.bfloat16
                   else w_fwd)
         return (w_fwd, b_flat, w_flat, pack_params_t(params, cfg, dt),
                 pack_params_tx(params, cfg, dt))
 
 
-def _check_mlp_inputs(cfg: Config, x, d, wg: bool = False):
+def _bwd_wg(cfg: Config, layout: str) -> bool:
+    """Whether ``mlp_bwd`` reading ``layout`` runs the bf16 ``wgmma``
+    passes (which read the forward's stream and ``pack_params_wgx``)."""
+    return layout == "wg" and compute_dtype(cfg) == torch.bfloat16
+
+
+def check_mlp_bwd_config(cfg: Config, S: int, input_grads: bool) -> None:
+    """Raise ValueError when ``mlp_bwd``'s bf16 passes cannot take the
+    config: the recomputed forward's shared memory (``check_wg_config``),
+    or the g-chain's (``chain_wg_smem``, with the dX partials and x rows of
+    ``input_grads``); nothing to check for f32."""
+    if compute_dtype(cfg) != torch.bfloat16:
+        return
+    check_wg_config(cfg, S, False)
+    if chain_wg_smem(cfg, dx=input_grads)[0] is None:
+        raise ValueError(
+            "config not supported by the bf16 mlp_bwd kernel: the g-chain's "
+            "shared memory (two [64, net_width] tiles, every bias, a ring "
+            "of 2 weight slabs, with input_grads the dX partials, and x rows "
+            f"of at most 256 columns) exceeds {SMEM_LIMIT} bytes")
+
+
+def _check_mlp_inputs(cfg: Config, x, d, wg: bool = False,
+                      input_grads: Optional[bool] = None):
     """Validate the kernels' x and d, with ``wg`` also the bf16 forward's
-    shared memory (``check_wg_config``); returns (R, S)."""
+    shared memory (``check_wg_config``), and with ``input_grads`` (not
+    None) ``mlp_bwd``'s (``check_mlp_bwd_config``); returns (R, S)."""
     check_kernel_config(cfg, max_head=MAX_HEAD)
     R, N = d.shape[0], x.shape[0]
     if R == 0 or N % R:
@@ -133,6 +167,8 @@ def _check_mlp_inputs(cfg: Config, x, d, wg: bool = False):
                          "of d")
     if wg:
         check_wg_config(cfg, N // R, False)
+    if input_grads is not None:
+        check_mlp_bwd_config(cfg, N // R, input_grads)
     dt = compute_dtype(cfg)
     device = x.device
     if device.type != "cuda":
@@ -143,15 +179,24 @@ def _check_mlp_inputs(cfg: Config, x, d, wg: bool = False):
 
 
 def _check_packed(cfg: Config, packed: Sequence[torch.Tensor], device,
-                  fwd_layout: str = "wg"):
-    """``pack_mlp_params``' tensors (the first two, or all five), the
-    forward's weights in ``fwd_layout``."""
+                  fwd_layout: str = "wg", bwd_layout: Optional[str] = None):
+    """``pack_mlp_params``' tensors: the forward's weights in
+    ``fwd_layout`` and the biases, and with ``bwd_layout`` what ``mlp_bwd``
+    reading it takes besides (the chain stream with the x rows; or the
+    recompute weights, W^T and x-row W^T)."""
     dt = compute_dtype(cfg)
     n_w, n_b = packed_sizes(cfg)
-    sizes = (forward_weights_size(cfg, fwd_layout), n_b, n_w,
-             packed_t_size(cfg), packed_tx_size(cfg))
-    names = ("packed forward weights", "packed biases", "packed weights",
-             "packed W^T", "packed x-row W^T")
+    sizes = [forward_weights_size(cfg, fwd_layout), n_b]
+    names = ["packed forward weights", "packed biases"]
+    if bwd_layout is not None and _bwd_wg(cfg, bwd_layout):
+        sizes.append(packed_wgx_size(cfg))
+        names.append("packed chain weights")
+    elif bwd_layout is not None:
+        sizes += [n_w, packed_t_size(cfg), packed_tx_size(cfg)]
+        names += ["packed weights", "packed W^T", "packed x-row W^T"]
+    if len(packed) != len(sizes):
+        raise ValueError(f"packed must hold {len(sizes)} tensors "
+                         f"({', '.join(names)}), got {len(packed)}")
     for k, t in enumerate(packed):
         _check(names[k], t, torch.float32 if k == 1 else dt, (sizes[k],),
                device)
@@ -222,10 +267,12 @@ def mlp_fwd(params: Params, cfg: Config, x, d, packed=None):
 mlp_fwd.launches = 0
 
 
-def _bwd_library():
+def _bwd_library(source=None):
+    """(library, weight layout) of ``csrc/mlp_bwd.cu`` or of another
+    version of it."""
     from nerf_or_nothing_tpu_torch.kernels import build
 
-    lib = build.load("mlp_bwd")
+    lib = build.load("mlp_bwd", source)
     fn = lib.mlp_bwd_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -234,25 +281,36 @@ def _bwd_library():
         ws = lib.mlp_bwd_workspace
         ws.argtypes = [i] * 9 + [ll]
         ws.restype = ll
-    return lib
+    return lib, weight_layout(lib, "mlp_bwd")
 
 
 def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
-                 input_grads: bool, packed=None):
+                 input_grads: bool, packed=None, source=None):
     """Launch ``mlp_bwd`` on the current stream. Same inputs and outputs as
     ``mlp_bwd_plain``; ``packed`` is ``pack_mlp_params``' result when the
-    caller already has it (once per step for both levels)."""
-    R, S = _check_mlp_inputs(cfg, x, d)
+    caller already has it (once per step for both levels); ``source`` is
+    another version of ``csrc/mlp_bwd.cu`` with the same C interface, to
+    time versions in turns (``compare_kernels.py``; ``packed`` then in the
+    layout it reads). Configs whose shared memory the bf16 passes cannot
+    take raise ValueError before anything runs."""
+    R, S = _check_mlp_inputs(
+        cfg, x, d, input_grads=input_grads if source is None else None)
     dt = compute_dtype(cfg)
     device = x.device
     N = R * S
     _check("g_rgb", g_rgb, torch.float32, (N, cfg.num_rgb_channels), device)
     _check("g_den", g_den, torch.float32, (N, cfg.num_density_channels),
            device)
-    if packed is None or len(packed) < 5:
-        packed = pack_mlp_params(params, cfg, dt)
-    _check_packed(cfg, packed, device)
-    _, b_flat, w_flat, wt_flat, wtx_flat = packed
+    lib, layout = _bwd_library(source)
+    if packed is None or len(packed) == 2:
+        packed = pack_mlp_params(params, cfg, dt, layout=layout)
+    _check_packed(cfg, packed, device, bwd_layout=layout)
+    if _bwd_wg(cfg, layout):  # the forward's stream and the chain stream
+        w_flat, b_flat, wt_flat = packed
+        wtx_ptr = 0
+    else:
+        _, b_flat, w_flat, wt_flat, wtx_flat = packed
+        wtx_ptr = wtx_flat.data_ptr()
     n_out = num_params(cfg)
     grads = torch.empty((n_out,), dtype=torch.float32, device=device)
     dx = dd = None
@@ -260,7 +318,6 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
         dx = torch.empty((N, cfg.location_features), dtype=dt, device=device)
         dd = torch.empty((R, cfg.direction_features), dtype=torch.float32,
                          device=device)
-    lib = _bwd_library()
     splits = train_splits(N)
     D, W, _, Wc, Dc, _, kx = _dims(cfg)[:7]
     ws_bytes = lib.mlp_bwd_workspace(_DTYPE_CODE[dt], R, S, D, W, Wc, Dc, kx,
@@ -268,8 +325,8 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     workspace = torch.empty((ws_bytes,), dtype=torch.uint8, device=device)
     err = lib.mlp_bwd_launch(
         _DTYPE_CODE[dt], x.data_ptr(), d.data_ptr(), g_rgb.data_ptr(),
-        g_den.data_ptr(), w_flat.data_ptr(), wt_flat.data_ptr(),
-        wtx_flat.data_ptr(), b_flat.data_ptr(), grads.data_ptr(), n_out,
+        g_den.data_ptr(), w_flat.data_ptr(), wt_flat.data_ptr(), wtx_ptr,
+        b_flat.data_ptr(), grads.data_ptr(), n_out,
         dx.data_ptr() if input_grads else 0,
         dd.data_ptr() if input_grads else 0, workspace.data_ptr(), R, S,
         *_dims(cfg), splits, int(input_grads),

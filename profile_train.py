@@ -13,11 +13,13 @@ Prints one JSON line: the steps' wall time (host clock, each step
 synchronised; also without the profiler), the device time summed over all
 kernels and copies and its share of the wall time (the rest is the device
 idle), the device time of the hand-written kernels' launches by name per
-step and per launch of the wrapper (``train_level`` in bf16: 7 launches,
-the wgmma forward, the composite, the wgmma g-chain, the per-ray sums, the
-dW GEMM, the small products and the reduction; ``train_level_twopass``:
-4, ``mlp_bwd``: 5, ``mlp_fwd``: 1), the rest of
-the device time, the device
+step and per launch of the wrapper (``train_level`` and
+``train_level_twopass`` in bf16: 7 launches, the wgmma forward, the
+composite, the wgmma g-chain, the per-ray sums, the dW GEMM, the small
+products and the reduction; ``mlp_bwd`` in bf16: 6, with input_grads 7,
+the wgmma forward keeping its activations, the g-chain (with dX), the
+per-ray sums, dD, the dW GEMM, the small products and the reduction;
+``mlp_fwd``: 1), the rest of the device time, the device
 time of the autograd backward nodes (inclusive of their kernels; the
 fused MLP's node holds the ``mlp_bwd`` launches, the others are the eager
 backward of the composite, IPE, cast_rays and resampling), and, timed
@@ -33,14 +35,15 @@ import sys
 import tempfile
 import time
 
+TRAIN_WG = ("train_fwd_wg_kernel", "train_composite_kernel",
+            "chain_wg_kernel", "g_ray_kernel", "dw_wg_kernel",
+            "small_tn_kernel", "reduce_kernel")
 KERNELS = {
-    "train_level": ("train_fwd_wg_kernel", "train_composite_kernel",
-                    "chain_wg_kernel", "g_ray_kernel", "dw_wg_kernel",
-                    "small_tn_kernel", "reduce_kernel"),
-    "train_level_twopass": ("twopass_chain_kernel", "dw_gemm",
-                            "small_tn_kernel", "reduce_kernel"),
-    "mlp_bwd": ("mlp_act_kernel", "chain_kernel", "dw_gemm",
-                "small_tn_kernel", "reduce_kernel"),
+    "train_level": TRAIN_WG,
+    "train_level_twopass": TRAIN_WG,
+    "mlp_bwd": ("mlp_act_wg_kernel", "chain_wg_kernel", "g_ray_kernel",
+                "mlp_dd_kernel", "dw_wg_kernel", "small_tn_kernel",
+                "reduce_kernel"),
     "mlp_fwd": ("mlp_fwd_wg_kernel", "mlp_fwd_kernel"),  # bf16, f32
 }
 BACKWARD_NODE = "autograd::engine::evaluate_function: "
@@ -156,13 +159,12 @@ def main(argv) -> int:
     if fused:
         xs, d, delta = level_inputs(cfg, R, "t", 1, device)
         pixels, g_scale = train_inputs(cfg, R, 2, device)
+        packed = fl.pack_train_level(state.params, cfg, dt)
         if twopass:
-            packed2 = fl.pack_train_params(state.params, cfg, dt)
             alone["train_level_twopass_call"] = median_ms(
                 lambda: fl.train_level_twopass_cuda(
                     state.params, cfg, xs, d, delta, pixels, g_scale, True,
-                    packed=packed2))
-        packed = fl.pack_train_level(state.params, cfg, dt)
+                    packed=packed))
         alone["train_level_call"] = median_ms(lambda: fl.train_level_cuda(
             state.params, cfg, xs, d, delta, pixels, g_scale, True, "t",
             packed=packed))

@@ -263,8 +263,8 @@ def test_train_kernel_bit_equal_ragged_on_cuda():
 
 @pytest.mark.parametrize("probes", ["", "fl_variant=twopass"])
 def test_train_step_packs_its_route_once_on_cuda(monkeypatch, probes):
-    """A train step packs once for both levels (``pack_train``), in the
-    layouts of the kernel it launches."""
+    """A train step packs once for both levels (``pack_train``), in
+    ``pack_train_level``'s layouts, which both train kernels read."""
     from nerf_or_nothing_tpu_torch import train as ttrain
     from nerf_or_nothing_tpu_torch.rays import Rays
 
@@ -297,9 +297,8 @@ def test_train_step_packs_its_route_once_on_cuda(monkeypatch, probes):
     grown = (fl.train_level.launches - before[0],
              fl.train_level_twopass.launches - before[1])
     assert grown == ((0, 2) if twopass else (2, 0))
-    sizes = ((fl.packed_sizes(cfg)[0], fl.packed_t_size(cfg)) if twopass
-             else fl.train_weight_sizes(cfg, "wg"))
-    assert (calls[0][0].numel(), calls[0][2].numel()) == sizes
+    assert (calls[0][0].numel(), calls[0][2].numel()) == (
+        fl.train_weight_sizes(cfg, "wg"))
 
 
 @pytest.mark.parametrize("width", ["small", "config"])
@@ -340,7 +339,7 @@ def test_twopass_kernel_bit_equal_on_cuda():
 
 def test_train_step_then_render_repacks_on_cuda(monkeypatch):
     """A train step on the card (two train-kernel launches, which read
-    ``pack_train_params``' layouts) updates the weights in place;
+    ``pack_train_level``'s layouts) updates the weights in place;
     ``make_render_fn`` then packs the forward's layout again, once."""
     from nerf_or_nothing_tpu_torch import train as ttrain
     from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
@@ -598,3 +597,112 @@ def test_wg_forward_kernels_match_plain_on_cuda(name, kw, R, mode):
     for a, b in zip(out, ref):
         assert bool(torch.isfinite(a).all())
         assert normalized_err(a, b, atol, rtol) < 1.0, name
+
+
+def multicam_g_scale(R, seed):
+    """A Multicam pyramid's per-ray loss weights (1, 4, 16 or 64), every
+    seventh ray masked, as g_scale [R, 1]."""
+    rng = np.random.default_rng(seed)
+    mask = 4.0 ** rng.integers(0, 4, size=R)
+    mask[::7] = 0.0
+    return torch.from_numpy((2.0 * mask / mask.sum())[:, None]
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("R", [1024, 777])
+def test_twopass_wg_matches_plain_on_cuda(R):
+    """The two-pass kernel's bf16 route (``train_level``'s wgmma passes)
+    at Config() width with Multicam's loss weights: against
+    ``level_train_plain``, bit-equal over two launches and to
+    ``train_level`` on the same inputs, one two-pass launch each."""
+    dev = cuda_device()
+    cfg = Config(kernel_probes="fl_variant=twopass")
+    S = cfg.num_samples
+    params = tmlp.init_mlp(torch.Generator().manual_seed(6), cfg, device=dev)
+    means, covs, dir_enc, t_vals, dirs, pixels, _ = train_inputs(R, S, 7, dev)
+    g_scale = multicam_g_scale(R, 8).to(dev)
+    dt = tmlp.compute_dtype(cfg)
+    x = integrated_pos_enc((means, covs), 0, cfg.max_deg_point,
+                           fast=True).reshape(R * S, -1).to(dt)
+    d, delta = dir_enc.to(dt), interval_lengths(t_vals, dirs)
+    packed = fl.pack_train(params, cfg, dt)
+    before = fl.train_level_twopass.launches
+    a, b = (fl.train_level_twopass(params, cfg, x, d, delta, pixels, g_scale,
+                                   False, packed=packed) for _ in range(2))
+    torch.cuda.synchronize()
+    assert fl.train_level_twopass.launches == before + 2
+    one = fl.train_level_cuda(params, cfg, x, d, delta, pixels, g_scale,
+                              False, "t", packed=packed)
+    ref = fl.level_train_plain(params, cfg, x, d, delta, pixels, g_scale,
+                               False, "t")
+    flat = lambda o: [*o[:3], *[t for wb in o[3] for t in wb]]  # noqa: E731
+    atol, rtol = BANDS["bfloat16"]
+    for k, (ta, tb, to, tr) in enumerate(zip(*map(flat, (a, b, one, ref)))):
+        assert torch.equal(ta, tb) and torch.equal(ta, to), k
+        assert bool(torch.isfinite(ta).all())
+        assert normalized_err(ta, tr, atol, rtol) < 1.0, k
+
+
+@pytest.mark.parametrize("input_grads", [True, False])
+@pytest.mark.parametrize("heads", [(3, 1), (8, 8)],
+                         ids=lambda h: f"{h[0]}_{h[1]}")
+def test_mlp_bwd_wg_matches_plain_on_cuda(heads, input_grads):
+    """``mlp_bwd``'s bf16 route (the wgmma forward, chain with dX, dW) at
+    Config() width, ragged R=77, heads 3/1 (their own instantiation) and
+    8/8 (any width): every dW/db, dX and dD against ``mlp_bwd_plain``,
+    bit-equal over two launches."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    cfg = Config(num_rgb_channels=heads[0], num_density_channels=heads[1])
+    R = 77
+    params = tmlp.init_mlp(torch.Generator().manual_seed(3), cfg, device=dev)
+    x, d, g_rgb, g_den = mlp_inputs(cfg, params, R, 5, dev)
+    packed = fm.pack_mlp_params(params, cfg, tmlp.compute_dtype(cfg))
+    assert len(packed) == 3
+    before = fm.mlp_bwd.launches
+    a, b = (fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, input_grads,
+                       packed=packed) for _ in range(2))
+    torch.cuda.synchronize()
+    assert fm.mlp_bwd.launches == before + 2
+    ref = fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, cfg.num_samples,
+                           input_grads)
+    flat = lambda o: [t for wb in o[0] for t in wb] + [  # noqa: E731
+        t for t in o[1:] if t is not None]
+    got, again, exp = flat(a), flat(b), flat(ref)
+    assert len(got) == len(exp) == 2 * len(params) + 2 * input_grads
+    atol, rtol = BANDS["bfloat16"]
+    for k, (ta, tb, tr) in enumerate(zip(got, again, exp)):
+        assert torch.equal(ta, tb), k
+        assert ta.shape == tr.shape and bool(torch.isfinite(ta).all())
+        assert normalized_err(ta.float(), tr.float(), atol, rtol) < 1.0, k
+
+
+def test_wg_backward_configs_raise_before_launch_on_cuda():
+    """On CUDA tensors too, configs the bf16 passes cannot take raise
+    ValueError before any launch: x rows wider than 256 columns for
+    ``mlp_bwd``'s dX, more biases than the chain's shared memory holds for
+    the two-pass kernel."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    cfg = Config(max_deg_point=44)
+    R, S = 2, cfg.num_samples
+    params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg, device=dev)
+    x = torch.zeros(R * S, cfg.location_features, dtype=torch.bfloat16,
+                    device=dev)
+    d = torch.zeros(R, 27, dtype=torch.bfloat16, device=dev)
+    g_rgb = torch.zeros(R * S, 3, device=dev)
+    g_den = torch.zeros(R * S, 1, device=dev)
+    before = (fm.mlp_bwd.launches, fl.train_level_twopass.launches)
+    with pytest.raises(ValueError, match="mlp_bwd kernel"):
+        fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den, True)
+    deep = Config(net_depth=100)
+    delta = torch.ones(R, S, device=dev)
+    pixels, g_scale = torch.zeros(R, 3, device=dev), torch.ones(R, 1, device=dev)
+    xd = torch.zeros(R * S, deep.location_features, dtype=torch.bfloat16,
+                     device=dev)
+    with pytest.raises(ValueError, match="g-chain"):
+        fl.train_level_twopass_cuda(params, deep, xd, d, delta, pixels,
+                                    g_scale, True)
+    assert (fm.mlp_bwd.launches, fl.train_level_twopass.launches) == before

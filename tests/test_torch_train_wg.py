@@ -310,20 +310,19 @@ def test_train_wg_rejected_config_raises_before_launch(kw, what):
     ("fl_variant=twopass", True, False)])
 def test_each_route_gets_its_own_packing(monkeypatch, probes, fuse_ipe,
                                          twopass):
-    """``pack_train`` (what ``train.py`` packs once per step) gives the
-    two-pass kernel ``pack_train_params`` and ``train_level`` its own
-    layout, and agrees with the kernel ``fused_level_train`` picks."""
+    """``pack_train`` (what ``train.py`` packs once per step) gives both
+    train kernels ``pack_train_level``'s layout (the two-pass kernel's
+    bf16 route runs ``train_level``'s passes), and the level launches the
+    kernel its route names."""
     cfg = Config(**dict(CONFIGS["narrow"], kernel_probes=probes,
                         fuse_ipe=fuse_ipe))
     assert ttrain.use_fused_level(cfg)
     params = params_of(cfg)
     assert fl.uses_twopass(cfg) == twopass
     packed = fl.pack_train(params, cfg, torch.bfloat16)
-    sizes = ((fl.packed_sizes(cfg)[0], fl.packed_t_size(cfg)) if twopass
-             else fl.train_weight_sizes(cfg, "wg"))
-    assert (packed[0].numel(), packed[2].numel()) == sizes
-    ref = (fl.pack_train_params if twopass else fl.pack_train_level)(
-        params, cfg, torch.bfloat16)
+    assert (packed[0].numel(), packed[2].numel()) == fl.train_weight_sizes(
+        cfg, "wg")
+    ref = fl.pack_train_level(params, cfg, torch.bfloat16)
     assert all(torch.equal(a, r) for a, r in zip(packed, ref))
     # the kernel the level takes on this config
     called = []
