@@ -86,6 +86,22 @@ Phases, each printing one JSON line:
            for 10 steps: the native C++ loader (built from
            native/ray_loader.cpp into nerf_or_nothing_tpu_torch/build/) must
            serve every batch.
+  graph    the multi-step as replays of one captured CUDA graph of the
+           train step (train.make_multi_step): 8 graph steps against 8
+           eager steps from one state on the same loader batches at
+           Config(), Multicam with fl_variant=twopass and the slice config,
+           params, moments, step and stats bit-equal, exact launch counts
+           (the capture's warm-up steps included), the graph's memory pool;
+           ``run train --steps-per-call=8`` for 40 steps (test renders at
+           20 and 40) with exact launch counts, its logged lines and final
+           checkpoint bit-equal to the train phase's --steps-per-call=1 run
+           and its last test render equal to a fresh render_fn's; train
+           rays/s of eager and graph steps in turns (eager, graph, graph,
+           eager; 16 steps a turn, host clock, SM clock and power draw
+           after each) at the three configs; ``run train --profile-dir``
+           (its trace holds the train passes of steps 11-20),
+           check_numerics on a NaN pixel (raises, state unchanged) and
+           utils.parity.level_parity_errors in bf16 and f32 on the card.
 The train phases share one 400x400 scene.
 Then the ``kernels`` line, the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises: non-zero exit and
@@ -104,7 +120,17 @@ import sys
 import tempfile
 import time
 
-BANDS = {"float32": (1e-6, 1e-3), "bfloat16": (2e-3, 3e-2)}
+from nerf_or_nothing_tpu_torch.kernels import counted, launch_counts
+from nerf_or_nothing_tpu_torch.utils.profiling import (
+    card_peaks,
+    full_grad_step_flops,
+    level_flops,
+    mlp_bwd_flops,
+    mlp_fwd_flops,
+    train_level_flops,
+)
+from nerf_or_nothing_tpu_torch.utils.parity import PARITY_BANDS as BANDS
+
 TPU_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:652"  # _render_kernel
 TPU_TRAIN_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:374"  # _level_kernel
 TPU_MLP_FWD = "nerf_or_nothing_tpu/kernels/fused_mlp.py:239"  # _fwd_kernel
@@ -123,24 +149,15 @@ MULTICAM_STEPS = 20
 MULTICAM_ARGS = ("--dataset-loader=multicam",
                  "--kernel-probes=fl_variant=twopass")
 LOADER_STEPS = 10  # the LLFF and bin-dump phases
+GRAPH_K = 8  # steps a multi-step call in the graph phase
+TURN_STEPS = 16  # steps a turn of the graph phase's rays/s
+GRAPH_CASES = (("Config()", ()), ("multicam_twopass", MULTICAM_ARGS),
+               ("slice", FULL_GRAD_ARGS))
+# Device kernels of train_level's bf16 passes that a trace must show
+TRAIN_WG_KERNELS = ("train_fwd_wg_kernel", "chain_wg_kernel", "dw_wg_kernel")
 TIMED_BATCHES = 13  # steps of the rays/s measurement, the first 3 warm-up
-# Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s,
-# f32 (non-tensor) FLOP/s, HBM bytes/s.
-PEAKS = {
-    "H100 PCIe": (756e12, 51e12, 2.0e12),
-    "H100": (989e12, 67e12, 3.35e12),  # SXM
-}
-
-
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def card_peaks(name: str):
-    for key, peaks in PEAKS.items():
-        if key in name:
-            return key, peaks
-    return "H100 (assumed SXM)", PEAKS["H100"]
 
 
 def nvidia_smi_line() -> str:
@@ -225,18 +242,6 @@ def level_inputs(cfg, R: int, mode: str, seed: int, device):
     return xs, d, delta
 
 
-def level_flops(cfg, R: int, S: int) -> int:
-    """FLOPs of one level's MLP products over R rays of S samples: every
-    layer once per sample, except the first view layer's direction rows,
-    which both the TPU kernel and this one multiply once per ray
-    (d @ W_bot, broadcast over the ray's samples)."""
-    from nerf_or_nothing_tpu_torch.models.mlp import layer_dims
-
-    per_sample = sum(i * o for i, o in layer_dims(cfg))
-    per_ray = cfg.direction_features * cfg.net_width_condition
-    return 2 * ((per_sample - per_ray) * R * S + per_ray * R)
-
-
 def bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
     """Least time for one launch: FLOPs of the MLP products over the peak
     of the compute type, bytes read and written over the memory rate."""
@@ -259,20 +264,6 @@ def bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
             flops, in_bytes + out_bytes)
 
 
-def train_level_flops(cfg, R: int, S: int) -> int:
-    """FLOPs one train level needs: the forward (``level_flops``), dW (the
-    same count again) and the g-chain, which is the forward without layer
-    0, the skip layers' x rows and the view layer's direction rows (there
-    is no dX or dD)."""
-    from nerf_or_nothing_tpu_torch.models.mlp import layer_dims
-
-    lx, W = cfg.location_features, cfg.net_width
-    n_skip = sum(1 for i in range(1, cfg.net_depth) if i % cfg.skip_layer == 0)
-    chain = (sum(i * o for i, o in layer_dims(cfg)) - lx * W * (1 + n_skip)
-             - cfg.direction_features * cfg.net_width_condition)
-    return 2 * level_flops(cfg, R, S) + 2 * chain * R * S
-
-
 def train_bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
     """Least time for one train level: its FLOPs over the compute type's
     peak, or the bytes it must move (inputs once, outputs once) over the
@@ -287,36 +278,6 @@ def train_bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
     t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
             flops, nbytes)
-
-
-def mlp_fwd_flops(cfg, R: int, S: int) -> int:
-    """FLOPs of one ``mlp_fwd`` launch: ``level_flops`` (the direction
-    rows once per ray)."""
-    return level_flops(cfg, R, S)
-
-
-def dx_flops(cfg, R: int, S: int) -> int:
-    """The chain into layer 0 and the skip layers' x rows (dX) and the
-    direction rows' product (dD), which only ``input_grads`` needs."""
-    n_x = 1 + sum(1 for i in range(1, cfg.net_depth) if i % cfg.skip_layer == 0)
-    return 2 * (cfg.location_features * cfg.net_width * n_x * R * S
-                + cfg.direction_features * cfg.net_width_condition * R)
-
-
-def mlp_bwd_flops(cfg, R: int, S: int, input_grads: bool) -> int:
-    """FLOPs of one ``mlp_bwd`` launch: the forward it recomputes, dW and
-    the g-chain (``train_level_flops``, which counts the forward once), and
-    with ``input_grads`` dX/dD."""
-    return (train_level_flops(cfg, R, S)
-            + (dx_flops(cfg, R, S) if input_grads else 0))
-
-
-def full_grad_step_flops(cfg, R: int, S: int) -> int:
-    """The work one train step at stop_level_grad=False needs: per level
-    the forward, the g-chain and dW (no recompute), and dX/dD for every
-    level but the first."""
-    return (cfg.num_levels * train_level_flops(cfg, R, S)
-            + (cfg.num_levels - 1) * dx_flops(cfg, R, S))
 
 
 def mlp_bound_ms(cfg, R: int, S: int, flops: int, in_bytes: int,
@@ -752,21 +713,8 @@ KERNELS = ("render_level", "train_level", "train_level_twopass", "mlp_fwd",
            "mlp_bwd")
 
 
-def _counted():
-    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
-    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
-
-    return {"render_level": fl.render_level, "train_level": fl.train_level,
-            "train_level_twopass": fl.train_level_twopass,
-            "mlp_fwd": fm.mlp_fwd, "mlp_bwd": fm.mlp_bwd}
-
-
-def launch_counts():
-    return {k: fn.launches for k, fn in _counted().items()}
-
-
 def reset_launch_counts():
-    for fn in _counted().values():
+    for fn in counted().values():
         fn.launches = 0
 
 
@@ -889,7 +837,7 @@ def train_path(peaks, device, data: str, steps: int, model_args=(),
     record = {"phase": phase, "config": "Config()", "flags": list(model_args),
               "steps": steps, "setup_s": setup_s, "train_s": train_s,
               "launches": launches, "expected_launches": expected,
-              "logged_losses": losses}
+              "logged_losses": losses, "checkpoint": latest}
     if eval_args is not None:
         ecfg = run.parse_flags([*args[:-1], *[
             a for a in eval_args if not a.startswith("--max-images=")]])
@@ -1184,6 +1132,290 @@ def bin_path(peaks, device, scene: str, work: str):
     return launches
 
 
+def loader_batches(scene: str, cfg, n: int):
+    """The first ``n`` train batches of the loader, as numpy arrays."""
+    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
+
+    with create_dataset("train", scene, cfg) as ds:
+        return [next(ds) for _ in range(n)]
+
+
+def state_pairs(a, b):
+    """(name, a's tensor, b's tensor) over params, mu and nu."""
+    return [(f"{tree}/{kind}{i}", x, y)
+            for tree in ("params", "mu", "nu")
+            for i, (wa, wb) in enumerate(zip(getattr(a, tree),
+                                              getattr(b, tree)))
+            for kind, x, y in (("w", wa[0], wb[0]), ("b", wa[1], wb[1]))]
+
+
+def graph_equal_case(name, model_args, scene, device):
+    """``GRAPH_K`` multi-step steps (one capture, ``GRAPH_K`` replays)
+    against ``GRAPH_K`` eager steps from the same initial state on the same
+    loader batches: params, mu, nu, step and the last stats must be
+    bit-equal, with exact launch counts on both sides (the multi-step's:
+    its warm-up steps and one count a replay)."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+
+    cfg = run.parse_flags([f"--data-dir={scene}", *model_args])
+    batches = loader_batches(scene, cfg, GRAPH_K)
+    eager = train_lib.init_train_state(cfg, device)
+    step_fn = train_lib.make_train_step(cfg)
+    reset_launch_counts()
+    for rays, pixels in batches:
+        eager, last = step_fn(eager, *train_lib.batch_to_device(
+            device, rays, pixels))
+    torch.cuda.synchronize()
+    check_launches(f"graph {name}: eager steps", launch_counts(),
+                   step_launches(cfg, GRAPH_K))
+    graph = train_lib.init_train_state(cfg, device)
+    multi = train_lib.make_multi_step(cfg)
+    reset_launch_counts()
+    graph, stats = multi(graph, batches)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check_launches(f"graph {name}: multi-step", launches, step_launches(
+        cfg, GRAPH_K + train_lib.WARMUP_STEPS))
+    captured = list(multi.captured.values())
+    pairs = state_pairs(graph, eager) + [
+        (f"stats/{k}", getattr(stats, k), getattr(last, k))
+        for k in ("loss", "losses", "weight_l2", "psnr", "psnrs",
+                  "grad_norm", "grad_abs_max", "grad_norm_clipped")]
+    unequal = [k for k, a, b in pairs if not torch.equal(a, b)]
+    errs, max_abs = check_pairs(name, pairs, "bfloat16")
+    res = {
+        "phase": "graph", "check": "graph_equals_eager", "case": name,
+        "flags": list(model_args), "steps": GRAPH_K,
+        "bit_equal": not unequal and graph.step == eager.step == GRAPH_K,
+        "unequal": unequal, "worst_normalized_err_bf16_band":
+        max(errs.values()), "max_abs_err": max_abs,
+        "captures": len(captured), "graphs": len(captured[0].graphs),
+        "pool_bytes": captured[0].pool_bytes,
+        "launches_captured": captured[0].launches, "launches": launches,
+        "loss": float(stats.loss),
+    }
+    emit(res)
+    if not res["bit_equal"]:
+        raise AssertionError(f"graph {name}: the graph steps differ from the "
+                             f"eager steps in {unequal}")
+    return res
+
+
+def graph_train_run(device, scene: str, reference: dict):
+    """``run train --steps-per-call=GRAPH_K`` for ``TRAIN_STEPS`` steps at
+    Config() (logs every 10, checkpoints every 20, test renders at 20 and
+    40): exact launch counts (one capture and its warm-up steps); the
+    logged lines and the final checkpoint bit-equal to the
+    ``--steps-per-call=1`` run of the train phase (``reference``); the test
+    render at the last step equal to a render of the checkpoint's params
+    through a fresh ``make_render_fn`` (the render function of the run
+    packed its weights at step 20, so a stale cache would show)."""
+    import csv
+
+    import numpy as np
+
+    from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
+    from nerf_or_nothing_tpu_torch.eval import make_render_fn
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_graph_")
+    args = [f"--data-dir={scene}", f"--checkpoint-dir={ckpt}",
+            f"--max-steps={TRAIN_STEPS}", "--print-every=10",
+            "--save-every=20", "--test-render-interval=20",
+            f"--steps-per-call={GRAPH_K}", f"--device={device.type}"]
+    cfg = run.parse_flags(args[:-1])
+    dims = test_dims(scene, cfg, 1)
+    expected = added(
+        step_launches(cfg, TRAIN_STEPS + train_lib.WARMUP_STEPS),
+        render_launches(cfg, dims * (TRAIN_STEPS // 20)))
+    renders = []
+    render_image = run.render_image
+
+    def grab(*a, **k):
+        out = render_image(*a, **k)
+        renders.append(out[0])
+        return out
+
+    run.render_image = grab
+    try:
+        train_s = run_main(f"graph: run train --steps-per-call={GRAPH_K}",
+                           ["train", *args], expected)
+    finally:
+        run.render_image = render_image
+
+    def rows(directory):
+        with open(os.path.join(directory, "train_stats.csv")) as f:
+            return [{k: v for k, v in r.items() if k != "rays_per_sec"}
+                    for r in csv.DictReader(f)]
+
+    ref_dir = os.path.dirname(reference["checkpoint"])
+    logs_equal = rows(ckpt) == rows(ref_dir)
+    latest = ckpt_lib.latest_checkpoint(ckpt)
+    with np.load(latest) as a, np.load(reference["checkpoint"]) as b:
+        differ = sorted(k for k in set(a.files) | set(b.files)
+                        if k not in a.files or k not in b.files
+                        or not np.array_equal(a[k], b[k]))
+    state = ckpt_lib.restore_checkpoint(latest, cfg, device=device)
+    with create_dataset("test", scene, cfg) as ds:
+        trays, _ = ds.image_rays(0)
+        (h, w), = dims
+    fresh, _, _ = render_image(make_render_fn(cfg), state.params, trays, h, w,
+                               cfg.render_chunk_size, device=device)
+    res = {
+        "phase": "graph", "check": "run_train_steps_per_call",
+        "steps": TRAIN_STEPS, "steps_per_call": GRAPH_K, "train_s": train_s,
+        "launches": expected, "logs_equal_steps_per_call_1": logs_equal,
+        "checkpoint_differs_in": differ, "test_renders": len(renders),
+        "render_equals_fresh": bool(np.array_equal(renders[-1], fresh)),
+        "renders_differ": not np.array_equal(renders[0], renders[-1]),
+    }
+    emit(res)
+    if not (logs_equal and not differ and res["render_equals_fresh"]
+            and res["renders_differ"] and len(renders) == 2):
+        raise AssertionError(f"graph: run train --steps-per-call={GRAPH_K} "
+                             f"differs from --steps-per-call=1: {res}")
+    return res
+
+
+def graph_turns(name, model_args, scene, device):
+    """Train rays/s of eager steps and graph steps in turns (eager, graph,
+    graph, eager), ``TURN_STEPS`` steps a turn on the loader's batches,
+    synchronised at the end of the turn, host clock; the SM clock and
+    power draw after each turn."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+
+    cfg = run.parse_flags([f"--data-dir={scene}", *model_args])
+    batches = loader_batches(scene, cfg, TURN_STEPS)
+    state = train_lib.init_train_state(cfg, device)
+    step_fn = train_lib.make_train_step(cfg)
+    multi = train_lib.make_multi_step(cfg)
+
+    def eager():
+        nonlocal state
+        for rays, pixels in batches:
+            state, stats = step_fn(state, *train_lib.batch_to_device(
+                device, rays, pixels))
+        return stats
+
+    def graph():
+        nonlocal state
+        for i in range(0, TURN_STEPS, GRAPH_K):
+            state, stats = multi(state, batches[i:i + GRAPH_K])
+        return stats
+
+    eager()
+    graph()  # captures
+    turns = []
+    for kind, fn in (("eager", eager), ("graph", graph), ("graph", graph),
+                     ("eager", eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        turns.append({"kind": kind, "s": sec,
+                      "rays_per_s": TURN_STEPS * cfg.batch_size / sec,
+                      "sm_clock_power": clock_power()})
+        if not math.isfinite(float(stats.loss)):
+            raise AssertionError(f"graph turns {name}: non-finite loss")
+    mean = {k: sum(t["rays_per_s"] for t in turns if t["kind"] == k) / 2
+            for k in ("eager", "graph")}
+    res = {"phase": "graph", "check": "rays_per_s_in_turns", "case": name,
+           "flags": list(model_args), "steps_a_turn": TURN_STEPS,
+           "steps_per_call": GRAPH_K, "turns": turns,
+           "eager_rays_per_s": mean["eager"],
+           "graph_rays_per_s": mean["graph"],
+           "graph_over_eager": mean["graph"] / mean["eager"]}
+    emit(res)
+    return res
+
+
+def graph_debug_checks(device, scene: str):
+    """``run train --profile-dir``: its trace holds the ten traced steps'
+    ``train_level`` passes (2 a step); ``--check-numerics`` on the card: a
+    NaN pixel raises FloatingPointError naming nan and leaves the state,
+    its step and its generator unchanged; ``utils.parity.
+    level_parity_errors`` on the card in bf16 and f32, each under 1."""
+    import numpy as np
+    import torch
+
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.utils import parity
+
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    args = [f"--data-dir={scene}", "--max-steps=20", "--print-every=10",
+            "--test-render-interval=0", f"--profile-dir={trace_dir}",
+            f"--device={device.type}"]
+    cfg = run.parse_flags(args[:-1])
+    profile_s = run_main("graph: run train --profile-dir", ["train", *args],
+                         step_launches(cfg, 20))
+    files = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    traced = {k: sum(k in n for n in kernels) for k in TRAIN_WG_KERNELS}
+
+    cfg = cfg.replace(check_numerics=True)
+    (rays, pixels), (bad_rays, bad) = loader_batches(scene, cfg, 2)
+    state = train_lib.init_train_state(cfg, device)
+    step_fn = train_lib.make_train_step(cfg)
+    state, _ = step_fn(state, *train_lib.batch_to_device(device, rays,
+                                                         pixels))
+    before = [t.clone() for t in train_lib.state_tensors(state)]
+    step, gen = state.step, state.generator.get_state()
+    bad = np.array(bad)
+    bad[7, 0] = np.nan
+    try:
+        step_fn(state, *train_lib.batch_to_device(device, bad_rays, bad))
+        message = None
+    except FloatingPointError as e:
+        message = str(e)
+    unchanged = (all(torch.equal(a, t) for a, t in
+                     zip(before, train_lib.state_tensors(state)))
+                 and state.step == step
+                 and torch.equal(state.generator.get_state(), gen))
+    parity_errs = {dt: parity.level_parity_errors(dt, device=device)
+                   for dt in ("bfloat16", "float32")}
+    res = {"phase": "graph", "check": "debug_flags", "profile_s": profile_s,
+           "trace_files": files, "traced_kernel_launches": traced,
+           "check_numerics_message": message,
+           "check_numerics_state_unchanged": unchanged,
+           "level_parity_worst": {dt: v[0] for dt, v in parity_errs.items()},
+           "level_parity_errors": {dt: v[1] for dt, v in parity_errs.items()}}
+    emit(res)
+    if traced != dict.fromkeys(TRAIN_WG_KERNELS, 2 * 10):
+        raise AssertionError(f"graph: the trace holds {traced} launches, "
+                             "expected 20 of each")
+    if message is None or "nan" not in message or not unchanged:
+        raise AssertionError(f"graph: check_numerics {message!r}, state "
+                             f"unchanged {unchanged}")
+    if not all(v[0] < 1.0 for v in parity_errs.values()):
+        raise AssertionError(f"graph: level parity {res['level_parity_worst']}")
+    return res
+
+
+def graph_phase(device, scene: str, reference: dict):
+    """The multi-step as CUDA-graph replays of one captured step: bit-equal
+    to eager steps on the three train routes, ``run train
+    --steps-per-call`` against ``--steps-per-call=1``, rays/s in turns,
+    and the debugging flags."""
+    out = {"equal": [graph_equal_case(n, a, scene, device)
+                     for n, a in GRAPH_CASES]}
+    out["run"] = graph_train_run(device, scene, reference)
+    out["turns"] = [graph_turns(n, a, scene, device) for n, a in GRAPH_CASES]
+    out["debug"] = graph_debug_checks(device, scene)
+    return out
+
+
 def ptxas_lines(log: str):
     """ptxas's register, spill and serialized-wgmma (C7511) lines of a
     build, each kernel's under its name."""
@@ -1305,8 +1537,8 @@ def main() -> int:
     t0 = time.perf_counter()
     write_scene(scene, n_train=4, n_test=1, size=400)
     scene_s = time.perf_counter() - t0
-    train_launches, _ = train_path(peaks, device, scene, TRAIN_STEPS,
-                                   setup_s=scene_s)
+    train_launches, train_record = train_path(peaks, device, scene,
+                                              TRAIN_STEPS, setup_s=scene_s)
 
     mlp_fwd_main = mlp_fwd_case("config_r16384_s128", base, 16384, peaks,
                                 device)
@@ -1359,7 +1591,9 @@ def main() -> int:
                eval_args=("--spherify=true",), path_frames=2,
                setup_s=time.perf_counter() - t0)
 
-    bin_launches = bin_path(peaks, device, scene, work)
+    bin_path(peaks, device, scene, work)
+
+    graph_phase(device, scene, train_record)
 
     def entry(name, case, n, replaces):
         return {

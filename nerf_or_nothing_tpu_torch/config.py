@@ -19,7 +19,14 @@ the hand-written kernels (the CPU runs each kernel's plain version):
   ``mlp_bwd`` with dX and dD);
 - ``fuse_ipe`` / ``fuse_ipe_render``: compute the IPE inside the train /
   render kernel (input mode ``"mv"``);
-- ``pair_ipe`` / ``xt_ipe``: TPU layout probes, not ported;
+- ``pair_ipe`` / ``xt_ipe``: the JAX package's transposed feature layouts
+  for its TPU kernel; the port computes the same features in the
+  interleaved layout and the kernels' mode ``"t"``;
+- ``steps_per_call``: K train steps a call; on the card each a replay of
+  one captured CUDA graph of the step (``train.make_multi_step``);
+- ``profile_dir``, ``check_numerics``, ``debug_nans``: a ``torch.profiler``
+  trace of steps 11-20, and a finite check of the loss and gradients
+  before the update (of single steps, or of every step);
 - ``mesh_shape``: training on more than one device is not ported, so
   ``run train`` raises for a mesh;
 - ``kernel_probes`` (comma-separated ``key=value`` entries, read by

@@ -40,7 +40,10 @@ def make_render_fn(cfg: Config, mlp_apply=None):
     On the card the forward kernels' packed weights (``pack_forward``: the
     render-level kernel's, the same for the fused-MLP forward kernel) are
     kept between calls with the same weight tensors, unchanged in place, so
-    the chunks of a view (and the views of a dataset) pack them once."""
+    the chunks of a view (and the views of a dataset) pack them once. The
+    key is each tensor's identity and ``_version``: an in-place update
+    bumps it, and so does the train multi-step after its CUDA-graph
+    replays (which do not)."""
     kernels = mlp_apply is None and cfg.use_pallas
     kept = {}  # "key": tensor ids and versions, "tensors", "packed"
 

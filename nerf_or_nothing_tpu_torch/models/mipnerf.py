@@ -64,14 +64,13 @@ def encode_samples(cfg: Config, means, covs, in_kernel: bool, dtype=None,
                    render: bool = False):
     """IPE features for the MLP. Returns (x_enc, means_covs), exactly one
     not None: with ``fuse_ipe`` (or ``fuse_ipe_render`` on the render path)
-    and a diagonal covariance the kernel encodes (means, covs) itself."""
+    and a diagonal covariance the kernel encodes (means, covs) itself.
+    ``xt_ipe`` and ``pair_ipe`` are the JAX package's transposed layouts of
+    these same features for its TPU kernel; here they take the
+    interleaved [R, S, F] encode and the kernels' mode "t"."""
     if (in_kernel and cfg.diag_covariance
             and (cfg.fuse_ipe or (render and cfg.fuse_ipe_render))):
         return None, (means, covs)
-    if in_kernel and (cfg.xt_ipe or cfg.pair_ipe):
-        raise NotImplementedError(
-            "xt_ipe / pair_ipe are TPU layout probes and are not ported"
-        )
     x_enc = ipe.integrated_pos_enc(
         (means, covs), cfg.min_deg_point, cfg.max_deg_point,
         diag=cfg.diag_covariance, dtype=dtype, fast=cfg.fast_ipe,

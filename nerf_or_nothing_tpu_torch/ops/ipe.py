@@ -8,6 +8,8 @@ t-values to S Gaussians.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from nerf_or_nothing_tpu_torch.config import RayShape
@@ -87,11 +89,18 @@ def cast_rays(t_vals, origins, directions, radii,
     return mean, cov
 
 
+@functools.lru_cache(maxsize=32)
+def _scales_on(min_deg: int, max_deg: int, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    return torch.tensor([2.0**i for i in range(min_deg, max_deg)],
+                        dtype=dtype, device=device)
+
+
 def _scales(min_deg: int, max_deg: int, like: torch.Tensor):
-    return torch.tensor(
-        [2.0**i for i in range(min_deg, max_deg)], dtype=like.dtype,
-        device=like.device,
-    )
+    """The frequencies 2^min_deg .. 2^(max_deg-1), made once per device: a
+    host-to-device copy cannot be captured in a CUDA graph, so the train
+    step's capture reads the tensor its warm-up made."""
+    return _scales_on(min_deg, max_deg, like.dtype, like.device)
 
 
 def integrated_pos_enc(means_covs, min_deg: int, max_deg: int,

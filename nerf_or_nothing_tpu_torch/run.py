@@ -8,10 +8,15 @@ Loaders: --dataset-loader=blender|llff|multicam|bin (bin: --data-dir is
 the dump file); --render-path renders the loader's novel-view path.
 Extra flags: --out=DIR, --max-images=N, --device=cuda|cpu (default cuda;
 without a card the run raises unless --device=cpu is given).
+Train: --steps-per-call=K runs K steps a call (on the card, replays of one
+captured CUDA graph of the step); --profile-dir=DIR writes a torch.profiler
+trace of steps 11-20; --check-numerics / --debug-nans raise on a nan or an
+inf in the loss or the gradients before the update is applied.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -34,17 +39,18 @@ from nerf_or_nothing_tpu_torch.eval import (
 )
 from nerf_or_nothing_tpu_torch.metrics import MetricsLogger
 from nerf_or_nothing_tpu_torch.models.mlp import Params, init_mlp
-from nerf_or_nothing_tpu_torch.rays import Rays
 from nerf_or_nothing_tpu_torch.train import (
     TrainState,
+    batch_to_device,
     init_train_state,
     make_multi_step,
     make_train_step,
 )
+from nerf_or_nothing_tpu_torch.utils import profiling
 
 MULTI_DEVICE_ROADMAP = (
     "training on more than one device (mesh_shape, the per-level gradient "
-    "all-reduce) is not ported yet: ROADMAP queue A item 5"
+    "all-reduce) is not ported yet: ROADMAP queue A item 3"
 )
 
 
@@ -79,29 +85,21 @@ def _check_train_config(cfg: Config, device: torch.device) -> None:
             device.type == "cuda" and device.index is None
             and torch.cuda.device_count() > 1):
         raise NotImplementedError(MULTI_DEVICE_ROADMAP)
-    if cfg.check_numerics or cfg.debug_nans:
-        raise NotImplementedError(
-            "check_numerics / debug_nans are not ported yet (ROADMAP queue A, "
-            "the train slice's deferred items)")
-    if cfg.profile_dir:
-        raise NotImplementedError(
-            "profile_dir is not ported yet (ROADMAP queue A item 6, "
-            "utils/profiling.py)")
-
-
-def _to_device(device, rays, pixels):
-    return (Rays(*[torch.as_tensor(np.asarray(x)).to(device) for x in rays]),
-            torch.as_tensor(np.asarray(pixels)).to(device))
 
 
 def train(cfg: Config, log_dir: Optional[str] = None,
           device="cuda") -> TrainState:
     """The training loop of ``nerf_or_nothing_tpu.run.train`` on one
-    device: multi-step chunks cut at every side-effect step, logging every
-    ``print_every``, checkpoints every ``save_every`` and at the end,
+    device: multi-step chunks cut at every side-effect step (with
+    ``steps_per_call`` > 1 and no ``profile_dir``; on the card each step a
+    replay of one captured CUDA graph, ``train.make_multi_step``), logging
+    every ``print_every``, checkpoints every ``save_every`` and at the end,
     resume from the newest checkpoint, a held-out render of test view 0
     every ``test_render_interval`` (switched off with a message when the
-    data has no test split) and ``gc_every``."""
+    data has no test split) and ``gc_every``. ``profile_dir``: a
+    ``torch.profiler`` trace of steps start+11 to start+20 written there.
+    ``check_numerics`` checks the single steps, ``debug_nans`` every step
+    (``train.make_train_step``)."""
     device = resolve_device(device)
     _check_train_config(cfg, device)
     dataset = create_dataset("train", cfg.data_dir, cfg)
@@ -112,22 +110,30 @@ def train(cfg: Config, log_dir: Optional[str] = None,
         if state.step:
             print(f"resumed from step {state.step}", flush=True)
     step_fn = make_train_step(cfg)
-    spc = max(1, cfg.steps_per_call)
+    spc = cfg.steps_per_call if (cfg.steps_per_call > 1
+                                 and not cfg.profile_dir) else 1
     multi_fn = make_multi_step(cfg) if spc > 1 else None
     logger = MetricsLogger(log_dir, batch_size=cfg.batch_size)
     test_ds = None
     render_fn = None
-    step = state.step
+    start_step = step = state.step
+    tracing = contextlib.ExitStack()
     try:
         while step < cfg.max_steps:
             k = _chunk_len(step, cfg, spc)
-            if k > 1:
-                batches = [_to_device(device, *next(dataset))
-                           for _ in range(k)]
+            if multi_fn is not None and (k > 1 or not cfg.check_numerics):
+                # As in the JAX package a chunk of one step is the single
+                # step when check_numerics is to check it.
+                batches = [next(dataset) for _ in range(k)]
                 state, stats = multi_fn(state, batches)
             else:
-                state, stats = step_fn(state,
-                                       *_to_device(device, *next(dataset)))
+                if cfg.profile_dir and step + 1 == start_step + 11:
+                    tracing.enter_context(profiling.trace(cfg.profile_dir))
+                state, stats = step_fn(
+                    state, *batch_to_device(device, *next(dataset)))
+                if cfg.profile_dir and state.step == start_step + 20:
+                    tracing.close()
+                    print(f"trace written to {cfg.profile_dir}", flush=True)
             step = state.step
             if step % cfg.print_every == 0:
                 logger.log(step, stats)
@@ -160,10 +166,13 @@ def train(cfg: Config, log_dir: Optional[str] = None,
                           flush=True)
             if cfg.gc_every > 0 and step % cfg.gc_every == 0:
                 gc.collect()
+        # A run too short to reach the trace's last step stops it here.
+        tracing.close()
         if cfg.checkpoint_dir:
             ckpt_lib.save_checkpoint(cfg.checkpoint_dir, state, cfg)
         logger.close()
     finally:
+        tracing.close()
         dataset.close()
         if test_ds is not None:
             test_ds.close()

@@ -8,6 +8,13 @@ with the model flags given.
     python3 profile_train.py --fuse-level=false --stop-level-grad=false
     python3 profile_train.py --dataset-loader=multicam \
         --kernel-probes=fl_variant=twopass
+    python3 profile_train.py --steps-per-call=8
+
+With ``--steps-per-call=K`` (K > 1) the same is measured for K steps a
+call through ``train.make_multi_step``, each step a replay of one
+captured CUDA graph, beside K eager steps with one synchronisation at the
+end (the ``graph`` and ``eager_unsynced`` entries): wall time a step,
+device busy time a step and the device idle share.
 
 Prints one JSON line: the steps' wall time (host clock, each step
 synchronised; also without the profiler), the device time summed over all
@@ -98,6 +105,40 @@ def main(argv) -> int:
             torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    multi_fn = train_lib.make_multi_step(cfg)
+
+    def eager_chunk(host_batches):
+        nonlocal state
+        for rays, pixels in host_batches:
+            state, _ = step_fn(state, *train_lib.batch_to_device(
+                device, rays, pixels))
+
+    def graph_chunk(host_batches):
+        nonlocal state
+        state, _ = multi_fn(state, host_batches)
+
+    def chunk_profile(run_chunk, k):
+        """Chunk 0 warms up (the graph: its capture), chunk 1 is timed
+        alone, chunk 2 under the profiler."""
+        run_chunk(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_chunk(1)
+        torch.cuda.synchronize()
+        plain = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as chunk_prof:
+            t0 = time.perf_counter()
+            run_chunk(2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(device_us(ev) for ev in chunk_prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and not ev.key.startswith("aten::")) / 1e6
+        return {"step_wall_s_unprofiled": plain / k, "step_wall_s": wall / k,
+                "device_busy_s_per_step": busy / k,
+                "device_idle_share": 1.0 - busy / wall}
+
     steps(batches[:3])  # warm-up: builds the kernels, allocator, handles
     plain_wall = steps(batches[3:6])
     n = 4
@@ -135,6 +176,17 @@ def main(argv) -> int:
     per_call = {w: sum(by_kernel[k] for k in KERNELS[w]) / calls[w] * 1e3
                 for w in wrappers}
 
+    multi = None
+    if cfg.steps_per_call > 1:
+        k = cfg.steps_per_call
+        with create_dataset("train", scene, cfg) as ds:
+            host = [next(ds) for _ in range(3 * k)]
+        multi = {"steps_per_call": k,
+                 "eager_unsynced": chunk_profile(
+                     lambda i: eager_chunk(host[i * k:(i + 1) * k]), k),
+                 "graph": chunk_profile(
+                     lambda i: graph_chunk(host[i * k:(i + 1) * k]), k)}
+
     # Parts timed alone with CUDA events.
     dt = compute_dtype(cfg)
     alone = {}
@@ -150,9 +202,13 @@ def main(argv) -> int:
     nu = [(torch.zeros_like(w), torch.zeros_like(b)) for w, b in state.params]
     params = [(w.clone(), b.clone()) for w, b in state.params]
 
+    _, host = train_lib.adam_scalars(cfg, 10)
+    scalars = torch.from_numpy(host).to(device)
+
     def adam():
         g, *_ = train_lib.clip_grads(grads, cfg)
-        train_lib.adam_update(params, g, mu, nu, 1e-4, 10, cfg)
+        train_lib.adam_update(params, g, mu, nu, scalars[0], scalars[1],
+                              scalars[2], cfg)
 
     alone["clip_and_adam"] = median_ms(adam)
     R = cfg.batch_size
@@ -195,6 +251,7 @@ def main(argv) -> int:
         "alone_ms": alone,
         "top": [{"name": nm[:80], "device_ms": us / 1e3 / n, "count": c}
                 for nm, us, c in rows[:15]],
+        "multi_step": multi,
         "card": nvidia_smi_line(),
     }), flush=True)
     return 0

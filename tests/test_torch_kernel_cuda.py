@@ -706,3 +706,175 @@ def test_wg_backward_configs_raise_before_launch_on_cuda():
         fl.train_level_twopass_cuda(params, deep, xd, d, delta, pixels,
                                     g_scale, True)
     assert (fm.mlp_bwd.launches, fl.train_level_twopass.launches) == before
+
+
+def host_batches(n_batches, R, seed):
+    """Seeded numpy ray batches (non-uniform loss_mult) and pixels."""
+    from nerf_or_nothing_tpu_torch.rays import Rays
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        o = (rng.normal(size=(R, 3)) * 0.3).astype(np.float32)
+        dirs = rng.normal(size=(R, 3)).astype(np.float32)
+        rays = Rays(
+            origins=o, directions=dirs,
+            viewdirs=dirs / np.linalg.norm(dirs, axis=-1, keepdims=True),
+            radii=np.full((R, 1), 1e-3, np.float32),
+            near=np.full((R, 1), 2.0, np.float32),
+            far=np.full((R, 1), 6.0, np.float32),
+            loss_mult=rng.uniform(0.5, 2.0, (R, 1)).astype(np.float32),
+        )
+        out.append((rays, rng.uniform(size=(R, 3)).astype(np.float32)))
+    return out
+
+
+GRAPH_ROUTES = {
+    "train_level": {},
+    "train_level_twopass": {"kernel_probes": "fl_variant=twopass"},
+    "mlp_fwd_bwd": {"fuse_level": False, "stop_level_grad": False},
+}
+
+
+@pytest.mark.parametrize("route", list(GRAPH_ROUTES))
+def test_graph_steps_equal_eager_steps_on_cuda(route):
+    """Six multi-step steps (two calls of three: one capture, six replays)
+    against six eager steps from the same state on the same batches, at a
+    narrow bf16 config with randomized sampling: params, moments, step and
+    the last stats bit-equal, and the route's kernels counted once a
+    level a step (the warm-up's steps included)."""
+    from nerf_or_nothing_tpu_torch import train as ttrain
+    from nerf_or_nothing_tpu_torch.kernels import launch_counts
+
+    dev = cuda_device()
+    cfg = tiny_config(**dict(SMALL, num_levels=2, batch_size=48,
+                             compute_dtype="bfloat16", randomized=True,
+                             lr_delay_steps=0, **GRAPH_ROUTES[route]))
+    batches = host_batches(6, 48, 11)
+    eager = ttrain.init_train_state(cfg, dev)
+    step_fn = ttrain.make_train_step(cfg)
+    for rays, pixels in batches:
+        eager, last = step_fn(eager, *ttrain.batch_to_device(dev, rays,
+                                                              pixels))
+    graph = ttrain.init_train_state(cfg, dev)
+    multi = ttrain.make_multi_step(cfg)
+    before = launch_counts()
+    graph, _ = multi(graph, batches[:3])
+    graph, stats = multi(graph, batches[3:])
+    grown = {k: v - before[k] for k, v in launch_counts().items()}
+    assert len(multi.captured) == 1
+    steps = 6 + ttrain.WARMUP_STEPS
+    kernels = ("mlp_fwd", "mlp_bwd") if route == "mlp_fwd_bwd" else (route,)
+    assert grown == {k: 2 * steps if k in kernels else 0 for k in grown}
+    assert graph.step == eager.step == 6
+    for name in ("loss", "losses", "weight_l2", "psnr", "grad_norm",
+                 "grad_abs_max", "grad_norm_clipped"):
+        assert torch.equal(getattr(stats, name), getattr(last, name)), name
+    for tree_a, tree_b in ((graph.params, eager.params),
+                           (graph.mu, eager.mu), (graph.nu, eager.nu)):
+        for (wa, ba), (wb, bb) in zip(tree_a, tree_b):
+            assert torch.equal(wa, wb) and torch.equal(ba, bb)
+
+
+def test_graph_recaptures_for_a_new_shape_or_state_on_cuda():
+    """A new batch size captures a second graph; a state whose tensors and
+    generator are not the captured ones (a restore) replaces both graphs
+    by a new capture, whose steps equal eager steps on a copy of it."""
+    from nerf_or_nothing_tpu_torch import train as ttrain
+
+    dev = cuda_device()
+    cfg = tiny_config(**dict(SMALL, num_levels=2, batch_size=48,
+                             compute_dtype="bfloat16", randomized=True,
+                             lr_delay_steps=0))
+    multi = ttrain.make_multi_step(cfg)
+    state = ttrain.init_train_state(cfg, dev)
+    state, _ = multi(state, host_batches(2, 48, 14))
+    first = multi.captured[(48, (3, 3, 3, 1, 1, 1, 1, 3))]
+    state, _ = multi(state, host_batches(2, 32, 15))
+    assert len(multi.captured) == 2
+
+    def copy():
+        return ttrain.TrainState(
+            state.step, *[[(w.clone(), b.clone()) for w, b in tree]
+                          for tree in (state.params, state.mu, state.nu)],
+            torch.Generator(device=dev))
+
+    restored, eager = copy(), copy()
+    batches = host_batches(3, 48, 16)
+    restored, stats = multi(restored, batches)
+    assert len(multi.captured) == 1
+    assert next(iter(multi.captured.values())) is not first
+    step_fn = ttrain.make_train_step(cfg)
+    for rays, pixels in batches:
+        eager, last = step_fn(eager, *ttrain.batch_to_device(dev, rays,
+                                                              pixels))
+    assert restored.step == eager.step == state.step + 3
+    assert torch.equal(stats.loss, last.loss)
+    for a, b in zip(ttrain.state_tensors(restored),
+                    ttrain.state_tensors(eager)):
+        assert torch.equal(a, b)
+
+
+def test_render_after_graph_replays_sees_new_params_on_cuda():
+    """``make_render_fn``'s packed-weight cache, keyed on ``_version``,
+    repacks after graph replays (which the multi-step makes visible by
+    bumping every version): the same render function then renders what a
+    fresh one renders, not the weights it packed before."""
+    from nerf_or_nothing_tpu_torch import train as ttrain
+    from nerf_or_nothing_tpu_torch.eval import make_render_fn
+    from nerf_or_nothing_tpu_torch.rays import Rays
+
+    dev = cuda_device()
+    cfg = tiny_config(**dict(SMALL, num_levels=2, batch_size=48,
+                             compute_dtype="bfloat16", lr_delay_steps=0,
+                             lr_init=1e-2, lr_final=1e-2))
+    batches = host_batches(4, 48, 12)
+    state = ttrain.init_train_state(cfg, dev)
+    render_fn = make_render_fn(cfg)
+    rays = Rays(*[torch.from_numpy(x).to(dev) for x in batches[0][0]])
+    first = render_fn(state.params, rays)[0].clone()
+    key = [(id(t), t._version) for wb in state.params for t in wb]
+    state, _ = ttrain.make_multi_step(cfg)(state, batches)
+    assert all(k[1] < t._version for k, t in
+               zip(key, [t for wb in state.params for t in wb]))
+    again = render_fn(state.params, rays)[0]
+    fresh = make_render_fn(cfg)(state.params, rays)[0]
+    assert torch.equal(again, fresh)
+    assert not torch.equal(again, first)
+
+
+def test_graph_debug_nans_raises_and_keeps_state_on_cuda():
+    """With ``debug_nans`` the captured step is two graphs with the finite
+    check between them: a NaN pixel in the second batch raises after the
+    first step was applied, and the state stays as that step left it."""
+    from nerf_or_nothing_tpu_torch import train as ttrain
+
+    dev = cuda_device()
+    cfg = tiny_config(**dict(SMALL, num_levels=2, batch_size=48,
+                             compute_dtype="bfloat16", randomized=True,
+                             lr_delay_steps=0, debug_nans=True))
+    batches = host_batches(3, 48, 13)
+    batches[1][1][5, 2] = np.nan
+    ref = ttrain.init_train_state(cfg, dev)
+    ref, _ = ttrain.make_train_step(cfg)(
+        ref, *ttrain.batch_to_device(dev, *batches[0]))
+    state = ttrain.init_train_state(cfg, dev)
+    with pytest.raises(FloatingPointError, match="nan"):
+        ttrain.make_multi_step(cfg)(state, batches)
+    assert state.step == ref.step == 1
+    for tree_a, tree_b in ((state.params, ref.params), (state.mu, ref.mu),
+                           (state.nu, ref.nu)):
+        for (wa, ba), (wb, bb) in zip(tree_a, tree_b):
+            assert torch.equal(wa, wb) and torch.equal(ba, bb)
+    assert torch.equal(state.generator.get_state(), ref.generator.get_state())
+
+
+def test_level_parity_errors_on_cuda():
+    """``utils.parity.level_parity_errors``: the train kernel against the
+    autograd oracle, bf16 and f32, within each band."""
+    from nerf_or_nothing_tpu_torch.utils import parity
+
+    cuda_device()
+    for dtype in ("bfloat16", "float32"):
+        worst, errs = parity.level_parity_errors(dtype, device="cuda")
+        assert worst < 1.0, (dtype, errs)

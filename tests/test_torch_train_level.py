@@ -227,7 +227,10 @@ def test_adam_update_matches_jax():
     for step in (1, 2, 3):
         g = random_tree(cfg, 10 + step, 0.1)
         lr = 5e-4 / step
-        ttrain.adam_update(tp, to_t(g), tm, tv, lr, step, cfg)
+        _, host = ttrain.adam_scalars(cfg, step)
+        host[0] = lr
+        s = torch.from_numpy(host)
+        ttrain.adam_update(tp, to_t(g), tm, tv, s[0], s[1], s[2], cfg)
         jp, jm, jv = jtrain.adam_update(jp, [(J(w), J(b)) for w, b in g], jm,
                                         jv, jnp.float32(lr),
                                         jnp.asarray(step, jnp.int32), jcfg)

@@ -303,9 +303,189 @@ def test_run_train_needs_a_card_unless_cpu_is_asked(scene, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         trun.main(["train", *flags])
     for extra, match in (("--mesh-shape=2", "more than one device"),
-                         ("--mesh-shape=1", "more than one device"),
-                         ("--check-numerics=true", "check_numerics"),
-                         ("--debug-nans=true", "debug_nans"),
-                         (f"--profile-dir={tmp_path}", "profile_dir")):
+                         ("--mesh-shape=1", "more than one device")):
         with pytest.raises(NotImplementedError, match=match):
             trun.main(["train", *flags, extra, "--device=cpu"])
+
+
+def host_adam_update(params, grads, mu, nu, lr: float, step: int, cfg):
+    """The Adam update as it was before the step's scalars moved to the
+    device: lr, c1 and c2 as host floats."""
+    b1, b2, eps = cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps
+    t = np.float32(step)
+    c1 = float(np.float32(1.0) / (np.float32(1.0) - np.float32(b1) ** t))
+    c2 = float(np.float32(1.0) / (np.float32(1.0) - np.float32(b2) ** t))
+    leaves = lambda tree: [x for wb in tree for x in wb]  # noqa: E731
+    p, g, m, v = leaves(params), leaves(grads), leaves(mu), leaves(nu)
+    torch._foreach_mul_(m, b1)
+    torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - b1))
+    torch._foreach_mul_(v, b2)
+    torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, 1.0 - b2),
+                                              g))
+    denom = torch._foreach_mul(v, c2)
+    torch._foreach_add_(denom, eps)
+    torch._foreach_rsqrt_(denom)
+    upd = torch._foreach_mul(m, c1)
+    torch._foreach_mul_(upd, float(lr))
+    torch._foreach_mul_(upd, denom)
+    torch._foreach_sub_(p, upd)
+
+
+@pytest.mark.parametrize("lr_delay_steps", [0, 2500])
+def test_tensor_scalar_adam_equals_host_scalar_adam(lr_delay_steps):
+    """``adam_update`` reading [lr, c1, c2] from a tensor (what a CUDA
+    graph of the step replays) gives the bits of the host-scalar update,
+    over five steps of the schedule."""
+    tc = tiny_config(**dict(TINY, lr_delay_steps=lr_delay_steps,
+                            lr_final=5e-5, max_steps=50))
+    rng = np.random.default_rng(0)
+    trees = [[(torch.from_numpy(rng.normal(size=(i, o)).astype(np.float32)
+                                * scale),
+               torch.from_numpy(rng.normal(size=(o,)).astype(np.float32)
+                                * scale))
+              for i, o in tmlp.layer_dims(tc)] for scale in (1.0, 0.0, 0.0)]
+    for t in trees[2]:  # nu >= 0
+        t[0].abs_(), t[1].abs_()
+    a = [[(w.clone(), b.clone()) for w, b in tree] for tree in trees]
+    b = [[(w.clone(), b.clone()) for w, b in tree] for tree in trees]
+    for step in range(1, 6):
+        g = [(torch.from_numpy(rng.normal(size=tuple(w.shape))
+                               .astype(np.float32) * 0.1),
+              torch.from_numpy(rng.normal(size=tuple(bb.shape))
+                               .astype(np.float32) * 0.1))
+             for w, bb in trees[0]]
+        lr, host = ttrain.adam_scalars(tc, step)
+        s = torch.from_numpy(host)
+        ttrain.adam_update(a[0], g, a[1], a[2], s[0], s[1], s[2], tc)
+        host_adam_update(b[0], g, b[1], b[2], float(lr), step, tc)
+        for ta, tb in zip(a, b):
+            for (wa, ba), (wb, bb) in zip(ta, tb):
+                assert torch.equal(wa, wb) and torch.equal(ba, bb), step
+
+
+def nan_batch(R, seed):
+    rays, pixels = make_batch(R, seed)
+    pixels = pixels.copy()
+    pixels[3, 1] = np.nan
+    return Rays(*map(torch.from_numpy, rays)), torch.from_numpy(pixels)
+
+
+def snapshot(state):
+    return ([t.clone() for t in ttrain.state_tensors(state)], state.step,
+            state.generator.get_state())
+
+
+def assert_unchanged(state, snap):
+    tensors, step, gen = snap
+    now = ttrain.state_tensors(state)
+    assert len(now) == len(tensors)
+    assert all(torch.equal(a, b) for a, b in zip(tensors, now))
+    assert state.step == step
+    assert torch.equal(state.generator.get_state(), gen)
+
+
+@pytest.mark.parametrize("branch", ["fused_level", "autograd"])
+@pytest.mark.parametrize("flag", ["check_numerics", "debug_nans"])
+def test_check_numerics_raises_on_nan_and_keeps_state(flag, branch):
+    """A NaN pixel raises FloatingPointError naming nan (JAX's checkify of
+    the step, ``tests/test_model_train.py::test_check_numerics_traps_nan``)
+    after one clean step, and the state, its step and its generator stay
+    as the clean step left them; a clean batch then trains on."""
+    kw = dict(TINY, randomized=True, **{flag: True})
+    if branch == "autograd":
+        kw["stop_level_grad"] = False
+    tc = tiny_config(**kw)
+    state = ttrain.init_train_state(tc)
+    step = ttrain.make_train_step(tc)
+    rays, pixels = make_batch(16, 0)
+    state, _ = step(state, Rays(*map(torch.from_numpy, rays)),
+                    torch.from_numpy(pixels))
+    snap = snapshot(state)
+    with pytest.raises(FloatingPointError, match="nan"):
+        step(state, *nan_batch(16, 1))
+    assert_unchanged(state, snap)
+    state, stats = step(state, Rays(*map(torch.from_numpy, rays)),
+                        torch.from_numpy(pixels))
+    assert state.step == 2 and np.isfinite(float(stats.loss))
+
+
+@pytest.mark.parametrize("flag", ["check_numerics", "debug_nans"])
+def test_multi_step_checks_only_with_debug_nans(flag):
+    """As in the JAX package, ``check_numerics`` leaves the multi-step
+    unchecked and ``debug_nans`` checks each of its steps: the NaN batch
+    (second of three) raises with the first step applied."""
+    tc = tiny_config(**dict(TINY, **{flag: True}))
+    state = ttrain.init_train_state(tc)
+    batches = [(Rays(*map(torch.from_numpy, make_batch(16, 0)[0])),
+                torch.from_numpy(make_batch(16, 0)[1])),
+               nan_batch(16, 1),
+               (Rays(*map(torch.from_numpy, make_batch(16, 2)[0])),
+                torch.from_numpy(make_batch(16, 2)[1]))]
+    multi = ttrain.make_multi_step(tc)
+    if flag == "check_numerics":
+        state, stats = multi(state, batches)
+        assert state.step == 3 and not np.isfinite(float(stats.loss))
+        return
+    ref = ttrain.init_train_state(tc)
+    ref, _ = ttrain.make_train_step(tc)(ref, *batches[0])
+    snap = snapshot(ref)
+    with pytest.raises(FloatingPointError, match="nan"):
+        multi(state, batches)
+    assert_unchanged(state, snap)
+
+
+def test_multi_step_takes_host_batches():
+    """The multi-step takes the loader's numpy batches as they come: the
+    same states and stats as single steps on tensors."""
+    tc = tiny_config(**TINY)
+    a = ttrain.init_train_state(tc)
+    b = ttrain.init_train_state(tc)
+    batches = [make_batch(16, k) for k in range(3)]
+    step = ttrain.make_train_step(tc)
+    for rays, pixels in batches:
+        a, last = step(a, Rays(*map(torch.from_numpy, rays)),
+                       torch.from_numpy(pixels))
+    b, stats = ttrain.make_multi_step(tc)(b, batches)
+    assert a.step == b.step == 3
+    for name in ("loss", "losses", "psnr", "grad_norm"):
+        assert torch.equal(getattr(stats, name), getattr(last, name)), name
+    for tree_a, tree_b in ((a.params, b.params), (a.mu, b.mu), (a.nu, b.nu)):
+        for (wa, ba), (wb, bb) in zip(tree_a, tree_b):
+            assert torch.equal(wa, wb) and torch.equal(ba, bb)
+
+
+def test_run_train_profile_dir_writes_a_trace(scene, tmp_path, capsys):
+    """``--profile-dir`` traces steps 11-20 with torch.profiler (JAX
+    ``tests/test_run_cli.py``'s profile test): a 14-step run stops the
+    trace at its end and writes one Chrome trace holding the steps' ops."""
+    import json
+
+    prof = str(tmp_path / "trace")
+    flags = [f"--data-dir={scene}", *FLAGS, "--max-steps=14",
+             "--print-every=100", "--test-render-interval=0",
+             f"--profile-dir={prof}", "--steps-per-call=4", "--device=cpu"]
+    assert trun.main(["train", *flags]) == 0
+    files = os.listdir(prof)
+    assert len(files) == 1 and files[0].endswith(".json"), files
+    with open(os.path.join(prof, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    assert "trace written to" not in capsys.readouterr().out
+
+
+def test_run_train_check_numerics_flags_run_on_cpu(scene, tmp_path):
+    """``--check-numerics`` and ``--debug-nans`` train on clean data as
+    without them, to the same checkpoint."""
+    out = {}
+    for name, extra in (("plain", []), ("checked", [
+            "--check-numerics=true", "--debug-nans=true"])):
+        ckpt = str(tmp_path / name)
+        flags = [f"--data-dir={scene}", *FLAGS, "--max-steps=3",
+                 f"--checkpoint-dir={ckpt}", "--test-render-interval=0",
+                 "--device=cpu", *extra]
+        assert trun.main(["train", *flags]) == 0
+        cfg = trun.parse_flags([f for f in flags if f != "--device=cpu"])
+        out[name] = tckpt.restore_checkpoint(tckpt.latest_checkpoint(ckpt),
+                                             cfg)
+    for (w, b), (cw, cb) in zip(out["plain"].params, out["checked"].params):
+        assert torch.equal(w, cw) and torch.equal(b, cb)
