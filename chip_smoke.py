@@ -102,8 +102,26 @@ Phases, each printing one JSON line:
            (its trace holds the train passes of steps 11-20),
            check_numerics on a NaN pixel (raises, state unchanged) and
            utils.parity.level_parity_errors in bf16 and f32 on the card.
+  mesh     data parallelism (parallel/mesh.py) in child processes, after
+           the kernels are built: (1) one rank on NCCL (world size 1): the
+           sharded step at Config() bit-equal to make_train_step over 8
+           loader batches (params, mu, nu, step, stats; 2 train_level
+           launches a step), the sharded multi-step (8 replays of one
+           captured graph, its all-reduces inside) bit-equal to 8 eager
+           sharded steps, train rays/s of unsharded and sharded eager and
+           graph steps in turns (host clock, SM clock and power draw after
+           each), and one 2.19 MB all-reduce by CUDA events; (2) two ranks
+           on the one card over gloo (NCCL takes one rank a card): 4 eager
+           sharded steps of 512 rays each on 1024-ray loader batches at
+           Config(), the slice config and Multicam with the two-pass probe
+           (randomized=false), exact launch counts on each rank, params
+           bit-equal across the ranks and within the bf16 band of the
+           single-process steps on the whole batches; render_image of the
+           400x400 test view over the two ranks against one process.
 The train phases share one 400x400 scene.
-Then the ``kernels`` line, the card's name and power limit, and as the last
+Then the ``kernels`` line (each kernel's launches: its path's, plus the
+mesh phase's in the world-1 child's sharded steps and rank 0 of the
+pair), the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises: non-zero exit and
 no ``ok`` line. Without a CUDA device the script exits 1 at once.
 """
@@ -156,6 +174,11 @@ GRAPH_CASES = (("Config()", ()), ("multicam_twopass", MULTICAM_ARGS),
 # Device kernels of train_level's bf16 passes that a trace must show
 TRAIN_WG_KERNELS = ("train_fwd_wg_kernel", "chain_wg_kernel", "dw_wg_kernel")
 TIMED_BATCHES = 13  # steps of the rays/s measurement, the first 3 warm-up
+MESH_STEPS = 4  # eager sharded steps of each case of the gloo pair
+MESH_CASES = (("Config()", ()), ("slice", FULL_GRAD_ARGS),
+              ("multicam_twopass", MULTICAM_ARGS))
+MESH_WAIT_S = 300  # each child of the mesh phase must end within this
+ALLREDUCE_REPS = 20
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -1416,6 +1439,323 @@ def graph_phase(device, scene: str, reference: dict):
     return out
 
 
+def run_child(what: str, *args):
+    """Start ``mesh_child(*args)`` in a new process (this file imported, no
+    JAX); ``wait_children`` reads the JSON it writes to its last
+    argument."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.mesh_child(*sys.argv[1:]))", *args],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, what, args[-1]
+
+
+def wait_children(children) -> list:
+    """Each started child's result; one that fails or outlives
+    ``MESH_WAIT_S`` raises, and the others are killed."""
+    out = []
+    try:
+        for proc, what, path in children:
+            try:
+                _, err = proc.communicate(timeout=MESH_WAIT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"mesh: {what} did not end within "
+                                     f"{MESH_WAIT_S} s")
+            if proc.returncode != 0:
+                raise AssertionError(f"mesh: {what} exited with "
+                                     f"{proc.returncode}:\n{err[-4000:]}")
+            with open(path) as f:
+                out.append(json.load(f))
+    finally:
+        for proc, _, _ in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def mesh_child(kind: str, *args) -> int:
+    """Entry of the mesh phase's child processes: ``world1 SCENE STORE
+    OUT`` or ``pair RANK SCENE WORK STORE OUT``."""
+    res = mesh_world1(*args) if kind == "world1" else mesh_pair(*args)
+    with open(args[-1], "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def states_equal(a, b, sa, sb) -> list:
+    """The names of the state tensors and stats that differ."""
+    import torch
+
+    pairs = state_pairs(a, b) + [
+        (f"stats/{k}", getattr(sa, k), getattr(sb, k))
+        for k in ("loss", "losses", "weight_l2", "psnr", "psnrs",
+                  "grad_norm", "grad_abs_max", "grad_norm_clipped")]
+    out = [k for k, x, y in pairs if not torch.equal(x, y)]
+    return out + ([] if a.step == b.step else ["step"])
+
+
+def mesh_world1(scene: str, store: str, out: str) -> dict:
+    """One rank on NCCL: sharded against unsharded steps, eager and as
+    graph replays, bit for bit; rays/s in turns; one all-reduce's time."""
+    import torch
+    import torch.distributed as dist
+
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.parallel import mesh
+
+    mesh.initialize(f"file://{store}", 1, 0, "cuda")
+    m = mesh.create_mesh(1, device="cuda")
+    device = m.device
+    cfg = run.parse_flags([f"--data-dir={scene}"])
+    batches = loader_batches(scene, cfg, TURN_STEPS)
+    todev = [train_lib.batch_to_device(device, *b) for b in batches]
+    plain, sharded = (train_lib.make_train_step(cfg),
+                      mesh.make_sharded_train_step(cfg, m))
+    a = train_lib.init_train_state(cfg, device)
+    for b in todev[:GRAPH_K]:
+        a, last_a = plain(a, *b)
+    b_state = mesh.replicate_state(train_lib.init_train_state(cfg, device))
+    reset_launch_counts()
+    for b in todev[:GRAPH_K]:
+        b_state, last_b = sharded(b_state, *b)
+    torch.cuda.synchronize()
+    eager_launches = launch_counts()
+    check_launches("mesh world1: sharded eager steps", eager_launches,
+                   step_launches(cfg, GRAPH_K))
+    multi = mesh.make_sharded_multi_step(cfg, m)
+    g = train_lib.init_train_state(cfg, device)
+    reset_launch_counts()
+    g, last_g = multi(g, batches[:GRAPH_K])
+    torch.cuda.synchronize()
+    graph_launches = launch_counts()
+    check_launches("mesh world1: sharded multi-step", graph_launches,
+                   step_launches(cfg, GRAPH_K + train_lib.WARMUP_STEPS))
+    captured = list(multi.captured.values())[0]
+    res = {"device": str(device), "backend": dist.get_backend(),
+           "world_size": m.world_size, "steps": GRAPH_K,
+           "eager_unequal": states_equal(b_state, a, last_b, last_a),
+           "graph_unequal": states_equal(g, b_state, last_g, last_b),
+           "graph_pool_bytes": captured.pool_bytes,
+           "launches_captured": captured.launches,
+           "launches": added(eager_launches, graph_launches),
+           "loss": float(last_g.loss)}
+
+    states = {k: train_lib.init_train_state(cfg, device)
+              for k in ("eager", "sharded_eager", "graph", "sharded_graph")}
+    fns = {"eager": plain, "sharded_eager": sharded,
+           "graph": train_lib.make_multi_step(cfg),
+           "sharded_graph": mesh.make_sharded_multi_step(cfg, m)}
+
+    def turn(kind):
+        if kind.endswith("graph"):
+            for i in range(0, TURN_STEPS, GRAPH_K):
+                states[kind], stats = fns[kind](states[kind],
+                                                batches[i:i + GRAPH_K])
+        else:
+            for bt in todev:
+                states[kind], stats = fns[kind](states[kind], *bt)
+        return stats
+
+    for kind in states:
+        turn(kind)  # warm-up and captures
+    turns = []
+    for kind in ("eager", "sharded_eager", "graph", "sharded_graph",
+                 "sharded_graph", "graph", "sharded_eager", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = turn(kind)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if not math.isfinite(float(stats.loss)):
+            raise AssertionError(f"mesh world1 turns: {kind} non-finite loss")
+        turns.append({"kind": kind, "s": sec,
+                      "rays_per_s": TURN_STEPS * cfg.batch_size / sec,
+                      "sm_clock_power": clock_power()})
+    res["turns"] = turns
+    res["rays_per_s"] = {k: sum(t["rays_per_s"] for t in turns
+                                if t["kind"] == k) / 2 for k in states}
+
+    flat = torch.randn(sum(t.numel() for t in
+                           train_lib.state_tensors(a)[:len(a.params) * 2]),
+                       device=device)
+    times = []
+    for i in range(ALLREDUCE_REPS + 3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dist.all_reduce(flat)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(start.elapsed_time(end))
+    times.sort()
+    res["allreduce"] = {"bytes": flat.numel() * 4,
+                        "median_ms": times[len(times) // 2],
+                        "min_ms": times[0], "reps": ALLREDUCE_REPS}
+    dist.destroy_process_group()
+    return res
+
+
+def mesh_pair(rank: str, scene: str, work: str, store: str, out: str) -> dict:
+    """Rank ``rank`` of two on the one card over gloo: ``MESH_STEPS``
+    eager sharded steps of each ``MESH_CASES`` case on its half of the
+    parent's batches, its state written for the parent; render_image of
+    test view 0 over the two ranks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
+    from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
+    from nerf_or_nothing_tpu_torch.parallel import mesh
+    from nerf_or_nothing_tpu_torch.rays import Rays
+
+    rank = int(rank)
+    mesh.initialize(f"file://{store}", 2, rank, "cuda", backend="gloo")
+    m = mesh.create_mesh(2, device="cuda")
+    device = m.device
+    res = {"rank": rank, "device": str(device), "backend": dist.get_backend(),
+           "cases": {}}
+    total = dict.fromkeys(KERNELS, 0)
+    for i, (name, args) in enumerate(MESH_CASES):
+        cfg = run.parse_flags([f"--data-dir={scene}", "--randomized=false",
+                               *args])
+        with np.load(os.path.join(work, f"batches_{i}.npz")) as f:
+            batches = [(Rays(*[f[f"{k}/rays{j}"] for j in range(7)]),
+                        f[f"{k}/pixels"]) for k in range(MESH_STEPS)]
+        state = mesh.replicate_state(train_lib.init_train_state(cfg, device))
+        step = mesh.make_sharded_train_step(cfg, m)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for rays, pixels in batches:
+            state, stats = step(state, *train_lib.batch_to_device(
+                device, *mesh.shard_batch(m, rays, pixels)))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = launch_counts()
+        check_launches(f"mesh pair {name} rank {rank}", launches,
+                       step_launches(cfg, MESH_STEPS))
+        total = added(total, launches)
+        np.savez(os.path.join(work, f"state_{i}_r{rank}.npz"),
+                 **{k: t.cpu().numpy() for k, t, _ in
+                    state_pairs(state, state)})
+        res["cases"][name] = {
+            "rows": int(batches[0][1].shape[0]) // 2, "s": sec,
+            "rays_per_s": MESH_STEPS * batches[0][1].shape[0] / sec,
+            "launches": launches, "loss": float(stats.loss),
+            "psnr": float(stats.psnr)}
+    cfg = run.parse_flags([f"--data-dir={scene}"])
+    params = run.load_params(cfg, device)
+    with create_dataset("test", scene, cfg) as ds:
+        trays, _ = ds.image_rays(0)
+        h, w = ds.image_dims(0)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rgb, _, _ = render_image(make_render_fn(cfg), params, trays, h, w,
+                             cfg.render_chunk_size, mesh=m)
+    res["render_s"] = time.perf_counter() - t0
+    launches = launch_counts()
+    check_launches(f"mesh pair render rank {rank}", launches,
+                   render_launches(cfg, [(h, w)]))
+    res["launches"] = added(total, launches)
+    np.save(os.path.join(work, f"render_r{rank}.npy"), rgb)
+    dist.destroy_process_group()
+    return res
+
+
+def mesh_phase(device, scene: str) -> dict:
+    """Data parallelism in child processes: one rank on NCCL, then two
+    ranks on the one card over gloo held against this process's
+    single-rank steps and render (see the module docstring). Returns the
+    launches of the children's sharded paths (the world-1 child's and rank
+    0 of the pair's)."""
+    import numpy as np
+    import torch
+
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
+    from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t0 = time.perf_counter()
+    one, = wait_children([run_child(
+        "world-1 NCCL child", "world1", scene, os.path.join(work, "store1"),
+        os.path.join(work, "world1.json"))])
+    one["child_s"] = time.perf_counter() - t0
+    emit({"phase": "mesh", "check": "world1_nccl", **one})
+    if one["eager_unequal"] or one["graph_unequal"]:
+        raise AssertionError(f"mesh world1: sharded differs from unsharded "
+                             f"(eager {one['eager_unequal']}) or graph from "
+                             f"eager ({one['graph_unequal']})")
+
+    cfgs = []
+    for i, (name, args) in enumerate(MESH_CASES):
+        cfg = run.parse_flags([f"--data-dir={scene}", "--randomized=false",
+                               *args])
+        batches = loader_batches(scene, cfg, MESH_STEPS)
+        np.savez(os.path.join(work, f"batches_{i}.npz"), **{
+            f"{k}/{f}": x for k, (rays, pixels) in enumerate(batches)
+            for f, x in [*[(f"rays{j}", r) for j, r in enumerate(rays)],
+                         ("pixels", pixels)]})
+        cfgs.append((name, cfg, batches))
+    t0 = time.perf_counter()
+    pair = wait_children([run_child(
+        f"gloo rank {r}", "pair", str(r), scene, work,
+        os.path.join(work, "store2"), os.path.join(work, f"pair{r}.json"))
+        for r in range(2)])
+    pair_s = time.perf_counter() - t0
+    cases = {}
+    for i, (name, cfg, batches) in enumerate(cfgs):
+        ref = train_lib.init_train_state(cfg, device)
+        step = train_lib.make_train_step(cfg)
+        for rays, pixels in batches:
+            ref, _ = step(ref, *train_lib.batch_to_device(device, rays,
+                                                          pixels))
+        ranks = [np.load(os.path.join(work, f"state_{i}_r{r}.npz"))
+                 for r in range(2)]
+        across = [k for k in ranks[0].files
+                  if not np.array_equal(ranks[0][k], ranks[1][k])]
+        errs, max_abs = check_pairs(f"mesh pair {name}", [
+            (k, torch.from_numpy(ranks[0][k]), t.cpu())
+            for k, t, _ in state_pairs(ref, ref)], "bfloat16")
+        cases[name] = {"ranks_unequal": across,
+                       "worst_normalized_err_bf16_band": max(errs.values()),
+                       "max_abs_err": max_abs,
+                       **{f"rank{r}": pair[r]["cases"][name]
+                          for r in range(2)}}
+    cfg = run.parse_flags([f"--data-dir={scene}"])
+    with create_dataset("test", scene, cfg) as ds:
+        trays, _ = ds.image_rays(0)
+        h, w = ds.image_dims(0)
+    want, _, _ = render_image(make_render_fn(cfg), run.load_params(
+        cfg, device), trays, h, w, cfg.render_chunk_size, device=device)
+    got = [np.load(os.path.join(work, f"render_r{r}.npy")) for r in range(2)]
+    rerrs, rmax = check_pairs("mesh pair render", [
+        ("rgb", torch.from_numpy(got[0]), torch.from_numpy(want))],
+        "bfloat16")
+    res = {"phase": "mesh", "check": "gloo_pair_one_card", "children_s":
+           pair_s, "steps": MESH_STEPS, "cases": cases,
+           "render": {"image": [h, w], "bit_equal": bool(
+               np.array_equal(got[0], want)), "ranks_equal": bool(
+               np.array_equal(got[0], got[1])),
+               "normalized_err_bf16_band": rerrs["rgb"],
+               "max_abs_err": rmax, "s": [p["render_s"] for p in pair]},
+           "launches": [p["launches"] for p in pair]}
+    emit(res)
+    bad = {n: c for n, c in cases.items() if c["ranks_unequal"]
+           or c["worst_normalized_err_bf16_band"] >= 1.0}
+    if bad or rerrs["rgb"] >= 1.0 or not res["render"]["ranks_equal"]:
+        raise AssertionError(f"mesh pair: {bad or res['render']}")
+    return added(one["launches"], pair[0]["launches"])
+
+
 def ptxas_lines(log: str):
     """ptxas's register, spill and serialized-wgmma (C7511) lines of a
     build, each kernel's under its name."""
@@ -1595,11 +1935,13 @@ def main() -> int:
 
     graph_phase(device, scene, train_record)
 
+    mesh_launches = mesh_phase(device, scene)
+
     def entry(name, case, n, replaces):
         return {
             "name": name, "route": "cuda",
             "source": f"nerf_or_nothing_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": n,
+            "replaces": replaces, "launches": n + mesh_launches[name],
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,

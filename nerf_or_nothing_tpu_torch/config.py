@@ -27,8 +27,10 @@ the hand-written kernels (the CPU runs each kernel's plain version):
 - ``profile_dir``, ``check_numerics``, ``debug_nans``: a ``torch.profiler``
   trace of steps 11-20, and a finite check of the loss and gradients
   before the update (of single steps, or of every step);
-- ``mesh_shape``: training on more than one device is not ported, so
-  ``run train`` raises for a mesh;
+- ``mesh_shape``: ``(N,)`` trains data-parallel on N ranks, one process
+  a device (``parallel/mesh.py``; ``run train`` spawns them); ``()`` takes
+  every card of the host for an unindexed ``cuda``; two axes (tensor
+  parallelism) raise ``NotImplementedError``;
 - ``kernel_probes`` (comma-separated ``key=value`` entries, read by
   ``probe``): ``fl_variant=twopass`` runs each train level as
   ``train_level_twopass`` (``kernels/fused_level.py``) where the JAX package

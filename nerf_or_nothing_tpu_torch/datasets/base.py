@@ -5,9 +5,11 @@ subclasses fill ``images`` [N,H,W,3] and ``rays`` (leaves [N,H,W,C]) in
 ``_load``; the images flatten to a pixel pool, and ``next()`` serves
 ``batch_size`` pixels drawn with replacement from
 ``np.random.default_rng(seed + 17 * rank + (0 if train else 1))``, so the
-batches are byte-equal to the JAX package's. Each process takes the
-stripe ``rank::count`` of the pool (``stripe``: rank 0 of 1 until the port
-trains on several processes). A background thread prefetches batches into
+batches are byte-equal to the JAX package's. Each rank of a data-parallel
+group takes the stripe ``rank::count`` of the pool (``stripe``: the rank
+and size of ``torch.distributed``'s default group, 0 of 1 without one),
+as each JAX process takes ``process_index::process_count``. A background
+thread prefetches batches into
 a bounded queue; ``peek``, ``close`` and the context manager behave as
 there. ``image_rays`` serves one image's flat ray grid and ground truth.
 Everything is numpy on the host.
@@ -53,9 +55,11 @@ class Dataset:
 
     @staticmethod
     def stripe() -> Tuple[int, int]:
-        """(rank, count): this process draws from pool rows rank::count.
-        One process: training on several is ROADMAP queue A item 5."""
-        return 0, 1
+        """(rank, count): this process draws from pool rows rank::count,
+        its rank and the number of ranks (``parallel/mesh.py``)."""
+        from nerf_or_nothing_tpu_torch.parallel import mesh
+
+        return mesh.rank(), mesh.world_size()
 
     def _linearize(self) -> None:
         """Linear radiance (Config.linear_color): decode the sRGB pixels."""

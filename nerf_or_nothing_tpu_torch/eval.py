@@ -1,9 +1,10 @@
 """Evaluation: chunked full-image rendering + image metrics.
 
-Same contract as ``nerf_or_nothing_tpu/eval.py`` on one device:
-``render_image`` renders ``render_chunk_size`` rays at a time (the last
-chunk padded by repeating its last ray, then cut), and the metrics are
-PSNR, SSIM, the perceptual proxy and avg-error.
+Same contract as ``nerf_or_nothing_tpu/eval.py``: ``render_image``
+renders ``render_chunk_size`` rays at a time (the last chunk padded by
+repeating its last ray, then cut), over the ranks of a data-parallel mesh
+when one is given, and the metrics are PSNR, SSIM, the perceptual proxy
+and avg-error.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from nerf_or_nothing_tpu_torch.ops.math_utils import (
     linear_to_srgb,
     mse_to_psnr,
 )
+from nerf_or_nothing_tpu_torch.parallel.mesh import Mesh, gather_rows
 from nerf_or_nothing_tpu_torch.rays import Rays
 
 
@@ -76,19 +78,32 @@ def make_render_fn(cfg: Config, mlp_apply=None):
 
 
 def render_image(render_fn, params, rays: Rays, height: int, width: int,
-                 chunk: int = 8192, device="cuda"):
+                 chunk: int = 8192, device="cuda",
+                 mesh: Optional[Mesh] = None):
     """Render a full image in fixed-size chunks on ``device``.
 
     The image's rays go to the device in one copy and the chunks' results
     stay there until the end, so the host queues chunk k+1 while the
     device renders chunk k.
 
+    With a ``mesh`` (on every rank of its group, on ``mesh.device``) the
+    chunk is rounded up to a multiple of the ranks, each rank renders its
+    contiguous part of every chunk, and the parts are gathered to every
+    rank (JAX's ``shard_map`` render).
+
     Args:
       rays: flattened leaves [H*W, C] (numpy or tensors).
     Returns:
       rgb [H, W, 3], distance [H, W], acc [H, W] as numpy arrays.
     """
-    device = resolve_device(device)
+    size, part = 1, slice(None)
+    if mesh is None:
+        device = resolve_device(device)
+    else:
+        device, size = mesh.device, mesh.world_size
+        chunk = -(-chunk // size) * size
+        part = slice(mesh.rank * (chunk // size),
+                     (mesh.rank + 1) * (chunk // size))
     rays = Rays(*[torch.as_tensor(np.asarray(x), dtype=torch.float32)
                   .to(device) for x in rays])
     n = rays.origins.shape[0]
@@ -100,7 +115,12 @@ def render_image(render_fn, params, rays: Rays, height: int, width: int,
         if pad:
             chunk_rays = [torch.cat([x, x[-1:].expand(pad, -1)])
                           for x in chunk_rays]
-        rgb, dist, acc = render_fn(params, Rays(*chunk_rays))
+        rgb, dist, acc = render_fn(params, Rays(*[x[part]
+                                                  for x in chunk_rays]))
+        if size > 1:
+            out = gather_rows(torch.cat([rgb, dist[:, None], acc[:, None]],
+                                        -1), mesh)
+            rgb, dist, acc = out[:, :3], out[:, 3], out[:, 4]
         rgbs.append(rgb[: end - start])
         dists.append(dist[: end - start])
         accs.append(acc[: end - start])
@@ -138,8 +158,13 @@ def evaluate_image(pred: np.ndarray, gt: np.ndarray,
 
 def evaluate_dataset(cfg: Config, params, dataset,
                      max_images: Optional[int] = None, mlp_apply=None,
-                     device="cuda") -> dict:
-    """Mean metrics over (a prefix of) a test dataset."""
+                     device="cuda", mesh: Optional[Mesh] = None) -> dict:
+    """Mean metrics over (a prefix of) a test dataset. With a ``mesh`` every
+    rank renders its part of each image (``render_image``) and rank 0
+    alone computes and returns the metrics; the others return ``{}``."""
+    if mesh is not None:
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
     render_fn = make_render_fn(cfg, mlp_apply=mlp_apply)
     n = dataset.num_images if max_images is None else min(
         max_images, dataset.num_images
@@ -150,13 +175,17 @@ def evaluate_dataset(cfg: Config, params, dataset,
         h, w = dataset.image_dims(i)
         rgb, _, _ = render_image(
             render_fn, params, rays, h, w, cfg.render_chunk_size,
-            device=device,
+            device=device, mesh=mesh,
         )
+        if not lead:
+            continue
         metrics.append(evaluate_image(
             to_display(cfg, rgb),
             to_display(cfg, np.asarray(gt).reshape(h, w, 3)),
             device=device,
         ))
+    if not lead:
+        return {}
     return {
         k: float(np.mean([m[k] for m in metrics])) for k in metrics[0]
     }

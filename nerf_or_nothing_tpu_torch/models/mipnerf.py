@@ -32,6 +32,7 @@ from nerf_or_nothing_tpu_torch.config import Config
 from nerf_or_nothing_tpu_torch.models import mlp as mlp_lib
 from nerf_or_nothing_tpu_torch.ops import ipe, render, sampling
 from nerf_or_nothing_tpu_torch.ops.math_utils import softplus
+from nerf_or_nothing_tpu_torch.parallel.mesh import all_mean
 from nerf_or_nothing_tpu_torch.rays import Rays
 
 def encode_dirs(cfg: Config, rays: Rays) -> torch.Tensor:
@@ -83,13 +84,19 @@ def level_weight(cfg: Config, i_level: int) -> float:
     return 1.0 if i_level == cfg.num_levels - 1 else cfg.coarse_loss_mult
 
 
-def loss_normalizer(cfg: Config, loss_mult: torch.Tensor):
-    """Multiscale-loss mask [R] and normalizer max(sum(mask), 1e-10) on one
-    device."""
+def loss_normalizer(cfg: Config, loss_mult: torch.Tensor, group=None):
+    """Multiscale-loss mask [R] and normalizer max(sum(mask), 1e-10). With
+    a data-parallel ``group`` the sum is the ranks' mean of their local
+    sums, the whole batch's sum over the number of ranks, so that the mean
+    of the ranks' losses and gradients is the whole batch's even with
+    non-uniform ``loss_mult`` (Multicam's 4^s weights)."""
     mask = loss_mult[..., 0]
     if cfg.disable_multiscale_loss:
         mask = torch.ones_like(mask)
-    return mask, torch.clamp(torch.sum(mask), min=1e-10)
+    total = torch.sum(mask)
+    if group is not None:
+        total, = all_mean([total.detach()], group)
+    return mask, torch.clamp(total, min=1e-10)
 
 
 def total_from_level_losses(cfg: Config, losses: torch.Tensor):
@@ -99,10 +106,11 @@ def total_from_level_losses(cfg: Config, losses: torch.Tensor):
 
 
 def multiscale_loss(results: List[render.RenderResult], pixels: torch.Tensor,
-                    loss_mult: torch.Tensor, cfg: Config):
+                    loss_mult: torch.Tensor, cfg: Config, group=None):
     """Masked multiscale MSE: per level sum(mask * |rgb - pixel|^2) /
-    sum(mask). Returns (total_loss, per_level_mses [levels])."""
-    mask, denom = loss_normalizer(cfg, loss_mult)
+    sum(mask), the sum over the whole batch with a ``group``
+    (``loss_normalizer``). Returns (total_loss, per_level_mses [levels])."""
+    mask, denom = loss_normalizer(cfg, loss_mult, group)
     losses = torch.stack([
         torch.sum(mask * torch.sum((res.rgb - pixels) ** 2, dim=-1)) / denom
         for res in results

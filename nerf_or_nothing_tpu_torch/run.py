@@ -12,6 +12,26 @@ Train: --steps-per-call=K runs K steps a call (on the card, replays of one
 captured CUDA graph of the step); --profile-dir=DIR writes a torch.profiler
 trace of steps 11-20; --check-numerics / --debug-nans raise on a nan or an
 inf in the loss or the gradients before the update is applied.
+
+Data parallelism (parallel/mesh.py; NCCL between cards, gloo on the CPU):
+  train --mesh-shape=N   N ranks, one process a device, started by this
+      command (on the card cuda:0..N-1; with --device=cpu, N CPU
+      processes); --mesh-shape=() with an unindexed cuda on a host with
+      several cards takes them all. As in the JAX package's one process
+      over N devices, the N ranks share --batch-size: each draws
+      batch_size / N rays a step from its stripe of the pixel pool, and a
+      batch size that N does not divide raises.
+  --coordinator=HOST:PORT --num-processes=P --process-id=I (or the
+      NERF_COORDINATOR, NERF_NUM_PROCESSES, NERF_PROCESS_ID variables):
+      this process is rank I of P (one a card, or one on the CPU with
+      --platform=cpu); start one command a rank. As in the JAX package's
+      multi-host run, each process draws --batch-size rays a step from
+      its stripe: the batch of a step is P x batch_size. eval and render
+      started so split each image's chunks over the ranks.
+  --platform=cpu (NERF_PLATFORM) means --device=cpu.
+Rank 0 alone logs, checkpoints, runs the periodic test render, prints
+eval's metrics and writes PNGs. A mesh_shape of two axes (tensor
+parallelism) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,18 +59,18 @@ from nerf_or_nothing_tpu_torch.eval import (
 )
 from nerf_or_nothing_tpu_torch.metrics import MetricsLogger
 from nerf_or_nothing_tpu_torch.models.mlp import Params, init_mlp
+from nerf_or_nothing_tpu_torch.parallel import mesh as mesh_lib
 from nerf_or_nothing_tpu_torch.train import (
     TrainState,
     batch_to_device,
     init_train_state,
-    make_multi_step,
-    make_train_step,
 )
 from nerf_or_nothing_tpu_torch.utils import profiling
 
-MULTI_DEVICE_ROADMAP = (
-    "training on more than one device (mesh_shape, the per-level gradient "
-    "all-reduce) is not ported yet: ROADMAP queue A item 3"
+TENSOR_PARALLEL_ROADMAP = (
+    "the 2-D tensor-parallel train step (a mesh_shape of two axes, JAX's "
+    "make_tensor_parallel_train_step) is not ported yet: ROADMAP queue A "
+    "item 5"
 )
 
 
@@ -77,20 +97,63 @@ def _chunk_len(step: int, cfg: Config, spc: int) -> int:
     return max(1, min(spc, nxt))
 
 
-def _check_train_config(cfg: Config, device: torch.device) -> None:
-    """Raise NotImplementedError for what the port cannot do yet: a mesh,
-    or an unindexed CUDA device on a host with several cards (the JAX
-    package would train on all of them; ``--device=cuda:0`` takes one)."""
-    if tuple(cfg.mesh_shape) or (
-            device.type == "cuda" and device.index is None
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(MULTI_DEVICE_ROADMAP)
+def mesh_size(cfg: Config, device: torch.device) -> int:
+    """The ranks ``train`` starts for ``cfg.mesh_shape`` in one command: N
+    for (N,); for () every card of the host with an unindexed ``cuda``
+    (the JAX package's all local devices), else 1. Two axes raise
+    NotImplementedError."""
+    shape = tuple(cfg.mesh_shape)
+    if len(shape) == 2:
+        raise NotImplementedError(TENSOR_PARALLEL_ROADMAP)
+    if len(shape) > 2:
+        raise ValueError(f"mesh_shape must be 1-D or 2-D, got {shape}")
+    if shape:
+        return shape[0]
+    if device.type == "cuda" and device.index is None:
+        return max(1, torch.cuda.device_count())
+    return 1
 
 
 def train(cfg: Config, log_dir: Optional[str] = None,
           device="cuda") -> TrainState:
-    """The training loop of ``nerf_or_nothing_tpu.run.train`` on one
-    device: multi-step chunks cut at every side-effect step (with
+    """The training loop of ``nerf_or_nothing_tpu.run.train``.
+
+    In a process group (the launch flags) this process trains as one rank
+    of it; otherwise ``mesh_size`` ranks, started by ``mesh.spawn`` when
+    there are several, each drawing ``batch_size / N`` rays a step. Returns
+    the final state, rank 0's on the CPU when the ranks were spawned. The
+    loop itself is ``train_rank``'s."""
+    device = resolve_device(device)
+    n = mesh_size(cfg, device)
+    joined = mesh_lib.world_size()
+    if joined > 1 and tuple(cfg.mesh_shape) and n != joined:
+        raise ValueError(f"mesh_shape {tuple(cfg.mesh_shape)} in a group of "
+                         f"{joined} processes")
+    if joined > 1 or n == 1:
+        return train_rank(cfg, log_dir, device)
+    if cfg.batch_size % n:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over "
+                         f"{n} ranks")
+    if device.type == "cuda" and (device.index is not None
+                                  or n > torch.cuda.device_count()):
+        raise ValueError(f"--mesh-shape={n} needs {n} cards and an "
+                         f"unindexed cuda; this host has "
+                         f"{torch.cuda.device_count()}, asked for {device}")
+    arrays = mesh_lib.spawn(_train_spawned, n, device,
+                            cfg.replace(batch_size=cfg.batch_size // n),
+                            log_dir, device.type)
+    return ckpt_lib.state_from_arrays(arrays, cfg)
+
+
+def _train_spawned(cfg: Config, log_dir: Optional[str], device: str):
+    """A spawned rank's ``train_rank``; its state as numpy arrays."""
+    return ckpt_lib.state_arrays(train_rank(cfg, log_dir, device), cfg.seed)
+
+
+def train_rank(cfg: Config, log_dir: Optional[str] = None,
+               device="cuda") -> TrainState:
+    """The training loop on this rank's device (one device without a
+    group): multi-step chunks cut at every side-effect step (with
     ``steps_per_call`` > 1 and no ``profile_dir``; on the card each step a
     replay of one captured CUDA graph, ``train.make_multi_step``), logging
     every ``print_every``, checkpoints every ``save_every`` and at the end,
@@ -99,21 +162,30 @@ def train(cfg: Config, log_dir: Optional[str] = None,
     data has no test split) and ``gc_every``. ``profile_dir``: a
     ``torch.profiler`` trace of steps start+11 to start+20 written there.
     ``check_numerics`` checks the single steps, ``debug_nans`` every step
-    (``train.make_train_step``)."""
-    device = resolve_device(device)
-    _check_train_config(cfg, device)
+    (``train.make_train_step``).
+
+    In a group every rank restores the same checkpoint and then takes
+    rank 0's state (``mesh.replicate_state``), trains on its stripe of
+    the data with the gradients averaged over the ranks, and rank 0 alone
+    logs (rays/s of the whole group's batch), checkpoints and renders the
+    test view, on its own (no collective), while the others go on to the
+    next step's all-reduce."""
+    mesh = mesh_lib.create_mesh(device=device)
+    device, lead = mesh.device, mesh.rank == 0
     dataset = create_dataset("train", cfg.data_dir, cfg)
     state = init_train_state(cfg, device)
     if cfg.checkpoint_dir and cfg.resume:
         state = ckpt_lib.maybe_restore(cfg.checkpoint_dir, cfg, state,
                                        device=device)
-        if state.step:
+        if state.step and lead:
             print(f"resumed from step {state.step}", flush=True)
-    step_fn = make_train_step(cfg)
+    state = mesh_lib.replicate_state(state)
+    step_fn = mesh_lib.make_sharded_train_step(cfg, mesh)
     spc = cfg.steps_per_call if (cfg.steps_per_call > 1
                                  and not cfg.profile_dir) else 1
-    multi_fn = make_multi_step(cfg) if spc > 1 else None
-    logger = MetricsLogger(log_dir, batch_size=cfg.batch_size)
+    multi_fn = mesh_lib.make_sharded_multi_step(cfg, mesh) if spc > 1 else None
+    logger = MetricsLogger(log_dir if lead else None,
+                           batch_size=cfg.batch_size * mesh.world_size)
     test_ds = None
     render_fn = None
     start_step = step = state.step
@@ -135,11 +207,11 @@ def train(cfg: Config, log_dir: Optional[str] = None,
                     tracing.close()
                     print(f"trace written to {cfg.profile_dir}", flush=True)
             step = state.step
-            if step % cfg.print_every == 0:
+            if step % cfg.print_every == 0 and lead:
                 logger.log(step, stats)
             if cfg.checkpoint_dir and step % cfg.save_every == 0:
                 ckpt_lib.save_checkpoint(cfg.checkpoint_dir, state, cfg)
-            if (cfg.test_render_interval > 0
+            if (cfg.test_render_interval > 0 and lead
                     and step % cfg.test_render_interval == 0):
                 try:
                     if test_ds is None:
@@ -179,14 +251,27 @@ def train(cfg: Config, log_dir: Optional[str] = None,
     return state
 
 
+def _eval_mesh(device):
+    """The group's mesh when this process is one of several ranks (the
+    launch flags), else None: one device renders the whole image."""
+    if mesh_lib.world_size() > 1:
+        return mesh_lib.create_mesh(device=device)
+    return None
+
+
 def evaluate(cfg: Config, max_images: Optional[int] = None,
              device="cuda") -> dict:
-    device = resolve_device(device)
+    """Mean metrics over the test split, printed as one JSON line; in a
+    group the ranks split each image and rank 0 prints and returns them
+    (``{}`` elsewhere)."""
+    mesh = _eval_mesh(device)
+    device = mesh.device if mesh else resolve_device(device)
     params = load_params(cfg, device)
     with create_dataset("test", cfg.data_dir, cfg) as dataset:
         metrics = evaluate_dataset(cfg, params, dataset, max_images,
-                                   device=device)
-    print(json.dumps({"eval": metrics}), flush=True)
+                                   device=device, mesh=mesh)
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps({"eval": metrics}), flush=True)
     return metrics
 
 
@@ -194,10 +279,13 @@ def render(cfg: Config, out_dir: str, max_images: Optional[int] = None,
            device="cuda"):
     """Render the test split, or with ``cfg.render_path`` the loader's
     novel-view camera path (Blender and Multicam orbit, LLFF spiral, or
-    circle when spherified), to ``out_dir/render_XXX.png``."""
+    circle when spherified), to ``out_dir/render_XXX.png``; in a group the
+    ranks split each image and rank 0 writes the PNGs."""
     from PIL import Image
 
-    device = resolve_device(device)
+    mesh = _eval_mesh(device)
+    device = mesh.device if mesh else resolve_device(device)
+    lead = mesh is None or mesh.rank == 0
     params = load_params(cfg, device)
     with create_dataset("test", cfg.data_dir, cfg) as dataset:
         render_fn = make_render_fn(cfg)
@@ -214,8 +302,10 @@ def render(cfg: Config, out_dir: str, max_images: Optional[int] = None,
         for i, (rays, (h, w)) in enumerate(frames):
             rgb, _, _ = render_image(
                 render_fn, params, rays, h, w, cfg.render_chunk_size,
-                device=device,
+                device=device, mesh=mesh,
             )
+            if not lead:
+                continue
             rgb = to_display(cfg, rgb)
             img = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
             Image.fromarray(img).save(
@@ -233,24 +323,52 @@ def main(argv=None):
     out = None
     max_images = None
     device = "cuda"
+    launch = {k: os.environ.get(f"NERF_{k.upper()}")
+              for k in ("coordinator", "num_processes", "process_id",
+                        "platform")}
     filtered = []
     for a in rest:
-        if a.startswith("--out="):
-            out = a.split("=", 1)[1]
-        elif a.startswith("--max-images="):
-            max_images = int(a.split("=", 1)[1])
-        elif a.startswith("--device="):
-            device = a.split("=", 1)[1]
+        key, _, value = a.partition("=")
+        name = key[2:].replace("-", "_")
+        if key == "--out":
+            out = value
+        elif key == "--max-images":
+            max_images = int(value)
+        elif key == "--device":
+            device = value
+        elif name in launch:
+            launch[name] = value
         else:
             filtered.append(a)
+    if launch["platform"]:
+        device = _platform_device(launch["platform"])
     cfg = parse_flags(filtered)
-    if command == "train":
-        train(cfg, log_dir=cfg.checkpoint_dir or None, device=device)
-    elif command == "eval":
-        evaluate(cfg, max_images, device=device)
-    else:
-        render(cfg, out or "renders", max_images, device=device)
+    num = launch["num_processes"]
+    pid = launch["process_id"]
+    joined = torch.distributed.is_initialized()
+    mesh_lib.initialize_multihost(
+        launch["coordinator"], int(num) if num else None,
+        int(pid) if pid else None, device)
+    try:
+        if command == "train":
+            train(cfg, log_dir=cfg.checkpoint_dir or None, device=device)
+        elif command == "eval":
+            evaluate(cfg, max_images, device=device)
+        else:
+            render(cfg, out or "renders", max_images, device=device)
+    finally:
+        if not joined and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     return 0
+
+
+def _platform_device(platform: str) -> str:
+    """``--platform`` (JAX's platform names) as the port's device."""
+    devices = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+    if platform.lower() not in devices:
+        raise ValueError(f"--platform={platform}: the port runs on "
+                         f"{sorted(devices)}")
+    return devices[platform.lower()]
 
 
 if __name__ == "__main__":

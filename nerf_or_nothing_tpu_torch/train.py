@@ -19,13 +19,20 @@ Same contract as ``nerf_or_nothing_tpu/train.py`` on one device:
   stats, as the JAX package's ``lax.scan`` multi-step does; on the card
   each step is a replay of the body captured in a CUDA graph.
 
+Both take a ``group`` of ``torch.distributed`` for data parallelism
+(``parallel/mesh.py``): each level's dW/db are averaged over the ranks as
+soon as the level's are computed, the autograd branch's gradients once
+after the backward, then the loss and the level losses; the loss's
+denominator is the whole batch's; each rank draws its own random numbers.
+
 The parameters and the Adam moments are updated in place, through
 ``torch._foreach_*`` ops, which bump each tensor's version counter (graph
 replays do not; the multi-step bumps it after them): a cache keyed on the
 tensors' identity and ``_version`` (``eval.make_render_fn``'s packed
 weights) sees every update. Random draws come from the state's
 ``torch.Generator``, reseeded at every step from (``cfg.seed``, step), so
-a resumed run draws what an uninterrupted one draws.
+a resumed run draws what an uninterrupted one draws, and from (``cfg.seed``,
+step, rank) under a group.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nerf_or_nothing_tpu_torch import kernels
 from nerf_or_nothing_tpu_torch.config import Config
@@ -45,6 +53,7 @@ from nerf_or_nothing_tpu_torch.ops.math_utils import (
     learning_rate_decay,
     mse_to_psnr,
 )
+from nerf_or_nothing_tpu_torch.parallel.mesh import all_mean
 from nerf_or_nothing_tpu_torch.rays import Rays
 
 
@@ -59,9 +68,12 @@ class TrainState:
     generator: torch.Generator
 
 
-def step_seed(seed: int, step: int) -> int:
-    """Seed of the generator at ``step``; a checkpoint stores (seed, step)."""
-    return ((seed & 0xFFFFFFFF) << 31 | (step & 0x7FFFFFFF)) & (2**63 - 1)
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """Seed of the generator at ``step``; a checkpoint stores (seed, step).
+    Each rank of a group folds its rank in (JAX's ``fold_in`` of the axis
+    index); rank 0 draws what a single process draws."""
+    base = ((seed & 0xFFFFFFFF) << 31 | (step & 0x7FFFFFFF)) & (2**63 - 1)
+    return base ^ ((rank * 0x9E3779B97F4A7C15) & (2**63 - 1))
 
 
 def init_train_state(cfg: Config, device="cpu") -> TrainState:
@@ -152,16 +164,22 @@ def _weight_l2(params) -> torch.Tensor:
     return sum(torch.sum(w ** 2) for w, _ in params)
 
 
+def _pairs(leaves) -> List[tuple]:
+    return list(zip(leaves[0::2], leaves[1::2]))
+
+
 @torch.no_grad()
 def _fused_level_value_and_grad(cfg: Config, params, generator, rays: Rays,
-                                pixels):
+                                pixels, group=None):
     """Loss and gradients from one ``fused_level_train`` call per level.
 
     Valid with ``stop_level_grad``: each level's loss gradient is then
     independent, so the total gradient is the sum of the levels' dW/db,
     each level's loss weight folded into its per-ray g_scale. The weights
     are packed once for both levels, in the layouts of the kernel the
-    step launches (``pack_train``).
+    step launches (``pack_train``). With a ``group`` each level's 2 x
+    layers tensors are averaged over the ranks in one all-reduce as soon
+    as the level's kernel returns, the denominator being the whole batch's.
 
     Returns (loss, (level_losses, fine_rgb, weight_l2), grads).
     """
@@ -175,7 +193,7 @@ def _fused_level_value_and_grad(cfg: Config, params, generator, rays: Rays,
     if rays.origins.is_cuda:
         packed = pack_train(params, cfg, dt)
     dir_enc = mipnerf.encode_dirs(cfg, rays)
-    mask, denom = mipnerf.loss_normalizer(cfg, rays.loss_mult)
+    mask, denom = mipnerf.loss_normalizer(cfg, rays.loss_mult, group)
     grads = None
     losses = []
     comp = t_vals = weights = None
@@ -197,6 +215,8 @@ def _fused_level_value_and_grad(cfg: Config, params, generator, rays: Rays,
         losses.append(
             torch.sum(mask * torch.sum((comp - pixels) ** 2, dim=-1)) / denom
         )
+        if group is not None:
+            d_params = _pairs(all_mean(_leaves(d_params), group))
         if grads is None:
             grads = d_params
         else:
@@ -214,13 +234,14 @@ def _fused_level_value_and_grad(cfg: Config, params, generator, rays: Rays,
 
 
 def _autograd_value_and_grad(cfg: Config, params, generator, rays: Rays,
-                             pixels, mlp_apply=None):
+                             pixels, mlp_apply=None, group=None):
     """Loss and gradients by ``torch.autograd`` over ``render_rays`` +
     ``multiscale_loss`` (the JAX package's ``jax.value_and_grad`` branch).
     ``render_rays`` packs the kernels' weights once for both levels and
-    both directions."""
+    both directions. With a ``group`` the gradients are averaged over the
+    ranks in one all-reduce after the backward."""
     leaves = [t.detach().requires_grad_() for t in _leaves(params)]
-    p = list(zip(leaves[0::2], leaves[1::2]))
+    p = _pairs(leaves)
     with torch.enable_grad():
         results = mipnerf.render_rays(
             p, cfg, rays, randomized=cfg.randomized,
@@ -228,15 +249,17 @@ def _autograd_value_and_grad(cfg: Config, params, generator, rays: Rays,
             generator=generator,
         )
         total, level_losses = mipnerf.multiscale_loss(
-            results, pixels, rays.loss_mult, cfg
+            results, pixels, rays.loss_mult, cfg, group
         )
         if cfg.weight_decay_mult > 0:
             wl2 = _weight_l2(p)
             total = total + cfg.weight_decay_mult * wl2
         else:
             wl2 = torch.zeros((), device=pixels.device)
-        flat = torch.autograd.grad(total, leaves)
-    grads = list(zip(flat[0::2], flat[1::2]))
+        flat = list(torch.autograd.grad(total, leaves))
+    if group is not None:
+        flat = all_mean(flat, group)
+    grads = _pairs(flat)
     return (total.detach(), (level_losses.detach(),
                              results[-1].rgb.detach(), wl2.detach()), grads)
 
@@ -263,16 +286,20 @@ def batch_to_device(device, rays, pixels):
 
 
 def _grad_part(cfg: Config, mlp_apply, params, generator, rays: Rays,
-               pixels):
+               pixels, group=None):
     """The body's first part: (loss, level_losses, fine_rgb, weight_l2,
-    grads) from the fused-level branch or the autograd one."""
+    grads) from the fused-level branch or the autograd one; with a
+    ``group`` the gradients, the loss and the level losses are the ranks'
+    means (``fine_rgb`` stays this rank's, so the step's psnr is the
+    rank's own, as in the JAX package)."""
+    args = (cfg, params, generator, rays, pixels)
     if use_fused_level(cfg) and mlp_apply is None:
-        value_and_grad = _fused_level_value_and_grad
+        out = _fused_level_value_and_grad(*args, group)
     else:
-        def value_and_grad(*args):
-            return _autograd_value_and_grad(*args, mlp_apply=mlp_apply)
-    loss, (level_losses, fine_rgb, wl2), grads = value_and_grad(
-        cfg, params, generator, rays, pixels)
+        out = _autograd_value_and_grad(*args, mlp_apply, group)
+    loss, (level_losses, fine_rgb, wl2), grads = out
+    if group is not None:
+        loss, level_losses = all_mean([loss, level_losses], group)
     return loss, level_losses, fine_rgb, wl2, grads
 
 
@@ -312,7 +339,11 @@ def raise_if_not_finite(flags: torch.Tensor, step: int) -> None:
         "debug_nans); the step was not applied")
 
 
-def make_train_step(cfg: Config, mlp_apply=None):
+def _rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def make_train_step(cfg: Config, mlp_apply=None, group=None):
     """fn(state, rays, pixels) -> (state, Stats), updating ``state`` in
     place. ``rays`` and ``pixels`` are tensors on the state's device.
 
@@ -320,17 +351,22 @@ def make_train_step(cfg: Config, mlp_apply=None):
     of the step and ``jax_debug_nans``) one device reduction over the loss,
     the level losses and the gradients is read on the host after the
     gradients and before Adam; a nan or an inf raises FloatingPointError
-    and leaves the state, its step and its generator as they were."""
+    and leaves the state, its step and its generator as they were.
+
+    ``group``: this rank's step of a data-parallel group (JAX's
+    ``axis_name``; ``parallel/mesh.make_sharded_train_step``). The finite
+    check reads the averaged values, so every rank raises or none does."""
     check = cfg.check_numerics or cfg.debug_nans
+    rank = _rank(group)
 
     def train_step(state: TrainState, rays: Rays, pixels: torch.Tensor):
         step = state.step + 1
         lr, host = adam_scalars(cfg, step)
         before = state.generator.get_state() if check else None
-        state.generator.manual_seed(step_seed(cfg.seed, step))
+        state.generator.manual_seed(step_seed(cfg.seed, step, rank))
         scalars = torch.from_numpy(host).to(pixels.device)
         part = _grad_part(cfg, mlp_apply, state.params, state.generator,
-                          rays, pixels)
+                          rays, pixels, group)
         if check:
             try:
                 raise_if_not_finite(finite_flags(part[0], part[1], part[4]),
@@ -384,10 +420,16 @@ class _CapturedStep:
 
     The wrappers' launch counters see the capture, which launches nothing:
     the launches counted in it are taken back and added once a replay
-    (``launches``). ``pool_bytes``: the memory the capture reserved."""
+    (``launches``). ``pool_bytes``: the memory the capture reserved.
 
-    def __init__(self, cfg: Config, mlp_apply, state: TrainState, batch):
-        self.cfg, self.mlp_apply = cfg, mlp_apply
+    With a NCCL ``group`` the step's all-reduces are captured too: the
+    warm-up steps run them first on every rank, which sets up NCCL's
+    communicator outside the capture."""
+
+    def __init__(self, cfg: Config, mlp_apply, state: TrainState, batch,
+                 group=None):
+        self.cfg, self.mlp_apply, self.group = cfg, mlp_apply, group
+        self.rank = _rank(group)
         self.device = state.params[0][0].device
         self.split = cfg.debug_nans
         rows, self.widths = _batch_shape(batch)
@@ -436,7 +478,7 @@ class _CapturedStep:
 
     def _grad(self, state: TrainState):
         return _grad_part(self.cfg, self.mlp_apply, state.params,
-                          state.generator, self.rays, self.pixels)
+                          state.generator, self.rays, self.pixels, self.group)
 
     def _update(self, state: TrainState, part):
         return _update_part(self.cfg, state, self.scalars, self.pixels, *part)
@@ -449,7 +491,7 @@ class _CapturedStep:
             state.step, *[[(w.clone(), b.clone()) for w, b in tree]
                           for tree in (state.params, state.mu, state.nu)],
             torch.Generator(device=device).manual_seed(
-                step_seed(cfg.seed, step)))
+                step_seed(cfg.seed, step, self.rank)))
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
@@ -505,7 +547,8 @@ class _CapturedStep:
             for i in range(len(batches)):
                 step = state.step + 1
                 before = state.generator.get_state() if self.split else None
-                state.generator.manual_seed(step_seed(cfg.seed, step))
+                state.generator.manual_seed(step_seed(cfg.seed, step,
+                                                      self.rank))
                 self.flat.copy_(staged[i])
                 self._replay(0)
                 if self.split:
@@ -525,7 +568,7 @@ class _CapturedStep:
                             learning_rate=lrs[-1])
 
 
-def make_multi_step(cfg: Config, mlp_apply=None):
+def make_multi_step(cfg: Config, mlp_apply=None, group=None):
     """fn(state, batches) -> (state, Stats of the last step): the train
     step over a list of (rays, pixels) batches (numpy arrays or tensors),
     in order, as the JAX package's ``make_jitted_multi_step`` runs K steps
@@ -538,13 +581,19 @@ def make_multi_step(cfg: Config, mlp_apply=None):
     again. On the CPU the steps run eagerly. As in the JAX package,
     ``check_numerics`` does not check the multi-step; ``debug_nans`` checks
     each of its steps. ``multi_step.captured``: the graphs by batch shape.
+    ``group``: as in ``make_train_step``; on the card only a NCCL group,
+    whose all-reduces the graph captures (gloo's run on the host).
     """
     cfg = cfg.replace(check_numerics=False)
-    step_fn = make_train_step(cfg, mlp_apply=mlp_apply)
+    step_fn = make_train_step(cfg, mlp_apply=mlp_apply, group=group)
     captured = {}
 
     def multi_step(state: TrainState, batches):
         device = state.params[0][0].device
+        if device.type == "cuda" and group is not None and (
+                dist.get_backend(group) != "nccl"):
+            raise ValueError("a CUDA graph captures NCCL's collectives, not "
+                             f"{dist.get_backend(group)}'s")
         if device.type != "cuda":
             stats = None
             for rays, pixels in batches:
@@ -555,7 +604,8 @@ def make_multi_step(cfg: Config, mlp_apply=None):
             captured.clear()
         shape = _batch_shape(batches[0])
         if shape not in captured:
-            captured[shape] = _CapturedStep(cfg, mlp_apply, state, batches[0])
+            captured[shape] = _CapturedStep(cfg, mlp_apply, state, batches[0],
+                                            group)
         return captured[shape].run(state, batches)
 
     multi_step.captured = captured

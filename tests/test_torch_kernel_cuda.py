@@ -14,6 +14,10 @@ Tolerances: the parity bands of ``nerf_or_nothing_tpu/utils/parity.py``
 and plain version in the same compute dtype.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -878,3 +882,80 @@ def test_level_parity_errors_on_cuda():
     for dtype in ("bfloat16", "float32"):
         worst, errs = parity.level_parity_errors(dtype, device="cuda")
         assert worst < 1.0, (dtype, errs)
+
+
+# One rank on NCCL in its own process: the three train routes' sharded
+# steps (all-reduces and all) against the unsharded ones, eager, and the
+# sharded multi-step (graph replays with the all-reduces captured) against
+# the eager sharded steps. Prints OK per route.
+NCCL_WORLD1 = r"""
+import sys
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[2])
+from test_torch_kernel_cuda import GRAPH_ROUTES, SMALL, host_batches
+from nerf_or_nothing_tpu_torch import train as ttrain
+from nerf_or_nothing_tpu_torch.config import tiny_config
+from nerf_or_nothing_tpu_torch.kernels import launch_counts
+from nerf_or_nothing_tpu_torch.parallel import mesh
+
+mesh.initialize("file://" + sys.argv[1], 1, 0, "cuda")
+assert torch.distributed.get_backend() == "nccl"
+m = mesh.create_mesh(1, device="cuda")
+dev = m.device
+batches = host_batches(6, 48, 11)
+todev = [ttrain.batch_to_device(dev, r, p) for r, p in batches]
+
+
+def same(a, b, sa, sb):
+    return a.step == b.step and all(
+        torch.equal(x, y) for x, y in zip(ttrain.state_tensors(a),
+                                          ttrain.state_tensors(b))) and all(
+        torch.equal(getattr(sa, k), getattr(sb, k))
+        for k in ("loss", "losses", "psnr", "grad_norm", "grad_abs_max"))
+
+
+for route, kw in GRAPH_ROUTES.items():
+    cfg = tiny_config(**dict(SMALL, num_levels=2, batch_size=48,
+                             compute_dtype="bfloat16", randomized=True,
+                             lr_delay_steps=0, **kw))
+    plain, sharded = ttrain.make_train_step(cfg), \
+        mesh.make_sharded_train_step(cfg, m)
+    a = ttrain.init_train_state(cfg, dev)
+    b = mesh.replicate_state(ttrain.init_train_state(cfg, dev))
+    for bt in todev:
+        a, la = plain(a, *bt)
+        b, lb = sharded(b, *bt)
+    assert same(a, b, la, lb), f"{route}: sharded eager != unsharded"
+    multi = mesh.make_sharded_multi_step(cfg, m)
+    g = ttrain.init_train_state(cfg, dev)
+    before = launch_counts()
+    g, _ = multi(g, batches[:3])
+    g, lg = multi(g, batches[3:])
+    grown = sum(launch_counts()[k] - before[k] for k in before)
+    assert len(multi.captured) == 1
+    per_step = 4 if route == "mlp_fwd_bwd" else 2
+    assert grown == per_step * (6 + ttrain.WARMUP_STEPS), grown
+    assert same(g, b, lg, lb), f"{route}: sharded graph != sharded eager"
+    print("OK", route, flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_world_of_one_on_nccl_is_the_unsharded_step_on_cuda(tmp_path):
+    """In a NCCL group of one rank (a child process, so that no group
+    outlives the test) the sharded step of each train route is bit-equal
+    to the unsharded step over six steps, and the sharded multi-step (one
+    capture with the all-reduces inside, six replays) to the sharded eager
+    steps."""
+    from nerf_or_nothing_tpu_torch.kernels import build
+
+    cuda_device()
+    build.build_all(build.SOURCES)  # the child loads what this built
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", NCCL_WORLD1, str(tmp_path / "store"), here],
+        cwd=os.path.dirname(here), capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.split().count("OK") == len(GRAPH_ROUTES), proc.stdout
