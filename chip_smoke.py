@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # one card
+    python3 chip_smoke.py --tensor-cards   # a host of 4 cards: tensor_cards
 
 Phases, each printing one JSON line:
   env      torch / CUDA / nvcc versions, the card, whether triton imports;
@@ -118,10 +119,26 @@ Phases, each printing one JSON line:
            bit-equal across the ranks and within the bf16 band of the
            single-process steps on the whole batches; render_image of the
            400x400 test view over the two ranks against one process.
+  tensor   tensor parallelism (mesh.make_tensor_parallel_train_step, the
+           plain MLP as in JAX) in child processes: (1) a 1 x 1 grid on
+           NCCL at Config(): 8 tensor-parallel steps on loader batches
+           bit-equal to make_train_step(use_pallas=False) (params, mu, nu,
+           step, stats; no kernel launched), train rays/s of the two in
+           turns (plain, tensor, tensor, plain; SM clock and power draw
+           after each), one 256-column all-gather at the trunk's shape by
+           CUDA events, and ``run train --mesh-shape=1,1`` for 4 steps
+           with a checkpoint and a test render (its render_level launches
+           exact); (2) a 2 x 2 grid of four gloo ranks on the one card
+           (NCCL takes one rank a card): 2 randomized steps of 1024-ray
+           loader batches at Config() widths, the gathered state and the
+           stats within the bf16 band of the single-process plain step,
+           each block bit-equal down its 'model' column, the replicated
+           heads, gathered state and stats bit-equal on all four ranks.
 The train phases share one 400x400 scene.
 Then the ``kernels`` line (each kernel's launches: its path's, plus the
 mesh phase's in the world-1 child's sharded steps and rank 0 of the
-pair), the card's name and power limit, and as the last
+pair, and the tensor phase's ``run train --mesh-shape=1,1``), the card's
+name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises: non-zero exit and
 no ``ok`` line. Without a CUDA device the script exits 1 at once.
 """
@@ -179,6 +196,9 @@ MESH_CASES = (("Config()", ()), ("slice", FULL_GRAD_ARGS),
               ("multicam_twopass", MULTICAM_ARGS))
 MESH_WAIT_S = 300  # each child of the mesh phase must end within this
 ALLREDUCE_REPS = 20
+TP_STEPS = 8  # 1 x 1 grid: tensor-parallel steps against plain ones
+TP_RUN_STEPS = 4  # run train --mesh-shape=1,1, a test render at the end
+TP_GLOO_STEPS = 2  # steps of the 2 x 2 gloo grid (cut these first)
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -1476,12 +1496,19 @@ def wait_children(children) -> list:
 
 
 def mesh_child(kind: str, *args) -> int:
-    """Entry of the mesh phase's child processes: ``world1 SCENE STORE
-    OUT`` or ``pair RANK SCENE WORK STORE OUT``."""
-    res = mesh_world1(*args) if kind == "world1" else mesh_pair(*args)
+    """Entry of the mesh and tensor phases' child processes: ``world1
+    SCENE STORE OUT``, ``pair RANK SCENE WORK STORE OUT``, ``grid1x1 SCENE
+    WORK STORE OUT`` or ``grid RANK DP MP BACKEND SCENE WORK STORE
+    OUT``."""
+    res = {"world1": mesh_world1, "pair": mesh_pair,
+           "grid1x1": tensor_one, "grid": tensor_rank}[kind](*args)
     with open(args[-1], "w") as f:
         json.dump(res, f)
     return 0
+
+
+STAT_NAMES = ("loss", "losses", "weight_l2", "psnr", "psnrs", "grad_norm",
+              "grad_abs_max", "grad_norm_clipped")
 
 
 def states_equal(a, b, sa, sb) -> list:
@@ -1489,9 +1516,7 @@ def states_equal(a, b, sa, sb) -> list:
     import torch
 
     pairs = state_pairs(a, b) + [
-        (f"stats/{k}", getattr(sa, k), getattr(sb, k))
-        for k in ("loss", "losses", "weight_l2", "psnr", "psnrs",
-                  "grad_norm", "grad_abs_max", "grad_norm_clipped")]
+        (f"stats/{k}", getattr(sa, k), getattr(sb, k)) for k in STAT_NAMES]
     out = [k for k, x, y in pairs if not torch.equal(x, y)]
     return out + ([] if a.step == b.step else ["step"])
 
@@ -1756,6 +1781,349 @@ def mesh_phase(device, scene: str) -> dict:
     return added(one["launches"], pair[0]["launches"])
 
 
+def tensor_one(scene: str, work: str, store: str, out: str) -> dict:
+    """A 1 x 1 grid on NCCL at Config(): ``TP_STEPS`` tensor-parallel steps
+    bit-equal to the plain step (``use_pallas=False``), no kernel launched;
+    train rays/s of the two in turns; one 256-column all-gather at the
+    trunk's shape by CUDA events; ``run train --mesh-shape=1,1`` with a
+    checkpoint and a test render (its launch counts)."""
+    import csv
+
+    import torch
+    import torch.distributed as dist
+
+    from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.parallel import mesh
+
+    mesh.initialize(f"file://{store}", 1, 0, "cuda")
+    grid = mesh.create_mesh_2d(1, 1, device="cuda")
+    device = grid.device
+    cfg = run.parse_flags([f"--data-dir={scene}"])
+    batches = loader_batches(scene, cfg, TURN_STEPS)
+    todev = [train_lib.batch_to_device(device, *b) for b in batches]
+    fns = {"plain": train_lib.make_train_step(cfg.replace(use_pallas=False)),
+           "tensor": mesh.make_tensor_parallel_train_step(cfg, grid)}
+    states = {"plain": train_lib.init_train_state(cfg, device),
+              "tensor": mesh.shard_state(train_lib.init_train_state(
+                  cfg, device), grid, cfg)}
+    last = {}
+    reset_launch_counts()
+    for kind in fns:
+        for b in todev[:TP_STEPS]:
+            states[kind], last[kind] = fns[kind](states[kind], *b)
+    torch.cuda.synchronize()
+    check_launches("tensor 1x1: plain and tensor-parallel steps",
+                   launch_counts(), dict.fromkeys(KERNELS, 0))
+    whole = mesh.gather_state(states["tensor"], grid, cfg)
+    res = {"device": str(device), "backend": dist.get_backend(),
+           "grid": [1, 1], "steps": TP_STEPS,
+           "unequal": states_equal(whole, states["plain"], last["tensor"],
+                                   last["plain"]),
+           "loss": float(last["tensor"].loss)}
+
+    turns = []
+    for kind in ("plain", "tensor", "tensor", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in todev:
+            states[kind], stats = fns[kind](states[kind], *b)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if not math.isfinite(float(stats.loss)):
+            raise AssertionError(f"tensor 1x1 turns: {kind} non-finite loss")
+        turns.append({"kind": kind, "s": sec,
+                      "rays_per_s": TURN_STEPS * cfg.batch_size / sec,
+                      "sm_clock_power": clock_power()})
+    res["turns"] = turns
+    res["rays_per_s"] = {k: sum(t["rays_per_s"] for t in turns
+                                if t["kind"] == k) / 2 for k in fns}
+
+    y = torch.randn(cfg.batch_size * cfg.num_samples, cfg.net_width,
+                    device=device)
+    parts = [torch.empty_like(y)]
+    times = []
+    for i in range(ALLREDUCE_REPS + 3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dist.all_gather(parts, y, group=grid.model_group)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(start.elapsed_time(end))
+    times.sort()
+    res["allgather"] = {"shape": list(y.shape), "bytes": y.numel() * 4,
+                        "median_ms": times[len(times) // 2],
+                        "min_ms": times[0], "reps": ALLREDUCE_REPS}
+
+    ckpt = os.path.join(work, "ckpt")
+    args = [f"--data-dir={scene}", f"--checkpoint-dir={ckpt}",
+            f"--max-steps={TP_RUN_STEPS}", "--print-every=1",
+            f"--test-render-interval={TP_RUN_STEPS}", "--mesh-shape=1,1",
+            "--device=cuda"]
+    expected = render_launches(cfg, test_dims(scene, cfg, 1))
+    res["run_train_s"] = run_main("tensor 1x1: run train --mesh-shape=1,1",
+                                  ["train", *args], expected)
+    res["launches"] = launch_counts()
+    with open(os.path.join(ckpt, "train_stats.csv")) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    latest = ckpt_lib.latest_checkpoint(ckpt)
+    if len(losses) != TP_RUN_STEPS or not all(map(math.isfinite, losses)) \
+            or not latest.endswith(f"checkpoint_{TP_RUN_STEPS:09d}.npz"):
+        raise AssertionError(f"tensor 1x1 run train: losses {losses}, "
+                             f"checkpoint {latest}")
+    res["run_losses"] = losses
+    dist.destroy_process_group()
+    return res
+
+
+def tensor_rank(rank: str, dp: str, mp: str, backend: str, scene: str,
+                work: str, store: str, out: str) -> dict:
+    """Rank ``rank`` of a ``dp`` x ``mp`` grid (gloo: every rank on the
+    one card; nccl: rank r on cuda:r): ``TP_GLOO_STEPS`` tensor-parallel
+    steps at Config() on its row block of the parent's batches
+    (randomized), no kernel launched; its blocks, the gathered state and
+    the stats written for the parent; then the parent's further batches,
+    if any, as timed steps."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.parallel import mesh
+    from nerf_or_nothing_tpu_torch.rays import Rays
+
+    rank, dp, mp = int(rank), int(dp), int(mp)
+    mesh.initialize(f"file://{store}", dp * mp, rank, "cuda", backend=backend)
+    grid = mesh.create_mesh_2d(dp, mp, device="cuda")
+    device = grid.device
+    cfg = run.parse_flags([f"--data-dir={scene}", "--randomized=true"])
+    with np.load(os.path.join(work, "tp_batches.npz")) as f:
+        batches = [train_lib.batch_to_device(device, *mesh.shard_batch(
+            grid.batch_mesh, Rays(*[f[f"{k}/rays{j}"] for j in range(7)]),
+            f[f"{k}/pixels"])) for k in range(len(f.files) // 8)]
+    step = mesh.make_tensor_parallel_train_step(cfg, grid)
+    state = mesh.shard_state(train_lib.init_train_state(cfg, device), grid,
+                             cfg)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[:TP_GLOO_STEPS]:
+        state, stats = step(state, *b)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    check_launches(f"tensor {dp}x{mp} rank {rank}", launch_counts(),
+                   dict.fromkeys(KERNELS, 0))
+    whole = mesh.gather_state(state, grid, cfg)
+    arrays = {f"shard/{k}": t.cpu().numpy()
+              for k, t, _ in state_pairs(state, state)}
+    arrays.update({f"whole/{k}": t.cpu().numpy()
+                   for k, t, _ in state_pairs(whole, whole)})
+    arrays.update({f"stats/{k}": getattr(stats, k).cpu().numpy()
+                   for k in STAT_NAMES})
+    np.savez(os.path.join(work, f"tp_{dp}x{mp}_r{rank}.npz"), **arrays)
+    res = {"rank": rank, "b": grid.b, "m": grid.m, "device": str(device),
+           "backend": dist.get_backend(), "rows": int(b[1].shape[0]),
+           "s": sec, "rays_per_s": TP_GLOO_STEPS * cfg.batch_size / sec,
+           "loss": float(stats.loss)}
+    timed = batches[TP_GLOO_STEPS:]
+    if timed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in timed:
+            state, stats = step(state, *b)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        res["timed"] = {"steps": len(timed), "s": sec,
+                        "rays_per_s": len(timed) * cfg.batch_size / sec,
+                        "loss": float(stats.loss),
+                        "sm_clock_power": clock_power()}
+    dist.destroy_process_group()
+    return res
+
+
+def grid_children(dp: int, mp: int, backend: str, scene: str, work: str):
+    """Start the ``dp`` x ``mp`` grid's ranks (``tensor_rank``) and wait
+    for them: (their results, seconds)."""
+    t0 = time.perf_counter()
+    ranks = wait_children([run_child(
+        f"{dp} x {mp} {backend} rank {r}", "grid", str(r), str(dp), str(mp),
+        backend, scene, work, os.path.join(work, f"store_{dp}x{mp}"),
+        os.path.join(work, f"tp_{dp}x{mp}_{r}.json"))
+        for r in range(dp * mp)])
+    return ranks, time.perf_counter() - t0
+
+
+def grid_check(cfg, batches, work: str, dp: int, mp: int, device) -> dict:
+    """The ranks' gathered state and stats after ``TP_GLOO_STEPS`` steps
+    against the plain single-process step (``use_pallas=False``) on the
+    whole batches, in the bf16 band; each block against the rank of row 0
+    in its column, and the replicated layers, the gathered state and the
+    stats against rank 0, bit for bit."""
+    import numpy as np
+    import torch
+
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.parallel import mesh
+
+    ref = train_lib.init_train_state(cfg, device)
+    step = train_lib.make_train_step(cfg.replace(use_pallas=False))
+    for rays, pixels in batches[:TP_GLOO_STEPS]:
+        ref, ref_stats = step(ref, *train_lib.batch_to_device(device, rays,
+                                                              pixels))
+    got = [dict(np.load(os.path.join(work, f"tp_{dp}x{mp}_r{r}.npz")))
+           for r in range(dp * mp)]
+    sharded = mesh.layer_sharded(cfg, mp)
+    errs, max_abs = check_pairs(f"tensor {dp}x{mp}", [
+        (k, torch.from_numpy(got[0][f"whole/{k}"]), t.cpu())
+        for k, t, _ in state_pairs(ref, ref)] + [
+        (f"stats/{k}", torch.from_numpy(got[0][f"stats/{k}"]).reshape(-1),
+         getattr(ref_stats, k).cpu().reshape(-1)) for k in STAT_NAMES],
+        "bfloat16")
+    unequal = []
+    for r in range(dp * mp):
+        for k in got[r]:
+            layer = int(re.search(r"(\d+)$", k).group(1)) if (
+                k.startswith("shard/")) else None
+            other = got[r % mp] if layer is not None and sharded[layer] \
+                else got[0]
+            if not np.array_equal(got[r][k], other[k]):
+                unequal.append(f"rank{r}/{k}")
+    res = {"grid": [dp, mp], "steps": TP_GLOO_STEPS,
+           "batch": cfg.batch_size, "randomized": cfg.randomized,
+           "sharded_layers": sharded,
+           "worst_normalized_err_bf16_band": max(errs.values()),
+           "worst": max(errs, key=errs.get), "max_abs_err": max_abs,
+           "ranks_unequal": unequal}
+    if unequal or res["worst_normalized_err_bf16_band"] >= 1.0:
+        emit({"phase": "tensor", **res})
+        raise AssertionError(f"tensor {dp}x{mp}: {res}")
+    return res
+
+
+def save_batches(work: str, batches) -> None:
+    import numpy as np
+
+    np.savez(os.path.join(work, "tp_batches.npz"), **{
+        f"{k}/{f}": x for k, (rays, pixels) in enumerate(batches)
+        for f, x in [*[(f"rays{j}", r) for j, r in enumerate(rays)],
+                     ("pixels", pixels)]})
+
+
+def tensor_phase(device, scene: str) -> dict:
+    """Tensor parallelism in child processes (see the module docstring):
+    a 1 x 1 grid on NCCL, then a 2 x 2 grid of four gloo ranks on the one
+    card held against this process's plain steps. Returns the launches of
+    ``run train --mesh-shape=1,1``."""
+    from nerf_or_nothing_tpu_torch import run
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_tensor_")
+    t0 = time.perf_counter()
+    one, = wait_children([run_child(
+        "1 x 1 NCCL grid", "grid1x1", scene, work,
+        os.path.join(work, "store1"), os.path.join(work, "grid1x1.json"))])
+    one["child_s"] = time.perf_counter() - t0
+    emit({"phase": "tensor", "check": "grid_1x1_nccl", **one})
+    if one["unequal"]:
+        raise AssertionError(f"tensor 1x1: differs from the plain step: "
+                             f"{one['unequal']}")
+
+    cfg = run.parse_flags([f"--data-dir={scene}", "--randomized=true"])
+    batches = loader_batches(scene, cfg, TP_GLOO_STEPS)
+    save_batches(work, batches)
+    ranks, children_s = grid_children(2, 2, "gloo", scene, work)
+    emit({"phase": "tensor", "check": "grid_2x2_gloo_one_card",
+          "children_s": children_s, "ranks": ranks,
+          **grid_check(cfg, batches, work, 2, 2, device)})
+    return one["launches"]
+
+
+def tensor_cards(device) -> dict:
+    """``--tensor-cards``: tensor parallelism across the host's cards (at
+    least 4; NCCL, one rank a card). ``run train --mesh-shape=2,2`` for 4
+    steps (four spawned ranks) against ``run train --use-pallas=false``
+    in one process, their checkpoints in the bf16 band; 2 x 2 and 1 x 4
+    grids in child processes, ``TP_GLOO_STEPS`` steps against the plain
+    step (``grid_check``), then ``TURN_STEPS`` timed steps; the plain step
+    on one card timed before and after them."""
+    import numpy as np
+    import torch
+
+    from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
+
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        raise AssertionError(f"--tensor-cards needs 4 cards, found {cards}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    scene = os.path.join(work, "scene")
+    write_scene(scene, n_train=4, n_test=1, size=400)
+    res = {"phase": "tensor_cards", "cards": cards,
+           "names": [torch.cuda.get_device_name(i) for i in range(cards)]}
+
+    runs = {}
+    for name, extra in (("grid", ["--mesh-shape=2,2"]),
+                        ("plain", ["--use-pallas=false"])):
+        ckpt = os.path.join(work, f"ckpt_{name}")
+        t0 = time.perf_counter()
+        rc = run.main(["train", f"--data-dir={scene}", "--max-steps=4",
+                       "--print-every=2", "--test-render-interval=0",
+                       f"--checkpoint-dir={ckpt}", *extra, "--device=cuda"])
+        runs[name] = (rc, time.perf_counter() - t0,
+                      ckpt_lib.latest_checkpoint(ckpt))
+    if any(rc for rc, _, _ in runs.values()):
+        raise AssertionError(f"tensor cards: run train {runs}")
+    with np.load(runs["grid"][2]) as g, np.load(runs["plain"][2]) as p:
+        names = [k for k in p.files if k.split("/")[0] in ("params", "mu",
+                                                           "nu")]
+        errs, max_abs = check_pairs("tensor cards run train", [
+            (k, torch.from_numpy(g[k]), torch.from_numpy(p[k]))
+            for k in names], "bfloat16")
+    res["run_train"] = {"s": {k: v[1] for k, v in runs.items()},
+                        "checkpoints": {k: v[2] for k, v in runs.items()},
+                        "worst_normalized_err_bf16_band": max(errs.values()),
+                        "max_abs_err": max_abs}
+
+    cfg = run.parse_flags([f"--data-dir={scene}", "--randomized=true"])
+    batches = loader_batches(scene, cfg, TP_GLOO_STEPS + TURN_STEPS)
+    save_batches(work, batches)
+    todev = [train_lib.batch_to_device(device, *b) for b in batches]
+    plain = train_lib.make_train_step(cfg.replace(use_pallas=False))
+    state = train_lib.init_train_state(cfg, device)
+
+    def plain_turn():
+        nonlocal state
+        for b in todev[:TP_GLOO_STEPS]:
+            state, _ = plain(state, *b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in todev[TP_GLOO_STEPS:]:
+            state, stats = plain(state, *b)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        return {"steps": TURN_STEPS, "s": sec,
+                "rays_per_s": TURN_STEPS * cfg.batch_size / sec,
+                "loss": float(stats.loss), "sm_clock_power": clock_power()}
+
+    res["plain_one_card"] = [plain_turn()]
+    res["grids"] = []
+    for dp, mp in ((2, 2), (1, 4)):
+        ranks, children_s = grid_children(dp, mp, "nccl", scene, work)
+        res["grids"].append({"children_s": children_s, "ranks": ranks,
+                             **grid_check(cfg, batches, work, dp, mp,
+                                          device)})
+    res["plain_one_card"].append(plain_turn())
+    emit(res)
+    if res["run_train"]["worst_normalized_err_bf16_band"] >= 1.0:
+        raise AssertionError(f"tensor cards: run train {res['run_train']}")
+    return res
+
+
 def ptxas_lines(log: str):
     """ptxas's register, spill and serialized-wgmma (C7511) lines of a
     build, each kernel's under its name."""
@@ -1814,6 +2182,12 @@ def main() -> int:
         "peaks": {"bf16_flops": peaks[0], "f32_flops": peaks[1],
                   "bytes_per_s": peaks[2]},
     })
+    if sys.argv[1:] == ["--tensor-cards"]:
+        tensor_cards(device)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     t0 = time.perf_counter()
     sources = build.SOURCES
@@ -1936,6 +2310,7 @@ def main() -> int:
     graph_phase(device, scene, train_record)
 
     mesh_launches = mesh_phase(device, scene)
+    mesh_launches = added(mesh_launches, tensor_phase(device, scene))
 
     def entry(name, case, n, replaces):
         return {

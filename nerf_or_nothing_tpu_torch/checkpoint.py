@@ -10,7 +10,9 @@ restore the port reseeds its generator from (seed, step)
 (``train.step_seed``), whatever ``key`` holds. In a data-parallel group
 rank 0 alone writes (the state is the same on every rank); every rank
 restores the same file, and ``run`` then broadcasts rank 0's state
-(``parallel/mesh.replicate_state``).
+(``parallel/mesh.replicate_state``). A tensor-parallel grid writes the
+whole model, which every rank gathers first (``mesh.gather_state``), and
+shards it again after a restore (``mesh.shard_state``).
 """
 
 from __future__ import annotations

@@ -29,8 +29,9 @@ the hand-written kernels (the CPU runs each kernel's plain version):
   before the update (of single steps, or of every step);
 - ``mesh_shape``: ``(N,)`` trains data-parallel on N ranks, one process
   a device (``parallel/mesh.py``; ``run train`` spawns them); ``()`` takes
-  every card of the host for an unindexed ``cuda``; two axes (tensor
-  parallelism) raise ``NotImplementedError``;
+  every card of the host for an unindexed ``cuda``; ``(DP, MP)`` trains
+  tensor-parallel on DP x MP ranks (``mesh.make_tensor_parallel_train_step``,
+  the plain MLP as in JAX); three or more axes raise ``ValueError``;
 - ``kernel_probes`` (comma-separated ``key=value`` entries, read by
   ``probe``): ``fl_variant=twopass`` runs each train level as
   ``train_level_twopass`` (``kernels/fused_level.py``) where the JAX package
@@ -144,8 +145,8 @@ class Config:
     fuse_level: bool = True         # whole level in one kernel, else the MLP kernels
     fuse_ipe: bool = False          # IPE inside the level kernel (train path)
     fast_ipe: bool = True           # polynomial sin/cos/exp (ops/fastmath.py)
-    pair_ipe: bool = False          # TPU layout probe; not ported
-    xt_ipe: bool = False            # TPU layout probe; not ported
+    pair_ipe: bool = False          # TPU layout probe: same features, mode "t"
+    xt_ipe: bool = False            # TPU layout probe: same features, mode "t"
     fuse_ipe_render: bool = True    # IPE inside the render kernel (mode "mv")
     debug_nans: bool = False
     check_numerics: bool = False

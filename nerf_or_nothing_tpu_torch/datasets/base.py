@@ -4,12 +4,14 @@ Same contract as ``nerf_or_nothing_tpu/datasets/base.py`` on one process:
 subclasses fill ``images`` [N,H,W,3] and ``rays`` (leaves [N,H,W,C]) in
 ``_load``; the images flatten to a pixel pool, and ``next()`` serves
 ``batch_size`` pixels drawn with replacement from
-``np.random.default_rng(seed + 17 * rank + (0 if train else 1))``, so the
-batches are byte-equal to the JAX package's. Each rank of a data-parallel
-group takes the stripe ``rank::count`` of the pool (``stripe``: the rank
-and size of ``torch.distributed``'s default group, 0 of 1 without one),
-as each JAX process takes ``process_index::process_count``. A background
-thread prefetches batches into
+``np.random.default_rng(seed + 17 * index + (0 if train else 1))``, so the
+batches are byte-equal to the JAX package's. A process reads the stripe
+``index::count`` of the pool, as each JAX process takes
+``process_index::process_count``: by default (``process_stripe``) its rank
+and the size of ``torch.distributed``'s default group (0 of 1 without
+one), the launch flags' processes; ``stripe=(0, 1)`` for ranks that stand
+for the devices of one JAX process and share its batch
+(``run train --mesh-shape``). A background thread prefetches batches into
 a bounded queue; ``peek``, ``close`` and the context manager behave as
 there. ``image_rays`` serves one image's flat ray grid and ground truth.
 Everything is numpy on the host.
@@ -31,19 +33,21 @@ class Dataset:
     """Base dataset: subclasses fill ``self.images`` [N,H,W,3] float32 in
     [0,1] and ``self.rays`` (Rays with leaves [N,H,W,C]) in ``_load``."""
 
-    def __init__(self, split: str, data_dir: str, cfg: Config):
+    def __init__(self, split: str, data_dir: str, cfg: Config,
+                 stripe: Optional[Tuple[int, int]] = None):
         self.split = split
         self.data_dir = data_dir
         self.cfg = cfg
         self.images: np.ndarray = None
         self.rays: Rays = None
+        self.stripe = stripe if stripe is not None else process_stripe()
         self._load()
         if cfg.linear_color:
             self._linearize()
         self._flatten()
-        rank, _ = self.stripe()
+        index, _ = self.stripe
         self._rng = np.random.default_rng(
-            cfg.seed + 17 * rank + (0 if split == "train" else 1)
+            cfg.seed + 17 * index + (0 if split == "train" else 1)
         )
         self._queue: "queue.Queue" = queue.Queue(maxsize=4)
         self._thread: Optional[threading.Thread] = None
@@ -52,14 +56,6 @@ class Dataset:
 
     def _load(self) -> None:
         raise NotImplementedError
-
-    @staticmethod
-    def stripe() -> Tuple[int, int]:
-        """(rank, count): this process draws from pool rows rank::count,
-        its rank and the number of ranks (``parallel/mesh.py``)."""
-        from nerf_or_nothing_tpu_torch.parallel import mesh
-
-        return mesh.rank(), mesh.world_size()
 
     def _linearize(self) -> None:
         """Linear radiance (Config.linear_color): decode the sRGB pixels."""
@@ -78,9 +74,9 @@ class Dataset:
                        self.images.reshape(n * h * w, 3))
 
     def _set_pool(self, flat_rays: Rays, flat_pixels: np.ndarray) -> None:
-        rank, count = self.stripe()
-        self._flat_rays = Rays(*[x[rank::count] for x in flat_rays])
-        self._flat_pixels = flat_pixels[rank::count]
+        index, count = self.stripe
+        self._flat_rays = Rays(*[x[index::count] for x in flat_rays])
+        self._flat_pixels = flat_pixels[index::count]
         self.pool_size = self._flat_pixels.shape[0]
 
     def _sample_batch(self) -> Tuple[Rays, np.ndarray]:
@@ -159,8 +155,19 @@ class Dataset:
         return self.height, self.width
 
 
-def create_dataset(split: str, data_dir: str, cfg: Config) -> Dataset:
-    """The loader of ``cfg.dataset_loader``."""
+def process_stripe() -> Tuple[int, int]:
+    """(index, count) of this process's stripe: its rank and the number of
+    ranks of the default group (``parallel/mesh.py``), JAX's
+    ``process_index`` and ``process_count``."""
+    from nerf_or_nothing_tpu_torch.parallel import mesh
+
+    return mesh.rank(), mesh.world_size()
+
+
+def create_dataset(split: str, data_dir: str, cfg: Config,
+                   stripe: Optional[Tuple[int, int]] = None) -> Dataset:
+    """The loader of ``cfg.dataset_loader``, reading the pool's stripe
+    ``stripe`` (default: ``process_stripe()``)."""
     from nerf_or_nothing_tpu_torch.datasets import (
         bin_dump,
         blender,
@@ -174,4 +181,4 @@ def create_dataset(split: str, data_dir: str, cfg: Config) -> Dataset:
         DatasetType.MULTICAM: multicam.Multicam,
         DatasetType.BIN: bin_dump.BinDataset,
     }
-    return loaders[cfg.dataset_loader](split, data_dir, cfg)
+    return loaders[cfg.dataset_loader](split, data_dir, cfg, stripe)

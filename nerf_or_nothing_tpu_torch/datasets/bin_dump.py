@@ -56,9 +56,9 @@ class BinDataset(Dataset):
         if not native_available():
             return None
         try:
-            rank, count = self.stripe()
+            index, count = self.stripe
             return NativeRayLoader(self.data_dir, self.cfg.batch_size,
-                                   seed=self.cfg.seed, stripe_index=rank,
+                                   seed=self.cfg.seed, stripe_index=index,
                                    stripe_count=count)
         except (RuntimeError, OSError):
             return None

@@ -24,7 +24,7 @@ here: it runs the ``train_level`` kernel per level.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -44,10 +44,20 @@ def encode_dirs(cfg: Config, rays: Rays) -> torch.Tensor:
 def sample_level(cfg: Config, rays: Rays, i_level: int, t_vals, weights,
                  randomized: bool, stop_grad: bool,
                  u: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 rows: Optional[Tuple[int, int]] = None):
     """Level ``i_level``'s sample Gaussians: stratified at level 0,
     blurpool + PDF resampling from the previous level's weights after.
+    ``rows=(start, total)``: ``rays`` are rows start.. of a batch of
+    ``total``, and a randomized level draws the whole batch's uniforms
+    from ``generator`` and keeps these rows (every rank of a
+    tensor-parallel grid draws what one process draws).
     Returns (t_vals, (means, covs))."""
+    if randomized and u is None and rows is not None:
+        start, total = rows
+        n = cfg.num_samples + 1 if i_level == 0 else t_vals.shape[-1]
+        u = sampling.uniform((total, n), rays.origins, generator)
+        u = u[start:start + rays.origins.shape[0]]
     if i_level == 0:
         return sampling.sample_along_rays(
             rays.origins, rays.directions, rays.radii, cfg.num_samples,
@@ -138,6 +148,7 @@ def render_rays(
     inference: bool = False,
     generator: Optional[torch.Generator] = None,
     packed=None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> List[render.RenderResult]:
     """Full hierarchical forward; one RenderResult per level.
 
@@ -152,6 +163,8 @@ def render_rays(
         ``fused_mlp.pack_mlp_params``), when the caller keeps them across
         calls; else packed here for CUDA, once for all levels and, on the
         fused-MLP route, for both directions.
+      rows: (start, total) of ``rays`` in the batch whose draws a
+        randomized render makes (``sample_level``).
     """
     dt = mlp_lib.compute_dtype(cfg)
     device = rays.origins.device
@@ -188,7 +201,7 @@ def render_rays(
     for i_level in range(cfg.num_levels):
         t_vals, (means, covs) = sample_level(
             cfg, rays, i_level, t_vals, weights, randomized,
-            stop_grad=cfg.stop_level_grad, generator=generator,
+            stop_grad=cfg.stop_level_grad, generator=generator, rows=rows,
         )
 
         if fused_render is not None:

@@ -73,35 +73,43 @@ def dense(h: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 
 
 def apply_mlp(params: Params, cfg: Config, x: torch.Tensor,
-              dir_enc: torch.Tensor, compute_dtype=torch.float32):
+              dir_enc: torch.Tensor, compute_dtype=torch.float32,
+              linear=None):
     """Batched forward.
 
     Args:
       x: [..., S, location_features] IPE-encoded positions.
       dir_enc: [..., direction_features] PE-encoded direction, one per ray,
         broadcast over its samples.
+      linear: optional fn(i, h, w, b) -> layer i's f32 pre-activation, in
+        place of ``dense(h, w, dt) + b`` (the tensor-parallel layers of
+        ``parallel/mesh.column_parallel_mlp``).
     Returns:
       raw_rgb [..., S, 3], raw_density [..., S, 1] in f32.
     """
     dt = compute_dtype
+    if linear is None:
+        def linear(i, h, w, b):
+            return dense(h, w, dt) + b
+
+    def layer(i, h):
+        w, b = params[i]
+        return linear(i, h, w, b)
+
     inputs = x.to(dt)
     h = inputs
     for i in range(cfg.net_depth):
         if i % cfg.skip_layer == 0 and i > 0:
             h = torch.cat([h, inputs], dim=-1)
-        w, b = params[i]
-        h = torch.relu(dense(h, w, dt) + b).to(dt)
+        h = torch.relu(layer(i, h)).to(dt)
 
-    w, b = params[cfg.net_depth]
-    raw_density = dense(h, w, dt) + b
+    raw_density = layer(cfg.net_depth, h)
 
     d = dir_enc[..., None, :].to(dt).expand(*h.shape[:-1], dir_enc.shape[-1])
     h = torch.cat([h, d], dim=-1)
     for i in range(cfg.net_depth_condition):
-        w, b = params[cfg.net_depth + 1 + i]
-        h = torch.relu(dense(h, w, dt) + b).to(dt)
-    w, b = params[cfg.net_depth + 1 + cfg.net_depth_condition]
-    raw_rgb = dense(h, w, dt) + b
+        h = torch.relu(layer(cfg.net_depth + 1 + i, h)).to(dt)
+    raw_rgb = layer(cfg.net_depth + 1 + cfg.net_depth_condition, h)
     return raw_rgb.float(), raw_density.float()
 
 

@@ -34,7 +34,9 @@ from nerf_or_nothing_tpu_torch.config import RayShape
 from nerf_or_nothing_tpu_torch.ops.ipe import cast_rays
 
 
-def _uniform(shape, like: torch.Tensor, generator: Optional[torch.Generator]):
+def uniform(shape, like: torch.Tensor, generator: Optional[torch.Generator]):
+    """The raw [0, 1) draw ``u`` of ``shape``, in ``like``'s dtype, from
+    ``generator`` (on its device), moved to ``like``'s device."""
     gen_device = generator.device if generator is not None else like.device
     u = torch.rand(shape, generator=generator, dtype=like.dtype,
                    device=gen_device)
@@ -68,7 +70,7 @@ def sample_along_rays(origins, directions, radii, num_samples: int, near,
         shifted = torch.cat([t_vals[..., :1], mids], dim=-1)
         upper = torch.cat([mids, t_vals[..., -1:]], dim=-1)
         if u is None:
-            u = _uniform((num_rays, num_samples + 1), origins, generator)
+            u = uniform((num_rays, num_samples + 1), origins, generator)
         t_vals = shifted + (upper - shifted) * u
     means, covs = cast_rays(t_vals, origins, directions, radii, ray_shape,
                             diag)
@@ -105,7 +107,7 @@ def sorted_piecewise_constant_pdf(bins, weights, num_samples: int,
     if randomized:
         s = 1.0 / num_samples
         if u is None:
-            u = _uniform(shape, cdf, generator)
+            u = uniform(shape, cdf, generator)
         # jax.random.uniform(maxval=m) is the [0, 1) draw times m.
         u = u.to(dtype) * torch.tensor(s - 1e-7, dtype=dtype)
         u = torch.arange(num_samples, dtype=dtype, device=cdf.device) * s + u

@@ -1,5 +1,6 @@
-"""Data parallelism on ``torch.distributed``: the counterpart of
-``nerf_or_nothing_tpu/parallel/mesh.py``'s 1-D ``'batch'`` mesh.
+"""Data and tensor parallelism on ``torch.distributed``: the counterpart of
+``nerf_or_nothing_tpu/parallel/mesh.py``'s 1-D ``'batch'`` mesh and its 2-D
+``('batch', 'model')`` grid.
 
 One process is one rank and drives one device: NCCL between cards, gloo on
 the CPU. The params and the Adam moments are replicated (``replicate_state``
@@ -12,14 +13,28 @@ runs the single-device step on its rows, with the collectives between the
 kernels. Two ways to start the ranks:
 
 - ``spawn``: one process a device, started by the caller
-  (``run train --mesh-shape=N``, JAX's one process over N local devices);
+  (``run train --mesh-shape=N``, JAX's one process over N local devices:
+  the ranks read the whole pool, draw the global batch and each keeps its
+  row block, ``shard_batch``);
 - ``initialize_multihost``: the calling process joins a group as one rank
   (``run``'s launch flags ``--coordinator``, ``--num-processes``,
-  ``--process-id``; JAX's multi-host ``jax.distributed.initialize``).
+  ``--process-id``; JAX's multi-host ``jax.distributed.initialize``: each
+  process draws a batch from its own stripe of the pool).
 
-The 2-D tensor-parallel mesh (JAX ``create_mesh_2d``,
-``make_tensor_parallel_train_step``) is not ported: ``run train`` raises
-``NotImplementedError`` for a ``mesh_shape`` of two axes.
+The 2-D grid (``create_mesh_2d``, ``make_tensor_parallel_train_step``;
+``run train --mesh-shape=dp,mp``) is JAX's GSPMD step with its collectives
+written out. Rank ``b * mp + m`` holds row block ``b`` of the global batch
+and column block ``m`` of every layer whose fan-out ``mp`` divides (weight,
+bias and Adam moments, ``shard_params``; the narrow heads are replicated,
+``layer_sharded``). Each sharded layer is column-parallel
+(``column_parallel_mlp``): Megatron's pair of autograd functions over the
+``'model'`` group, an identity whose backward sums the input gradient and
+an all-gather of the output columns whose backward keeps this rank's
+columns. The gradients, the loss and its denominator are averaged over the
+``'batch'`` group, the global norm and the weight L2 sum the sharded
+layers over ``'model'`` (``train.make_train_step(grid=...)``), and
+``gather_params`` puts the whole model back together for a checkpoint or
+a render.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from nerf_or_nothing_tpu_torch.device import resolve_device
+from nerf_or_nothing_tpu_torch.models import mlp as mlp_lib
 from nerf_or_nothing_tpu_torch.rays import Rays
 
 
@@ -167,18 +183,23 @@ def shard_batch_stack(mesh: Mesh, batches) -> list:
     return [shard_batch(mesh, rays, pixels) for rays, pixels in batches]
 
 
-def gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Every rank's rows of ``t`` in rank order, on ``t``'s device: an
-    all-gather on the card with NCCL, through the host with gloo (which
+def _all_gather(t: torch.Tensor, group, size: int) -> List[torch.Tensor]:
+    """Every rank's ``t`` of ``group``, in rank order, on ``t``'s device:
+    an all-gather on the card with NCCL, through the host with gloo (which
     gathers no CUDA tensors)."""
+    src = t.contiguous()
+    if dist.get_backend(group) == "gloo":
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=group)
+    return [p.to(t.device) for p in parts]
+
+
+def gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's rows of ``t`` in rank order, on ``t``'s device."""
     if mesh.group is None or mesh.world_size == 1:
         return t
-    src = t.contiguous()
-    if dist.get_backend(mesh.group) == "gloo":
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, src, group=mesh.group)
-    return torch.cat(parts).to(t.device)
+    return torch.cat(_all_gather(t, mesh.group, mesh.world_size))
 
 
 def make_sharded_train_step(cfg, mesh: Mesh, mlp_apply=None):
@@ -198,6 +219,190 @@ def make_sharded_multi_step(cfg, mesh: Mesh, mlp_apply=None):
     from nerf_or_nothing_tpu_torch.train import make_multi_step
 
     return make_multi_step(cfg, mlp_apply=mlp_apply, group=mesh.group)
+
+
+# ---------------------------------------------------------------------------
+# The 2-D ('batch', 'model') grid: tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A ``dp`` x ``mp`` grid seen from rank ``b * mp + m`` (JAX's
+    ``devices.reshape(dp, mp)``): its row ``b`` on the ``'batch'`` axis, its
+    column ``m`` on ``'model'``, its device, the ``dp`` ranks of its column
+    (``batch_group``: same ``m``, they average the gradients) and the
+    ``mp`` ranks of its row (``model_group``: same ``b``, they hold the
+    same rows and split the layers). The groups are None in a process
+    without a group (a 1 x 1 grid)."""
+
+    b: int
+    m: int
+    dp: int
+    mp: int
+    device: torch.device
+    batch_group: Optional[dist.ProcessGroup]
+    model_group: Optional[dist.ProcessGroup]
+
+    @property
+    def batch_mesh(self) -> Mesh:
+        """The ``'batch'`` axis as a 1-D mesh: row block ``b`` of ``dp``."""
+        return Mesh(self.b, self.dp, self.device, self.batch_group)
+
+
+def create_mesh_2d(dp: int, mp: int, device="cuda") -> Mesh2D:
+    """This rank's place in the ``dp`` x ``mp`` grid of the default group,
+    whose size must be ``dp * mp`` (1 x 1 without a group). Every rank
+    creates every row's and column's group, in the same order."""
+    size = world_size()
+    if dp * mp != size:
+        raise ValueError(f"a {dp} x {mp} grid needs {dp * mp} ranks; this "
+                         f"process group has {size}")
+    b, m = divmod(rank(), mp)
+    batch_group = model_group = None
+    if dist.is_initialized():
+        for j in range(mp):
+            g = dist.new_group([i * mp + j for i in range(dp)])
+            batch_group = g if j == m else batch_group
+        for i in range(dp):
+            g = dist.new_group([i * mp + j for j in range(mp)])
+            model_group = g if i == b else model_group
+    return Mesh2D(b, m, dp, mp, local_device(device), batch_group,
+                  model_group)
+
+
+def layer_sharded(cfg, mp: int) -> List[bool]:
+    """Whether each layer is split over ``'model'``: JAX's rule, a layer
+    whose fan-out ``mp`` divides (at ``Config()`` and mp 2 or 4 the trunk
+    and the view layer; the density and rgb heads stay replicated)."""
+    return [o % mp == 0 for _, o in mlp_lib.layer_dims(cfg)]
+
+
+def shard_params(params, grid: Mesh2D, cfg) -> mlp_lib.Params:
+    """This rank's copy of ``params`` (or Adam moments): the contiguous
+    output-column block ``m`` of each sharded layer's ``w`` [in, out/mp]
+    and ``b`` (JAX's ``P(None, 'model')`` / ``P('model')``), the
+    replicated layers whole."""
+    out = []
+    for (w, b), sharded in zip(params, layer_sharded(cfg, grid.mp)):
+        k = w.shape[1] // grid.mp if sharded else w.shape[1]
+        cols = slice(grid.m * k, (grid.m + 1) * k) if sharded else slice(None)
+        out.append((w[:, cols].clone(memory_format=torch.contiguous_format),
+                    b[cols].clone()))
+    return out
+
+
+def gather_params(params, grid: Mesh2D, cfg) -> mlp_lib.Params:
+    """The whole layers from every rank's ``shard_params`` block, in column
+    order, by one all-gather over ``'model'`` (every rank of the row calls
+    it). At mp 1 the tensors come back as they are."""
+    sharded = layer_sharded(cfg, grid.mp)
+    if grid.mp == 1:
+        return list(params)
+    leaves = [t for wb, s in zip(params, sharded) if s for t in wb]
+    if not leaves:
+        return list(params)
+    parts = _all_gather(torch.cat([t.reshape(-1) for t in leaves]),
+                        grid.model_group, grid.mp)
+    out, off = [], 0
+    for wb, s in zip(params, sharded):
+        if not s:
+            out.append(wb)
+            continue
+        whole = []
+        for t in wb:
+            whole.append(torch.cat([p[off:off + t.numel()].view(t.shape)
+                                    for p in parts], dim=-1))
+            off += t.numel()
+        out.append(tuple(whole))
+    return out
+
+
+def shard_state(state, grid: Mesh2D, cfg):
+    """The train state with its params, mu and nu as this rank's blocks."""
+    return dataclasses.replace(state, **{
+        k: shard_params(getattr(state, k), grid, cfg)
+        for k in ("params", "mu", "nu")})
+
+
+def gather_state(state, grid: Mesh2D, cfg):
+    """The whole train state from the ranks' blocks (``gather_params`` of
+    params, mu and nu; every rank calls it)."""
+    return dataclasses.replace(state, **{
+        k: gather_params(getattr(state, k), grid, cfg)
+        for k in ("params", "mu", "nu")})
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; backward, the input gradient summed over the
+    ``'model'`` group (each rank's is the partial ``dY_m W_m^T``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather of the output columns over the ``'model'`` group, in
+    ``m`` order; backward, this rank's columns of the gradient (every rank
+    computes the same replicated loss from the gathered activation, so the
+    gradient is not summed)."""
+
+    @staticmethod
+    def forward(ctx, y, group, m, mp):
+        k = y.shape[-1]
+        ctx.cols = slice(m * k, (m + 1) * k)
+        return torch.cat(_all_gather(y, group, mp), dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[..., ctx.cols].contiguous(), None, None, None
+
+
+def column_parallel_mlp(cfg, grid: Mesh2D):
+    """fn(params, cfg, x, dir_enc) -> (raw_rgb, raw_density) on this
+    rank's ``shard_params`` (the ``mlp_apply`` of ``render_rays``): the
+    plain ``apply_mlp``'s arithmetic, each sharded layer's product on its
+    column block between ``_CopyToModel`` and ``_GatherFromModel``, its
+    bias added before the gather and its ReLU after. At mp 1 it is
+    ``apply_mlp`` itself."""
+    sharded = layer_sharded(cfg, grid.mp)
+    dt = mlp_lib.compute_dtype(cfg)
+
+    def linear(i, h, w, b):
+        if not sharded[i] or grid.mp == 1:
+            return mlp_lib.dense(h, w, dt) + b
+        y = mlp_lib.dense(_CopyToModel.apply(h, grid.model_group), w, dt) + b
+        return _GatherFromModel.apply(y, grid.model_group, grid.m, grid.mp)
+
+    def mlp_apply(params, c, x, dir_enc):
+        return mlp_lib.apply_mlp(params, c, x, dir_enc, compute_dtype=dt,
+                                 linear=linear)
+
+    return mlp_apply
+
+
+def make_tensor_parallel_train_step(cfg, grid: Mesh2D):
+    """fn(state, rays, pixels) -> (state, Stats): JAX's
+    ``make_tensor_parallel_train_step`` on this rank's blocks of the state
+    (``shard_state``) and its row block ``b`` of the global batch. As in
+    JAX the plain MLP runs (``use_pallas=False``: the kernels hold whole
+    weights) and the stats are the whole batch's, the same on every rank;
+    the draws are the single-process step's (each row draws the global
+    batch's uniforms and keeps its rows). One step a call: no
+    multi-step."""
+    from nerf_or_nothing_tpu_torch.train import make_train_step
+
+    cfg = cfg.replace(use_pallas=False)
+    return make_train_step(cfg, mlp_apply=column_parallel_mlp(cfg, grid),
+                           group=grid.batch_group, grid=grid)
 
 
 def _free_port() -> int:

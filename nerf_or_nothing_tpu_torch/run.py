@@ -18,9 +18,16 @@ Data parallelism (parallel/mesh.py; NCCL between cards, gloo on the CPU):
       command (on the card cuda:0..N-1; with --device=cpu, N CPU
       processes); --mesh-shape=() with an unindexed cuda on a host with
       several cards takes them all. As in the JAX package's one process
-      over N devices, the N ranks share --batch-size: each draws
-      batch_size / N rays a step from its stripe of the pixel pool, and a
-      batch size that N does not divide raises.
+      over N devices, the N ranks share --batch-size: each reads the whole
+      pixel pool, draws the global batch from --seed and keeps its row
+      block of batch_size / N rays, and a batch size that N does not
+      divide raises.
+  train --mesh-shape=DP,MP   tensor parallelism (JAX's
+      make_tensor_parallel_train_step): DP x MP ranks started as above
+      (or joined by the launch flags, exactly DP x MP of them), rank
+      b * MP + m holds row block b of the global batch and column block m
+      of every layer MP divides; the plain MLP (no kernels), one step a
+      call. Checkpoints hold the whole model.
   --coordinator=HOST:PORT --num-processes=P --process-id=I (or the
       NERF_COORDINATOR, NERF_NUM_PROCESSES, NERF_PROCESS_ID variables):
       this process is rank I of P (one a card, or one on the CPU with
@@ -30,8 +37,8 @@ Data parallelism (parallel/mesh.py; NCCL between cards, gloo on the CPU):
       started so split each image's chunks over the ranks.
   --platform=cpu (NERF_PLATFORM) means --device=cpu.
 Rank 0 alone logs, checkpoints, runs the periodic test render, prints
-eval's metrics and writes PNGs. A mesh_shape of two axes (tensor
-parallelism) raises NotImplementedError.
+eval's metrics and writes PNGs. A mesh_shape of three or more axes raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import sys
 from typing import Optional
@@ -67,12 +75,6 @@ from nerf_or_nothing_tpu_torch.train import (
 )
 from nerf_or_nothing_tpu_torch.utils import profiling
 
-TENSOR_PARALLEL_ROADMAP = (
-    "the 2-D tensor-parallel train step (a mesh_shape of two axes, JAX's "
-    "make_tensor_parallel_train_step) is not ported yet: ROADMAP queue A "
-    "item 5"
-)
-
 
 def load_params(cfg: Config, device) -> Params:
     """Seeded initial parameters, replaced by the newest checkpoint in
@@ -99,16 +101,14 @@ def _chunk_len(step: int, cfg: Config, spc: int) -> int:
 
 def mesh_size(cfg: Config, device: torch.device) -> int:
     """The ranks ``train`` starts for ``cfg.mesh_shape`` in one command: N
-    for (N,); for () every card of the host with an unindexed ``cuda``
-    (the JAX package's all local devices), else 1. Two axes raise
-    NotImplementedError."""
+    for (N,), DP x MP for (DP, MP); for () every card of the host with an
+    unindexed ``cuda`` (the JAX package's all local devices), else 1. Three
+    or more axes raise ValueError."""
     shape = tuple(cfg.mesh_shape)
-    if len(shape) == 2:
-        raise NotImplementedError(TENSOR_PARALLEL_ROADMAP)
     if len(shape) > 2:
         raise ValueError(f"mesh_shape must be 1-D or 2-D, got {shape}")
     if shape:
-        return shape[0]
+        return math.prod(shape)
     if device.type == "cuda" and device.index is None:
         return max(1, torch.cuda.device_count())
     return 1
@@ -120,38 +120,42 @@ def train(cfg: Config, log_dir: Optional[str] = None,
 
     In a process group (the launch flags) this process trains as one rank
     of it; otherwise ``mesh_size`` ranks, started by ``mesh.spawn`` when
-    there are several, each drawing ``batch_size / N`` rays a step. Returns
-    the final state, rank 0's on the CPU when the ranks were spawned. The
-    loop itself is ``train_rank``'s."""
+    there are several, sharing each step's ``batch_size`` rays. Returns
+    the final state (the whole model), rank 0's on the CPU when the ranks
+    were spawned. The loop itself is ``train_rank``'s."""
     device = resolve_device(device)
+    shape = tuple(cfg.mesh_shape)
     n = mesh_size(cfg, device)
     joined = mesh_lib.world_size()
-    if joined > 1 and tuple(cfg.mesh_shape) and n != joined:
-        raise ValueError(f"mesh_shape {tuple(cfg.mesh_shape)} in a group of "
-                         f"{joined} processes")
+    if joined > 1 and shape and n != joined:
+        raise ValueError(f"mesh_shape {shape} in a group of {joined} "
+                         "processes")
+    dp = shape[0] if shape else n
+    if (len(shape) == 2 or joined == 1) and cfg.batch_size % dp:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over "
+                         f"{dp} ranks")
     if joined > 1 or n == 1:
         return train_rank(cfg, log_dir, device)
-    if cfg.batch_size % n:
-        raise ValueError(f"batch_size {cfg.batch_size} does not split over "
-                         f"{n} ranks")
     if device.type == "cuda" and (device.index is not None
                                   or n > torch.cuda.device_count()):
-        raise ValueError(f"--mesh-shape={n} needs {n} cards and an "
-                         f"unindexed cuda; this host has "
-                         f"{torch.cuda.device_count()}, asked for {device}")
-    arrays = mesh_lib.spawn(_train_spawned, n, device,
-                            cfg.replace(batch_size=cfg.batch_size // n),
-                            log_dir, device.type)
+        raise ValueError(f"--mesh-shape={','.join(map(str, shape or (n,)))} "
+                         f"needs {n} cards and an unindexed cuda; this host "
+                         f"has {torch.cuda.device_count()}, asked for "
+                         f"{device}")
+    arrays = mesh_lib.spawn(_train_spawned, n, device, cfg, log_dir,
+                            device.type)
     return ckpt_lib.state_from_arrays(arrays, cfg)
 
 
 def _train_spawned(cfg: Config, log_dir: Optional[str], device: str):
-    """A spawned rank's ``train_rank``; its state as numpy arrays."""
-    return ckpt_lib.state_arrays(train_rank(cfg, log_dir, device), cfg.seed)
+    """A spawned rank's ``train_rank`` (the ranks stand for the devices of
+    one process and share its batch); its state as numpy arrays."""
+    state = train_rank(cfg, log_dir, device, shared=True)
+    return ckpt_lib.state_arrays(state, cfg.seed)
 
 
 def train_rank(cfg: Config, log_dir: Optional[str] = None,
-               device="cuda") -> TrainState:
+               device="cuda", shared: bool = False) -> TrainState:
     """The training loop on this rank's device (one device without a
     group): multi-step chunks cut at every side-effect step (with
     ``steps_per_call`` > 1 and no ``profile_dir``; on the card each step a
@@ -165,14 +169,26 @@ def train_rank(cfg: Config, log_dir: Optional[str] = None,
     (``train.make_train_step``).
 
     In a group every rank restores the same checkpoint and then takes
-    rank 0's state (``mesh.replicate_state``), trains on its stripe of
-    the data with the gradients averaged over the ranks, and rank 0 alone
-    logs (rays/s of the whole group's batch), checkpoints and renders the
-    test view, on its own (no collective), while the others go on to the
-    next step's all-reduce."""
-    mesh = mesh_lib.create_mesh(device=device)
-    device, lead = mesh.device, mesh.rank == 0
-    dataset = create_dataset("train", cfg.data_dir, cfg)
+    rank 0's state (``mesh.replicate_state``) and trains with the
+    gradients averaged over the ranks; rank 0 alone logs (rays/s of the
+    whole group's batch), checkpoints and renders the test view. The
+    launch flags' processes each draw a batch from their stripe of the
+    pool (``shared`` False); ranks that share one process's batch
+    (``shared``: spawned by ``train``) each read the whole pool, draw the
+    global batch and keep their row block. A ``mesh_shape`` of two axes
+    trains tensor-parallel (``mesh.make_tensor_parallel_train_step``, one
+    step a call), its ranks sharing the batch over the ``'batch'`` axis;
+    every rank then joins the gathers of the whole model for a checkpoint
+    or a test render, and the final state is the whole model."""
+    grid = None
+    if len(tuple(cfg.mesh_shape)) == 2:
+        grid = mesh_lib.create_mesh_2d(*cfg.mesh_shape, device=device)
+        mesh, shared = grid.batch_mesh, True
+    else:
+        mesh = mesh_lib.create_mesh(device=device)
+    device, lead = mesh.device, mesh_lib.rank() == 0
+    dataset = create_dataset("train", cfg.data_dir, cfg,
+                             (0, 1) if shared else None)
     state = init_train_state(cfg, device)
     if cfg.checkpoint_dir and cfg.resume:
         state = ckpt_lib.maybe_restore(cfg.checkpoint_dir, cfg, state,
@@ -180,12 +196,27 @@ def train_rank(cfg: Config, log_dir: Optional[str] = None,
         if state.step and lead:
             print(f"resumed from step {state.step}", flush=True)
     state = mesh_lib.replicate_state(state)
-    step_fn = mesh_lib.make_sharded_train_step(cfg, mesh)
-    spc = cfg.steps_per_call if (cfg.steps_per_call > 1
+    spc = cfg.steps_per_call if (cfg.steps_per_call > 1 and grid is None
                                  and not cfg.profile_dir) else 1
-    multi_fn = mesh_lib.make_sharded_multi_step(cfg, mesh) if spc > 1 else None
-    logger = MetricsLogger(log_dir if lead else None,
-                           batch_size=cfg.batch_size * mesh.world_size)
+    multi_fn = None
+    if grid is None:
+        step_fn = mesh_lib.make_sharded_train_step(cfg, mesh)
+        if spc > 1:
+            multi_fn = mesh_lib.make_sharded_multi_step(cfg, mesh)
+    else:
+        state = mesh_lib.shard_state(state, grid, cfg)
+        step_fn = mesh_lib.make_tensor_parallel_train_step(cfg, grid)
+
+    def rows(batch):
+        return mesh_lib.shard_batch(mesh, *batch) if shared else batch
+
+    def whole(state):
+        return state if grid is None else mesh_lib.gather_state(state, grid,
+                                                                cfg)
+
+    logger = MetricsLogger(
+        log_dir if lead else None,
+        batch_size=cfg.batch_size * (1 if shared else mesh.world_size))
     test_ds = None
     render_fn = None
     start_step = step = state.step
@@ -196,13 +227,13 @@ def train_rank(cfg: Config, log_dir: Optional[str] = None,
             if multi_fn is not None and (k > 1 or not cfg.check_numerics):
                 # As in the JAX package a chunk of one step is the single
                 # step when check_numerics is to check it.
-                batches = [next(dataset) for _ in range(k)]
+                batches = [rows(next(dataset)) for _ in range(k)]
                 state, stats = multi_fn(state, batches)
             else:
                 if cfg.profile_dir and step + 1 == start_step + 11:
                     tracing.enter_context(profiling.trace(cfg.profile_dir))
                 state, stats = step_fn(
-                    state, *batch_to_device(device, *next(dataset)))
+                    state, *batch_to_device(device, *rows(next(dataset))))
                 if cfg.profile_dir and state.step == start_step + 20:
                     tracing.close()
                     print(f"trace written to {cfg.profile_dir}", flush=True)
@@ -210,36 +241,33 @@ def train_rank(cfg: Config, log_dir: Optional[str] = None,
             if step % cfg.print_every == 0 and lead:
                 logger.log(step, stats)
             if cfg.checkpoint_dir and step % cfg.save_every == 0:
-                ckpt_lib.save_checkpoint(cfg.checkpoint_dir, state, cfg)
-            if (cfg.test_render_interval > 0 and lead
-                    and step % cfg.test_render_interval == 0):
+                ckpt_lib.save_checkpoint(cfg.checkpoint_dir, whole(state),
+                                         cfg)
+            # A grid's every rank joins the gather of the params, so every
+            # rank opens the test split and finds out whether there is one.
+            if (cfg.test_render_interval > 0
+                    and step % cfg.test_render_interval == 0
+                    and (lead or grid is not None)):
                 try:
                     if test_ds is None:
                         test_ds = create_dataset("test", cfg.data_dir, cfg)
                         render_fn = make_render_fn(cfg)
                 except OSError as e:  # no test split: say so once, stop
-                    print(f"test render disabled: {type(e).__name__}: {e}",
-                          flush=True)
+                    if lead:
+                        print(f"test render disabled: {type(e).__name__}: "
+                              f"{e}", flush=True)
                     cfg = cfg.replace(test_render_interval=0)
                 else:
-                    trays, tgt = test_ds.image_rays(0)
-                    th, tw = test_ds.image_dims(0)
-                    rgb, _, _ = render_image(
-                        render_fn, state.params, trays, th, tw,
-                        cfg.render_chunk_size, device=device,
-                    )
-                    m = evaluate_image(
-                        to_display(cfg, rgb),
-                        to_display(cfg, np.asarray(tgt).reshape(th, tw, 3)),
-                        device=device,
-                    )
-                    print(f"step {step:>7d}  test view 0: "
-                          f"psnr {m['psnr']:.2f} ssim {m['ssim']:.3f}",
-                          flush=True)
+                    params = state.params if grid is None else (
+                        mesh_lib.gather_params(state.params, grid, cfg))
+                    if lead:
+                        _test_render(cfg, render_fn, params, test_ds, step,
+                                     device)
             if cfg.gc_every > 0 and step % cfg.gc_every == 0:
                 gc.collect()
         # A run too short to reach the trace's last step stops it here.
         tracing.close()
+        state = whole(state)
         if cfg.checkpoint_dir:
             ckpt_lib.save_checkpoint(cfg.checkpoint_dir, state, cfg)
         logger.close()
@@ -249,6 +277,22 @@ def train_rank(cfg: Config, log_dir: Optional[str] = None,
         if test_ds is not None:
             test_ds.close()
     return state
+
+
+def _test_render(cfg: Config, render_fn, params, test_ds, step: int,
+                 device) -> None:
+    """Render test view 0 on this device alone and print its metrics."""
+    trays, tgt = test_ds.image_rays(0)
+    th, tw = test_ds.image_dims(0)
+    rgb, _, _ = render_image(render_fn, params, trays, th, tw,
+                             cfg.render_chunk_size, device=device)
+    m = evaluate_image(
+        to_display(cfg, rgb),
+        to_display(cfg, np.asarray(tgt).reshape(th, tw, 3)),
+        device=device,
+    )
+    print(f"step {step:>7d}  test view 0: "
+          f"psnr {m['psnr']:.2f} ssim {m['ssim']:.3f}", flush=True)
 
 
 def _eval_mesh(device):

@@ -24,6 +24,12 @@ Both take a ``group`` of ``torch.distributed`` for data parallelism
 soon as the level's are computed, the autograd branch's gradients once
 after the backward, then the loss and the level losses; the loss's
 denominator is the whole batch's; each rank draws its own random numbers.
+With a tensor-parallel ``grid``
+(``parallel/mesh.make_tensor_parallel_train_step``) the params are the
+rank's blocks, the group is the grid's ``'batch'`` group, the global norm,
+its max and the weight L2 take the sharded layers' parts over
+``'model'``, the stats are the whole batch's and every rank draws the
+single-process step's numbers, keeping its rows.
 
 The parameters and the Adam moments are updated in place, through
 ``torch._foreach_*`` ops, which bump each tensor's version counter (graph
@@ -53,7 +59,7 @@ from nerf_or_nothing_tpu_torch.ops.math_utils import (
     learning_rate_decay,
     mse_to_psnr,
 )
-from nerf_or_nothing_tpu_torch.parallel.mesh import all_mean
+from nerf_or_nothing_tpu_torch.parallel.mesh import all_mean, layer_sharded
 from nerf_or_nothing_tpu_torch.rays import Rays
 
 
@@ -128,17 +134,52 @@ def adam_update(params, grads, mu, nu, lr: torch.Tensor, c1: torch.Tensor,
     torch._foreach_sub_(p, upd)
 
 
-def clip_grads(grads, cfg: Config):
+def _split(tree, cfg: Config, grid):
+    """(the leaves of the layers sharded over ``grid``'s ``'model'`` axis,
+    the replicated layers' leaves), each in layer order; without a grid
+    every leaf is in the first list."""
+    sharded = ([True] * len(tree) if grid is None
+               else layer_sharded(cfg, grid.mp))
+    return ([t for wb, s in zip(tree, sharded) if s for t in wb],
+            [t for wb, s in zip(tree, sharded) if not s for t in wb])
+
+
+def _model_reduce(t: torch.Tensor, grid, op=dist.ReduceOp.SUM):
+    """``t`` reduced over ``grid``'s ``'model'`` group, in place (nothing
+    to do without a grid or at mp 1)."""
+    if grid is not None and grid.mp > 1:
+        dist.all_reduce(t, op=op, group=grid.model_group)
+    return t
+
+
+def _sq_max(leaves):
+    flat = torch.cat([t.reshape(-1) for t in leaves])
+    return torch.sum(flat * flat), torch.max(torch.abs(flat))
+
+
+def clip_grads(grads, cfg: Config, grid=None):
     """Value clipping (``grad_max_val``), then norm clipping
     (``grad_max_norm``) over all tensors. Returns (grads, grad_norm,
-    clipped_norm, grad_abs_max), the max taken after clipping."""
+    clipped_norm, grad_abs_max), the max taken after clipping. With a
+    tensor-parallel ``grid`` the grads are this rank's blocks: the sharded
+    layers' sum of squares is summed, and their max taken, over
+    ``'model'``, and the replicated layers' added once."""
     if cfg.grad_max_val > 0:
         grads = [(torch.clamp(w, -cfg.grad_max_val, cfg.grad_max_val),
                   torch.clamp(b, -cfg.grad_max_val, cfg.grad_max_val))
                  for w, b in grads]
-    flat = torch.cat([t.reshape(-1) for t in _leaves(grads)])
-    grad_norm = torch.sqrt(torch.sum(flat * flat))
-    grad_abs_max = torch.max(torch.abs(flat))
+    sharded, replicated = _split(grads, cfg, grid)
+    sq = grad_abs_max = None
+    if sharded:
+        sq, grad_abs_max = _sq_max(sharded)
+        _model_reduce(sq, grid)
+        _model_reduce(grad_abs_max, grid, dist.ReduceOp.MAX)
+    if replicated:
+        rsq, rmax = _sq_max(replicated)
+        sq = rsq if sq is None else sq + rsq
+        grad_abs_max = rmax if grad_abs_max is None else torch.maximum(
+            grad_abs_max, rmax)
+    grad_norm = torch.sqrt(sq)
     if cfg.grad_max_norm > 0:
         mult = torch.clamp(cfg.grad_max_norm / (1e-10 + grad_norm), max=1.0)
         grads = [(w * mult, b * mult) for w, b in grads]
@@ -162,6 +203,20 @@ def use_fused_level(cfg: Config) -> bool:
 
 def _weight_l2(params) -> torch.Tensor:
     return sum(torch.sum(w ** 2) for w, _ in params)
+
+
+@torch.no_grad()
+def _grid_weight_l2(params, cfg: Config, grid) -> torch.Tensor:
+    """The whole model's ``_weight_l2`` from this rank's blocks: each
+    sharded layer's sum summed over ``'model'``, in one all-reduce."""
+    sums = [torch.sum(w ** 2) for w, _ in params]
+    sharded = layer_sharded(cfg, grid.mp)
+    if any(sharded):
+        parts = _model_reduce(torch.stack(
+            [x for x, s in zip(sums, sharded) if s]), grid)
+        it = iter(parts)
+        sums = [next(it) if s else x for x, s in zip(sums, sharded)]
+    return sum(sums)
 
 
 def _pairs(leaves) -> List[tuple]:
@@ -234,29 +289,39 @@ def _fused_level_value_and_grad(cfg: Config, params, generator, rays: Rays,
 
 
 def _autograd_value_and_grad(cfg: Config, params, generator, rays: Rays,
-                             pixels, mlp_apply=None, group=None):
+                             pixels, mlp_apply=None, group=None, grid=None):
     """Loss and gradients by ``torch.autograd`` over ``render_rays`` +
     ``multiscale_loss`` (the JAX package's ``jax.value_and_grad`` branch).
     ``render_rays`` packs the kernels' weights once for both levels and
     both directions. With a ``group`` the gradients are averaged over the
-    ranks in one all-reduce after the backward."""
+    ranks in one all-reduce after the backward. With a tensor-parallel
+    ``grid`` the draws are the global batch's rows ``b`` and the weight L2
+    (value, not gradient) is the whole model's."""
     leaves = [t.detach().requires_grad_() for t in _leaves(params)]
     p = _pairs(leaves)
+    rows = None
+    if grid is not None:
+        n = pixels.shape[0]
+        rows = (grid.b * n, grid.dp * n)
     with torch.enable_grad():
         results = mipnerf.render_rays(
             p, cfg, rays, randomized=cfg.randomized,
             white_bkgd=cfg.white_bkgd, mlp_apply=mlp_apply,
-            generator=generator,
+            generator=generator, rows=rows,
         )
-        total, level_losses = mipnerf.multiscale_loss(
+        loss, level_losses = mipnerf.multiscale_loss(
             results, pixels, rays.loss_mult, cfg, group
         )
+        total = loss
         if cfg.weight_decay_mult > 0:
             wl2 = _weight_l2(p)
-            total = total + cfg.weight_decay_mult * wl2
+            total = loss + cfg.weight_decay_mult * wl2
         else:
             wl2 = torch.zeros((), device=pixels.device)
         flat = list(torch.autograd.grad(total, leaves))
+    if grid is not None and grid.mp > 1 and cfg.weight_decay_mult > 0:
+        wl2 = _grid_weight_l2(p, cfg, grid)
+        total = loss.detach() + cfg.weight_decay_mult * wl2
     if group is not None:
         flat = all_mean(flat, group)
     grads = _pairs(flat)
@@ -286,42 +351,50 @@ def batch_to_device(device, rays, pixels):
 
 
 def _grad_part(cfg: Config, mlp_apply, params, generator, rays: Rays,
-               pixels, group=None):
-    """The body's first part: (loss, level_losses, fine_rgb, weight_l2,
-    grads) from the fused-level branch or the autograd one; with a
-    ``group`` the gradients, the loss and the level losses are the ranks'
-    means (``fine_rgb`` stays this rank's, so the step's psnr is the
-    rank's own, as in the JAX package)."""
+               pixels, group=None, grid=None):
+    """The body's first part: (loss, level_losses, mse of the fine level,
+    weight_l2, grads) from the fused-level branch or the autograd one;
+    with a ``group`` the gradients, the loss and the level losses are the
+    ranks' means (the mse stays this rank's, so the step's psnr is the
+    rank's own, as in the JAX package's ``shard_map`` step; with a
+    tensor-parallel ``grid`` it is the whole batch's, as GSPMD's)."""
     args = (cfg, params, generator, rays, pixels)
     if use_fused_level(cfg) and mlp_apply is None:
         out = _fused_level_value_and_grad(*args, group)
     else:
-        out = _autograd_value_and_grad(*args, mlp_apply, group)
+        out = _autograd_value_and_grad(*args, mlp_apply, group, grid)
     loss, (level_losses, fine_rgb, wl2), grads = out
-    if group is not None:
+    mse = torch.mean((fine_rgb - pixels) ** 2)
+    if grid is not None and group is not None:
+        loss, level_losses, mse = all_mean([loss, level_losses, mse], group)
+    elif group is not None:
         loss, level_losses = all_mean([loss, level_losses], group)
-    return loss, level_losses, fine_rgb, wl2, grads
+    return loss, level_losses, mse, wl2, grads
 
 
 @torch.no_grad()
 def _update_part(cfg: Config, state: TrainState, scalars: torch.Tensor,
-                 pixels, loss, level_losses, fine_rgb, wl2, grads):
+                 loss, level_losses, mse, wl2, grads, grid=None):
     """The body's second part: clipping, Adam in place with ``scalars``
     ([lr, c1, c2] on the device), and the step's stats but the learning
     rate, in ``Stats``' order."""
-    grads, grad_norm, clipped_norm, grad_abs_max = clip_grads(grads, cfg)
+    grads, grad_norm, clipped_norm, grad_abs_max = clip_grads(grads, cfg,
+                                                              grid)
     adam_update(state.params, grads, state.mu, state.nu, scalars[0],
                 scalars[1], scalars[2], cfg)
-    psnr = mse_to_psnr(torch.mean((fine_rgb - pixels) ** 2))
-    return (loss, level_losses, wl2, psnr, mse_to_psnr(level_losses),
-            grad_norm, grad_abs_max, clipped_norm)
+    return (loss, level_losses, wl2, mse_to_psnr(mse),
+            mse_to_psnr(level_losses), grad_norm, grad_abs_max, clipped_norm)
 
 
-def finite_flags(loss, level_losses, grads) -> torch.Tensor:
+def finite_flags(loss, level_losses, grads, grid=None) -> torch.Tensor:
     """One bool a tensor, on the device: whether the loss, the level losses
-    and each dW and db are finite (``raise_if_not_finite`` reads them)."""
-    return torch.stack([torch.isfinite(t).all()
-                        for t in [loss, level_losses, *_leaves(grads)]])
+    and each dW and db are finite (``raise_if_not_finite`` reads them); with
+    a tensor-parallel ``grid``, on every rank of its ``'model'`` group."""
+    flags = torch.stack([torch.isfinite(t).all()
+                         for t in [loss, level_losses, *_leaves(grads)]])
+    if grid is None or grid.mp == 1:
+        return flags
+    return _model_reduce(flags.float(), grid, dist.ReduceOp.MIN).bool()
 
 
 def raise_if_not_finite(flags: torch.Tensor, step: int) -> None:
@@ -343,7 +416,7 @@ def _rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
-def make_train_step(cfg: Config, mlp_apply=None, group=None):
+def make_train_step(cfg: Config, mlp_apply=None, group=None, grid=None):
     """fn(state, rays, pixels) -> (state, Stats), updating ``state`` in
     place. ``rays`` and ``pixels`` are tensors on the state's device.
 
@@ -355,9 +428,12 @@ def make_train_step(cfg: Config, mlp_apply=None, group=None):
 
     ``group``: this rank's step of a data-parallel group (JAX's
     ``axis_name``; ``parallel/mesh.make_sharded_train_step``). The finite
-    check reads the averaged values, so every rank raises or none does."""
+    check reads the averaged values, so every rank raises or none does.
+    ``grid``: this rank's step of a tensor-parallel grid, ``group`` its
+    ``'batch'`` group (``parallel/mesh.make_tensor_parallel_train_step``):
+    every rank draws from the unfolded seed."""
     check = cfg.check_numerics or cfg.debug_nans
-    rank = _rank(group)
+    rank = 0 if grid is not None else _rank(group)
 
     def train_step(state: TrainState, rays: Rays, pixels: torch.Tensor):
         step = state.step + 1
@@ -366,15 +442,15 @@ def make_train_step(cfg: Config, mlp_apply=None, group=None):
         state.generator.manual_seed(step_seed(cfg.seed, step, rank))
         scalars = torch.from_numpy(host).to(pixels.device)
         part = _grad_part(cfg, mlp_apply, state.params, state.generator,
-                          rays, pixels, group)
+                          rays, pixels, group, grid)
         if check:
             try:
-                raise_if_not_finite(finite_flags(part[0], part[1], part[4]),
-                                    step)
+                raise_if_not_finite(
+                    finite_flags(part[0], part[1], part[4], grid), step)
             except FloatingPointError:
                 state.generator.set_state(before)
                 raise
-        out = _update_part(cfg, state, scalars, pixels, *part)
+        out = _update_part(cfg, state, scalars, *part, grid=grid)
         state.step = step
         return state, Stats(*out, learning_rate=lr)
 
@@ -481,7 +557,7 @@ class _CapturedStep:
                           state.generator, self.rays, self.pixels, self.group)
 
     def _update(self, state: TrainState, part):
-        return _update_part(self.cfg, state, self.scalars, self.pixels, *part)
+        return _update_part(self.cfg, state, self.scalars, *part)
 
     def _capture(self, state: TrainState, batch) -> None:
         cfg, device = self.cfg, self.device

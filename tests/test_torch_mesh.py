@@ -565,10 +565,11 @@ def test_launch_flags_train_two_processes(scenes, tmp_path, how):
 
 
 def test_two_axis_mesh_raises(scenes):
-    """Tensor parallelism is not ported: a 2-D mesh_shape raises."""
+    """A mesh_shape of three axes raises ValueError (two axes train
+    tensor-parallel: ``tests/test_torch_tensor_parallel.py``)."""
     cfg = parse_flags([f"--data-dir={scenes['blender']}", *TRAIN_FLAGS[:-1],
-                       "--mesh-shape=2,2"])
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+                       "--mesh-shape=2,2,1"])
+    with pytest.raises(ValueError, match="1-D or 2-D"):
         trun.train(cfg, device="cpu")
 
 
@@ -597,3 +598,84 @@ def test_spawn_raises_when_a_rank_fails():
     """A rank that exits with an error ends the run with RuntimeError."""
     with pytest.raises(RuntimeError, match="exited with code 3"):
         mesh.spawn(sys.exit, 2, "cpu", 3)
+
+
+def jax_shards(x):
+    """The per-device blocks of a JAX array sharded over its rows, in
+    row order."""
+    return [np.asarray(s.data) for s in sorted(
+        x.addressable_shards, key=lambda s: s.index[0].start or 0)]
+
+
+@pytest.mark.parametrize("loader", ["blender", "multicam", "bin", "native"])
+def test_spawned_ranks_draw_jax_batches(scenes, monkeypatch, loader):
+    """The ranks that ``run train --mesh-shape=2`` spawns read stripe 0 of
+    1 (the whole pool, sampler seeded cfg.seed): their batches are JAX's
+    one-process batches byte for byte, and rank r's rows
+    (``mesh.shard_batch``) are the block that JAX's ``shard_batch`` puts on
+    device r of a 2-device mesh. ``native``: the bin dump's C++ loader
+    (one worker on both sides, so that its batches are a function of the
+    seed)."""
+    native = loader == "native"
+    monkeypatch.setattr(tbin, "USE_NATIVE", native)
+    monkeypatch.setattr(jbin, "USE_NATIVE", native)
+    if native:
+        if not (jnative.native_available() and tnative.native_available()):
+            pytest.skip("no C++ toolchain to build native/ray_loader.cpp")
+        for mod in (tnative, jnative):
+            cls = mod.NativeRayLoader
+            monkeypatch.setattr(mod, "NativeRayLoader",
+                                lambda *a, cls=cls, **k: cls(*a, **k,
+                                                             workers=1))
+        loader = "bin"
+    data = scenes["bin" if loader == "bin" else "blender"]
+    flags = [f"--dataset-loader={loader}", "--batch-size=32"]
+    cfg, jcfg = parse_flags(flags), jparse(flags)
+    jm = jmesh.create_mesh(2)
+    with create_dataset("train", data, cfg, (0, 1)) as ds, \
+            j_dataset("train", data, jcfg) as jds:
+        assert (getattr(ds, "_native", None) is not None) == native
+        for k in range(2):
+            (rays, pixels), (jrays, jpixels) = next(ds), next(jds)
+            for x, y in zip(rays, jrays):
+                same_bytes(x, y, f"batch {k} rays")
+            same_bytes(pixels, jpixels, f"batch {k}")
+            jr, jp = jmesh.shard_batch(jm, JRays(*jrays), jpixels)
+            for r in range(2):
+                m = mesh.Mesh(r, 2, torch.device("cpu"), None)
+                rr, rp = mesh.shard_batch(m, rays, pixels)
+                same_bytes(rp, jax_shards(jp)[r], f"rank {r} batch {k}")
+                for x, y in zip(rr, jr):
+                    same_bytes(x, jax_shards(y)[r], f"rank {r} rays {k}")
+
+
+def test_run_train_mesh_shape_two_matches_jax(scenes, tmp_path):
+    """``run train --mesh-shape=2 --device=cpu --randomized=false`` (two
+    spawned gloo ranks) ends within the f32 band of JAX's ``run train
+    --mesh-shape=2`` on two virtual CPU devices after 3 steps from one JAX
+    checkpoint of the initial state: the ranks train on JAX's batches, 16
+    rows each of the global 32."""
+    from nerf_or_nothing_tpu import checkpoint as jckpt
+    from nerf_or_nothing_tpu import run as jrun
+
+    flags = [f"--data-dir={scenes['blender']}", *TRAIN_FLAGS[:-1],
+             "--use-pallas=false", "--max-steps=3", "--print-every=3",
+             "--save-every=100", "--test-render-interval=0",
+             "--mesh-shape=2", "--donate-params=false"]
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    start_state = jtrain.init_train_state(jparse(flags))
+    jckpt.save_checkpoint(jdir, start_state)
+    jckpt.save_checkpoint(tdir, start_state)
+    finish([start([sys.executable, "-c", MAIN, " ".join(
+        ["train", *flags, f"--checkpoint-dir={tdir}", "--device=cpu"])],
+        port_env())], "run train --mesh-shape=2")
+    jrun.train(jparse([*flags, f"--checkpoint-dir={jdir}"]))
+    jpath, tpath = (tckpt.latest_checkpoint(d) for d in (jdir, tdir))
+    assert jpath.endswith("checkpoint_000000003.npz")
+    assert tpath.endswith("checkpoint_000000003.npz")
+    with np.load(jpath) as j, np.load(tpath) as t:
+        names = [k for k in j.files if k.split("/")[0] in ("params", "mu",
+                                                           "nu")]
+        assert len(names) == 3 * 2 * len(tmlp.layer_dims(parse_flags(flags)))
+        for k in names:
+            close(t[k], j[k], k)

@@ -302,8 +302,10 @@ def test_run_train_needs_a_card_unless_cpu_is_asked(scene, tmp_path):
     flags = [f"--data-dir={scene}", *FLAGS, "--max-steps=1"]
     with pytest.raises(RuntimeError, match="CUDA"):
         trun.main(["train", *flags])
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        trun.main(["train", *flags, "--mesh-shape=2,1", "--device=cpu"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trun.main(["train", *flags, "--mesh-shape=2,2"])
+    with pytest.raises(ValueError, match="1-D or 2-D"):
+        trun.main(["train", *flags, "--mesh-shape=2,1,1", "--device=cpu"])
 
 
 def host_adam_update(params, grads, mu, nu, lr: float, step: int, cfg):
