@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # one card
-    python3 chip_smoke.py --tensor-cards   # a host of 4 cards: tensor_cards
+    python3 chip_smoke.py
 
 Phases, each printing one JSON line:
   env      torch / CUDA / nvcc versions, the card, whether triton imports;
@@ -1885,8 +1884,7 @@ def tensor_rank(rank: str, dp: str, mp: str, backend: str, scene: str,
     one card; nccl: rank r on cuda:r): ``TP_GLOO_STEPS`` tensor-parallel
     steps at Config() on its row block of the parent's batches
     (randomized), no kernel launched; its blocks, the gathered state and
-    the stats written for the parent; then the parent's further batches,
-    if any, as timed steps."""
+    the stats written for the parent."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1929,18 +1927,6 @@ def tensor_rank(rank: str, dp: str, mp: str, backend: str, scene: str,
            "backend": dist.get_backend(), "rows": int(b[1].shape[0]),
            "s": sec, "rays_per_s": TP_GLOO_STEPS * cfg.batch_size / sec,
            "loss": float(stats.loss)}
-    timed = batches[TP_GLOO_STEPS:]
-    if timed:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for b in timed:
-            state, stats = step(state, *b)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        res["timed"] = {"steps": len(timed), "s": sec,
-                        "rays_per_s": len(timed) * cfg.batch_size / sec,
-                        "loss": float(stats.loss),
-                        "sm_clock_power": clock_power()}
     dist.destroy_process_group()
     return res
 
@@ -2041,89 +2027,6 @@ def tensor_phase(device, scene: str) -> dict:
     return one["launches"]
 
 
-def tensor_cards(device) -> dict:
-    """``--tensor-cards``: tensor parallelism across the host's cards (at
-    least 4; NCCL, one rank a card). ``run train --mesh-shape=2,2`` for 4
-    steps (four spawned ranks) against ``run train --use-pallas=false``
-    in one process, their checkpoints in the bf16 band; 2 x 2 and 1 x 4
-    grids in child processes, ``TP_GLOO_STEPS`` steps against the plain
-    step (``grid_check``), then ``TURN_STEPS`` timed steps; the plain step
-    on one card timed before and after them."""
-    import numpy as np
-    import torch
-
-    from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
-    from nerf_or_nothing_tpu_torch import run
-    from nerf_or_nothing_tpu_torch import train as train_lib
-    from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
-
-    cards = torch.cuda.device_count()
-    if cards < 4:
-        raise AssertionError(f"--tensor-cards needs 4 cards, found {cards}")
-    work = tempfile.mkdtemp(prefix="chip_smoke_cards_")
-    scene = os.path.join(work, "scene")
-    write_scene(scene, n_train=4, n_test=1, size=400)
-    res = {"phase": "tensor_cards", "cards": cards,
-           "names": [torch.cuda.get_device_name(i) for i in range(cards)]}
-
-    runs = {}
-    for name, extra in (("grid", ["--mesh-shape=2,2"]),
-                        ("plain", ["--use-pallas=false"])):
-        ckpt = os.path.join(work, f"ckpt_{name}")
-        t0 = time.perf_counter()
-        rc = run.main(["train", f"--data-dir={scene}", "--max-steps=4",
-                       "--print-every=2", "--test-render-interval=0",
-                       f"--checkpoint-dir={ckpt}", *extra, "--device=cuda"])
-        runs[name] = (rc, time.perf_counter() - t0,
-                      ckpt_lib.latest_checkpoint(ckpt))
-    if any(rc for rc, _, _ in runs.values()):
-        raise AssertionError(f"tensor cards: run train {runs}")
-    with np.load(runs["grid"][2]) as g, np.load(runs["plain"][2]) as p:
-        names = [k for k in p.files if k.split("/")[0] in ("params", "mu",
-                                                           "nu")]
-        errs, max_abs = check_pairs("tensor cards run train", [
-            (k, torch.from_numpy(g[k]), torch.from_numpy(p[k]))
-            for k in names], "bfloat16")
-    res["run_train"] = {"s": {k: v[1] for k, v in runs.items()},
-                        "checkpoints": {k: v[2] for k, v in runs.items()},
-                        "worst_normalized_err_bf16_band": max(errs.values()),
-                        "max_abs_err": max_abs}
-
-    cfg = run.parse_flags([f"--data-dir={scene}", "--randomized=true"])
-    batches = loader_batches(scene, cfg, TP_GLOO_STEPS + TURN_STEPS)
-    save_batches(work, batches)
-    todev = [train_lib.batch_to_device(device, *b) for b in batches]
-    plain = train_lib.make_train_step(cfg.replace(use_pallas=False))
-    state = train_lib.init_train_state(cfg, device)
-
-    def plain_turn():
-        nonlocal state
-        for b in todev[:TP_GLOO_STEPS]:
-            state, _ = plain(state, *b)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for b in todev[TP_GLOO_STEPS:]:
-            state, stats = plain(state, *b)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        return {"steps": TURN_STEPS, "s": sec,
-                "rays_per_s": TURN_STEPS * cfg.batch_size / sec,
-                "loss": float(stats.loss), "sm_clock_power": clock_power()}
-
-    res["plain_one_card"] = [plain_turn()]
-    res["grids"] = []
-    for dp, mp in ((2, 2), (1, 4)):
-        ranks, children_s = grid_children(dp, mp, "nccl", scene, work)
-        res["grids"].append({"children_s": children_s, "ranks": ranks,
-                             **grid_check(cfg, batches, work, dp, mp,
-                                          device)})
-    res["plain_one_card"].append(plain_turn())
-    emit(res)
-    if res["run_train"]["worst_normalized_err_bf16_band"] >= 1.0:
-        raise AssertionError(f"tensor cards: run train {res['run_train']}")
-    return res
-
-
 def ptxas_lines(log: str):
     """ptxas's register, spill and serialized-wgmma (C7511) lines of a
     build, each kernel's under its name."""
@@ -2182,13 +2085,6 @@ def main() -> int:
         "peaks": {"bf16_flops": peaks[0], "f32_flops": peaks[1],
                   "bytes_per_s": peaks[2]},
     })
-    if sys.argv[1:] == ["--tensor-cards"]:
-        tensor_cards(device)
-        print(smi, flush=True)
-        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                     "count": torch.cuda.device_count()}})
-        return 0
-
     t0 = time.perf_counter()
     sources = build.SOURCES
     old = mma_sources() or {}

@@ -9,9 +9,10 @@ batches are byte-equal to the JAX package's. A process reads the stripe
 ``index::count`` of the pool, as each JAX process takes
 ``process_index::process_count``: by default (``process_stripe``) its rank
 and the size of ``torch.distributed``'s default group (0 of 1 without
-one), the launch flags' processes; ``stripe=(0, 1)`` for ranks that stand
-for the devices of one JAX process and share its batch
-(``run train --mesh-shape``). A background thread prefetches batches into
+one), the launch flags' processes; with ``shared`` stripe 0 of 1, for
+ranks that stand for the devices of one JAX process and each draw its
+whole batch (``run train --mesh-shape``), which must then be a function
+of the seed alone. A background thread prefetches batches into
 a bounded queue; ``peek``, ``close`` and the context manager behave as
 there. ``image_rays`` serves one image's flat ray grid and ground truth.
 Everything is numpy on the host.
@@ -34,13 +35,14 @@ class Dataset:
     [0,1] and ``self.rays`` (Rays with leaves [N,H,W,C]) in ``_load``."""
 
     def __init__(self, split: str, data_dir: str, cfg: Config,
-                 stripe: Optional[Tuple[int, int]] = None):
+                 shared: bool = False):
         self.split = split
         self.data_dir = data_dir
         self.cfg = cfg
         self.images: np.ndarray = None
         self.rays: Rays = None
-        self.stripe = stripe if stripe is not None else process_stripe()
+        self.shared = shared
+        self.stripe = (0, 1) if shared else process_stripe()
         self._load()
         if cfg.linear_color:
             self._linearize()
@@ -165,9 +167,10 @@ def process_stripe() -> Tuple[int, int]:
 
 
 def create_dataset(split: str, data_dir: str, cfg: Config,
-                   stripe: Optional[Tuple[int, int]] = None) -> Dataset:
-    """The loader of ``cfg.dataset_loader``, reading the pool's stripe
-    ``stripe`` (default: ``process_stripe()``)."""
+                   shared: bool = False) -> Dataset:
+    """The loader of ``cfg.dataset_loader``: this process's stripe of the
+    pool (``process_stripe()``), or with ``shared`` the whole pool and
+    batches that every rank sharing them draws alike."""
     from nerf_or_nothing_tpu_torch.datasets import (
         bin_dump,
         blender,
@@ -181,4 +184,4 @@ def create_dataset(split: str, data_dir: str, cfg: Config,
         DatasetType.MULTICAM: multicam.Multicam,
         DatasetType.BIN: bin_dump.BinDataset,
     }
-    return loaders[cfg.dataset_loader](split, data_dir, cfg, stripe)
+    return loaders[cfg.dataset_loader](split, data_dir, cfg, shared)

@@ -7,7 +7,8 @@ memory-mapped once and served as one 1 x N x 1 "image", so the test split
 is the whole pool as one image. Train batches come from the native C++
 loader (``datasets/native_loader.py``) when its library builds, else from
 the base class's seeded numpy draw, which ``peek`` and the test split
-always use.
+always use. For ``shared`` ranks the native loader runs one worker, so
+that its batches are a function of the file and the seed.
 """
 
 from __future__ import annotations
@@ -57,9 +58,12 @@ class BinDataset(Dataset):
             return None
         try:
             index, count = self.stripe
+            # Its workers race for the draws, so that which draw fills
+            # which batch varies; ranks that share a batch need one worker.
             return NativeRayLoader(self.data_dir, self.cfg.batch_size,
                                    seed=self.cfg.seed, stripe_index=index,
-                                   stripe_count=count)
+                                   stripe_count=count,
+                                   workers=1 if self.shared else 2)
         except (RuntimeError, OSError):
             return None
 

@@ -402,7 +402,7 @@ def make_tensor_parallel_train_step(cfg, grid: Mesh2D):
 
     cfg = cfg.replace(use_pallas=False)
     return make_train_step(cfg, mlp_apply=column_parallel_mlp(cfg, grid),
-                           group=grid.batch_group, grid=grid)
+                           grid=grid)
 
 
 def _free_port() -> int:

@@ -187,8 +187,7 @@ def train_rank(cfg: Config, log_dir: Optional[str] = None,
     else:
         mesh = mesh_lib.create_mesh(device=device)
     device, lead = mesh.device, mesh_lib.rank() == 0
-    dataset = create_dataset("train", cfg.data_dir, cfg,
-                             (0, 1) if shared else None)
+    dataset = create_dataset("train", cfg.data_dir, cfg, shared)
     state = init_train_state(cfg, device)
     if cfg.checkpoint_dir and cfg.resume:
         state = ckpt_lib.maybe_restore(cfg.checkpoint_dir, cfg, state,

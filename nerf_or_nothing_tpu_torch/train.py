@@ -201,22 +201,30 @@ def use_fused_level(cfg: Config) -> bool:
     )
 
 
-def _weight_l2(params) -> torch.Tensor:
-    return sum(torch.sum(w ** 2) for w, _ in params)
+@torch.no_grad()
+def _weight_l2(params, cfg: Config, grid=None) -> torch.Tensor:
+    """The sum of the weights' squares; with a tensor-parallel ``grid`` the
+    whole model's from this rank's blocks, as ``clip_grads`` sums the
+    gradients' squares."""
+    sharded, replicated = _split([(w,) for w, _ in params], cfg, grid)
+    l2 = sum(torch.sum(w ** 2) for w in sharded)
+    if sharded:
+        _model_reduce(l2, grid)
+    return l2 + sum(torch.sum(w ** 2) for w in replicated)
 
 
 @torch.no_grad()
-def _grid_weight_l2(params, cfg: Config, grid) -> torch.Tensor:
-    """The whole model's ``_weight_l2`` from this rank's blocks: each
-    sharded layer's sum summed over ``'model'``, in one all-reduce."""
-    sums = [torch.sum(w ** 2) for w, _ in params]
-    sharded = layer_sharded(cfg, grid.mp)
-    if any(sharded):
-        parts = _model_reduce(torch.stack(
-            [x for x, s in zip(sums, sharded) if s]), grid)
-        it = iter(parts)
-        sums = [next(it) if s else x for x, s in zip(sums, sharded)]
-    return sum(sums)
+def _add_weight_decay(cfg: Config, params, total: torch.Tensor, grads,
+                      grid=None):
+    """(total + weight_decay_mult x the weight L2, that L2, the grads with
+    the decay's gradient 2 x weight_decay_mult x w added to each dW); the
+    L2 is 0 without weight decay."""
+    if cfg.weight_decay_mult <= 0:
+        return total, torch.zeros((), device=total.device), grads
+    wl2 = _weight_l2(params, cfg, grid)
+    grads = [(gw + 2.0 * cfg.weight_decay_mult * w, gb)
+             for (gw, gb), (w, _) in zip(grads, params)]
+    return total + cfg.weight_decay_mult * wl2, wl2, grads
 
 
 def _pairs(leaves) -> List[tuple]:
@@ -277,14 +285,8 @@ def _fused_level_value_and_grad(cfg: Config, params, generator, rays: Rays,
         else:
             torch._foreach_add_(_leaves(grads), _leaves(d_params))
     losses = torch.stack(losses)
-    total = mipnerf.total_from_level_losses(cfg, losses)
-    if cfg.weight_decay_mult > 0:
-        wl2 = _weight_l2(params)
-        total = total + cfg.weight_decay_mult * wl2
-        grads = [(gw + 2.0 * cfg.weight_decay_mult * w, gb)
-                 for (gw, gb), (w, _) in zip(grads, params)]
-    else:
-        wl2 = torch.zeros((), device=pixels.device)
+    total, wl2, grads = _add_weight_decay(
+        cfg, params, mipnerf.total_from_level_losses(cfg, losses), grads)
     return total, (losses, comp, wl2), grads
 
 
@@ -294,9 +296,10 @@ def _autograd_value_and_grad(cfg: Config, params, generator, rays: Rays,
     ``multiscale_loss`` (the JAX package's ``jax.value_and_grad`` branch).
     ``render_rays`` packs the kernels' weights once for both levels and
     both directions. With a ``group`` the gradients are averaged over the
-    ranks in one all-reduce after the backward. With a tensor-parallel
-    ``grid`` the draws are the global batch's rows ``b`` and the weight L2
-    (value, not gradient) is the whole model's."""
+    ranks in one all-reduce after the backward; the weight decay's
+    gradient is added after that, as in the fused-level branch. With a
+    tensor-parallel ``grid`` the draws are the global batch's rows ``b``
+    and the weight L2 is the whole model's."""
     leaves = [t.detach().requires_grad_() for t in _leaves(params)]
     p = _pairs(leaves)
     rows = None
@@ -312,21 +315,13 @@ def _autograd_value_and_grad(cfg: Config, params, generator, rays: Rays,
         loss, level_losses = mipnerf.multiscale_loss(
             results, pixels, rays.loss_mult, cfg, group
         )
-        total = loss
-        if cfg.weight_decay_mult > 0:
-            wl2 = _weight_l2(p)
-            total = loss + cfg.weight_decay_mult * wl2
-        else:
-            wl2 = torch.zeros((), device=pixels.device)
-        flat = list(torch.autograd.grad(total, leaves))
-    if grid is not None and grid.mp > 1 and cfg.weight_decay_mult > 0:
-        wl2 = _grid_weight_l2(p, cfg, grid)
-        total = loss.detach() + cfg.weight_decay_mult * wl2
+        flat = list(torch.autograd.grad(loss, leaves))
     if group is not None:
         flat = all_mean(flat, group)
-    grads = _pairs(flat)
-    return (total.detach(), (level_losses.detach(),
-                             results[-1].rgb.detach(), wl2.detach()), grads)
+    total, wl2, grads = _add_weight_decay(cfg, params, loss.detach(),
+                                          _pairs(flat), grid)
+    return (total, (level_losses.detach(), results[-1].rgb.detach(), wl2),
+            grads)
 
 
 # ---------------------------------------------------------------------------
@@ -365,10 +360,11 @@ def _grad_part(cfg: Config, mlp_apply, params, generator, rays: Rays,
         out = _autograd_value_and_grad(*args, mlp_apply, group, grid)
     loss, (level_losses, fine_rgb, wl2), grads = out
     mse = torch.mean((fine_rgb - pixels) ** 2)
-    if grid is not None and group is not None:
-        loss, level_losses, mse = all_mean([loss, level_losses, mse], group)
-    elif group is not None:
-        loss, level_losses = all_mean([loss, level_losses], group)
+    if group is not None:
+        loss, level_losses, batch_mse = all_mean([loss, level_losses, mse],
+                                                 group)
+        if grid is not None:
+            mse = batch_mse
     return loss, level_losses, mse, wl2, grads
 
 
@@ -429,10 +425,12 @@ def make_train_step(cfg: Config, mlp_apply=None, group=None, grid=None):
     ``group``: this rank's step of a data-parallel group (JAX's
     ``axis_name``; ``parallel/mesh.make_sharded_train_step``). The finite
     check reads the averaged values, so every rank raises or none does.
-    ``grid``: this rank's step of a tensor-parallel grid, ``group`` its
-    ``'batch'`` group (``parallel/mesh.make_tensor_parallel_train_step``):
-    every rank draws from the unfolded seed."""
+    ``grid``: this rank's step of a tensor-parallel grid
+    (``parallel/mesh.make_tensor_parallel_train_step``), its ``'batch'``
+    group the ``group``; every rank draws from the unfolded seed."""
     check = cfg.check_numerics or cfg.debug_nans
+    if grid is not None:
+        group = grid.batch_group
     rank = 0 if grid is not None else _rank(group)
 
     def train_step(state: TrainState, rays: Rays, pixels: torch.Tensor):

@@ -1,6 +1,7 @@
 """The render-level, train-level (one- and two-pass) and MLP forward /
-backward CUDA kernels against their plain PyTorch versions, on a card, and
-a full-gradient train step on the card against the CPU.
+backward CUDA kernels against their plain PyTorch versions, on a card, a
+full-gradient train step on the card against the CPU, and on a host of
+four cards the tensor-parallel grids on NCCL against the plain step.
 
 The kernel has no CPU mode, so these tests skip on a host without CUDA.
 The module imports neither JAX nor the JAX package, so it also runs where
@@ -14,6 +15,7 @@ Tolerances: the parity bands of ``nerf_or_nothing_tpu/utils/parity.py``
 and plain version in the same compute dtype.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -959,3 +961,50 @@ def test_world_of_one_on_nccl_is_the_unsharded_step_on_cuda(tmp_path):
         timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.split().count("OK") == len(GRAPH_ROUTES), proc.stdout
+
+
+def test_tensor_parallel_grids_on_four_cards(tmp_path):
+    """Tensor parallelism across four cards (NCCL, one rank a card) at
+    ``Config()``: ``run train --mesh-shape=2,2`` for 4 steps against ``run
+    train --use-pallas=false`` in one process, their checkpoints in the
+    bf16 band; 2 x 2 and 1 x 4 grids of child processes against the plain
+    step (``chip_smoke.grid_check``: the bf16 band, each block bit-equal
+    down its 'model' column, the rest on every rank). One card holds one
+    NCCL rank, so ``chip_smoke.py``'s tensor phase checks a 1 x 1 NCCL grid
+    and a 2 x 2 gloo grid there."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: NCCL takes one rank a card")
+    dev = cuda_device()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as smoke
+    from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
+
+    scene = str(tmp_path / "scene")
+    write_scene(scene, n_train=4, n_test=1, size=400)
+    latest = {}
+    for name, extra in (("grid", "--mesh-shape=2,2"),
+                        ("plain", "--use-pallas=false")):
+        ckpt = str(tmp_path / f"ckpt_{name}")
+        assert run.main(["train", f"--data-dir={scene}", "--max-steps=4",
+                         "--print-every=2", "--test-render-interval=0",
+                         f"--checkpoint-dir={ckpt}", extra,
+                         "--device=cuda"]) == 0, name
+        latest[name] = ckpt_lib.latest_checkpoint(ckpt)
+    with np.load(latest["grid"]) as g, np.load(latest["plain"]) as p:
+        names = [k for k in p.files if k.split("/")[0] in ("params", "mu",
+                                                           "nu")]
+        errs, _ = smoke.check_pairs("run train --mesh-shape=2,2", [
+            (k, torch.from_numpy(g[k]), torch.from_numpy(p[k]))
+            for k in names], "bfloat16")
+    assert max(errs.values()) < 1.0, errs
+
+    cfg = run.parse_flags([f"--data-dir={scene}", "--randomized=true"])
+    batches = smoke.loader_batches(scene, cfg, smoke.TP_GLOO_STEPS)
+    smoke.save_batches(str(tmp_path), batches)
+    for dp, mp in ((2, 2), (1, 4)):
+        smoke.grid_children(dp, mp, "nccl", scene, str(tmp_path))
+        res = smoke.grid_check(cfg, batches, str(tmp_path), dp, mp, dev)
+        print(json.dumps(res), flush=True)

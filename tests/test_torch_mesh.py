@@ -615,24 +615,23 @@ def test_spawned_ranks_draw_jax_batches(scenes, monkeypatch, loader):
     (``mesh.shard_batch``) are the block that JAX's ``shard_batch`` puts on
     device r of a 2-device mesh. ``native``: the bin dump's C++ loader
     (one worker on both sides, so that its batches are a function of the
-    seed)."""
+    seed: the port's because its ranks share the batch, JAX's patched
+    so)."""
     native = loader == "native"
     monkeypatch.setattr(tbin, "USE_NATIVE", native)
     monkeypatch.setattr(jbin, "USE_NATIVE", native)
     if native:
         if not (jnative.native_available() and tnative.native_available()):
             pytest.skip("no C++ toolchain to build native/ray_loader.cpp")
-        for mod in (tnative, jnative):
-            cls = mod.NativeRayLoader
-            monkeypatch.setattr(mod, "NativeRayLoader",
-                                lambda *a, cls=cls, **k: cls(*a, **k,
-                                                             workers=1))
+        cls = jnative.NativeRayLoader
+        monkeypatch.setattr(jnative, "NativeRayLoader",
+                            lambda *a, **k: cls(*a, **k, workers=1))
         loader = "bin"
     data = scenes["bin" if loader == "bin" else "blender"]
     flags = [f"--dataset-loader={loader}", "--batch-size=32"]
     cfg, jcfg = parse_flags(flags), jparse(flags)
     jm = jmesh.create_mesh(2)
-    with create_dataset("train", data, cfg, (0, 1)) as ds, \
+    with create_dataset("train", data, cfg, shared=True) as ds, \
             j_dataset("train", data, jcfg) as jds:
         assert (getattr(ds, "_native", None) is not None) == native
         for k in range(2):

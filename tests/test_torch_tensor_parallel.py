@@ -48,10 +48,14 @@ from nerf_or_nothing_tpu.config import tiny_config as jtiny  # noqa: E402
 from nerf_or_nothing_tpu.parallel import mesh as jmesh  # noqa: E402
 from nerf_or_nothing_tpu.rays import Rays as JRays  # noqa: E402
 from nerf_or_nothing_tpu_torch import checkpoint as tckpt  # noqa: E402
+from nerf_or_nothing_tpu_torch import run as trun  # noqa: E402
 from nerf_or_nothing_tpu_torch import train as ttrain  # noqa: E402
 from nerf_or_nothing_tpu_torch.config import Config, parse_flags  # noqa: E402
 from nerf_or_nothing_tpu_torch.config import tiny_config  # noqa: E402
 from nerf_or_nothing_tpu_torch.datasets import bin_dump as tbin  # noqa: E402
+from nerf_or_nothing_tpu_torch.datasets import (  # noqa: E402
+    native_loader as tnative,
+)
 from nerf_or_nothing_tpu_torch.models import mlp as tmlp  # noqa: E402
 from nerf_or_nothing_tpu_torch.parallel import mesh  # noqa: E402
 from nerf_or_nothing_tpu_torch.rays import Rays  # noqa: E402
@@ -395,6 +399,60 @@ def test_run_train_mesh_shape_two_by_two_on_cpu(tmp_path):
     for (jw, jb), (w, b) in zip(jstate.params, state.params):
         np.testing.assert_array_equal(np.asarray(jw), w.numpy())
         np.testing.assert_array_equal(np.asarray(jb), b.numpy())
+
+
+# ``run.main`` (its second argument) in a fresh process; the final state's
+# arrays (rank 0's for spawned ranks) saved to the first.
+SAVE = r"""
+import sys
+import numpy as np
+from nerf_or_nothing_tpu_torch import checkpoint, run
+train = run.train
+
+
+def saved(cfg, *a, **k):
+    state = train(cfg, *a, **k)
+    np.savez(sys.argv[1], **checkpoint.state_arrays(state, cfg.seed))
+    return state
+
+
+run.train = saved
+run.main(sys.argv[2].split())
+"""
+
+
+@pytest.mark.parametrize("shape", ["2", "2,2"])
+def test_shared_batches_from_the_native_loader(tmp_path, monkeypatch, shape):
+    """``run train --mesh-shape=2`` and ``2,2`` on a bin dump of 512
+    distinct rays, through the native loader as ``run`` opens it: the ranks
+    that share a batch must each draw it alike (several workers race for
+    the draws, so that two ranks' batches would differ), and the run ends
+    within the f32 band of one process trained on the one-worker loader's
+    batches."""
+    if not tnative.native_available():
+        pytest.skip("no C++ toolchain to build native/ray_loader.cpp")
+    rays, pixels = make_batch(512, seed=5)
+    dump = str(tmp_path / "rays.bin")
+    tbin.write_bin_dump(dump, rays, pixels)
+    args = [f"--data-dir={dump}", "--dataset-loader=bin", *TRAIN_FLAGS,
+            "--use-pallas=false", "--max-steps=4", "--print-every=4",
+            "--test-render-interval=0", "--grad-max-norm=0.05",
+            "--weight-decay-mult=0.01"]
+    out = str(tmp_path / "state.npz")
+    finish([start([sys.executable, "-c", SAVE, out,
+                   " ".join(["train", *args, f"--mesh-shape={shape}"])],
+                  port_env())], f"run train --mesh-shape={shape}")
+    cls = tnative.NativeRayLoader
+    monkeypatch.setattr(tnative, "NativeRayLoader",
+                        lambda *a, **k: cls(*a, **{**k, "workers": 1}))
+    cfg = parse_flags([a for a in args if not a.startswith("--device")])
+    want = tckpt.state_arrays(trun.train(cfg, device="cpu"), cfg.seed)
+    with np.load(out) as got:
+        assert int(got["step"]) == int(want["step"]) == 4
+        names = [k for k in want if k.split("/")[0] in TREES]
+        assert len(names) == 6 * len(tmlp.layer_dims(cfg))
+        for k in names:
+            close(got[k], want[k], k)
 
 
 def test_launch_flags_grid_equals_spawned_grid(scenes, tmp_path):  # noqa: F811
