@@ -133,10 +133,38 @@ Phases, each printing one JSON line:
            stats within the bf16 band of the single-process plain step,
            each block bit-equal down its 'model' column, the replicated
            heads, gathered state and stats bit-equal on all four ranks.
+  recovery ``run.main(["train", ...])`` at Config() in child processes,
+           each in its own session, on a bin dump of one ray of the scene
+           repeated (every batch the same: a resumed loader starts its
+           stream again), --steps-per-call=8 --save-every=8
+           --max-steps=40: an uninterrupted run; a second one SIGKILLed
+           with its whole session once its step-16 checkpoint exists (it
+           writes each checkpoint 0.25 s late, so that the kill lands in
+           the next chunk's replays), no process of it left, every
+           checkpoint left loaded as a whole state, the .tmp leftovers
+           reported; the same command again, which must resume from the
+           newest checkpoint (step >= 16) and end at step 40 bit-equal to
+           the first run (params, mu, nu, step); train_level launches of
+           each run exact (2 a step, the capture's warm-up steps
+           included: a restart from N runs steps N+1..40 only);
+  quality  the JAX package's quality run (benchmarks/bench_quality.py
+           --full): the hard scene, 24 train and 3 test views at 256x256
+           written on the host (timed), Config() widths at batch 1024 with
+           its schedule (lr 1e-3 to 1e-4 over 20,000 steps, 100 delay
+           steps), 3,000 steps of train.make_multi_step (8 a call, graph
+           replays); the train PSNR every 250 steps (the mean of the
+           calls' last-step values) beside the recorded JAX curve
+           (benchmarks/artifacts/quality_curve_hard_full.json), held-out
+           view 0 through eval.render_image and eval.evaluate_image, train
+           rays/s. Gates: the mean over steps 2,251-3,000 within 1.5 dB
+           of the JAX curve's points at 2,250-3,000, held-out PSNR >= 17 dB
+           (the JAX harness's numerics-regression line), every loss and
+           the final state finite, launches exact.
 The train phases share one 400x400 scene.
 Then the ``kernels`` line (each kernel's launches: its path's, plus the
 mesh phase's in the world-1 child's sharded steps and rank 0 of the
-pair, and the tensor phase's ``run train --mesh-shape=1,1``), the card's
+pair, the tensor phase's ``run train --mesh-shape=1,1``, the recovery
+phase's two runs that end and the quality phase's), the card's
 name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failure raises: non-zero exit and
 no ``ok`` line. Without a CUDA device the script exits 1 at once.
@@ -198,6 +226,15 @@ ALLREDUCE_REPS = 20
 TP_STEPS = 8  # 1 x 1 grid: tensor-parallel steps against plain ones
 TP_RUN_STEPS = 4  # run train --mesh-shape=1,1, a test render at the end
 TP_GLOO_STEPS = 2  # steps of the 2 x 2 gloo grid (cut these first)
+RECOVERY_STEPS = 40  # run train of the recovery phase, killed and not
+RECOVERY_KILL_AT = 16  # kill once this step's checkpoint exists
+RECOVERY_PACE_S = 0.25  # the killed run writes each checkpoint this late
+QUALITY_STEPS = 3000  # train steps of the quality phase
+QUALITY_SCENE = dict(n_train=24, n_test=3, size=256, scene="hard")
+QUALITY_MAX_STEPS = 20000  # the JAX run's schedule (bench_quality.py)
+QUALITY_ARTIFACT = "benchmarks/artifacts/quality_curve_hard_full.json"
+QUALITY_MARGIN_DB = 1.5  # the train curve's gate under the JAX curve's
+QUALITY_HELDOUT_DB = 17.0  # bench_quality.py's numerics-regression line
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -1497,10 +1534,11 @@ def wait_children(children) -> list:
 def mesh_child(kind: str, *args) -> int:
     """Entry of the mesh and tensor phases' child processes: ``world1
     SCENE STORE OUT``, ``pair RANK SCENE WORK STORE OUT``, ``grid1x1 SCENE
-    WORK STORE OUT`` or ``grid RANK DP MP BACKEND SCENE WORK STORE
-    OUT``."""
+    WORK STORE OUT``, ``grid RANK DP MP BACKEND SCENE WORK STORE OUT`` or
+    (the recovery phase's) ``recovery DUMP CKPT DEVICE PACE_S OUT``."""
     res = {"world1": mesh_world1, "pair": mesh_pair,
-           "grid1x1": tensor_one, "grid": tensor_rank}[kind](*args)
+           "grid1x1": tensor_one, "grid": tensor_rank,
+           "recovery": recovery_run}[kind](*args)
     with open(args[-1], "w") as f:
         json.dump(res, f)
     return 0
@@ -2027,6 +2065,369 @@ def tensor_phase(device, scene: str) -> dict:
     return one["launches"]
 
 
+def recovery_args(dump: str, ckpt: str, device: str):
+    """``run train``'s arguments of the recovery phase: ``Config()``, every
+    step a graph replay, a checkpoint and a log line every chunk."""
+    return [f"--data-dir={dump}", "--dataset-loader=bin",
+            f"--checkpoint-dir={ckpt}", f"--max-steps={RECOVERY_STEPS}",
+            f"--steps-per-call={GRAPH_K}", f"--save-every={GRAPH_K}",
+            f"--print-every={GRAPH_K}", "--test-render-interval=0",
+            f"--device={device}"]
+
+
+def recovery_run(dump: str, ckpt: str, device: str, pace_s: str,
+                 out: str) -> dict:
+    """A recovery child: ``run.main(["train", ...])`` with the launch
+    counters from 0; with ``pace_s`` > 0 each checkpoint is written that
+    many seconds late, so that a kill on the appearance of one lands in
+    the next chunk's steps, and ``OUT.step`` holds the last step done."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
+    from nerf_or_nothing_tpu_torch import run
+
+    save = ckpt_lib.save_checkpoint
+
+    def paced(ckpt_dir, state, *a, **k):
+        with open(f"{out}.step", "w") as f:
+            f.write(str(state.step))
+        time.sleep(float(pace_s))
+        return save(ckpt_dir, state, *a, **k)
+
+    if float(pace_s) > 0:
+        ckpt_lib.save_checkpoint = paced
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = run.main(["train", *recovery_args(dump, ckpt, device)])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"rc": rc, "train_s": time.perf_counter() - t0,
+            "launches": launch_counts()}
+
+
+def start_recovery(work: str, name: str, dump: str, device: str,
+                   pace_s: float = 0.0):
+    """A recovery child in its own session (``os.killpg`` ends it all);
+    (process, its checkpoint directory, its result file)."""
+    ckpt = os.path.join(work, name)
+    out = os.path.join(work, f"{name}.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.mesh_child(*sys.argv[1:]))", "recovery", dump,
+         ckpt, device, str(pace_s), out],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    return proc, ckpt, out
+
+
+def end_recovery(proc, what: str, out: str) -> tuple:
+    """Wait for a recovery child (``MESH_WAIT_S``); its result, stdout and
+    the process's own wall time from its start."""
+    t0 = time.perf_counter()
+    try:
+        stdout, err = proc.communicate(timeout=MESH_WAIT_S)
+    except subprocess.TimeoutExpired:
+        kill_session(proc)
+        raise AssertionError(f"recovery: {what} did not end within "
+                             f"{MESH_WAIT_S} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"recovery: {what} exited with "
+                             f"{proc.returncode}:\n{err[-4000:]}")
+    with open(out) as f:
+        return json.load(f), stdout, time.perf_counter() - t0
+
+
+def live_in_session(sid: int) -> list:
+    """The pids of the live (not zombie) processes of session ``sid``."""
+    pids = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[3]) == sid and fields[0] != "Z":
+            pids.append(int(pid))
+    return pids
+
+
+def kill_session(proc) -> None:
+    """SIGKILL a child's whole session and wait until nothing of it
+    lives."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait(timeout=60)
+    deadline = time.time() + 60
+    while live_in_session(proc.pid):
+        if time.time() > deadline:
+            raise AssertionError(f"recovery: processes "
+                                 f"{live_in_session(proc.pid)} outlived the "
+                                 "kill")
+        time.sleep(0.1)
+
+
+def recovery_dump(scene: str, path: str) -> None:
+    """A bin dump of one ray of the scene (the centre of train view 0)
+    repeated: every batch is the same, whatever the loader's stream."""
+    import numpy as np
+
+    from nerf_or_nothing_tpu_torch.config import Config
+    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
+    from nerf_or_nothing_tpu_torch.datasets.bin_dump import write_bin_dump
+    from nerf_or_nothing_tpu_torch.rays import Rays
+
+    with create_dataset("train", scene, Config()) as ds:
+        h, w = ds.image_dims(0)
+        i = (h // 2) * w + w // 2
+        rays = Rays(*[np.repeat(np.asarray(x)[i:i + 1], 8, 0)
+                      for x in ds._flat_rays])
+        pixels = np.repeat(np.asarray(ds._flat_pixels)[i:i + 1], 8, 0)
+    write_bin_dump(path, rays, pixels)
+
+
+def recovery_phase(device, scene: str) -> dict:
+    """``run train`` at ``Config()`` as graph replays in child processes
+    on the card: an uninterrupted run; a second one SIGKILLed (its whole
+    session) once its step-16 checkpoint exists; the surviving
+    checkpoints loaded; the same command again, which resumes and must end
+    bit-equal to the first (params, mu, nu, step), each run's
+    ``train_level`` launches exact (2 a step, its capture's warm-up steps
+    included). Returns the launches of the two runs that end."""
+    import numpy as np
+
+    from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    dump = os.path.join(work, "one_ray.bin")
+    recovery_dump(scene, dump)
+    dev = device.type
+    cfg = run.parse_flags([a for a in recovery_args(dump, work, dev)
+                           if not a.startswith("--device=")])
+
+    def expected(start):
+        return step_launches(cfg, RECOVERY_STEPS - start
+                             + train_lib.WARMUP_STEPS)
+
+    proc, ref_dir, out = start_recovery(work, "reference", dump, dev)
+    ref, _, ref_wall = end_recovery(proc, "the uninterrupted run", out)
+    check_launches("recovery: uninterrupted run", ref["launches"],
+                   expected(0))
+
+    proc, ckpt, out = start_recovery(work, "faulted", dump, dev,
+                                     RECOVERY_PACE_S)
+    target = os.path.join(ckpt, f"checkpoint_{RECOVERY_KILL_AT:09d}.npz")
+    t0 = time.perf_counter()
+    try:
+        while not os.path.exists(target):
+            if proc.poll() is not None:
+                raise AssertionError(f"recovery: the run to be killed ended "
+                                     f"with {proc.returncode}:\n"
+                                     f"{proc.stderr.read()[-4000:]}")
+            if time.perf_counter() - t0 > MESH_WAIT_S:
+                raise AssertionError("recovery: no step-16 checkpoint in "
+                                     f"{MESH_WAIT_S} s")
+            time.sleep(0.002)
+        alive = proc.poll() is None
+    finally:
+        kill_session(proc)
+    faulted_wall = time.perf_counter() - t0
+    with open(f"{out}.step") as f:
+        done = int(f.read())
+    # Steps done when the kill came: the chunk after the newest checkpoint
+    # was running (done == its step), or it had ended and its checkpoint
+    # was waiting on the pace.
+    killed_in = (f"steps {done + 1}-{done + GRAPH_K}"
+                 if done == RECOVERY_KILL_AT
+                 else f"the pause after step {done}")
+    names = sorted(os.listdir(ckpt))
+    steps = []
+    for n in names:
+        if ckpt_lib._CKPT_RE.match(n):
+            state = ckpt_lib.restore_checkpoint(os.path.join(ckpt, n), cfg)
+            if n != f"checkpoint_{state.step:09d}.npz":
+                raise AssertionError(f"recovery: {n} holds step {state.step}")
+            steps.append(state.step)
+    leftovers = [n for n in names if n.endswith(".tmp")]
+    if not alive or not steps or max(steps) >= RECOVERY_STEPS:
+        raise AssertionError(f"recovery: the kill came too late (alive "
+                             f"{alive}, checkpoints {steps})")
+
+    proc, _, out = start_recovery(work, "faulted", dump, dev)
+    restart, stdout, restart_wall = end_recovery(proc, "the restart", out)
+    found = re.findall(r"resumed from step (\d+)", stdout)
+    resumed = int(found[0]) if found else None
+    want = ckpt_lib.latest_checkpoint(ref_dir)
+    got = ckpt_lib.latest_checkpoint(ckpt)
+    with np.load(want) as a, np.load(got) as b:
+        differ = sorted(k for k in set(a.files) | set(b.files)
+                        if k not in a.files or k not in b.files
+                        or not np.array_equal(a[k], b[k]))
+        end_step = int(b["step"])
+    res = {
+        "phase": "recovery", "config": "Config()", "steps": RECOVERY_STEPS,
+        "steps_per_call": GRAPH_K, "save_every": GRAPH_K,
+        "kill_on_checkpoint": RECOVERY_KILL_AT, "killed_in": killed_in,
+        "checkpoints_after_kill": steps, "tmp_leftovers": leftovers,
+        "resumed_from": resumed, "end_step": end_step,
+        "bit_equal": not differ, "differ_in": differ,
+        "train_level_launches": {
+            "uninterrupted": ref["launches"]["train_level"],
+            "restart": restart["launches"]["train_level"]},
+        "wall_s": {"uninterrupted": ref_wall, "faulted": faulted_wall,
+                   "restart": restart_wall},
+        "run_main_s": {"uninterrupted": ref["train_s"],
+                       "restart": restart["train_s"]},
+    }
+    emit(res)
+    if resumed is None or resumed < RECOVERY_KILL_AT or resumed != max(steps):
+        raise AssertionError(f"recovery: resumed from {resumed}, checkpoints "
+                             f"{steps}")
+    check_launches("recovery: restart", restart["launches"],
+                   expected(resumed))
+    if differ or end_step != RECOVERY_STEPS:
+        raise AssertionError(f"recovery: the restarted run ends at step "
+                             f"{end_step} and differs in {differ}")
+    return added(ref["launches"], restart["launches"])
+
+
+def quality_config(root: str):
+    """The JAX package's quality harness's config at ``--full``
+    (``benchmarks/bench_quality.py``): ``Config()``'s widths."""
+    from nerf_or_nothing_tpu_torch.config import Config, DatasetType
+
+    return Config(batch_size=1024, dataset_loader=DatasetType.BLENDER,
+                  lr_delay_steps=100, lr_init=1e-3, lr_final=1e-4,
+                  max_steps=QUALITY_MAX_STEPS, data_dir=root)
+
+
+def jax_quality_curve() -> dict:
+    """The JAX package's recorded run on the hard scene at ``--full``
+    (train PSNR every 250 steps, held-out view 0); only its PSNR and SSIM
+    values are read."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, QUALITY_ARTIFACT)) as f:
+        return json.load(f)
+
+
+def window_mean(curve, lo: int, hi: int) -> float:
+    """The mean train PSNR of the curve's points at steps lo..hi."""
+    vals = [p["train_psnr"] for p in curve if lo <= p["step"] <= hi]
+    return sum(vals) / len(vals)
+
+
+def quality_run(device, steps: int, work: str) -> dict:
+    """The hard scene (24 train, 3 test views at 256x256) written on the
+    host, then ``steps`` steps of ``train.make_multi_step`` at
+    ``quality_config`` on the card, ``GRAPH_K`` a call; the curve as the
+    mean of the calls' train PSNR (each the last step's) over each
+    250-step window, beside the JAX curve; held-out view 0 through
+    ``eval.render_image`` scored by ``eval.evaluate_image``; exact
+    launches; train rays/s."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
+    from nerf_or_nothing_tpu_torch.eval import (
+        evaluate_image,
+        make_render_fn,
+        render_image,
+        to_display,
+    )
+    from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
+
+    root = os.path.join(work, "hard")
+    t0 = time.perf_counter()
+    write_scene(root, **QUALITY_SCENE)
+    scene_s = time.perf_counter() - t0
+    cfg = quality_config(root)
+    state = train_lib.init_train_state(cfg, device)
+    multi = train_lib.make_multi_step(cfg)
+    ends, psnrs, losses = [], [], []
+    reset_launch_counts()
+    with create_dataset("train", root, cfg) as ds:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        while state.step < steps:
+            k = min(GRAPH_K, steps - state.step)
+            state, stats = multi(state, [next(ds) for _ in range(k)])
+            ends.append(state.step)
+            psnrs.append(stats.psnr)
+            losses.append(stats.loss)
+        torch.cuda.synchronize(device)
+        train_s = time.perf_counter() - t0
+    launches = launch_counts()
+    psnrs = torch.stack(psnrs).cpu().tolist()
+    losses = torch.stack(losses).cpu().tolist()
+    finite = (all(math.isfinite(v) for v in losses) and all(
+        bool(torch.isfinite(t).all()) for t in train_lib.state_tensors(state)))
+    check_launches("quality: train", launches,
+                   step_launches(cfg, steps + train_lib.WARMUP_STEPS))
+
+    with create_dataset("test", root, cfg) as test_ds:
+        rays, gt = test_ds.image_rays(0)
+        h, w = test_ds.image_dims(0)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rgb, _, _ = render_image(make_render_fn(cfg), state.params, rays, h, w,
+                             cfg.render_chunk_size, device=device)
+    m = evaluate_image(to_display(cfg, rgb),
+                       to_display(cfg, gt.reshape(h, w, 3)), device=device)
+    render_s = time.perf_counter() - t0
+    render = launch_counts()
+    check_launches("quality: held-out render", render,
+                   render_launches(cfg, [(h, w)]))
+
+    jax = jax_quality_curve()
+    curve = []
+    for hi in range(250, steps + 1, 250):
+        vals = [p for e, p in zip(ends, psnrs) if hi - 250 < e <= hi]
+        jax_at = [p["train_psnr"] for p in jax["curve"] if p["step"] == hi]
+        curve.append({"step": hi, "train_psnr": sum(vals) / len(vals),
+                      "calls": len(vals),
+                      "jax_train_psnr": jax_at[0] if jax_at else None})
+    return {
+        "steps": steps, "steps_per_call": GRAPH_K, "scene": QUALITY_SCENE,
+        "scene_s": scene_s,
+        "train_s": train_s, "train_rays_per_s":
+        steps * cfg.batch_size / train_s, "render_s": render_s,
+        "curve": curve, "psnr_by_call": list(zip(ends, psnrs)),
+        "heldout": {"psnr": m["psnr"], "ssim": m["ssim"]},
+        "jax_heldout": jax["heldout"][0], "finite": finite,
+        "launches": added(launches, render),
+    }
+
+
+def quality_phase(device) -> dict:
+    """``quality_run`` for ``QUALITY_STEPS`` steps and its gates: the
+    window mean over steps 2,251-3,000 within 1.5 dB of the JAX curve's
+    points at 2,250-3,000, the held-out view at least 17 dB (the JAX
+    harness's numerics-regression line), every loss finite. Returns its
+    launches."""
+    res = quality_run(device, QUALITY_STEPS, tempfile.mkdtemp(
+        prefix="chip_smoke_quality_"))
+    lo = QUALITY_STEPS - 750
+    window = [p for e, p in res["psnr_by_call"] if lo < e <= QUALITY_STEPS]
+    mean = sum(window) / len(window)
+    jax_mean = window_mean(jax_quality_curve()["curve"], lo, QUALITY_STEPS)
+    gates = {"window_mean": mean >= jax_mean - QUALITY_MARGIN_DB,
+             "heldout": res["heldout"]["psnr"] >= QUALITY_HELDOUT_DB,
+             "finite": res["finite"]}
+    emit({"phase": "quality", "window": [lo + 1, QUALITY_STEPS],
+          "window_mean_psnr": mean, "jax_window_mean_psnr": jax_mean,
+          "gates": gates, "device": nvidia_smi_line(),
+          **{k: v for k, v in res.items() if k != "psnr_by_call"}})
+    if not all(gates.values()):
+        raise AssertionError(f"quality: gates failed {gates}")
+    return res["launches"]
+
+
 def ptxas_lines(log: str):
     """ptxas's register, spill and serialized-wgmma (C7511) lines of a
     build, each kernel's under its name."""
@@ -2207,6 +2608,8 @@ def main() -> int:
 
     mesh_launches = mesh_phase(device, scene)
     mesh_launches = added(mesh_launches, tensor_phase(device, scene))
+    mesh_launches = added(mesh_launches, recovery_phase(device, scene))
+    mesh_launches = added(mesh_launches, quality_phase(device))
 
     def entry(name, case, n, replaces):
         return {

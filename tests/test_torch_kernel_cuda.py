@@ -1,7 +1,9 @@
 """The render-level, train-level (one- and two-pass) and MLP forward /
 backward CUDA kernels against their plain PyTorch versions, on a card, a
-full-gradient train step on the card against the CPU, and on a host of
-four cards the tensor-parallel grids on NCCL against the plain step.
+full-gradient train step on the card against the CPU, on a host of four
+cards the tensor-parallel grids on NCCL against the plain step, and the
+JAX package's 20,000-step quality run on the hard scene (``-k
+quality_20k``, minutes; ``-k "not quality_20k"`` leaves it out).
 
 The kernel has no CPU mode, so these tests skip on a host without CUDA.
 The module imports neither JAX nor the JAX package, so it also runs where
@@ -1008,3 +1010,36 @@ def test_tensor_parallel_grids_on_four_cards(tmp_path):
         smoke.grid_children(dp, mp, "nccl", scene, str(tmp_path))
         res = smoke.grid_check(cfg, batches, str(tmp_path), dp, mp, dev)
         print(json.dumps(res), flush=True)
+
+
+def test_quality_20k_on_cuda(tmp_path):
+    """The JAX package's full quality run on the card
+    (``benchmarks/bench_quality.py --full --size 256 --steps 20000``): the
+    hard scene, 24 train and 3 test views at 256x256, ``Config()``'s
+    widths at batch 1024 with the harness's schedule, 20,000 steps of
+    ``train.make_multi_step`` (graph replays through ``train_level``),
+    then held-out view 0 through ``render_level``
+    (``chip_smoke.quality_run``). Held against the recorded JAX run
+    (``benchmarks/artifacts/quality_curve_hard_full.json``, read here):
+    held-out view 0 within 1.5 dB of its PSNR, and the mean train PSNR over
+    steps 19,001-20,000 within 1.5 dB of the mean of its points at
+    19,000-20,000. Takes minutes: select it with ``-k quality_20k``."""
+    dev = cuda_device()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as smoke
+
+    steps = smoke.QUALITY_MAX_STEPS
+    res = smoke.quality_run(dev, steps, str(tmp_path))
+    jax = smoke.jax_quality_curve()
+    window = [p for e, p in res["psnr_by_call"] if steps - 1000 < e <= steps]
+    mean = sum(window) / len(window)
+    jax_mean = smoke.window_mean(jax["curve"], steps - 1000, steps)
+    print(json.dumps({
+        "quality_20k": {k: v for k, v in res.items() if k != "psnr_by_call"},
+        "window_mean_psnr": mean, "jax_window_mean_psnr": jax_mean,
+        "device": smoke.nvidia_smi_line()}), flush=True)
+    assert res["finite"]
+    assert res["heldout"]["psnr"] >= (jax["heldout"][0]["psnr"]
+                                      - smoke.QUALITY_MARGIN_DB), res["heldout"]
+    assert mean >= jax_mean - smoke.QUALITY_MARGIN_DB, (mean, jax_mean)
