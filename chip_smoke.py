@@ -15,10 +15,14 @@ Phases, each printing one JSON line:
            R=1000 x S=64 in mode "t" without white background, and a narrow
            config with S=8; errors as a fraction of the band
            atol + rtol*|ref| + rtol*max|ref|; kernel and plain times by CUDA
-           events (median of 7 launches after warm-up) beside the bound;
-  turns    the mma.sync and wgmma versions of every kernel on the same
-           inputs, timed in turns with the SM clock and power draw beside
-           each time (turns_phase);
+           events (median of 7 launches after warm-up) beside the bound
+           (f32: at the 3xTF32 rate, dtype_peak, the f32 FMA bound beside
+           it);
+  turns    the versions of every kernel at commit 815018d (bf16 mma.sync,
+           f32 FMA loops) and the checkout's (bf16 wgmma, f32 3xTF32
+           mma.sync) on the same inputs, timed in turns with the SM clock
+           and power draw beside each time, after the layer products as
+           torch.matmul in bf16 and full f32 (turns_phase, TURN_CASES);
   main     a synthetic 400x400 Blender scene and a seeded checkpoint at
            Config(), then the port's ``run.main(["eval", ...])`` and
            ``run.main(["render", ...])`` on the card; the kernel's launch
@@ -42,6 +46,11 @@ Phases, each printing one JSON line:
            (batch_size / median host-clock step, each step synchronised)
            beside the bound; one step on the card against the same step on
            the CPU (randomized=false, 256 rays);
+  f32_path the train phase at --compute-dtype=float32 for 20 steps (2
+           train_level launches a step, 2 render_level a 16384-ray chunk of
+           the test render and of ``run eval``, exact), the checkpoint
+           restored by ``run eval``, train rays/s and render rays/s of the
+           test view from the trained checkpoint beside the f32 bounds;
   mlp_kernel  the MLP kernels against their plain versions: mlp_fwd at
            Config() width, mode "t" features, R=16384 x S=128 in bf16 and
            f32 and R=1024 x S=128 in bf16, and a narrow ragged config with
@@ -65,9 +74,9 @@ Phases, each printing one JSON line:
            S=128 in bf16 and f32, a masked ragged batch (R=777, every
            seventh g_scale 0, the others weighted by Multicam's 1/4/16/64),
            and R=37 x S=256 at depth 5 with skips at 2 and 4, in both
-           dtypes; two launches bit-equal; train_level_cuda on the same
-           inputs, its error against the two-pass kernel and both times
-           beside the shared bound;
+           dtypes; two launches bit-equal (f32 too); train_level_cuda on
+           the same inputs, its error against the two-pass kernel and both
+           times beside the shared bound;
   multicam the train phase on the Blender scene's 4-scale Multicam pyramid
            (loss_mult 1/4/16/64) with kernel_probes fl_variant=twopass for
            20 steps: exactly 2 train_level_twopass launches per step and no
@@ -185,6 +194,7 @@ import time
 from nerf_or_nothing_tpu_torch.kernels import counted, launch_counts
 from nerf_or_nothing_tpu_torch.utils.profiling import (
     card_peaks,
+    f32_peak,
     full_grad_step_flops,
     level_flops,
     mlp_bwd_flops,
@@ -211,6 +221,8 @@ MULTICAM_STEPS = 20
 MULTICAM_ARGS = ("--dataset-loader=multicam",
                  "--kernel-probes=fl_variant=twopass")
 LOADER_STEPS = 10  # the LLFF and bin-dump phases
+F32_STEPS = 20  # run train of the f32_path phase
+F32_ARGS = ("--compute-dtype=float32",)
 GRAPH_K = 8  # steps a multi-step call in the graph phase
 TURN_STEPS = 16  # steps a turn of the graph phase's rays/s
 GRAPH_CASES = (("Config()", ()), ("multicam_twopass", MULTICAM_ARGS),
@@ -321,12 +333,35 @@ def level_inputs(cfg, R: int, mode: str, seed: int, device):
     return xs, d, delta
 
 
+def dtype_peak(cfg, peaks) -> float:
+    """FLOP/s of the compute type: the bf16 tensor-core peak, or for f32
+    ``f32_peak`` (the larger of the f32 FMA peak and a third of the TF32
+    peak: the f32 kernels run each product as three TF32 passes)."""
+    return peaks[0] if cfg.compute_dtype == "bfloat16" else f32_peak(peaks)
+
+
+def op_bound(flops: int, nbytes: int, peak: float, bw: float) -> tuple:
+    """(ms, "operations" or "bytes"): the larger of flops / peak and
+    nbytes / bw."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fma_bound(res: dict, peaks) -> dict:
+    """An f32 case's bound at the f32 FMA peak (no tensor cores), kept
+    beside the 3xTF32 one; nothing for bf16."""
+    if res["dtype"] != "float32":
+        return {}
+    ms, by = op_bound(res["flop"], res["bytes"], peaks[1], peaks[2])
+    return {"fma_bound_ms": ms, "fma_bound_by": by}
+
+
 def bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
     """Least time for one launch: FLOPs of the MLP products over the peak
-    of the compute type, bytes read and written over the memory rate."""
+    of the compute type (``dtype_peak``), bytes read and written over the
+    memory rate."""
     from nerf_or_nothing_tpu_torch.models.mlp import layer_dims
 
-    bf16_peak, f32_peak, bw = peaks
     n = R * S
     flops = level_flops(cfg, R, S)
     esize = 2 if cfg.compute_dtype == "bfloat16" else 4
@@ -336,11 +371,9 @@ def bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
     in_bytes = (x_bytes + R * cfg.direction_features * esize + R * S * 4
                 + w_bytes + b_bytes)
     out_bytes = R * 3 * 4 + R * 4 + R * S * 4
-    peak = bf16_peak if cfg.compute_dtype == "bfloat16" else f32_peak
-    t_ops = flops / peak * 1e3
-    t_bytes = (in_bytes + out_bytes) / bw * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            flops, in_bytes + out_bytes)
+    ms, by = op_bound(flops, in_bytes + out_bytes, dtype_peak(cfg, peaks),
+                      peaks[2])
+    return ms, by, flops, in_bytes + out_bytes
 
 
 def train_bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
@@ -349,25 +382,20 @@ def train_bound_ms(cfg, R: int, S: int, mode: str, peaks) -> tuple:
     memory rate, whichever is larger."""
     from nerf_or_nothing_tpu_torch.models.mlp import num_params
 
-    bf16_peak, f32_peak, bw = peaks
     _, _, _, nbytes = bound_ms(cfg, R, S, mode, peaks)
     nbytes += R * 3 * 4 + R * 4 + num_params(cfg) * 4  # pixels, g_scale, dW/db
     flops = train_level_flops(cfg, R, S)
-    peak = bf16_peak if cfg.compute_dtype == "bfloat16" else f32_peak
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            flops, nbytes)
+    ms, by = op_bound(flops, nbytes, dtype_peak(cfg, peaks), peaks[2])
+    return ms, by, flops, nbytes
 
 
 def mlp_bound_ms(cfg, R: int, S: int, flops: int, in_bytes: int,
                  out_bytes: int, peaks) -> tuple:
     """The larger of the FLOPs over the compute type's peak and the bytes
     (inputs read once, outputs written once) over the memory rate."""
-    bf16_peak, f32_peak, bw = peaks
-    peak = bf16_peak if cfg.compute_dtype == "bfloat16" else f32_peak
-    t_ops, t_bytes = flops / peak * 1e3, (in_bytes + out_bytes) / bw * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            flops, in_bytes + out_bytes)
+    ms, by = op_bound(flops, in_bytes + out_bytes, dtype_peak(cfg, peaks),
+                      peaks[2])
+    return ms, by, flops, in_bytes + out_bytes
 
 
 def mlp_bytes(cfg, R: int, S: int):
@@ -459,6 +487,7 @@ def mlp_fwd_case(name, cfg, R, peaks, device, seed=0):
         "bound_ms": b_ms, "bound_by": b_by, "flop": flops, "bytes": nbytes,
         "bound_share": b_ms / ms,
     }
+    res.update(fma_bound(res, peaks))
     emit(res)
     if not max(errs.values()) < 1.0:
         raise AssertionError(f"{name}: mlp_fwd disagrees with plain: {errs}")
@@ -521,6 +550,7 @@ def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "flop": flops, "bytes": nbytes, "bound_share": b_ms / ms,
     }
+    res.update(fma_bound(res, peaks))
     emit(res)
     if not max(errs.values()) < 1.0:
         raise AssertionError(f"{name}: mlp_bwd disagrees with plain, "
@@ -572,6 +602,7 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "flop": flops, "bytes": nbytes, "bound_share": b_ms / ms,
     }
+    res.update(fma_bound(res, peaks))
     emit(res)
     worst = max(errs.values())
     if not worst < 1.0:
@@ -608,15 +639,17 @@ def mma_sources():
 
 def matmul_ms(cfg, R: int, device) -> float:
     """The MLP's layer products at ``cfg`` over R rays as ``torch.matmul``
-    calls on random bf16 operands (the view layer's direction rows once
-    per ray), median by CUDA events: a yardstick of the products alone,
-    which the port never calls."""
+    calls on random operands of the compute type (bf16, or f32 with TF32
+    off: full-f32 cuBLAS), the view layer's direction rows once per ray,
+    median by CUDA events: a yardstick of the products alone, which the
+    port never calls."""
     import torch
 
-    from nerf_or_nothing_tpu_torch.models.mlp import layer_dims
+    from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype, layer_dims
 
     g = torch.Generator(device=device).manual_seed(0)
     N, W, D = R * cfg.num_samples, cfg.net_width, cfg.net_depth
+    dt = compute_dtype(cfg)
     pairs = []
     for k, (fan_in, fan_out) in enumerate(layer_dims(cfg)):
         rows = [(N, fan_in)]
@@ -624,9 +657,9 @@ def matmul_ms(cfg, R: int, device) -> float:
             rows = [(N, W), (R, fan_in - W)]
         for n, kin in rows:
             pairs.append((torch.randn(n, kin, generator=g, device=device,
-                                      dtype=torch.bfloat16),
+                                      dtype=dt),
                           torch.randn(kin, fan_out, generator=g,
-                                      device=device, dtype=torch.bfloat16)))
+                                      device=device, dtype=dt)))
 
     def run():
         for a, w in pairs:
@@ -635,18 +668,33 @@ def matmul_ms(cfg, R: int, device) -> float:
     return median_ms(run)
 
 
+# The turns phase's cases (compare_kernels.cases by name): the bf16
+# routes, mma.sync (815018d) against wgmma, and the f32 routes, the FMA
+# loops of 815018d against 3xTF32 mma.sync.
+TURN_CASES = (
+    ("render_level", "bf16_r16384_s128_mv"), ("mlp_fwd", "bf16_r16384_s128"),
+    ("mlp_fwd", "bf16_r1024_s128"), ("train_level", "bf16_r1024_s128_t"),
+    ("train_level", "bf16_r777_s128_t_multicam"),
+    ("train_level_twopass", "bf16_r1024_s128_t"),
+    ("train_level_twopass", "bf16_r777_s128_t_multicam"),
+    ("mlp_bwd", "bf16_r1024_s128_dx"), ("mlp_bwd", "bf16_r1024_s128"),
+    ("render_level", "f32_r16384_s128_mv"), ("mlp_fwd", "f32_r16384_s128"),
+    ("train_level", "f32_r1024_s128_t"),
+    ("train_level_twopass", "f32_r1024_s128_t"),
+    ("mlp_bwd", "f32_r1024_s128_dx"),
+)
+
+
 def turns_phase(device):
-    """The ``mma.sync`` kernels (``mma_sources``) and the ``wgmma`` ones on
-    the same inputs, timed in turns (mma, wgmma, wgmma, mma;
-    ``compare_kernels.in_turns``, the SM clock and power draw beside each
-    time): render_level bf16 R=16384 x S=128 mode "mv", mlp_fwd bf16
-    R=16384 and R=1024 x S=128, train_level and train_level_twopass bf16
-    R=1024 x S=128 mode "t" and R=777 with Multicam's loss weights,
-    mlp_bwd bf16 R=1024 x S=128 with and without input_grads. First the
-    same layer products as ``torch.matmul`` calls at those shapes, a
-    yardstick only. Both versions must agree with the plain version (the
-    backward kernels: and give bit-equal outputs over two launches); which
-    is faster is recorded, not required."""
+    """The 815018d kernels (``mma_sources``) and the checkout's on the same
+    inputs, timed in turns (old, new, new, old; ``compare_kernels.in_turns``,
+    the SM clock and power draw beside each time): ``TURN_CASES``, the bf16
+    routes (``mma.sync`` against ``wgmma``) and the f32 routes (815018d's
+    FMA loops against 3xTF32 ``mma.sync``). First the same layer products
+    as ``torch.matmul`` calls at those shapes (bf16, and f32 with TF32
+    off), a yardstick only. Both versions must agree with the plain version
+    (the backward kernels: and give bit-equal outputs over two launches);
+    which is faster is recorded, not required."""
     import compare_kernels as ck
     from nerf_or_nothing_tpu_torch.kernels import build
 
@@ -657,22 +705,23 @@ def turns_phase(device):
         return None
     from nerf_or_nothing_tpu_torch.config import Config
 
-    for R in (16384, 1024):
-        emit({"phase": "turns", "yardstick": "torch.matmul of the layer "
-              "products", "R": R, "S": Config().num_samples,
-              "ms": matmul_ms(Config(), R, device)})
+    for dtype in ("bfloat16", "float32"):
+        for R in (16384, 1024):
+            emit({"phase": "turns", "yardstick": "torch.matmul of the layer "
+                  "products", "dtype": dtype, "R": R,
+                  "S": Config().num_samples,
+                  "ms": matmul_ms(Config(compute_dtype=dtype), R, device)})
     out = []
-    for kernel, k in (("render_level", 0), ("mlp_fwd", 0), ("mlp_fwd", 1),
-                      ("train_level", 0), ("train_level", 1),
-                      ("train_level_twopass", 0), ("train_level_twopass", 1),
-                      ("mlp_bwd", 0), ("mlp_bwd", 1)):
-        sources = {"mma": old[kernel], "wgmma": build.source_path(kernel)}
-        res = ck.in_turns(kernel, sources, ck.cases(kernel)[k], device)
-        mma_ms = (res["mma_ms_0"] + res["mma_ms_3"]) / 2
-        wgmma_ms = (res["wgmma_ms_1"] + res["wgmma_ms_2"]) / 2
-        res.update({"phase": "turns", "mma_ms": mma_ms, "wgmma_ms": wgmma_ms,
-                    "speedup": mma_ms / wgmma_ms,
-                    "wgmma_not_slower": wgmma_ms <= mma_ms})
+    for kernel, case in TURN_CASES:
+        names = ("mma", "wgmma") if case.startswith("bf16") else (
+            "fma", "tf32x3")
+        sources = {names[0]: old[kernel], names[1]: build.source_path(kernel)}
+        res = ck.in_turns(kernel, sources, ck.case(kernel, case), device)
+        old_ms = (res[f"{names[0]}_ms_0"] + res[f"{names[0]}_ms_3"]) / 2
+        new_ms = (res[f"{names[1]}_ms_1"] + res[f"{names[1]}_ms_2"]) / 2
+        res.update({"phase": "turns", f"{names[0]}_ms": old_ms,
+                    f"{names[1]}_ms": new_ms, "speedup": old_ms / new_ms,
+                    "new_not_slower": new_ms <= old_ms})
         emit(res)
         for name in sources:
             if not res[f"{name}_err"] < 1.0:
@@ -777,6 +826,7 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
         "bound_share": b_ms / ms, "train_level_ms": one_pass_ms,
         "ms_in_turns": turns, "train_level_vs_twopass": one_pass_vs,
     }
+    res.update(fma_bound(res, peaks))
     emit(res)
     worst = max(errs.values())
     if not worst < 1.0:
@@ -964,7 +1014,7 @@ def train_path(peaks, device, data: str, steps: int, model_args=(),
                                                      cfg.num_samples)
                   if fused else full_grad_step_flops(cfg, cfg.batch_size,
                                                      cfg.num_samples))
-    bound_step_ms = step_flops / peaks[0] * 1e3
+    bound_step_ms = step_flops / dtype_peak(cfg, peaks) * 1e3
     bound_rays_per_s = cfg.batch_size / (bound_step_ms / 1e3)
 
     # One step, and the gradients of the same step, on the card against
@@ -1063,6 +1113,40 @@ def write_checkpoint(ckpt_dir: str, params) -> str:
     return path
 
 
+def render_rate(cfg, params, scene: str, size: int, peaks, device):
+    """Steady-state render rays/s of test view 0 of ``scene`` through
+    ``render_image`` (the median of 3 host-clock views, each synchronised,
+    after one of warm-up) beside the bound of the compute type; the view's
+    rays too."""
+    import numpy as np
+    import torch
+
+    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
+    from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
+
+    render_fn = make_render_fn(cfg)
+    with create_dataset("test", scene, cfg) as ds:
+        rays, _ = ds.image_rays(0)
+    render_image(render_fn, params, rays, size, size,
+                 cfg.render_chunk_size, device=device)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rgb, _, acc = render_image(render_fn, params, rays, size, size,
+                                   cfg.render_chunk_size, device=device)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not (np.isfinite(rgb).all() and np.isfinite(acc).all()):
+        raise AssertionError("non-finite render")
+    rays_per_s = size * size / sorted(times)[1]
+    flop_per_ray = cfg.num_levels * level_flops(cfg, 1, cfg.num_samples)
+    bound_rays_per_s = dtype_peak(cfg, peaks) / flop_per_ray
+    return {"render_rays_per_s": rays_per_s, "render_image_s": times,
+            "bound_rays_per_s": bound_rays_per_s,
+            "bound_share": rays_per_s / bound_rays_per_s}, rays
+
+
 def main_path(peaks, device, size: int = 400, base=None):
     import numpy as np
     import torch
@@ -1070,7 +1154,6 @@ def main_path(peaks, device, size: int = 400, base=None):
 
     from nerf_or_nothing_tpu_torch import run
     from nerf_or_nothing_tpu_torch.config import Config
-    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
     from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
     from nerf_or_nothing_tpu_torch.models.mlp import init_mlp
     from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
@@ -1118,27 +1201,8 @@ def main_path(peaks, device, size: int = 400, base=None):
         if img.shape != (size, size, 3):
             raise AssertionError(f"{p} has shape {img.shape}")
 
-    # Steady-state render rays/s of one test view through render_image.
     params = [(w.to(device), b.to(device)) for w, b in params_cpu]
-    render_fn = make_render_fn(cfg)
-    with create_dataset("test", scene, cfg) as ds:
-        rays, _ = ds.image_rays(0)
-    render_image(render_fn, params, rays, size, size,
-                 cfg.render_chunk_size, device=device)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        rgb, _, acc = render_image(render_fn, params, rays, size, size,
-                                   cfg.render_chunk_size, device=device)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    if not (np.isfinite(rgb).all() and np.isfinite(acc).all()):
-        raise AssertionError("non-finite render")
-    sec = sorted(times)[1]
-    rays_per_s = size * size / sec
-    flop_per_ray = cfg.num_levels * level_flops(cfg, 1, cfg.num_samples)
-    bound_rays_per_s = peaks[0] / flop_per_ray
+    rate, rays = render_rate(cfg, params, scene, size, peaks, device)
 
     # The rendered path against the plain path on the CPU, small slice.
     checks = {}
@@ -1162,10 +1226,7 @@ def main_path(peaks, device, size: int = 400, base=None):
         "phase": "main", "config": "Config()", "image": [size, size],
         "test_images": n_test, "render_chunk_size": cfg.render_chunk_size,
         "setup_s": setup_s, "eval_s": eval_s, "render_s": render_s,
-        "launches": launches, "expected_launches": expected,
-        "render_rays_per_s": rays_per_s, "render_image_s": times,
-        "bound_rays_per_s": bound_rays_per_s,
-        "bound_share": rays_per_s / bound_rays_per_s,
+        "launches": launches, "expected_launches": expected, **rate,
         "path_vs_cpu_plain": checks,
     })
     for dtype, errs in checks.items():
@@ -1208,6 +1269,33 @@ def bin_path(peaks, device, scene: str, work: str):
         raise AssertionError(f"bin: the native loader served {len(served)} "
                              f"batches, expected "
                              f"{LOADER_STEPS + TIMED_BATCHES}")
+    return launches
+
+
+def f32_path(peaks, device, scene: str, size: int = 400):
+    """The f32 train-and-eval path: ``run train --compute-dtype=float32``
+    at Config() on ``scene`` through ``train_path`` (exact launch counts:
+    2 train_level a step, 2 render_level a 16384-ray chunk of the test
+    render and of ``run eval``; finite losses; the checkpoint restored by
+    ``run eval``; train rays/s beside the f32 bound), then render rays/s of
+    test view 0 from the trained checkpoint beside the f32 bound
+    (``dtype_peak``: 3xTF32). Returns the launch counts of the train run
+    and the eval together."""
+    from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
+    from nerf_or_nothing_tpu_torch import run
+
+    launches, record = train_path(peaks, device, scene, F32_STEPS, F32_ARGS,
+                                  "f32_path")
+    cfg = run.parse_flags([f"--data-dir={scene}", *F32_ARGS])
+    launches = added(launches, render_launches(cfg, record["eval_images"]))
+    state = ckpt_lib.restore_checkpoint(record["checkpoint"], cfg,
+                                        device=device)
+    rate, _ = render_rate(cfg, state.params, scene, size, peaks, device)
+    emit({"phase": "f32_path", "config": "Config(compute_dtype=float32)",
+          "train_rays_per_s": record["train_rays_per_s"],
+          "train_bound_rays_per_s": record["bound_rays_per_s"],
+          "train_bound_share": record["bound_share"], **rate,
+          "launches": launches})
     return launches
 
 
@@ -2483,8 +2571,9 @@ def main() -> int:
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "nvcc": nvcc.stdout.strip().splitlines()[-1], "device": name,
         "nvidia_smi": smi, "triton": has_triton, "peaks_of": peaks_name,
-        "peaks": {"bf16_flops": peaks[0], "f32_flops": peaks[1],
-                  "bytes_per_s": peaks[2]},
+        "peaks": {"bf16_flops": peaks[0], "f32_fma_flops": peaks[1],
+                  "bytes_per_s": peaks[2], "tf32_flops": peaks[3],
+                  "f32_flops": f32_peak(peaks)},
     })
     t0 = time.perf_counter()
     sources = build.SOURCES
@@ -2502,9 +2591,9 @@ def main() -> int:
     base = Config()
     main_case = kernel_case("config_r16384_s128_mv", base, 16384, "mv", True,
                             peaks, device)
-    kernel_case("config_r16384_s128_mv_f32",
-                base.replace(compute_dtype="float32"), 16384, "mv", True,
-                peaks, device)
+    f32 = base.replace(compute_dtype="float32")
+    main_f32 = kernel_case("config_r16384_s128_mv_f32", f32, 16384, "mv",
+                           True, peaks, device)
     c64 = base.replace(num_samples=64)
     for dtype in ("bfloat16", "float32"):
         kernel_case(f"config_r1000_s64_t_{dtype}",
@@ -2524,9 +2613,8 @@ def main() -> int:
 
     train_case = train_kernel_case("config_r1024_s128_t", base, 1024, "t",
                                    True, peaks, device, bit_check=True)
-    train_kernel_case("config_r1024_s128_t_f32",
-                      base.replace(compute_dtype="float32"), 1024, "t", True,
-                      peaks, device)
+    train_f32 = train_kernel_case("config_r1024_s128_t_f32", f32, 1024, "t",
+                                  True, peaks, device, bit_check=True)
     train_kernel_case("config_r1024_s128_mv", base.replace(fuse_ipe=True),
                       1024, "mv", True, peaks, device, seed=4)
     train_kernel_case("config_r777_s128_t_masked", base, 777, "t", False,
@@ -2550,11 +2638,12 @@ def main() -> int:
     scene_s = time.perf_counter() - t0
     train_launches, train_record = train_path(peaks, device, scene,
                                               TRAIN_STEPS, setup_s=scene_s)
+    f32_launches = f32_path(peaks, device, scene)
 
     mlp_fwd_main = mlp_fwd_case("config_r16384_s128", base, 16384, peaks,
                                 device)
-    mlp_fwd_case("config_r16384_s128_f32", base.replace(compute_dtype="float32"),
-                 16384, peaks, device)
+    mlp_fwd_f32 = mlp_fwd_case("config_r16384_s128_f32", f32, 16384, peaks,
+                               device)
     mlp_fwd_case("config_r1024_s128", base, 1024, peaks, device, seed=1)
     heads = narrow.replace(num_rgb_channels=4, num_density_channels=2,
                            net_depth=5, num_samples=24)
@@ -2566,9 +2655,8 @@ def main() -> int:
                                 peaks, device, bit_check=True)
     mlp_bwd_case("config_r1024_s128", base, 1024, False, peaks, device,
                  seed=3)
-    mlp_bwd_case("config_r1024_s128_dx_f32",
-                 base.replace(compute_dtype="float32"), 1024, True, peaks,
-                 device, seed=4)
+    mlp_bwd_f32 = mlp_bwd_case("config_r1024_s128_dx_f32", f32, 1024, True,
+                               peaks, device, seed=4, bit_check=True)
     for dtype in ("bfloat16", "float32"):
         mlp_bwd_case(f"narrow_r37_s256_dx_{dtype}",
                      tnarrow.replace(num_samples=256, compute_dtype=dtype),
@@ -2579,9 +2667,9 @@ def main() -> int:
     twopass_main = train_kernel_case("config_r1024_s128_t", base, 1024, "t",
                                      True, peaks, device, bit_check=True,
                                      twopass=True)
-    train_kernel_case("config_r1024_s128_t_f32",
-                      base.replace(compute_dtype="float32"), 1024, "t", True,
-                      peaks, device, twopass=True)
+    twopass_f32 = train_kernel_case("config_r1024_s128_t_f32", f32, 1024,
+                                    "t", True, peaks, device, bit_check=True,
+                                    twopass=True)
     train_kernel_case("config_r777_s128_t_masked_multicam", base, 777, "t",
                       False, peaks, device, seed=5, bit_check=True,
                       twopass=True, multicam=True)
@@ -2611,7 +2699,7 @@ def main() -> int:
     mesh_launches = added(mesh_launches, recovery_phase(device, scene))
     mesh_launches = added(mesh_launches, quality_phase(device))
 
-    def entry(name, case, n, replaces):
+    def entry(name, case, n, replaces, case_f32):
         return {
             "name": name, "route": "cuda",
             "source": f"nerf_or_nothing_tpu_torch/csrc/{name}.cu",
@@ -2619,16 +2707,24 @@ def main() -> int:
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
+            "f32": {k: case_f32[k] for k in (
+                "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "fma_bound_ms")},
         }
 
     emit({"kernels": [
-        entry("render_level", main_case, launches, TPU_KERNEL),
-        entry("train_level", train_case, train_launches["train_level"],
-              TPU_TRAIN_KERNEL),
-        entry("mlp_fwd", mlp_fwd_main, full_launches["mlp_fwd"], TPU_MLP_FWD),
-        entry("mlp_bwd", mlp_bwd_main, full_launches["mlp_bwd"], TPU_MLP_BWD),
+        entry("render_level", main_case,
+              launches + f32_launches["render_level"], TPU_KERNEL, main_f32),
+        entry("train_level", train_case,
+              train_launches["train_level"] + f32_launches["train_level"],
+              TPU_TRAIN_KERNEL, train_f32),
+        entry("mlp_fwd", mlp_fwd_main, full_launches["mlp_fwd"], TPU_MLP_FWD,
+              mlp_fwd_f32),
+        entry("mlp_bwd", mlp_bwd_main, full_launches["mlp_bwd"], TPU_MLP_BWD,
+              mlp_bwd_f32),
         entry("train_level_twopass", twopass_main,
-              multicam_launches["train_level_twopass"], TPU_TWOPASS_KERNEL),
+              multicam_launches["train_level_twopass"], TPU_TWOPASS_KERNEL,
+              twopass_f32),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

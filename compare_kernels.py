@@ -29,12 +29,13 @@ backward kernels also for bit-equal outputs over two launches), and timed
 by CUDA events in the order given and then in reverse (median of 7
 launches each, the card's SM clock and power draw read after each) on
 Config() shapes: render_level bf16 R=16384 x S=128 mode "mv" (the render
-path's launch), bf16 R=1000 x S=64 mode "t", f32 R=2048 x S=128; mlp_fwd
-bf16 R=16384 x S=128 (a render chunk) and R=1024 x S=128 (a train level),
-f32 R=2048 x S=128; train_level and train_level_twopass bf16 R=1024 x
-S=128 mode "t" (a train step's level) and R=777 with Multicam's loss
-weights (1/4/16/64, every seventh ray masked); mlp_bwd bf16 R=1024 x S=128
-with input_grads (level 1 of the slice config) and without (level 0).
+path's launch), bf16 R=1000 x S=64 mode "t", f32 R=16384 x S=128;
+mlp_fwd bf16 R=16384 x S=128 (a render chunk) and R=1024 x S=128 (a train
+level), f32 R=16384 x S=128; train_level and train_level_twopass bf16
+R=1024 x S=128 mode "t" (a train step's level), R=777 with Multicam's
+loss weights (1/4/16/64, every seventh ray masked) and f32 R=1024 x S=128;
+mlp_bwd bf16 R=1024 x S=128 with input_grads (level 1 of the slice
+config) and without (level 0), f32 with input_grads.
 Prints one JSON line per build and case; a source's name is its file name
 without the suffix. With ``--profile``, each case also gives every
 version's device time per launch by kernel name (``torch.profiler``, 5
@@ -88,23 +89,29 @@ def cases(kernel: str):
     train_inputs``)."""
     from nerf_or_nothing_tpu_torch.config import Config
 
+    f32 = Config(compute_dtype="float32")
     if kernel == "mlp_bwd":
         return [("bf16_r1024_s128_dx", Config(), 1024, "t", True, False),
-                ("bf16_r1024_s128", Config(), 1024, "t", False, False)]
+                ("bf16_r1024_s128", Config(), 1024, "t", False, False),
+                ("f32_r1024_s128_dx", f32, 1024, "t", True, False)]
     if kernel in TRAIN:
         return [("bf16_r1024_s128_t", Config(), 1024, "t", True, False),
                 ("bf16_r777_s128_t_multicam", Config(), 777, "t", False,
-                 True)]
+                 True),
+                ("f32_r1024_s128_t", f32, 1024, "t", True, False)]
     if kernel == "render_level":
         return [("bf16_r16384_s128_mv", Config(), 16384, "mv", True, False),
                 ("bf16_r1000_s64_t", Config(num_samples=64), 1000, "t", False,
                  False),
-                ("f32_r2048_s128_mv", Config(compute_dtype="float32"), 2048,
-                 "mv", True, False)]
+                ("f32_r16384_s128_mv", f32, 16384, "mv", True, False)]
     return [("bf16_r16384_s128", Config(), 16384, "t", None, False),
             ("bf16_r1024_s128", Config(), 1024, "t", None, False),
-            ("f32_r2048_s128", Config(compute_dtype="float32"), 2048, "t",
-             None, False)]
+            ("f32_r16384_s128", f32, 16384, "t", None, False)]
+
+
+def case(kernel: str, name: str):
+    """The case of ``cases(kernel)`` named ``name``."""
+    return next(c for c in cases(kernel) if c[0] == name)
 
 
 def flat(out):

@@ -1,8 +1,9 @@
 // The MLP backward passes shared by the train-level, two-pass train-level
 // and MLP-backward kernels (train_level.cu, train_level_twopass.cu,
 // mlp_bwd.cu), and the train level's composite backward (composite_train).
-// Their f32 instantiations, which check the algorithm in f32 with FMA loops
-// (no TF32), run launch_backward on the activations the forward stored:
+// Their f32 instantiations run launch_backward on the activations the
+// forward stored, every layer product as 3xTF32 mma.sync (level_common.cuh:
+// gemm for the chain, dw_gemm_f32_kernel for dW):
 //  2. chain_kernel (the device function chain_rays, which the two-pass
 //     kernel's phase 0 also calls): the g-chain, 64 rows at a time: rgb
 //     head, view branch, density head, trunk; each layer's g is masked by
@@ -14,8 +15,11 @@
 //     deepest skip layer first and layer 0 last; with dd, each block
 //     multiplies its rays' g_ray by the view layer's direction rows;
 //  3. dw_gemm_f32_kernel: dW = act^T g for every layer as a tiled GEMM over
-//     the rows, split over the rows into a fixed number of chunks, with db
-//     as column sums of g in the same pass;
+//     the rows (64 x 64 tiles, 4 warps of 32 x 32, the next 32 rows of act
+//     and g loading by cp.async while these multiply), split over the rows
+//     into a fixed number of chunks, with db as column sums of g in the
+//     same pass; the blocks of one chunk of rows run together, so its act
+//     and g rows are read from L2 by every tile after the first;
 //  4. small_tn_kernel: the heads' dW/db from the f32 cotangents and the
 //     view layer's direction rows d^T g_ray, 8 warps per 32 outputs;
 //  5. reduce_kernel: the split partials summed in a fixed order.
@@ -32,7 +36,9 @@
 namespace {
 
 constexpr int kGemmThreads = 128;
-constexpr int kTM = 64, kTN = 64, kTK = 32;  // dW tile: 64 x 64 outputs, 32 rows a step
+// f32 dW tile: 64 x 64 outputs, 32 rows a stage (the split chunks of rows
+// are multiples of kTK); 128 x 128 tiles of 8 warps ran slower on the card.
+constexpr int kTM = 64, kTN = 64, kTK = 32;
 constexpr int kMaxJobs = 24;
 constexpr int kSmallThreads = 256;
 
@@ -192,34 +198,36 @@ __device__ void composite_train(const Params& p, const Extra& e, const Smem<T>& 
 __device__ __forceinline__ void chain_epilogue(const Params& p, const Smem<float>& sm,
                                                const AccF32& acc, int N, const float* gd,
                                                const float* wden) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int NJ = N >> 4;
+  const int c0 = acc_col0(N);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = 4 * ty + i;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < kMaxNJ; ++j) {
-      if (j < NJ) {
-        const int col = tx + 16 * j;
-        float v = acc.v[i][j];
-        if (gd)
-          for (int k = 0; k < p.Cd; ++k) v += gd[row * p.Cd + k] * wden[k * p.W + col];
-        sm.H[row * p.ldh + col] = v;
+    for (int nt = 0; nt < kMaxNT; ++nt) {
+      if (frag_valid(N, nt)) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = acc_row(mt, e), col = c0 + 8 * nt + (e & 1);
+          float v = acc.v[mt][nt][e];
+          if (gd)
+            for (int k = 0; k < p.Cd; ++k) v += gd[row * p.Cd + k] * wden[k * p.W + col];
+          sm.H[row * p.ldh + col] = v;
+        }
       }
     }
-  }
 }
 
 // X[:, :KX] += acc: one term of dX.
 __device__ __forceinline__ void dx_epilogue(const Params& p, const Smem<float>& sm,
                                             const AccF32& acc) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int NJ = p.KX >> 4;
+  const int c0 = acc_col0(p.KX);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < kMaxNJ; ++j)
-      if (j < NJ) sm.X[(4 * ty + i) * p.ldx + tx + 16 * j] += acc.v[i][j];
+    for (int nt = 0; nt < kMaxNT; ++nt)
+      if (frag_valid(p.KX, nt))
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sm.X[acc_row(mt, e) * p.ldx + c0 + 8 * nt + (e & 1)] += acc.v[mt][nt][e];
 }
 
 // H[row, :width] *= (activation > 0) for the sub-tile's rows (rows past
@@ -250,9 +258,11 @@ __device__ void mask_store(const Params& p, const Smem<T>& sm, int width, const 
   }
 }
 
+// H, X (with dx), the staged weights of gemm, then GR, GD and GRAY.
 template <class T>
 __host__ __device__ inline size_t chain_smem(const Params& p, bool dx) {
   return align16(sizeof(T) * kBM * p.ldh) + (dx ? align16(sizeof(T) * kBM * p.ldx) : 0) +
+         wstage_bytes(dx && p.KX > p.W ? p.KX : p.W) +
          sizeof(float) * (kBM * (p.Cr + p.Cd) + p.RB * p.Wc);
 }
 
@@ -287,6 +297,8 @@ __device__ void chain_rays(const Params& p, const Extra& e, unsigned char* smem_
     sm.X = reinterpret_cast<T*>(smem_raw + off);
     off += align16(sizeof(T) * kBM * p.ldx);
   }
+  sm.WS = reinterpret_cast<float*>(smem_raw + off);
+  off += wstage_bytes(e.dx && p.KX > p.W ? p.KX : p.W);
   float* GR = reinterpret_cast<float*>(smem_raw + off);
   float* GD = GR + kBM * p.Cr;
   float* GRAY = GD + kBM * p.Cd;  // [RB, Wc] per-ray f32 sum of the view layer's g
@@ -401,7 +413,7 @@ __device__ void chain_rays(const Params& p, const Extra& e, unsigned char* smem_
 
 // Pass 2: the g-chain of the block's rays.
 template <class T>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kF32Blocks)
 chain_kernel(Params p, Extra e) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ray0 = blockIdx.x * p.RB;
@@ -424,90 +436,124 @@ struct GemmJobs {
   int n, splits;
 };
 
-__device__ __forceinline__ void dw_tile(float (*As)[kTK + 8], float (*Bs)[kTK + 8],
-                                        float* acc) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll 4
-  for (int k = 0; k < kTK; ++k) {
-    float a[8], b[4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = As[ty * 8 + i][k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bs[tx + 16 * j][k];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i * 4 + j] = fmaf(a[i], b[j], acc[i * 4 + j]);
-  }
-}
-
-// (row, col) within the 64 x 64 tile of accumulator element e
-__device__ __forceinline__ void dw_coord(int e, int* m, int* n) {
-  *m = (threadIdx.x >> 4) * 8 + (e >> 2);
-  *n = (threadIdx.x & 15) + 16 * (e & 3);
-}
-
 __host__ __device__ inline long long split_rows(int K, int splits) {
   return ((long long)(K + splits - 1) / splits + kTK - 1) / kTK * kTK;
 }
 
-// f32: 64 x 64 tiles, FMA loops, the tiles stored transposed.
+constexpr int kDwLd = kTM + 8;  // row stride of a staged dW tile: 32 banks per fragment
+
+// Rows [k0, k0 + kTK) of the tile's A and B columns into As / Bs (zeros
+// past k_hi and past the row strides).
+__device__ __forceinline__ void dw_stage_f32(float (*As)[kDwLd], float (*Bs)[kDwLd],
+                                             const GemmJob& jb, long long k0, long long k_hi,
+                                             int m0, int n0) {
+  const float* A = static_cast<const float*>(jb.A);
+  const float* B = static_cast<const float*>(jb.B);
+  for (int idx = threadIdx.x; idx < kTK * (kTM / 4); idx += kGemmThreads) {
+    const int r = idx / (kTM / 4), c = (idx - r * (kTM / 4)) * 4;
+    const bool rv = k0 + r < k_hi;
+    const bool av = rv && m0 + c < jb.lda, bv = rv && n0 + c < jb.ldb;
+    cp_async16(&As[r][c], av ? A + (k0 + r) * jb.lda + m0 + c : A, av);
+    cp_async16(&Bs[r][c], bv ? B + (k0 + r) * jb.ldb + n0 + c : B, bv);
+  }
+}
+
+// f32: 64 x 64 tiles, 3xTF32 mma.sync; warp w owns rows 32 (w & 1) and
+// columns 32 (w >> 1) of the tile (two m16 by four n8 fragments). Tile
+// after tile of one chunk of rows, so those rows stay in L2.
 __global__ void __launch_bounds__(kGemmThreads)
 dw_gemm_f32_kernel(GemmJobs js) {
-  typedef float T;
-  __shared__ __align__(16) T As[kTM][kTK + 8];  // As[m][k] = A[k][m0 + m]
-  __shared__ __align__(16) T Bs[kTN][kTK + 8];  // Bs[n][k] = B[k][n0 + n]
+  __shared__ __align__(16) float As[2][kTK][kDwLd];  // As[k][m] = A[k0 + k][m0 + m]
+  __shared__ __align__(16) float Bs[2][kTK][kDwLd];  // Bs[k][n] = B[k0 + k][n0 + n]
   const int bid = blockIdx.x, tid = threadIdx.x;
   int jn = 0;
   while (jn + 1 < js.n && bid >= js.job[jn + 1].block0) ++jn;
   const GemmJob jb = js.job[jn];
   const int local = bid - jb.block0;
-  const int split = local % js.splits, tile = local / js.splits;
+  const int tiles = jb.tiles_m * ((jb.Nn + kTN - 1) / kTN);
+  const int tile = local % tiles, split = local / tiles;
   const int tm = tile % jb.tiles_m, tn = tile / jb.tiles_m;
   const int m0 = tm * kTM, n0 = tn * kTN;
   const long long chunk = split_rows(jb.K, js.splits);
   const long long k_lo = split * chunk;
   const long long k_hi = min((long long)jb.K, k_lo + chunk);
-  const T* A = static_cast<const T*>(jb.A);
-  const T* B = static_cast<const T*>(jb.B);
   const bool want_db = jb.db_off >= 0 && tm == 0;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wm = ((tid >> 5) & 1) * 32, wn = (tid >> 6) * 32;
 
-  float acc[32];
+  float acc[2][4][4];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
   float dbs = 0.0f;
-  for (long long k0 = k_lo; k0 < k_hi; k0 += kTK) {
-    for (int idx = tid; idx < kTK * kTM; idx += kGemmThreads) {
-      const int r = idx / kTM, c = idx - r * kTM;
-      const bool rv = k0 + r < k_hi;
-      As[c][r] = (rv && m0 + c < jb.M) ? A[(k0 + r) * jb.lda + m0 + c] : from_f<T>(0.0f);
-      Bs[c][r] = (rv && n0 + c < jb.Nn) ? B[(k0 + r) * jb.ldb + n0 + c] : from_f<T>(0.0f);
-    }
+  const int steps = k_hi > k_lo ? (int)((k_hi - k_lo + kTK - 1) / kTK) : 0;
+  if (steps > 0) dw_stage_f32(As[0], Bs[0], jb, k_lo, k_hi, m0, n0);
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait_all();
     __syncthreads();
+    if (s + 1 < steps)
+      dw_stage_f32(As[(s + 1) & 1], Bs[(s + 1) & 1], jb, k_lo + (long long)(s + 1) * kTK,
+                   k_hi, m0, n0);
+    cp_async_commit();
+    const float(*a)[kDwLd] = As[s & 1];
+    const float(*b)[kDwLd] = Bs[s & 1];
     if (want_db && tid < kTN) {
 #pragma unroll 8
-      for (int r = 0; r < kTK; ++r) dbs += to_f(Bs[tid][r]);
+      for (int r = 0; r < kTK; ++r) dbs += b[r][tid];
     }
-    dw_tile(As, Bs, acc);
-    __syncthreads();
+    float st[2][4][4];  // the stage's sums, added to acc round-to-nearest
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[mt][nt][e] = 0.0f;
+#pragma unroll
+    for (int k8 = 0; k8 < kTK; k8 += 8) {
+      // A^T fragments: rows m of A^T are columns of the staged A rows.
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int m = wm + 16 * mt + g;
+        split_tf32(a[k8 + t][m], ahi[mt][0], alo[mt][0]);
+        split_tf32(a[k8 + t][m + 8], ahi[mt][1], alo[mt][1]);
+        split_tf32(a[k8 + t + 4][m], ahi[mt][2], alo[mt][2]);
+        split_tf32(a[k8 + t + 4][m + 8], ahi[mt][3], alo[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(b[k8 + t][wn + 8 * nt + g], bh0, bl0);
+        split_tf32(b[k8 + t + 4][wn + 8 * nt + g], bh1, bl1);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma_3xtf32(st[mt][nt], ahi[mt], alo[mt], bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += st[mt][nt][e];
   }
   float* part = js.part + split * js.n_out;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    int m, n;
-    dw_coord(i, &m, &n);
-    if (m0 + m < jb.M && n0 + n < jb.Nn)
-      part[jb.out_off + (long long)(m0 + m) * jb.out_ld + n0 + n] = acc[i];
-  }
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm + 16 * mt + g + 8 * (e >> 1);
+        const int n = n0 + wn + 8 * nt + 2 * t + (e & 1);
+        if (m < jb.M && n < jb.Nn)
+          part[jb.out_off + (long long)m * jb.out_ld + n] = acc[mt][nt][e];
+      }
   if (want_db && tid < kTN && n0 + tid < jb.Nn) part[jb.db_off + n0 + tid] = dbs;
-}
-
-// 16 bytes from global to shared memory (zeros with !pred); the dW
-// stages of train_wg.cuh.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 16 : 0));
 }
 
 // ---- small products: out[a, c] = sum_rows round(A[r, a]) round(B[r, c]) ----

@@ -1,10 +1,28 @@
 // Device functions shared by the hand-written kernels (render_level.cu,
 // train_level.cu, mlp_fwd.cu, mlp_bwd.cu): the kernel parameter block, the
 // in-kernel IPE with the polynomial transcendentals of ops/fastmath.py,
-// and the f32 instantiations' forward (the MLP layer as FMA loops and its
-// ReLU epilogue, the two heads, the forward of one 64-row sub-tile, the
-// forward composite), which check the algorithm in f32; the bf16 routes
-// run forward_wg.cuh and train_wg.cuh.
+// and the f32 instantiations' forward: the MLP layer product on the
+// tensor cores as three TF32 passes (gemm: 3xTF32 mma.sync, the weights
+// staged in shared memory by cp.async) and its ReLU epilogue, the two
+// heads, the forward of one 64-row sub-tile, the forward composite. The
+// bf16 routes run forward_wg.cuh and train_wg.cuh.
+//
+// 3xTF32: an f32 operand x is split into hi = rna_tf32(x) and
+// lo = rna_tf32(x - hi) (10 explicit mantissa bits each), and a product
+// a * b is taken as a_lo * b_hi + a_hi * b_lo + a_hi * b_hi, the two small
+// terms first, f32 sums; a_lo * b_lo (~2^-22 of |a b|) is dropped. Each
+// term's product is exact (11 x 11 significant bits), so a product is off
+// by at most ~3 x 2^-22 of |a b| before the f32 sums, where one TF32 pass
+// is off by ~2^-11; ops/math_utils.dense_3xtf32 is its plain model. The
+// tensor core truncates its sums, so the three passes of one k-step start
+// from zero and their partial sum is added to the f32 accumulator with a
+// round-to-nearest add (every 32 rows in the dW GEMM): accumulated in the
+// mma over a whole layer, the truncation's bias moves pre-activations far
+// enough to flip ReLU masks against the plain version, and so dW; summed
+// this way, the f32 routes agree with the plain version about as closely
+// as FMA loops.
+// Dense TF32 runs at 495 TFLOP/s on an H100 SXM (wgmma), so the three
+// passes (165 TFLOP/s of f32 work) are above the 67 TFLOP/s of f32 FMA.
 
 #pragma once
 
@@ -16,7 +34,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBM = 64;        // rows per sub-tile
-constexpr int kMaxNJ = 16;     // f32 path: columns per thread (N <= 256)
+constexpr int kMaxNT = 8;      // f32 path: n8 tiles of a warp (N <= 256)
+constexpr int kWK = 8;         // f32 path: K rows of a staged weight tile (one mma k-step)
+// f32 kernels: two blocks an SM (their tiles fit twice in shared memory at
+// 128 registers a thread); one block an SM with deeper weight rings ran
+// slower on the card.
+constexpr int kF32Blocks = 2;
 
 typedef __nv_bfloat16 bf16;
 
@@ -105,18 +128,31 @@ struct Smem {
   T* X;       // [kBM, ldx] encoded positions
   float* DC;  // [RB, Wc] per-ray d @ W_bot of the first view layer
   float* OUT; // [RB * S, 4] raw r, g, b, density of the block's rows
+  float* WS;  // f32: two staged weight tiles [kWK, wtile_ld(N)] (gemm)
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
+// Row stride (floats) of a staged [kWK, N] weight tile: N rounded up to 32,
+// plus 8, so that the B fragments' 4 rows x 8 columns hit 32 banks.
+__host__ __device__ inline int wtile_ld(int N) { return (N + 31) / 32 * 32 + 8; }
+
+// Bytes of gemm's two staged weight tiles for products of up to N columns.
+__host__ __device__ inline size_t wstage_bytes(int N) {
+  return sizeof(float) * 2 * kWK * wtile_ld(N);
+}
+
+// The f32 kernels' tiles: H, X, DC, OUT (S rows a ray; 0: none), then the
+// staged weights (carve's layout).
 template <class T>
-__host__ __device__ inline size_t smem_bytes(int ldh, int ldx, int RB, int Wc, int S) {
-  return align16(sizeof(T) * kBM * ldh) + align16(sizeof(T) * kBM * ldx) +
-         align16(sizeof(float) * RB * Wc) + sizeof(float) * RB * S * 4;
+__host__ __device__ inline size_t smem_bytes(const Params& p, int S) {
+  return align16(sizeof(T) * kBM * p.ldh) + align16(sizeof(T) * kBM * p.ldx) +
+         align16(sizeof(float) * p.RB * p.Wc) + align16(sizeof(float) * p.RB * S * 4) +
+         wstage_bytes(p.W);
 }
 
 template <class T>
-__device__ Smem<T> carve(unsigned char* base, const Params& p) {
+__device__ Smem<T> carve(unsigned char* base, const Params& p, int S) {
   Smem<T> s;
   size_t off = 0;
   s.H = reinterpret_cast<T*>(base + off);
@@ -126,6 +162,8 @@ __device__ Smem<T> carve(unsigned char* base, const Params& p) {
   s.DC = reinterpret_cast<float*>(base + off);
   off += align16(sizeof(float) * p.RB * p.Wc);
   s.OUT = reinterpret_cast<float*>(base + off);
+  off += align16(sizeof(float) * p.RB * S * 4);
+  s.WS = reinterpret_cast<float*>(base + off);
   return s;
 }
 
@@ -180,62 +218,194 @@ __device__ void load_features(const Params& p, const Smem<T>& sm, long long grow
   }
 }
 
-// ---- one dense layer: acc = [H[:, :kh] | X[:, :kx]] @ Wl ----
-// 16 x 16 threads; a thread owns rows 4*ty..4*ty+3, columns tx + 16*j.
-struct AccF32 { float v[4][kMaxNJ]; };
+// 16 bytes from global to shared memory (zeros with !pred, gmem then not
+// read); gemm's weight tiles, the f32 dW tiles and train_wg.cuh's stages.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 16 : 0));
+}
 
-__device__ __forceinline__ void gemm(const Params& p, const Smem<float>& sm, int kh,
-                                     int kx, const float* wl, int N, AccF32& acc) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int NJ = N >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kMaxNJ; ++j) acc.v[i][j] = 0.0f;
-  const int K = kh + kx;
-  for (int k = 0; k < K; ++k) {
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait for this thread's cp.async groups.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ---- 3xTF32 on mma.sync.m16n8k8 ----
+// x -> (hi, lo) TF32 bit patterns, hi = rna(x), lo = rna(x - hi).
+// hi by cvt.rna (inf and NaN stay non-finite, so a NaN input reaches the
+// products); for finite x, x - hi is finite and at most 2^-11 |x|, so its
+// rna is two integer operations on the bit pattern (the 13 low bits
+// rounded off, ties away from zero), bit-equal to cvt.rna and faster on
+// the card than a second cvt. Rounding hi the integer way too would turn
+// the card's NaN (0x7FFFFFFF) into -0 and hide it from dW.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
+}
+
+// d += a b for one m16n8k8 TF32 tile, f32 sums.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in three passes: a_lo b_hi, a_hi b_lo, then a_hi b_hi.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ahi, const uint32_t* alo,
+                                           uint32_t bh0, uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_tf32(d, alo, bh0, bh1);
+  mma_tf32(d, ahi, bl0, bl1);
+  mma_tf32(d, ahi, bh0, bh1);
+}
+
+// The A fragment of rows r, r + 8 and columns c, c + 4 of a row-major
+// f32 tile (lane: r = row0 + lane / 4, c = col0 + lane % 4), split.
+__device__ __forceinline__ void load_a_split(const float* a, int lda, uint32_t* hi,
+                                             uint32_t* lo) {
+  split_tf32(a[0], hi[0], lo[0]);
+  split_tf32(a[8 * lda], hi[1], lo[1]);
+  split_tf32(a[4], hi[2], lo[2]);
+  split_tf32(a[8 * lda + 4], hi[3], lo[3]);
+}
+
+// ---- one dense layer: acc = [H[:, :kh] | X[:, :kx]] @ Wl ----
+// 8 warps over the 64 x N product: warp w owns rows 32 (w & 1) .. + 32
+// (two m16 tiles) and columns (w >> 1) warp_cols(N) .. + warp_cols(N) (up to
+// kMaxNT n8 tiles); acc.v[mt][nt] is the m16n8 accumulator fragment.
+struct AccF32 { float v[2][kMaxNT][4]; };
+
+__device__ __forceinline__ int warp_cols(int N) { return (N + 31) / 32 * 8; }
+
+// Whether n8 fragment nt of this thread's warp holds columns < N.
+__device__ __forceinline__ bool frag_valid(int N, int nt) {
+  const int wc = warp_cols(N);
+  return 8 * nt < wc && (threadIdx.x >> 6) * wc + 8 * nt < N;
+}
+
+// Row and column of accumulator element e of fragment (mt, nt) in this
+// thread (c0 from acc_col0).
+__device__ __forceinline__ int acc_row(int mt, int e) {
+  return ((threadIdx.x >> 5) & 1) * 32 + mt * 16 + ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
+}
+
+__device__ __forceinline__ int acc_col0(int N) {
+  return (threadIdx.x >> 6) * warp_cols(N) + 2 * (threadIdx.x & 3);
+}
+
+// Stage weight rows [k0, k0 + kWK) of wl [K, N] into ws (row stride ldw).
+__device__ __forceinline__ void stage_weights(float* ws, const float* wl, int k0, int N,
+                                              int ldw) {
+  const int per_row = N >> 2;
+  for (int idx = threadIdx.x; idx < kWK * per_row; idx += kThreads) {
+    const int r = idx / per_row, c = (idx - r * per_row) << 2;
+    cp_async16(ws + r * ldw + c, wl + (size_t)(k0 + r) * N + c, true);
+  }
+}
+
+// gemm's product with NT n8 fragments a warp, all of them valid (the full
+// width, N = 32 NT), or with NT = 0 the fragments of warp_cols(N) that
+// hold columns < N (a branch between the fragments, which the full width
+// avoids: it ran slower on the card).
+template <int NT>
+__device__ __forceinline__ void gemm_nt(const Params& p, const Smem<float>& sm, int kh,
+                                        int kx, const float* wl, int N, AccF32& acc) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ldw = wtile_ld(N);
+  const int row0 = ((threadIdx.x >> 5) & 1) * 32 + g;
+  const int col0 = (threadIdx.x >> 6) * warp_cols(N);
+  const int nk = (kh + kx) / kWK;
+  __syncthreads();
+  stage_weights(sm.WS, wl, 0, N, ldw);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (kt + 1 < nk)
+      stage_weights(sm.WS + ((kt + 1) & 1) * kWK * ldw, wl, (kt + 1) * kWK, N, ldw);
+    cp_async_commit();
+    const int k0 = kt * kWK;
     const float* A;
-    int lda, kk;
-    if (k < kh) {
-      A = sm.H; lda = p.ldh; kk = k;
+    int lda;
+    if (k0 < kh) {
+      A = sm.H + k0; lda = p.ldh;
     } else {
-      A = sm.X; lda = p.ldx; kk = k - kh;
+      A = sm.X + (k0 - kh); lda = p.ldx;
     }
-    float a[4];
+    uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(4 * ty + i) * lda + kk];
-    const float* wr = wl + (size_t)k * N + tx;
+    for (int mt = 0; mt < 2; ++mt)
+      load_a_split(A + (row0 + 16 * mt) * lda + t, lda, ahi[mt], alo[mt]);
+    const float* B = sm.WS + (kt & 1) * kWK * ldw + t * ldw + col0 + g;
 #pragma unroll
-    for (int j = 0; j < kMaxNJ; ++j) {
-      if (j < NJ) {
-        const float wv = __ldg(wr + 16 * j);
+    for (int nt = 0; nt < kMaxNT; ++nt) {
+      if (NT ? nt < NT : frag_valid(N, nt)) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(B[8 * nt], bh0, bl0);
+        split_tf32(B[4 * ldw + 8 * nt], bh1, bl1);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc.v[i][j] = fmaf(a[i], wv, acc.v[i][j]);
+        for (int mt = 0; mt < 2; ++mt) {
+          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_3xtf32(part, ahi[mt], alo[mt], bh0, bh1, bl0, bl1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc.v[mt][nt][e] += part[e];
+        }
       }
     }
   }
 }
 
+// Starts with a barrier (the previous product's readers of the staged
+// weights are done; the caller's writes of H / X are visible) and leaves
+// the staged tiles to the next call's barrier. K = kh + kx is a multiple
+// of kWK, kh of 32; N a multiple of 16 (W, Wc, KX). The weight tile of the
+// next kWK rows loads (cp.async) while this one multiplies.
+__device__ __forceinline__ void gemm(const Params& p, const Smem<float>& sm, int kh,
+                                     int kx, const float* wl, int N, AccF32& acc) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kMaxNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc.v[mt][nt][e] = 0.0f;
+  if (warp_cols(N) == 8 * kMaxNT)
+    gemm_nt<kMaxNT>(p, sm, kh, kx, wl, N, acc);
+  else
+    gemm_nt<0>(p, sm, kh, kx, wl, N, acc);
+}
+
 __device__ __forceinline__ void epilogue(const Params& p, const Smem<float>& sm,
                                          const AccF32& acc, const float* bias, int N,
                                          const float* dc, int sub0) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int NJ = N >> 4;
+  const int c0 = acc_col0(N);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = 4 * ty + i;
-    const float* dcr = nullptr;
-    if (dc) dcr = dc + min((sub0 + row) / p.S, p.RB - 1) * p.Wc;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < kMaxNJ; ++j) {
-      if (j < NJ) {
-        const int col = tx + 16 * j;
-        float v = acc.v[i][j];
-        if (dcr) v += dcr[col];
-        sm.H[row * p.ldh + col] = fmaxf(v + bias[col], 0.0f);
+    for (int h = 0; h < 2; ++h) {
+      const int row = acc_row(mt, 2 * h);
+      const float* dcr = nullptr;
+      if (dc) dcr = dc + min((sub0 + row) / p.S, p.RB - 1) * p.Wc;
+#pragma unroll
+      for (int nt = 0; nt < kMaxNT; ++nt) {
+        if (frag_valid(N, nt)) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int col = c0 + 8 * nt + j;
+            float v = acc.v[mt][nt][2 * h + j];
+            if (dcr) v += dcr[col];
+            sm.H[row * p.ldh + col] = fmaxf(v + bias[col], 0.0f);
+          }
+        }
       }
     }
-  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -37,10 +37,11 @@
 //     the fixed-order reduction.
 // No atomics: two launches on the same inputs give bit-equal dW, db, dX
 // and dD.
-// f32 (checking the algorithm only), FMA loops (no TF32): mlp_act_kernel
-// (level_common.cuh's forward storing the activations), then passes 2-5 of
-// level_backward.cuh (the g-chain with dX and dD, the dW GEMM, the small
-// products, the reduction).
+// f32, every layer product as 3xTF32 mma.sync (level_common.cuh's gemm,
+// level_backward.cuh's dW GEMM): mlp_act_kernel (level_common.cuh's forward
+// storing the activations), then passes 2-5 of level_backward.cuh (the
+// g-chain with dX and dD, the dW GEMM, the small products, the
+// reduction).
 //
 // Plain C interface (loaded with ctypes): mlp_bwd_workspace gives the
 // workspace size; mlp_bwd_launch returns the first failing cudaError_t; it
@@ -54,10 +55,10 @@ constexpr int kMaxHeads = 16;  // rgb + density channels the workspace's dbpart 
 
 // f32 pass 1: the forward of the block's rays, storing the activations.
 template <class T>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kF32Blocks)
 mlp_act_kernel(Params p, Extra e) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> sm = carve<T>(smem_raw, p);
+  const Smem<T> sm = carve<T>(smem_raw, p, 0);
   const int ray0 = blockIdx.x * p.RB;
   forward_store<T>(p, e, sm, ray0, min(p.RB, p.R - ray0), false);
 }
@@ -66,7 +67,7 @@ cudaError_t launch_mlp_bwd_f32(Params p, Extra e, const Layout& l, unsigned char
                                float* out, long long n_out, int splits, cudaStream_t st) {
   typedef float T;
   const int blocks = (p.R + p.RB - 1) / p.RB;
-  const size_t smem = smem_bytes<T>(p.ldh, p.ldx, p.RB, p.Wc, 0);
+  const size_t smem = smem_bytes<T>(p, 0);
   cudaError_t err;
   if ((err = set_smem((const void*)mlp_act_kernel<T>, smem)) != cudaSuccess) return err;
   mlp_act_kernel<T><<<blocks, kThreads, smem, st>>>(p, e);

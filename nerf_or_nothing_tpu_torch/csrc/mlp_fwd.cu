@@ -22,9 +22,10 @@
 // straight to raw_rgb / raw_den. Helper warps load the next round's
 // features and each unit's direction term d @ W_dir while the consumers
 // multiply.
-// f32 (checking the algorithm only): level_common.cuh's FMA
-// forward_tile<float> on pack_params' row-major layout, one block of 256
-// threads per RB = max(1, 64 / S) rays.
+// f32: level_common.cuh's forward_tile<float> on pack_params' row-major
+// layout, every layer product as 3xTF32 mma.sync (render_level.cu's f32
+// forward without the composite), one block of 256 threads per RB =
+// max(1, 64 / S) rays.
 //
 // Plain C interface (loaded with ctypes): mlp_fwd_launch returns the
 // cudaError_t of the launch; it launches on the given stream, allocates
@@ -34,10 +35,10 @@
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kF32Blocks)
 mlp_fwd_kernel(Params p, float* raw_rgb, float* raw_den) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<float> sm = carve<float>(smem_raw, p);
+  const Smem<float> sm = carve<float>(smem_raw, p, 0);
   const int ray0 = blockIdx.x * p.RB;
   const int nr = min(p.RB, p.R - ray0);
   const int rows = nr * p.S;
@@ -56,7 +57,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) mlp_fwd_wg_kernel(WgParams q) {
 }
 
 cudaError_t launch_f32(Params p, float* raw_rgb, float* raw_den, cudaStream_t stream) {
-  const size_t smem = smem_bytes<float>(p.ldh, p.ldx, p.RB, p.Wc, 0);
+  const size_t smem = smem_bytes<float>(p, 0);
   if (smem > 232448) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       mlp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

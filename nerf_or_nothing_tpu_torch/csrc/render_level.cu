@@ -27,11 +27,13 @@
 // per ray (the transmittance scan carried across rounds), writing comp,
 // acc and weights.
 //
-// f32 (checking the algorithm only): today's FMA forward_tile<float> of
-// level_common.cuh on pack_params' row-major layout. One block of 256
-// threads owns RB = max(1, 64 / S) whole rays and walks their rows in
-// 64-row sub-tiles, then composites them (wgmma in TF32 would be another
-// function).
+// f32: forward_tile<float> of level_common.cuh on pack_params' row-major
+// layout, each layer product as three TF32 tensor-core passes (3xTF32
+// mma.sync, the weights staged in shared memory by cp.async; 3 x 2.27
+// TFLOP of TF32 work at R=16384 x S=128, bound 13.76 ms at 495 / 3 TFLOP/s).
+// One block of 256 threads owns RB = max(1, 64 / S) whole rays and walks
+// their rows in 64-row sub-tiles, then composites them; two blocks an SM.
+// (wgmma in TF32, K-major operands only, would be another function.)
 //
 // Plain C interface (loaded with ctypes): render_level_launch returns the
 // cudaError_t of the launch; it launches on the given stream, allocates
@@ -41,10 +43,10 @@
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kF32Blocks)
 render_level_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<float> sm = carve<float>(smem_raw, p);
+  const Smem<float> sm = carve<float>(smem_raw, p, p.S);
   const int ray0 = blockIdx.x * p.RB;
   const int nr = min(p.RB, p.R - ray0);
   const int rows = nr * p.S;
@@ -66,7 +68,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) render_level_wg_kernel(WgParams
 }
 
 cudaError_t launch_f32(Params p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<float>(p.ldh, p.ldx, p.RB, p.Wc, p.S);
+  const size_t smem = smem_bytes<float>(p, p.S);
   if (smem > 232448) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       render_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

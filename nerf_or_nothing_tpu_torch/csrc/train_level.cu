@@ -22,11 +22,16 @@
 // masks, the composite and its backward, the wgmma g-chain with per-block
 // db, then the dW GEMM over the rows, the small head and direction-row
 // products and the fixed-order reduction of level_backward.cuh.
-// f32 (checking the algorithm only): the mma.sync-era passes with FMA
-// loops (no TF32): train_fwd_kernel (level_common.cuh's forward storing
-// the activations and features, then one warp per ray runs the composite,
-// the loss gradient and the composite backward), then passes 2-5 of
-// level_backward.cuh (shared with mlp_bwd.cu), without dX or dD.
+// f32: five launches, every layer product as three TF32 tensor-core
+// passes (3xTF32 mma.sync: each f32 operand split into a TF32 high and low
+// part, lo*hi + hi*lo + hi*hi summed in f32; TF32 runs at 495 TFLOP/s
+// dense, so the 412.8 GFLOP of f32 work are bound at 2.502 ms, where f32
+// FMA would be at 6.162 ms): train_fwd_kernel (level_common.cuh's forward
+// storing the activations and features, then one warp per ray runs the
+// composite, the loss gradient and the composite backward), then passes
+// 2-5 of level_backward.cuh (shared with mlp_bwd.cu), without dX or dD.
+// Activations and masked g are f32 in the workspace (~1.14 GB each at the
+// default config).
 // No atomics, so two launches on the same inputs give bit-equal dW.
 //
 // Plain C interface (loaded with ctypes): train_level_workspace gives the
@@ -40,13 +45,13 @@ namespace {
 
 // f32 pass 1: the render kernel's forward, keeping the activations, then
 // the composite and its backward.
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kF32Blocks)
 train_fwd_kernel(Params p, Extra e) {
   typedef float T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> sm = carve<T>(smem_raw, p);
+  const Smem<T> sm = carve<T>(smem_raw, p, p.S);
   float* EX = reinterpret_cast<float*>(smem_raw +
-                                       smem_bytes<T>(p.ldh, p.ldx, p.RB, p.Wc, p.S));
+                                       smem_bytes<T>(p, p.S));
   const int ray0 = blockIdx.x * p.RB;
   const int nr = min(p.RB, p.R - ray0);
   forward_store<T>(p, e, sm, ray0, nr, true);
@@ -58,7 +63,7 @@ cudaError_t launch_train_f32(Params p, Extra e, const Layout& l, unsigned char* 
   typedef float T;
   // 1. forward, composite and its backward
   const int blocks = (p.R + p.RB - 1) / p.RB;
-  const size_t smem_f = smem_bytes<T>(p.ldh, p.ldx, p.RB, p.Wc, p.S) +
+  const size_t smem_f = smem_bytes<T>(p, p.S) +
                         sizeof(float) * p.RB * p.S * 4;
   cudaError_t err;
   if ((err = set_smem((const void*)train_fwd_kernel, smem_f)) != cudaSuccess) return err;

@@ -30,7 +30,8 @@
 // The chain reads only the forward's mask bits, not its activations, and
 // no dW product shares an SM with it. The function and the launches are
 // train_level.cu's bf16 ones, so both give the same bits.
-// f32 (checking the algorithm only), with FMA loops (no TF32):
+// f32, every layer product as 3xTF32 mma.sync (level_common.cuh's gemm,
+// level_backward.cuh's dW GEMM):
 //  A. twopass_chain_kernel (phase 0): each block owns whole rays: the
 //     forward storing the features and every layer's activations
 //     (forward_store), the composite and its backward (composite_train),
@@ -59,12 +60,12 @@ namespace {
 // f32 phase 0: forward, composite and its backward, the g-chain and db of
 // the block's rays; dbpart [blocks, num_biases] gets the block's db.
 template <class T>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kF32Blocks)
 twopass_chain_kernel(Params p, Extra e, float* dbpart) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> sm = carve<T>(smem_raw, p);
+  const Smem<T> sm = carve<T>(smem_raw, p, p.S);
   float* EX = reinterpret_cast<float*>(smem_raw +
-                                       smem_bytes<T>(p.ldh, p.ldx, p.RB, p.Wc, p.S));
+                                       smem_bytes<T>(p, p.S));
   const int ray0 = blockIdx.x * p.RB;
   const int nr = min(p.RB, p.R - ray0);
   forward_store<T>(p, e, sm, ray0, nr, true);
@@ -90,7 +91,7 @@ cudaError_t launch_twopass(Params p, Extra e, const Layout& l, unsigned char* ws
                            cudaStream_t st) {
   // A. forward, composite and its backward, g-chain, db partials
   const int blocks = blocks_of(p.R, p.S);
-  const size_t smem_f = smem_bytes<T>(p.ldh, p.ldx, p.RB, p.Wc, p.S) +
+  const size_t smem_f = smem_bytes<T>(p, p.S) +
                         sizeof(float) * p.RB * p.S * 4;
   const size_t smem_c = align16(chain_smem<T>(p, false)) + sizeof(float) * num_biases(p);
   const size_t smem = smem_f > smem_c ? smem_f : smem_c;

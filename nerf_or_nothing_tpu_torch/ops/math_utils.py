@@ -1,5 +1,6 @@
 """Metric / init math: PSNR, SSIM, avg-error, sRGB, Glorot init, the
-learning-rate schedule.
+learning-rate schedule; and a plain model of the f32 kernels' 3xTF32
+products (``tf32_round``, ``dense_3xtf32``), which only the tests use.
 
 Same formulas as ``nerf_or_nothing_tpu/ops/math_utils.py``. SSIM's
 separable Gaussian blur runs as two ``conv2d`` passes; cuDNN would run an
@@ -23,6 +24,38 @@ def exact_f32(device: torch.device) -> None:
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 as ``cvt.rna.tf32.f32`` rounds them: to
+    the nearest value with 10 explicit mantissa bits, ties away from zero
+    (the low 13 bits of the magnitude's bit pattern rounded off, so
+    subnormals round the same way and a value past the largest TF32 one
+    becomes inf); inf stays inf and NaN stays NaN."""
+    x = x.float()
+    mag = x.view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    mag = ((mag + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
+    return torch.where(torch.isnan(x), x, torch.copysign(mag, x))
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo): hi = tf32_round(x), lo = tf32_round(x - hi), the split of
+    an f32 operand in the kernels' 3xTF32 products; hi + lo is x within
+    2^-22 of |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def dense_3xtf32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h @ w (f32 operands) as the f32 kernels take it on the tensor cores
+    (``csrc/level_common.cuh``: gemm, ``csrc/level_backward.cuh``: the dW
+    GEMM): both operands split (``split_tf32``), lo @ hi + hi @ lo + hi @ hi,
+    lo @ lo dropped, each term exact and summed in f64, then rounded to f32.
+    The card's f32 sums run in another order; this models the split, not
+    the accumulation."""
+    h_hi, h_lo = (t.double() for t in split_tf32(h))
+    w_hi, w_lo = (t.double() for t in split_tf32(w))
+    return ((h_lo @ w_hi + h_hi @ w_lo) + h_hi @ w_hi).float()
 
 
 def softplus(x):

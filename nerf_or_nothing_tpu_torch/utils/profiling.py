@@ -6,7 +6,8 @@ The names of ``nerf_or_nothing_tpu/utils/profiling.py``:
   card, CUDA activities) writing a Chrome trace into a directory;
 - ``sync()`` and ``timed()``: completion of the card's work, and mean
   seconds per call (CUDA events on the card, the host clock on the CPU);
-- ``CHIP_PEAKS`` / ``chip_peaks()``: published peak rates of the card;
+- ``CHIP_PEAKS`` / ``chip_peaks()``: published peak rates of the card,
+  and ``f32_peak``, the f32 rate of the port's 3xTF32 kernels;
 - ``mlp_roofline()``: the JAX package's FLOPs / bytes model of the fused
   MLP, with its formula and keys.
 
@@ -97,12 +98,20 @@ def timed(fn: Callable, *args, iters: int = 20, warmup: int = 2) -> float:
 
 
 # Published dense peaks (NVIDIA H100 data sheets, SXM5 and PCIe): bf16
-# tensor-core FLOP/s, f32 (non-tensor) FLOP/s, HBM bytes/s. Matched by
-# name, the first key found in the card's name.
+# tensor-core FLOP/s, f32 (non-tensor) FLOP/s, HBM bytes/s, TF32
+# tensor-core FLOP/s. Matched by name, the first key found in the card's
+# name.
 CHIP_PEAKS = {
-    "H100 PCIe": (756e12, 51e12, 2.0e12),
-    "H100": (989e12, 67e12, 3.35e12),  # SXM
+    "H100 PCIe": (756e12, 51e12, 2.0e12, 378e12),
+    "H100": (989e12, 67e12, 3.35e12, 495e12),  # SXM
 }
+
+
+def f32_peak(peaks) -> float:
+    """The f32 work rate a kernel's bound uses: the larger of the f32 FMA
+    peak and a third of the TF32 tensor-core peak (an f32 product as three
+    TF32 passes, 3xTF32, as the f32 kernels run it)."""
+    return max(peaks[1], peaks[3] / 3)
 
 
 def device_kind(device=None) -> str:
@@ -116,8 +125,9 @@ def device_kind(device=None) -> str:
 
 
 def card_peaks(name: str):
-    """(the ``CHIP_PEAKS`` key, (bf16 FLOP/s, f32 FLOP/s, bytes/s)) of a
-    card by name; an H100 of no listed kind is taken for an SXM card."""
+    """(the ``CHIP_PEAKS`` key, (bf16 FLOP/s, f32 FLOP/s, bytes/s, TF32
+    FLOP/s)) of a card by name; an H100 of no listed kind is taken for an
+    SXM card."""
     for key, peaks in CHIP_PEAKS.items():
         if key in name:
             return key, peaks
@@ -129,9 +139,9 @@ def chip_peaks(device=None) -> Tuple[float, float]:
     the card if there is one), as the JAX package's ``chip_peaks``; a
     device no entry names gets the same conservative (1e11, 1e10)."""
     kind = device_kind(device)
-    for key, (bf16, _, bw) in CHIP_PEAKS.items():
+    for key, peaks in CHIP_PEAKS.items():
         if key in kind:
-            return bf16, bw
+            return peaks[0], peaks[2]
     return (1e11, 1e10)
 
 

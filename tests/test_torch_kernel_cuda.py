@@ -466,6 +466,94 @@ def test_mlp_kernels_match_plain_on_cuda(name, kw, R):
                 launches[0] + 1, launches[1] + 2)
 
 
+F32_SHAPES = {
+    "config": (dict(), 37),
+    # rows of a block's rays (2 x 24) leave 16 of its 64-row tile empty
+    "narrow_ragged": (dict(num_samples=24, net_depth=3, net_width=64,
+                           net_width_condition=32, skip_layer=2,
+                           max_deg_point=4), 13),
+}
+
+
+@pytest.mark.parametrize("shape", list(F32_SHAPES))
+@pytest.mark.parametrize("route", ["render_level", "train_level",
+                                   "train_level_twopass", "mlp_fwd",
+                                   "mlp_bwd"])
+def test_f32_routes_match_plain_and_repeat_on_cuda(route, shape):
+    """Every f32 route (3xTF32 mma.sync) within the f32 band of its plain
+    version at Config() width and a narrow ragged shape; the backward
+    routes give the same bits over two launches (dW/db, and dX/dD with
+    input_grads)."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    kw, R = F32_SHAPES[shape]
+    if route == "train_level_twopass":
+        kw = dict(kw, kernel_probes="fl_variant=twopass")
+    cfg = Config(**dict(kw, compute_dtype="float32"))
+    S = cfg.num_samples
+    atol, rtol = BANDS["float32"]
+    params = tmlp.init_mlp(torch.Generator().manual_seed(5), cfg, device=dev)
+    if route == "render_level":
+        means, covs, dir_enc, t_vals, dirs = level_inputs(R, S, 6, dev)
+        for mode in ("mv", "t"):
+            xs = ((means.reshape(-1, 3), covs.reshape(-1, 3)) if mode == "mv"
+                  else integrated_pos_enc((means, covs), cfg.min_deg_point,
+                                          cfg.max_deg_point, fast=True
+                                          ).reshape(R * S, -1))
+            delta = interval_lengths(t_vals, dirs)
+            out = fl.render_level(params, cfg, xs, dir_enc, delta, True, mode)
+            ref = fl.render_level_plain(params, cfg, xs, dir_enc, delta, True,
+                                        mode)
+            for a, b in zip(out, ref):
+                assert bool(torch.isfinite(a).all())
+                assert normalized_err(a, b, atol, rtol) < 1.0, mode
+        return
+    if route in ("train_level", "train_level_twopass"):
+        for mode in (("t",) if route == "train_level_twopass" else
+                     ("t", "mv")):
+            _, out = check_train(cfg, R, mode, True, dev, seed=6)
+            _, again = check_train(cfg, R, mode, True, dev, seed=6)
+            for (wa, ba), (wb, bb) in zip(out[3], again[3]):
+                assert torch.equal(wa, wb) and torch.equal(ba, bb), mode
+        return
+    x, d, g_rgb, g_den = mlp_inputs(cfg, params, R, 6, dev)
+    if route == "mlp_fwd":
+        out = fm.mlp_fwd(params, cfg, x, d)
+        ref = fm.mlp_fwd_plain(params, cfg, x, d, S)
+        for a, b in zip(out, ref):
+            assert normalized_err(a, b, atol, rtol) < 1.0
+        return
+    for input_grads in (False, True):
+        got = fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, input_grads)
+        again = fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, input_grads)
+        exp = fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, S,
+                               input_grads)
+        flat = [t for wb in got[0] for t in wb] + list(got[1:] if
+                                                       input_grads else [])
+        flat2 = [t for wb in again[0] for t in wb] + list(
+            again[1:] if input_grads else [])
+        ref = [t for wb in exp[0] for t in wb] + list(exp[1:] if
+                                                      input_grads else [])
+        for k, (a, b, c) in enumerate(zip(flat, flat2, ref)):
+            assert torch.equal(a, b), (input_grads, k)
+            assert normalized_err(a.float(), c.float(), atol, rtol) < 1.0, (
+                input_grads, k)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_f32_train_level_over_seeds_on_cuda(seed):
+    """The f32 train level at Config() width, S=64, 21 rays, against its
+    plain version for several seeds: a ReLU mask that the kernel's and
+    cuBLAS's pre-activations put on opposite sides of zero moves dW past
+    the f32 band, so the kernel's f32 sums must be as exact as the plain
+    version's (the tensor core truncates its own sums; the kernels add
+    each k-step's partial sum round-to-nearest)."""
+    dev = cuda_device()
+    check_train(Config(compute_dtype="float32", num_samples=64), 21, "t",
+                False, dev, seed=seed)
+
+
 def test_mlp_bwd_bit_equal_on_cuda():
     """No atomics: two mlp_bwd launches give the same dW/db, dX and dD."""
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm

@@ -4,7 +4,8 @@ package's modules of the same names, on the CPU.
 - ``mlp_roofline``: FLOPs, bytes and times equal JAX's (both on the CPU
   fallback peaks) for three configs;
 - ``chip_peaks`` / ``card_peaks``: the H100 entries by card name, the CPU
-  fallback otherwise;
+  fallback otherwise; ``f32_peak``, max(f32 FMA, TF32 / 3), and the f32
+  bounds it gives;
 - the per-ray counts moved from ``chip_smoke.py``: the values the
   smoke test's bounds were computed from;
 - ``oracle_level_loss`` and its autograd gradients against JAX's with
@@ -83,6 +84,33 @@ def test_bound_counts_keep_their_values():
     assert profiling.full_grad_step_flops(c, 1024, 128) == 838560645120
     bound = 1024 / (2 * profiling.train_level_flops(c, 1024, 128) / 989e12)
     assert round(bound / 1e2) == 12266
+
+
+@pytest.mark.parametrize("name,fma,tf32", [
+    ("NVIDIA H100 80GB HBM3", 67e12, 495e12),
+    ("NVIDIA H100 PCIe", 51e12, 378e12),
+])
+def test_f32_peak_is_the_larger_of_fma_and_a_third_of_tf32(name, fma, tf32):
+    """The f32 kernels run each product as three TF32 passes, so their
+    bound is max(f32 FMA peak, TF32 peak / 3); at the H100 SXM's 165
+    TFLOP/s: train_level 2.502 ms (R=1024, S=128), render_level and
+    mlp_fwd 13.76 ms (R=16384), mlp_bwd with input_grads 2.580 ms, an f32
+    train step 204.6k rays/s and f32 render 595k rays/s at Config()."""
+    _, peaks = profiling.card_peaks(name)
+    assert (peaks[1], peaks[3]) == (fma, tf32)
+    assert profiling.f32_peak(peaks) == max(fma, tf32 / 3) == tf32 / 3
+    if "PCIe" in name:
+        return
+    peak, c = profiling.f32_peak(peaks), Config()
+    ms = lambda flops: round(flops / peak * 1e3, 3)  # noqa: E731
+    assert ms(profiling.train_level_flops(c, 1024, 128)) == 2.502
+    assert ms(profiling.mlp_fwd_flops(c, 16384, 128)) == 13.761
+    assert ms(profiling.level_flops(c, 16384, 128)) == 13.761
+    assert ms(profiling.mlp_bwd_flops(c, 1024, 128, True)) == 2.580
+    step = 1024 / (2 * profiling.train_level_flops(c, 1024, 128) / peak)
+    assert round(step / 1e2) == 2046
+    render = peak / (2 * profiling.level_flops(c, 1, 128))
+    assert round(render / 1e3) == 595
 
 
 @pytest.mark.parametrize("white_bkgd", [True, False])
