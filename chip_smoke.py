@@ -51,6 +51,21 @@ Phases, each printing one JSON line:
            the test render and of ``run eval``, exact), the checkpoint
            restored by ``run eval``, train rays/s and render rays/s of the
            test view from the trained checkpoint beside the f32 bounds;
+  wide     the wide route of the bf16 level kernels (net_width 288-1024,
+           csrc/wide_forward.cuh, csrc/wide_train.cuh) at
+           Config(net_width=W), W = 288, 512 and 1024: train_level at
+           R=1024 x S=128 in modes "t" and "mv" (dW/db bit-equal over two
+           launches) and render_level at R=16384 x S=128 in mode "mv" (its
+           plain version over chunks of 2048 rays) against their plain
+           versions, each beside its bound and the layer products as bf16
+           torch.matmul (matmul_ms, a yardstick); then ``run train
+           --net-width=1024`` for 20 eager steps through ``train_path``
+           (launches exact, losses finite, ``run eval`` restores the
+           checkpoint, train rays/s beside the bound, one step against the
+           CPU), 16 graph steps (two multi-step calls of 8) from its
+           checkpoint bit-equal to 16 eager steps on the same batches with
+           exact launches, graph and render rays/s beside the bounds, the
+           peak of torch.cuda.max_memory_allocated;
   mlp_kernel  the MLP kernels against their plain versions: mlp_fwd at
            Config() width, mode "t" features, R=16384 x S=128 in bf16 and
            f32 and R=1024 x S=128 in bf16, and a narrow ragged config with
@@ -170,13 +185,14 @@ Phases, each printing one JSON line:
            (the JAX harness's numerics-regression line), every loss and
            the final state finite, launches exact.
 The train phases share one 400x400 scene.
-Then the ``kernels`` line (each kernel's launches: its path's, plus the
-mesh phase's in the world-1 child's sharded steps and rank 0 of the
-pair, the tensor phase's ``run train --mesh-shape=1,1``, the recovery
-phase's two runs that end and the quality phase's), the card's
-name and power limit, and as the last
-line {"ok": true, "device": {...}}. Any failure raises: non-zero exit and
-no ``ok`` line. Without a CUDA device the script exits 1 at once.
+Then the ``kernels`` line (each kernel's launches: its path's and the
+wide phase's, plus the mesh phase's in the world-1 child's sharded steps
+and rank 0 of the pair, the tensor phase's ``run train
+--mesh-shape=1,1``, the recovery phase's two runs that end and the
+quality phase's; under "wide" the W=1024 case of train_level and
+render_level), the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}. Any failure raises: non-zero exit and no
+``ok`` line. Without a CUDA device the script exits 1 at once.
 """
 
 from __future__ import annotations
@@ -223,6 +239,11 @@ MULTICAM_ARGS = ("--dataset-loader=multicam",
 LOADER_STEPS = 10  # the LLFF and bin-dump phases
 F32_STEPS = 20  # run train of the f32_path phase
 F32_ARGS = ("--compute-dtype=float32",)
+WIDE_WIDTHS = (288, 512, 1024)  # the wide route; 288 has a partial column block
+WIDE_ARGS = ("--net-width=1024",)
+WIDE_STEPS = 20  # eager steps of the wide phase's run train
+WIDE_GRAPH_CALLS = 2  # multi-step calls of GRAPH_K steps against eager steps
+WIDE_PLAIN_RAYS = 2048  # rays of one call of the wide render's plain version
 GRAPH_K = 8  # steps a multi-step call in the graph phase
 TURN_STEPS = 16  # steps a turn of the graph phase's rays/s
 GRAPH_CASES = (("Config()", ()), ("multicam_twopass", MULTICAM_ARGS),
@@ -561,7 +582,13 @@ def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
     return res
 
 
-def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
+def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
+                phase="kernel", plain_rays=None):
+    """The render kernel against ``render_level_plain``; with
+    ``plain_rays`` the plain version runs over chunks of that many rays
+    (each ray's outputs depend on its own rows only, so the chunks give
+    what one call gives, without one call's f32 temporaries of every
+    row)."""
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
@@ -576,9 +603,20 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
         return fl.render_level_cuda(params, cfg, xs, d, delta, white_bkgd,
                                     mode, packed=packed)
 
+    def plain_rows(r0, r1):
+        S = cfg.num_samples
+        x = (tuple(t[r0 * S:r1 * S] for t in xs) if mode == "mv"
+             else xs[r0 * S:r1 * S])
+        return fl.render_level_plain(params, cfg, x, d[r0:r1],
+                                     delta[r0:r1], white_bkgd, mode)
+
     def plain():
-        return fl.render_level_plain(params, cfg, xs, d, delta, white_bkgd,
-                                     mode)
+        if plain_rays is None:
+            return fl.render_level_plain(params, cfg, xs, d, delta,
+                                         white_bkgd, mode)
+        outs = [plain_rows(r0, min(R, r0 + plain_rays))
+                for r0 in range(0, R, plain_rays)]
+        return tuple(torch.cat(t) for t in zip(*outs))
 
     out_k = kernel()
     torch.cuda.synchronize()
@@ -596,7 +634,8 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0):
     plain_ms = median_ms(plain, reps=5, warmup=1)
     b_ms, b_by, flops, nbytes = bound_ms(cfg, R, cfg.num_samples, mode, peaks)
     res = {
-        "phase": "kernel", "case": name, "dtype": cfg.compute_dtype,
+        "phase": phase, "kernel": "render_level", "case": name,
+        "dtype": cfg.compute_dtype, "net_width": cfg.net_width,
         "mode": mode, "R": R, "S": cfg.num_samples, "white_bkgd": white_bkgd,
         "band": [atol, rtol], "normalized_err": errs, "max_abs_err": max_abs,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -642,7 +681,8 @@ def matmul_ms(cfg, R: int, device) -> float:
     calls on random operands of the compute type (bf16, or f32 with TF32
     off: full-f32 cuBLAS), the view layer's direction rows once per ray,
     median by CUDA events: a yardstick of the products alone, which the
-    port never calls."""
+    port never calls. Products of one shape share their operands (a wide
+    model's 2.1M-row operands take GBs each)."""
     import torch
 
     from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype, layer_dims
@@ -650,16 +690,20 @@ def matmul_ms(cfg, R: int, device) -> float:
     g = torch.Generator(device=device).manual_seed(0)
     N, W, D = R * cfg.num_samples, cfg.net_width, cfg.net_depth
     dt = compute_dtype(cfg)
-    pairs = []
+    pairs, made = [], {}
+
+    def operand(shape):
+        if shape not in made:
+            made[shape] = torch.randn(*shape, generator=g, device=device,
+                                      dtype=dt)
+        return made[shape]
+
     for k, (fan_in, fan_out) in enumerate(layer_dims(cfg)):
         rows = [(N, fan_in)]
         if k == D + 1:  # first view layer: h rows per sample, d rows per ray
             rows = [(N, W), (R, fan_in - W)]
         for n, kin in rows:
-            pairs.append((torch.randn(n, kin, generator=g, device=device,
-                                      dtype=dt),
-                          torch.randn(kin, fan_out, generator=g,
-                                      device=device, dtype=dt)))
+            pairs.append((operand((n, kin)), operand((kin, fan_out))))
 
     def run():
         for a, w in pairs:
@@ -752,7 +796,8 @@ def train_inputs(cfg, R: int, seed: int, device, multicam: bool = False):
 
 
 def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
-                      bit_check=False, twopass=False, multicam=False):
+                      bit_check=False, twopass=False, multicam=False,
+                      phase=None):
     """One train kernel (``train_level_cuda``, or with ``twopass``
     ``train_level_twopass_cuda``, mode "t") against ``level_train_plain``;
     with ``twopass`` also ``train_level_cuda`` on the same inputs, its
@@ -816,8 +861,9 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
         one_pass_ms = sum(turns["train_level"]) / 2
         ms = sum(turns["train_level_twopass"]) / 2
     res = {
-        "phase": "twopass_kernel" if twopass else "train_kernel",
+        "phase": phase or ("twopass_kernel" if twopass else "train_kernel"),
         "kernel": kname, "case": name, "dtype": cfg.compute_dtype,
+        "net_width": cfg.net_width,
         "mode": mode, "R": R, "S": cfg.num_samples, "white_bkgd": white_bkgd,
         "band": [atol, rtol], "worst": max(errs, key=errs.get),
         "normalized_err": errs, "max_abs_err": max_abs,
@@ -1296,6 +1342,117 @@ def f32_path(peaks, device, scene: str, size: int = 400):
           "train_bound_rays_per_s": record["bound_rays_per_s"],
           "train_bound_share": record["bound_share"], **rate,
           "launches": launches})
+    return launches
+
+
+def wide_kernels(peaks, device) -> dict:
+    """The wide route's kernels against their plain versions at
+    ``Config(net_width=W)`` for W in ``WIDE_WIDTHS``: ``train_level`` at
+    R=1024 x S=128 in modes "t" and "mv" (dW/db bit-equal over two
+    launches), ``render_level`` at R=16384 x S=128 in mode "mv" (its plain
+    version over chunks of ``WIDE_PLAIN_RAYS`` rays); beside each, the
+    layer products as bf16 ``torch.matmul`` (``matmul_ms``, a yardstick).
+    Returns the W=1024 cases by kernel."""
+    from nerf_or_nothing_tpu_torch.config import Config
+
+    out = {}
+    for W in WIDE_WIDTHS:
+        cfg = Config(net_width=W)
+        mm_train = matmul_ms(cfg, 1024, device)
+        for mode, seed in (("t", 21), ("mv", 22)):
+            res = train_kernel_case(
+                f"wide_w{W}_r1024_s128_{mode}",
+                cfg.replace(fuse_ipe=mode == "mv"), 1024, mode, True, peaks,
+                device, seed=seed, bit_check=True, phase="wide")
+            res["matmul_ms"] = mm_train
+            emit({"phase": "wide", "case": res["case"],
+                  "matmul_ms": mm_train})
+            if W == 1024 and mode == "t":
+                out["train_level"] = res
+        res = kernel_case(f"wide_w{W}_r16384_s128_mv", cfg, 16384, "mv", True,
+                          peaks, device, seed=23, phase="wide",
+                          plain_rays=WIDE_PLAIN_RAYS)
+        res["matmul_ms"] = matmul_ms(cfg, 16384, device)
+        emit({"phase": "wide", "case": res["case"],
+              "matmul_ms": res["matmul_ms"]})
+        if W == 1024:
+            out["render_level"] = res
+    return out
+
+
+def wide_path(peaks, device, scene: str, size: int = 400):
+    """``run train --net-width=1024`` on the card through ``train_path``
+    (``WIDE_STEPS`` eager steps, launches exact: 2 train_level a step, 2
+    render_level a 16384-ray chunk of the test render and of ``run eval``;
+    finite losses; the checkpoint restored by ``run eval``; train rays/s
+    beside the bound; one step against the CPU), then from that checkpoint
+    ``WIDE_GRAPH_CALLS`` multi-step calls of ``GRAPH_K`` graph steps
+    against as many eager steps on the same loader batches (state and
+    stats bit-equal, launches exact), graph rays/s, render rays/s of test
+    view 0 beside the bound, and the peak of
+    ``torch.cuda.max_memory_allocated``. Returns the launch counts."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+
+    torch.cuda.reset_peak_memory_stats()
+    launches, record = train_path(peaks, device, scene, WIDE_STEPS,
+                                  WIDE_ARGS, "wide_path", eval_args=())
+    cfg = run.parse_flags([f"--data-dir={scene}", *WIDE_ARGS])
+    launches = added(launches, render_launches(cfg, record["eval_images"]))
+    n = WIDE_GRAPH_CALLS * GRAPH_K
+    batches = loader_batches(scene, cfg, n)
+    eager = ckpt_lib.restore_checkpoint(record["checkpoint"], cfg,
+                                        device=device)
+    step_fn = train_lib.make_train_step(cfg)
+    reset_launch_counts()
+    for rays, pixels in batches:
+        eager, last = step_fn(eager, *train_lib.batch_to_device(
+            device, rays, pixels))
+    torch.cuda.synchronize()
+    check_launches("wide: eager steps", launch_counts(),
+                   step_launches(cfg, n))
+    launches = added(launches, step_launches(cfg, n))
+    graph = ckpt_lib.restore_checkpoint(record["checkpoint"], cfg,
+                                        device=device)
+    multi = train_lib.make_multi_step(cfg)
+    reset_launch_counts()
+    call_s = []
+    for c in range(WIDE_GRAPH_CALLS):
+        t0 = time.perf_counter()
+        graph, stats = multi(graph, batches[c * GRAPH_K:(c + 1) * GRAPH_K])
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+    expected = step_launches(cfg, n + train_lib.WARMUP_STEPS)
+    check_launches("wide: graph steps", launch_counts(), expected)
+    launches = added(launches, expected)
+    pairs = state_pairs(graph, eager) + [
+        (f"stats/{k}", getattr(stats, k), getattr(last, k))
+        for k in ("loss", "losses", "weight_l2", "psnr", "psnrs",
+                  "grad_norm", "grad_abs_max", "grad_norm_clipped")]
+    unequal = [k for k, a, b in pairs if not torch.equal(a, b)]
+    finite = all(bool(torch.isfinite(b).all()) for _, b, _ in pairs)
+    rate, _ = render_rate(cfg, graph.params, scene, size, peaks, device)
+    res = {
+        "phase": "wide", "check": "path", "config": "Config(net_width=1024)",
+        "flags": list(WIDE_ARGS), "steps": WIDE_STEPS,
+        "logged_losses": record["logged_losses"],
+        "train_rays_per_s": record["train_rays_per_s"],
+        "train_bound_rays_per_s": record["bound_rays_per_s"],
+        "train_bound_share": record["bound_share"],
+        "graph_steps": n, "graph_call_s": call_s,
+        "graph_rays_per_s": GRAPH_K * cfg.batch_size / call_s[-1],
+        "graph_bit_equal": not unequal, "unequal": unequal,
+        "state_finite": finite, **rate,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+    }
+    emit(res)
+    if unequal or not finite:
+        raise AssertionError(f"wide: graph steps differ from eager steps in "
+                             f"{unequal} (finite: {finite})")
     return launches
 
 
@@ -2639,6 +2796,8 @@ def main() -> int:
     train_launches, train_record = train_path(peaks, device, scene,
                                               TRAIN_STEPS, setup_s=scene_s)
     f32_launches = f32_path(peaks, device, scene)
+    wide_cases = wide_kernels(peaks, device)
+    wide_launches = wide_path(peaks, device, scene)
 
     mlp_fwd_main = mlp_fwd_case("config_r16384_s128", base, 16384, peaks,
                                 device)
@@ -2700,7 +2859,7 @@ def main() -> int:
     mesh_launches = added(mesh_launches, quality_phase(device))
 
     def entry(name, case, n, replaces, case_f32):
-        return {
+        out = {
             "name": name, "route": "cuda",
             "source": f"nerf_or_nothing_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": n + mesh_launches[name],
@@ -2711,13 +2870,19 @@ def main() -> int:
                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "fma_bound_ms")},
         }
+        if name in wide_cases:
+            out["wide"] = {k: wide_cases[name][k] for k in (
+                "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "matmul_ms")}
+        return out
 
     emit({"kernels": [
         entry("render_level", main_case,
-              launches + f32_launches["render_level"], TPU_KERNEL, main_f32),
+              launches + f32_launches["render_level"]
+              + wide_launches["render_level"], TPU_KERNEL, main_f32),
         entry("train_level", train_case,
-              train_launches["train_level"] + f32_launches["train_level"],
-              TPU_TRAIN_KERNEL, train_f32),
+              train_launches["train_level"] + f32_launches["train_level"]
+              + wide_launches["train_level"], TPU_TRAIN_KERNEL, train_f32),
         entry("mlp_fwd", mlp_fwd_main, full_launches["mlp_fwd"], TPU_MLP_FWD,
               mlp_fwd_f32),
         entry("mlp_bwd", mlp_bwd_main, full_launches["mlp_bwd"], TPU_MLP_BWD,

@@ -40,10 +40,23 @@ Prints one JSON line per build and case; a source's name is its file name
 without the suffix. With ``--profile``, each case also gives every
 version's device time per launch by kernel name (``torch.profiler``, 5
 calls).
+
+    mkdir -p .local_runs/parent && for f in $(git ls-tree --name-only \
+        HEAD~1 nerf_or_nothing_tpu_torch/csrc/); do
+      git show HEAD~1:$f > .local_runs/parent/$(basename $f); done
+    python3 compare_kernels.py --ptxas .local_runs/parent
+
+builds every kernel source (``build.SOURCES``) from that directory (its
+headers beside it) and from ``csrc/``, all at once, and prints for each
+source the kernels whose ptxas lines (registers, spills, injected or
+serialized wgmma) are the same in both, those that differ, and those in
+one build only (ptxas's line numbers and symbols taken out); no card is
+needed.
 """
 
 from __future__ import annotations
 
+import re
 import sys
 from pathlib import Path
 
@@ -260,9 +273,55 @@ def device_ms_by_kernel(fn, n: int = 5) -> dict:
     return out
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """A build's ptxas lines (``chip_smoke.ptxas_lines``) by kernel, each
+    instantiation of a name under ``name#k`` in build order; the notes
+    that name a function (C7511, C7519) counted under its kernel, since
+    their PTX line numbers move with any code added beside it."""
+    out, notes, key = {}, {}, None
+    for ln in cs.ptxas_lines(log):
+        if ln.startswith("kernel "):
+            k = 0
+            while f"{ln[7:]}#{k}" in out:
+                k += 1
+            key = f"{ln[7:]}#{k}"
+            out[key] = []
+        elif "(C75" in ln:
+            name = cs.kernel_name(ln)
+            note = re.sub(r"around line \d+ ", "", ln.split(" in function")[0])
+            notes.setdefault(name, []).append(note)
+        elif key is not None:
+            out[key].append(ln)
+    for key in out:
+        out[key] += sorted(notes.get(key.split("#")[0], []))
+    return out
+
+
+def ptxas_compare(other: Path) -> int:
+    """Build ``build.SOURCES`` from ``other`` and from ``csrc/`` and emit,
+    per source, which kernels' ptxas lines match."""
+    from nerf_or_nothing_tpu_torch.kernels import build
+
+    others = [(n, other / f"{n}.cu") for n in build.SOURCES]
+    build.build_all(build.SOURCES, others)
+    for n, src in others:
+        old = ptxas_by_kernel(build.BUILD_INFO[str(src.resolve())]["log"])
+        new = ptxas_by_kernel(
+            build.BUILD_INFO[str(build.source_path(n))]["log"])
+        both = sorted(set(old) & set(new))
+        cs.emit({"ptxas": n, "same": [k for k in both if old[k] == new[k]],
+                 "differ": {k: {"old": old[k], "new": new[k]}
+                            for k in both if old[k] != new[k]},
+                 "only_new": sorted(set(new) - set(old)),
+                 "only_old": sorted(set(old) - set(new))})
+    return 0
+
+
 def main(argv) -> int:
     import torch
 
+    if argv[:1] == ["--ptxas"] and len(argv) == 2:
+        return ptxas_compare(Path(argv[1]).resolve())
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 1

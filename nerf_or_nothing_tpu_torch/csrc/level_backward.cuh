@@ -625,8 +625,6 @@ struct Layout {  // byte offsets into the workspace
   long long acts, grads, xs, g_rgb, g_den, g_ray, part, total;
 };
 
-inline long long round256(long long n) { return (n + 255) / 256 * 256; }
-
 // own_g: the workspace also holds the f32 head cotangents of 3 rgb and 1
 // density channel (the train level computes them; mlp_bwd takes them in).
 inline Layout layout(int esize, long long R, long long S, int D, int W, int Wc, int Dc, int KX,

@@ -133,6 +133,9 @@ struct Smem {
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
+// Workspace areas start at multiples of 256 bytes.
+inline long long round256(long long n) { return (n + 255) / 256 * 256; }
+
 // Row stride (floats) of a staged [kWK, N] weight tile: N rounded up to 32,
 // plus 8, so that the B fragments' 4 rows x 8 columns hit 32 banks.
 __host__ __device__ inline int wtile_ld(int N) { return (N + 31) / 32 * 32 + 8; }
@@ -572,8 +575,9 @@ __device__ void composite(const Params& p, const Smem<T>& sm, int ray0, int nr) 
 
 // The kernel parameters of one level (weight offsets of pack_params'
 // layout, row strides of the shared-memory tiles); false for widths the
-// kernels do not take: W, Wc multiples of 32 up to 256, Wc <= W, KX a
-// multiple of 16 >= LX, LX = 6F in mode "mv", heads of 1-8 channels.
+// kernels do not take: W, Wc multiples of 32 up to 256 (with wide, the
+// bf16 level kernels' wide route, W up to 1024), Wc <= W, KX a multiple
+// of 16 >= LX, LX = 6F in mode "mv", heads of 1-8 channels.
 // dtype: 0 = float32, 1 = bfloat16; mode: 0 = "mv" (IPE in the kernel),
 // 1 = "t" (features).
 inline bool init_params(Params& p, int dtype, int mode, const float* means,
@@ -581,8 +585,9 @@ inline bool init_params(Params& p, int dtype, int mode, const float* means,
                         const float* delta, const void* w, const float* b, int R, int S,
                         int D, int W, int skip, int Wc, int Dc, int LX, int KX, int Fd,
                         int min_deg, int fast, float density_bias, float rgb_padding,
-                        int white_bkgd, int Cr = 3, int Cd = 1) {
-  if (W % 32 || Wc % 32 || W > 256 || Wc > 256 || Wc > W || KX % 16 || KX < LX ||
+                        int white_bkgd, int Cr = 3, int Cd = 1, bool wide = false) {
+  if (W % 32 || Wc % 32 || W > (wide ? 1024 : 256) || Wc > 256 || Wc > W || KX % 16 ||
+      KX < LX ||
       D < 1 || Dc < 1 || skip < 1 || S < 1 || (mode == 0 && 6 * (LX / 6) != LX) ||
       Cr < 1 || Cr > 8 || Cd < 1 || Cd > 8)
     return false;

@@ -27,6 +27,11 @@
 // per ray (the transmittance scan carried across rounds), writing comp,
 // acc and weights.
 //
+// bf16 at net_width 288-1024 (wide_forward.cuh, render_level_wide_launch):
+// one wgmma GEMM launch per layer, in column blocks of at most 256, over
+// chunks of whole rays whose activations go through a workspace the
+// wrapper allocates (render_level_wide_workspace), then the composite.
+//
 // f32: forward_tile<float> of level_common.cuh on pack_params' row-major
 // layout, each layer product as three TF32 tensor-core passes (3xTF32
 // mma.sync, the weights staged in shared memory by cp.async; 3 x 2.27
@@ -40,6 +45,7 @@
 // nothing and does not synchronise.
 
 #include "forward_wg.cuh"
+#include "wide_forward.cuh"
 
 namespace {
 
@@ -109,5 +115,30 @@ int render_level_launch(int dtype, int mode, const float* means, const float* va
 
 // The weight layout the bf16 kernel reads: pack_params_wg's slab stream.
 const char* render_level_weight_layout() { return "wg"; }
+
+// Bytes of workspace render_level_wide_launch needs for these shapes.
+long long render_level_wide_workspace(int R, int S, int W, int Wc, int KX) {
+  return wide_render_layout(R, S, W, Wc, KX).total;
+}
+
+// The bf16 route for net_width 288-1024 (a multiple of 32, Wc <= 256):
+// render_level_launch's arguments with dtype bf16, and a workspace of
+// render_level_wide_workspace bytes, 256-byte aligned.
+int render_level_wide_launch(int mode, const float* means, const float* vars, const void* x,
+                             const void* d, const float* delta, const void* w, const float* b,
+                             float* comp, float* acc, float* weights, int R, int S, int D,
+                             int W, int skip, int Wc, int Dc, int LX, int KX, int Fd,
+                             int min_deg, int fast, float density_bias, float rgb_padding,
+                             int white_bkgd, void* workspace, void* stream) {
+  if (R <= 0) return cudaSuccess;
+  Params p;
+  if (W < kWideMinW || !init_params(p, 1, mode, means, vars, x, d, delta, w, b, R, S, D, W, skip,
+                               Wc, Dc, LX, KX, Fd, min_deg, fast, density_bias, rgb_padding,
+                               white_bkgd, 3, 1, true))
+    return cudaErrorInvalidValue;
+  p.comp = comp; p.acc = acc; p.weights = weights;
+  return (int)launch_render_wide(p, static_cast<unsigned char*>(workspace),
+                                 static_cast<cudaStream_t>(stream));
+}
 
 }  // extern "C"

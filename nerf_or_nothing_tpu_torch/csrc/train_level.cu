@@ -22,6 +22,11 @@
 // masks, the composite and its backward, the wgmma g-chain with per-block
 // db, then the dW GEMM over the rows, the small head and direction-row
 // products and the fixed-order reduction of level_backward.cuh.
+// bf16 at net_width 288-1024 (wide_train.cuh): one wgmma GEMM launch per
+// layer product, in column blocks of at most 256, every activation and
+// masked g in the workspace (a [64, 1024] tile would take 128 KB of the
+// block's shared memory), then the same composite, small products and
+// reduction.
 // f32: five launches, every layer product as three TF32 tensor-core
 // passes (3xTF32 mma.sync: each f32 operand split into a TF32 high and low
 // part, lo*hi + hi*lo + hi*hi summed in f32; TF32 runs at 495 TFLOP/s
@@ -40,6 +45,7 @@
 // not synchronise.
 
 #include "train_wg.cuh"
+#include "wide_train.cuh"
 
 namespace {
 
@@ -81,7 +87,9 @@ extern "C" {
 long long train_level_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc, int KX,
                                 int splits, long long n_out) {
   const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, true);
-  return dtype == 1 ? wg_layout(l.total, R, S, D, W, Wc, Dc).total : l.total;
+  if (dtype != 1) return l.total;
+  return W >= kWideMinW ? wide_train_layout(l.total, R, S, D, W, Wc, Dc).total
+                 : wg_layout(l.total, R, S, D, W, Wc, Dc).total;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. mode: 0 = "mv" (IPE in the kernel),
@@ -101,7 +109,8 @@ int train_level_launch(int dtype, int mode, const float* means, const float* var
   if (R <= 0) return cudaSuccess;
   Params p;
   if (!init_params(p, dtype, mode, means, vars, x, d, delta, w, b, R, S, D, W, skip, Wc, Dc,
-                   LX, KX, Fd, min_deg, fast, density_bias, rgb_padding, white_bkgd) ||
+                   LX, KX, Fd, min_deg, fast, density_bias, rgb_padding, white_bkgd, 3, 1,
+                   dtype == 1) ||
       splits < 1 || (long long)R * S > 2147483647LL)
     return cudaErrorInvalidValue;
   p.comp = comp; p.acc = acc; p.weights = weights;
@@ -116,6 +125,9 @@ int train_level_launch(int dtype, int mode, const float* means, const float* var
                        reinterpret_cast<float*>(ws + l.g_den), nullptr, nullptr);
   e.pixels = pixels; e.gsc = gsc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && W >= kWideMinW)
+    return (int)launch_train_wide(p, e, l, wide_train_layout(l.total, R, S, D, W, Wc, Dc), ws,
+                                  grads, n_out, splits, st);
   if (dtype == 1)
     return (int)launch_train_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc), ws, grads,
                                 n_out, splits, st);

@@ -1,0 +1,448 @@
+// The wide bf16 route of render_level.cu and train_level.cu: net_width a
+// multiple of 32 from 288 to 1024 (net_width_condition at most 256), where
+// the narrow kernels' activation tiles no longer fit a block (one bf16
+// [64, 1024] tile is 128 KB of the 227 KB).
+//
+// Replaces, at these widths, the same TPU kernels as its callers:
+// nerf_or_nothing_tpu/kernels/fused_level.py::_render_kernel (render) and
+// ::_level_kernel (train; the backward is wide_train.cuh).
+//
+// Bound: the products. One row of a W=1024 layer is 2 x 1024^2 FLOP
+// against 4 KB of activations in and out, 512 FLOP a byte, above the
+// card's ~295 FLOP/B ridge (at W=512: 256 FLOP/B, near it). So the level
+// runs as a sequence of launches on one stream with every activation
+// parked in global memory:
+//  - wide_features_kernel: the IPE of level_common.cuh's load_features (or
+//    the features of mode "t"), zero-padded to KX columns;
+//  - wide_dir_kernel: the first view layer's direction term d @ W_dir, one
+//    f32 row of Wc per ray;
+//  - wide_gemm_kernel<BN>, one launch per layer: out = epilogue(A @ B) over
+//    blocks of 128 rows x BN columns (a layer of N columns takes
+//    ceil(N / BN) column blocks, so no product is wider than the m64n256
+//    wgmma). A is one or two row-major bf16 activations (the skip layers'
+//    [h | x]), B the layer's slabs of the packed stream (fused_level.
+//    pack_params_wg for the forward, pack_params_wgt for the g-chain: W^T
+//    rows of 64 k-values in the 128-byte swizzle, the K-major operand
+//    wgmma reads). All 256 threads copy each 64-k stage by cp.async (A
+//    rows into the swizzle, B slab rows as stored), four stages, two in
+//    flight; the two warpgroups each multiply 64 rows. The epilogue is the
+//    forward's (direction term, bias, ReLU, round) or the g-chain's
+//    (round, the density head's rounded term, the mask of the layer
+//    below's activation > 0), written to a separate buffer, so the input
+//    stays readable by every column block;
+//  - wide_head_kernel: a head (1 or 3 channels) as one warp per row;
+//  - render: wide_composite_kernel, level_common.cuh's composite on the
+//    raw heads in global memory. The rows go in chunks of whole rays
+//    (kWideChunkRows), so two activation buffers stay ~0.5 GB at W=1024
+//    whatever R is.
+// A simple design that is right first: no persistent blocks, no producer
+// warp, every activation through HBM (making it fast is later work).
+
+#pragma once
+
+#include "forward_wg.cuh"
+
+namespace {
+
+constexpr int kWideMinW = 288;      // narrower widths take the narrow kernels
+constexpr int kWideMaxW = 1024;
+constexpr int kWideThreads = 256;   // two warpgroups of 64 rows
+constexpr int kWideRows = 128;
+constexpr int kWideStages = 4;
+constexpr long long kWideChunkRows = 1LL << 18;  // render: rows of one chunk of rays
+
+enum { kWideFwd = 0, kWideChain = 1 };
+
+// One layer product and its epilogue (wide_gemm_kernel).
+struct WideGemm {
+  const bf16* a0;      // A, first part: [M, lda0], columns [0, ka0) read, ns0 slabs of 64
+  const bf16* a1;      // second part (the features of layer 0's and the skip layers' x
+                       // rows), ns1 slabs (0: none)
+  int lda0, ka0, ns0, lda1, ka1, ns1;
+  const bf16* b;       // the product's ns0 + ns1 slabs, each [N rows x 64] swizzled
+  int N;               // columns of the product and of out
+  long long M;         // rows
+  int kind;            // kWideFwd or kWideChain
+  const float* bias;   // forward: [N]
+  const float* dc;     // forward, first view layer: [rays, N] f32, ray = row / S
+  int S;
+  const bf16* act;     // chain: the layer below's activation [M, N]; g is kept where > 0
+  const float* gden;   // chain into the trunk: the density cotangent [M] (one channel)
+  const bf16* wden;    // its weights W_den^T [1, N]
+  bf16* out;           // [M, N]
+};
+
+// Element offsets of every matrix in pack_params_wg's stream
+// (fused_level._layout_wg): trunk layer i (its h slabs, then its x slabs
+// for layer 0 and the skip layers), the density head (8 rows a slab), the
+// view layers, the rgb head, then the direction rows [Fd, Wc] row-major.
+struct WideOffsets {
+  long long trunk[64], view[64], den, rgb, dir;
+  int nh, nc, nx;
+};
+
+inline bool wide_offsets(const Params& p, WideOffsets& o) {
+  if (p.D > 64 || p.Dc > 64) return false;
+  o.nh = cdiv(p.W, 64);
+  o.nc = cdiv(p.Wc, 64);
+  o.nx = cdiv(p.KX, 64);
+  long long off = 0;
+  for (int i = 0; i < p.D; ++i) {
+    o.trunk[i] = off;
+    off += (long long)((i == 0 ? 0 : o.nh) + ((i == 0 || i % p.skip == 0) ? o.nx : 0)) * p.W * 64;
+  }
+  o.den = off;     off += (long long)o.nh * kHeadN * 64;
+  o.view[0] = off; off += (long long)o.nh * p.Wc * 64;
+  for (int j = 1; j < p.Dc; ++j) {
+    o.view[j] = off;
+    off += (long long)o.nc * p.Wc * 64;
+  }
+  o.rgb = off;     off += (long long)o.nc * kHeadN * 64;
+  o.dir = off;
+  return true;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+template <int BN>
+__host__ __device__ constexpr int wide_stage_bytes() {
+  return 2 * kTileSlab + BN * kSlabBytes;
+}
+
+template <int BN>
+__host__ __device__ constexpr int wide_gemm_smem() {
+  return kWideStages * wide_stage_bytes<BN>() + 1024;
+}
+
+// Stage kt (64 k-values) of block (m0, n0): A rows m0 .. m0 + 127 into two
+// swizzled [64, 64] slabs (chunk c of row r at c ^ (r & 7)), zeros past M
+// and past the part's ka columns; B rows n0 .. n0 + BN - 1 of the slab as
+// stored (already swizzled), zeros past N.
+template <int BN>
+__device__ __forceinline__ void wide_load(const WideGemm& g, unsigned char* st, int kt,
+                                          long long m0, int n0) {
+  const bool first = kt < g.ns0;
+  const bf16* a = first ? g.a0 : g.a1;
+  const int lda = first ? g.lda0 : g.lda1, ka = first ? g.ka0 : g.ka1;
+  const int k0 = (first ? kt : kt - g.ns0) * 64;
+  for (int idx = threadIdx.x; idx < kWideRows * 8; idx += kWideThreads) {
+    const int r = idx >> 3, c = idx & 7;
+    const bool v = m0 + r < g.M && k0 + c * 8 < ka;
+    cp_async16(st + (r >> 6) * kTileSlab + (r & 63) * kSlabBytes + ((c ^ (r & 7)) << 4),
+               v ? a + (m0 + r) * lda + k0 + c * 8 : a, v);
+  }
+  const bf16* b = g.b + (long long)kt * g.N * 64;
+  unsigned char* bs = st + 2 * kTileSlab;
+  for (int idx = threadIdx.x; idx < BN * 8; idx += kWideThreads) {
+    const int r = idx >> 3, c = idx & 7;
+    const bool v = n0 + r < g.N;
+    cp_async16(bs + r * kSlabBytes + (c << 4), v ? b + (long long)(n0 + r) * 64 + c * 8 : b, v);
+  }
+}
+
+// The forward's epilogue of two columns (n, n + 1) of one row: the
+// direction term of the row's ray (first view layer), the bias, ReLU,
+// rounded to bf16 (the plain version's (acc + dc) + b).
+__device__ __forceinline__ void wide_fwd_pair(const WideGemm& g, long long row, int n, float v0,
+                                              float v1) {
+  if (g.dc) {
+    const float* dr = g.dc + (row / g.S) * g.N + n;
+    v0 += dr[0];
+    v1 += dr[1];
+  }
+  v0 += __ldg(g.bias + n);
+  v1 += __ldg(g.bias + n + 1);
+  *reinterpret_cast<uint32_t*>(g.out + row * g.N + n) = relu_bf16x2(v0, v1);
+}
+
+// The g-chain's epilogue of two columns: g = round(acc), plus (into the
+// trunk) round(round(g_den) w_den) added and rounded, then zero where the
+// layer below's activation is not > 0.
+__device__ __forceinline__ void wide_chain_pair(const WideGemm& g, long long row, int n,
+                                                float v0, float v1) {
+  v0 = __bfloat162float(__float2bfloat16_rn(v0));
+  v1 = __bfloat162float(__float2bfloat16_rn(v1));
+  if (g.gden) {
+    const float gd = __bfloat162float(__float2bfloat16_rn(g.gden[row]));
+    v0 = v0 + __bfloat162float(__float2bfloat16_rn(gd * __bfloat162float(g.wden[n])));
+    v1 = v1 + __bfloat162float(__float2bfloat16_rn(gd * __bfloat162float(g.wden[n + 1])));
+  }
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(g.act + row * g.N + n);
+  __nv_bfloat162 o;
+  o.x = __bfloat162float(a.x) > 0.0f ? __float2bfloat16_rn(v0) : __float2bfloat16_rn(0.0f);
+  o.y = __bfloat162float(a.y) > 0.0f ? __float2bfloat16_rn(v1) : __float2bfloat16_rn(0.0f);
+  *reinterpret_cast<__nv_bfloat162*>(g.out + row * g.N + n) = o;
+}
+
+// One block: rows m0 .. m0 + 127 (blockIdx.x) by columns n0 .. n0 + BN - 1
+// (blockIdx.y) of the product, m64nBNk16 wgmma from the staged tiles.
+template <int BN>
+__global__ void __launch_bounds__(kWideThreads, 1) wide_gemm_kernel(WideGemm g) {
+  extern __shared__ __align__(1024) unsigned char smem_wide[];
+  unsigned char* base = align1024(smem_wide);
+  const long long m0 = (long long)blockIdx.x * kWideRows;
+  const int n0 = blockIdx.y * BN;
+  const int nk = g.ns0 + g.ns1;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  auto stage = [&](int kt) { return base + (kt % kWideStages) * wide_stage_bytes<BN>(); };
+  auto load = [&](int kt) {
+    if (kt < nk) wide_load<BN>(g, stage(kt), kt, m0, n0);
+    cp_async_commit();
+  };
+  float acc[BN / 2];
+  zero_acc<BN>(acc);
+  load(0);
+  load(1);
+  for (int kt = 0; kt < nk; ++kt) {
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    fence_proxy_async();
+    __syncthreads();  // stage kt is in; both warpgroups' products of kt - 2 are done
+    const uint32_t a = opaque(smem_u32(stage(kt)) + wg * kTileSlab);
+    const uint32_t b = opaque(smem_u32(stage(kt)) + 2 * kTileSlab);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma<BN>(acc, sdesc(a + kk * 32), sdesc(b + kk * 32), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    load(kt + 2);
+  }
+  wgmma_wait<0>();
+  fence_acc<BN / 2>(acc);
+  const long long row0 = m0 + wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
+  const int qd = t & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * qd;
+    if (n >= g.N) continue;  // N is a multiple of 32: n + 1 < N too
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + 8 * h;
+      if (row >= g.M) continue;
+      if (g.kind == kWideFwd)
+        wide_fwd_pair(g, row, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      else
+        wide_chain_pair(g, row, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// Launch one layer product: blocks of 128 rows by 256 columns when N is a
+// multiple of 256, else by 128 (the last column block zero-filled past N).
+inline cudaError_t launch_wide_gemm(const WideGemm& g, cudaStream_t st) {
+  if (g.M <= 0) return cudaSuccess;
+  const unsigned rows = (unsigned)((g.M + kWideRows - 1) / kWideRows);
+  cudaError_t err;
+  if (g.N % 256 == 0) {
+    constexpr int smem = wide_gemm_smem<256>();
+    if ((err = cudaFuncSetAttribute(wide_gemm_kernel<256>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+        cudaSuccess)
+      return err;
+    wide_gemm_kernel<256><<<dim3(rows, g.N / 256), kWideThreads, smem, st>>>(g);
+  } else {
+    constexpr int smem = wide_gemm_smem<128>();
+    if ((err = cudaFuncSetAttribute(wide_gemm_kernel<128>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+        cudaSuccess)
+      return err;
+    wide_gemm_kernel<128><<<dim3(rows, cdiv(g.N, 128)), kWideThreads, smem, st>>>(g);
+  }
+  return cudaGetLastError();
+}
+
+// xs[r, :KX] for rows r < rows, the features of level rows row0 + r: the
+// IPE of load_features (mode "mv") or the given features (mode "t"),
+// zero-padded; 64 rows a block through shared memory.
+__global__ void __launch_bounds__(kThreads) wide_features_kernel(Params p, bf16* xs,
+                                                                 long long row0,
+                                                                 long long rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<bf16> sm;
+  sm.H = nullptr; sm.DC = nullptr; sm.OUT = nullptr; sm.WS = nullptr;
+  sm.X = reinterpret_cast<bf16*>(smem_raw);
+  const long long r0 = (long long)blockIdx.x * kBM;
+  const int nvalid = (int)min((long long)kBM, rows - r0);
+  load_features<bf16>(p, sm, row0 + r0, nvalid);
+  __syncthreads();
+  store_rows<bf16>(sm.X, p.ldx, p.KX, xs, r0, nvalid);
+}
+
+// dc[r, n] = d[ray0 + r, :] . W_dir[:, n] (bf16 operands, f32 sum), one
+// block of Wc threads a ray: the first view layer's direction rows.
+__global__ void wide_dir_kernel(Params p, const bf16* wd, float* dc, int ray0) {
+  const int r = blockIdx.x, n = threadIdx.x;
+  const bf16* d = static_cast<const bf16*>(p.d) + (long long)(ray0 + r) * p.Fd;
+  float s = 0.0f;
+  for (int k = 0; k < p.Fd; ++k) s = fmaf(to_f(d[k]), to_f(wd[k * p.Wc + n]), s);
+  dc[(long long)r * p.Wc + n] = s;
+}
+
+// out[row * 4 + col0 + c] = A[row, :K] . w[:, c] + b[c] for c < NC, one warp
+// a row: a head of the forward stream (8 rows a slab, fused_level._wg_head),
+// its columns unswizzled into shared memory first.
+template <int NC>
+__global__ void __launch_bounds__(kThreads) wide_head_kernel(const bf16* A, int K, long long M,
+                                                             const bf16* w, const float* b,
+                                                             int col0, float* out) {
+  __shared__ float ws[NC * kWideMaxW];
+  for (int idx = threadIdx.x; idx < NC * K; idx += kThreads) {
+    const int c = idx / K, k = idx - c * K;
+    ws[idx] = to_f(w[(k >> 6) * kHeadN * 64 + c * 64 + ((((k & 63) >> 3) ^ c) << 3) + (k & 7)]);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (long long row = (long long)blockIdx.x * (kThreads / 32) + warp; row < M;
+       row += (long long)gridDim.x * (kThreads / 32)) {
+    const bf16* a = A + row * K;
+    float s[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) s[c] = 0.0f;
+    for (int k0 = lane * 8; k0 < K; k0 += 256) {
+      const uint4 v = *reinterpret_cast<const uint4*>(a + k0);
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) s[c] = fmaf(to_f(e[q]), ws[c * K + k0 + q], s[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float v = warp_sum(s[c]);
+      if (lane == 0) out[row * 4 + col0 + c] = v + b[c];
+    }
+  }
+}
+
+template <int NC>
+inline cudaError_t launch_wide_head(const bf16* A, int K, long long M, const bf16* w,
+                                    const float* b, int col0, float* out, cudaStream_t st) {
+  if (M <= 0) return cudaSuccess;
+  const long long want = (M + kThreads / 32 - 1) / (kThreads / 32);
+  wide_head_kernel<NC><<<(unsigned)(want < 8192 ? want : 8192), kThreads, 0, st>>>(
+      A, K, M, w, b, col0, out);
+  return cudaGetLastError();
+}
+
+// Rays ray0 + blockIdx.x * 8 .. of a render chunk whose rows start at ray0:
+// composite() on the raw heads [rows, 4] in global memory, one warp a ray.
+__global__ void __launch_bounds__(kThreads) wide_composite_kernel(Params p, const float* heads,
+                                                                  int ray0, int nr) {
+  const int r0 = blockIdx.x * (kThreads / 32);
+  Smem<bf16> sm;
+  sm.H = nullptr; sm.X = nullptr; sm.DC = nullptr; sm.WS = nullptr;
+  sm.OUT = const_cast<float*>(heads) + (long long)r0 * p.S * 4;
+  composite<bf16>(p, sm, ray0 + r0, min(kThreads / 32, nr - r0));
+}
+
+// The forward's products of rows [0, M) of one batch of rays (the train
+// level's whole level, or one render chunk): features in xs [M, KX], the
+// direction term in dc [rays, Wc]; trunk layer i writes h(i), view layer j
+// writes v(j) (h, v: the caller's buffers, [M, W] / [M, Wc]); the density
+// head after the trunk and the rgb head after the view layers go to
+// heads [M, 4].
+template <class H, class V>
+inline cudaError_t wide_forward(const Params& p, const WideOffsets& o, const bf16* xs,
+                                const float* dc, long long M, H h, V v, float* heads,
+                                cudaStream_t st) {
+  const bf16* w = static_cast<const bf16*>(p.w);
+  cudaError_t err;
+  for (int i = 0; i < p.D; ++i) {
+    WideGemm g{};
+    const bool xl = i == 0 || i % p.skip == 0;
+    if (i == 0) {
+      g.a0 = xs; g.lda0 = p.KX; g.ka0 = p.KX; g.ns0 = o.nx;
+    } else {
+      g.a0 = h(i - 1); g.lda0 = p.W; g.ka0 = p.W; g.ns0 = o.nh;
+      if (xl) { g.a1 = xs; g.lda1 = p.KX; g.ka1 = p.KX; g.ns1 = o.nx; }
+    }
+    g.b = w + o.trunk[i]; g.N = p.W; g.M = M; g.kind = kWideFwd;
+    g.bias = p.b + (long long)i * p.W; g.S = p.S; g.out = h(i);
+    if ((err = launch_wide_gemm(g, st)) != cudaSuccess) return err;
+  }
+  if ((err = launch_wide_head<1>(h(p.D - 1), p.W, M, w + o.den, p.b + p.b_den, 3, heads, st)) !=
+      cudaSuccess)
+    return err;
+  for (int j = 0; j < p.Dc; ++j) {
+    WideGemm g{};
+    g.a0 = j == 0 ? h(p.D - 1) : v(j - 1);
+    g.lda0 = g.ka0 = j == 0 ? p.W : p.Wc;
+    g.ns0 = j == 0 ? o.nh : o.nc;
+    g.b = w + o.view[j]; g.N = p.Wc; g.M = M; g.kind = kWideFwd;
+    g.bias = p.b + p.b_v0 + (long long)j * p.Wc; g.S = p.S;
+    g.dc = j == 0 ? dc : nullptr;
+    g.out = v(j);
+    if ((err = launch_wide_gemm(g, st)) != cudaSuccess) return err;
+  }
+  return launch_wide_head<3>(v(p.Dc - 1), p.Wc, M, w + o.rgb, p.b + p.b_rgb, 0, heads, st);
+}
+
+inline cudaError_t launch_wide_features(const Params& p, bf16* xs, long long row0,
+                                        long long rows, cudaStream_t st) {
+  const size_t smem = sizeof(bf16) * kBM * p.ldx;
+  cudaError_t err = cudaFuncSetAttribute(wide_features_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  wide_features_kernel<<<(unsigned)((rows + kBM - 1) / kBM), kThreads, smem, st>>>(p, xs, row0,
+                                                                                   rows);
+  return cudaGetLastError();
+}
+
+// The render route's workspace (byte offsets): features, two activation
+// buffers and the raw heads of one chunk of rays, the direction terms of
+// all rays.
+struct WideRenderLayout {
+  long long rays, xs, h0, h1, heads, dc, total;
+};
+
+inline WideRenderLayout wide_render_layout(int R, int S, int W, int Wc, int KX) {
+  WideRenderLayout l;
+  l.rays = kWideChunkRows / S < 1 ? 1 : kWideChunkRows / S;
+  if (l.rays > R) l.rays = R;
+  const long long rows = l.rays * S;
+  long long off = 0;
+  l.xs = off;    off += round256(rows * KX * 2);
+  l.h0 = off;    off += round256(rows * W * 2);
+  l.h1 = off;    off += round256(rows * W * 2);
+  l.heads = off; off += round256(rows * 16);
+  l.dc = off;    off += round256((long long)R * Wc * 4);
+  l.total = off;
+  return l;
+}
+
+// The render level on the wide route: per chunk of whole rays, features,
+// the layers alternating between two buffers, heads, composite.
+inline cudaError_t launch_render_wide(const Params& p, unsigned char* ws, cudaStream_t st) {
+  WideOffsets o;
+  if (!wide_offsets(p, o)) return cudaErrorInvalidValue;
+  const WideRenderLayout l = wide_render_layout(p.R, p.S, p.W, p.Wc, p.KX);
+  bf16* xs = reinterpret_cast<bf16*>(ws + l.xs);
+  bf16* buf[2] = {reinterpret_cast<bf16*>(ws + l.h0), reinterpret_cast<bf16*>(ws + l.h1)};
+  float* heads = reinterpret_cast<float*>(ws + l.heads);
+  float* dc = reinterpret_cast<float*>(ws + l.dc);
+  const bf16* w = static_cast<const bf16*>(p.w);
+  wide_dir_kernel<<<p.R, p.Wc, 0, st>>>(p, w + o.dir, dc, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // Trunk layer i writes buf[i & 1]; view layer j the other buffer of the
+  // one it reads, so the density head still finds h(D - 1).
+  const int last = (p.D - 1) & 1;
+  auto h = [&](int i) { return buf[i & 1]; };
+  auto v = [&](int j) { return buf[(last + 1 + j) & 1]; };
+  for (int ray0 = 0; ray0 < p.R; ray0 += (int)l.rays) {
+    const int nr = p.R - ray0 < l.rays ? p.R - ray0 : (int)l.rays;
+    const long long rows = (long long)nr * p.S;
+    if ((err = launch_wide_features(p, xs, (long long)ray0 * p.S, rows, st)) != cudaSuccess)
+      return err;
+    if ((err = wide_forward(p, o, xs, dc + (long long)ray0 * p.Wc, rows, h, v, heads, st)) !=
+        cudaSuccess)
+      return err;
+    wide_composite_kernel<<<cdiv(nr, kThreads / 32), kThreads, 0, st>>>(p, heads, ray0, nr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace

@@ -14,6 +14,11 @@ the only mode of the two-pass kernel); rows are ray-major (row = ray * S +
 sample), features in the interleaved [sin3, cos3]-per-frequency order, so
 no weight permutation is needed.
 
+bf16 ``train_level`` and ``render_level`` at net_width 288-1024 run a wide
+route in the same libraries (``csrc/wide_forward.cuh``,
+``csrc/wide_train.cuh``: a GEMM launch a layer through a workspace), on
+the same packed weights.
+
 ``render_level``, ``train_level`` and ``train_level_twopass`` dispatch on
 the device of their inputs: CPU tensors go to the plain version; CUDA
 tensors launch the kernel, or raise. There is no fallback from the card to
@@ -111,16 +116,45 @@ def padded_location_features(cfg: Config) -> int:
     return -(-cfg.location_features // 16) * 16
 
 
-def check_kernel_config(cfg: Config, max_head: int = 0) -> None:
+MAX_WIDTH = 256        # net_width / net_width_condition of every route
+MAX_WIDE_WIDTH = 1024  # net_width of the bf16 train_level / render_level
+
+
+def uses_wide(cfg: Config) -> bool:
+    """Whether ``train_level`` and ``render_level`` take their wide route
+    (``csrc/wide_forward.cuh``, ``csrc/wide_train.cuh``): bf16 at a
+    net_width above 256."""
+    return (compute_dtype(cfg) == torch.bfloat16
+            and cfg.net_width > MAX_WIDTH)
+
+
+def check_kernel_config(cfg: Config, max_head: int = 0,
+                        wide: bool = False) -> None:
     """Raise ValueError for configs the CUDA kernels do not take. The level
     kernels composite 3 rgb / 1 density channels (``max_head`` 0); the MLP
     kernels (``kernels/fused_mlp.py``) take heads of 1 to ``max_head``
-    channels each."""
+    channels each. Widths are multiples of 32 up to 256; ``wide`` (the
+    callers ``train_level`` and ``render_level``) admits net_width up to
+    1024 in bf16."""
     problems = []
-    if cfg.net_width % 32 or not 32 <= cfg.net_width <= 256:
-        problems.append("net_width must be a multiple of 32 in [32, 256]")
-    if cfg.net_width_condition % 32 or not (
-            32 <= cfg.net_width_condition <= cfg.net_width):
+    W, Wc = cfg.net_width, cfg.net_width_condition
+    top = MAX_WIDE_WIDTH if wide else MAX_WIDTH
+    if W % 32 or W < 32:
+        problems.append("net_width must be a multiple of 32 (other widths "
+                        "are not ported yet)")
+    elif W > MAX_WIDE_WIDTH:
+        problems.append(f"net_width above {MAX_WIDE_WIDTH} is not ported yet")
+    elif W > top:
+        problems.append(
+            f"net_width above {MAX_WIDTH} is not ported yet for this kernel "
+            f"(bf16 train_level and render_level take up to {MAX_WIDE_WIDTH})")
+    elif W > MAX_WIDTH and compute_dtype(cfg) != torch.bfloat16:
+        problems.append(f"net_width above {MAX_WIDTH} is not ported yet in "
+                        "float32 (the wide route is bf16)")
+    if Wc > MAX_WIDTH:
+        problems.append(
+            f"net_width_condition above {MAX_WIDTH} is not ported yet")
+    elif Wc % 32 or not 32 <= Wc <= W:
         problems.append(
             "net_width_condition must be a multiple of 32 in [32, net_width]"
         )
@@ -461,8 +495,10 @@ def wg_smem(cfg: Config, S: int, composite: bool):
 
 def check_wg_config(cfg: Config, S: int, composite: bool) -> None:
     """Raise ValueError when the bf16 forward's shared memory does not fit
-    a block (``wg_smem``); nothing to check for f32."""
-    if compute_dtype(cfg) != torch.bfloat16:
+    a block (``wg_smem``); nothing to check for f32, nor on the wide route
+    (``uses_wide``: its shared memory does not grow with the config;
+    ``check_kernel_config`` refuses such widths for the other kernels)."""
+    if compute_dtype(cfg) != torch.bfloat16 or uses_wide(cfg):
         return
     if wg_smem(cfg, S, composite)[0] is None:
         raise ValueError(
@@ -498,8 +534,8 @@ def chain_wg_smem(cfg: Config, dx: bool = False):
 def check_train_wg_config(cfg: Config, S: int) -> None:
     """Raise ValueError when the bf16 train kernel's forward (``wg_smem``)
     or g-chain (``chain_wg_smem``) does not fit a block; nothing to check
-    for f32."""
-    if compute_dtype(cfg) != torch.bfloat16:
+    for f32, nor on the wide route (``uses_wide``)."""
+    if compute_dtype(cfg) != torch.bfloat16 or uses_wide(cfg):
         return
     check_wg_config(cfg, S, False)
     if chain_wg_smem(cfg)[0] is None:
@@ -597,12 +633,13 @@ def _check(name: str, t: torch.Tensor, dtype, shape: Sequence[int],
 
 
 def _check_level_inputs(cfg: Config, xs, d, delta, mode: str,
-                        wg: Optional[bool] = None):
+                        wg: Optional[bool] = None, wide: bool = False):
     """Validate one level's kernel inputs (the level kernels take the
     same); with ``wg`` (True: the render kernel's composite) also the bf16
-    forward's shared memory (``check_wg_config``). Returns the (means,
+    forward's shared memory (``check_wg_config``); ``wide``: the kernel
+    has the wide route (``check_kernel_config``). Returns the (means,
     variances, x) pointers, 0 where absent."""
-    check_kernel_config(cfg)
+    check_kernel_config(cfg, wide=wide)
     if wg is not None:
         check_wg_config(cfg, delta.shape[1], wg)
     if mode not in _MODE_CODE:
@@ -661,6 +698,21 @@ def _library(source=None):
     return fn, weight_layout(lib, "render_level")
 
 
+def _wide_render_library():
+    """(launch, workspace) of the wide route of ``csrc/render_level.cu``."""
+    from nerf_or_nothing_tpu_torch.kernels import build
+
+    lib = build.load("render_level")
+    fn, ws = lib.render_level_wide_launch, lib.render_level_wide_workspace
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [i] + [p] * 10 + [i] * 12 + [f, f, i, p, p]
+        fn.restype = ctypes.c_int
+        ws.argtypes = [i] * 5
+        ws.restype = ctypes.c_longlong
+    return fn, ws
+
+
 def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
                       white_bkgd: bool, mode: str,
                       packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -670,8 +722,11 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     result when the caller already has it; ``source`` is another version
     of ``csrc/render_level.cu`` with the same C interface, to time versions
     in turns (``compare_kernels.py``; ``packed`` then in the layout that
-    version reads, ``weight_layout``)."""
-    ptrs = _check_level_inputs(cfg, xs, d, delta, mode, wg=True)
+    version reads, ``weight_layout``). bf16 at net_width 288-1024 runs the
+    wide route (``uses_wide``, ``render_level_wide_launch``) with a
+    workspace allocated here."""
+    wide = source is None
+    ptrs = _check_level_inputs(cfg, xs, d, delta, mode, wg=True, wide=wide)
     dt = compute_dtype(cfg)
     R, S = delta.shape
     lx, fd = cfg.location_features, cfg.direction_features
@@ -690,17 +745,25 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     _check("packed biases", b_flat, torch.float32, (packed_sizes(cfg)[1],),
            device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(
-        _DTYPE_CODE[dt], _MODE_CODE[mode], *ptrs,
-        d.data_ptr(), delta.data_ptr(), w_flat.data_ptr(),
-        b_flat.data_ptr(), comp.data_ptr(), acc.data_ptr(),
-        weights.data_ptr(),
-        R, S, cfg.net_depth, cfg.net_width, cfg.skip_layer,
-        cfg.net_width_condition, cfg.net_depth_condition, lx,
-        padded_location_features(cfg), fd, cfg.min_deg_point,
-        int(cfg.fast_ipe), float(cfg.density_bias), float(cfg.rgb_padding),
-        int(white_bkgd), stream,
-    )
+    shape = (R, S, cfg.net_depth, cfg.net_width, cfg.skip_layer,
+             cfg.net_width_condition, cfg.net_depth_condition, lx,
+             padded_location_features(cfg), fd, cfg.min_deg_point,
+             int(cfg.fast_ipe), float(cfg.density_bias),
+             float(cfg.rgb_padding), int(white_bkgd))
+    outs = (d.data_ptr(), delta.data_ptr(), w_flat.data_ptr(),
+            b_flat.data_ptr(), comp.data_ptr(), acc.data_ptr(),
+            weights.data_ptr())
+    if wide and uses_wide(cfg):
+        fn, workspace_bytes = _wide_render_library()
+        workspace = torch.empty(
+            (workspace_bytes(R, S, cfg.net_width, cfg.net_width_condition,
+                             padded_location_features(cfg)),),
+            dtype=torch.uint8, device=device)
+        err = fn(_MODE_CODE[mode], *ptrs, *outs, *shape, workspace.data_ptr(),
+                 stream)
+    else:
+        err = fn(_DTYPE_CODE[dt], _MODE_CODE[mode], *ptrs, *outs, *shape,
+                 stream)
     if err != 0:
         raise RuntimeError(f"render_level kernel launch failed: CUDA error {err}")
     render_level.launches += 1
@@ -973,10 +1036,11 @@ def _train_library(name: str, source=None):
 
 def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
                   delta, pixels, g_scale, white_bkgd: bool, mode: str,
-                  packed, source=None):
+                  packed, source=None, wide: bool = False):
     """Check the inputs, launch ``csrc/<name>.cu`` (or ``source``) on the
-    current stream and add one to ``counted.launches``."""
-    ptrs = _check_level_inputs(cfg, xs, d, delta, mode)
+    current stream and add one to ``counted.launches``; ``wide``: the
+    kernel has the wide route (``train_level``)."""
+    ptrs = _check_level_inputs(cfg, xs, d, delta, mode, wide=wide)
     dt = compute_dtype(cfg)
     R, S = delta.shape
     N = R * S
@@ -1032,13 +1096,17 @@ def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
     result when the caller already has it (once per step for both
     levels); ``source`` is another version of ``csrc/train_level.cu`` with
     the same C interface, to time versions in turns (``packed`` then in
-    the layout that version reads). Configs whose shared memory the bf16
-    kernels cannot take raise ValueError before anything runs."""
-    if source is None:
+    the layout that version reads). bf16 at net_width 288-1024 runs the
+    wide route (``uses_wide``). Configs the kernel does not take, or whose
+    shared memory the bf16 kernels cannot take, raise ValueError before
+    anything runs."""
+    wide = source is None
+    check_kernel_config(cfg, wide=wide)
+    if wide:
         check_train_wg_config(cfg, delta.shape[1])
     return _launch_train("train_level", train_level, params, cfg, xs, d,
                          delta, pixels, g_scale, white_bkgd, mode, packed,
-                         source)
+                         source, wide=wide)
 
 
 def train_level_twopass_cuda(params: Params, cfg: Config, x, d, delta,
@@ -1050,7 +1118,9 @@ def train_level_twopass_cuda(params: Params, cfg: Config, x, d, delta,
     with db; then the dW products), on ``train_level``'s bf16 passes;
     ``packed`` is ``pack_train_level``'s result, ``source`` another version
     of the source, as for ``train_level_cuda``. Configs whose shared memory
-    the bf16 passes cannot take raise ValueError before anything runs."""
+    the bf16 passes cannot take raise ValueError before anything runs
+    (net_width above 256 too: the two-pass kernel has no wide route)."""
+    check_kernel_config(cfg)
     if source is None:
         check_train_wg_config(cfg, delta.shape[1])
     return _launch_train("train_level_twopass", train_level_twopass, params,

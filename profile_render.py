@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the render path's time goes on one card: a torch.profiler trace of
-one 400x400 view at Config() through ``eval.render_image``.
+one 400x400 view at Config() through ``eval.render_image``, with the
+model flags given.
 
     python3 profile_render.py
+    python3 profile_render.py --net-width=1024   # the wide route
 
 Prints one JSON line: the view's wall time (host clock, synchronised;
 also without the profiler), the device time summed over all kernels and
 copies, its share of the wall time and the rest (the device idle share),
-the render kernel's device time in all and per launch (bf16: the wgmma
-forward of ``csrc/forward_wg.cuh``), and the top device events with their
-counts.
+the render kernel's device time in all and per wrapper call (bf16: the
+wgmma forward of ``csrc/forward_wg.cuh``; at net_width 288-1024 the
+launches of ``csrc/wide_forward.cuh``), and the top device events with
+their counts.
 """
 
 from __future__ import annotations
@@ -19,8 +22,14 @@ import sys
 import tempfile
 import time
 
+# Device kernels of one render_level call: the narrow kernels' names hold
+# "render_level"; the wide route's are its own.
+RENDER_KERNELS = ("render_level", "wide_features_kernel", "wide_dir_kernel",
+                  "wide_gemm_kernel", "wide_head_kernel",
+                  "wide_composite_kernel")
 
-def main() -> int:
+
+def main(argv) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -28,16 +37,17 @@ def main() -> int:
         print("profile_render: no CUDA device", file=sys.stderr)
         return 1
     from chip_smoke import nvidia_smi_line
-    from nerf_or_nothing_tpu_torch.config import Config
+    from nerf_or_nothing_tpu_torch.config import Config, parse_flags
     from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
     from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
     from nerf_or_nothing_tpu_torch.models.mlp import init_mlp
     from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
 
     size = 400
     scene = tempfile.mkdtemp(prefix="profile_render_")
     write_scene(scene, n_train=1, n_test=1, size=size)
-    cfg = Config(data_dir=scene)
+    cfg = parse_flags(argv, Config(data_dir=scene))
     device = torch.device("cuda")
     params = init_mlp(torch.Generator().manual_seed(0), cfg, device=device)
     with create_dataset("test", scene, cfg) as ds:
@@ -53,11 +63,13 @@ def main() -> int:
     t0 = time.perf_counter()
     view()
     plain_wall = time.perf_counter() - t0
+    calls = fl.render_level.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         view()
         wall = time.perf_counter() - t0
+    calls = fl.render_level.launches - calls
 
     # Device-side events only (kernels, copies): the aten ops that launch
     # them report the same time again, so they are left out by name.
@@ -73,17 +85,18 @@ def main() -> int:
             rows.append((ev.key, dev_us, ev.count))
     rows.sort(key=lambda r: -r[1])
     device_s = sum(r[1] for r in rows) / 1e6
-    kernel_s = sum(r[1] for r in rows if "render_level" in r[0]) / 1e6
-    kernel_n = sum(r[2] for r in rows if "render_level" in r[0])
+    mine = [r for r in rows if any(k in r[0] for k in RENDER_KERNELS)]
+    kernel_s = sum(r[1] for r in mine) / 1e6
     print(json.dumps({
-        "view": [size, size], "config": "Config()",
+        "view": [size, size], "config": "Config()", "flags": argv,
         "wall_s": wall, "wall_s_unprofiled": plain_wall,
         "device_busy_s": device_s,
         "device_busy_share": device_s / wall,
         "device_idle_share": 1.0 - device_s / wall,
         "render_level_s": kernel_s,
-        "render_level_launches": kernel_n,
-        "render_level_ms_per_launch": kernel_s * 1e3 / max(kernel_n, 1),
+        "render_level_launches": calls,
+        "device_launches": sum(r[2] for r in mine),
+        "render_level_ms_per_launch": kernel_s * 1e3 / max(calls, 1),
         "other_device_s": device_s - kernel_s,
         "top": [{"name": n[:80], "device_ms": us / 1e3, "count": c}
                 for n, us, c in rows[:15]],
@@ -93,4 +106,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -804,6 +804,187 @@ def test_wg_backward_configs_raise_before_launch_on_cuda():
     assert (fm.mlp_bwd.launches, fl.train_level_twopass.launches) == before
 
 
+WIDE = dict(net_depth=8, skip_layer=4, net_width_condition=128)
+
+
+def check_render(cfg, R, mode, white_bkgd, dev, seed=1):
+    """``fused_level_render`` on the card (one ``render_level`` launch)
+    against ``render_level_plain``."""
+    S = cfg.num_samples
+    params = tmlp.init_mlp(torch.Generator().manual_seed(seed), cfg, device=dev)
+    means, covs, dir_enc, t_vals, dirs = level_inputs(R, S, seed, dev)
+    dt = tmlp.compute_dtype(cfg)
+    if mode == "mv":
+        xs, x, kw = (means.reshape(-1, 3), covs.reshape(-1, 3)), None, dict(
+            means_covs=(means, covs))
+    else:
+        x = integrated_pos_enc((means, covs), cfg.min_deg_point,
+                               cfg.max_deg_point, fast=True)
+        xs, kw = x.reshape(R * S, -1).to(dt), {}
+    before = fl.render_level.launches
+    out = fl.fused_level_render(params, cfg, x, dir_enc, t_vals, dirs,
+                                white_bkgd, **kw)
+    torch.cuda.synchronize()
+    assert fl.render_level.launches == before + 1
+    ref = fl.render_level_plain(params, cfg, xs, dir_enc.to(dt),
+                                interval_lengths(t_vals, dirs), white_bkgd,
+                                mode)
+    atol, rtol = BANDS[cfg.compute_dtype]
+    for a, b in zip(out, ref):
+        assert bool(torch.isfinite(a).all())
+        assert normalized_err(a, b, atol, rtol) < 1.0, (cfg.net_width, mode)
+
+
+@pytest.mark.parametrize("width", [288, 512, 1024])
+def test_wide_levels_match_plain_on_cuda(width):
+    """The wide route (bf16, net_width 288-1024): ``train_level`` and
+    ``render_level`` in both modes, S=128 and S=64 with two view layers
+    at net_width_condition 256, ragged masked rays, against the plain
+    versions."""
+    dev = cuda_device()
+    for kw, R in ((dict(), 37), (dict(num_samples=64, net_depth_condition=2,
+                                      net_width_condition=256), 21)):
+        cfg = Config(**dict(WIDE, net_width=width, **kw))
+        assert fl.uses_wide(cfg)
+        for mode in ("mv", "t"):
+            check_train(cfg, R, mode, mode == "mv", dev)
+            check_render(cfg, R, mode, mode == "t", dev)
+
+
+def test_wide_train_level_dw_bit_equal_on_cuda():
+    """No atomics on the wide route: two launches at net_width 1024 give
+    the same bits."""
+    dev = cuda_device()
+    cfg = Config(net_width=1024)
+    R, S = 200, cfg.num_samples
+    params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg, device=dev)
+    means, covs, dir_enc, t_vals, dirs, pixels, g_scale = train_inputs(
+        R, S, 2, dev)
+    a, b = (fl.fused_level_train(params, cfg, None, dir_enc, t_vals, dirs,
+                                 pixels, g_scale, True,
+                                 means_covs=(means, covs)) for _ in range(2))
+    for (wa, ba), (wb, bb) in zip(a[3], b[3]):
+        assert torch.equal(wa, wb) and torch.equal(ba, bb)
+    for ta, tb in zip(a[:3], b[:3]):
+        assert torch.equal(ta, tb)
+
+
+def test_wide_graph_steps_equal_eager_steps_on_cuda():
+    """At Config(net_width=1024): six multi-step steps (two calls of
+    three) against six eager steps from the same state on the same
+    batches, bit-equal, two ``train_level`` launches a step."""
+    from nerf_or_nothing_tpu_torch import train as ttrain
+    from nerf_or_nothing_tpu_torch.kernels import launch_counts
+
+    dev = cuda_device()
+    cfg = Config(net_width=1024, batch_size=256, lr_delay_steps=0)
+    batches = host_batches(6, 256, 12)
+    eager = ttrain.init_train_state(cfg, dev)
+    step_fn = ttrain.make_train_step(cfg)
+    for rays, pixels in batches:
+        eager, last = step_fn(eager, *ttrain.batch_to_device(dev, rays,
+                                                              pixels))
+    graph = ttrain.init_train_state(cfg, dev)
+    multi = ttrain.make_multi_step(cfg)
+    before = launch_counts()
+    graph, _ = multi(graph, batches[:3])
+    graph, stats = multi(graph, batches[3:])
+    grown = {k: v - before[k] for k, v in launch_counts().items()}
+    steps = 6 + ttrain.WARMUP_STEPS
+    assert grown == {k: 2 * steps if k == "train_level" else 0
+                     for k in grown}
+    assert graph.step == eager.step == 6
+    for name in ("loss", "losses", "grad_norm", "psnr"):
+        assert torch.equal(getattr(stats, name), getattr(last, name)), name
+    for tree_a, tree_b in ((graph.params, eager.params),
+                           (graph.mu, eager.mu), (graph.nu, eager.nu)):
+        for (wa, ba), (wb, bb) in zip(tree_a, tree_b):
+            assert torch.equal(wa, wb) and torch.equal(ba, bb)
+
+
+def test_wide_route_packs_once_on_cuda(monkeypatch):
+    """At net_width 512 a train step packs once for both levels
+    (``pack_train``) and a view's render function once for all chunks
+    (``pack_forward``): the wide route reads the narrow route's slab
+    streams."""
+    from nerf_or_nothing_tpu_torch import train as ttrain
+    from nerf_or_nothing_tpu_torch.eval import make_render_fn, render_image
+
+    dev = cuda_device()
+    cfg = tiny_config(**dict(SMALL, net_width=512, net_width_condition=128,
+                             num_levels=2, batch_size=40, randomized=False))
+    assert fl.uses_wide(cfg)
+    state = ttrain.init_train_state(cfg, dev)
+    train_calls, fwd_calls = [], []
+    pack, pack_fwd = fl.pack_train, fl.pack_forward
+    monkeypatch.setattr(fl, "pack_train",
+                        lambda *a: train_calls.append(pack(*a))
+                        or train_calls[-1])
+    monkeypatch.setattr(fl, "pack_forward",
+                        lambda *a: fwd_calls.append(1) or pack_fwd(*a))
+    (rays, pixels), = host_batches(1, 40, 5)
+    before = (fl.train_level.launches, fl.render_level.launches)
+    state, stats = ttrain.make_train_step(cfg)(
+        state, *ttrain.batch_to_device(dev, rays, pixels))
+    assert np.isfinite(float(stats.loss))
+    assert len(train_calls) == 1
+    assert (train_calls[0][0].numel(), train_calls[0][2].numel()) == (
+        fl.train_weight_sizes(cfg, "wg"))
+    render_fn = make_render_fn(cfg)
+    render_image(render_fn, state.params, rays, 40, 1, chunk=16, device=dev)
+    assert len(fwd_calls) == 1
+    assert (fl.train_level.launches - before[0],
+            fl.render_level.launches - before[1]) == (2, 6)
+
+
+def test_wide_unported_routes_raise_before_launch_on_cuda():
+    """On CUDA tensors, what the wide route does not take raises ValueError
+    naming what is not ported before any launch: f32 levels at net_width
+    512, ``mlp_fwd`` / ``mlp_bwd`` / ``train_level_twopass`` at 512,
+    net_width_condition 288, net_width 1056."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+    from nerf_or_nothing_tpu_torch.kernels import launch_counts
+
+    dev = cuda_device()
+    R = 2
+    before = launch_counts()
+    for kw, routes in (
+            (dict(net_width=512, compute_dtype="float32"),
+             ("train", "render", "twopass", "fwd", "bwd")),
+            (dict(net_width=512), ("twopass", "fwd", "bwd")),
+            (dict(net_width=512, net_width_condition=288),
+             ("train", "render", "twopass", "fwd", "bwd")),
+            (dict(net_width=1056), ("train", "render", "twopass", "fwd",
+                                    "bwd"))):
+        cfg = Config(**dict(SMALL, **kw))
+        S = cfg.num_samples
+        params = tmlp.init_mlp(torch.Generator().manual_seed(0),
+                               Config(**SMALL), device=dev)
+        dt = tmlp.compute_dtype(cfg)
+        x = torch.zeros(R * S, cfg.location_features, dtype=dt, device=dev)
+        d = torch.zeros(R, 27, dtype=dt, device=dev)
+        delta = torch.ones(R, S, device=dev)
+        pixels = torch.zeros(R, 3, device=dev)
+        g_scale = torch.ones(R, 1, device=dev)
+        g_rgb = torch.zeros(R * S, 3, device=dev)
+        g_den = torch.zeros(R * S, 1, device=dev)
+        calls = {
+            "train": lambda: fl.train_level_cuda(params, cfg, x, d, delta,
+                                                 pixels, g_scale, True, "t"),
+            "render": lambda: fl.render_level_cuda(params, cfg, x, d, delta,
+                                                   True, "t"),
+            "twopass": lambda: fl.train_level_twopass_cuda(
+                params, cfg, x, d, delta, pixels, g_scale, True),
+            "fwd": lambda: fm.mlp_fwd_cuda(params, cfg, x, d),
+            "bwd": lambda: fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den,
+                                           True),
+        }
+        for name in routes:
+            with pytest.raises(ValueError, match="not ported yet"):
+                calls[name]()
+    assert launch_counts() == before
+
+
 def host_batches(n_batches, R, seed):
     """Seeded numpy ray batches (non-uniform loss_mult) and pixels."""
     from nerf_or_nothing_tpu_torch.rays import Rays
