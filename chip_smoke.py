@@ -51,21 +51,31 @@ Phases, each printing one JSON line:
            the test render and of ``run eval``, exact), the checkpoint
            restored by ``run eval``, train rays/s and render rays/s of the
            test view from the trained checkpoint beside the f32 bounds;
-  wide     the wide route of the bf16 level kernels (net_width 288-1024,
+  wide     the wide route of every bf16 kernel (net_width 288-1024,
            csrc/wide_forward.cuh, csrc/wide_train.cuh) at
            Config(net_width=W), W = 288, 512 and 1024: train_level at
            R=1024 x S=128 in modes "t" and "mv" (dW/db bit-equal over two
-           launches) and render_level at R=16384 x S=128 in mode "mv" (its
-           plain version over chunks of 2048 rays) against their plain
-           versions, each beside its bound and the layer products as bf16
-           torch.matmul (matmul_ms, a yardstick); then ``run train
-           --net-width=1024`` for 20 eager steps through ``train_path``
-           (launches exact, losses finite, ``run eval`` restores the
-           checkpoint, train rays/s beside the bound, one step against the
-           CPU), 16 graph steps (two multi-step calls of 8) from its
-           checkpoint bit-equal to 16 eager steps on the same batches with
-           exact launches, graph and render rays/s beside the bounds, the
-           peak of torch.cuda.max_memory_allocated;
+           launches), render_level at R=16384 x S=128 in mode "mv",
+           mlp_fwd at R=16384 and R=1024 (the plain versions over chunks
+           of 2048 rays at R=16384), mlp_bwd at R=1024 with and without
+           input_grads (dW/db/dX/dD bit-equal over two launches) and
+           train_level_twopass at R=1024 (bit-equal over two launches and
+           to train_level) against their plain versions, each beside its
+           bound and the layer products as bf16 torch.matmul (matmul_ms, a
+           yardstick); then ``run train --net-width=1024`` for 20 eager
+           steps through ``train_path`` (launches exact, losses finite,
+           ``run eval`` restores the checkpoint, train rays/s beside the
+           bound, one step against the CPU), 16 graph steps (two
+           multi-step calls of 8) from its checkpoint bit-equal to 16
+           eager steps on the same batches with exact launches, graph and
+           render rays/s beside the bounds, the peak of
+           torch.cuda.max_memory_allocated; then, 10 steps each through
+           ``train_path``, ``run train --net-width=1024 --fuse-level=false
+           --stop-level-grad=false`` (mlp_fwd and mlp_bwd with and without
+           input_grads; its ``run eval`` and a timed view through the
+           chunked wide mlp_fwd, render rays/s beside the bound) and the
+           Multicam run with fl_variant=twopass at --net-width=1024
+           (train_level_twopass);
   mlp_kernel  the MLP kernels against their plain versions: mlp_fwd at
            Config() width, mode "t" features, R=16384 x S=128 in bf16 and
            f32 and R=1024 x S=128 in bf16, and a narrow ragged config with
@@ -189,8 +199,9 @@ Then the ``kernels`` line (each kernel's launches: its path's and the
 wide phase's, plus the mesh phase's in the world-1 child's sharded steps
 and rank 0 of the pair, the tensor phase's ``run train
 --mesh-shape=1,1``, the recovery phase's two runs that end and the
-quality phase's; under "wide" the W=1024 case of train_level and
-render_level), the card's name and power limit, and as the last line
+quality phase's; under "wide" the W=1024 case of each kernel and the
+wide phase's launches, which the total includes), the card's name and
+power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: non-zero exit and no
 ``ok`` line. Without a CUDA device the script exits 1 at once.
 """
@@ -244,6 +255,9 @@ WIDE_ARGS = ("--net-width=1024",)
 WIDE_STEPS = 20  # eager steps of the wide phase's run train
 WIDE_GRAPH_CALLS = 2  # multi-step calls of GRAPH_K steps against eager steps
 WIDE_PLAIN_RAYS = 2048  # rays of one call of the wide render's plain version
+WIDE_MLP_STEPS = 10  # run train steps of each wide path through the MLP /
+WIDE_MLP_ARGS = ("--net-width=1024", *FULL_GRAD_ARGS)  # two-pass kernels
+WIDE_TWOPASS_ARGS = (*MULTICAM_ARGS, "--net-width=1024")
 GRAPH_K = 8  # steps a multi-step call in the graph phase
 TURN_STEPS = 16  # steps a turn of the graph phase's rays/s
 GRAPH_CASES = (("Config()", ()), ("multicam_twopass", MULTICAM_ARGS),
@@ -470,7 +484,11 @@ def check_pairs(name, pairs, dtype):
     return errs, max_abs
 
 
-def mlp_fwd_case(name, cfg, R, peaks, device, seed=0):
+def mlp_fwd_case(name, cfg, R, peaks, device, seed=0, phase="mlp_kernel",
+                 plain_rays=None):
+    """``mlp_fwd`` against ``mlp_fwd_plain``; with ``plain_rays`` the plain
+    version runs over chunks of that many rays (each row's heads depend on
+    its own inputs only)."""
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
@@ -484,7 +502,12 @@ def mlp_fwd_case(name, cfg, R, peaks, device, seed=0):
         return fm.mlp_fwd_cuda(params, cfg, x, d, packed=packed)
 
     def plain():
-        return fm.mlp_fwd_plain(params, cfg, x, d, S)
+        if plain_rays is None:
+            return fm.mlp_fwd_plain(params, cfg, x, d, S)
+        outs = [fm.mlp_fwd_plain(params, cfg, x[r0 * S:(r0 + plain_rays) * S],
+                                 d[r0:r0 + plain_rays], S)
+                for r0 in range(0, R, plain_rays)]
+        return tuple(torch.cat(t) for t in zip(*outs))
 
     out_k = kernel()
     torch.cuda.synchronize()
@@ -500,9 +523,9 @@ def mlp_fwd_case(name, cfg, R, peaks, device, seed=0):
         cfg, R, S, mlp_fwd_flops(cfg, R, S), mlp_bytes(cfg, R, S), out_bytes,
         peaks)
     res = {
-        "phase": "mlp_kernel", "kernel": "mlp_fwd", "case": name,
-        "dtype": cfg.compute_dtype, "R": R, "S": S,
-        "heads": [cfg.num_rgb_channels, cfg.num_density_channels],
+        "phase": phase, "kernel": "mlp_fwd", "case": name,
+        "dtype": cfg.compute_dtype, "net_width": cfg.net_width, "R": R,
+        "S": S, "heads": [cfg.num_rgb_channels, cfg.num_density_channels],
         "band": list(BANDS[cfg.compute_dtype]), "normalized_err": errs,
         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "flop": flops, "bytes": nbytes,
@@ -516,7 +539,7 @@ def mlp_fwd_case(name, cfg, R, peaks, device, seed=0):
 
 
 def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
-                 bit_check=False):
+                 bit_check=False, phase="mlp_kernel"):
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
@@ -563,9 +586,9 @@ def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
         cfg, R, S, mlp_bwd_flops(cfg, R, S, input_grads), in_bytes, out_bytes,
         peaks)
     res = {
-        "phase": "mlp_kernel", "kernel": "mlp_bwd", "case": name,
-        "dtype": cfg.compute_dtype, "R": R, "S": S,
-        "input_grads": input_grads, "band": list(BANDS[cfg.compute_dtype]),
+        "phase": phase, "kernel": "mlp_bwd", "case": name,
+        "dtype": cfg.compute_dtype, "net_width": cfg.net_width, "R": R,
+        "S": S, "input_grads": input_grads, "band": list(BANDS[cfg.compute_dtype]),
         "worst": max(errs, key=errs.get), "normalized_err": errs,
         "max_abs_err": max_abs, "bit_equal": bit_equal, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -801,7 +824,9 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
     """One train kernel (``train_level_cuda``, or with ``twopass``
     ``train_level_twopass_cuda``, mode "t") against ``level_train_plain``;
     with ``twopass`` also ``train_level_cuda`` on the same inputs, its
-    error against the two-pass kernel and its time."""
+    error against the two-pass kernel, whether the two give the same bits
+    (the bf16 routes run the same launches: required in bf16) and its
+    time."""
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
@@ -851,10 +876,13 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
     plain_ms = median_ms(plain, reps=5, warmup=1)
     b_ms, b_by, flops, nbytes = train_bound_ms(cfg, R, cfg.num_samples, mode,
                                                peaks)
-    one_pass_vs = one_pass_ms = turns = None
+    one_pass_vs = one_pass_ms = turns = same_bits = None
     if twopass:
-        one_pass_vs, _ = check_pairs(name, level_pairs(one_pass(), out_k),
+        out_one = one_pass()
+        one_pass_vs, _ = check_pairs(name, level_pairs(out_one, out_k),
                                      cfg.compute_dtype)
+        same_bits = all(torch.equal(a, b) for _, a, b in
+                        level_pairs(out_one, out_k))
         # In turns: two-pass (above), one-pass, one-pass, two-pass.
         turns = {"train_level": [median_ms(one_pass), median_ms(one_pass)],
                  "train_level_twopass": [ms, median_ms(two_pass)]}
@@ -871,6 +899,7 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
         "bound_ms": b_ms, "bound_by": b_by, "flop": flops, "bytes": nbytes,
         "bound_share": b_ms / ms, "train_level_ms": one_pass_ms,
         "ms_in_turns": turns, "train_level_vs_twopass": one_pass_vs,
+        "equal_to_train_level": same_bits,
     }
     res.update(fma_bound(res, peaks))
     emit(res)
@@ -881,6 +910,9 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
                              f"({res['worst']})")
     if bit_check and not bit_equal:
         raise AssertionError(f"{name}: two launches gave different dW")
+    if twopass and cfg.compute_dtype == "bfloat16" and not same_bits:
+        raise AssertionError(f"{name}: bf16 train_level_twopass differs from "
+                             "train_level")
     return res
 
 
@@ -1159,11 +1191,12 @@ def write_checkpoint(ckpt_dir: str, params) -> str:
     return path
 
 
-def render_rate(cfg, params, scene: str, size: int, peaks, device):
+def render_rate(cfg, params, scene: str, size: int, peaks, device,
+                views: int = 3, warmup: int = 1):
     """Steady-state render rays/s of test view 0 of ``scene`` through
-    ``render_image`` (the median of 3 host-clock views, each synchronised,
-    after one of warm-up) beside the bound of the compute type; the view's
-    rays too."""
+    ``render_image`` (the median of ``views`` host-clock views, each
+    synchronised, after ``warmup`` of warm-up) beside the bound of the
+    compute type; the view's rays too."""
     import numpy as np
     import torch
 
@@ -1173,11 +1206,12 @@ def render_rate(cfg, params, scene: str, size: int, peaks, device):
     render_fn = make_render_fn(cfg)
     with create_dataset("test", scene, cfg) as ds:
         rays, _ = ds.image_rays(0)
-    render_image(render_fn, params, rays, size, size,
-                 cfg.render_chunk_size, device=device)
+    for _ in range(warmup):
+        render_image(render_fn, params, rays, size, size,
+                     cfg.render_chunk_size, device=device)
     torch.cuda.synchronize()
     times = []
-    for _ in range(3):
+    for _ in range(views):
         t0 = time.perf_counter()
         rgb, _, acc = render_image(render_fn, params, rays, size, size,
                                    cfg.render_chunk_size, device=device)
@@ -1185,7 +1219,7 @@ def render_rate(cfg, params, scene: str, size: int, peaks, device):
         times.append(time.perf_counter() - t0)
     if not (np.isfinite(rgb).all() and np.isfinite(acc).all()):
         raise AssertionError("non-finite render")
-    rays_per_s = size * size / sorted(times)[1]
+    rays_per_s = size * size / sorted(times)[len(times) // 2]
     flop_per_ray = cfg.num_levels * level_flops(cfg, 1, cfg.num_samples)
     bound_rays_per_s = dtype_peak(cfg, peaks) / flop_per_ray
     return {"render_rays_per_s": rays_per_s, "render_image_s": times,
@@ -1350,34 +1384,112 @@ def wide_kernels(peaks, device) -> dict:
     ``Config(net_width=W)`` for W in ``WIDE_WIDTHS``: ``train_level`` at
     R=1024 x S=128 in modes "t" and "mv" (dW/db bit-equal over two
     launches), ``render_level`` at R=16384 x S=128 in mode "mv" (its plain
-    version over chunks of ``WIDE_PLAIN_RAYS`` rays); beside each, the
-    layer products as bf16 ``torch.matmul`` (``matmul_ms``, a yardstick).
-    Returns the W=1024 cases by kernel."""
+    version over chunks of ``WIDE_PLAIN_RAYS`` rays), ``mlp_fwd`` at
+    R=16384 (plain over chunks) and R=1024, ``mlp_bwd`` at R=1024 with and
+    without input_grads (dW/db/dX/dD bit-equal over two launches) and
+    ``train_level_twopass`` at R=1024 (bit-equal over two launches and to
+    ``train_level``, both timed in turns); beside each, the layer products
+    as bf16 ``torch.matmul`` (``matmul_ms``, a yardstick). Returns the
+    W=1024 cases by kernel."""
     from nerf_or_nothing_tpu_torch.config import Config
 
     out = {}
+
+    def yardstick(res, ms):
+        res["matmul_ms"] = ms
+        emit({"phase": "wide", "case": res["case"], "kernel": res["kernel"],
+              "matmul_ms": ms})
+        return res
+
     for W in WIDE_WIDTHS:
         cfg = Config(net_width=W)
         mm_train = matmul_ms(cfg, 1024, device)
+        mm_render = matmul_ms(cfg, 16384, device)
         for mode, seed in (("t", 21), ("mv", 22)):
-            res = train_kernel_case(
+            res = yardstick(train_kernel_case(
                 f"wide_w{W}_r1024_s128_{mode}",
                 cfg.replace(fuse_ipe=mode == "mv"), 1024, mode, True, peaks,
-                device, seed=seed, bit_check=True, phase="wide")
-            res["matmul_ms"] = mm_train
-            emit({"phase": "wide", "case": res["case"],
-                  "matmul_ms": mm_train})
+                device, seed=seed, bit_check=True, phase="wide"), mm_train)
             if W == 1024 and mode == "t":
                 out["train_level"] = res
-        res = kernel_case(f"wide_w{W}_r16384_s128_mv", cfg, 16384, "mv", True,
-                          peaks, device, seed=23, phase="wide",
-                          plain_rays=WIDE_PLAIN_RAYS)
-        res["matmul_ms"] = matmul_ms(cfg, 16384, device)
-        emit({"phase": "wide", "case": res["case"],
-              "matmul_ms": res["matmul_ms"]})
+        res = yardstick(kernel_case(
+            f"wide_w{W}_r16384_s128_mv", cfg, 16384, "mv", True, peaks,
+            device, seed=23, phase="wide", plain_rays=WIDE_PLAIN_RAYS),
+            mm_render)
         if W == 1024:
             out["render_level"] = res
+        res = yardstick(mlp_fwd_case(
+            f"wide_w{W}_r16384_s128", cfg, 16384, peaks, device, seed=24,
+            phase="wide", plain_rays=WIDE_PLAIN_RAYS), mm_render)
+        if W == 1024:
+            out["mlp_fwd"] = res
+        yardstick(mlp_fwd_case(f"wide_w{W}_r1024_s128", cfg, 1024, peaks,
+                               device, seed=25, phase="wide"), mm_train)
+        for input_grads, seed in ((True, 26), (False, 27)):
+            res = yardstick(mlp_bwd_case(
+                f"wide_w{W}_r1024_s128" + ("_dx" if input_grads else ""), cfg,
+                1024, input_grads, peaks, device, seed=seed, bit_check=True,
+                phase="wide"), mm_train)
+            if W == 1024 and input_grads:
+                out["mlp_bwd"] = res
+        res = yardstick(train_kernel_case(
+            f"wide_w{W}_r1024_s128_t_twopass", cfg, 1024, "t", True, peaks,
+            device, seed=28, bit_check=True, twopass=True, multicam=True,
+            phase="wide"), mm_train)
+        if W == 1024:
+            out["train_level_twopass"] = res
     return out
+
+
+def wide_mlp_paths(peaks, device, scene: str, size: int = 400):
+    """The wide route of the MLP and two-pass kernels on their paths at
+    ``net_width=1024`` through ``train_path`` (``WIDE_MLP_STEPS`` steps
+    each, launches exact, losses finite, the checkpoint restored by ``run
+    eval``, train rays/s beside the bound, one step against the CPU): (1)
+    ``run train --net-width=1024 --fuse-level=false
+    --stop-level-grad=false`` (per step 2 ``mlp_fwd`` and 2 ``mlp_bwd``,
+    level 1 with input_grads) and its ``run eval`` through the chunked wide
+    ``mlp_fwd``, then render rays/s of test view 0 from its checkpoint
+    beside the bound; (2) the Multicam run with
+    ``--kernel-probes=fl_variant=twopass`` (2 ``train_level_twopass`` a
+    step) and ``run eval`` of one scale. Returns the launch counts of both
+    runs and evals."""
+    from nerf_or_nothing_tpu_torch import checkpoint as ckpt_lib
+    from nerf_or_nothing_tpu_torch import run
+
+    launches, record = train_path(peaks, device, scene, WIDE_MLP_STEPS,
+                                  WIDE_MLP_ARGS, "wide_mlp_path",
+                                  eval_args=())
+    cfg = run.parse_flags([f"--data-dir={scene}", *WIDE_MLP_ARGS])
+    launches = added(launches, render_launches(cfg, record["eval_images"]))
+    state = ckpt_lib.restore_checkpoint(record["checkpoint"], cfg,
+                                        device=device)
+    reset_launch_counts()
+    rate, _ = render_rate(cfg, state.params, scene, size, peaks, device,
+                          views=1, warmup=0)
+    check_launches("wide_mlp_path: render_rate", launch_counts(),
+                   render_launches(cfg, [(size, size)]))
+    emit({"phase": "wide", "check": "mlp_path",
+          "config": "Config(net_width=1024, fuse_level=False, "
+                    "stop_level_grad=False)", "flags": list(WIDE_MLP_ARGS),
+          "steps": WIDE_MLP_STEPS, "logged_losses": record["logged_losses"],
+          "train_rays_per_s": record["train_rays_per_s"],
+          "train_bound_rays_per_s": record["bound_rays_per_s"],
+          "train_bound_share": record["bound_share"], **rate,
+          "launches": launches})
+    twopass, record = train_path(peaks, device, scene, WIDE_MLP_STEPS,
+                                 WIDE_TWOPASS_ARGS, "wide_twopass_path",
+                                 eval_args=("--max-images=1",))
+    cfg = run.parse_flags([f"--data-dir={scene}", *WIDE_TWOPASS_ARGS])
+    twopass = added(twopass, render_launches(cfg, record["eval_images"]))
+    emit({"phase": "wide", "check": "twopass_path",
+          "config": "Config(net_width=1024), Multicam, fl_variant=twopass",
+          "flags": list(WIDE_TWOPASS_ARGS), "steps": WIDE_MLP_STEPS,
+          "logged_losses": record["logged_losses"],
+          "train_rays_per_s": record["train_rays_per_s"],
+          "train_bound_rays_per_s": record["bound_rays_per_s"],
+          "train_bound_share": record["bound_share"], "launches": twopass})
+    return added(launches, twopass)
 
 
 def wide_path(peaks, device, scene: str, size: int = 400):
@@ -2798,6 +2910,7 @@ def main() -> int:
     f32_launches = f32_path(peaks, device, scene)
     wide_cases = wide_kernels(peaks, device)
     wide_launches = wide_path(peaks, device, scene)
+    wide_launches = added(wide_launches, wide_mlp_paths(peaks, device, scene))
 
     mlp_fwd_main = mlp_fwd_case("config_r16384_s128", base, 16384, peaks,
                                 device)
@@ -2874,6 +2987,7 @@ def main() -> int:
             out["wide"] = {k: wide_cases[name][k] for k in (
                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "matmul_ms")}
+            out["wide"]["launches"] = wide_launches[name]
         return out
 
     emit({"kernels": [
@@ -2883,12 +2997,13 @@ def main() -> int:
         entry("train_level", train_case,
               train_launches["train_level"] + f32_launches["train_level"]
               + wide_launches["train_level"], TPU_TRAIN_KERNEL, train_f32),
-        entry("mlp_fwd", mlp_fwd_main, full_launches["mlp_fwd"], TPU_MLP_FWD,
-              mlp_fwd_f32),
-        entry("mlp_bwd", mlp_bwd_main, full_launches["mlp_bwd"], TPU_MLP_BWD,
-              mlp_bwd_f32),
+        entry("mlp_fwd", mlp_fwd_main, full_launches["mlp_fwd"]
+              + wide_launches["mlp_fwd"], TPU_MLP_FWD, mlp_fwd_f32),
+        entry("mlp_bwd", mlp_bwd_main, full_launches["mlp_bwd"]
+              + wide_launches["mlp_bwd"], TPU_MLP_BWD, mlp_bwd_f32),
         entry("train_level_twopass", twopass_main,
-              multicam_launches["train_level_twopass"], TPU_TWOPASS_KERNEL,
+              multicam_launches["train_level_twopass"]
+              + wide_launches["train_level_twopass"], TPU_TWOPASS_KERNEL,
               twopass_f32),
     ]})
     print(smi, flush=True)

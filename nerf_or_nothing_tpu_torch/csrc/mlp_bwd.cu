@@ -37,6 +37,13 @@
 //     the fixed-order reduction.
 // No atomics: two launches on the same inputs give bit-equal dW, db, dX
 // and dD.
+// bf16 at net_width 288-1024 (wide_train.cuh): the forward recomputed by
+// wide_forward.cuh (a wgmma GEMM launch per layer, every activation and the
+// features kept in the workspace, no heads), then wide_train.cuh's passes
+// from the head cotangents (heads of 1-8 channels each): the g-chain GEMMs
+// on the "wgx" stream, g_ray_kernel, db partials, the dW GEMMs, the small
+// products and reduction; with input_grads, launch_wide_dx (a GEMM per x
+// layer into dX, deepest first) and mlp_dd_kernel.
 // f32, every layer product as 3xTF32 mma.sync (level_common.cuh's gemm,
 // level_backward.cuh's dW GEMM): mlp_act_kernel (level_common.cuh's forward
 // storing the activations), then passes 2-5 of level_backward.cuh (the
@@ -48,6 +55,7 @@
 // launches on the given stream, allocates nothing and does not synchronise.
 
 #include "train_wg.cuh"
+#include "wide_train.cuh"
 
 namespace {
 
@@ -147,25 +155,98 @@ cudaError_t launch_mlp_bwd_wg(Params p, Extra e, const Layout& l, const WgLayout
   return launch_small_reduce<bf16>(p, e, l, ws, out, n_out, splits, c.dbpart, grid, st);
 }
 
+// dX [N, LX] (e.dx, bf16) on the wide route: for x layer i = D-1 .. 0 (the
+// skip layers, then layer 0) one wide_gemm_mlp_kernel, grad(i) @ W_x,i^T
+// from the x slabs of pack_params_wgx (nxw columns, those past LX zero; co
+// from wide_chain_offsets with nxw), the first term rounded into dX, each
+// later one rounded and added to dX in bf16 (mlp_backward_plain's order
+// and rounding; each element one thread's, no atomics).
+cudaError_t launch_wide_dx(const Params& p, const Extra& e, const WideOffsets& o,
+                           const WideChainOffsets& co, int nxw, cudaStream_t st) {
+  const bf16* wt = static_cast<const bf16*>(e.wt);
+  const bf16* grads = static_cast<const bf16*>(e.grads);
+  bool first = true;
+  for (int i = p.D - 1; i >= 0; --i) {
+    if (!x_layer(p, i)) continue;
+    WideGemmMlp m{};
+    WideGemm& g = m.g;
+    g.a0 = grads + act_off(p, e.N, i); g.lda0 = g.ka0 = p.W; g.ns0 = o.nh;
+    g.b = wt + co.x[i]; g.N = nxw; g.M = e.N;
+    g.out = static_cast<bf16*>(e.dx); m.ldo = p.LX; m.accum = !first;
+    const cudaError_t err = launch_wide_gemm_mlp<kWideDx>(m, st);
+    if (err != cudaSuccess) return err;
+    first = false;
+  }
+  return cudaSuccess;
+}
+
+// The bf16 route at net_width 288-1024 on the workspace (l, then x). p.w:
+// the "wg" forward stream; e.wt: the "wgx" chain stream.
+cudaError_t launch_mlp_bwd_wide(Params p, Extra e, const Layout& l, const WideTrainLayout& x,
+                                unsigned char* ws, float* out, long long n_out, int splits,
+                                cudaStream_t st) {
+  WideOffsets o;
+  if (!wide_offsets(p, o)) return cudaErrorInvalidValue;
+  const int nxw = cdiv(p.KX, 32) * 32;  // fused_level.dx_width
+  const WideChainOffsets co = wide_chain_offsets(p, o, nxw);
+  const bf16* w = static_cast<const bf16*>(p.w);
+  bf16* acts = static_cast<bf16*>(e.acts);
+  bf16* xs = static_cast<bf16*>(e.xs);
+  float* dc = reinterpret_cast<float*>(ws + x.dc);
+  auto h = [&](int i) { return acts + act_off(p, e.N, i); };
+  auto v = [&](int j) { return acts + act_off(p, e.N, p.D + j); };
+  // 1. forward, keeping the activations and features
+  wide_dir_kernel<<<p.R, p.Wc, 0, st>>>(p, w + o.dir, dc, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = launch_wide_features(p, xs, 0, e.N, st)) != cudaSuccess) return err;
+  if ((err = wide_forward<kWideNoHeads>(p, o, xs, dc, e.N, h, v, nullptr, 0, nullptr, 0, st)) !=
+      cudaSuccess)
+    return err;
+  // 2-7. g-chain, per-ray sums, db, dW, small products and reduction
+  if ((err = launch_wide_backward<0>(p, e, l, x, o, co, ws, out, n_out, splits, st)) !=
+      cudaSuccess)
+    return err;
+  // dX and dD
+  if (e.dx && (err = launch_wide_dx(p, e, o, co, nxw, st)) != cudaSuccess) return err;
+  if (e.dd) {
+    mlp_dd_kernel<<<cdiv(p.R, 8), 256, 0, st>>>(e.g_ray, w + o.dir, e.dd, p.R, p.Wc, p.Fd);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The row stride of the split partials (and the values the reduction
+// writes): n_out rounded up to even, so that each row starts 8-byte
+// aligned for the dW GEMMs' float2 stores (n_out is odd when the heads'
+// channels Cr + Cd are).
+inline long long partial_stride(long long n_out) { return n_out + (n_out & 1); }
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of workspace mlp_bwd_launch needs for these shapes (bf16: with
-// the mask bits and db partials of heads of up to 8 + 8 channels).
+// the mask bits, or at net_width 288-1024 the direction terms, and the db
+// partials of heads of up to 8 + 8 channels).
 long long mlp_bwd_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc, int KX,
                             int splits, long long n_out) {
-  const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, false);
+  const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits,
+                          partial_stride(n_out), false);
+  if (dtype == 1 && W >= kWideMinW)
+    return wide_train_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads, false).total;
   if (dtype == 1) return wg_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads, false).total;
   return l.total;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. x: [R * S, LX] and d: [R, Fd] in the
-// compute type; g_rgb [R * S, Cr] and g_den [R * S, Cd] f32; bf16: w the
+// compute type; g_rgb [R * S, Cr] and g_den [R * S, Cd] f32 (W: multiples
+// of 32 up to 256, and in bf16 up to 1024, the wide route); bf16: w the
 // "wg" forward slab stream (fused_level.pack_params_wg), wt the "wgx"
 // chain stream (pack_params_wgx), wtx unused; f32: w, b pack_params'
 // layout, wt pack_params_t, wtx pack_params_tx; grads: the flat f32 dW/db
-// output of n_out values (output_offsets); dx [R * S, LX] in the compute
+// output of n_out values (output_offsets), with room for n_out rounded up
+// to even (partial_stride; the last is scratch); dx [R * S, LX] in the compute
 // type and dd [R, Fd] f32 when input_grads (else unused); workspace:
 // mlp_bwd_workspace bytes, 256-byte aligned.
 int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
@@ -177,19 +258,24 @@ int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
   if (R <= 0) return cudaSuccess;
   Params p;
   if (!init_params(p, dtype, 1, nullptr, nullptr, x, d, nullptr, w, b, R, S, D, W, skip, Wc,
-                   Dc, LX, KX, Fd, 0, 0, 0.0f, 0.0f, 0, Cr, Cd) ||
+                   Dc, LX, KX, Fd, 0, 0, 0.0f, 0.0f, 0, Cr, Cd, dtype == 1) ||
       splits < 1 || (long long)R * S > 2147483647LL || (input_grads && (!dx || !dd)) ||
       (input_grads && LX % 2))
     return cudaErrorInvalidValue;
   long long w_off[64], b_off[64];
   if (D + 2 + Dc > 64 || output_offsets(p, w_off, b_off) != n_out)
     return cudaErrorInvalidValue;
+  n_out = partial_stride(n_out);
   const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, false);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   const Extra e = make_extra(ws, l, (long long)R * S, wt, wtx, const_cast<float*>(g_rgb),
                              const_cast<float*>(g_den), input_grads ? dx : nullptr,
                              input_grads ? dd : nullptr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && W >= kWideMinW)
+    return (int)launch_mlp_bwd_wide(
+        p, e, l, wide_train_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads, false), ws, grads,
+        n_out, splits, st);
   if (dtype == 1)
     return (int)launch_mlp_bwd_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads,
                                                      false),

@@ -22,16 +22,24 @@
 // straight to raw_rgb / raw_den. Helper warps load the next round's
 // features and each unit's direction term d @ W_dir while the consumers
 // multiply.
+// bf16 at net_width 288-1024 (wide_forward.cuh, mlp_fwd_wide_launch): one
+// wgmma GEMM launch per layer, in column blocks of at most 256, over
+// chunks of whole rays of at most 2^18 rows whose activations go through
+// a workspace the wrapper allocates (mlp_fwd_wide_workspace: ~1.1 GB at
+// W=1024 for any R; eval at fuse_level=False calls this on 16,384 rays x
+// 128 samples, whose one activation buffer would be 4.3 GB), then the
+// heads (1-8 channels each) straight to raw_rgb / raw_den.
 // f32: level_common.cuh's forward_tile<float> on pack_params' row-major
 // layout, every layer product as 3xTF32 mma.sync (render_level.cu's f32
 // forward without the composite), one block of 256 threads per RB =
 // max(1, 64 / S) rays.
 //
-// Plain C interface (loaded with ctypes): mlp_fwd_launch returns the
-// cudaError_t of the launch; it launches on the given stream, allocates
-// nothing and does not synchronise.
+// Plain C interface (loaded with ctypes): mlp_fwd_launch and
+// mlp_fwd_wide_launch return the first failing cudaError_t; they launch on
+// the given stream, allocate nothing and do not synchronise.
 
 #include "forward_wg.cuh"
+#include "wide_forward.cuh"
 
 namespace {
 
@@ -75,7 +83,8 @@ extern "C" {
 // compute type; w: pack_params_wg's slabs (bf16) or pack_params' layout
 // (f32), b: the biases in layer order; raw_rgb [R * S, Cr] and
 // raw_den [R * S, Cd] f32. Widths must satisfy the wrapper's checks (W, Wc
-// multiples of 32 up to 256; KX a multiple of 16 >= LX; heads of 1-8).
+// multiples of 32 up to 256, wider bf16 through mlp_fwd_wide_launch; KX a
+// multiple of 16 >= LX; heads of 1-8).
 int mlp_fwd_launch(int dtype, const void* x, const void* d, const void* w, const float* b,
                    float* raw_rgb, float* raw_den, int R, int S, int D, int W, int skip,
                    int Wc, int Dc, int LX, int KX, int Fd, int Cr, int Cd, void* stream) {
@@ -97,5 +106,29 @@ int mlp_fwd_launch(int dtype, const void* x, const void* d, const void* w, const
 
 // The weight layout the bf16 kernel reads: pack_params_wg's slab stream.
 const char* mlp_fwd_weight_layout() { return "wg"; }
+
+// Bytes of workspace mlp_fwd_wide_launch needs for these shapes.
+long long mlp_fwd_wide_workspace(int R, int S, int W, int Wc, int KX) {
+  return wide_render_layout(R, S, W, Wc, KX).total;
+}
+
+// The bf16 route for net_width 288-1024 (a multiple of 32, Wc <= 256):
+// mlp_fwd_launch's arguments in bf16 (w: pack_params_wg's stream), and a
+// workspace of mlp_fwd_wide_workspace bytes, 256-byte aligned.
+int mlp_fwd_wide_launch(const void* x, const void* d, const void* w, const float* b,
+                        float* raw_rgb, float* raw_den, int R, int S, int D, int W, int skip,
+                        int Wc, int Dc, int LX, int KX, int Fd, int Cr, int Cd, void* workspace,
+                        void* stream) {
+  if (R <= 0) return cudaSuccess;
+  Params p;
+  if (W < kWideMinW || !init_params(p, 1, 1, nullptr, nullptr, x, d, nullptr, w, b, R, S, D, W,
+                                    skip, Wc, Dc, LX, KX, Fd, 0, 0, 0.0f, 0.0f, 0, Cr, Cd,
+                                    true) ||
+      (long long)R * S > 2147483647LL)
+    return cudaErrorInvalidValue;
+  return (int)launch_forward_wide<kWideAnyHeads>(p, static_cast<unsigned char*>(workspace),
+                                                 raw_rgb, raw_den,
+                                                 static_cast<cudaStream_t>(stream));
+}
 
 }  // extern "C"

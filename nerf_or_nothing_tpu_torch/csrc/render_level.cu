@@ -137,8 +137,9 @@ int render_level_wide_launch(int mode, const float* means, const float* vars, co
                                white_bkgd, 3, 1, true))
     return cudaErrorInvalidValue;
   p.comp = comp; p.acc = acc; p.weights = weights;
-  return (int)launch_render_wide(p, static_cast<unsigned char*>(workspace),
-                                 static_cast<cudaStream_t>(stream));
+  return (int)launch_forward_wide<kWideLevelHeads>(p, static_cast<unsigned char*>(workspace),
+                                                   nullptr, nullptr,
+                                                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

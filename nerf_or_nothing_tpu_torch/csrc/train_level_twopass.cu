@@ -30,6 +30,12 @@
 // The chain reads only the forward's mask bits, not its activations, and
 // no dW product shares an SM with it. The function and the launches are
 // train_level.cu's bf16 ones, so both give the same bits.
+// bf16 at net_width 288-1024: train_level.cu's wide route
+// (wide_train.cuh's launch_train_wide), whose launches also run in the
+// two phases' order: phase 0 the forward GEMMs, the composite, the g-chain
+// GEMMs, the per-ray sums and db partials; phase 1 the dW GEMMs, the small
+// products and the reduction. The same launches as train_level's wide
+// route, so the same bits.
 // f32, every layer product as 3xTF32 mma.sync (level_common.cuh's gemm,
 // level_backward.cuh's dW GEMM):
 //  A. twopass_chain_kernel (phase 0): each block owns whole rays: the
@@ -54,6 +60,7 @@
 // launches on the given stream, allocates nothing and does not synchronise.
 
 #include "train_wg.cuh"
+#include "wide_train.cuh"
 
 namespace {
 
@@ -108,12 +115,13 @@ cudaError_t launch_twopass(Params p, Extra e, const Layout& l, unsigned char* ws
 extern "C" {
 
 // Bytes of workspace train_level_twopass_launch needs for these shapes:
-// bf16, train_level's (the backward's layout, then the bf16 passes'
-// areas); f32, the backward's layout, then the per-block db partials (3
-// rgb / 1 density head).
+// bf16, train_level's (the backward's layout, then the bf16 passes' areas,
+// or the wide route's at W >= 288); f32, the backward's layout, then the
+// per-block db partials (3 rgb / 1 density head).
 long long train_level_twopass_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc,
                                         int KX, int splits, long long n_out) {
   const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, true);
+  if (dtype == 1 && W >= kWideMinW) return wide_train_layout(l.total, R, S, D, W, Wc, Dc).total;
   if (dtype == 1) return wg_layout(l.total, R, S, D, W, Wc, Dc).total;
   const long long nb = (long long)D * W + 1 + (long long)Dc * Wc + 3;
   return l.total + round256((long long)blocks_of(R, S) * nb * 4);
@@ -135,7 +143,8 @@ int train_level_twopass_launch(int dtype, int mode, const float* means, const fl
   Params p;
   if (mode != 1 ||
       !init_params(p, dtype, mode, means, vars, x, d, delta, w, b, R, S, D, W, skip, Wc, Dc,
-                   LX, KX, Fd, min_deg, fast, density_bias, rgb_padding, white_bkgd) ||
+                   LX, KX, Fd, min_deg, fast, density_bias, rgb_padding, white_bkgd, 3, 1,
+                   dtype == 1) ||
       splits < 1 || (long long)R * S > 2147483647LL)
     return cudaErrorInvalidValue;
   p.comp = comp; p.acc = acc; p.weights = weights;
@@ -150,6 +159,9 @@ int train_level_twopass_launch(int dtype, int mode, const float* means, const fl
                        reinterpret_cast<float*>(ws + l.g_den), nullptr, nullptr);
   e.pixels = pixels; e.gsc = gsc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && W >= kWideMinW)
+    return (int)launch_train_wide(p, e, l, wide_train_layout(l.total, R, S, D, W, Wc, Dc), ws,
+                                  grads, n_out, splits, st);
   if (dtype == 1)
     return (int)launch_train_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc), ws, grads,
                                 n_out, splits, st);

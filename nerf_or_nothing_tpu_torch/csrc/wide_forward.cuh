@@ -1,11 +1,14 @@
-// The wide bf16 route of render_level.cu and train_level.cu: net_width a
-// multiple of 32 from 288 to 1024 (net_width_condition at most 256), where
-// the narrow kernels' activation tiles no longer fit a block (one bf16
-// [64, 1024] tile is 128 KB of the 227 KB).
+// The wide bf16 route of every kernel (render_level.cu, mlp_fwd.cu, and the
+// forwards of train_level.cu, train_level_twopass.cu and mlp_bwd.cu):
+// net_width a multiple of 32 from 288 to 1024 (net_width_condition at most
+// 256), where the narrow kernels' activation tiles no longer fit a block
+// (one bf16 [64, 1024] tile is 128 KB of the 227 KB).
 //
 // Replaces, at these widths, the same TPU kernels as its callers:
-// nerf_or_nothing_tpu/kernels/fused_level.py::_render_kernel (render) and
-// ::_level_kernel (train; the backward is wide_train.cuh).
+// nerf_or_nothing_tpu/kernels/fused_level.py::_render_kernel (render),
+// ::_level_kernel and ::_level_kernel_twopass (train; the backward is
+// wide_train.cuh), fused_mlp.py::_fwd_kernel (mlp_fwd) and ::_bwd_kernel
+// (mlp_bwd, which recomputes the forward).
 //
 // Bound: the products. One row of a W=1024 layer is 2 x 1024^2 FLOP
 // against 4 KB of activations in and out, 512 FLOP a byte, above the
@@ -26,15 +29,17 @@
 //    wgmma reads). All 256 threads copy each 64-k stage by cp.async (A
 //    rows into the swizzle, B slab rows as stored), four stages, two in
 //    flight; the two warpgroups each multiply 64 rows. The epilogue is the
-//    forward's (direction term, bias, ReLU, round) or the g-chain's
+//    forward's (direction term, bias, ReLU, round), the g-chain's
 //    (round, the density head's rounded term, the mask of the layer
 //    below's activation > 0), written to a separate buffer, so the input
-//    stays readable by every column block;
-//  - wide_head_kernel: a head (1 or 3 channels) as one warp per row;
+//    stays readable by every column block; mlp_bwd's density term over
+//    Cd > 1 channels and its dX (round, add the deeper x layers' sum,
+//    round) are wide_gemm_mlp_kernel's epilogues;
+//  - wide_head_kernel<NC>: a head of NC = 1-8 channels as one warp per row;
 //  - render: wide_composite_kernel, level_common.cuh's composite on the
-//    raw heads in global memory. The rows go in chunks of whole rays
-//    (kWideChunkRows), so two activation buffers stay ~0.5 GB at W=1024
-//    whatever R is.
+//    raw heads in global memory; mlp_fwd: the heads straight to raw_rgb /
+//    raw_den. The rows go in chunks of whole rays (kWideChunkRows), so two
+//    activation buffers stay ~0.5 GB at W=1024 whatever R is.
 // A simple design that is right first: no persistent blocks, no producer
 // warp, every activation through HBM (making it fast is later work).
 
@@ -49,9 +54,12 @@ constexpr int kWideMaxW = 1024;
 constexpr int kWideThreads = 256;   // two warpgroups of 64 rows
 constexpr int kWideRows = 128;
 constexpr int kWideStages = 4;
-constexpr long long kWideChunkRows = 1LL << 18;  // render: rows of one chunk of rays
+constexpr long long kWideChunkRows = 1LL << 18;  // render, mlp_fwd: rows of a chunk of rays
 
-enum { kWideFwd = 0, kWideChain = 1 };
+enum { kWideFwd = 0, kWideChain = 1, kWideChainHeads = 2, kWideDx = 3 };
+// The heads of wide_forward: none (mlp_bwd's recompute), the level
+// kernels' 3 rgb / 1 density into [M, 4], or 1-8 channels each (mlp_fwd).
+enum { kWideNoHeads = 0, kWideLevelHeads = 1, kWideAnyHeads = 2 };
 
 // One layer product and its epilogue (wide_gemm_kernel).
 struct WideGemm {
@@ -70,6 +78,17 @@ struct WideGemm {
   const float* gden;   // chain into the trunk: the density cotangent [M] (one channel)
   const bf16* wden;    // its weights W_den^T [1, N]
   bf16* out;           // [M, N]
+};
+
+// A product of wide_gemm_mlp_kernel (mlp_bwd's epilogues): g's operands,
+// and the epilogue's own fields. WideGemm stays as it is: three more
+// fields in it changed wide_gemm_kernel's registers (132 -> 130 at BN 128)
+// and brought ptxas's note that it serializes the kernel's wgmma (C7515).
+struct WideGemmMlp {
+  WideGemm g;
+  int cd;              // kWideChainHeads: g.gden is [M, cd], g.wden [cd, N]
+  int ldo;             // kWideDx: g.out is [M, ldo] (location_features), columns < ldo
+  int accum;           // kWideDx: g.out already holds the deeper x layers' sum
 };
 
 // Element offsets of every matrix in pack_params_wg's stream
@@ -177,6 +196,48 @@ __device__ __forceinline__ void wide_chain_pair(const WideGemm& g, long long row
   *reinterpret_cast<__nv_bfloat162*>(g.out + row * g.N + n) = o;
 }
 
+// kWideChainHeads' epilogue of two columns: wide_chain_pair with the
+// density term round(round(g_den) . w_den) an f32 sum over the cd channels
+// in order (from -0, so one channel's term is its product exactly, sign of
+// zero included).
+__device__ __forceinline__ void wide_chain_heads_pair(const WideGemmMlp& m, long long row,
+                                                      int n, float v0, float v1) {
+  const WideGemm& g = m.g;
+  v0 = __bfloat162float(__float2bfloat16_rn(v0));
+  v1 = __bfloat162float(__float2bfloat16_rn(v1));
+  float t0 = -0.0f, t1 = -0.0f;
+  for (int k = 0; k < m.cd; ++k) {
+    const float gd = __bfloat162float(__float2bfloat16_rn(g.gden[row * m.cd + k]));
+    const bf16* w = g.wden + (long long)k * g.N + n;
+    t0 = fmaf(gd, __bfloat162float(w[0]), t0);
+    t1 = fmaf(gd, __bfloat162float(w[1]), t1);
+  }
+  v0 = v0 + __bfloat162float(__float2bfloat16_rn(t0));
+  v1 = v1 + __bfloat162float(__float2bfloat16_rn(t1));
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(g.act + row * g.N + n);
+  __nv_bfloat162 o;
+  o.x = __bfloat162float(a.x) > 0.0f ? __float2bfloat16_rn(v0) : __float2bfloat16_rn(0.0f);
+  o.y = __bfloat162float(a.y) > 0.0f ? __float2bfloat16_rn(v1) : __float2bfloat16_rn(0.0f);
+  *reinterpret_cast<__nv_bfloat162*>(g.out + row * g.N + n) = o;
+}
+
+// kWideDx's epilogue of two columns (n, n + 1 < ldo): t = round(acc), and
+// unless this is the first (deepest) x layer, t = round(out + t), with out
+// the sum of the deeper x layers' terms; each element is one thread's.
+__device__ __forceinline__ void wide_dx_pair(const WideGemmMlp& m, long long row, int n,
+                                             float v0, float v1) {
+  if (n >= m.ldo) return;  // zero-padded columns of W_x^T
+  v0 = __bfloat162float(__float2bfloat16_rn(v0));
+  v1 = __bfloat162float(__float2bfloat16_rn(v1));
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(m.g.out + row * m.ldo + n);
+  if (m.accum) {
+    const float2 s = __bfloat1622float2(*o);
+    v0 = s.x + v0;
+    v1 = s.y + v1;
+  }
+  *o = __floats2bfloat162_rn(v0, v1);
+}
+
 // One block: rows m0 .. m0 + 127 (blockIdx.x) by columns n0 .. n0 + BN - 1
 // (blockIdx.y) of the product, m64nBNk16 wgmma from the staged tiles.
 template <int BN>
@@ -229,6 +290,61 @@ __global__ void __launch_bounds__(kWideThreads, 1) wide_gemm_kernel(WideGemm g) 
   }
 }
 
+// wide_gemm_kernel's stages and products with the epilogue kKind
+// (kWideChainHeads or kWideDx: mlp_bwd's), a kernel of its own: with these
+// epilogues as more branches of wide_gemm_kernel's, every wide layer
+// product ran ~20% slower (train_level at W=1024 42.6 -> 52.2 ms).
+template <int BN, int kKind>
+__global__ void __launch_bounds__(kWideThreads, 1) wide_gemm_mlp_kernel(WideGemmMlp m) {
+  extern __shared__ __align__(1024) unsigned char smem_wide[];
+  const WideGemm& g = m.g;
+  unsigned char* base = align1024(smem_wide);
+  const long long m0 = (long long)blockIdx.x * kWideRows;
+  const int n0 = blockIdx.y * BN;
+  const int nk = g.ns0 + g.ns1;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  auto stage = [&](int kt) { return base + (kt % kWideStages) * wide_stage_bytes<BN>(); };
+  auto load = [&](int kt) {
+    if (kt < nk) wide_load<BN>(g, stage(kt), kt, m0, n0);
+    cp_async_commit();
+  };
+  float acc[BN / 2];
+  zero_acc<BN>(acc);
+  load(0);
+  load(1);
+  for (int kt = 0; kt < nk; ++kt) {
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    fence_proxy_async();
+    __syncthreads();  // stage kt is in; both warpgroups' products of kt - 2 are done
+    const uint32_t a = opaque(smem_u32(stage(kt)) + wg * kTileSlab);
+    const uint32_t b = opaque(smem_u32(stage(kt)) + 2 * kTileSlab);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma<BN>(acc, sdesc(a + kk * 32), sdesc(b + kk * 32), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    load(kt + 2);
+  }
+  wgmma_wait<0>();
+  fence_acc<BN / 2>(acc);
+  const long long row0 = m0 + wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
+  const int qd = t & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * qd;
+    if (n >= g.N) continue;  // N is a multiple of 32: n + 1 < N too
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + 8 * h;
+      if (row >= g.M) continue;
+      if constexpr (kKind == kWideChainHeads)
+        wide_chain_heads_pair(m, row, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      else
+        wide_dx_pair(m, row, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 // Launch one layer product: blocks of 128 rows by 256 columns when N is a
 // multiple of 256, else by 128 (the last column block zero-filled past N).
 inline cudaError_t launch_wide_gemm(const WideGemm& g, cudaStream_t st) {
@@ -251,6 +367,26 @@ inline cudaError_t launch_wide_gemm(const WideGemm& g, cudaStream_t st) {
     wide_gemm_kernel<128><<<dim3(rows, cdiv(g.N, 128)), kWideThreads, smem, st>>>(g);
   }
   return cudaGetLastError();
+}
+
+template <int BN, int kKind>
+inline cudaError_t launch_wide_gemm_mlp_bn(const WideGemmMlp& m, cudaStream_t st) {
+  constexpr int smem = wide_gemm_smem<BN>();
+  const cudaError_t err = cudaFuncSetAttribute(wide_gemm_mlp_kernel<BN, kKind>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  wide_gemm_mlp_kernel<BN, kKind>
+      <<<dim3((unsigned)((m.g.M + kWideRows - 1) / kWideRows), cdiv(m.g.N, BN)), kWideThreads,
+         smem, st>>>(m);
+  return cudaGetLastError();
+}
+
+// launch_wide_gemm for wide_gemm_mlp_kernel's epilogue kKind.
+template <int kKind>
+inline cudaError_t launch_wide_gemm_mlp(const WideGemmMlp& m, cudaStream_t st) {
+  if (m.g.M <= 0) return cudaSuccess;
+  return m.g.N % 256 == 0 ? launch_wide_gemm_mlp_bn<256, kKind>(m, st)
+                          : launch_wide_gemm_mlp_bn<128, kKind>(m, st);
 }
 
 // xs[r, :KX] for rows r < rows, the features of level rows row0 + r: the
@@ -280,13 +416,14 @@ __global__ void wide_dir_kernel(Params p, const bf16* wd, float* dc, int ray0) {
   dc[(long long)r * p.Wc + n] = s;
 }
 
-// out[row * 4 + col0 + c] = A[row, :K] . w[:, c] + b[c] for c < NC, one warp
-// a row: a head of the forward stream (8 rows a slab, fused_level._wg_head),
-// its columns unswizzled into shared memory first.
+// out[row * ld + c] = A[row, :K] . w[:, c] + b[c] for c < NC (1-8), one
+// warp a row: a head of the forward stream (8 rows a slab, fused_level.
+// _wg_head; row c's 16-byte chunk q at position q ^ c), its columns
+// unswizzled into shared memory first.
 template <int NC>
 __global__ void __launch_bounds__(kThreads) wide_head_kernel(const bf16* A, int K, long long M,
                                                              const bf16* w, const float* b,
-                                                             int col0, float* out) {
+                                                             float* out, int ld) {
   __shared__ float ws[NC * kWideMaxW];
   for (int idx = threadIdx.x; idx < NC * K; idx += kThreads) {
     const int c = idx / K, k = idx - c * K;
@@ -311,19 +448,32 @@ __global__ void __launch_bounds__(kThreads) wide_head_kernel(const bf16* A, int 
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const float v = warp_sum(s[c]);
-      if (lane == 0) out[row * 4 + col0 + c] = v + b[c];
+      if (lane == 0) out[row * ld + c] = v + b[c];
     }
   }
 }
 
 template <int NC>
 inline cudaError_t launch_wide_head(const bf16* A, int K, long long M, const bf16* w,
-                                    const float* b, int col0, float* out, cudaStream_t st) {
+                                    const float* b, float* out, int ld, cudaStream_t st) {
   if (M <= 0) return cudaSuccess;
   const long long want = (M + kThreads / 32 - 1) / (kThreads / 32);
   wide_head_kernel<NC><<<(unsigned)(want < 8192 ? want : 8192), kThreads, 0, st>>>(
-      A, K, M, w, b, col0, out);
+      A, K, M, w, b, out, ld);
   return cudaGetLastError();
+}
+
+// A head of nc = NC .. 8 channels (mlp_fwd's heads), a template so that
+// only the sources that launch it build its eight kernels.
+template <int NC = 1>
+inline cudaError_t launch_wide_head_n(int nc, const bf16* A, int K, long long M, const bf16* w,
+                                      const float* b, float* out, int ld, cudaStream_t st) {
+  if constexpr (NC > 8) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (nc == NC) return launch_wide_head<NC>(A, K, M, w, b, out, ld, st);
+    return launch_wide_head_n<NC + 1>(nc, A, K, M, w, b, out, ld, st);
+  }
 }
 
 // Rays ray0 + blockIdx.x * 8 .. of a render chunk whose rows start at ray0:
@@ -338,17 +488,18 @@ __global__ void __launch_bounds__(kThreads) wide_composite_kernel(Params p, cons
 }
 
 // The forward's products of rows [0, M) of one batch of rays (the train
-// level's whole level, or one render chunk): features in xs [M, KX], the
-// direction term in dc [rays, Wc]; trunk layer i writes h(i), view layer j
-// writes v(j) (h, v: the caller's buffers, [M, W] / [M, Wc]); the density
-// head after the trunk and the rgb head after the view layers go to
-// heads [M, 4].
-template <class H, class V>
+// level's whole level, mlp_bwd's recompute, or one chunk of a render or of
+// mlp_fwd): features in xs [M, KX], the direction term in dc [rays, Wc];
+// trunk layer i writes h(i), view layer j writes v(j) (h, v: the caller's
+// buffers, [M, W] / [M, Wc]); kHeads (kWide*Heads): the density head after
+// the trunk to den (row stride den_ld) and the rgb head after the view
+// layers to rgb (rgb_ld).
+template <int kHeads, class H, class V>
 inline cudaError_t wide_forward(const Params& p, const WideOffsets& o, const bf16* xs,
-                                const float* dc, long long M, H h, V v, float* heads,
-                                cudaStream_t st) {
+                                const float* dc, long long M, H h, V v, float* den, int den_ld,
+                                float* rgb, int rgb_ld, cudaStream_t st) {
   const bf16* w = static_cast<const bf16*>(p.w);
-  cudaError_t err;
+  cudaError_t err = cudaSuccess;
   for (int i = 0; i < p.D; ++i) {
     WideGemm g{};
     const bool xl = i == 0 || i % p.skip == 0;
@@ -362,9 +513,12 @@ inline cudaError_t wide_forward(const Params& p, const WideOffsets& o, const bf1
     g.bias = p.b + (long long)i * p.W; g.S = p.S; g.out = h(i);
     if ((err = launch_wide_gemm(g, st)) != cudaSuccess) return err;
   }
-  if ((err = launch_wide_head<1>(h(p.D - 1), p.W, M, w + o.den, p.b + p.b_den, 3, heads, st)) !=
-      cudaSuccess)
-    return err;
+  if constexpr (kHeads == kWideLevelHeads)
+    err = launch_wide_head<1>(h(p.D - 1), p.W, M, w + o.den, p.b + p.b_den, den, den_ld, st);
+  else if constexpr (kHeads == kWideAnyHeads)
+    err = launch_wide_head_n(p.Cd, h(p.D - 1), p.W, M, w + o.den, p.b + p.b_den, den, den_ld,
+                             st);
+  if (err != cudaSuccess) return err;
   for (int j = 0; j < p.Dc; ++j) {
     WideGemm g{};
     g.a0 = j == 0 ? h(p.D - 1) : v(j - 1);
@@ -376,7 +530,12 @@ inline cudaError_t wide_forward(const Params& p, const WideOffsets& o, const bf1
     g.out = v(j);
     if ((err = launch_wide_gemm(g, st)) != cudaSuccess) return err;
   }
-  return launch_wide_head<3>(v(p.Dc - 1), p.Wc, M, w + o.rgb, p.b + p.b_rgb, 0, heads, st);
+  if constexpr (kHeads == kWideLevelHeads)
+    return launch_wide_head<3>(v(p.Dc - 1), p.Wc, M, w + o.rgb, p.b + p.b_rgb, rgb, rgb_ld, st);
+  else if constexpr (kHeads == kWideAnyHeads)
+    return launch_wide_head_n(p.Cr, v(p.Dc - 1), p.Wc, M, w + o.rgb, p.b + p.b_rgb, rgb, rgb_ld,
+                              st);
+  return cudaSuccess;
 }
 
 inline cudaError_t launch_wide_features(const Params& p, bf16* xs, long long row0,
@@ -390,9 +549,9 @@ inline cudaError_t launch_wide_features(const Params& p, bf16* xs, long long row
   return cudaGetLastError();
 }
 
-// The render route's workspace (byte offsets): features, two activation
-// buffers and the raw heads of one chunk of rays, the direction terms of
-// all rays.
+// The workspace of the render route and of mlp_fwd's (byte offsets):
+// features, two activation buffers and the raw heads of one chunk of rays,
+// the direction terms of all rays.
 struct WideRenderLayout {
   long long rays, xs, h0, h1, heads, dc, total;
 };
@@ -412,9 +571,13 @@ inline WideRenderLayout wide_render_layout(int R, int S, int W, int Wc, int KX) 
   return l;
 }
 
-// The render level on the wide route: per chunk of whole rays, features,
-// the layers alternating between two buffers, heads, composite.
-inline cudaError_t launch_render_wide(const Params& p, unsigned char* ws, cudaStream_t st) {
+// The forward over chunks of whole rays: features, the layers alternating
+// between two buffers, then kWideLevelHeads (render): the heads to the
+// workspace and the composite; kWideAnyHeads (mlp_fwd): the heads straight
+// to raw_rgb [R * S, Cr] and raw_den [R * S, Cd].
+template <int kHeads>
+inline cudaError_t launch_forward_wide(const Params& p, unsigned char* ws, float* raw_rgb,
+                                       float* raw_den, cudaStream_t st) {
   WideOffsets o;
   if (!wide_offsets(p, o)) return cudaErrorInvalidValue;
   const WideRenderLayout l = wide_render_layout(p.R, p.S, p.W, p.Wc, p.KX);
@@ -433,14 +596,20 @@ inline cudaError_t launch_render_wide(const Params& p, unsigned char* ws, cudaSt
   auto v = [&](int j) { return buf[(last + 1 + j) & 1]; };
   for (int ray0 = 0; ray0 < p.R; ray0 += (int)l.rays) {
     const int nr = p.R - ray0 < l.rays ? p.R - ray0 : (int)l.rays;
-    const long long rows = (long long)nr * p.S;
-    if ((err = launch_wide_features(p, xs, (long long)ray0 * p.S, rows, st)) != cudaSuccess)
-      return err;
-    if ((err = wide_forward(p, o, xs, dc + (long long)ray0 * p.Wc, rows, h, v, heads, st)) !=
-        cudaSuccess)
-      return err;
-    wide_composite_kernel<<<cdiv(nr, kThreads / 32), kThreads, 0, st>>>(p, heads, ray0, nr);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const long long rows = (long long)nr * p.S, row0 = (long long)ray0 * p.S;
+    if ((err = launch_wide_features(p, xs, row0, rows, st)) != cudaSuccess) return err;
+    const float* dcc = dc + (long long)ray0 * p.Wc;
+    if constexpr (kHeads == kWideLevelHeads) {
+      if ((err = wide_forward<kHeads>(p, o, xs, dcc, rows, h, v, heads + 3, 4, heads, 4, st)) !=
+          cudaSuccess)
+        return err;
+      wide_composite_kernel<<<cdiv(nr, kThreads / 32), kThreads, 0, st>>>(p, heads, ray0, nr);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    } else {
+      if ((err = wide_forward<kHeads>(p, o, xs, dcc, rows, h, v, raw_den + row0 * p.Cd, p.Cd,
+                                      raw_rgb + row0 * p.Cr, p.Cr, st)) != cudaSuccess)
+        return err;
+    }
   }
   return cudaSuccess;
 }

@@ -1,11 +1,15 @@
-// The wide bf16 route of train_level.cu (net_width 288-1024, a multiple
-// of 32; wide_forward.cuh has the forward and the layer product): the
-// forward keeping every activation in the workspace, the composite and its
-// backward, the g-chain, db, dW, and the small products and reduction of
-// level_backward.cuh.
+// The wide bf16 route of train_level.cu and train_level_twopass.cu
+// (net_width 288-1024, a multiple of 32; wide_forward.cuh has the forward
+// and the layer product): the forward keeping every activation in the
+// workspace, the composite and its backward, the g-chain, db, dW, and the
+// small products and reduction of level_backward.cuh. Passes 3-7 start
+// from the head cotangents (launch_wide_backward), so mlp_bwd.cu runs them
+// after its recompute, with heads of 1-8 channels each.
 //
 // Replaces, at these widths: nerf_or_nothing_tpu/kernels/fused_level.py::
-// _level_kernel.
+// _level_kernel and _level_kernel_twopass (the same launches: their order
+// is the two-pass kernel's two phases), and with mlp_bwd.cu fused_mlp.py::
+// _bwd_kernel.
 //
 // Bound: the products. At Config(net_width=1024), R=1024 x S=128, one
 // level is 5.98 TFLOP (utils/profiling.train_level_flops), 6.05 ms at 989
@@ -20,10 +24,11 @@
 //  2. train_composite_kernel (train_wg.cuh): comp, acc, weights, g_rgb,
 //     g_den;
 //  3. wide_rgb_chain_kernel: the last view layer's masked g from the rgb
-//     head's K=3 product of the rounded f32 cotangents; then one
+//     head's K=Cr product of the rounded f32 cotangents; then one
 //     wide_gemm_kernel per chained layer, top layer first, g @ W^T from
-//     pack_params_wgt's slabs with the g-chain epilogue (the density
-//     head's term on the way into the trunk);
+//     pack_params_wgt's slabs (mlp_bwd: pack_params_wgx's) with the g-chain
+//     epilogue (the density head's term on the way into the trunk; mlp_bwd
+//     with a density head of Cd > 1 channels: wide_gemm_mlp_kernel's);
 //  4. g_ray_kernel (train_wg.cuh): the first view layer's g summed per ray;
 //  5. wide_db_kernel: every bias's db as column sums of the masked g (and
 //     of the f32 head cotangents) over fixed chunks of rows, one partial
@@ -35,8 +40,9 @@
 //  7. launch_small_reduce (level_backward.cuh): the heads' dW, the view
 //     layer's direction rows, db from the partial rows, then every split
 //     partial summed in a fixed order.
+// mlp_bwd.cu with input_grads adds dX (launch_wide_dx there).
 // Every partial is written by exactly one block and reduced in order: no
-// atomics, so two launches on the same inputs give bit-equal dW and db.
+// atomics, so two launches on the same inputs give bit-equal dW, db and dX.
 // The rounding is the narrow route's: bf16 after every product, the
 // density term rounded and added in bf16, the mask after rounding.
 
@@ -50,18 +56,19 @@ namespace {
 constexpr int kWideDbRows = 2048;  // rows of one db partial (at most kMaxChainBlocks of them)
 
 // Byte offsets of the wide route's own areas after the backward's layout
-// (level_backward.cuh::layout, which ends at base): the raw heads, the
-// direction terms and the db partial rows.
+// (level_backward.cuh::layout, which ends at base): the raw heads (unless
+// heads is false: mlp_bwd), the direction terms and the db partial rows
+// (Cg head channels: 3 rgb and 1 density in the train level).
 struct WideTrainLayout {
   long long heads, dc, dbpart, total;
 };
 
 inline WideTrainLayout wide_train_layout(long long base, int R, int S, int D, int W, int Wc,
-                                         int Dc) {
-  const long long nb = (long long)D * W + (long long)Dc * Wc + 4;
+                                         int Dc, int Cg = 4, bool heads = true) {
+  const long long nb = (long long)D * W + (long long)Dc * Wc + Cg;
   WideTrainLayout x;
   long long off = base;
-  x.heads = off;  off += round256((long long)R * S * 16);
+  x.heads = off;  off += heads ? round256((long long)R * S * 16) : 0;
   x.dc = off;     off += round256((long long)R * Wc * 4);
   x.dbpart = off; off += round256(kMaxChainBlocks * nb * 4);
   x.total = off;
@@ -70,12 +77,14 @@ inline WideTrainLayout wide_train_layout(long long base, int R, int S, int D, in
 
 // Element offsets of pack_params_wgt's stream (fused_level._layout_wgt):
 // view layers Dc-1 .. 1, view 0's h rows, trunk layers D-1 .. 1, each as
-// slabs of 64 K-rows of W^T; then W_rgb^T [3, Wc] and W_den^T [1, W].
+// slabs of 64 K-rows of W^T; then W_rgb^T [Cr, Wc] and W_den^T [Cd, W].
+// With nxw (pack_params_wgx, fused_level._layout_wgx), x layer i's W_x^T
+// [W, nxw] slabs (x[i]) sit before trunk layer i's h rows.
 struct WideChainOffsets {
-  long long view[64], trunk[64], rgb, den;
+  long long view[64], trunk[64], x[64], rgb, den;
 };
 
-inline WideChainOffsets wide_chain_offsets(const Params& p, const WideOffsets& o) {
+inline WideChainOffsets wide_chain_offsets(const Params& p, const WideOffsets& o, int nxw = 0) {
   WideChainOffsets c;
   long long off = 0;
   for (int j = p.Dc - 1; j >= 1; --j) {
@@ -84,9 +93,15 @@ inline WideChainOffsets wide_chain_offsets(const Params& p, const WideOffsets& o
   }
   c.view[0] = off;
   off += (long long)o.nc * p.W * 64;
-  for (int i = p.D - 1; i >= 1; --i) {
-    c.trunk[i] = off;
-    off += (long long)o.nh * p.W * 64;
+  for (int i = p.D - 1; i >= 0; --i) {
+    if (nxw && x_layer(p, i)) {
+      c.x[i] = off;
+      off += (long long)o.nh * nxw * 64;
+    }
+    if (i >= 1) {
+      c.trunk[i] = off;
+      off += (long long)o.nh * p.W * 64;
+    }
   }
   c.rgb = off;
   c.den = off + (long long)p.Cr * p.Wc;
@@ -94,16 +109,19 @@ inline WideChainOffsets wide_chain_offsets(const Params& p, const WideOffsets& o
 }
 
 // out = the last view layer's masked g: round(round(g_rgb) @ W_rgb^T),
-// zero where its activation is not > 0 (3 rgb channels).
+// zero where its activation is not > 0; kCr rgb channels (0: Cr, 1-8),
+// summed in order.
+template <int kCr>
 __global__ void wide_rgb_chain_kernel(const float* g_rgb, const bf16* wr, const bf16* act,
-                                      bf16* out, long long N, int Wc) {
+                                      bf16* out, long long N, int Wc, int Cr) {
+  const int cr = kCr ? kCr : Cr;
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x; idx < N * Wc;
        idx += (long long)gridDim.x * blockDim.x) {
     const long long row = idx / Wc;
     const int n = (int)(idx - row * Wc);
     float s = 0.0f;
 #pragma unroll
-    for (int k = 0; k < 3; ++k) s = fmaf(round_bf(g_rgb[row * 3 + k]), to_f(wr[k * Wc + n]), s);
+    for (int k = 0; k < cr; ++k) s = fmaf(round_bf(g_rgb[row * cr + k]), to_f(wr[k * Wc + n]), s);
     out[idx] = to_f(act[idx]) > 0.0f ? __float2bfloat16_rn(s) : __float2bfloat16_rn(0.0f);
   }
 }
@@ -241,22 +259,22 @@ inline cudaError_t launch_wide_dw(const WideDw& js, cudaStream_t st) {
   return js.Nn % 256 == 0 ? launch_wide_dw_bn<256>(js, st) : launch_wide_dw_bn<128>(js, st);
 }
 
-// The train level on the wide route, passes 1-7 above, on the workspace
-// (l, then x). p.w: pack_params_wg's stream; e.wt: pack_params_wgt's.
-inline cudaError_t launch_train_wide(Params p, Extra e, const Layout& l,
-                                     const WideTrainLayout& x, unsigned char* ws, float* out,
-                                     long long n_out, int splits, cudaStream_t st) {
-  WideOffsets o;
-  if (!wide_offsets(p, o)) return cudaErrorInvalidValue;
-  const WideChainOffsets co = wide_chain_offsets(p, o);
+// Passes 3-7 above from the head cotangents e.g_rgb [N, Cr] and e.g_den
+// [N, Cd] (kCr: 3, the train level's, or 0, any), on the activations and
+// features in the workspace (l; the direction terms and db partials in
+// x). e.wt: pack_params_wgt's stream, or pack_params_wgx's (co then has
+// its x slabs, which only launch_wide_dx reads).
+template <int kCr>
+inline cudaError_t launch_wide_backward(Params p, Extra e, const Layout& l,
+                                        const WideTrainLayout& x, const WideOffsets& o,
+                                        const WideChainOffsets& co, unsigned char* ws,
+                                        float* out, long long n_out, int splits,
+                                        cudaStream_t st) {
   const long long N = e.N;
-  const bf16* w = static_cast<const bf16*>(p.w);
   const bf16* wt = static_cast<const bf16*>(e.wt);
   bf16* acts = static_cast<bf16*>(e.acts);
   bf16* grads = static_cast<bf16*>(e.grads);
   bf16* xs = static_cast<bf16*>(e.xs);
-  float* heads = reinterpret_cast<float*>(ws + x.heads);
-  float* dc = reinterpret_cast<float*>(ws + x.dc);
   float* dbpart = reinterpret_cast<float*>(ws + x.dbpart);
   auto act = [&](int L) { return acts + act_off(p, N, L); };
   auto grad = [&](int L) { return grads + act_off(p, N, L); };
@@ -264,22 +282,12 @@ inline cudaError_t launch_train_wide(Params p, Extra e, const Layout& l,
   auto v = [&](int j) { return act(p.D + j); };
   cudaError_t err;
 
-  // 1. forward
-  wide_dir_kernel<<<p.R, p.Wc, 0, st>>>(p, w + o.dir, dc, 0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = launch_wide_features(p, xs, 0, N, st)) != cudaSuccess) return err;
-  if ((err = wide_forward(p, o, xs, dc, N, h, v, heads, st)) != cudaSuccess) return err;
-  // 2. composite and its backward
-  const size_t smem_c = sizeof(float) * (kThreads / 32) * p.S * 4;
-  if ((err = set_smem((const void*)train_composite_kernel, smem_c)) != cudaSuccess) return err;
-  train_composite_kernel<<<cdiv(p.R, kThreads / 32), kThreads, smem_c, st>>>(p, e, heads);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // 3. g-chain, top layer first
   {
     const long long n = N * p.Wc;
     const long long blocks = (n + 255) / 256;
-    wide_rgb_chain_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0, st>>>(
-        e.g_rgb, wt + co.rgb, v(p.Dc - 1), grad(p.D + p.Dc - 1), N, p.Wc);
+    wide_rgb_chain_kernel<kCr><<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0, st>>>(
+        e.g_rgb, wt + co.rgb, v(p.Dc - 1), grad(p.D + p.Dc - 1), N, p.Wc, p.Cr);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   for (int j = p.Dc - 1; j >= 0; --j) {
@@ -289,6 +297,14 @@ inline cudaError_t launch_train_wide(Params p, Extra e, const Layout& l,
     g.act = j == 0 ? h(p.D - 1) : v(j - 1);
     if (j == 0) { g.gden = e.g_den; g.wden = wt + co.den; }
     g.out = j == 0 ? grad(p.D - 1) : grad(p.D + j - 1);
+    if constexpr (kCr == 0) {  // heads of any width: a density head of Cd > 1 channels
+      if (j == 0 && p.Cd > 1) {
+        if ((err = launch_wide_gemm_mlp<kWideChainHeads>(WideGemmMlp{g, p.Cd, 0, 0}, st)) !=
+            cudaSuccess)
+          return err;
+        continue;
+      }
+    }
     if ((err = launch_wide_gemm(g, st)) != cudaSuccess) return err;
   }
   for (int i = p.D - 1; i >= 1; --i) {
@@ -339,6 +355,40 @@ inline cudaError_t launch_train_wide(Params p, Extra e, const Layout& l,
   // 7. small products, db from the partial rows, the reduction
   return launch_small_reduce<bf16>(p, e, l, ws, out, n_out, splits, dbpart, (int)db_blocks,
                                    st);
+}
+
+// The train level on the wide route, passes 1-7 above, on the workspace
+// (l, then x). p.w: pack_params_wg's stream; e.wt: pack_params_wgt's.
+inline cudaError_t launch_train_wide(Params p, Extra e, const Layout& l,
+                                     const WideTrainLayout& x, unsigned char* ws, float* out,
+                                     long long n_out, int splits, cudaStream_t st) {
+  WideOffsets o;
+  if (!wide_offsets(p, o)) return cudaErrorInvalidValue;
+  const WideChainOffsets co = wide_chain_offsets(p, o);
+  const long long N = e.N;
+  const bf16* w = static_cast<const bf16*>(p.w);
+  bf16* acts = static_cast<bf16*>(e.acts);
+  bf16* xs = static_cast<bf16*>(e.xs);
+  float* heads = reinterpret_cast<float*>(ws + x.heads);
+  float* dc = reinterpret_cast<float*>(ws + x.dc);
+  auto h = [&](int i) { return acts + act_off(p, N, i); };
+  auto v = [&](int j) { return acts + act_off(p, N, p.D + j); };
+  cudaError_t err;
+
+  // 1. forward
+  wide_dir_kernel<<<p.R, p.Wc, 0, st>>>(p, w + o.dir, dc, 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_wide_features(p, xs, 0, N, st)) != cudaSuccess) return err;
+  if ((err = wide_forward<kWideLevelHeads>(p, o, xs, dc, N, h, v, heads + 3, 4, heads, 4, st)) !=
+      cudaSuccess)
+    return err;
+  // 2. composite and its backward
+  const size_t smem_c = sizeof(float) * (kThreads / 32) * p.S * 4;
+  if ((err = set_smem((const void*)train_composite_kernel, smem_c)) != cudaSuccess) return err;
+  train_composite_kernel<<<cdiv(p.R, kThreads / 32), kThreads, smem_c, st>>>(p, e, heads);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 3-7. g-chain, per-ray sums, db, dW, small products and reduction
+  return launch_wide_backward<3>(p, e, l, x, o, co, ws, out, n_out, splits, st);
 }
 
 }  // namespace

@@ -14,8 +14,8 @@ the only mode of the two-pass kernel); rows are ray-major (row = ray * S +
 sample), features in the interleaved [sin3, cos3]-per-frequency order, so
 no weight permutation is needed.
 
-bf16 ``train_level`` and ``render_level`` at net_width 288-1024 run a wide
-route in the same libraries (``csrc/wide_forward.cuh``,
+In bf16 at net_width 288-1024 all three (and ``kernels/fused_mlp.py``'s
+two) run a wide route in the same libraries (``csrc/wide_forward.cuh``,
 ``csrc/wide_train.cuh``: a GEMM launch a layer through a workspace), on
 the same packed weights.
 
@@ -117,37 +117,32 @@ def padded_location_features(cfg: Config) -> int:
 
 
 MAX_WIDTH = 256        # net_width / net_width_condition of every route
-MAX_WIDE_WIDTH = 1024  # net_width of the bf16 train_level / render_level
+MAX_WIDE_WIDTH = 1024  # net_width of every kernel's bf16 wide route
 
 
 def uses_wide(cfg: Config) -> bool:
-    """Whether ``train_level`` and ``render_level`` take their wide route
-    (``csrc/wide_forward.cuh``, ``csrc/wide_train.cuh``): bf16 at a
+    """Whether the kernels take their wide route (``csrc/wide_forward.cuh``,
+    ``csrc/wide_train.cuh``: ``train_level``, ``render_level``,
+    ``train_level_twopass``, ``mlp_fwd`` and ``mlp_bwd``): bf16 at a
     net_width above 256."""
     return (compute_dtype(cfg) == torch.bfloat16
             and cfg.net_width > MAX_WIDTH)
 
 
-def check_kernel_config(cfg: Config, max_head: int = 0,
-                        wide: bool = False) -> None:
+def check_kernel_config(cfg: Config, max_head: int = 0) -> None:
     """Raise ValueError for configs the CUDA kernels do not take. The level
     kernels composite 3 rgb / 1 density channels (``max_head`` 0); the MLP
     kernels (``kernels/fused_mlp.py``) take heads of 1 to ``max_head``
-    channels each. Widths are multiples of 32 up to 256; ``wide`` (the
-    callers ``train_level`` and ``render_level``) admits net_width up to
-    1024 in bf16."""
+    channels each. Widths are multiples of 32 up to 256, and net_width up
+    to 1024 in bf16 (the wide route, ``uses_wide``); what is refused
+    raises naming what is not ported yet."""
     problems = []
     W, Wc = cfg.net_width, cfg.net_width_condition
-    top = MAX_WIDE_WIDTH if wide else MAX_WIDTH
     if W % 32 or W < 32:
         problems.append("net_width must be a multiple of 32 (other widths "
                         "are not ported yet)")
     elif W > MAX_WIDE_WIDTH:
         problems.append(f"net_width above {MAX_WIDE_WIDTH} is not ported yet")
-    elif W > top:
-        problems.append(
-            f"net_width above {MAX_WIDTH} is not ported yet for this kernel "
-            f"(bf16 train_level and render_level take up to {MAX_WIDE_WIDTH})")
     elif W > MAX_WIDTH and compute_dtype(cfg) != torch.bfloat16:
         problems.append(f"net_width above {MAX_WIDTH} is not ported yet in "
                         "float32 (the wide route is bf16)")
@@ -496,8 +491,7 @@ def wg_smem(cfg: Config, S: int, composite: bool):
 def check_wg_config(cfg: Config, S: int, composite: bool) -> None:
     """Raise ValueError when the bf16 forward's shared memory does not fit
     a block (``wg_smem``); nothing to check for f32, nor on the wide route
-    (``uses_wide``: its shared memory does not grow with the config;
-    ``check_kernel_config`` refuses such widths for the other kernels)."""
+    (``uses_wide``: its shared memory does not grow with the config)."""
     if compute_dtype(cfg) != torch.bfloat16 or uses_wide(cfg):
         return
     if wg_smem(cfg, S, composite)[0] is None:
@@ -633,13 +627,12 @@ def _check(name: str, t: torch.Tensor, dtype, shape: Sequence[int],
 
 
 def _check_level_inputs(cfg: Config, xs, d, delta, mode: str,
-                        wg: Optional[bool] = None, wide: bool = False):
+                        wg: Optional[bool] = None):
     """Validate one level's kernel inputs (the level kernels take the
     same); with ``wg`` (True: the render kernel's composite) also the bf16
-    forward's shared memory (``check_wg_config``); ``wide``: the kernel
-    has the wide route (``check_kernel_config``). Returns the (means,
+    forward's shared memory (``check_wg_config``). Returns the (means,
     variances, x) pointers, 0 where absent."""
-    check_kernel_config(cfg, wide=wide)
+    check_kernel_config(cfg)
     if wg is not None:
         check_wg_config(cfg, delta.shape[1], wg)
     if mode not in _MODE_CODE:
@@ -724,9 +717,10 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     in turns (``compare_kernels.py``; ``packed`` then in the layout that
     version reads, ``weight_layout``). bf16 at net_width 288-1024 runs the
     wide route (``uses_wide``, ``render_level_wide_launch``) with a
-    workspace allocated here."""
+    workspace allocated here (``source`` versions have their narrow C
+    interface only)."""
     wide = source is None
-    ptrs = _check_level_inputs(cfg, xs, d, delta, mode, wg=True, wide=wide)
+    ptrs = _check_level_inputs(cfg, xs, d, delta, mode, wg=True)
     dt = compute_dtype(cfg)
     R, S = delta.shape
     lx, fd = cfg.location_features, cfg.direction_features
@@ -1036,11 +1030,10 @@ def _train_library(name: str, source=None):
 
 def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
                   delta, pixels, g_scale, white_bkgd: bool, mode: str,
-                  packed, source=None, wide: bool = False):
+                  packed, source=None):
     """Check the inputs, launch ``csrc/<name>.cu`` (or ``source``) on the
-    current stream and add one to ``counted.launches``; ``wide``: the
-    kernel has the wide route (``train_level``)."""
-    ptrs = _check_level_inputs(cfg, xs, d, delta, mode, wide=wide)
+    current stream and add one to ``counted.launches``."""
+    ptrs = _check_level_inputs(cfg, xs, d, delta, mode)
     dt = compute_dtype(cfg)
     R, S = delta.shape
     N = R * S
@@ -1100,13 +1093,12 @@ def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
     wide route (``uses_wide``). Configs the kernel does not take, or whose
     shared memory the bf16 kernels cannot take, raise ValueError before
     anything runs."""
-    wide = source is None
-    check_kernel_config(cfg, wide=wide)
-    if wide:
+    check_kernel_config(cfg)
+    if source is None:
         check_train_wg_config(cfg, delta.shape[1])
     return _launch_train("train_level", train_level, params, cfg, xs, d,
                          delta, pixels, g_scale, white_bkgd, mode, packed,
-                         source, wide=wide)
+                         source)
 
 
 def train_level_twopass_cuda(params: Params, cfg: Config, x, d, delta,
@@ -1117,9 +1109,11 @@ def train_level_twopass_cuda(params: Params, cfg: Config, x, d, delta,
     outputs, in the TPU kernel's two phases (forward, composite and g-chain
     with db; then the dW products), on ``train_level``'s bf16 passes;
     ``packed`` is ``pack_train_level``'s result, ``source`` another version
-    of the source, as for ``train_level_cuda``. Configs whose shared memory
-    the bf16 passes cannot take raise ValueError before anything runs
-    (net_width above 256 too: the two-pass kernel has no wide route)."""
+    of the source, as for ``train_level_cuda``. bf16 at net_width 288-1024
+    runs ``train_level``'s wide route, in the same two phases
+    (``uses_wide``). Configs the kernel does not take, or whose shared
+    memory the bf16 passes cannot take, raise ValueError before anything
+    runs."""
     check_kernel_config(cfg)
     if source is None:
         check_train_wg_config(cfg, delta.shape[1])

@@ -18,6 +18,11 @@ heads other than 3 rgb / 1 density, a full covariance). The TPU grid
 sizes (``tile``, ``tile_bwd``, ``interleave``) are not carried over, and
 the kernels take per-ray directions for any S.
 
+In bf16 at net_width 288-1024 both run their wide route
+(``fused_level.uses_wide``; ``csrc/wide_forward.cuh``,
+``csrc/wide_train.cuh``): ``mlp_fwd`` through ``mlp_fwd_wide_launch`` and
+a workspace allocated here, ``mlp_bwd`` through the same entry point.
+
 ``mlp_fwd`` and ``mlp_bwd`` dispatch on the device of their inputs: CPU
 tensors go to the plain version; CUDA tensors launch the kernel, or raise.
 """
@@ -35,6 +40,7 @@ from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     _DTYPE_CODE,
     SMEM_LIMIT,
     _check,
+    uses_wide,
     chain_wg_smem,
     check_kernel_config,
     check_wg_config,
@@ -143,8 +149,10 @@ def check_mlp_bwd_config(cfg: Config, S: int, input_grads: bool) -> None:
     """Raise ValueError when ``mlp_bwd``'s bf16 passes cannot take the
     config: the recomputed forward's shared memory (``check_wg_config``),
     or the g-chain's (``chain_wg_smem``, with the dX partials and x rows of
-    ``input_grads``); nothing to check for f32."""
-    if compute_dtype(cfg) != torch.bfloat16:
+    ``input_grads``); nothing to check for f32, nor on the wide route
+    (``uses_wide``: a GEMM launch a layer, whose shared memory does not
+    grow with the config)."""
+    if compute_dtype(cfg) != torch.bfloat16 or uses_wide(cfg):
         return
     check_wg_config(cfg, S, False)
     if chain_wg_smem(cfg, dx=input_grads)[0] is None:
@@ -225,6 +233,21 @@ def _fwd_library(source=None):
     return fn, weight_layout(lib, "mlp_fwd")
 
 
+def _wide_fwd_library():
+    """(launch, workspace) of the wide route of ``csrc/mlp_fwd.cu``."""
+    from nerf_or_nothing_tpu_torch.kernels import build
+
+    lib = build.load("mlp_fwd")
+    fn, ws = lib.mlp_fwd_wide_launch, lib.mlp_fwd_wide_workspace
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 6 + [i] * 12 + [p, p]
+        fn.restype = ctypes.c_int
+        ws.argtypes = [i] * 5
+        ws.restype = ctypes.c_longlong
+    return fn, ws
+
+
 def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
                  source=None):
     """Launch ``mlp_fwd`` on the current stream. Same inputs and outputs as
@@ -232,7 +255,10 @@ def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
     ``packed`` starts with ``pack_forward``'s result when the caller
     already has it; ``source`` is another version of ``csrc/mlp_fwd.cu``
     with the same C interface, to time versions in turns
-    (``compare_kernels.py``; ``packed`` then in the layout it reads)."""
+    (``compare_kernels.py``; ``packed`` then in the layout it reads). bf16
+    at net_width 288-1024 runs the wide route (``uses_wide``,
+    ``mlp_fwd_wide_launch``) with a workspace allocated here (``source``
+    versions have the narrow C interface only)."""
     R, S = _check_mlp_inputs(cfg, x, d, wg=True)
     dt = compute_dtype(cfg)
     device = x.device
@@ -246,11 +272,18 @@ def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
                           device=device)
     raw_den = torch.empty((N, cfg.num_density_channels), dtype=torch.float32,
                           device=device)
-    err = fn(
-        _DTYPE_CODE[dt], x.data_ptr(), d.data_ptr(), w_flat.data_ptr(),
-        b_flat.data_ptr(), raw_rgb.data_ptr(), raw_den.data_ptr(), R, S,
-        *_dims(cfg), torch.cuda.current_stream(device).cuda_stream,
-    )
+    ptrs = (x.data_ptr(), d.data_ptr(), w_flat.data_ptr(), b_flat.data_ptr(),
+            raw_rgb.data_ptr(), raw_den.data_ptr())
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if source is None and uses_wide(cfg):
+        fn, workspace_bytes = _wide_fwd_library()
+        workspace = torch.empty(
+            (workspace_bytes(R, S, cfg.net_width, cfg.net_width_condition,
+                             padded_location_features(cfg)),),
+            dtype=torch.uint8, device=device)
+        err = fn(*ptrs, R, S, *_dims(cfg), workspace.data_ptr(), stream)
+    else:
+        err = fn(_DTYPE_CODE[dt], *ptrs, R, S, *_dims(cfg), stream)
     if err != 0:
         raise RuntimeError(f"mlp_fwd kernel launch failed: CUDA error {err}")
     mlp_fwd.launches += 1
@@ -291,8 +324,9 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     caller already has it (once per step for both levels); ``source`` is
     another version of ``csrc/mlp_bwd.cu`` with the same C interface, to
     time versions in turns (``compare_kernels.py``; ``packed`` then in the
-    layout it reads). Configs whose shared memory the bf16 passes cannot
-    take raise ValueError before anything runs."""
+    layout it reads). bf16 at net_width 288-1024 runs the wide route
+    (``uses_wide``) in the same entry point. Configs whose shared memory
+    the bf16 passes cannot take raise ValueError before anything runs."""
     R, S = _check_mlp_inputs(
         cfg, x, d, input_grads=input_grads if source is None else None)
     dt = compute_dtype(cfg)
@@ -312,7 +346,10 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
         _, b_flat, w_flat, wt_flat, wtx_flat = packed
         wtx_ptr = wtx_flat.data_ptr()
     n_out = num_params(cfg)
-    grads = torch.empty((n_out,), dtype=torch.float32, device=device)
+    # Room for n_out rounded up to even: the kernel's split partials keep
+    # 8-byte aligned rows (``partial_stride`` in csrc/mlp_bwd.cu).
+    grads = torch.empty((n_out + n_out % 2,), dtype=torch.float32,
+                        device=device)
     dx = dd = None
     if input_grads:
         dx = torch.empty((N, cfg.location_features), dtype=dt, device=device)
@@ -335,7 +372,7 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     if err != 0:
         raise RuntimeError(f"mlp_bwd kernel launch failed: CUDA error {err}")
     mlp_bwd.launches += 1
-    return unpack_grads(grads, cfg), dx, dd
+    return unpack_grads(grads[:n_out], cfg), dx, dd
 
 
 def mlp_bwd(params: Params, cfg: Config, x, d, g_rgb, g_den,

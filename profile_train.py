@@ -23,7 +23,7 @@ idle), the device time of the hand-written kernels' launches by name per
 step and per launch of the wrapper (``train_level`` and
 ``train_level_twopass`` in bf16: 7 launches, the wgmma forward, the
 composite, the wgmma g-chain, the per-ray sums, the dW GEMM, the small
-products and the reduction; ``train_level`` at net_width 288-1024 (e.g.
+products and the reduction; every kernel at net_width 288-1024 (e.g.
 ``--net-width=1024``): the wide route's launches, a GEMM a layer product; ``mlp_bwd`` in bf16: 6, with input_grads 7,
 the wgmma forward keeping its activations, the g-chain (with dX), the
 per-ray sums, dD, the dW GEMM, the small products and the reduction;
@@ -46,17 +46,20 @@ import time
 TRAIN_WG = ("train_fwd_wg_kernel", "train_composite_kernel",
             "chain_wg_kernel", "g_ray_kernel", "dw_wg_kernel",
             "small_tn_kernel", "reduce_kernel")
-# the wide route's (net_width 288-1024) own launches beside the shared ones
-WIDE_TRAIN = ("wide_features_kernel", "wide_dir_kernel", "wide_gemm_kernel",
-              "wide_head_kernel", "wide_rgb_chain_kernel", "wide_db_kernel",
-              "wide_dw_kernel")
+# the wide route's (net_width 288-1024) own launches beside the shared ones;
+# mlp_fwd and mlp_bwd share their names there, so in one step their
+# per-launch split is the one timed alone ("alone")
+WIDE_FWD = ("wide_features_kernel", "wide_dir_kernel", "wide_gemm_kernel",
+            "wide_head_kernel")
+WIDE_TRAIN = WIDE_FWD + ("wide_rgb_chain_kernel", "wide_db_kernel",
+                         "wide_dw_kernel")
 KERNELS = {
     "train_level": TRAIN_WG + WIDE_TRAIN,
-    "train_level_twopass": TRAIN_WG,
+    "train_level_twopass": TRAIN_WG + WIDE_TRAIN,
     "mlp_bwd": ("mlp_act_wg_kernel", "chain_wg_kernel", "g_ray_kernel",
                 "mlp_dd_kernel", "dw_wg_kernel", "small_tn_kernel",
-                "reduce_kernel"),
-    "mlp_fwd": ("mlp_fwd_wg_kernel", "mlp_fwd_kernel"),  # bf16, f32
+                "reduce_kernel") + WIDE_TRAIN,
+    "mlp_fwd": ("mlp_fwd_wg_kernel", "mlp_fwd_kernel") + WIDE_FWD,  # bf16, f32
 }
 BACKWARD_NODE = "autograd::engine::evaluate_function: "
 

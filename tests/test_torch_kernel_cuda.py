@@ -740,12 +740,14 @@ def test_twopass_wg_matches_plain_on_cuda(R):
 
 
 @pytest.mark.parametrize("input_grads", [True, False])
-@pytest.mark.parametrize("heads", [(3, 1), (8, 8)],
+@pytest.mark.parametrize("heads", [(3, 1), (8, 8), (5, 2)],
                          ids=lambda h: f"{h[0]}_{h[1]}")
 def test_mlp_bwd_wg_matches_plain_on_cuda(heads, input_grads):
     """``mlp_bwd``'s bf16 route (the wgmma forward, chain with dX, dW) at
-    Config() width, ragged R=77, heads 3/1 (their own instantiation) and
-    8/8 (any width): every dW/db, dX and dD against ``mlp_bwd_plain``,
+    Config() width, ragged R=77, heads 3/1 (their own instantiation), 8/8
+    (any width) and 5/2 (an odd parameter count: the dW GEMM's float2
+    stores into the split partials misaligned before their rows were
+    padded to even): every dW/db, dX and dD against ``mlp_bwd_plain``,
     bit-equal over two launches."""
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
 
@@ -939,19 +941,27 @@ def test_wide_route_packs_once_on_cuda(monkeypatch):
 
 def test_wide_unported_routes_raise_before_launch_on_cuda():
     """On CUDA tensors, what the wide route does not take raises ValueError
-    naming what is not ported before any launch: f32 levels at net_width
-    512, ``mlp_fwd`` / ``mlp_bwd`` / ``train_level_twopass`` at 512,
-    net_width_condition 288, net_width 1056."""
+    naming what is not ported before any launch: every route in f32 at
+    net_width 512, at net_width_condition 288 and at net_width 1056; bf16
+    ``mlp_fwd`` / ``mlp_bwd`` / ``train_level_twopass`` at 288, 512 and
+    1024 pass every config check (``test_wide_mlp_kernels_match_plain_on_cuda``
+    and ``test_wide_twopass_equals_train_level_on_cuda`` launch them)."""
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
     from nerf_or_nothing_tpu_torch.kernels import launch_counts
 
     dev = cuda_device()
     R = 2
     before = launch_counts()
+    for width in (288, 512, 1024):
+        cfg = Config(**dict(SMALL, net_width=width))
+        assert fl.uses_wide(cfg)
+        fl.check_kernel_config(cfg, max_head=fm.MAX_HEAD)
+        fl.check_train_wg_config(cfg, cfg.num_samples)
+        for input_grads in (True, False):
+            fm.check_mlp_bwd_config(cfg, cfg.num_samples, input_grads)
     for kw, routes in (
             (dict(net_width=512, compute_dtype="float32"),
              ("train", "render", "twopass", "fwd", "bwd")),
-            (dict(net_width=512), ("twopass", "fwd", "bwd")),
             (dict(net_width=512, net_width_condition=288),
              ("train", "render", "twopass", "fwd", "bwd")),
             (dict(net_width=1056), ("train", "render", "twopass", "fwd",
@@ -983,6 +993,89 @@ def test_wide_unported_routes_raise_before_launch_on_cuda():
             with pytest.raises(ValueError, match="not ported yet"):
                 calls[name]()
     assert launch_counts() == before
+
+
+@pytest.mark.parametrize("width", [288, 512, 1024])
+def test_wide_mlp_kernels_match_plain_on_cuda(width):
+    """The wide route of the MLP kernels (bf16, net_width 288-1024):
+    ``mlp_fwd`` (heads 3 / 1 at R=300, S=128 and 4 / 2 ragged at R=37) and
+    ``mlp_bwd`` with and without input_grads (3 / 1 with the composite's
+    cotangents, 5 / 2 random) against ``mlp_fwd_plain`` /
+    ``mlp_bwd_plain``: heads, every dW / db, dX and dD in the bf16 band,
+    ``mlp_bwd`` bit-equal over two launches, one launch counted a call."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    atol, rtol = BANDS["bfloat16"]
+    flat = lambda o: [t for wb in o[0] for t in wb] + [  # noqa: E731
+        t for t in o[1:] if t is not None]
+    for heads, R in (((3, 1), 300), ((4, 2), 37), ((5, 2), 37)):
+        cfg = Config(**dict(WIDE, net_width=width, num_rgb_channels=heads[0],
+                            num_density_channels=heads[1]))
+        assert fl.uses_wide(cfg)
+        S = cfg.num_samples
+        params = tmlp.init_mlp(torch.Generator().manual_seed(width + R),
+                               cfg, device=dev)
+        x, d, g_rgb, g_den = mlp_inputs(cfg, params, R, width % 11, dev)
+        packed = fm.pack_mlp_params(params, cfg, tmlp.compute_dtype(cfg))
+        before = fm.mlp_fwd.launches
+        raw = fm.mlp_fwd(params, cfg, x, d, packed=packed)
+        torch.cuda.synchronize()
+        assert fm.mlp_fwd.launches == before + 1
+        for a, b in zip(raw, fm.mlp_fwd_plain(params, cfg, x, d, S)):
+            assert bool(torch.isfinite(a).all()) and a.shape == b.shape
+            assert normalized_err(a, b, atol, rtol) < 1.0, (width, heads)
+        for input_grads in ((True, False) if heads != (4, 2) else (True,)):
+            before = fm.mlp_bwd.launches
+            a, b = (fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, input_grads,
+                               packed=packed) for _ in range(2))
+            torch.cuda.synchronize()
+            assert fm.mlp_bwd.launches == before + 2
+            ref = fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, S,
+                                   input_grads)
+            got, again, exp = flat(a), flat(b), flat(ref)
+            assert len(got) == len(exp) == 2 * len(params) + 2 * input_grads
+            for k, (ta, tb, tr) in enumerate(zip(got, again, exp)):
+                assert torch.equal(ta, tb), (width, heads, input_grads, k)
+                assert ta.shape == tr.shape and bool(torch.isfinite(ta).all())
+                assert normalized_err(ta.float(), tr.float(), atol,
+                                      rtol) < 1.0, (width, heads, k)
+
+
+@pytest.mark.parametrize("width", [288, 512, 1024])
+def test_wide_twopass_equals_train_level_on_cuda(width):
+    """The two-pass kernel at net_width 288-1024 (bf16) runs
+    ``train_level``'s wide route in its two phases: bit-equal to
+    ``train_level`` on the same inputs and over two launches, in the bf16
+    band of ``level_train_plain``, with Multicam's loss weights."""
+    dev = cuda_device()
+    cfg = Config(**dict(WIDE, net_width=width,
+                        kernel_probes="fl_variant=twopass"))
+    R, S = 200, cfg.num_samples
+    params = tmlp.init_mlp(torch.Generator().manual_seed(width), cfg,
+                           device=dev)
+    means, covs, dir_enc, t_vals, dirs, pixels, _ = train_inputs(R, S, 9, dev)
+    g_scale = multicam_g_scale(R, 10).to(dev)
+    dt = tmlp.compute_dtype(cfg)
+    x = integrated_pos_enc((means, covs), 0, cfg.max_deg_point,
+                           fast=True).reshape(R * S, -1).to(dt)
+    d, delta = dir_enc.to(dt), interval_lengths(t_vals, dirs)
+    packed = fl.pack_train(params, cfg, dt)
+    before = fl.train_level_twopass.launches
+    a, b = (fl.train_level_twopass(params, cfg, x, d, delta, pixels, g_scale,
+                                   True, packed=packed) for _ in range(2))
+    torch.cuda.synchronize()
+    assert fl.train_level_twopass.launches == before + 2
+    one = fl.train_level_cuda(params, cfg, x, d, delta, pixels, g_scale,
+                              True, "t", packed=packed)
+    ref = fl.level_train_plain(params, cfg, x, d, delta, pixels, g_scale,
+                               True, "t")
+    flat = lambda o: [*o[:3], *[t for wb in o[3] for t in wb]]  # noqa: E731
+    atol, rtol = BANDS["bfloat16"]
+    for k, (ta, tb, to, tr) in enumerate(zip(*map(flat, (a, b, one, ref)))):
+        assert torch.equal(ta, tb) and torch.equal(ta, to), k
+        assert bool(torch.isfinite(ta).all())
+        assert normalized_err(ta, tr, atol, rtol) < 1.0, k
 
 
 def host_batches(n_batches, R, seed):

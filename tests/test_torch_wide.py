@@ -210,7 +210,7 @@ def test_wide_widths_are_admitted_for_bf16_levels(width):
     for wc in (32, 128, 256):
         cfg = Config(net_width=width, net_width_condition=wc)
         assert fl.uses_wide(cfg)
-        fl.check_kernel_config(cfg, wide=True)
+        fl.check_kernel_config(cfg)
         fl.check_train_wg_config(cfg, 128)
         fl.check_wg_config(cfg, 128, True)
     cfg = Config(**dict(WIDE, net_width=width))
@@ -255,8 +255,6 @@ def refused_routes(cfg):
     ("f32 above 256", dict(net_width=512, compute_dtype="float32"),
      ("train_level", "render_level", "train_level_twopass", "mlp_fwd",
       "mlp_bwd")),
-    ("mlp and two-pass above 256", dict(net_width=512),
-     ("train_level_twopass", "mlp_fwd", "mlp_bwd")),
     ("net_width_condition above 256",
      dict(net_width=512, net_width_condition=288),
      ("train_level", "render_level", "train_level_twopass", "mlp_fwd",
@@ -288,18 +286,24 @@ def test_routes_not_ported_still_raise(what, kw, routes):
 
 
 def test_wide_guard_messages():
-    """Each refused width names what is not ported yet."""
-    cases = [(dict(net_width=512), False, "above 256 is not ported yet for "
-              "this kernel"),
-             (dict(net_width=512, compute_dtype="float32"), True,
+    """Each refused width names what is not ported yet; bf16 at 288-1024
+    passes the guard of every route (the level kernels' and, with heads
+    of up to ``MAX_HEAD`` channels, the MLP kernels')."""
+    for width in (288, 512, 1024):
+        fl.check_kernel_config(Config(net_width=width))
+        fl.check_kernel_config(Config(net_width=width, num_rgb_channels=8,
+                                      num_density_channels=8),
+                               max_head=fm.MAX_HEAD)
+    cases = [(dict(net_width=512, compute_dtype="float32"),
               "not ported yet in float32"),
-             (dict(net_width=2048), True, "above 1024 is not ported yet"),
-             (dict(net_width=512, net_width_condition=384), True,
+             (dict(net_width=2048), "above 1024 is not ported yet"),
+             (dict(net_width=512, net_width_condition=384),
               "net_width_condition above 256 is not ported yet"),
-             (dict(net_width=48), True, "multiple of 32")]
-    for kw, wide, text in cases:
-        with pytest.raises(ValueError, match=text):
-            fl.check_kernel_config(Config(**kw), wide=wide)
+             (dict(net_width=48), "multiple of 32")]
+    for kw, text in cases:
+        for max_head in (0, fm.MAX_HEAD):
+            with pytest.raises(ValueError, match=text):
+                fl.check_kernel_config(Config(**kw), max_head=max_head)
     assert not fl.uses_wide(Config())
     assert not fl.uses_wide(Config(net_width=512, compute_dtype="float32"))
 
