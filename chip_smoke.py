@@ -76,6 +76,23 @@ Phases, each printing one JSON line:
            chunked wide mlp_fwd, render rays/s beside the bound) and the
            Multicam run with fl_variant=twopass at --net-width=1024
            (train_level_twopass);
+  padded_widths  widths that are not multiples of 32, and
+           net_width_condition above net_width, which the kernels run
+           zero-padded (fused_level.kernel_cfg): all five kernels at
+           96 / 48 depth 4 in bf16 and f32 at the usual shapes (R=16384 or
+           1024 x S=128), at 16 / 8 depth 2 (bf16, f32) and 400 / 200 depth
+           8 (bf16) at R=1024, against their plain versions at the real
+           config, the backward kernels bit-equal over two launches, each
+           time beside the bound of the real FLOPs, the padded FLOPs and
+           bf16 torch.matmul of the real layer products; each config's
+           padding check (padded_zero_check: padded dW/db exactly 0, and
+           bit-equal to the unpadded launch once dropped); then
+           tests/test_integration.py's gate through ``run train`` (96 / 48,
+           600 steps on the 48-px sphere: train PSNR > 20 dB, held-out
+           view 0 > 18 dB, SSIM > 0.6; ``run eval``), the golden config
+           (32 / 16) in f32 for 5 steps on the card against the CPU (rtol
+           2e-4, atol 2e-5) and ``run train`` / ``run eval`` at
+           test_checkpoint_eval.py's 16 / 8, each with exact launches;
   mlp_kernel  the MLP kernels against their plain versions: mlp_fwd at
            Config() width, mode "t" features, R=16384 x S=128 in bf16 and
            f32 and R=1024 x S=128 in bf16, and a narrow ragged config with
@@ -200,7 +217,9 @@ wide phase's, plus the mesh phase's in the world-1 child's sharded steps
 and rank 0 of the pair, the tensor phase's ``run train
 --mesh-shape=1,1``, the recovery phase's two runs that end and the
 quality phase's; under "wide" the W=1024 case of each kernel and the
-wide phase's launches, which the total includes), the card's name and
+wide phase's launches, which the total includes; under "padded" the
+96 / 48 cases of each kernel in bf16 and f32 and the padded_widths phase's
+launches, which the total includes too), the card's name and
 power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: non-zero exit and no
 ``ok`` line. Without a CUDA device the script exits 1 at once.
@@ -258,6 +277,16 @@ WIDE_PLAIN_RAYS = 2048  # rays of one call of the wide render's plain version
 WIDE_MLP_STEPS = 10  # run train steps of each wide path through the MLP /
 WIDE_MLP_ARGS = ("--net-width=1024", *FULL_GRAD_ARGS)  # two-pass kernels
 WIDE_TWOPASS_ARGS = (*MULTICAM_ARGS, "--net-width=1024")
+# (row, widths and depth, timed at the usual shapes) of the padded_widths
+# phase: widths that are not multiples of 32 run zero-padded
+PADDED_ROWS = (("96_48", dict(net_width=96, net_width_condition=48,
+                              net_depth=4), True),
+               ("16_8", dict(net_width=16, net_width_condition=8,
+                             net_depth=2), False),
+               ("400_200", dict(net_width=400, net_width_condition=200,
+                                net_depth=8), False))
+INTEGRATION_STEPS = 600  # tests/test_integration.py's run
+SMALL_STEPS = 10  # run train at test_checkpoint_eval.py's small_cfg
 GRAPH_K = 8  # steps a multi-step call in the graph phase
 TURN_STEPS = 16  # steps a turn of the graph phase's rays/s
 GRAPH_CASES = (("Config()", ()), ("multicam_twopass", MULTICAM_ARGS),
@@ -1566,6 +1595,319 @@ def wide_path(peaks, device, scene: str, size: int = 400):
         raise AssertionError(f"wide: graph steps differ from eager steps in "
                              f"{unequal} (finite: {finite})")
     return launches
+
+
+def padded_zero_check(name, cfg, R: int, device) -> dict:
+    """The padding of one config the kernels run zero-padded
+    (``fused_level.kernel_cfg``): ``train_level``, ``train_level_twopass``
+    and ``mlp_bwd`` (input_grads) launched at ``cfg`` and at the kernel
+    config on the embedded weights (``fused_level.embed_params``, random
+    biases); the second launch's padded dW/db entries must be exactly 0 and
+    dropping them (``unembed_grads``) must give the first launch's grads bit
+    for bit, with comp / acc / weights, dX and dD equal; launches exact
+    (2 of each)."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+    from nerf_or_nothing_tpu_torch.models.mlp import init_mlp, num_params
+
+    kc = fl.kernel_cfg(cfg)
+    g = torch.Generator().manual_seed(R)
+    params = [(w, (torch.randn(b.shape, generator=g) * 0.1).to(device))
+              for w, b in init_mlp(g, cfg, device=device)]
+    ep = fl.embed_params(params, cfg)
+    xs, d, delta = level_inputs(cfg, R, "t", 41, device)
+    pixels, g_scale = train_inputs(cfg, R, 42, device)
+    _, x, dm, g_rgb, g_den = mlp_case_inputs(cfg, R, 43, device)
+    pad = torch.ones(num_params(kc), dtype=torch.bool, device=device)
+    pad[fl._unembed_index(cfg, device)] = False  # the padded dW/db entries
+
+    def flat(d_params):
+        return torch.cat([w.reshape(-1) for w, _ in d_params]
+                         + [b for _, b in d_params])
+
+    checks = {}
+    reset_launch_counts()
+    for kname, fn in (("train_level", lambda p, c: fl.train_level_cuda(
+            p, c, xs, d, delta, pixels, g_scale, True, "t")),
+                      ("train_level_twopass",
+                       lambda p, c: fl.train_level_twopass_cuda(
+                           p, c, xs, d, delta, pixels, g_scale, True))):
+        real, padded = fn(params, cfg), fn(ep, kc)
+        pf = flat(padded[3])
+        checks[kname] = {
+            "padded_zero": not bool(pf[pad].any()),
+            "unembedded_bit_equal": torch.equal(fl.unembed_grads(pf, cfg),
+                                                flat(real[3])),
+            "outputs_equal": all(torch.equal(a, b)
+                                 for a, b in zip(real[:3], padded[:3]))}
+    real = fm.mlp_bwd_cuda(params, cfg, x, dm, g_rgb, g_den, True)
+    padded = fm.mlp_bwd_cuda(ep, kc, x, dm, g_rgb, g_den, True)
+    pf = flat(padded[0])
+    checks["mlp_bwd"] = {
+        "padded_zero": not bool(pf[pad].any()),
+        "unembedded_bit_equal": torch.equal(fl.unembed_grads(pf, cfg),
+                                            flat(real[0])),
+        "outputs_equal": all(torch.equal(a, b)
+                             for a, b in zip(real[1:], padded[1:]))}
+    torch.cuda.synchronize()
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(train_level=2, train_level_twopass=2, mlp_bwd=2)
+    launches = launch_counts()
+    res = {"phase": "padded_widths", "check": "padding", "case": name,
+           "dtype": cfg.compute_dtype,
+           "widths": [cfg.net_width, cfg.net_width_condition],
+           "kernel_widths": [kc.net_width, kc.net_width_condition], "R": R,
+           "S": cfg.num_samples, "checks": checks, "launches": launches}
+    emit(res)
+    check_launches(f"padded_widths: {name}", launches, expected)
+    bad = [k for k, v in checks.items() if not all(v.values())]
+    if bad:
+        raise AssertionError(f"padded_widths: {name}: padding check failed "
+                             f"for {bad}: {checks}")
+    return launches
+
+
+def padded_kernels(peaks, device) -> dict:
+    """The five kernels at widths that are not multiples of 32 against
+    their plain versions (``PADDED_ROWS``): at 96 / 48 in bf16 and f32 at
+    the usual shapes (``train_level``, ``train_level_twopass`` and
+    ``mlp_bwd`` at R=1024 x S=128, dW/db bit-equal over two launches;
+    ``render_level`` and ``mlp_fwd`` at R=16384 x S=128), at 16 / 8 (bf16,
+    f32) and 400 / 200 (bf16) at R=1024; each time beside the bound of the
+    real FLOPs, the padded FLOPs (``utils/profiling`` at
+    ``fused_level.kernel_cfg``) and the real layer products as bf16
+    ``torch.matmul`` (``matmul_ms``, a yardstick); then
+    ``padded_zero_check`` of each. Returns the 96 / 48 cases by kernel and
+    dtype, and the launches of the padding checks."""
+    from nerf_or_nothing_tpu_torch.config import Config
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+
+    cases, launches = {}, dict.fromkeys(KERNELS, 0)
+    for row, kw, timed in PADDED_ROWS:
+        for dtype in ("bfloat16", "float32"):
+            cfg = Config(**kw, compute_dtype=dtype)
+            kc = fl.kernel_cfg(cfg)
+            if dtype == "float32" and kc.net_width > fl.MAX_WIDTH:
+                continue  # f32 above 256 is not ported yet
+            big, small = (16384, 1024) if timed else (1024, 1024)
+            mm = {n: matmul_ms(cfg.replace(compute_dtype="bfloat16"), n,
+                               device) for n in {big, small}}
+            tag = f"padded_{row}_{dtype}"
+
+            def extra(res, flop_kc, n):
+                res.update(kernel_widths=[kc.net_width,
+                                          kc.net_width_condition],
+                           padded_flop=flop_kc,
+                           padded_factor=flop_kc / res["flop"],
+                           matmul_ms=mm[n])
+                emit({"phase": "padded_widths", "case": res["case"],
+                      "kernel": res["kernel"], "padded_flop": flop_kc,
+                      "padded_factor": flop_kc / res["flop"],
+                      "matmul_ms": mm[n]})
+                if timed:
+                    cases[(res["kernel"], dtype)] = res
+                return res
+
+            S = cfg.num_samples
+            extra(kernel_case(f"{tag}_r{big}_s{S}_mv", cfg, big, "mv", True,
+                              peaks, device, seed=51, phase="padded_widths",
+                              plain_rays=WIDE_PLAIN_RAYS),
+                  level_flops(kc, big, S), big)
+            extra(train_kernel_case(f"{tag}_r{small}_s{S}_t", cfg, small,
+                                    "t", True, peaks, device, seed=52,
+                                    bit_check=True, phase="padded_widths"),
+                  train_level_flops(kc, small, S), small)
+            extra(train_kernel_case(
+                f"{tag}_r{small}_s{S}_t_twopass", cfg, small, "t", True,
+                peaks, device, seed=53, bit_check=True, twopass=True,
+                multicam=True, phase="padded_widths"),
+                train_level_flops(kc, small, S), small)
+            extra(mlp_fwd_case(f"{tag}_r{big}_s{S}", cfg, big, peaks, device,
+                               seed=54, phase="padded_widths",
+                               plain_rays=WIDE_PLAIN_RAYS),
+                  mlp_fwd_flops(kc, big, S), big)
+            extra(mlp_bwd_case(f"{tag}_r{small}_s{S}_dx", cfg, small, True,
+                               peaks, device, seed=55, bit_check=True,
+                               phase="padded_widths"),
+                  mlp_bwd_flops(kc, small, S, True), small)
+            launches = added(launches, padded_zero_check(tag, cfg, 256,
+                                                         device))
+    return cases, launches
+
+
+def integration_config_args(scene: str):
+    """``tests/test_integration.py``'s tiny config as ``run`` flags (its
+    ``use_pallas=False`` from ``tiny_config`` not carried over: the fused
+    kernels train)."""
+    return [f"--data-dir={scene}", "--dataset-loader=blender",
+            "--batch-size=512", "--num-samples=48", "--num-levels=2",
+            "--net-depth=4", "--net-width=96", "--net-width-condition=48",
+            "--max-deg-point=8", "--deg-view=4", "--lr-init=5e-3",
+            "--lr-final=5e-4", "--lr-delay-steps=0"]
+
+
+def golden_batch():
+    """``tests/test_golden.py::golden_setup``'s 32 rays and pixels, made
+    with numpy as there (without JAX)."""
+    import numpy as np
+
+    from nerf_or_nothing_tpu_torch.rays import Rays
+
+    rng = np.random.default_rng(1234)
+    d = rng.normal(size=(32, 3)).astype(np.float32)
+    ones = np.ones((32, 1), np.float32)
+    rays = Rays(rng.normal(size=(32, 3)).astype(np.float32) * 0.1, d,
+                d / np.linalg.norm(d, axis=-1, keepdims=True), ones * 0.005,
+                ones * 2.0, ones * 6.0, ones)
+    return rays, rng.uniform(size=(32, 3)).astype(np.float32)
+
+
+def padded_paths(device, work: str) -> dict:
+    """The reference's own small configs on the card: (1) the integration
+    gate, ``run train`` at ``integration_config_args`` for
+    ``INTEGRATION_STEPS`` steps on ``utils/synthetic.write_scene``'s 48-px
+    sphere (10 train, 2 test views; 2 ``train_level`` launches a step,
+    exact), train PSNR of the last step > 20 dB, held-out view 0 through
+    ``eval.render_image`` > 18 dB with SSIM > 0.6, then ``run eval`` of the
+    checkpoint; (2) the golden config (32 / 16, depth 3) in f32 with
+    use_pallas on: 5 steps on the card and on the CPU (the fused level's
+    plain version) from the same seeded init on the golden batch, losses
+    within the golden test's rtol 2e-4 / atol 2e-5; (3) ``run train`` at
+    ``tests/test_checkpoint_eval.py``'s ``small_cfg`` (16 / 8, depth 2) for
+    ``SMALL_STEPS`` steps and ``run eval`` restoring its checkpoint.
+    Returns the launches."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch import train as train_lib
+    from nerf_or_nothing_tpu_torch.config import tiny_config
+    from nerf_or_nothing_tpu_torch.datasets.base import create_dataset
+    from nerf_or_nothing_tpu_torch.eval import (
+        evaluate_image,
+        make_render_fn,
+        render_image,
+    )
+    from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
+
+    t0 = time.perf_counter()
+    scene = write_scene(os.path.join(work, "sphere"), n_train=10, n_test=2,
+                        size=48)
+    scene_s = time.perf_counter() - t0
+    ckpt = os.path.join(work, "integration_ckpt")
+    args = integration_config_args(scene)
+    cfg = run.parse_flags(args)
+    dev = [f"--device={device.type}"]
+    steps = INTEGRATION_STEPS
+    train_s = run_main(
+        "padded_widths: integration run train",
+        ["train", *args, f"--checkpoint-dir={ckpt}", f"--max-steps={steps}",
+         "--print-every=100", f"--save-every={steps}",
+         "--test-render-interval=0", *dev], step_launches(cfg, steps))
+    launches = step_launches(cfg, steps)
+    with open(os.path.join(ckpt, "train_stats.csv")) as f:
+        rows = list(csv.DictReader(f))
+    psnrs = [float(r["psnr"]) for r in rows]
+    params = run.load_params(cfg.replace(checkpoint_dir=ckpt), device)
+    with create_dataset("test", scene, cfg) as test_ds:
+        rays, gt = test_ds.image_rays(0)
+        h, w = test_ds.image_dims(0)
+    reset_launch_counts()
+    rgb, _, _ = render_image(make_render_fn(cfg), params, rays, h, w,
+                             cfg.render_chunk_size, device=device)
+    m = evaluate_image(rgb, np.asarray(gt).reshape(h, w, 3), device=device)
+    check_launches("padded_widths: held-out render", launch_counts(),
+                   render_launches(cfg, [(h, w)]))
+    launches = added(launches, render_launches(cfg, [(h, w)]))
+    dims = test_dims(scene, cfg)
+    eval_s = run_main("padded_widths: integration run eval",
+                      ["eval", *args, f"--checkpoint-dir={ckpt}", *dev],
+                      render_launches(cfg, dims))
+    launches = added(launches, render_launches(cfg, dims))
+    gates = {"train_psnr": psnrs[-1] > 20.0, "heldout_psnr": m["psnr"] > 18.0,
+             "heldout_ssim": m["ssim"] > 0.6}
+    emit({"phase": "padded_widths", "check": "integration",
+          "config": "tests/test_integration.py (96 / 48, depth 4)",
+          "flags": args[1:], "steps": steps, "scene_s": scene_s,
+          "train_s": train_s, "eval_s": eval_s,
+          "logged_steps": [int(r["step"]) for r in rows],
+          "logged_psnr": psnrs,
+          "heldout": {"psnr": m["psnr"], "ssim": m["ssim"]},
+          "gates": gates})
+    if not all(gates.values()):
+        raise AssertionError(f"padded_widths: integration gates failed "
+                             f"{gates}: train {psnrs}, held-out {m}")
+
+    gcfg = tiny_config(batch_size=32, num_samples=16, net_depth=3,
+                       net_width=32, net_width_condition=16, max_deg_point=6,
+                       num_levels=2, randomized=False, lr_delay_steps=0,
+                       seed=42, donate_params=False, use_pallas=True,
+                       compute_dtype="float32")
+    assert train_lib.use_fused_level(gcfg)
+    rays, pixels = golden_batch()
+    losses = {}
+    reset_launch_counts()
+    for dev_ in (device, torch.device("cpu")):
+        state = train_lib.init_train_state(gcfg, dev_)
+        step = train_lib.make_train_step(gcfg)
+        batch = train_lib.batch_to_device(dev_, rays, pixels)
+        out = []
+        for _ in range(5):
+            state, stats = step(state, *batch)
+            out.append(float(stats.loss))
+        losses[dev_.type] = out
+    golden_launches = step_launches(gcfg, 5)
+    check_launches("padded_widths: golden steps", launch_counts(),
+                   golden_launches)
+    launches = added(launches, golden_launches)
+    a, b = np.asarray(losses[device.type]), np.asarray(losses["cpu"])
+    golden_ok = bool(np.allclose(a, b, rtol=2e-4, atol=2e-5))
+    emit({"phase": "padded_widths", "check": "golden_f32",
+          "config": "tests/test_golden.py (32 / 16, depth 3), float32, "
+                    "use_pallas", "losses": losses,
+          "worst_rel": float((np.abs(a - b) / np.abs(b)).max()),
+          "within_rtol_2e-4_atol_2e-5": golden_ok})
+    if not golden_ok:
+        raise AssertionError(f"padded_widths: golden losses on the card "
+                             f"differ from the CPU: {losses}")
+
+    small = [f"--data-dir={scene}", "--batch-size=16", "--num-samples=8",
+             "--net-depth=2", "--net-width=16", "--net-width-condition=8",
+             "--max-deg-point=4"]
+    scfg = run.parse_flags(small)
+    sckpt = os.path.join(work, "small_ckpt")
+    run_main("padded_widths: 16 / 8 run train",
+             ["train", *small, f"--checkpoint-dir={sckpt}",
+              f"--max-steps={SMALL_STEPS}", f"--print-every={SMALL_STEPS}",
+              f"--save-every={SMALL_STEPS}", "--test-render-interval=0",
+              *dev], step_launches(scfg, SMALL_STEPS))
+    launches = added(launches, step_launches(scfg, SMALL_STEPS))
+    sdims = test_dims(scene, scfg)
+    run_main("padded_widths: 16 / 8 run eval",
+             ["eval", *small, f"--checkpoint-dir={sckpt}", *dev],
+             render_launches(scfg, sdims))
+    launches = added(launches, render_launches(scfg, sdims))
+    emit({"phase": "padded_widths", "check": "small_eval",
+          "config": "tests/test_checkpoint_eval.py small_cfg (16 / 8, "
+                    "depth 2)", "steps": SMALL_STEPS, "eval_images": sdims,
+          "launches": launches})
+    return launches
+
+
+def padded_phase(peaks, device, work: str):
+    """``padded_kernels`` and ``padded_paths``, timed. Returns the 96 / 48
+    cases and the phase's launches (the padding checks' and the paths')."""
+    t0 = time.perf_counter()
+    cases, launches = padded_kernels(peaks, device)
+    kernels_s = time.perf_counter() - t0
+    launches = added(launches, padded_paths(device, work))
+    emit({"phase": "padded_widths", "kernels_s": kernels_s,
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return cases, launches
 
 
 def loader_batches(scene: str, cfg, n: int):
@@ -2911,6 +3253,7 @@ def main() -> int:
     wide_cases = wide_kernels(peaks, device)
     wide_launches = wide_path(peaks, device, scene)
     wide_launches = added(wide_launches, wide_mlp_paths(peaks, device, scene))
+    padded_cases, padded_launches = padded_phase(peaks, device, work)
 
     mlp_fwd_main = mlp_fwd_case("config_r16384_s128", base, 16384, peaks,
                                 device)
@@ -2975,7 +3318,8 @@ def main() -> int:
         out = {
             "name": name, "route": "cuda",
             "source": f"nerf_or_nothing_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "launches": n + mesh_launches[name],
+            "replaces": replaces,
+            "launches": n + mesh_launches[name] + padded_launches[name],
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
@@ -2988,6 +3332,11 @@ def main() -> int:
                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "matmul_ms")}
             out["wide"]["launches"] = wide_launches[name]
+        out["padded"] = {"launches": padded_launches[name], **{
+            dtype: {k: padded_cases[(name, dtype)][k] for k in (
+                "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "matmul_ms", "padded_flop", "padded_factor")}
+            for dtype in ("bfloat16", "float32")}}
         return out
 
     emit({"kernels": [

@@ -19,6 +19,11 @@ two) run a wide route in the same libraries (``csrc/wide_forward.cuh``,
 ``csrc/wide_train.cuh``: a GEMM launch a layer through a workspace), on
 the same packed weights.
 
+Widths that are not multiples of 32, and a net_width_condition above
+net_width, run zero-padded (``kernel_cfg``): the packers embed the weights
+in zeros at the rounded-up widths, the wrappers pass those widths to C and
+drop the padded rows and columns of dW/db.
+
 ``render_level``, ``train_level`` and ``train_level_twopass`` dispatch on
 the device of their inputs: CPU tensors go to the plain version; CUDA
 tensors launch the kernel, or raise. There is no fallback from the card to
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -120,28 +126,60 @@ MAX_WIDTH = 256        # net_width / net_width_condition of every route
 MAX_WIDE_WIDTH = 1024  # net_width of every kernel's bf16 wide route
 
 
+def _round32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def kernel_cfg(cfg: Config) -> Config:
+    """The config the kernels run: net_width rounded up to a multiple of 32
+    of max(net_width, net_width_condition), net_width_condition rounded up
+    to a multiple of 32. ``cfg`` itself when both already are (and
+    net_width_condition <= net_width), so those configs pack and launch as
+    they always did.
+
+    The packers embed each layer's weights in zeros at these widths
+    (``_embed_layers``; biases zero on the padded columns), the wrappers
+    pass them to C, and the un-embedding drops the padded rows and columns
+    of dW/db (``unembed_grads``). The padding is exact: a padded column is
+    ReLU(0 + 0) = 0 and its outgoing rows are zero, so it adds exact zeros
+    to every later sum; its g is zero, so its dW, db and dX terms are zero.
+    Its cost is the padded FLOPs: ``utils/profiling.level_flops`` at the
+    two configs, which ``chip_smoke.py``'s padded_widths phase prints
+    beside each kernel's time."""
+    W, Wc = cfg.net_width, cfg.net_width_condition
+    kw, kwc = _round32(max(W, Wc)), _round32(Wc)
+    if (kw, kwc) == (W, Wc):
+        return cfg
+    return _padded_cfg(cfg, kw, kwc)
+
+
+@functools.lru_cache(maxsize=32)
+def _padded_cfg(cfg: Config, W: int, Wc: int) -> Config:
+    return cfg.replace(net_width=W, net_width_condition=Wc)
+
+
 def uses_wide(cfg: Config) -> bool:
     """Whether the kernels take their wide route (``csrc/wide_forward.cuh``,
     ``csrc/wide_train.cuh``: ``train_level``, ``render_level``,
     ``train_level_twopass``, ``mlp_fwd`` and ``mlp_bwd``): bf16 at a
-    net_width above 256."""
+    kernel net_width (``kernel_cfg``) above 256."""
     return (compute_dtype(cfg) == torch.bfloat16
-            and cfg.net_width > MAX_WIDTH)
+            and kernel_cfg(cfg).net_width > MAX_WIDTH)
 
 
 def check_kernel_config(cfg: Config, max_head: int = 0) -> None:
     """Raise ValueError for configs the CUDA kernels do not take. The level
     kernels composite 3 rgb / 1 density channels (``max_head`` 0); the MLP
     kernels (``kernels/fused_mlp.py``) take heads of 1 to ``max_head``
-    channels each. Widths are multiples of 32 up to 256, and net_width up
-    to 1024 in bf16 (the wide route, ``uses_wide``); what is refused
-    raises naming what is not ported yet."""
+    channels each. Widths are taken as ``kernel_cfg`` rounds them up: to
+    256, and net_width to 1024 in bf16 (the wide route, ``uses_wide``);
+    what is refused raises naming what is not ported yet."""
     problems = []
-    W, Wc = cfg.net_width, cfg.net_width_condition
-    if W % 32 or W < 32:
-        problems.append("net_width must be a multiple of 32 (other widths "
-                        "are not ported yet)")
-    elif W > MAX_WIDE_WIDTH:
+    kc = kernel_cfg(cfg)
+    W, Wc = kc.net_width, kc.net_width_condition
+    if min(cfg.net_width, cfg.net_width_condition) < 1:
+        problems.append("net_width and net_width_condition must be >= 1")
+    if W > MAX_WIDE_WIDTH:
         problems.append(f"net_width above {MAX_WIDE_WIDTH} is not ported yet")
     elif W > MAX_WIDTH and compute_dtype(cfg) != torch.bfloat16:
         problems.append(f"net_width above {MAX_WIDTH} is not ported yet in "
@@ -149,10 +187,6 @@ def check_kernel_config(cfg: Config, max_head: int = 0) -> None:
     if Wc > MAX_WIDTH:
         problems.append(
             f"net_width_condition above {MAX_WIDTH} is not ported yet")
-    elif Wc % 32 or not 32 <= Wc <= W:
-        problems.append(
-            "net_width_condition must be a multiple of 32 in [32, net_width]"
-        )
     heads = (cfg.num_rgb_channels, cfg.num_density_channels)
     if max_head == 0 and heads != (3, 1):
         problems.append("heads must be 3 rgb / 1 density")
@@ -354,17 +388,84 @@ _LAYOUTS = {"fwd": _layout, "t": _layout_t, "tx": _layout_tx, "wg": _layout_wg,
             "wgt": _layout_wgt, "wgx": _layout_wgx}
 
 
+def _layer_blocks(cfg: Config):
+    """Per layer in layer order: the row blocks of its fan_in (h rows, then
+    the x rows of a skip layer or the d rows of the first view layer) and
+    its fan_out."""
+    D, W, Wc = cfg.net_depth, cfg.net_width, cfg.net_width_condition
+    lx, fd = cfg.location_features, cfg.direction_features
+    blocks = [((lx,), W)]
+    blocks += [((W, lx) if i % cfg.skip_layer == 0 else (W,), W)
+               for i in range(1, D)]
+    blocks.append(((W,), cfg.num_density_channels))
+    blocks.append(((W, fd), Wc))
+    blocks += [((Wc,), Wc)] * (cfg.net_depth_condition - 1)
+    blocks.append(((Wc,), cfg.num_rgb_channels))
+    return blocks
+
+
+def _embed_layers(mats: Sequence[torch.Tensor], cfg: Config):
+    """Each layer's [fan_in, fan_out] matrix (or [fan_out] bias) at
+    ``cfg``'s widths embedded in zeros at ``kernel_cfg(cfg)``'s: every row
+    block at the start of its padded block (the x rows of a skip layer and
+    the d rows of the first view layer after the padded h rows), the
+    columns at the start of the padded columns. The one embedding of every
+    packed layout, the biases and, inverted, the grads."""
+    out = []
+    for m, (rows, _), (krows, kcols) in zip(
+            mats, _layer_blocks(cfg), _layer_blocks(kernel_cfg(cfg))):
+        if m.dim() == 1:
+            e = m.new_zeros(kcols)
+            e[:m.shape[0]] = m
+            out.append(e)
+            continue
+        e = m.new_zeros((sum(krows), kcols))
+        r0 = k0 = 0
+        for r, kr in zip(rows, krows):
+            e[k0:k0 + r, :m.shape[1]] = m[r0:r0 + r]
+            r0, k0 = r0 + r, k0 + kr
+        out.append(e)
+    return out
+
+
+def embed_params(params: Params, cfg: Config) -> Params:
+    """``params`` at ``kernel_cfg(cfg)``'s widths, zero-padded
+    (``_embed_layers``): what the kernels compute with."""
+    if kernel_cfg(cfg) is cfg:
+        return params
+    return list(zip(_embed_layers([w for w, _ in params], cfg),
+                    _embed_layers([b for _, b in params], cfg)))
+
+
+def _index_layers(cfg: Config, biases: bool):
+    """Each layer's weights (or biases) as 1 + their index in the weights
+    (biases) flattened in layer order."""
+    out, off = [], 1
+    for i, o in layer_dims(cfg):
+        shape = (o,) if biases else (i, o)
+        out.append(torch.arange(off, off + math.prod(shape)).view(shape))
+        off += math.prod(shape)
+    return out
+
+
 @functools.lru_cache(maxsize=32)
 def _pack_index(cfg: Config, fragments: bool, kind: str,
                 device: torch.device) -> torch.Tensor:
     """Where each element of a packed layout comes from: 1 + its index in
     the weights flattened in layer order, 0 for padding. Built once per
-    config by running the layout on index tensors."""
-    idx, off = [], 1
-    for i, o in layer_dims(cfg):
-        idx.append((torch.arange(off, off + i * o).view(i, o), None))
-        off += i * o
-    return _LAYOUTS[kind](idx, cfg, fragments).to(device)
+    config by running the layout on index tensors, embedded at the
+    kernel widths (``kernel_cfg``)."""
+    idx = _index_layers(cfg, False)
+    kc = kernel_cfg(cfg)
+    if kc is not cfg:
+        idx = _embed_layers(idx, cfg)
+    return _LAYOUTS[kind]([(m, None) for m in idx], kc, fragments).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def _bias_index(cfg: Config, device: torch.device) -> torch.Tensor:
+    """The biases' gather at the kernel widths: 1 + index, 0 for padding."""
+    return torch.cat(_embed_layers(_index_layers(cfg, True), cfg)).to(device)
 
 
 def _gather(params: Params, cfg: Config, dt: torch.dtype, kind: str):
@@ -374,12 +475,48 @@ def _gather(params: Params, cfg: Config, dt: torch.dtype, kind: str):
     return flat.to(dt)[idx]
 
 
+def _pack_biases(params: Params, cfg: Config) -> torch.Tensor:
+    """Every bias in layer order, f32, at the kernel widths (zero on padded
+    columns: one gather with a cached index)."""
+    if kernel_cfg(cfg) is cfg:
+        return torch.cat([b.float().reshape(-1) for _, b in params])
+    device = params[0][1].device
+    flat = torch.cat([torch.zeros(1, device=device)]
+                     + [b.float().reshape(-1) for _, b in params])
+    return flat[_bias_index(cfg, device)]
+
+
+@functools.lru_cache(maxsize=32)
+def _unembed_index(cfg: Config, device: torch.device) -> torch.Tensor:
+    """For each element of the grads at ``cfg`` (every dW, then every db),
+    its position in the kernels' grads at the kernel widths: the inverse
+    of ``_embed_layers``."""
+    dws = _index_layers(cfg, False)
+    n_w = sum(m.numel() for m in dws)
+    dbs = [m + n_w for m in _index_layers(cfg, True)]
+    emb = torch.cat([m.reshape(-1) for m in _embed_layers(dws, cfg)]
+                    + _embed_layers(dbs, cfg))
+    pos = torch.nonzero(emb).reshape(-1)
+    inv = torch.empty(num_params(cfg), dtype=torch.long)
+    inv[emb[pos] - 1] = pos
+    return inv.to(device)
+
+
+def unembed_grads(flat: torch.Tensor, cfg: Config) -> torch.Tensor:
+    """The kernels' flat grads at ``kernel_cfg(cfg)``'s widths as the flat
+    grads at ``cfg``'s (``unpack_grads``' layout): one cached gather that
+    drops the padded rows and columns; ``flat`` itself when nothing is
+    padded."""
+    if kernel_cfg(cfg) is cfg:
+        return flat
+    return flat[_unembed_index(cfg, flat.device)]
+
+
 def pack_params(params: Params, cfg: Config, dt: torch.dtype):
     """Weights and biases in the render kernel's flat layout (``_layout``),
     matrices the kernel multiplies on tensor cores in fragment order for
     bf16 and row-major for f32; one gather with a cached index."""
-    b_flat = torch.cat([b.float().reshape(-1) for _, b in params])
-    return _gather(params, cfg, dt, "fwd"), b_flat
+    return _gather(params, cfg, dt, "fwd"), _pack_biases(params, cfg)
 
 
 def pack_params_t(params: Params, cfg: Config, dt: torch.dtype):
@@ -396,8 +533,7 @@ def pack_params_wg(params: Params, cfg: Config, dt: torch.dtype):
     """Weights in ``_layout_wg``'s slab stream and the biases, one gather.
     The bf16 forward kernels read it; any ``dt`` packs (the CPU tests run
     the slab stream in f32)."""
-    b_flat = torch.cat([b.float().reshape(-1) for _, b in params])
-    return _gather(params, cfg, dt, "wg"), b_flat
+    return _gather(params, cfg, dt, "wg"), _pack_biases(params, cfg)
 
 
 def pack_params_wgt(params: Params, cfg: Config, dt: torch.dtype):
@@ -425,6 +561,7 @@ def _slabs(k: int) -> int:
 
 def packed_wg_size(cfg: Config) -> int:
     """Length of ``pack_params_wg``'s weight buffer."""
+    cfg = kernel_cfg(cfg)
     D, Dc = cfg.net_depth, cfg.net_depth_condition
     W, Wc, S = cfg.net_width, cfg.net_width_condition, WG_SLAB_K
     nx = _slabs(cfg.location_features)
@@ -438,6 +575,7 @@ def packed_wg_size(cfg: Config) -> int:
 
 def packed_wgt_size(cfg: Config) -> int:
     """Length of ``pack_params_wgt``'s buffer."""
+    cfg = kernel_cfg(cfg)
     D, Dc = cfg.net_depth, cfg.net_depth_condition
     W, Wc, S = cfg.net_width, cfg.net_width_condition, WG_SLAB_K
     nh, nc = _slabs(W), _slabs(Wc)
@@ -453,6 +591,7 @@ def _x_layers(cfg: Config) -> int:
 
 def packed_wgx_size(cfg: Config) -> int:
     """Length of ``pack_params_wgx``'s buffer."""
+    cfg = kernel_cfg(cfg)
     return packed_wgt_size(cfg) + (_x_layers(cfg) * _slabs(cfg.net_width)
                                    * dx_width(cfg) * WG_SLAB_K)
 
@@ -464,8 +603,10 @@ WG_ROWS = 128        # rows of one round: two consumer warpgroups x 64
 def wg_rays_per_group(cfg: Config, S: int) -> int:
     """Rays of one work unit of the bf16 forward (``forward_wg.cuh``:
     ``wg_rays``): whole rays filling 128 rows, with each of the two
-    buffers of the per-ray direction term [rays, Wc] f32 held to 16 KB."""
-    return max(1, min(WG_ROWS // S, 4096 // cfg.net_width_condition))
+    buffers of the per-ray direction term [rays, Wc] f32 held to 16 KB
+    (Wc of ``kernel_cfg``)."""
+    return max(1, min(WG_ROWS // S,
+                      4096 // kernel_cfg(cfg).net_width_condition))
 
 
 def wg_smem(cfg: Config, S: int, composite: bool):
@@ -475,7 +616,9 @@ def wg_smem(cfg: Config, S: int, composite: bool):
     feature tiles [64, KX padded to 64] in bf16, the raw heads of two
     rounds (render only), the direction terms of two units, the barriers
     and 1 KB for the alignment of the tiles. The ring takes 4 stages, else
-    3, else 2; bytes is None when not even 2 fit."""
+    3, else 2; bytes is None when not even 2 fit. Widths are
+    ``kernel_cfg``'s."""
+    cfg = kernel_cfg(cfg)
     W = cfg.net_width
     nx = _slabs(padded_location_features(cfg))
     fixed = (1024 + 2 * 8192 * _slabs(W) + 2 * 8192 * nx
@@ -510,7 +653,8 @@ def chain_wg_smem(cfg: Config, dx: bool = False):
     partials [64, dx_width] in bf16, the helpers' column partials (2 x 96 x
     8 f32), the block's db (every bias, f32), the barriers and 1 KB of
     alignment. bytes is None when not even 2 stages fit, or (``dx``) the x
-    rows are wider than 256."""
+    rows are wider than 256. Widths are ``kernel_cfg``'s."""
+    cfg = kernel_cfg(cfg)
     W = cfg.net_width
     nxw = dx_width(cfg) if dx else 0
     if nxw > 256:
@@ -541,12 +685,14 @@ def check_train_wg_config(cfg: Config, S: int) -> None:
 
 def packed_tx_size(cfg: Config) -> int:
     """Length of ``pack_params_tx``'s buffer."""
+    cfg = kernel_cfg(cfg)
     n_x = 1 + sum(1 for i in range(1, cfg.net_depth) if i % cfg.skip_layer == 0)
     return n_x * cfg.net_width * padded_location_features(cfg)
 
 
 def packed_t_size(cfg: Config) -> int:
     """Length of ``pack_params_t``'s buffer."""
+    cfg = kernel_cfg(cfg)
     W, Wc = cfg.net_width, cfg.net_width_condition
     return ((cfg.net_depth - 1) * W * W + W * Wc
             + (cfg.net_depth_condition - 1) * Wc * Wc)
@@ -597,7 +743,9 @@ def pack_train(params: Params, cfg: Config, dt: torch.dtype):
 
 
 def packed_sizes(cfg: Config) -> Tuple[int, int]:
-    """Lengths of ``pack_params``'s weight and bias buffers."""
+    """Lengths of ``pack_params``'s weight and bias buffers (every size
+    here is at the kernel widths, ``kernel_cfg``)."""
+    cfg = kernel_cfg(cfg)
     D, Dc = cfg.net_depth, cfg.net_depth_condition
     W, Wc, kx = cfg.net_width, cfg.net_width_condition, \
         padded_location_features(cfg)
@@ -718,9 +866,11 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     version reads, ``weight_layout``). bf16 at net_width 288-1024 runs the
     wide route (``uses_wide``, ``render_level_wide_launch``) with a
     workspace allocated here (``source`` versions have their narrow C
-    interface only)."""
+    interface only). Widths that are not multiples of 32 run zero-padded
+    (``kernel_cfg``)."""
     wide = source is None
     ptrs = _check_level_inputs(cfg, xs, d, delta, mode, wg=True)
+    kc = kernel_cfg(cfg)
     dt = compute_dtype(cfg)
     R, S = delta.shape
     lx, fd = cfg.location_features, cfg.direction_features
@@ -739,8 +889,8 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     _check("packed biases", b_flat, torch.float32, (packed_sizes(cfg)[1],),
            device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    shape = (R, S, cfg.net_depth, cfg.net_width, cfg.skip_layer,
-             cfg.net_width_condition, cfg.net_depth_condition, lx,
+    shape = (R, S, cfg.net_depth, kc.net_width, cfg.skip_layer,
+             kc.net_width_condition, cfg.net_depth_condition, lx,
              padded_location_features(cfg), fd, cfg.min_deg_point,
              int(cfg.fast_ipe), float(cfg.density_bias),
              float(cfg.rgb_padding), int(white_bkgd))
@@ -750,7 +900,7 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     if wide and uses_wide(cfg):
         fn, workspace_bytes = _wide_render_library()
         workspace = torch.empty(
-            (workspace_bytes(R, S, cfg.net_width, cfg.net_width_condition,
+            (workspace_bytes(R, S, kc.net_width, kc.net_width_condition,
                              padded_location_features(cfg)),),
             dtype=torch.uint8, device=device)
         err = fn(_MODE_CODE[mode], *ptrs, *outs, *shape, workspace.data_ptr(),
@@ -1032,8 +1182,11 @@ def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
                   delta, pixels, g_scale, white_bkgd: bool, mode: str,
                   packed, source=None):
     """Check the inputs, launch ``csrc/<name>.cu`` (or ``source``) on the
-    current stream and add one to ``counted.launches``."""
+    current stream at the kernel widths (``kernel_cfg``) and add one to
+    ``counted.launches``; the grads come back at ``cfg``'s widths
+    (``unembed_grads``)."""
     ptrs = _check_level_inputs(cfg, xs, d, delta, mode)
+    kc = kernel_cfg(cfg)
     dt = compute_dtype(cfg)
     R, S = delta.shape
     N = R * S
@@ -1046,10 +1199,11 @@ def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
     comp = torch.empty((R, 3), dtype=torch.float32, device=device)
     acc = torch.empty((R,), dtype=torch.float32, device=device)
     weights = torch.empty((R, S), dtype=torch.float32, device=device)
-    n_out = num_params(cfg)
-    grads = torch.empty((n_out,), dtype=torch.float32, device=device)
     if R == 0:
-        return comp, acc, weights, unpack_grads(grads.zero_(), cfg)
+        return comp, acc, weights, unpack_grads(
+            torch.zeros((num_params(cfg),), device=device), cfg)
+    n_out = num_params(kc)
+    grads = torch.empty((n_out,), dtype=torch.float32, device=device)
     launch, workspace_bytes, layout = _train_library(name, source)
     if packed is None:
         packed = pack_train_level(params, cfg, dt, layout)
@@ -1060,7 +1214,7 @@ def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
            device)
     _check("packed chain weights", wt_flat, dt, (n_wt,), device)
     kx, splits = padded_location_features(cfg), train_splits(N)
-    D, W, Wc, Dc = (cfg.net_depth, cfg.net_width, cfg.net_width_condition,
+    D, W, Wc, Dc = (cfg.net_depth, kc.net_width, kc.net_width_condition,
                     cfg.net_depth_condition)
     ws_bytes = workspace_bytes(_DTYPE_CODE[dt], R, S, D, W, Wc, Dc, kx,
                                splits, n_out)
@@ -1078,7 +1232,7 @@ def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     counted.launches += 1
-    return comp, acc, weights, unpack_grads(grads, cfg)
+    return comp, acc, weights, unpack_grads(unembed_grads(grads, cfg), cfg)
 
 
 def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,

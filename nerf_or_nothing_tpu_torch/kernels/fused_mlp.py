@@ -22,6 +22,8 @@ In bf16 at net_width 288-1024 both run their wide route
 (``fused_level.uses_wide``; ``csrc/wide_forward.cuh``,
 ``csrc/wide_train.cuh``): ``mlp_fwd`` through ``mlp_fwd_wide_launch`` and
 a workspace allocated here, ``mlp_bwd`` through the same entry point.
+Other widths run zero-padded, as the level kernels do
+(``fused_level.kernel_cfg``).
 
 ``mlp_fwd`` and ``mlp_bwd`` dispatch on the device of their inputs: CPU
 tensors go to the plain version; CUDA tensors launch the kernel, or raise.
@@ -45,6 +47,7 @@ from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     check_kernel_config,
     check_wg_config,
     forward_weights_size,
+    kernel_cfg,
     mlp_backward_plain,
     mlp_forward_acts,
     pack_forward,
@@ -58,6 +61,7 @@ from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     packed_wgx_size,
     padded_location_features,
     train_splits,
+    unembed_grads,
     unpack_grads,
     weight_layout,
 )
@@ -211,9 +215,11 @@ def _check_packed(cfg: Config, packed: Sequence[torch.Tensor], device,
 
 
 def _dims(cfg: Config):
-    """The kernels' width arguments, in their C order."""
-    return (cfg.net_depth, cfg.net_width, cfg.skip_layer,
-            cfg.net_width_condition, cfg.net_depth_condition,
+    """The kernels' width arguments, in their C order, at the kernel widths
+    (``kernel_cfg``)."""
+    kc = kernel_cfg(cfg)
+    return (cfg.net_depth, kc.net_width, cfg.skip_layer,
+            kc.net_width_condition, cfg.net_depth_condition,
             cfg.location_features, padded_location_features(cfg),
             cfg.direction_features, cfg.num_rgb_channels,
             cfg.num_density_channels)
@@ -277,9 +283,9 @@ def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
     stream = torch.cuda.current_stream(device).cuda_stream
     if source is None and uses_wide(cfg):
         fn, workspace_bytes = _wide_fwd_library()
+        _, W, _, Wc = _dims(cfg)[:4]
         workspace = torch.empty(
-            (workspace_bytes(R, S, cfg.net_width, cfg.net_width_condition,
-                             padded_location_features(cfg)),),
+            (workspace_bytes(R, S, W, Wc, padded_location_features(cfg)),),
             dtype=torch.uint8, device=device)
         err = fn(*ptrs, R, S, *_dims(cfg), workspace.data_ptr(), stream)
     else:
@@ -345,7 +351,7 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     else:
         _, b_flat, w_flat, wt_flat, wtx_flat = packed
         wtx_ptr = wtx_flat.data_ptr()
-    n_out = num_params(cfg)
+    n_out = num_params(kernel_cfg(cfg))
     # Room for n_out rounded up to even: the kernel's split partials keep
     # 8-byte aligned rows (``partial_stride`` in csrc/mlp_bwd.cu).
     grads = torch.empty((n_out + n_out % 2,), dtype=torch.float32,
@@ -372,7 +378,7 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     if err != 0:
         raise RuntimeError(f"mlp_bwd kernel launch failed: CUDA error {err}")
     mlp_bwd.launches += 1
-    return unpack_grads(grads[:n_out], cfg), dx, dd
+    return unpack_grads(unembed_grads(grads[:n_out], cfg), cfg), dx, dd
 
 
 def mlp_bwd(params: Params, cfg: Config, x, d, g_rgb, g_den,

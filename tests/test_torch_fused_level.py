@@ -182,8 +182,8 @@ def test_kernel_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="CUDA tensor"):
         fl.render_level_cuda(params, cfg, xs, d, delta, True, "mv")
     with pytest.raises(ValueError, match="not supported"):
-        fl.check_kernel_config(cfg.replace(net_width=48))
+        fl.check_kernel_config(cfg.replace(net_width=1056))
     with pytest.raises(ValueError, match="not supported"):
-        fl.check_kernel_config(cfg.replace(net_width_condition=64))
+        fl.check_kernel_config(cfg.replace(net_width_condition=288))
     fl.check_kernel_config(tiny_config())
 

@@ -287,7 +287,7 @@ def test_mlp_wrappers_check_inputs():
         fm.mlp_fwd_cuda(params, cfg, x, d)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den, True)
-    for bad in (dict(net_width=48), dict(num_rgb_channels=9),
+    for bad in (dict(net_width=1056), dict(num_rgb_channels=9),
                 dict(num_density_channels=0)):
         with pytest.raises(ValueError, match="not supported"):
             fm.mlp_fwd_cuda(params, cfg.replace(**bad), x, d)

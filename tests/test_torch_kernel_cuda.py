@@ -1405,3 +1405,113 @@ def test_quality_20k_on_cuda(tmp_path):
     assert res["heldout"]["psnr"] >= (jax["heldout"][0]["psnr"]
                                       - smoke.QUALITY_MARGIN_DB), res["heldout"]
     assert mean >= jax_mean - smoke.QUALITY_MARGIN_DB, (mean, jax_mean)
+
+
+# Widths that are not multiples of 32, and net_width_condition above
+# net_width: the kernels run them zero-padded (``fused_level.kernel_cfg``).
+PADDED_ROWS = {
+    "16_8": dict(net_width=16, net_width_condition=8, net_depth=2),
+    "32_16": dict(net_width=32, net_width_condition=16, net_depth=3),
+    "48_16": dict(net_width=48, net_width_condition=16, net_depth=8,
+                  net_depth_condition=2),
+    "96_48": dict(net_width=96, net_width_condition=48, net_depth=4),
+    "32_64": dict(net_width=32, net_width_condition=64, net_depth=8),
+    "400_200": dict(net_width=400, net_width_condition=200, net_depth=8),
+}
+PADDED_CASES = [(r, dt) for r in sorted(PADDED_ROWS)
+                for dt in ("float32", "bfloat16")
+                if not (r == "400_200" and dt == "float32")]
+
+
+@pytest.mark.parametrize("row,dtype", PADDED_CASES)
+def test_padded_widths_match_plain_on_cuda(row, dtype):
+    """Each of the five kernels at a width that is not a multiple of 32
+    (or net_width_condition above net_width), R=37 x S=64, random biases,
+    against its plain version at the real config in the dtype's band:
+    ``render_level`` (mode "mv"), ``train_level`` (modes "t" and "mv"),
+    ``train_level_twopass``, ``mlp_fwd`` and ``mlp_bwd`` with input_grads.
+    The backward kernels are bit-equal over two launches, and a launch at
+    the kernel config on the embedded weights gives padded dW/db entries of
+    exactly 0 and, once they are dropped, the real launch's grads bit for
+    bit. Launch counts exact."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+    from nerf_or_nothing_tpu_torch.kernels import launch_counts
+
+    dev = cuda_device()
+    cfg = Config(**dict(PADDED_ROWS[row], num_samples=64,
+                        compute_dtype=dtype))
+    kc = fl.kernel_cfg(cfg)
+    assert kc is not cfg
+    R, S = 37, cfg.num_samples
+    g = torch.Generator().manual_seed(len(row))
+    params = [(w, (torch.randn(b.shape, generator=g) * 0.1).to(dev))
+              for w, b in tmlp.init_mlp(g, cfg, device=dev)]
+    ep = fl.embed_params(params, cfg)
+    means, covs, dir_enc, t_vals, dirs, pixels, g_scale = train_inputs(
+        R, S, 5, dev)
+    dt = tmlp.compute_dtype(cfg)
+    mv = (means.reshape(-1, 3), covs.reshape(-1, 3))
+    x = integrated_pos_enc((means, covs), cfg.min_deg_point,
+                           cfg.max_deg_point, fast=True).reshape(R * S, -1)
+    x, d = x.to(dt), dir_enc.to(dt)
+    delta = interval_lengths(t_vals, dirs)
+    atol, rtol = BANDS[dtype]
+    pad = torch.ones(tmlp.num_params(kc), dtype=torch.bool, device=dev)
+    pad[fl._unembed_index(cfg, dev)] = False
+
+    def flat(d_params):
+        return torch.cat([w.reshape(-1) for w, _ in d_params]
+                         + [b for _, b in d_params])
+
+    def in_band(got, ref, what):
+        assert len(got) == len(ref), what
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert a.shape == b.shape and bool(torch.isfinite(a).all())
+            err = normalized_err(a.float(), b.float(), atol, rtol)
+            assert err < 1.0, (what, k, err)
+
+    before = launch_counts()
+    out = fl.render_level_cuda(params, cfg, mv, d, delta, True, "mv")
+    in_band(out, fl.render_level_plain(params, cfg, mv, d, delta, True,
+                                       "mv"), "render_level")
+    for mode, xs in (("t", x), ("mv", mv)):
+        out = fl.train_level_cuda(params, cfg, xs, d, delta, pixels, g_scale,
+                                  True, mode)
+        ref = fl.level_train_plain(params, cfg, xs, d, delta, pixels,
+                                   g_scale, True, mode)
+        in_band([*out[:3], flat(out[3])], [*ref[:3], flat(ref[3])],
+                f"train_level {mode}")
+    for name, fn in (
+            ("train_level", lambda p, c: fl.train_level_cuda(
+                p, c, x, d, delta, pixels, g_scale, True, "t")),
+            ("train_level_twopass", lambda p, c: fl.train_level_twopass_cuda(
+                p, c, x, d, delta, pixels, g_scale, True))):
+        a, b, padded = fn(params, cfg), fn(params, cfg), fn(ep, kc)
+        assert all(torch.equal(ta, tb) for ta, tb in zip(
+            [*a[:3], flat(a[3])], [*b[:3], flat(b[3])])), name
+        pf = flat(padded[3])
+        assert not pf[pad].any(), name
+        assert torch.equal(fl.unembed_grads(pf, cfg), flat(a[3])), name
+        assert all(torch.equal(ta, tp) for ta, tp in zip(a[:3], padded[:3]))
+    twopass_ref = fl.level_train_plain(params, cfg, x, d, delta, pixels,
+                                       g_scale, True, "t")
+    in_band([*a[:3], flat(a[3])], [*twopass_ref[:3], flat(twopass_ref[3])],
+            "train_level_twopass")
+    x, d, g_rgb, g_den = mlp_inputs(cfg, params, R, 6, dev)
+    in_band(fm.mlp_fwd_cuda(params, cfg, x, d),
+            fm.mlp_fwd_plain(params, cfg, x, d, S), "mlp_fwd")
+    a, b = (fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den, True)
+            for _ in range(2))
+    padded = fm.mlp_bwd_cuda(ep, kc, x, d, g_rgb, g_den, True)
+    ref = fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, S, True)
+    in_band([flat(a[0]), *a[1:]], [flat(ref[0]), *ref[1:]], "mlp_bwd")
+    assert all(torch.equal(ta, tb) for ta, tb in zip(
+        [flat(a[0]), *a[1:]], [flat(b[0]), *b[1:]]))
+    pf = flat(padded[0])
+    assert not pf[pad].any()
+    assert torch.equal(fl.unembed_grads(pf, cfg), flat(a[0]))
+    assert all(torch.equal(ta, tp) for ta, tp in zip(a[1:], padded[1:]))
+    torch.cuda.synchronize()
+    grown = {k: v - before[k] for k, v in launch_counts().items()}
+    assert grown == {"render_level": 1, "train_level": 5,
+                     "train_level_twopass": 3, "mlp_fwd": 1, "mlp_bwd": 3}

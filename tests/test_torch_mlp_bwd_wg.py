@@ -34,7 +34,12 @@ from nerf_or_nothing_tpu_torch.kernels import fused_level as fl  # noqa: E402
 from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm  # noqa: E402
 from nerf_or_nothing_tpu_torch.models import mlp as tmlp  # noqa: E402
 from test_torch_fused_mlp import J, as_dt, mlp_case  # noqa: E402
-from test_torch_train_wg import bf, normalized_err, slab_product  # noqa: E402
+from test_torch_train_wg import (  # noqa: E402
+    bf,
+    normalized_err,
+    slab_product,
+    unembed_d_params,
+)
 from test_torch_wg_layout import Stream  # noqa: E402
 
 from nerf_or_nothing_tpu.kernels import fused_mlp as jfm  # noqa: E402
@@ -234,7 +239,9 @@ def test_slab_chain_with_dx_matches_mlp_backward_plain(dtype, heads,
                          ids=lambda h: f"{h[0]}_{h[1]}")
 def test_slab_chain_with_dx_matches_jax_bwd_kernel(heads, input_grads):
     """The slab model's dW/db, dX and dD (on the port's forward) against
-    the interpreted JAX ``_bwd_kernel`` in bf16, skips at 2 and 4."""
+    the interpreted JAX ``_bwd_kernel`` in bf16, skips at 2 and 4. The
+    model runs at the kernel widths (``kernel_cfg``: 32 / 16 packs as
+    32 / 32), its grads through the un-embedding."""
     kw = dict(net_depth=5, net_width=32, net_depth_condition=1,
               net_width_condition=16, skip_layer=2, max_deg_point=4,
               compute_dtype="bfloat16", num_rgb_channels=heads[0],
@@ -247,9 +254,12 @@ def test_slab_chain_with_dx_matches_jax_bwd_kernel(heads, input_grads):
         input_grads=input_grads)
     dt = torch.bfloat16
     xt, dtt = as_dt(x, tc).reshape(R * S, -1), as_dt(d, tc)
-    _, _, hs, vs = fl.mlp_forward_acts(tp, tc, xt, dtt, R, S, dt)
-    got = slab_backward(tc, dt, tp, xt, dtt, hs, vs, torch.from_numpy(g_rgb),
+    kc, ep = fl.kernel_cfg(tc), fl.embed_params(tp, tc)
+    _, _, hs, vs = fl.mlp_forward_acts(ep, kc, xt, dtt, R, S, dt)
+    got = slab_backward(kc, dt, ep, xt, dtt, hs, vs, torch.from_numpy(g_rgb),
                         torch.from_numpy(g_den), R, S, input_grads)
+    got = ([(w.numpy(), b.numpy()) for w, b in unembed_d_params(got[0], tc)],
+           *got[1:])
     ref = (ref[0], None if not input_grads else np.asarray(ref[1], np.float32),
            None if not input_grads else np.asarray(ref[2], np.float32))
     check_outputs(got, ref, "bfloat16")

@@ -330,7 +330,7 @@ def test_train_kernel_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="unknown input mode"):
         fl.train_level_cuda(params, cfg, xs, d, delta, pixels, gsc, True, "x")
     with pytest.raises(ValueError, match="not supported"):
-        fl.train_level_cuda(params, cfg.replace(net_width=48), xs, d, delta,
+        fl.train_level_cuda(params, cfg.replace(net_width=1056), xs, d, delta,
                             pixels, gsc, True, "t")
     before = fl.train_level.launches
     out = fl.train_level(params, cfg, xs, d, delta, pixels, gsc, True, "t")

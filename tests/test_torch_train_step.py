@@ -80,24 +80,27 @@ def port_state(jstate, cfg):
                              torch.Generator().manual_seed(cfg.seed))
 
 
-@pytest.mark.parametrize("branch", ["fused_level", "autograd",
-                                    "autograd_pallas_cfg", "full_grad"])
-def test_two_train_steps_match_jax(branch):
-    """Loss, per-level losses, grad norm, params, mu and nu after each of
-    two steps (different batches, non-uniform loss_mult, weight decay).
-    The fused-MLP branches run JAX's fused MLP kernels (interpret mode) and
-    the port's fused_mlp_apply Function (plain versions on the CPU);
-    ``full_grad`` (stop_level_grad=False) also takes the fine level's loss
-    through dX, the IPE and resampling into the coarse level's weights."""
-    kw = dict(TINY, weight_decay_mult=1e-4)
+def branch_kw(branch, **extra):
+    """``TINY`` with weight decay, ``extra``, and the flags of one branch of
+    the train step: ``fused_level``, ``autograd`` (use_pallas=False),
+    ``autograd_pallas_cfg`` (fuse_level=False) or ``full_grad``
+    (stop_level_grad=False)."""
+    kw = dict(TINY, weight_decay_mult=1e-4, **extra)
     if branch == "autograd":
         kw["use_pallas"] = False
     elif branch == "autograd_pallas_cfg":
         kw["fuse_level"] = False
     elif branch == "full_grad":
         kw["stop_level_grad"] = False
+    return kw
+
+
+def check_two_steps(kw, fused: bool):
+    """Two train steps of the port against JAX's from JAX's initial state
+    at ``kw``, ``fused`` whether the port takes the fused-level branch:
+    the stats after each step, then params, mu and nu, in the f32 band."""
     jc, tc = jtiny(**kw), tiny_config(**kw)
-    assert ttrain.use_fused_level(tc) == (branch == "fused_level")
+    assert ttrain.use_fused_level(tc) == fused
     jstate = jtrain.init_train_state(jc)
     state = port_state(jstate, tc)
     j_step = jtrain.make_jitted_train_step(jc)
@@ -119,6 +122,18 @@ def test_two_train_steps_match_jax(branch):
         for i, ((w, b), (jw, jb)) in enumerate(zip(tree, jtree)):
             close(w.numpy(), jw, f"{name} w{i}")
             close(b.numpy(), jb, f"{name} b{i}")
+
+
+@pytest.mark.parametrize("branch", ["fused_level", "autograd",
+                                    "autograd_pallas_cfg", "full_grad"])
+def test_two_train_steps_match_jax(branch):
+    """Loss, per-level losses, grad norm, params, mu and nu after each of
+    two steps (different batches, non-uniform loss_mult, weight decay).
+    The fused-MLP branches run JAX's fused MLP kernels (interpret mode) and
+    the port's fused_mlp_apply Function (plain versions on the CPU);
+    ``full_grad`` (stop_level_grad=False) also takes the fine level's loss
+    through dX, the IPE and resampling into the coarse level's weights."""
+    check_two_steps(branch_kw(branch), branch == "fused_level")
 
 
 @pytest.mark.parametrize("white_bkgd", [True, False])

@@ -177,6 +177,20 @@ def normalized_err(a, b, atol, rtol):
     return float((np.abs(a - b) / band).max())
 
 
+def unembed_d_params(d_params, cfg):
+    """A stream model's d_params at ``kernel_cfg(cfg)``'s widths as the
+    wrappers return them at ``cfg``'s: the padded entries of dW/db must be
+    exactly 0, then the un-embedding drops them (``unembed_grads``).
+    Returns a list of (dW, db) f64 tensors."""
+    flat = torch.cat([torch.as_tensor(np.asarray(a, np.float64)).reshape(-1)
+                      for k in (0, 1) for a in (p[k] for p in d_params)])
+    assert flat.numel() == tmlp.num_params(fl.kernel_cfg(cfg))
+    pad = torch.ones(flat.numel(), dtype=torch.bool)
+    pad[fl._unembed_index(cfg, torch.device("cpu"))] = False
+    assert not flat[pad].any(), "a padded dW/db entry is not 0"
+    return fl.unpack_grads(fl.unembed_grads(flat, cfg), cfg)
+
+
 def check_d_params(got, ref):
     assert len(got) == len(ref)
     for k, ((dw, db), (rw, rb)) in enumerate(zip(got, ref)):
@@ -239,7 +253,9 @@ def test_slab_chain_and_dw_match_mlp_backward_plain(name):
 ], ids=["small", "two_view_layers"])
 def test_slab_chain_and_dw_match_jax_level_kernel(kw, mode):
     """The slab model's dW/db (on the port's forward and composite
-    backward) against the interpreted JAX ``_level_kernel`` in bf16."""
+    backward) against the interpreted JAX ``_level_kernel`` in bf16. The
+    models run at the kernel widths (``kernel_cfg``: 32 / 16 packs as
+    32 / 32), their grads through the un-embedding."""
     kw = dict(kw, compute_dtype="bfloat16")
     R = 5
     jc, tc, jp, tp, c = level_case(kw, R, 3, mask=[1.0, 4.0, 0.0, 2.0, 1.0])
@@ -256,13 +272,15 @@ def test_slab_chain_and_dw_match_jax_level_kernel(kw, mode):
         x = T(c["x"]).reshape(R * S, -1).to(dt)
     d = T(c["dir_enc"]).to(dt)
     delta = interval_lengths(T(c["t_vals"]), T(c["dirs"]))
+    kc = fl.kernel_cfg(tc)
     hs, vs, (comp, acc, weights, g_rgb, g_den) = forward_and_cotangents(
-        tp, tc, x, d, delta, T(c["pixels"]), T(c["g_scale"]))
+        fl.embed_params(tp, tc), kc, x, d, delta, T(c["pixels"]),
+        T(c["g_scale"]))
     for a, r in zip((comp, acc, weights), ref[:3]):
         assert normalized_err(a.numpy(), np.asarray(r), *BF16_BAND) < 1.0
-    got = slab_backward(fl.pack_params_wgt(tp, tc, dt).float(), tc, x, d, hs,
+    got = slab_backward(fl.pack_params_wgt(tp, tc, dt).float(), kc, x, d, hs,
                         vs, g_rgb, g_den[:, None], R, S)
-    check_d_params(got, ref[3])
+    check_d_params(unembed_d_params(got, tc), ref[3])
 
 
 @pytest.mark.parametrize("S", [64, 128, 256])

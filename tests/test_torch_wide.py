@@ -262,7 +262,7 @@ def refused_routes(cfg):
     ("net_width above 1024", dict(net_width=1056),
      ("train_level", "render_level", "train_level_twopass", "mlp_fwd",
       "mlp_bwd")),
-    ("net_width 48", dict(net_width=48, net_width_condition=32),
+    ("f32 at 260", dict(net_width=260, compute_dtype="float32"),
      ("train_level", "render_level", "train_level_twopass", "mlp_fwd",
       "mlp_bwd")),
 ])
@@ -299,13 +299,17 @@ def test_wide_guard_messages():
              (dict(net_width=2048), "above 1024 is not ported yet"),
              (dict(net_width=512, net_width_condition=384),
               "net_width_condition above 256 is not ported yet"),
-             (dict(net_width=48), "multiple of 32")]
+             (dict(net_width=512, net_width_condition=300), "above 256")]
     for kw, text in cases:
         for max_head in (0, fm.MAX_HEAD):
             with pytest.raises(ValueError, match=text):
                 fl.check_kernel_config(Config(**kw), max_head=max_head)
     assert not fl.uses_wide(Config())
     assert not fl.uses_wide(Config(net_width=512, compute_dtype="float32"))
+    # widths that are not multiples of 32 run zero-padded (kernel_cfg)
+    for max_head in (0, fm.MAX_HEAD):
+        fl.check_kernel_config(Config(net_width=48, net_width_condition=32),
+                               max_head=max_head)
 
 
 # ---------------------------------------------------------------------------
