@@ -76,12 +76,32 @@ Phases, each printing one JSON line:
            chunked wide mlp_fwd, render rays/s beside the bound) and the
            Multicam run with fl_variant=twopass at --net-width=1024
            (train_level_twopass);
+  wide_f32 the wide route in f32 (csrc/wide_f32.cuh: one 3xTF32 mma.sync
+           GEMM launch a layer product) at Config(net_width=W,
+           compute_dtype=float32), W = 288, 512 and 1024: train_level,
+           train_level_twopass (bit-equal to train_level) and mlp_bwd
+           (input_grads) at R=1024 x S=128, render_level (mode "mv") and
+           mlp_fwd at R=4096 x S=128, against their plain versions with
+           f64 layer products (the f32 plain version's error against
+           those beside), the backward kernels bit-equal over two
+           launches, each beside its bound, its f32 FMA bound and the
+           layer products as f32 torch.matmul with TF32 off (matmul_ms, a
+           yardstick), with the ptxas lines of wide_gemm_f32_kernel; all
+           five at 260 and at 400 / 200 (R=1024, run as 288 and
+           416 / 224, each with its padding check); then on a 48-px scene ``run train --net-width=1024
+           --compute-dtype=float32`` for 10 eager steps (losses finite and
+           falling, launches exact) and ``run eval`` of one view restoring
+           its checkpoint, the slice config (--fuse-level=false
+           --stop-level-grad=false: mlp_fwd, mlp_bwd with dX) and
+           Multicam with fl_variant=twopass at the same width for 4 steps
+           each;
   padded_widths  widths that are not multiples of 32, and
            net_width_condition above net_width, which the kernels run
            zero-padded (fused_level.kernel_cfg): all five kernels at
            96 / 48 depth 4 in bf16 and f32 at the usual shapes (R=16384 or
            1024 x S=128), at 16 / 8 depth 2 (bf16, f32) and 400 / 200 depth
-           8 (bf16) at R=1024, against their plain versions at the real
+           8 (bf16; f32 in the wide_f32 phase) at R=1024, against their
+           plain versions at the real
            config, the backward kernels bit-equal over two launches, each
            time beside the bound of the real FLOPs, the padded FLOPs and
            bf16 torch.matmul of the real layer products; each config's
@@ -277,6 +297,13 @@ WIDE_PLAIN_RAYS = 2048  # rays of one call of the wide render's plain version
 WIDE_MLP_STEPS = 10  # run train steps of each wide path through the MLP /
 WIDE_MLP_ARGS = ("--net-width=1024", *FULL_GRAD_ARGS)  # two-pass kernels
 WIDE_TWOPASS_ARGS = (*MULTICAM_ARGS, "--net-width=1024")
+WIDE_F32_WIDTHS = (288, 512, 1024)  # the f32 wide route (wide_f32.cuh)
+WIDE_F32_RAYS = 4096  # R of render_level and mlp_fwd in the wide_f32 phase
+# the learning rate held at lr_init for the few steps of a run
+WIDE_F32_ARGS = ("--net-width=1024", "--compute-dtype=float32",
+                 "--lr-delay-steps=0", "--lr-final=5e-4")
+WIDE_F32_STEPS = 10  # eager steps of the wide_f32 phase's run train
+WIDE_F32_PATH_STEPS = 4  # its slice-config and two-pass runs
 # (row, widths and depth, timed at the usual shapes) of the padded_widths
 # phase: widths that are not multiples of 32 run zero-padded
 PADDED_ROWS = (("96_48", dict(net_width=96, net_width_condition=48,
@@ -496,6 +523,37 @@ def mlp_case_inputs(cfg, R: int, seed: int, device):
     return params, x, d, g_rgb, g_den
 
 
+def reference(cfg, plain, out_p):
+    """The outputs a kernel case is held to: the plain version's
+    (``out_p``), or for f32 on the wide route (``parity.f64_reference``)
+    the plain version's with f64 layer products: two f32 computations of a
+    wide MLP can take one ReLU mask on opposite sides of zero and then
+    differ by about a band in a column sum, whichever is nearer exact."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch.utils.parity import (
+        f64_products,
+        f64_reference,
+    )
+
+    if not f64_reference(cfg):
+        return out_p
+    with f64_products():
+        out = plain()
+    torch.cuda.synchronize()
+    return out
+
+
+def against_reference(res, name, cfg, pairs_of, out_p, out_r):
+    """Record what ``res``'s case was held to and, where that is the plain
+    version with f64 products, the f32 plain version's worst normalized
+    error against it (``pairs_of(a, b)``: the case's output pairs)."""
+    res["reference"] = "plain" if out_r is out_p else "plain, f64 products"
+    if out_r is not out_p:
+        errs, _ = check_pairs(name, pairs_of(out_p, out_r), cfg.compute_dtype)
+        res["plain_vs_reference"] = max(errs.values())
+
+
 def check_pairs(name, pairs, dtype):
     """Normalized errors and the max abs error of (kernel, plain) pairs."""
     import torch
@@ -538,13 +596,15 @@ def mlp_fwd_case(name, cfg, R, peaks, device, seed=0, phase="mlp_kernel",
                 for r0 in range(0, R, plain_rays)]
         return tuple(torch.cat(t) for t in zip(*outs))
 
+    def pairs(a, b):
+        return [("raw_rgb", a[0], b[0]), ("raw_den", a[1], b[1])]
+
     out_k = kernel()
     torch.cuda.synchronize()
     out_p = plain()
     torch.cuda.synchronize()
-    errs, max_abs = check_pairs(name, [("raw_rgb", out_k[0], out_p[0]),
-                                       ("raw_den", out_k[1], out_p[1])],
-                                cfg.compute_dtype)
+    out_r = reference(cfg, plain, out_p)
+    errs, max_abs = check_pairs(name, pairs(out_k, out_r), cfg.compute_dtype)
     ms = median_ms(kernel)
     plain_ms = median_ms(plain, reps=5, warmup=1)
     out_bytes = R * S * (cfg.num_rgb_channels + cfg.num_density_channels) * 4
@@ -560,6 +620,7 @@ def mlp_fwd_case(name, cfg, R, peaks, device, seed=0, phase="mlp_kernel",
         "bound_ms": b_ms, "bound_by": b_by, "flop": flops, "bytes": nbytes,
         "bound_share": b_ms / ms,
     }
+    against_reference(res, name, cfg, pairs, out_p, out_r)
     res.update(fma_bound(res, peaks))
     emit(res)
     if not max(errs.values()) < 1.0:
@@ -586,16 +647,20 @@ def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
         return fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, S,
                                 input_grads)
 
+    def pairs(a, b):
+        out = []
+        for i, ((dw, db), (rw, rb)) in enumerate(zip(a[0], b[0])):
+            out += [(f"dW{i}", dw, rw), (f"db{i}", db, rb)]
+        if input_grads:
+            out += [("dX", a[1], b[1]), ("dD", a[2], b[2])]
+        return out
+
     out_k = kernel()
     torch.cuda.synchronize()
     out_p = plain()
     torch.cuda.synchronize()
-    pairs = []
-    for i, ((dw, db), (rw, rb)) in enumerate(zip(out_k[0], out_p[0])):
-        pairs += [(f"dW{i}", dw, rw), (f"db{i}", db, rb)]
-    if input_grads:
-        pairs += [("dX", out_k[1], out_p[1]), ("dD", out_k[2], out_p[2])]
-    errs, max_abs = check_pairs(name, pairs, cfg.compute_dtype)
+    out_r = reference(cfg, plain, out_p)
+    errs, max_abs = check_pairs(name, pairs(out_k, out_r), cfg.compute_dtype)
     bit_equal = None
     if bit_check:
         again = kernel()
@@ -623,6 +688,7 @@ def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "flop": flops, "bytes": nbytes, "bound_share": b_ms / ms,
     }
+    against_reference(res, name, cfg, pairs, out_p, out_r)
     res.update(fma_bound(res, peaks))
     emit(res)
     if not max(errs.values()) < 1.0:
@@ -670,18 +736,16 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
                 for r0 in range(0, R, plain_rays)]
         return tuple(torch.cat(t) for t in zip(*outs))
 
+    def pairs(a, b):
+        return list(zip(("comp", "acc", "weights"), a, b))
+
     out_k = kernel()
     torch.cuda.synchronize()
     out_p = plain()
     torch.cuda.synchronize()
+    out_r = reference(cfg, plain, out_p)
     atol, rtol = BANDS[cfg.compute_dtype]
-    errs = {}
-    max_abs = 0.0
-    for key, a, b in zip(("comp", "acc", "weights"), out_k, out_p):
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"{name}: non-finite kernel output {key}")
-        errs[key] = normalized_err(a, b, atol, rtol)
-        max_abs = max(max_abs, float((a - b).abs().max()))
+    errs, max_abs = check_pairs(name, pairs(out_k, out_r), cfg.compute_dtype)
     ms = median_ms(kernel)
     plain_ms = median_ms(plain, reps=5, warmup=1)
     b_ms, b_by, flops, nbytes = bound_ms(cfg, R, cfg.num_samples, mode, peaks)
@@ -693,6 +757,7 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "flop": flops, "bytes": nbytes, "bound_share": b_ms / ms,
     }
+    against_reference(res, name, cfg, pairs, out_p, out_r)
     res.update(fma_bound(res, peaks))
     emit(res)
     worst = max(errs.values())
@@ -892,8 +957,9 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
     torch.cuda.synchronize()
     out_p = plain()
     torch.cuda.synchronize()
+    out_r = reference(cfg, plain, out_p)
     atol, rtol = BANDS[cfg.compute_dtype]
-    errs, max_abs = check_pairs(name, level_pairs(out_k, out_p),
+    errs, max_abs = check_pairs(name, level_pairs(out_k, out_r),
                                 cfg.compute_dtype)
     bit_equal = None
     if bit_check:
@@ -930,6 +996,7 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
         "ms_in_turns": turns, "train_level_vs_twopass": one_pass_vs,
         "equal_to_train_level": same_bits,
     }
+    against_reference(res, name, cfg, level_pairs, out_p, out_r)
     res.update(fma_bound(res, peaks))
     emit(res)
     worst = max(errs.values())
@@ -1597,7 +1664,187 @@ def wide_path(peaks, device, scene: str, size: int = 400):
     return launches
 
 
-def padded_zero_check(name, cfg, R: int, device) -> dict:
+def wide_f32_ptxas() -> dict:
+    """The ptxas lines of ``wide_gemm_f32_kernel``'s instantiations in each
+    source's build (registers, spills), by source."""
+    from nerf_or_nothing_tpu_torch.kernels import build
+
+    out = {}
+    for name in build.SOURCES:
+        lines, keep = [], False
+        for ln in ptxas_lines(build.BUILD_INFO[str(build.source_path(name))]
+                              ["log"]):
+            if ln.startswith("kernel "):
+                keep = ln == "kernel wide_gemm_f32_kernel"
+            elif keep:
+                lines.append(ln)
+        out[name] = lines
+    return out
+
+
+def wide_f32_kernels(peaks, device) -> dict:
+    """The f32 wide route's kernels against their plain versions at
+    ``Config(net_width=W, compute_dtype="float32")`` for W in
+    ``WIDE_F32_WIDTHS``: ``train_level`` at R=1024 x S=128 in mode "t"
+    (dW/db bit-equal over two launches), ``train_level_twopass`` at
+    R=1024 (bit-equal over two launches and to ``train_level``, both timed
+    in turns), ``mlp_bwd`` at R=1024 with input_grads (dW/db/dX/dD
+    bit-equal over two launches), ``render_level`` (mode "mv") and
+    ``mlp_fwd`` at R=``WIDE_F32_RAYS`` (plain over chunks of
+    ``WIDE_PLAIN_RAYS`` rays); beside each the f32 FMA bound and the layer
+    products as f32 ``torch.matmul`` with TF32 off (``matmul_ms``, a
+    yardstick); then the five at net_width 260 and at 400 / 200 (R=1024,
+    run zero-padded at 288 and 416 / 224), each with its
+    ``padded_zero_check``. Every case is held to the plain version with
+    f64 products (``reference``) and records the f32 plain version's error
+    against it. Returns the W=1024 cases by kernel and the padding checks'
+    launches."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch.config import Config
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("wide_f32: the yardstick needs TF32 off")
+    emit({"phase": "wide_f32", "ptxas": wide_f32_ptxas()})
+    out = {}
+
+    def yardstick(res, ms):
+        res["matmul_ms"] = ms
+        emit({"phase": "wide_f32", "case": res["case"],
+              "kernel": res["kernel"], "matmul_ms": ms})
+        return res
+
+    for W in WIDE_F32_WIDTHS:
+        cfg = Config(net_width=W, compute_dtype="float32")
+        mm_train = matmul_ms(cfg, 1024, device)
+        mm_render = matmul_ms(cfg, WIDE_F32_RAYS, device)
+        tag = f"wide_f32_w{W}"
+        cases = {
+            "train_level": yardstick(train_kernel_case(
+                f"{tag}_r1024_s128_t", cfg, 1024, "t", True, peaks, device,
+                seed=61, bit_check=True, phase="wide_f32"), mm_train),
+            "train_level_twopass": yardstick(train_kernel_case(
+                f"{tag}_r1024_s128_t_twopass", cfg, 1024, "t", True, peaks,
+                device, seed=62, bit_check=True, twopass=True,
+                multicam=True, phase="wide_f32"), mm_train),
+            "mlp_bwd": yardstick(mlp_bwd_case(
+                f"{tag}_r1024_s128_dx", cfg, 1024, True, peaks, device,
+                seed=63, bit_check=True, phase="wide_f32"), mm_train),
+            "render_level": yardstick(kernel_case(
+                f"{tag}_r{WIDE_F32_RAYS}_s128_mv", cfg, WIDE_F32_RAYS, "mv",
+                True, peaks, device, seed=64, phase="wide_f32",
+                plain_rays=WIDE_PLAIN_RAYS), mm_render),
+            "mlp_fwd": yardstick(mlp_fwd_case(
+                f"{tag}_r{WIDE_F32_RAYS}_s128", cfg, WIDE_F32_RAYS, peaks,
+                device, seed=65, phase="wide_f32",
+                plain_rays=WIDE_PLAIN_RAYS), mm_render),
+        }
+        if not cases["train_level_twopass"]["equal_to_train_level"]:
+            raise AssertionError(f"wide_f32: {tag} train_level_twopass "
+                                 "differs from train_level")
+        if W == 1024:
+            out = cases
+    launches = dict.fromkeys(KERNELS, 0)
+    for tag, kw in (("260_as_288", dict(net_width=260)),
+                    ("400_200_as_416_224", dict(net_width=400,
+                                                net_width_condition=200))):
+        cfg = Config(compute_dtype="float32", **kw)
+        tag = f"wide_f32_{tag}"
+        train_kernel_case(f"{tag}_r1024_s128_t", cfg, 1024, "t", True, peaks,
+                          device, seed=66, bit_check=True, phase="wide_f32")
+        train_kernel_case(f"{tag}_r1024_s128_t_twopass", cfg, 1024, "t",
+                          True, peaks, device, seed=67, bit_check=True,
+                          twopass=True, phase="wide_f32")
+        mlp_bwd_case(f"{tag}_r1024_s128_dx", cfg, 1024, True, peaks, device,
+                     seed=68, bit_check=True, phase="wide_f32")
+        kernel_case(f"{tag}_r1024_s128_mv", cfg, 1024, "mv", True, peaks,
+                    device, seed=69, phase="wide_f32")
+        mlp_fwd_case(f"{tag}_r1024_s128", cfg, 1024, peaks, device, seed=70,
+                     phase="wide_f32")
+        launches = added(launches, padded_zero_check(tag, cfg, 1024, device,
+                                                     "wide_f32"))
+    return out, launches
+
+
+def wide_f32_paths(device, work: str) -> dict:
+    """The f32 wide route on its paths at net_width 1024, on a 48-px
+    synthetic scene (2 train views, 1 test view): ``run train
+    --net-width=1024 --compute-dtype=float32`` for ``WIDE_F32_STEPS`` eager
+    steps (2 ``train_level`` launches a step, exact; every logged loss
+    finite, the mean of the last three below the mean of the first three)
+    and ``run eval`` of the test view restoring its checkpoint (2
+    ``render_level`` launches); then the slice config (``--fuse-level=false
+    --stop-level-grad=false``: 2 ``mlp_fwd`` and 2 ``mlp_bwd`` a step,
+    level 1 with input_grads, so dX) and Multicam with
+    ``--kernel-probes=fl_variant=twopass`` (2 ``train_level_twopass`` a
+    step) for ``WIDE_F32_PATH_STEPS`` steps each, losses finite, launches
+    exact. Returns the launches."""
+    import csv
+
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
+
+    t0 = time.perf_counter()
+    scene = write_scene(os.path.join(work, "wide_f32_scene"), n_train=2,
+                        n_test=1, size=48)
+    launches = dict.fromkeys(KERNELS, 0)
+    dev = [f"--device={device.type}"]
+    for name, steps, extra, falling in (
+            ("train", WIDE_F32_STEPS, (), True),
+            ("slice", WIDE_F32_PATH_STEPS, FULL_GRAD_ARGS, False),
+            ("multicam_twopass", WIDE_F32_PATH_STEPS, MULTICAM_ARGS, False)):
+        args = [f"--data-dir={scene}", *WIDE_F32_ARGS, *extra]
+        cfg = run.parse_flags(args)
+        ckpt = os.path.join(work, f"wide_f32_{name}_ckpt")
+        train_s = run_main(
+            f"wide_f32: {name} run train",
+            ["train", *args, f"--checkpoint-dir={ckpt}",
+             f"--max-steps={steps}", "--print-every=1",
+             f"--save-every={steps}", "--test-render-interval=0", *dev],
+            step_launches(cfg, steps))
+        launches = added(launches, step_launches(cfg, steps))
+        with open(os.path.join(ckpt, "train_stats.csv")) as f:
+            losses = [float(r["loss"]) for r in csv.DictReader(f)]
+        ok = {"finite": len(losses) == steps
+              and all(math.isfinite(v) for v in losses)}
+        if falling:
+            ok["falling"] = sum(losses[-3:]) < sum(losses[:3])
+        res = {"phase": "wide_f32", "check": f"{name}_path",
+               "config": "Config(net_width=1024, compute_dtype=float32)",
+               "flags": args[1:], "steps": steps, "train_s": train_s,
+               "logged_losses": losses, "checks": ok}
+        if name == "train":
+            dims = test_dims(scene, cfg, 1)
+            res["eval_s"] = run_main(
+                "wide_f32: run eval",
+                ["eval", *args, f"--checkpoint-dir={ckpt}", "--max-images=1",
+                 *dev], render_launches(cfg, dims))
+            res["eval_images"] = dims
+            launches = added(launches, render_launches(cfg, dims))
+        emit(res)
+        if not all(ok.values()):
+            raise AssertionError(f"wide_f32: {name} run train: {ok}, "
+                                 f"losses {losses}")
+    emit({"phase": "wide_f32", "check": "paths",
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
+def wide_f32_phase(peaks, device, work: str):
+    """``wide_f32_kernels`` and ``wide_f32_paths``, timed. Returns the
+    W=1024 cases by kernel and the launches of the padding checks and the
+    paths."""
+    t0 = time.perf_counter()
+    cases, launches = wide_f32_kernels(peaks, device)
+    kernels_s = time.perf_counter() - t0
+    launches = added(launches, wide_f32_paths(device, work))
+    emit({"phase": "wide_f32", "kernels_s": kernels_s,
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return cases, launches
+
+
+def padded_zero_check(name, cfg, R: int, device,
+                      phase: str = "padded_widths") -> dict:
     """The padding of one config the kernels run zero-padded
     (``fused_level.kernel_cfg``): ``train_level``, ``train_level_twopass``
     and ``mlp_bwd`` (input_grads) launched at ``cfg`` and at the kernel
@@ -1655,16 +1902,16 @@ def padded_zero_check(name, cfg, R: int, device) -> dict:
     expected = dict.fromkeys(KERNELS, 0)
     expected.update(train_level=2, train_level_twopass=2, mlp_bwd=2)
     launches = launch_counts()
-    res = {"phase": "padded_widths", "check": "padding", "case": name,
+    res = {"phase": phase, "check": "padding", "case": name,
            "dtype": cfg.compute_dtype,
            "widths": [cfg.net_width, cfg.net_width_condition],
            "kernel_widths": [kc.net_width, kc.net_width_condition], "R": R,
            "S": cfg.num_samples, "checks": checks, "launches": launches}
     emit(res)
-    check_launches(f"padded_widths: {name}", launches, expected)
+    check_launches(f"{phase}: {name}", launches, expected)
     bad = [k for k, v in checks.items() if not all(v.values())]
     if bad:
-        raise AssertionError(f"padded_widths: {name}: padding check failed "
+        raise AssertionError(f"{phase}: {name}: padding check failed "
                              f"for {bad}: {checks}")
     return launches
 
@@ -1675,7 +1922,8 @@ def padded_kernels(peaks, device) -> dict:
     the usual shapes (``train_level``, ``train_level_twopass`` and
     ``mlp_bwd`` at R=1024 x S=128, dW/db bit-equal over two launches;
     ``render_level`` and ``mlp_fwd`` at R=16384 x S=128), at 16 / 8 (bf16,
-    f32) and 400 / 200 (bf16) at R=1024; each time beside the bound of the
+    f32) and 400 / 200 (bf16; f32 is ``wide_f32_kernels``') at R=1024;
+    each time beside the bound of the
     real FLOPs, the padded FLOPs (``utils/profiling`` at
     ``fused_level.kernel_cfg``) and the real layer products as bf16
     ``torch.matmul`` (``matmul_ms``, a yardstick); then
@@ -1690,7 +1938,7 @@ def padded_kernels(peaks, device) -> dict:
             cfg = Config(**kw, compute_dtype=dtype)
             kc = fl.kernel_cfg(cfg)
             if dtype == "float32" and kc.net_width > fl.MAX_WIDTH:
-                continue  # f32 above 256 is not ported yet
+                continue  # f32 on the wide route: the wide_f32 phase
             big, small = (16384, 1024) if timed else (1024, 1024)
             mm = {n: matmul_ms(cfg.replace(compute_dtype="bfloat16"), n,
                                device) for n in {big, small}}
@@ -3253,6 +3501,7 @@ def main() -> int:
     wide_cases = wide_kernels(peaks, device)
     wide_launches = wide_path(peaks, device, scene)
     wide_launches = added(wide_launches, wide_mlp_paths(peaks, device, scene))
+    wide_f32_cases, wide_f32_launches = wide_f32_phase(peaks, device, work)
     padded_cases, padded_launches = padded_phase(peaks, device, work)
 
     mlp_fwd_main = mlp_fwd_case("config_r16384_s128", base, 16384, peaks,
@@ -3319,7 +3568,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"nerf_or_nothing_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": n + mesh_launches[name] + padded_launches[name],
+            "launches": (n + mesh_launches[name] + padded_launches[name]
+                         + wide_f32_launches[name]),
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
@@ -3332,6 +3582,10 @@ def main() -> int:
                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "matmul_ms")}
             out["wide"]["launches"] = wide_launches[name]
+        out["wide_f32"] = {k: wide_f32_cases[name][k] for k in (
+            "case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "fma_bound_ms", "matmul_ms")}
+        out["wide_f32"]["launches"] = wide_f32_launches[name]
         out["padded"] = {"launches": padded_launches[name], **{
             dtype: {k: padded_cases[(name, dtype)][k] for k in (
                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -48,14 +48,31 @@ calls).
 
 builds every kernel source (``build.SOURCES``) from that directory (its
 headers beside it) and from ``csrc/``, all at once, and prints for each
-source the kernels whose ptxas lines (registers, spills, injected or
-serialized wgmma) are the same in both, those that differ, and those in
-one build only (ptxas's line numbers and symbols taken out); no card is
-needed.
+source the kernels (by name and template arguments) whose ptxas lines
+(registers, spills, injected or serialized wgmma) are the same in both,
+those that differ, and those in one build only with their lines
+(ptxas's line numbers and symbols taken out); no card is needed.
+
+    mkdir -p .local_runs/parent && git archive HEAD~1 | tar -x -C .local_runs/parent
+    python3 compare_kernels.py --digest new.json
+    (cd .local_runs/parent && PYTHONPATH=. python3 -P ../../compare_kernels.py \
+        --digest ../../old.json)
+    python3 compare_kernels.py --same old.json new.json
+
+``--digest`` writes the SHA-256 of every output of the five kernels and of
+every packed weight tensor (``pack_forward``, ``pack_train_level``,
+``pack_mlp_params``) on seeded inputs (``chip_smoke``'s, R=1024 x S=128:
+``render_level`` mode "mv", ``train_level`` mode "t",
+``train_level_twopass``, ``mlp_fwd``, ``mlp_bwd`` with input_grads) at
+``DIGEST_CONFIGS``, through the package on ``sys.path`` (``-P`` keeps
+this script's directory off it, so the run above reads the other
+checkout's package and ``chip_smoke``); ``--same`` prints the entries
+that differ between two such files and exits 1 if any does.
 """
 
 from __future__ import annotations
 
+import json
 import re
 import sys
 from pathlib import Path
@@ -120,6 +137,95 @@ def cases(kernel: str):
     return [("bf16_r16384_s128", Config(), 16384, "t", None, False),
             ("bf16_r1024_s128", Config(), 1024, "t", None, False),
             ("f32_r16384_s128", f32, 16384, "t", None, False)]
+
+
+# The configs of --digest: Config() in bf16 and f32, a narrow width, and
+# the bf16 wide route.
+DIGEST_CONFIGS = {
+    "config_bf16": {},
+    "config_f32": {"compute_dtype": "float32"},
+    "64_32_bf16": {"net_width": 64, "net_width_condition": 32},
+    "64_32_f32": {"net_width": 64, "net_width_condition": 32,
+                  "compute_dtype": "float32"},
+    "w1024_bf16": {"net_width": 1024},
+}
+
+
+def digests(obj, key: str, out: dict) -> None:
+    """SHA-256 of every tensor in ``obj`` (nested tuples and lists) under
+    ``key`` and its index path; bf16 as its bits."""
+    import hashlib
+
+    import torch
+
+    if isinstance(obj, (tuple, list)):
+        for i, t in enumerate(obj):
+            digests(t, f"{key}.{i}", out)
+    elif isinstance(obj, torch.Tensor):
+        t = obj.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out[key] = hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def digest(path: str) -> int:
+    """Write ``--digest``'s file (see the module docstring)."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch.config import Config
+    from nerf_or_nothing_tpu_torch.kernels import build
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+    from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype, init_mlp
+
+    build.build_all(build.SOURCES)
+    device = torch.device("cuda")
+    R, out = 1024, {}
+    for name, kw in DIGEST_CONFIGS.items():
+        cfg = Config(**kw)
+        dt = compute_dtype(cfg)
+        params = init_mlp(torch.Generator().manual_seed(7), cfg,
+                          device=device)
+        digests(fl.pack_forward(params, cfg, dt), f"{name}.pack_forward", out)
+        digests(fl.pack_train_level(params, cfg, dt),
+                f"{name}.pack_train_level", out)
+        digests(fm.pack_mlp_params(params, cfg, dt),
+                f"{name}.pack_mlp_params", out)
+        mv, d, delta = cs.level_inputs(cfg, R, "mv", 8, device)
+        xs, _, _ = cs.level_inputs(cfg, R, "t", 8, device)
+        pixels, g_scale = cs.train_inputs(cfg, R, 9, device)
+        _, x, dm, g_rgb, g_den = cs.mlp_case_inputs(cfg, R, 10, device)
+        runs = {
+            "render_level": lambda: fl.render_level_cuda(
+                params, cfg, mv, d, delta, True, "mv"),
+            "train_level": lambda: fl.train_level_cuda(
+                params, cfg, xs, d, delta, pixels, g_scale, True, "t"),
+            "train_level_twopass": lambda: fl.train_level_twopass_cuda(
+                params, cfg, xs, d, delta, pixels, g_scale, True),
+            "mlp_fwd": lambda: fm.mlp_fwd_cuda(params, cfg, x, dm),
+            "mlp_bwd": lambda: fm.mlp_bwd_cuda(params, cfg, x, dm, g_rgb,
+                                               g_den, True),
+        }
+        for kernel, run in runs.items():
+            digests(run(), f"{name}.{kernel}", out)
+        torch.cuda.synchronize()
+    with open(path, "w") as f:
+        json.dump(out, f, indent=0, sort_keys=True)
+    cs.emit({"digest": path, "entries": len(out)})
+    return 0
+
+
+def same(old_path: str, new_path: str) -> int:
+    """Compare two ``--digest`` files (see the module docstring)."""
+    with open(old_path) as f:
+        old = json.load(f)
+    with open(new_path) as f:
+        new = json.load(f)
+    differ = sorted(k for k in set(old) & set(new) if old[k] != new[k])
+    only = sorted(set(old) ^ set(new))
+    cs.emit({"same": len(set(old) & set(new)) - len(differ),
+             "differ": differ, "in_one_only": only})
+    return 1 if differ or only else 0
 
 
 def case(kernel: str, name: str):
@@ -273,27 +379,45 @@ def device_ms_by_kernel(fn, n: int = 5) -> dict:
     return out
 
 
+def template_args(line: str) -> str:
+    """The mangled template arguments of the kernel symbol in a ptxas
+    line, as ``<...>`` (``<13__nv_bfloat16>``, ``<f>``, ``<Li3E>``), or
+    '' for a kernel that is no template."""
+    sym = line.split("'")[1] if line.count("'") >= 2 else ""
+    name = cs.kernel_name(line)
+    i = sym.find(f"{len(name)}{name}I")
+    if i < 0:
+        return ""
+    rest = sym[i + len(str(len(name))) + len(name) + 1:]
+    return f"<{rest[:rest.find('EEv')]}>" if "EEv" in rest else ""
+
+
 def ptxas_by_kernel(log: str) -> dict:
-    """A build's ptxas lines (``chip_smoke.ptxas_lines``) by kernel, each
-    instantiation of a name under ``name#k`` in build order; the notes
-    that name a function (C7511, C7519) counted under its kernel, since
-    their PTX line numbers move with any code added beside it."""
+    """A build's ptxas lines (``chip_smoke.ptxas_lines``) by kernel and
+    its template arguments (``template_args``), each instantiation of a
+    name under ``name<args>#k`` in build order; the notes that name a
+    function (C7511, C7515) counted under its kernel, since their PTX
+    line numbers move with any code added beside it and the anonymous
+    namespace's tag in their symbols with any change to the file."""
+    entries = [ln for ln in log.splitlines() if "Compiling entry function" in ln]
     out, notes, key = {}, {}, None
     for ln in cs.ptxas_lines(log):
         if ln.startswith("kernel "):
+            name = ln[7:] + template_args(entries.pop(0))
             k = 0
-            while f"{ln[7:]}#{k}" in out:
+            while f"{name}#{k}" in out:
                 k += 1
-            key = f"{ln[7:]}#{k}"
+            key = f"{name}#{k}"
             out[key] = []
         elif "(C75" in ln:
             name = cs.kernel_name(ln)
             note = re.sub(r"around line \d+ ", "", ln.split(" in function")[0])
-            notes.setdefault(name, []).append(note)
+            notes.setdefault(name, []).append(
+                re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", note))
         elif key is not None:
             out[key].append(ln)
     for key in out:
-        out[key] += sorted(notes.get(key.split("#")[0], []))
+        out[key] += sorted(notes.get(re.split(r"[<#]", key)[0], []))
     return out
 
 
@@ -312,8 +436,8 @@ def ptxas_compare(other: Path) -> int:
         cs.emit({"ptxas": n, "same": [k for k in both if old[k] == new[k]],
                  "differ": {k: {"old": old[k], "new": new[k]}
                             for k in both if old[k] != new[k]},
-                 "only_new": sorted(set(new) - set(old)),
-                 "only_old": sorted(set(old) - set(new))})
+                 "only_new": {k: new[k] for k in sorted(set(new) - set(old))},
+                 "only_old": {k: old[k] for k in sorted(set(old) - set(new))}})
     return 0
 
 
@@ -322,9 +446,13 @@ def main(argv) -> int:
 
     if argv[:1] == ["--ptxas"] and len(argv) == 2:
         return ptxas_compare(Path(argv[1]).resolve())
+    if argv[:1] == ["--same"] and len(argv) == 3:
+        return same(argv[1], argv[2])
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 1
+    if argv[:1] == ["--digest"] and len(argv) == 2:
+        return digest(argv[1])
     from nerf_or_nothing_tpu_torch.kernels import build
 
     kernel = "render_level"

@@ -576,8 +576,8 @@ __device__ void composite(const Params& p, const Smem<T>& sm, int ray0, int nr) 
 // The kernel parameters of one level (weight offsets of pack_params'
 // layout, row strides of the shared-memory tiles); false for widths the
 // kernels do not take: W, Wc multiples of 32 up to 256 (with wide, every
-// bf16 kernel's wide route, W up to 1024), Wc <= W, KX a multiple
-// of 16 >= LX, LX = 6F in mode "mv", heads of 1-8 channels.
+// kernel's wide route in bf16 and f32, W up to 1024), Wc <= W, KX a
+// multiple of 16 >= LX, LX = 6F in mode "mv", heads of 1-8 channels.
 // dtype: 0 = float32, 1 = bfloat16; mode: 0 = "mv" (IPE in the kernel),
 // 1 = "t" (features).
 inline bool init_params(Params& p, int dtype, int mode, const float* means,

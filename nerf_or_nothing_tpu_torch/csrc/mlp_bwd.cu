@@ -43,7 +43,10 @@
 // from the head cotangents (heads of 1-8 channels each): the g-chain GEMMs
 // on the "wgx" stream, g_ray_kernel, db partials, the dW GEMMs, the small
 // products and reduction; with input_grads, launch_wide_dx (a GEMM per x
-// layer into dX, deepest first) and mlp_dd_kernel.
+// layer into dX, deepest first) and mlp_dd_kernel. f32 at net_width
+// 288-1024 (launch_mlp_bwd_wide_f32): the same passes with wide_f32.cuh's
+// 3xTF32 GEMM for the forward, the chain and dX (launch_wide_dx_f32 on
+// pack_params_tx), f32 activations, and the narrow f32 route's dW GEMM.
 // f32, every layer product as 3xTF32 mma.sync (level_common.cuh's gemm,
 // level_backward.cuh's dW GEMM): mlp_act_kernel (level_common.cuh's forward
 // storing the activations), then passes 2-5 of level_backward.cuh (the
@@ -185,24 +188,16 @@ cudaError_t launch_wide_dx(const Params& p, const Extra& e, const WideOffsets& o
 cudaError_t launch_mlp_bwd_wide(Params p, Extra e, const Layout& l, const WideTrainLayout& x,
                                 unsigned char* ws, float* out, long long n_out, int splits,
                                 cudaStream_t st) {
-  WideOffsets o;
-  if (!wide_offsets(p, o)) return cudaErrorInvalidValue;
+  WideBf16Route r;
+  if (!r.init(p)) return cudaErrorInvalidValue;
+  const WideOffsets& o = r.o;
   const int nxw = cdiv(p.KX, 32) * 32;  // fused_level.dx_width
   const WideChainOffsets co = wide_chain_offsets(p, o, nxw);
   const bf16* w = static_cast<const bf16*>(p.w);
-  bf16* acts = static_cast<bf16*>(e.acts);
-  bf16* xs = static_cast<bf16*>(e.xs);
   float* dc = reinterpret_cast<float*>(ws + x.dc);
-  auto h = [&](int i) { return acts + act_off(p, e.N, i); };
-  auto v = [&](int j) { return acts + act_off(p, e.N, p.D + j); };
   // 1. forward, keeping the activations and features
-  wide_dir_kernel<<<p.R, p.Wc, 0, st>>>(p, w + o.dir, dc, 0);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = wide_forward_keep<WideBf16Route, kWideNoHeads>(p, r, e, dc, nullptr, st);
   if (err != cudaSuccess) return err;
-  if ((err = launch_wide_features(p, xs, 0, e.N, st)) != cudaSuccess) return err;
-  if ((err = wide_forward<kWideNoHeads>(p, o, xs, dc, e.N, h, v, nullptr, 0, nullptr, 0, st)) !=
-      cudaSuccess)
-    return err;
   // 2-7. g-chain, per-ray sums, db, dW, small products and reduction
   if ((err = launch_wide_backward<0>(p, e, l, x, o, co, ws, out, n_out, splits, st)) !=
       cudaSuccess)
@@ -211,6 +206,53 @@ cudaError_t launch_mlp_bwd_wide(Params p, Extra e, const Layout& l, const WideTr
   if (e.dx && (err = launch_wide_dx(p, e, o, co, nxw, st)) != cudaSuccess) return err;
   if (e.dd) {
     mlp_dd_kernel<<<cdiv(p.R, 8), 256, 0, st>>>(e.g_ray, w + o.dir, e.dd, p.R, p.Wc, p.Fd);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// dX [N, LX] (e.dx, f32) on the f32 route: for x layer i = D-1 .. 0 (the
+// skip layers, then layer 0) one kF32Dx GEMM, grad(i) @ W_x,i^T from
+// pack_params_tx's [W, KX] rows (e.wtx at wtx_off, columns past LX zero),
+// the first term added to 0, each later one to the sum so far (the narrow
+// chain's order; each element one thread's, no atomics).
+cudaError_t launch_wide_dx_f32(const Params& p, const Extra& e, cudaStream_t st) {
+  const float* wtx = static_cast<const float*>(e.wtx);
+  const float* grads = static_cast<const float*>(e.grads);
+  bool first = true;
+  for (int i = p.D - 1; i >= 0; --i) {
+    if (!x_layer(p, i)) continue;
+    WideGemmF32 g{};
+    g.a0 = grads + act_off(p, e.N, i); g.lda0 = g.ka0 = p.W;
+    g.b = wtx + wtx_off(p, i); g.N = p.KX; g.M = e.N;
+    g.out = static_cast<float*>(e.dx); g.ldo = p.LX; g.accum = !first;
+    const cudaError_t err = launch_wide_gemm_f32<kF32Dx>(g, st);
+    if (err != cudaSuccess) return err;
+    first = false;
+  }
+  return cudaSuccess;
+}
+
+// The f32 route at net_width 288-1024 on the workspace (l, then x): the
+// forward recomputed on WideF32Route (every activation and the features
+// kept, no heads), launch_wide_backward_f32 from the head cotangents, then
+// with input_grads dX and dD. p.w: pack_params' layout; e.wt:
+// pack_params_t; e.wtx: pack_params_tx.
+cudaError_t launch_mlp_bwd_wide_f32(Params p, Extra e, const Layout& l, const WideTrainLayout& x,
+                                    unsigned char* ws, float* out, long long n_out, int splits,
+                                    cudaStream_t st) {
+  WideF32Route r;
+  if (!r.init(p)) return cudaErrorInvalidValue;
+  const float* w = static_cast<const float*>(p.w);
+  float* dc = reinterpret_cast<float*>(ws + x.dc);
+  cudaError_t err = wide_forward_keep<WideF32Route, kWideNoHeads>(p, r, e, dc, nullptr, st);
+  if (err != cudaSuccess) return err;
+  if ((err = launch_wide_backward_f32(p, e, l, ws, out, n_out, splits, st)) != cudaSuccess)
+    return err;
+  if (e.dx && (err = launch_wide_dx_f32(p, e, st)) != cudaSuccess) return err;
+  if (e.dd) {
+    wide_dd_f32_kernel<<<cdiv(p.R, 8), 256, 0, st>>>(e.g_ray, w + p.w_v0_bot, e.dd, p.R, p.Wc,
+                                                    p.Fd);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -227,13 +269,13 @@ inline long long partial_stride(long long n_out) { return n_out + (n_out & 1); }
 extern "C" {
 
 // Bytes of workspace mlp_bwd_launch needs for these shapes (bf16: with
-// the mask bits, or at net_width 288-1024 the direction terms, and the db
-// partials of heads of up to 8 + 8 channels).
+// the mask bits; at net_width 288-1024, both dtypes, the direction terms;
+// and the db partials of heads of up to 8 + 8 channels).
 long long mlp_bwd_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc, int KX,
                             int splits, long long n_out) {
   const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits,
                           partial_stride(n_out), false);
-  if (dtype == 1 && W >= kWideMinW)
+  if (W >= kWideMinW)
     return wide_train_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads, false).total;
   if (dtype == 1) return wg_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads, false).total;
   return l.total;
@@ -241,7 +283,7 @@ long long mlp_bwd_workspace(int dtype, int R, int S, int D, int W, int Wc, int D
 
 // dtype: 0 = float32, 1 = bfloat16. x: [R * S, LX] and d: [R, Fd] in the
 // compute type; g_rgb [R * S, Cr] and g_den [R * S, Cd] f32 (W: multiples
-// of 32 up to 256, and in bf16 up to 1024, the wide route); bf16: w the
+// of 32 up to 256, or 288-1024, the wide route, in both dtypes); bf16: w the
 // "wg" forward slab stream (fused_level.pack_params_wg), wt the "wgx"
 // chain stream (pack_params_wgx), wtx unused; f32: w, b pack_params'
 // layout, wt pack_params_t, wtx pack_params_tx; grads: the flat f32 dW/db
@@ -258,7 +300,7 @@ int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
   if (R <= 0) return cudaSuccess;
   Params p;
   if (!init_params(p, dtype, 1, nullptr, nullptr, x, d, nullptr, w, b, R, S, D, W, skip, Wc,
-                   Dc, LX, KX, Fd, 0, 0, 0.0f, 0.0f, 0, Cr, Cd, dtype == 1) ||
+                   Dc, LX, KX, Fd, 0, 0, 0.0f, 0.0f, 0, Cr, Cd, true) ||
       splits < 1 || (long long)R * S > 2147483647LL || (input_grads && (!dx || !dd)) ||
       (input_grads && LX % 2))
     return cudaErrorInvalidValue;
@@ -272,10 +314,12 @@ int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
                              const_cast<float*>(g_den), input_grads ? dx : nullptr,
                              input_grads ? dd : nullptr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && W >= kWideMinW)
-    return (int)launch_mlp_bwd_wide(
-        p, e, l, wide_train_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads, false), ws, grads,
-        n_out, splits, st);
+  if (W >= kWideMinW) {
+    const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads, false);
+    return (int)(dtype == 1
+                     ? launch_mlp_bwd_wide(p, e, l, x, ws, grads, n_out, splits, st)
+                     : launch_mlp_bwd_wide_f32(p, e, l, x, ws, grads, n_out, splits, st));
+  }
   if (dtype == 1)
     return (int)launch_mlp_bwd_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads,
                                                      false),

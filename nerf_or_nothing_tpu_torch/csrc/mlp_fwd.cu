@@ -28,7 +28,10 @@
 // a workspace the wrapper allocates (mlp_fwd_wide_workspace: ~1.1 GB at
 // W=1024 for any R; eval at fuse_level=False calls this on 16,384 rays x
 // 128 samples, whose one activation buffer would be 4.3 GB), then the
-// heads (1-8 channels each) straight to raw_rgb / raw_den.
+// heads (1-8 channels each) straight to raw_rgb / raw_den. f32 at
+// net_width 288-1024: the same launches through mlp_fwd_wide_launch with
+// wide_f32.cuh's 3xTF32 mma.sync GEMM and f32 activations (~2.2 GB of
+// workspace at W=1024).
 // f32: level_common.cuh's forward_tile<float> on pack_params' row-major
 // layout, every layer product as 3xTF32 mma.sync (render_level.cu's f32
 // forward without the composite), one block of 256 threads per RB =
@@ -39,6 +42,7 @@
 // the given stream, allocate nothing and do not synchronise.
 
 #include "forward_wg.cuh"
+#include "wide_f32.cuh"
 #include "wide_forward.cuh"
 
 namespace {
@@ -108,27 +112,30 @@ int mlp_fwd_launch(int dtype, const void* x, const void* d, const void* w, const
 const char* mlp_fwd_weight_layout() { return "wg"; }
 
 // Bytes of workspace mlp_fwd_wide_launch needs for these shapes.
-long long mlp_fwd_wide_workspace(int R, int S, int W, int Wc, int KX) {
-  return wide_render_layout(R, S, W, Wc, KX).total;
+long long mlp_fwd_wide_workspace(int dtype, int R, int S, int W, int Wc, int KX) {
+  return wide_render_layout(R, S, W, Wc, KX, dtype == 1 ? 2 : 4).total;
 }
 
-// The bf16 route for net_width 288-1024 (a multiple of 32, Wc <= 256):
-// mlp_fwd_launch's arguments in bf16 (w: pack_params_wg's stream), and a
-// workspace of mlp_fwd_wide_workspace bytes, 256-byte aligned.
-int mlp_fwd_wide_launch(const void* x, const void* d, const void* w, const float* b,
+// The route for net_width 288-1024 (a multiple of 32, Wc <= 256):
+// mlp_fwd_launch's arguments (bf16: w pack_params_wg's stream; f32:
+// pack_params' layout, wide_f32.cuh), and a workspace of
+// mlp_fwd_wide_workspace bytes, 256-byte aligned.
+int mlp_fwd_wide_launch(int dtype, const void* x, const void* d, const void* w, const float* b,
                         float* raw_rgb, float* raw_den, int R, int S, int D, int W, int skip,
                         int Wc, int Dc, int LX, int KX, int Fd, int Cr, int Cd, void* workspace,
                         void* stream) {
   if (R <= 0) return cudaSuccess;
   Params p;
-  if (W < kWideMinW || !init_params(p, 1, 1, nullptr, nullptr, x, d, nullptr, w, b, R, S, D, W,
-                                    skip, Wc, Dc, LX, KX, Fd, 0, 0, 0.0f, 0.0f, 0, Cr, Cd,
+  if (W < kWideMinW || !init_params(p, dtype, 1, nullptr, nullptr, x, d, nullptr, w, b, R, S, D,
+                                    W, skip, Wc, Dc, LX, KX, Fd, 0, 0, 0.0f, 0.0f, 0, Cr, Cd,
                                     true) ||
       (long long)R * S > 2147483647LL)
     return cudaErrorInvalidValue;
-  return (int)launch_forward_wide<kWideAnyHeads>(p, static_cast<unsigned char*>(workspace),
-                                                 raw_rgb, raw_den,
-                                                 static_cast<cudaStream_t>(stream));
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch_forward_wide<WideBf16Route, kWideAnyHeads>(p, ws, raw_rgb, raw_den, st);
+  return (int)launch_forward_wide<WideF32Route, kWideAnyHeads>(p, ws, raw_rgb, raw_den, st);
 }
 
 }  // extern "C"

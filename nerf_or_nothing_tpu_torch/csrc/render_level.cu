@@ -27,10 +27,11 @@
 // per ray (the transmittance scan carried across rounds), writing comp,
 // acc and weights.
 //
-// bf16 at net_width 288-1024 (wide_forward.cuh, render_level_wide_launch):
-// one wgmma GEMM launch per layer, in column blocks of at most 256, over
-// chunks of whole rays whose activations go through a workspace the
-// wrapper allocates (render_level_wide_workspace), then the composite.
+// At net_width 288-1024 (render_level_wide_launch): one GEMM launch per
+// layer, over chunks of whole rays whose activations go through a
+// workspace the wrapper allocates (render_level_wide_workspace), then the
+// composite; bf16 (wide_forward.cuh) on wgmma in column blocks of at most
+// 256, f32 (wide_f32.cuh) as 3xTF32 mma.sync in column blocks of 128.
 //
 // f32: forward_tile<float> of level_common.cuh on pack_params' row-major
 // layout, each layer product as three TF32 tensor-core passes (3xTF32
@@ -45,6 +46,7 @@
 // nothing and does not synchronise.
 
 #include "forward_wg.cuh"
+#include "wide_f32.cuh"
 #include "wide_forward.cuh"
 
 namespace {
@@ -117,29 +119,32 @@ int render_level_launch(int dtype, int mode, const float* means, const float* va
 const char* render_level_weight_layout() { return "wg"; }
 
 // Bytes of workspace render_level_wide_launch needs for these shapes.
-long long render_level_wide_workspace(int R, int S, int W, int Wc, int KX) {
-  return wide_render_layout(R, S, W, Wc, KX).total;
+long long render_level_wide_workspace(int dtype, int R, int S, int W, int Wc, int KX) {
+  return wide_render_layout(R, S, W, Wc, KX, dtype == 1 ? 2 : 4).total;
 }
 
-// The bf16 route for net_width 288-1024 (a multiple of 32, Wc <= 256):
-// render_level_launch's arguments with dtype bf16, and a workspace of
+// The route for net_width 288-1024 (a multiple of 32, Wc <= 256):
+// render_level_launch's arguments (bf16: wide_forward.cuh on the "wg"
+// stream; f32: wide_f32.cuh on pack_params' layout), and a workspace of
 // render_level_wide_workspace bytes, 256-byte aligned.
-int render_level_wide_launch(int mode, const float* means, const float* vars, const void* x,
-                             const void* d, const float* delta, const void* w, const float* b,
-                             float* comp, float* acc, float* weights, int R, int S, int D,
-                             int W, int skip, int Wc, int Dc, int LX, int KX, int Fd,
-                             int min_deg, int fast, float density_bias, float rgb_padding,
-                             int white_bkgd, void* workspace, void* stream) {
+int render_level_wide_launch(int dtype, int mode, const float* means, const float* vars,
+                             const void* x, const void* d, const float* delta, const void* w,
+                             const float* b, float* comp, float* acc, float* weights, int R,
+                             int S, int D, int W, int skip, int Wc, int Dc, int LX, int KX,
+                             int Fd, int min_deg, int fast, float density_bias,
+                             float rgb_padding, int white_bkgd, void* workspace, void* stream) {
   if (R <= 0) return cudaSuccess;
   Params p;
-  if (W < kWideMinW || !init_params(p, 1, mode, means, vars, x, d, delta, w, b, R, S, D, W, skip,
-                               Wc, Dc, LX, KX, Fd, min_deg, fast, density_bias, rgb_padding,
-                               white_bkgd, 3, 1, true))
+  if (W < kWideMinW || !init_params(p, dtype, mode, means, vars, x, d, delta, w, b, R, S, D, W,
+                                    skip, Wc, Dc, LX, KX, Fd, min_deg, fast, density_bias,
+                                    rgb_padding, white_bkgd, 3, 1, true))
     return cudaErrorInvalidValue;
   p.comp = comp; p.acc = acc; p.weights = weights;
-  return (int)launch_forward_wide<kWideLevelHeads>(p, static_cast<unsigned char*>(workspace),
-                                                   nullptr, nullptr,
-                                                   static_cast<cudaStream_t>(stream));
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)launch_forward_wide<WideBf16Route, kWideLevelHeads>(p, ws, nullptr, nullptr, st);
+  return (int)launch_forward_wide<WideF32Route, kWideLevelHeads>(p, ws, nullptr, nullptr, st);
 }
 
 }  // extern "C"

@@ -26,7 +26,12 @@
 // layer product, in column blocks of at most 256, every activation and
 // masked g in the workspace (a [64, 1024] tile would take 128 KB of the
 // block's shared memory), then the same composite, small products and
-// reduction.
+// reduction. f32 at net_width 288-1024 (wide_train.cuh's
+// launch_train_wide<WideF32Route>): the same sequence with one 3xTF32
+// mma.sync GEMM launch per forward and chain product (wide_f32.cuh,
+// column blocks of 128), f32 activations and masked g in the workspace
+// (~8.7 GB at Config(net_width=1024)), then passes 3-5 of the narrow f32
+// route.
 // f32: five launches, every layer product as three TF32 tensor-core
 // passes (3xTF32 mma.sync: each f32 operand split into a TF32 high and low
 // part, lo*hi + hi*lo + hi*hi summed in f32; TF32 runs at 495 TFLOP/s
@@ -87,15 +92,15 @@ extern "C" {
 long long train_level_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc, int KX,
                                 int splits, long long n_out) {
   const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, true);
-  if (dtype != 1) return l.total;
-  return W >= kWideMinW ? wide_train_layout(l.total, R, S, D, W, Wc, Dc).total
-                 : wg_layout(l.total, R, S, D, W, Wc, Dc).total;
+  if (W >= kWideMinW) return wide_train_layout(l.total, R, S, D, W, Wc, Dc).total;
+  return dtype == 1 ? wg_layout(l.total, R, S, D, W, Wc, Dc).total : l.total;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. mode: 0 = "mv" (IPE in the kernel),
-// 1 = "t" (encoded features). w, wt: bf16 pack_params_wg's forward slab
-// stream and pack_params_wgt's chain stream; f32 pack_params' layout and
-// the chained layers' W^T (pack_params_t); grads: the flat f32 dW/db
+// 1 = "t" (encoded features). W up to 256, or 288-1024 (the wide route,
+// both dtypes). w, wt: bf16 pack_params_wg's forward slab stream and
+// pack_params_wgt's chain stream; f32 pack_params' layout and the chained
+// layers' W^T (pack_params_t); grads: the flat f32 dW/db
 // output of n_out values (see output_offsets); workspace:
 // train_level_workspace bytes, 256-byte aligned.
 int train_level_launch(int dtype, int mode, const float* means, const float* vars,
@@ -110,7 +115,7 @@ int train_level_launch(int dtype, int mode, const float* means, const float* var
   Params p;
   if (!init_params(p, dtype, mode, means, vars, x, d, delta, w, b, R, S, D, W, skip, Wc, Dc,
                    LX, KX, Fd, min_deg, fast, density_bias, rgb_padding, white_bkgd, 3, 1,
-                   dtype == 1) ||
+                   true) ||
       splits < 1 || (long long)R * S > 2147483647LL)
     return cudaErrorInvalidValue;
   p.comp = comp; p.acc = acc; p.weights = weights;
@@ -125,9 +130,12 @@ int train_level_launch(int dtype, int mode, const float* means, const float* var
                        reinterpret_cast<float*>(ws + l.g_den), nullptr, nullptr);
   e.pixels = pixels; e.gsc = gsc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && W >= kWideMinW)
-    return (int)launch_train_wide(p, e, l, wide_train_layout(l.total, R, S, D, W, Wc, Dc), ws,
-                                  grads, n_out, splits, st);
+  if (W >= kWideMinW) {
+    const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc);
+    return (int)(dtype == 1
+                     ? launch_train_wide<WideBf16Route>(p, e, l, x, ws, grads, n_out, splits, st)
+                     : launch_train_wide<WideF32Route>(p, e, l, x, ws, grads, n_out, splits, st));
+  }
   if (dtype == 1)
     return (int)launch_train_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc), ws, grads,
                                 n_out, splits, st);

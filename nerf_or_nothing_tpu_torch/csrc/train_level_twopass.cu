@@ -35,7 +35,10 @@
 // two phases' order: phase 0 the forward GEMMs, the composite, the g-chain
 // GEMMs, the per-ray sums and db partials; phase 1 the dW GEMMs, the small
 // products and the reduction. The same launches as train_level's wide
-// route, so the same bits.
+// route, so the same bits. f32 at net_width 288-1024: train_level.cu's f32
+// wide route (launch_train_wide<WideF32Route>), whose phase 1 is the dW
+// GEMM with db as its column sums, the small products and the reduction;
+// the same launches as train_level's, so the same bits.
 // f32, every layer product as 3xTF32 mma.sync (level_common.cuh's gemm,
 // level_backward.cuh's dW GEMM):
 //  A. twopass_chain_kernel (phase 0): each block owns whole rays: the
@@ -115,13 +118,14 @@ cudaError_t launch_twopass(Params p, Extra e, const Layout& l, unsigned char* ws
 extern "C" {
 
 // Bytes of workspace train_level_twopass_launch needs for these shapes:
-// bf16, train_level's (the backward's layout, then the bf16 passes' areas,
-// or the wide route's at W >= 288); f32, the backward's layout, then the
-// per-block db partials (3 rgb / 1 density head).
+// train_level's at W >= 288 (the backward's layout, then the wide route's
+// areas) and in bf16 (then the bf16 passes' areas); f32 below 288, the
+// backward's layout, then the per-block db partials (3 rgb / 1 density
+// head).
 long long train_level_twopass_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc,
                                         int KX, int splits, long long n_out) {
   const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, true);
-  if (dtype == 1 && W >= kWideMinW) return wide_train_layout(l.total, R, S, D, W, Wc, Dc).total;
+  if (W >= kWideMinW) return wide_train_layout(l.total, R, S, D, W, Wc, Dc).total;
   if (dtype == 1) return wg_layout(l.total, R, S, D, W, Wc, Dc).total;
   const long long nb = (long long)D * W + 1 + (long long)Dc * Wc + 3;
   return l.total + round256((long long)blocks_of(R, S) * nb * 4);
@@ -144,7 +148,7 @@ int train_level_twopass_launch(int dtype, int mode, const float* means, const fl
   if (mode != 1 ||
       !init_params(p, dtype, mode, means, vars, x, d, delta, w, b, R, S, D, W, skip, Wc, Dc,
                    LX, KX, Fd, min_deg, fast, density_bias, rgb_padding, white_bkgd, 3, 1,
-                   dtype == 1) ||
+                   true) ||
       splits < 1 || (long long)R * S > 2147483647LL)
     return cudaErrorInvalidValue;
   p.comp = comp; p.acc = acc; p.weights = weights;
@@ -159,9 +163,12 @@ int train_level_twopass_launch(int dtype, int mode, const float* means, const fl
                        reinterpret_cast<float*>(ws + l.g_den), nullptr, nullptr);
   e.pixels = pixels; e.gsc = gsc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && W >= kWideMinW)
-    return (int)launch_train_wide(p, e, l, wide_train_layout(l.total, R, S, D, W, Wc, Dc), ws,
-                                  grads, n_out, splits, st);
+  if (W >= kWideMinW) {
+    const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc);
+    return (int)(dtype == 1
+                     ? launch_train_wide<WideBf16Route>(p, e, l, x, ws, grads, n_out, splits, st)
+                     : launch_train_wide<WideF32Route>(p, e, l, x, ws, grads, n_out, splits, st));
+  }
   if (dtype == 1)
     return (int)launch_train_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc), ws, grads,
                                 n_out, splits, st);

@@ -1,8 +1,10 @@
-// The wide bf16 route of every kernel (render_level.cu, mlp_fwd.cu, and the
-// forwards of train_level.cu, train_level_twopass.cu and mlp_bwd.cu):
+// The wide route of every kernel in bf16 (render_level.cu, mlp_fwd.cu, and
+// the forwards of train_level.cu, train_level_twopass.cu and mlp_bwd.cu):
 // net_width a multiple of 32 from 288 to 1024 (net_width_condition at most
 // 256), where the narrow kernels' activation tiles no longer fit a block
-// (one bf16 [64, 1024] tile is 128 KB of the 227 KB).
+// (one bf16 [64, 1024] tile is 128 KB of the 227 KB). The f32 route runs
+// the same launch sequence on its own GEMM (wide_f32.cuh), which reuses
+// wide_composite_kernel and wide_render_layout here.
 //
 // Replaces, at these widths, the same TPU kernels as its callers:
 // nerf_or_nothing_tpu/kernels/fused_level.py::_render_kernel (render),
@@ -391,26 +393,29 @@ inline cudaError_t launch_wide_gemm_mlp(const WideGemmMlp& m, cudaStream_t st) {
 
 // xs[r, :KX] for rows r < rows, the features of level rows row0 + r: the
 // IPE of load_features (mode "mv") or the given features (mode "t"),
-// zero-padded; 64 rows a block through shared memory.
-__global__ void __launch_bounds__(kThreads) wide_features_kernel(Params p, bf16* xs,
-                                                                 long long row0,
+// zero-padded; 64 rows a block through shared memory. T: the route's
+// activation type (bf16; float on wide_f32.cuh's route).
+template <class T>
+__global__ void __launch_bounds__(kThreads) wide_features_kernel(Params p, T* xs, long long row0,
                                                                  long long rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<bf16> sm;
+  Smem<T> sm;
   sm.H = nullptr; sm.DC = nullptr; sm.OUT = nullptr; sm.WS = nullptr;
-  sm.X = reinterpret_cast<bf16*>(smem_raw);
+  sm.X = reinterpret_cast<T*>(smem_raw);
   const long long r0 = (long long)blockIdx.x * kBM;
   const int nvalid = (int)min((long long)kBM, rows - r0);
-  load_features<bf16>(p, sm, row0 + r0, nvalid);
+  load_features<T>(p, sm, row0 + r0, nvalid);
   __syncthreads();
-  store_rows<bf16>(sm.X, p.ldx, p.KX, xs, r0, nvalid);
+  store_rows<T>(sm.X, p.ldx, p.KX, xs, r0, nvalid);
 }
 
-// dc[r, n] = d[ray0 + r, :] . W_dir[:, n] (bf16 operands, f32 sum), one
-// block of Wc threads a ray: the first view layer's direction rows.
-__global__ void wide_dir_kernel(Params p, const bf16* wd, float* dc, int ray0) {
+// dc[r, n] = d[ray0 + r, :] . W_dir[:, n] (compute-type operands, f32 FMA
+// in k order), one block of Wc threads a ray: the first view layer's
+// direction rows.
+template <class T>
+__global__ void wide_dir_kernel(Params p, const T* wd, float* dc, int ray0) {
   const int r = blockIdx.x, n = threadIdx.x;
-  const bf16* d = static_cast<const bf16*>(p.d) + (long long)(ray0 + r) * p.Fd;
+  const T* d = static_cast<const T*>(p.d) + (long long)(ray0 + r) * p.Fd;
   float s = 0.0f;
   for (int k = 0; k < p.Fd; ++k) s = fmaf(to_f(d[k]), to_f(wd[k * p.Wc + n]), s);
   dc[(long long)r * p.Wc + n] = s;
@@ -487,106 +492,132 @@ __global__ void __launch_bounds__(kThreads) wide_composite_kernel(Params p, cons
   composite<bf16>(p, sm, ray0 + r0, min(kThreads / 32, nr - r0));
 }
 
+// The bf16 route's parts of the drivers below (wide_forward,
+// launch_forward_wide; wide_train.cuh's launch_train_wide): the layer
+// products as wide_gemm_kernel on pack_params_wg's slab stream at
+// wide_offsets, the heads from its swizzled head slabs. wide_f32.cuh's
+// WideF32Route is the f32 route's.
+struct WideBf16Route {
+  using T = bf16;
+  static constexpr bool kBf16 = true;
+  WideOffsets o;
+  bool init(const Params& p) { return wide_offsets(p, o); }
+  long long trunk_off(const Params&, int i) const { return o.trunk[i]; }
+  long long view_off(const Params&, int j) const { return o.view[j]; }
+  const bf16* dir(const Params& p) const { return static_cast<const bf16*>(p.w) + o.dir; }
+  // out [M, N] = ReLU(a0 @ B + a1 @ B_x + dc + bias), a0 [M, k0], a1 the
+  // features of an x layer (or null), B at w_off in the stream.
+  cudaError_t fwd(const Params& p, const bf16* a0, int k0, const bf16* a1, int N, long long M,
+                  long long w_off, const float* bias, const float* dc, bf16* out,
+                  cudaStream_t st) const {
+    WideGemm g{};
+    g.a0 = a0; g.lda0 = g.ka0 = k0; g.ns0 = cdiv(k0, 64);
+    if (a1) { g.a1 = a1; g.lda1 = g.ka1 = p.KX; g.ns1 = o.nx; }
+    g.b = static_cast<const bf16*>(p.w) + w_off; g.N = N; g.M = M; g.kind = kWideFwd;
+    g.bias = bias; g.S = p.S; g.dc = dc; g.out = out;
+    return launch_wide_gemm(g, st);
+  }
+  // The rgb head (rgb) or the density head on A [M, K] to out (row stride ld).
+  template <int kHeads>
+  cudaError_t head(const Params& p, bool rgb, const bf16* A, long long M, float* out, int ld,
+                   cudaStream_t st) const {
+    const int K = rgb ? p.Wc : p.W;
+    const bf16* w = static_cast<const bf16*>(p.w) + (rgb ? o.rgb : o.den);
+    const float* b = p.b + (rgb ? p.b_rgb : p.b_den);
+    if constexpr (kHeads == kWideLevelHeads)
+      return rgb ? launch_wide_head<3>(A, K, M, w, b, out, ld, st)
+                 : launch_wide_head<1>(A, K, M, w, b, out, ld, st);
+    else
+      return launch_wide_head_n(rgb ? p.Cr : p.Cd, A, K, M, w, b, out, ld, st);
+  }
+};
+
 // The forward's products of rows [0, M) of one batch of rays (the train
 // level's whole level, mlp_bwd's recompute, or one chunk of a render or of
-// mlp_fwd): features in xs [M, KX], the direction term in dc [rays, Wc];
-// trunk layer i writes h(i), view layer j writes v(j) (h, v: the caller's
-// buffers, [M, W] / [M, Wc]); kHeads (kWide*Heads): the density head after
-// the trunk to den (row stride den_ld) and the rgb head after the view
-// layers to rgb (rgb_ld).
-template <int kHeads, class H, class V>
-inline cudaError_t wide_forward(const Params& p, const WideOffsets& o, const bf16* xs,
+// mlp_fwd) on route r (WideBf16Route, or wide_f32.cuh's WideF32Route):
+// features in xs [M, KX], the direction term in dc [rays, Wc]; trunk layer
+// i writes h(i), view layer j writes v(j) (h, v: the caller's buffers,
+// [M, W] / [M, Wc]); kHeads (kWide*Heads): the density head after the
+// trunk to den (row stride den_ld) and the rgb head after the view layers
+// to rgb (rgb_ld).
+template <class Route, int kHeads, class H, class V>
+inline cudaError_t wide_forward(const Params& p, const Route& r, const typename Route::T* xs,
                                 const float* dc, long long M, H h, V v, float* den, int den_ld,
                                 float* rgb, int rgb_ld, cudaStream_t st) {
-  const bf16* w = static_cast<const bf16*>(p.w);
-  cudaError_t err = cudaSuccess;
+  cudaError_t err;
   for (int i = 0; i < p.D; ++i) {
-    WideGemm g{};
-    const bool xl = i == 0 || i % p.skip == 0;
-    if (i == 0) {
-      g.a0 = xs; g.lda0 = p.KX; g.ka0 = p.KX; g.ns0 = o.nx;
-    } else {
-      g.a0 = h(i - 1); g.lda0 = p.W; g.ka0 = p.W; g.ns0 = o.nh;
-      if (xl) { g.a1 = xs; g.lda1 = p.KX; g.ka1 = p.KX; g.ns1 = o.nx; }
-    }
-    g.b = w + o.trunk[i]; g.N = p.W; g.M = M; g.kind = kWideFwd;
-    g.bias = p.b + (long long)i * p.W; g.S = p.S; g.out = h(i);
-    if ((err = launch_wide_gemm(g, st)) != cudaSuccess) return err;
+    const bool skip = i > 0 && i % p.skip == 0;
+    if ((err = r.fwd(p, i == 0 ? xs : h(i - 1), i == 0 ? p.KX : p.W, skip ? xs : nullptr, p.W,
+                     M, r.trunk_off(p, i), p.b + (long long)i * p.W, nullptr, h(i), st)) !=
+        cudaSuccess)
+      return err;
   }
-  if constexpr (kHeads == kWideLevelHeads)
-    err = launch_wide_head<1>(h(p.D - 1), p.W, M, w + o.den, p.b + p.b_den, den, den_ld, st);
-  else if constexpr (kHeads == kWideAnyHeads)
-    err = launch_wide_head_n(p.Cd, h(p.D - 1), p.W, M, w + o.den, p.b + p.b_den, den, den_ld,
-                             st);
-  if (err != cudaSuccess) return err;
+  if constexpr (kHeads != kWideNoHeads) {
+    if ((err = r.template head<kHeads>(p, false, h(p.D - 1), M, den, den_ld, st)) != cudaSuccess)
+      return err;
+  }
   for (int j = 0; j < p.Dc; ++j) {
-    WideGemm g{};
-    g.a0 = j == 0 ? h(p.D - 1) : v(j - 1);
-    g.lda0 = g.ka0 = j == 0 ? p.W : p.Wc;
-    g.ns0 = j == 0 ? o.nh : o.nc;
-    g.b = w + o.view[j]; g.N = p.Wc; g.M = M; g.kind = kWideFwd;
-    g.bias = p.b + p.b_v0 + (long long)j * p.Wc; g.S = p.S;
-    g.dc = j == 0 ? dc : nullptr;
-    g.out = v(j);
-    if ((err = launch_wide_gemm(g, st)) != cudaSuccess) return err;
+    if ((err = r.fwd(p, j == 0 ? h(p.D - 1) : v(j - 1), j == 0 ? p.W : p.Wc, nullptr, p.Wc, M,
+                     r.view_off(p, j), p.b + p.b_v0 + (long long)j * p.Wc,
+                     j == 0 ? dc : nullptr, v(j), st)) != cudaSuccess)
+      return err;
   }
-  if constexpr (kHeads == kWideLevelHeads)
-    return launch_wide_head<3>(v(p.Dc - 1), p.Wc, M, w + o.rgb, p.b + p.b_rgb, rgb, rgb_ld, st);
-  else if constexpr (kHeads == kWideAnyHeads)
-    return launch_wide_head_n(p.Cr, v(p.Dc - 1), p.Wc, M, w + o.rgb, p.b + p.b_rgb, rgb, rgb_ld,
-                              st);
+  if constexpr (kHeads != kWideNoHeads)
+    return r.template head<kHeads>(p, true, v(p.Dc - 1), M, rgb, rgb_ld, st);
   return cudaSuccess;
 }
 
-inline cudaError_t launch_wide_features(const Params& p, bf16* xs, long long row0,
-                                        long long rows, cudaStream_t st) {
-  const size_t smem = sizeof(bf16) * kBM * p.ldx;
-  cudaError_t err = cudaFuncSetAttribute(wide_features_kernel,
+template <class T>
+inline cudaError_t launch_wide_features(const Params& p, T* xs, long long row0, long long rows,
+                                        cudaStream_t st) {
+  const size_t smem = sizeof(T) * kBM * p.ldx;
+  cudaError_t err = cudaFuncSetAttribute(wide_features_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  wide_features_kernel<<<(unsigned)((rows + kBM - 1) / kBM), kThreads, smem, st>>>(p, xs, row0,
-                                                                                   rows);
+  wide_features_kernel<T><<<(unsigned)((rows + kBM - 1) / kBM), kThreads, smem, st>>>(p, xs, row0,
+                                                                                      rows);
   return cudaGetLastError();
 }
 
 // The workspace of the render route and of mlp_fwd's (byte offsets):
 // features, two activation buffers and the raw heads of one chunk of rays,
-// the direction terms of all rays.
+// the direction terms of all rays; esize: bytes of an activation (bf16 2,
+// f32 4).
 struct WideRenderLayout {
   long long rays, xs, h0, h1, heads, dc, total;
 };
 
-inline WideRenderLayout wide_render_layout(int R, int S, int W, int Wc, int KX) {
+inline WideRenderLayout wide_render_layout(int R, int S, int W, int Wc, int KX, int esize) {
   WideRenderLayout l;
   l.rays = kWideChunkRows / S < 1 ? 1 : kWideChunkRows / S;
   if (l.rays > R) l.rays = R;
   const long long rows = l.rays * S;
   long long off = 0;
-  l.xs = off;    off += round256(rows * KX * 2);
-  l.h0 = off;    off += round256(rows * W * 2);
-  l.h1 = off;    off += round256(rows * W * 2);
+  l.xs = off;    off += round256(rows * KX * esize);
+  l.h0 = off;    off += round256(rows * W * esize);
+  l.h1 = off;    off += round256(rows * W * esize);
   l.heads = off; off += round256(rows * 16);
   l.dc = off;    off += round256((long long)R * Wc * 4);
   l.total = off;
   return l;
 }
 
-// The forward over chunks of whole rays: features, the layers alternating
-// between two buffers, then kWideLevelHeads (render): the heads to the
-// workspace and the composite; kWideAnyHeads (mlp_fwd): the heads straight
-// to raw_rgb [R * S, Cr] and raw_den [R * S, Cd].
-template <int kHeads>
+// The forward over chunks of whole rays on route Route: features, the
+// layers alternating between two buffers, then kWideLevelHeads (render):
+// the heads to the workspace and the composite; kWideAnyHeads (mlp_fwd):
+// the heads straight to raw_rgb [R * S, Cr] and raw_den [R * S, Cd].
+template <class Route, int kHeads>
 inline cudaError_t launch_forward_wide(const Params& p, unsigned char* ws, float* raw_rgb,
                                        float* raw_den, cudaStream_t st) {
-  WideOffsets o;
-  if (!wide_offsets(p, o)) return cudaErrorInvalidValue;
-  const WideRenderLayout l = wide_render_layout(p.R, p.S, p.W, p.Wc, p.KX);
-  bf16* xs = reinterpret_cast<bf16*>(ws + l.xs);
-  bf16* buf[2] = {reinterpret_cast<bf16*>(ws + l.h0), reinterpret_cast<bf16*>(ws + l.h1)};
+  using T = typename Route::T;
+  Route r;
+  if (!r.init(p)) return cudaErrorInvalidValue;
+  const WideRenderLayout l = wide_render_layout(p.R, p.S, p.W, p.Wc, p.KX, sizeof(T));
+  T* xs = reinterpret_cast<T*>(ws + l.xs);
+  T* buf[2] = {reinterpret_cast<T*>(ws + l.h0), reinterpret_cast<T*>(ws + l.h1)};
   float* heads = reinterpret_cast<float*>(ws + l.heads);
   float* dc = reinterpret_cast<float*>(ws + l.dc);
-  const bf16* w = static_cast<const bf16*>(p.w);
-  wide_dir_kernel<<<p.R, p.Wc, 0, st>>>(p, w + o.dir, dc, 0);
+  wide_dir_kernel<T><<<p.R, p.Wc, 0, st>>>(p, r.dir(p), dc, 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // Trunk layer i writes buf[i & 1]; view layer j the other buffer of the
@@ -600,14 +631,15 @@ inline cudaError_t launch_forward_wide(const Params& p, unsigned char* ws, float
     if ((err = launch_wide_features(p, xs, row0, rows, st)) != cudaSuccess) return err;
     const float* dcc = dc + (long long)ray0 * p.Wc;
     if constexpr (kHeads == kWideLevelHeads) {
-      if ((err = wide_forward<kHeads>(p, o, xs, dcc, rows, h, v, heads + 3, 4, heads, 4, st)) !=
-          cudaSuccess)
+      if ((err = wide_forward<Route, kHeads>(p, r, xs, dcc, rows, h, v, heads + 3, 4, heads, 4,
+                                             st)) != cudaSuccess)
         return err;
       wide_composite_kernel<<<cdiv(nr, kThreads / 32), kThreads, 0, st>>>(p, heads, ray0, nr);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     } else {
-      if ((err = wide_forward<kHeads>(p, o, xs, dcc, rows, h, v, raw_den + row0 * p.Cd, p.Cd,
-                                      raw_rgb + row0 * p.Cr, p.Cr, st)) != cudaSuccess)
+      if ((err = wide_forward<Route, kHeads>(p, r, xs, dcc, rows, h, v, raw_den + row0 * p.Cd,
+                                             p.Cd, raw_rgb + row0 * p.Cr, p.Cr, st)) !=
+          cudaSuccess)
         return err;
     }
   }

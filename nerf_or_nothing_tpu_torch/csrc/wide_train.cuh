@@ -1,10 +1,16 @@
-// The wide bf16 route of train_level.cu and train_level_twopass.cu
-// (net_width 288-1024, a multiple of 32; wide_forward.cuh has the forward
-// and the layer product): the forward keeping every activation in the
-// workspace, the composite and its backward, the g-chain, db, dW, and the
-// small products and reduction of level_backward.cuh. Passes 3-7 start
-// from the head cotangents (launch_wide_backward), so mlp_bwd.cu runs them
-// after its recompute, with heads of 1-8 channels each.
+// The wide route of train_level.cu and train_level_twopass.cu (net_width
+// 288-1024, a multiple of 32; wide_forward.cuh has the bf16 forward and
+// layer product, wide_f32.cuh the f32 ones): the forward keeping every
+// activation in the workspace, the composite and its backward, the
+// g-chain, db, dW, and the small products and reduction of
+// level_backward.cuh. Passes 3-7 start from the head cotangents
+// (launch_wide_backward, launch_wide_backward_f32), so mlp_bwd.cu runs them
+// after its recompute, with heads of 1-8 channels each. Passes 1-7 below
+// are the bf16 route's; the f32 route (launch_train_wide<WideF32Route>,
+// launch_wide_backward_f32 at the end) runs the same sequence with
+// wide_f32.cuh's GEMM for every forward and chain product, f32
+// activations and masked g, and level_backward.cuh's f32 dW GEMM
+// (dw_gemm_f32_kernel, db as its column sums) in place of passes 5-6.
 //
 // Replaces, at these widths: nerf_or_nothing_tpu/kernels/fused_level.py::
 // _level_kernel and _level_kernel_twopass (the same launches: their order
@@ -49,6 +55,7 @@
 #pragma once
 
 #include "train_wg.cuh"
+#include "wide_f32.cuh"
 #include "wide_forward.cuh"
 
 namespace {
@@ -357,38 +364,102 @@ inline cudaError_t launch_wide_backward(Params p, Extra e, const Layout& l,
                                    st);
 }
 
-// The train level on the wide route, passes 1-7 above, on the workspace
-// (l, then x). p.w: pack_params_wg's stream; e.wt: pack_params_wgt's.
+// ---- the f32 route (wide_f32.cuh's GEMM) ----
+
+// The f32 route's passes from the head cotangents e.g_rgb [N, Cr] and
+// e.g_den [N, Cd] on the f32 activations and features in the workspace
+// (l): wide_rgb_chain_f32_kernel, then one kF32Chain GEMM per chained
+// layer, top layer first, g @ W^T from pack_params_t's rows (e.wt, at
+// wt_off) with the density term on the way into the trunk (the heads' W^T
+// from p.w: pack_params' transposed head rows); g_ray_f32_kernel; then
+// level_backward.cuh's launch_products<float> as the narrow f32 route runs
+// it (dw_gemm_f32_kernel: dW over the rows with db as column sums of g in
+// the same pass, the small products, the fixed-order reduction).
+inline cudaError_t launch_wide_backward_f32(Params p, Extra e, const Layout& l,
+                                            unsigned char* ws, float* out, long long n_out,
+                                            int splits, cudaStream_t st) {
+  const long long N = e.N;
+  const float* w = static_cast<const float*>(p.w);
+  const float* wt = static_cast<const float*>(e.wt);
+  const float* acts = static_cast<const float*>(e.acts);
+  float* grads = static_cast<float*>(e.grads);
+  auto act = [&](int L) { return acts + act_off(p, N, L); };
+  auto grad = [&](int L) { return grads + act_off(p, N, L); };
+  cudaError_t err;
+  {
+    const long long blocks = (N * p.Wc + 255) / 256;
+    wide_rgb_chain_f32_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0, st>>>(
+        e.g_rgb, w + p.w_rgb, act(p.D + p.Dc - 1), grad(p.D + p.Dc - 1), N, p.Wc, p.Cr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  for (int j = p.Dc - 1; j >= 0; --j) {
+    WideGemmF32 g{};
+    g.a0 = grad(p.D + j); g.lda0 = g.ka0 = p.Wc;
+    g.b = wt + wt_off(p, p.D + j); g.N = j == 0 ? p.W : p.Wc; g.M = N;
+    g.act = j == 0 ? act(p.D - 1) : act(p.D + j - 1);
+    if (j == 0) { g.gden = e.g_den; g.wden = w + p.w_den; g.cd = p.Cd; }
+    g.out = j == 0 ? grad(p.D - 1) : grad(p.D + j - 1);
+    if ((err = launch_wide_gemm_f32<kF32Chain>(g, st)) != cudaSuccess) return err;
+  }
+  for (int i = p.D - 1; i >= 1; --i) {
+    WideGemmF32 g{};
+    g.a0 = grad(i); g.lda0 = g.ka0 = p.W;
+    g.b = wt + wt_off(p, i); g.N = p.W; g.M = N;
+    g.act = act(i - 1); g.out = grad(i - 1);
+    if ((err = launch_wide_gemm_f32<kF32Chain>(g, st)) != cudaSuccess) return err;
+  }
+  g_ray_f32_kernel<<<p.R, p.Wc, 0, st>>>(grad(p.D), e.g_ray, p.S, p.Wc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_products<float>(p, e, l, ws, out, n_out, splits, nullptr, 0, st);
+}
+
+// Pass 1 of the train level and of mlp_bwd on route r (WideBf16Route,
+// or wide_f32.cuh's WideF32Route): the direction terms into dc, the
+// features of all e.N rows into e.xs and the forward keeping every
+// activation (e.acts at act_off); with heads, the level's raw heads
+// [N, 4] there (kWideLevelHeads), else none (kWideNoHeads).
+template <class Route, int kHeads>
+inline cudaError_t wide_forward_keep(const Params& p, const Route& r, const Extra& e, float* dc,
+                                     float* heads, cudaStream_t st) {
+  using T = typename Route::T;
+  const long long N = e.N;
+  T* acts = static_cast<T*>(e.acts);
+  T* xs = static_cast<T*>(e.xs);
+  auto h = [&](int i) { return acts + act_off(p, N, i); };
+  auto v = [&](int j) { return acts + act_off(p, N, p.D + j); };
+  wide_dir_kernel<T><<<p.R, p.Wc, 0, st>>>(p, r.dir(p), dc, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = launch_wide_features(p, xs, 0, N, st)) != cudaSuccess) return err;
+  return wide_forward<Route, kHeads>(p, r, xs, dc, N, h, v, heads ? heads + 3 : nullptr,
+                                     heads ? 4 : 0, heads, heads ? 4 : 0, st);
+}
+
+// The train level on the wide route, on the workspace (l, then x):
+// 1. the forward (wide_forward_keep); 2. the composite and its backward;
+// 3-7. bf16: launch_wide_backward (p.w: pack_params_wg's stream; e.wt:
+// pack_params_wgt's), f32: launch_wide_backward_f32 (p.w: pack_params'
+// layout; e.wt: pack_params_t).
+template <class Route>
 inline cudaError_t launch_train_wide(Params p, Extra e, const Layout& l,
                                      const WideTrainLayout& x, unsigned char* ws, float* out,
                                      long long n_out, int splits, cudaStream_t st) {
-  WideOffsets o;
-  if (!wide_offsets(p, o)) return cudaErrorInvalidValue;
-  const WideChainOffsets co = wide_chain_offsets(p, o);
-  const long long N = e.N;
-  const bf16* w = static_cast<const bf16*>(p.w);
-  bf16* acts = static_cast<bf16*>(e.acts);
-  bf16* xs = static_cast<bf16*>(e.xs);
+  Route r;
+  if (!r.init(p)) return cudaErrorInvalidValue;
   float* heads = reinterpret_cast<float*>(ws + x.heads);
   float* dc = reinterpret_cast<float*>(ws + x.dc);
-  auto h = [&](int i) { return acts + act_off(p, N, i); };
-  auto v = [&](int j) { return acts + act_off(p, N, p.D + j); };
   cudaError_t err;
-
-  // 1. forward
-  wide_dir_kernel<<<p.R, p.Wc, 0, st>>>(p, w + o.dir, dc, 0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = launch_wide_features(p, xs, 0, N, st)) != cudaSuccess) return err;
-  if ((err = wide_forward<kWideLevelHeads>(p, o, xs, dc, N, h, v, heads + 3, 4, heads, 4, st)) !=
-      cudaSuccess)
+  if ((err = wide_forward_keep<Route, kWideLevelHeads>(p, r, e, dc, heads, st)) != cudaSuccess)
     return err;
-  // 2. composite and its backward
   const size_t smem_c = sizeof(float) * (kThreads / 32) * p.S * 4;
   if ((err = set_smem((const void*)train_composite_kernel, smem_c)) != cudaSuccess) return err;
   train_composite_kernel<<<cdiv(p.R, kThreads / 32), kThreads, smem_c, st>>>(p, e, heads);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // 3-7. g-chain, per-ray sums, db, dW, small products and reduction
-  return launch_wide_backward<3>(p, e, l, x, o, co, ws, out, n_out, splits, st);
+  if constexpr (Route::kBf16)
+    return launch_wide_backward<3>(p, e, l, x, r.o, wide_chain_offsets(p, r.o), ws, out, n_out,
+                                   splits, st);
+  else
+    return launch_wide_backward_f32(p, e, l, ws, out, n_out, splits, st);
 }
 
 }  // namespace

@@ -14,10 +14,11 @@ the only mode of the two-pass kernel); rows are ray-major (row = ray * S +
 sample), features in the interleaved [sin3, cos3]-per-frequency order, so
 no weight permutation is needed.
 
-In bf16 at net_width 288-1024 all three (and ``kernels/fused_mlp.py``'s
-two) run a wide route in the same libraries (``csrc/wide_forward.cuh``,
-``csrc/wide_train.cuh``: a GEMM launch a layer through a workspace), on
-the same packed weights.
+At net_width 288-1024 all three (and ``kernels/fused_mlp.py``'s two) run
+a wide route in the same libraries, a GEMM launch a layer through a
+workspace, on the same packed weights: bf16 on ``wgmma``
+(``csrc/wide_forward.cuh``, ``csrc/wide_train.cuh``), f32 as 3xTF32
+``mma.sync`` (``csrc/wide_f32.cuh``).
 
 Widths that are not multiples of 32, and a net_width_condition above
 net_width, run zero-padded (``kernel_cfg``): the packers embed the weights
@@ -123,7 +124,7 @@ def padded_location_features(cfg: Config) -> int:
 
 
 MAX_WIDTH = 256        # net_width / net_width_condition of every route
-MAX_WIDE_WIDTH = 1024  # net_width of every kernel's bf16 wide route
+MAX_WIDE_WIDTH = 1024  # net_width of every kernel's wide route
 
 
 def _round32(n: int) -> int:
@@ -159,12 +160,12 @@ def _padded_cfg(cfg: Config, W: int, Wc: int) -> Config:
 
 
 def uses_wide(cfg: Config) -> bool:
-    """Whether the kernels take their wide route (``csrc/wide_forward.cuh``,
-    ``csrc/wide_train.cuh``: ``train_level``, ``render_level``,
-    ``train_level_twopass``, ``mlp_fwd`` and ``mlp_bwd``): bf16 at a
-    kernel net_width (``kernel_cfg``) above 256."""
-    return (compute_dtype(cfg) == torch.bfloat16
-            and kernel_cfg(cfg).net_width > MAX_WIDTH)
+    """Whether the kernels take their wide route (``train_level``,
+    ``render_level``, ``train_level_twopass``, ``mlp_fwd`` and ``mlp_bwd``;
+    bf16: ``csrc/wide_forward.cuh``, ``csrc/wide_train.cuh``, f32:
+    ``csrc/wide_f32.cuh``): a kernel net_width (``kernel_cfg``) above 256,
+    in either compute dtype."""
+    return kernel_cfg(cfg).net_width > MAX_WIDTH
 
 
 def check_kernel_config(cfg: Config, max_head: int = 0) -> None:
@@ -172,8 +173,8 @@ def check_kernel_config(cfg: Config, max_head: int = 0) -> None:
     kernels composite 3 rgb / 1 density channels (``max_head`` 0); the MLP
     kernels (``kernels/fused_mlp.py``) take heads of 1 to ``max_head``
     channels each. Widths are taken as ``kernel_cfg`` rounds them up: to
-    256, and net_width to 1024 in bf16 (the wide route, ``uses_wide``);
-    what is refused raises naming what is not ported yet."""
+    256, and net_width to 1024 (the wide route, ``uses_wide``, in bf16 and
+    f32); what is refused raises naming what is not ported yet."""
     problems = []
     kc = kernel_cfg(cfg)
     W, Wc = kc.net_width, kc.net_width_condition
@@ -181,9 +182,6 @@ def check_kernel_config(cfg: Config, max_head: int = 0) -> None:
         problems.append("net_width and net_width_condition must be >= 1")
     if W > MAX_WIDE_WIDTH:
         problems.append(f"net_width above {MAX_WIDE_WIDTH} is not ported yet")
-    elif W > MAX_WIDTH and compute_dtype(cfg) != torch.bfloat16:
-        problems.append(f"net_width above {MAX_WIDTH} is not ported yet in "
-                        "float32 (the wide route is bf16)")
     if Wc > MAX_WIDTH:
         problems.append(
             f"net_width_condition above {MAX_WIDTH} is not ported yet")
@@ -847,9 +845,9 @@ def _wide_render_library():
     fn, ws = lib.render_level_wide_launch, lib.render_level_wide_workspace
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i] + [p] * 10 + [i] * 12 + [f, f, i, p, p]
+        fn.argtypes = [i, i] + [p] * 10 + [i] * 12 + [f, f, i, p, p]
         fn.restype = ctypes.c_int
-        ws.argtypes = [i] * 5
+        ws.argtypes = [i] * 6
         ws.restype = ctypes.c_longlong
     return fn, ws
 
@@ -863,8 +861,8 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     result when the caller already has it; ``source`` is another version
     of ``csrc/render_level.cu`` with the same C interface, to time versions
     in turns (``compare_kernels.py``; ``packed`` then in the layout that
-    version reads, ``weight_layout``). bf16 at net_width 288-1024 runs the
-    wide route (``uses_wide``, ``render_level_wide_launch``) with a
+    version reads, ``weight_layout``). net_width 288-1024 runs the wide
+    route (``uses_wide``, ``render_level_wide_launch``, bf16 and f32) with a
     workspace allocated here (``source`` versions have their narrow C
     interface only). Widths that are not multiples of 32 run zero-padded
     (``kernel_cfg``)."""
@@ -900,11 +898,12 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     if wide and uses_wide(cfg):
         fn, workspace_bytes = _wide_render_library()
         workspace = torch.empty(
-            (workspace_bytes(R, S, kc.net_width, kc.net_width_condition,
+            (workspace_bytes(_DTYPE_CODE[dt], R, S, kc.net_width,
+                             kc.net_width_condition,
                              padded_location_features(cfg)),),
             dtype=torch.uint8, device=device)
-        err = fn(_MODE_CODE[mode], *ptrs, *outs, *shape, workspace.data_ptr(),
-                 stream)
+        err = fn(_DTYPE_CODE[dt], _MODE_CODE[mode], *ptrs, *outs, *shape,
+                 workspace.data_ptr(), stream)
     else:
         err = fn(_DTYPE_CODE[dt], _MODE_CODE[mode], *ptrs, *outs, *shape,
                  stream)
@@ -1243,10 +1242,10 @@ def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
     result when the caller already has it (once per step for both
     levels); ``source`` is another version of ``csrc/train_level.cu`` with
     the same C interface, to time versions in turns (``packed`` then in
-    the layout that version reads). bf16 at net_width 288-1024 runs the
-    wide route (``uses_wide``). Configs the kernel does not take, or whose
-    shared memory the bf16 kernels cannot take, raise ValueError before
-    anything runs."""
+    the layout that version reads). net_width 288-1024 runs the wide route
+    (``uses_wide``, bf16 and f32). Configs the kernel does not take, or
+    whose shared memory the bf16 kernels cannot take, raise ValueError
+    before anything runs."""
     check_kernel_config(cfg)
     if source is None:
         check_train_wg_config(cfg, delta.shape[1])
@@ -1263,8 +1262,8 @@ def train_level_twopass_cuda(params: Params, cfg: Config, x, d, delta,
     outputs, in the TPU kernel's two phases (forward, composite and g-chain
     with db; then the dW products), on ``train_level``'s bf16 passes;
     ``packed`` is ``pack_train_level``'s result, ``source`` another version
-    of the source, as for ``train_level_cuda``. bf16 at net_width 288-1024
-    runs ``train_level``'s wide route, in the same two phases
+    of the source, as for ``train_level_cuda``. net_width 288-1024 runs
+    ``train_level``'s wide route (bf16 and f32), in the same two phases
     (``uses_wide``). Configs the kernel does not take, or whose shared
     memory the bf16 passes cannot take, raise ValueError before anything
     runs."""

@@ -18,10 +18,11 @@ heads other than 3 rgb / 1 density, a full covariance). The TPU grid
 sizes (``tile``, ``tile_bwd``, ``interleave``) are not carried over, and
 the kernels take per-ray directions for any S.
 
-In bf16 at net_width 288-1024 both run their wide route
-(``fused_level.uses_wide``; ``csrc/wide_forward.cuh``,
-``csrc/wide_train.cuh``): ``mlp_fwd`` through ``mlp_fwd_wide_launch`` and
-a workspace allocated here, ``mlp_bwd`` through the same entry point.
+At net_width 288-1024 both run their wide route
+(``fused_level.uses_wide``; bf16: ``csrc/wide_forward.cuh``,
+``csrc/wide_train.cuh``, f32: ``csrc/wide_f32.cuh``): ``mlp_fwd`` through
+``mlp_fwd_wide_launch`` and a workspace allocated here, ``mlp_bwd``
+through the same entry point.
 Other widths run zero-padded, as the level kernels do
 (``fused_level.kernel_cfg``).
 
@@ -247,9 +248,9 @@ def _wide_fwd_library():
     fn, ws = lib.mlp_fwd_wide_launch, lib.mlp_fwd_wide_workspace
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [i] * 12 + [p, p]
+        fn.argtypes = [i] + [p] * 6 + [i] * 12 + [p, p]
         fn.restype = ctypes.c_int
-        ws.argtypes = [i] * 5
+        ws.argtypes = [i] * 6
         ws.restype = ctypes.c_longlong
     return fn, ws
 
@@ -261,10 +262,10 @@ def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
     ``packed`` starts with ``pack_forward``'s result when the caller
     already has it; ``source`` is another version of ``csrc/mlp_fwd.cu``
     with the same C interface, to time versions in turns
-    (``compare_kernels.py``; ``packed`` then in the layout it reads). bf16
-    at net_width 288-1024 runs the wide route (``uses_wide``,
-    ``mlp_fwd_wide_launch``) with a workspace allocated here (``source``
-    versions have the narrow C interface only)."""
+    (``compare_kernels.py``; ``packed`` then in the layout it reads).
+    net_width 288-1024 runs the wide route (``uses_wide``,
+    ``mlp_fwd_wide_launch``, bf16 and f32) with a workspace allocated here
+    (``source`` versions have the narrow C interface only)."""
     R, S = _check_mlp_inputs(cfg, x, d, wg=True)
     dt = compute_dtype(cfg)
     device = x.device
@@ -285,9 +286,11 @@ def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
         fn, workspace_bytes = _wide_fwd_library()
         _, W, _, Wc = _dims(cfg)[:4]
         workspace = torch.empty(
-            (workspace_bytes(R, S, W, Wc, padded_location_features(cfg)),),
+            (workspace_bytes(_DTYPE_CODE[dt], R, S, W, Wc,
+                             padded_location_features(cfg)),),
             dtype=torch.uint8, device=device)
-        err = fn(*ptrs, R, S, *_dims(cfg), workspace.data_ptr(), stream)
+        err = fn(_DTYPE_CODE[dt], *ptrs, R, S, *_dims(cfg),
+                 workspace.data_ptr(), stream)
     else:
         err = fn(_DTYPE_CODE[dt], *ptrs, R, S, *_dims(cfg), stream)
     if err != 0:
@@ -330,9 +333,10 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     caller already has it (once per step for both levels); ``source`` is
     another version of ``csrc/mlp_bwd.cu`` with the same C interface, to
     time versions in turns (``compare_kernels.py``; ``packed`` then in the
-    layout it reads). bf16 at net_width 288-1024 runs the wide route
-    (``uses_wide``) in the same entry point. Configs whose shared memory
-    the bf16 passes cannot take raise ValueError before anything runs."""
+    layout it reads). net_width 288-1024 runs the wide route
+    (``uses_wide``, bf16 and f32) in the same entry point. Configs whose
+    shared memory the bf16 passes cannot take raise ValueError before
+    anything runs."""
     R, S = _check_mlp_inputs(
         cfg, x, d, input_grads=input_grads if source is None else None)
     dt = compute_dtype(cfg)

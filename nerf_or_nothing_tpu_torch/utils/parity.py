@@ -15,6 +15,7 @@ both packages' oracles.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import numpy as np
@@ -82,6 +83,46 @@ def normalized_err(a, b, atol: float, rtol: float) -> float:
     a, b = a.detach().double().cpu(), b.detach().double().cpu()
     band = atol + rtol * b.abs() + rtol * b.abs().max()
     return float(((a - b).abs() / band).max())
+
+
+@contextlib.contextmanager
+def f64_products():
+    """Within the block, the plain versions (``fused_level``'s and
+    ``fused_mlp``'s, whose layer products all go through
+    ``fused_level.dense``) take every layer product in f64 from the same
+    compute-dtype operands and round it to f32, every other rounding point
+    as it is. Two f32 computations of a wide MLP (the kernel's 3xTF32 sums,
+    the plain version's f32 ones) can put one ReLU mask on opposite sides
+    of zero and then differ by about a band in a column sum, whichever of
+    them is nearer the exact value: f32 on the wide route is held to this
+    version (``reference_products``)."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_level
+
+    def dense_f64(h, w, dt):
+        return (h.to(dt).double() @ w.to(dt).double()).float()
+
+    saved = fused_level.dense
+    fused_level.dense = dense_f64
+    try:
+        yield
+    finally:
+        fused_level.dense = saved
+
+
+def f64_reference(cfg: Config) -> bool:
+    """Whether ``cfg``'s kernels are held to the plain version with f64
+    products (``f64_products``): f32 on the wide route (a kernel net_width
+    above 256)."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_level
+
+    return cfg.compute_dtype == "float32" and fused_level.uses_wide(cfg)
+
+
+def reference_products(cfg: Config):
+    """The context in which a plain version gives the reference of
+    ``cfg``'s kernels: ``f64_products()`` where ``f64_reference``, else
+    the plain version as it is."""
+    return f64_products() if f64_reference(cfg) else contextlib.nullcontext()
 
 
 def level_parity_errors(dtype: str, device="cuda", atol=None,

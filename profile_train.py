@@ -24,7 +24,9 @@ step and per launch of the wrapper (``train_level`` and
 ``train_level_twopass`` in bf16: 7 launches, the wgmma forward, the
 composite, the wgmma g-chain, the per-ray sums, the dW GEMM, the small
 products and the reduction; every kernel at net_width 288-1024 (e.g.
-``--net-width=1024``): the wide route's launches, a GEMM a layer product; ``mlp_bwd`` in bf16: 6, with input_grads 7,
+``--net-width=1024``, in f32 with ``--compute-dtype=float32``): the wide
+route's launches, a GEMM a layer product; ``mlp_bwd`` in bf16: 6, with
+input_grads 7,
 the wgmma forward keeping its activations, the g-chain (with dX), the
 per-ray sums, dD, the dW GEMM, the small products and the reduction;
 ``mlp_fwd``: 1), the rest of the device time, the device
@@ -53,13 +55,21 @@ WIDE_FWD = ("wide_features_kernel", "wide_dir_kernel", "wide_gemm_kernel",
             "wide_head_kernel")
 WIDE_TRAIN = WIDE_FWD + ("wide_rgb_chain_kernel", "wide_db_kernel",
                          "wide_dw_kernel")
+# the f32 wide route's (csrc/wide_f32.cuh): its layer GEMM and small
+# kernels (the features and direction kernels are WIDE_FWD's, instantiated
+# in f32), dW on the narrow f32 route's GEMM
+WIDE_F32_FWD = ("wide_gemm_f32_kernel", "wide_head_f32_kernel")
+WIDE_F32_TRAIN = WIDE_F32_FWD + ("wide_rgb_chain_f32_kernel",
+                                 "g_ray_f32_kernel", "dw_gemm_f32_kernel")
 KERNELS = {
-    "train_level": TRAIN_WG + WIDE_TRAIN,
-    "train_level_twopass": TRAIN_WG + WIDE_TRAIN,
+    "train_level": TRAIN_WG + WIDE_TRAIN + WIDE_F32_TRAIN,
+    "train_level_twopass": TRAIN_WG + WIDE_TRAIN + WIDE_F32_TRAIN,
     "mlp_bwd": ("mlp_act_wg_kernel", "chain_wg_kernel", "g_ray_kernel",
                 "mlp_dd_kernel", "dw_wg_kernel", "small_tn_kernel",
-                "reduce_kernel") + WIDE_TRAIN,
-    "mlp_fwd": ("mlp_fwd_wg_kernel", "mlp_fwd_kernel") + WIDE_FWD,  # bf16, f32
+                "reduce_kernel") + WIDE_TRAIN + WIDE_F32_TRAIN
+    + ("wide_dd_f32_kernel",),
+    "mlp_fwd": (("mlp_fwd_wg_kernel", "mlp_fwd_kernel")  # bf16, f32
+                + WIDE_FWD + WIDE_F32_FWD),
 }
 BACKWARD_NODE = "autograd::engine::evaluate_function: "
 

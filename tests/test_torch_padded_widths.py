@@ -20,8 +20,8 @@ zeros, and the wrappers drop the padded rows and columns of dW/db).
 - Two train steps against JAX's at 48 / 16 and 32 / 64.
 
 Rows (W / Wc, depth): 16 / 8, 2; 32 / 16, 3; 48 / 16, 8 (two view
-layers); 96 / 48, 4; 32 / 64, 8; 400 / 200, 8 (bf16 only: f32 above 256
-is not ported). max_deg_point 4, S=8 (JAX's CPU dot refuses bf16 x bf16 =
+layers); 96 / 48, 4; 32 / 64, 8; 400 / 200, 8 (in f32 the f32 wide
+route's model, ``test_torch_wide_f32.wide_f32_model``). max_deg_point 4, S=8 (JAX's CPU dot refuses bf16 x bf16 =
 f32 at S=16), R=4, skip at 4, inputs from numpy with a seed. Tolerances:
 ``utils/parity.PARITY_BANDS``, f32 (1e-6, 1e-3) and bf16 (2e-3, 3e-2), as
 a normalized error < 1.
@@ -60,6 +60,7 @@ from test_torch_train_wg import (  # noqa: E402
 )
 from test_torch_wg_layout import slab_forward, unpack  # noqa: E402
 from test_torch_wide import close, wide_model  # noqa: E402
+from test_torch_wide_f32 import wide_f32_model  # noqa: E402
 
 BASE = dict(max_deg_point=4, num_samples=8)
 ROWS = {
@@ -73,10 +74,8 @@ ROWS = {
 }
 KERNEL_WIDTHS = {"16_8": (32, 32), "32_16": (32, 32), "48_16": (64, 32),
                  "96_48": (96, 64), "32_64": (64, 64), "400_200": (416, 224)}
-# (row, dtype) pairs the card takes: every row in both dtypes but f32 at
-# 400 / 200 (f32 above 256 is not ported yet)
-CASES = [(r, dt) for r in sorted(ROWS) for dt in ("float32", "bfloat16")
-         if not (r == "400_200" and dt == "float32")]
+# (row, dtype) pairs the card takes: every row in both dtypes
+CASES = [(r, dt) for r in sorted(ROWS) for dt in ("float32", "bfloat16")]
 KINDS = ("fwd", "t", "tx", "wg", "wgt", "wgx")
 R = 4
 
@@ -255,9 +254,9 @@ def test_admitted_configs_pack_as_before(name):
 def test_guard_admits_every_row_and_refuses_the_rest():
     """Every row (in each dtype the card takes) passes the level kernels'
     guard and the MLP kernels' (heads up to ``MAX_HEAD``), with the bf16
-    shared-memory checks; f32 at net_width 260 (288 after padding),
-    net_width_condition 300 and net_width 1025 still raise, naming what is
-    not ported yet."""
+    shared-memory checks; f32 at net_width 260 (288 after padding) takes
+    the wide route; net_width_condition 300 and net_width 1025 still raise
+    in both dtypes, naming what is not ported yet."""
     for row, dtype in CASES:
         cfg = row_cfg(row, dtype)
         for max_head in (0, fm.MAX_HEAD):
@@ -267,14 +266,18 @@ def test_guard_admits_every_row_and_refuses_the_rest():
         for input_grads in (True, False):
             fm.check_mlp_bwd_config(cfg, 128, input_grads)
         assert fl.uses_wide(cfg) == (row == "400_200")
-    for kw, text in ((dict(net_width=260, compute_dtype="float32"),
-                      "above 256 is not ported yet in float32"),
-                     (dict(net_width=512, net_width_condition=300),
+    f32_260 = Config(net_width=260, compute_dtype="float32")
+    assert fl.uses_wide(f32_260)
+    for max_head in (0, fm.MAX_HEAD):
+        fl.check_kernel_config(f32_260, max_head=max_head)
+    for kw, text in ((dict(net_width=512, net_width_condition=300),
                       "net_width_condition above 256 is not ported yet"),
                      (dict(net_width=1025), "above 1024 is not ported yet")):
-        for max_head in (0, fm.MAX_HEAD):
-            with pytest.raises(ValueError, match=text):
-                fl.check_kernel_config(Config(**kw), max_head=max_head)
+        for dtype in ("bfloat16", "float32"):
+            for max_head in (0, fm.MAX_HEAD):
+                with pytest.raises(ValueError, match=text):
+                    fl.check_kernel_config(Config(**kw, compute_dtype=dtype),
+                                           max_head=max_head)
 
 
 # ---------------------------------------------------------------------------
@@ -284,11 +287,17 @@ def test_guard_admits_every_row_and_refuses_the_rest():
 
 def forward_model(params, cfg, dt, x, d):
     """raw_rgb, raw_den of the forward kernels' stream models at the kernel
-    config: ``slab_forward`` on ``pack_params_wg``'s stream in f32, the
-    wide kernels' reads (``wide_model``: the bf16 rounding points) in
+    config: ``slab_forward`` on ``pack_params_wg``'s stream in f32
+    (``wide_f32_model``, the f32 wide kernels' reads, on the wide route),
+    the wide kernels' reads (``wide_model``: the bf16 rounding points) in
     bf16."""
     kc = fl.kernel_cfg(cfg)
     S = cfg.num_samples
+    if dt == torch.float32 and fl.uses_wide(cfg):
+        g = (torch.zeros(x.shape[0], cfg.num_rgb_channels),
+             torch.zeros(x.shape[0], cfg.num_density_channels))
+        return wide_f32_model(fl.embed_params(params, cfg), kc, x.float(),
+                              d.float(), d.shape[0], S, *g)[:2]
     if dt == torch.float32:
         w, b = fl.pack_params_wg(params, cfg, dt)
         return [torch.from_numpy(a) for a in slab_forward(w, b, kc, x, d, S)]
@@ -304,7 +313,8 @@ def test_padded_train_level_matches_jax_level_kernel(row, dtype, mode):
     """The train level at the kernel config (the forward and composite
     backward at the embedded weights; the g-chain and dW/db of the chain
     stream model, ``slab_backward`` in bf16 and the f32 one of
-    ``test_torch_mlp_bwd_wg`` in f32) against JAX's interpreted
+    ``test_torch_mlp_bwd_wg`` in f32, ``wide_f32_model`` on the f32 wide
+    route) against JAX's interpreted
     ``_level_kernel`` at the real config: comp, acc, weights and every
     dW/db."""
     kw = dict(BASE, **ROWS[row], compute_dtype=dtype)
@@ -332,6 +342,8 @@ def test_padded_train_level_matches_jax_level_kernel(row, dtype, mode):
     if dt == torch.bfloat16:
         got = slab_backward(fl.pack_params_wgt(tp, tc, dt).float(), kc, x, d,
                             hs, vs, g_rgb, g_den[:, None], R, S)
+    elif fl.uses_wide(tc):
+        got = wide_f32_model(ep, kc, x, d, R, S, g_rgb, g_den[:, None])[4]
     else:
         got = mlp_slab_backward(kc, dt, ep, x, d, hs, vs, g_rgb,
                                 g_den[:, None], R, S, False)[0]
@@ -404,8 +416,12 @@ def test_padded_mlp_bwd_matches_jax_bwd_kernel(row, dtype):
     kc, ep = fl.kernel_cfg(tc), fl.embed_params(tp, tc)
     xt, dtt = T(x).reshape(R * S, -1).to(dt), T(d).to(dt)
     _, _, hs, vs = fl.mlp_forward_acts(ep, kc, xt, dtt, R, S, dt)
-    got, dx, dd = mlp_slab_backward(kc, dt, ep, xt, dtt, hs, vs, T(g_rgb),
-                                    T(g_den), R, S, True)
+    if dt == torch.float32 and fl.uses_wide(tc):
+        got, dx, dd = wide_f32_model(ep, kc, xt, dtt, R, S, T(g_rgb),
+                                     T(g_den))[4:]
+    else:
+        got, dx, dd = mlp_slab_backward(kc, dt, ep, xt, dtt, hs, vs,
+                                        T(g_rgb), T(g_den), R, S, True)
     compare_grads(unembed_d_params(got, tc), ref[0], dtype)
     close(dx, np.asarray(ref[1], np.float32), dtype, "dX")
     close(dd, np.asarray(ref[2], np.float32), dtype, "dD")

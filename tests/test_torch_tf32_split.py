@@ -14,7 +14,8 @@ against exact references and the JAX package:
   every layer product routed through ``dense_3xtf32`` against the JAX
   package's f32 level (Pallas, interpret mode), as
   ``tests/test_torch_train_level.py`` and ``tests/test_torch_fused_level.py``
-  run it: narrow widths, and ``Config()`` widths with a few rays.
+  run it: narrow widths, ``Config()`` widths with a few rays, and the f32
+  wide route's net_width 288 and 512 (depth 3, net_width_condition 128).
 
 The model does not fix the card's order of f32 sums; the card tests and
 ``chip_smoke.py`` hold the kernels against their plain versions.
@@ -227,9 +228,15 @@ def close(a, b, what):
     assert err < 1.0, (what, err)
 
 
+# the wide f32 route's widths (csrc/wide_f32.cuh): 288, a partial column
+# block of its GEMM, and 512
+WIDE_288 = dict(NARROW, net_width=288, net_width_condition=128)
+WIDE_512 = dict(NARROW, net_width=512, net_width_condition=128)
 LEVEL_CASES = [("narrow", NARROW, 6, "t", True), ("narrow", NARROW, 5, "mv",
                                                    False),
-               ("config_widths", WIDE, 2, "t", True)]
+               ("config_widths", WIDE, 2, "t", True),
+               ("wide_288", WIDE_288, 4, "t", True),
+               ("wide_512", WIDE_512, 4, "mv", False)]
 
 
 @pytest.mark.parametrize("name,kw,R,mode,white_bkgd", LEVEL_CASES,

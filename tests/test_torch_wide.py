@@ -252,7 +252,8 @@ def refused_routes(cfg):
 
 
 @pytest.mark.parametrize("what,kw,routes", [
-    ("f32 above 256", dict(net_width=512, compute_dtype="float32"),
+    ("f32 net_width_condition above 256",
+     dict(net_width=512, net_width_condition=288, compute_dtype="float32"),
      ("train_level", "render_level", "train_level_twopass", "mlp_fwd",
       "mlp_bwd")),
     ("net_width_condition above 256",
@@ -262,14 +263,15 @@ def refused_routes(cfg):
     ("net_width above 1024", dict(net_width=1056),
      ("train_level", "render_level", "train_level_twopass", "mlp_fwd",
       "mlp_bwd")),
-    ("f32 at 260", dict(net_width=260, compute_dtype="float32"),
+    ("f32 net_width above 1024", dict(net_width=1056, compute_dtype="float32"),
      ("train_level", "render_level", "train_level_twopass", "mlp_fwd",
       "mlp_bwd")),
 ])
 def test_routes_not_ported_still_raise(what, kw, routes):
     """What the wide route does not take raises ValueError ("not
     supported", naming what is not ported) in every wrapper that must
-    refuse it, before any launch."""
+    refuse it, before any launch, in bf16 and f32 (f32 at net_width
+    288-1024 is admitted: ``test_torch_wide_f32.py``)."""
     cfg = Config(**dict(WIDE, **kw))
     calls = refused_routes(cfg)
     before = {k: fn.launches for k, fn in (
@@ -286,16 +288,19 @@ def test_routes_not_ported_still_raise(what, kw, routes):
 
 
 def test_wide_guard_messages():
-    """Each refused width names what is not ported yet; bf16 at 288-1024
-    passes the guard of every route (the level kernels' and, with heads
-    of up to ``MAX_HEAD`` channels, the MLP kernels')."""
+    """Each refused width names what is not ported yet; bf16 and f32 at
+    288-1024 pass the guard of every route (the level kernels' and, with
+    heads of up to ``MAX_HEAD`` channels, the MLP kernels')."""
     for width in (288, 512, 1024):
-        fl.check_kernel_config(Config(net_width=width))
-        fl.check_kernel_config(Config(net_width=width, num_rgb_channels=8,
-                                      num_density_channels=8),
-                               max_head=fm.MAX_HEAD)
-    cases = [(dict(net_width=512, compute_dtype="float32"),
-              "not ported yet in float32"),
+        for dtype in ("bfloat16", "float32"):
+            fl.check_kernel_config(Config(net_width=width,
+                                          compute_dtype=dtype))
+            fl.check_kernel_config(Config(net_width=width, num_rgb_channels=8,
+                                          num_density_channels=8,
+                                          compute_dtype=dtype),
+                                   max_head=fm.MAX_HEAD)
+    cases = [(dict(net_width=2048, compute_dtype="float32"),
+              "above 1024 is not ported yet"),
              (dict(net_width=2048), "above 1024 is not ported yet"),
              (dict(net_width=512, net_width_condition=384),
               "net_width_condition above 256 is not ported yet"),
@@ -305,7 +310,7 @@ def test_wide_guard_messages():
             with pytest.raises(ValueError, match=text):
                 fl.check_kernel_config(Config(**kw), max_head=max_head)
     assert not fl.uses_wide(Config())
-    assert not fl.uses_wide(Config(net_width=512, compute_dtype="float32"))
+    assert fl.uses_wide(Config(net_width=512, compute_dtype="float32"))
     # widths that are not multiples of 32 run zero-padded (kernel_cfg)
     for max_head in (0, fm.MAX_HEAD):
         fl.check_kernel_config(Config(net_width=48, net_width_condition=32),
