@@ -113,6 +113,21 @@ Phases, each printing one JSON line:
            (32 / 16) in f32 for 5 steps on the card against the CPU (rtol
            2e-4, atol 2e-5) and ``run train`` / ``run eval`` at
            test_checkpoint_eval.py's 16 / 8, each with exact launches;
+  any_width  the wide route with no width ceiling: all five kernels at
+           (net_width, net_width_condition) = 512 / 512, 1056 / 288,
+           1000 / 300 (run as 1024 / 320), and at depth 4 2048 / 256 and
+           2048 / 1056, in bf16 and f32: train_level in modes "t" and "mv",
+           train_level_twopass (bit-equal to train_level), mlp_bwd with
+           and without input_grads at R=1024 x S=128 (the backward
+           kernels bit-equal over two launches), render_level and mlp_fwd
+           at R=4096, against their plain versions (f32: with f64
+           products), each beside its bound and torch.matmul of the layer
+           products, timed with fewer launches (ANY_WIDTH_TIMING); then
+           on a 48-px scene ``run train --net-width=2048`` for 10 steps
+           (losses finite and falling) and its ``run eval``, ``run train
+           --net-width=2048 --compute-dtype=float32`` and ``run train
+           --net-width=512 --net-width-condition=512`` for 4 steps each,
+           launches exact, each run's peak device memory;
   mlp_kernel  the MLP kernels against their plain versions: mlp_fwd at
            Config() width, mode "t" features, R=16384 x S=128 in bf16 and
            f32 and R=1024 x S=128 in bf16, and a narrow ragged config with
@@ -239,7 +254,9 @@ and rank 0 of the pair, the tensor phase's ``run train
 quality phase's; under "wide" the W=1024 case of each kernel and the
 wide phase's launches, which the total includes; under "padded" the
 96 / 48 cases of each kernel in bf16 and f32 and the padded_widths phase's
-launches, which the total includes too), the card's name and
+launches, which the total includes too; under "any_width" its 2048 / 256
+and 2048 / 1056 cases in bf16 and f32 and its runs' launches, in the total
+as well), the card's name and
 power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: non-zero exit and no
 ``ok`` line. Without a CUDA device the script exits 1 at once.
@@ -312,6 +329,35 @@ PADDED_ROWS = (("96_48", dict(net_width=96, net_width_condition=48,
                              net_depth=2), False),
                ("400_200", dict(net_width=400, net_width_condition=200,
                                 net_depth=8), False))
+# (row, config) of the any_width phase: net_width_condition above 256 and
+# equal to net_width, net_width above 1024 with a partial 64-row slab in
+# Wc, both padded by kernel_cfg (to 1024 / 320), W = 2048, and Wc above
+# 1024; the W = 2048 rows at depth 4 (a skip layer at 2) to keep the
+# script inside its time (at depth 8 the phase took 240 s of 1,079 on an
+# H100 80GB HBM3 at 700 W)
+ANY_WIDTHS = (
+    ("512_512", dict(net_width=512, net_width_condition=512)),
+    ("1056_288", dict(net_width=1056, net_width_condition=288)),
+    ("1000_300", dict(net_width=1000, net_width_condition=300)),
+    ("2048_256", dict(net_width=2048, net_width_condition=256, net_depth=4,
+                      skip_layer=2)),
+    ("2048_1056", dict(net_width=2048, net_width_condition=1056,
+                       net_depth=4, skip_layer=2)),
+)
+ANY_WIDTH_RAYS = 4096  # R of render_level and mlp_fwd in the any_width phase
+# (timed, warm-up) launches of the any_width phase's cases: a W=2048 f32
+# train level is a half second; the plain version was just run once
+ANY_WIDTH_TIMING = {"kernel": (3, 1), "plain": (1, 0)}
+# run train of the any_width phase on a 48-px scene: (name, flags, steps,
+# losses must fall, run eval after)
+ANY_WIDTH_RUNS = (
+    ("bf16_2048", ("--net-width=2048",), 10, True, True),
+    ("f32_2048", ("--net-width=2048", "--compute-dtype=float32"), 4, False,
+     False),
+    ("bf16_512_512", ("--net-width=512", "--net-width-condition=512"), 4,
+     False, False),
+)
+ANY_WIDTH_LR = ("--lr-delay-steps=0", "--lr-final=5e-4")  # lr_init held
 INTEGRATION_STEPS = 600  # tests/test_integration.py's run
 SMALL_STEPS = 10  # run train at test_checkpoint_eval.py's small_cfg
 GRAPH_K = 8  # steps a multi-step call in the graph phase
@@ -321,6 +367,9 @@ GRAPH_CASES = (("Config()", ()), ("multicam_twopass", MULTICAM_ARGS),
 # Device kernels of train_level's bf16 passes that a trace must show
 TRAIN_WG_KERNELS = ("train_fwd_wg_kernel", "chain_wg_kernel", "dw_wg_kernel")
 TIMED_BATCHES = 13  # steps of the rays/s measurement, the first 3 warm-up
+# CUDA-event timing of the case functions (their ``timing`` argument):
+# (timed, warm-up) launches of the kernel and of its plain version
+TIMING = {"kernel": (7, 2), "plain": (5, 1)}
 MESH_STEPS = 4  # eager sharded steps of each case of the gloo pair
 MESH_CASES = (("Config()", ()), ("slice", FULL_GRAD_ARGS),
               ("multicam_twopass", MULTICAM_ARGS))
@@ -572,7 +621,7 @@ def check_pairs(name, pairs, dtype):
 
 
 def mlp_fwd_case(name, cfg, R, peaks, device, seed=0, phase="mlp_kernel",
-                 plain_rays=None):
+                 plain_rays=None, timing=TIMING):
     """``mlp_fwd`` against ``mlp_fwd_plain``; with ``plain_rays`` the plain
     version runs over chunks of that many rays (each row's heads depend on
     its own inputs only)."""
@@ -605,8 +654,8 @@ def mlp_fwd_case(name, cfg, R, peaks, device, seed=0, phase="mlp_kernel",
     torch.cuda.synchronize()
     out_r = reference(cfg, plain, out_p)
     errs, max_abs = check_pairs(name, pairs(out_k, out_r), cfg.compute_dtype)
-    ms = median_ms(kernel)
-    plain_ms = median_ms(plain, reps=5, warmup=1)
+    ms = median_ms(kernel, *timing["kernel"])
+    plain_ms = median_ms(plain, *timing["plain"])
     out_bytes = R * S * (cfg.num_rgb_channels + cfg.num_density_channels) * 4
     b_ms, b_by, flops, nbytes = mlp_bound_ms(
         cfg, R, S, mlp_fwd_flops(cfg, R, S), mlp_bytes(cfg, R, S), out_bytes,
@@ -629,7 +678,7 @@ def mlp_fwd_case(name, cfg, R, peaks, device, seed=0, phase="mlp_kernel",
 
 
 def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
-                 bit_check=False, phase="mlp_kernel"):
+                 bit_check=False, phase="mlp_kernel", timing=TIMING):
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
@@ -668,8 +717,8 @@ def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
             t for t in o[1:] if t is not None]
         bit_equal = all(torch.equal(a, b)
                         for a, b in zip(flat(out_k), flat(again)))
-    ms = median_ms(kernel)
-    plain_ms = median_ms(plain, reps=5, warmup=1)
+    ms = median_ms(kernel, *timing["kernel"])
+    plain_ms = median_ms(plain, *timing["plain"])
     esize = 2 if cfg.compute_dtype == "bfloat16" else 4
     in_bytes = mlp_bytes(cfg, R, S) + R * S * 4 * (
         cfg.num_rgb_channels + cfg.num_density_channels)
@@ -701,7 +750,7 @@ def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
 
 
 def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
-                phase="kernel", plain_rays=None):
+                phase="kernel", plain_rays=None, timing=TIMING):
     """The render kernel against ``render_level_plain``; with
     ``plain_rays`` the plain version runs over chunks of that many rays
     (each ray's outputs depend on its own rows only, so the chunks give
@@ -746,8 +795,8 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
     out_r = reference(cfg, plain, out_p)
     atol, rtol = BANDS[cfg.compute_dtype]
     errs, max_abs = check_pairs(name, pairs(out_k, out_r), cfg.compute_dtype)
-    ms = median_ms(kernel)
-    plain_ms = median_ms(plain, reps=5, warmup=1)
+    ms = median_ms(kernel, *timing["kernel"])
+    plain_ms = median_ms(plain, *timing["plain"])
     b_ms, b_by, flops, nbytes = bound_ms(cfg, R, cfg.num_samples, mode, peaks)
     res = {
         "phase": phase, "kernel": "render_level", "case": name,
@@ -793,7 +842,7 @@ def mma_sources():
             for name in KERNELS}
 
 
-def matmul_ms(cfg, R: int, device) -> float:
+def matmul_ms(cfg, R: int, device, timing=TIMING) -> float:
     """The MLP's layer products at ``cfg`` over R rays as ``torch.matmul``
     calls on random operands of the compute type (bf16, or f32 with TF32
     off: full-f32 cuBLAS), the view layer's direction rows once per ray,
@@ -826,7 +875,7 @@ def matmul_ms(cfg, R: int, device) -> float:
         for a, w in pairs:
             torch.matmul(a, w)
 
-    return median_ms(run)
+    return median_ms(run, *timing["kernel"])
 
 
 # The turns phase's cases (compare_kernels.cases by name): the bf16
@@ -914,7 +963,7 @@ def train_inputs(cfg, R: int, seed: int, device, multicam: bool = False):
 
 def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
                       bit_check=False, twopass=False, multicam=False,
-                      phase=None):
+                      phase=None, timing=TIMING):
     """One train kernel (``train_level_cuda``, or with ``twopass``
     ``train_level_twopass_cuda``, mode "t") against ``level_train_plain``;
     with ``twopass`` also ``train_level_cuda`` on the same inputs, its
@@ -967,8 +1016,8 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
         bit_equal = all(torch.equal(a, b) for (a, _), (b, _) in
                         zip(out_k[3], again[3])) and all(
             torch.equal(a, b) for (_, a), (_, b) in zip(out_k[3], again[3]))
-    ms = median_ms(kernel)
-    plain_ms = median_ms(plain, reps=5, warmup=1)
+    ms = median_ms(kernel, *timing["kernel"])
+    plain_ms = median_ms(plain, *timing["plain"])
     b_ms, b_by, flops, nbytes = train_bound_ms(cfg, R, cfg.num_samples, mode,
                                                peaks)
     one_pass_vs = one_pass_ms = turns = same_bits = None
@@ -979,8 +1028,10 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
         same_bits = all(torch.equal(a, b) for _, a, b in
                         level_pairs(out_one, out_k))
         # In turns: two-pass (above), one-pass, one-pass, two-pass.
-        turns = {"train_level": [median_ms(one_pass), median_ms(one_pass)],
-                 "train_level_twopass": [ms, median_ms(two_pass)]}
+        turns = {"train_level": [median_ms(one_pass, *timing["kernel"]),
+                                 median_ms(one_pass, *timing["kernel"])],
+                 "train_level_twopass": [ms, median_ms(two_pass,
+                                                       *timing["kernel"])]}
         one_pass_ms = sum(turns["train_level"]) / 2
         ms = sum(turns["train_level_twopass"]) / 2
     res = {
@@ -2154,6 +2205,169 @@ def padded_phase(peaks, device, work: str):
     kernels_s = time.perf_counter() - t0
     launches = added(launches, padded_paths(device, work))
     emit({"phase": "padded_widths", "kernels_s": kernels_s,
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return cases, launches
+
+
+def release_memory() -> None:
+    """Between widths of the any_width phase: drop the packers' cached
+    gather indices (one W=2048 layout's is ~250 MB on the card, and each
+    config has its own) and the allocator's free blocks."""
+    import gc
+
+    import torch
+
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+
+    for cached in (fl._pack_index, fl._bias_index, fl._unembed_index):
+        cached.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def any_width_kernels(peaks, device) -> dict:
+    """Every kernel at the widths the wide route took when it lost its
+    ceiling, the configs of ``ANY_WIDTHS``, in bf16 and f32 (timed with
+    ``ANY_WIDTH_TIMING``):
+    ``train_level`` at R=1024 x S=128 in modes "t" and "mv" (dW/db
+    bit-equal over two launches), ``train_level_twopass`` (bit-equal over
+    two launches and to ``train_level``, both timed in turns),
+    ``mlp_bwd`` with and without input_grads (bit-equal over two
+    launches), ``render_level`` (mode "mv") and ``mlp_fwd`` at
+    R=``ANY_WIDTH_RAYS`` (plain over chunks of ``WIDE_PLAIN_RAYS`` rays),
+    against their plain versions (f32: with f64 products, ``reference``),
+    each beside its bound and the layer products as ``torch.matmul`` in
+    the compute type (TF32 off; ``matmul_ms``, a yardstick). Returns the
+    cases by (row, dtype) and kernel."""
+    from nerf_or_nothing_tpu_torch.config import Config
+
+    out = {}
+
+    def yardstick(res, ms):
+        res["matmul_ms"] = ms
+        emit({"phase": "any_width", "case": res["case"],
+              "kernel": res["kernel"], "matmul_ms": ms})
+        return res
+
+    for row, kw in ANY_WIDTHS:
+        for dtype in ("bfloat16", "float32"):
+            cfg = Config(compute_dtype=dtype, **kw)
+            short = "bf16" if dtype == "bfloat16" else "f32"
+            tag = f"any_{row}_d{cfg.net_depth}_{short}"
+            mm_train = matmul_ms(cfg, 1024, device, ANY_WIDTH_TIMING)
+            mm_render = matmul_ms(cfg, ANY_WIDTH_RAYS, device,
+                                  ANY_WIDTH_TIMING)
+            ph = dict(phase="any_width", timing=ANY_WIDTH_TIMING)
+            cases = {
+                "train_level": yardstick(train_kernel_case(
+                    f"{tag}_r1024_s128_t", cfg, 1024, "t", True, peaks,
+                    device, seed=81, bit_check=True, **ph), mm_train),
+                "train_level_mv": yardstick(train_kernel_case(
+                    f"{tag}_r1024_s128_mv", cfg.replace(fuse_ipe=True),
+                    1024, "mv", True, peaks, device, seed=82,
+                    bit_check=True, **ph), mm_train),
+                "train_level_twopass": yardstick(train_kernel_case(
+                    f"{tag}_r1024_s128_t_twopass", cfg, 1024, "t", True,
+                    peaks, device, seed=83, bit_check=True, twopass=True,
+                    multicam=True, **ph), mm_train),
+                "mlp_bwd": yardstick(mlp_bwd_case(
+                    f"{tag}_r1024_s128_dx", cfg, 1024, True, peaks,
+                    device, seed=84, bit_check=True, **ph), mm_train),
+                "mlp_bwd_no_dx": yardstick(mlp_bwd_case(
+                    f"{tag}_r1024_s128", cfg, 1024, False, peaks, device,
+                    seed=85, bit_check=True, **ph), mm_train),
+                "render_level": yardstick(kernel_case(
+                    f"{tag}_r{ANY_WIDTH_RAYS}_s128_mv", cfg,
+                    ANY_WIDTH_RAYS, "mv", True, peaks, device, seed=86,
+                    plain_rays=WIDE_PLAIN_RAYS, **ph), mm_render),
+                "mlp_fwd": yardstick(mlp_fwd_case(
+                    f"{tag}_r{ANY_WIDTH_RAYS}_s128", cfg, ANY_WIDTH_RAYS,
+                    peaks, device, seed=87, plain_rays=WIDE_PLAIN_RAYS,
+                    **ph), mm_render),
+            }
+            if not cases["train_level_twopass"]["equal_to_train_level"]:
+                raise AssertionError(f"any_width: {tag} "
+                                     "train_level_twopass differs from "
+                                     "train_level")
+            out[(row, dtype)] = cases
+            release_memory()
+    return out
+
+
+def any_width_paths(device, work: str) -> dict:
+    """``run train`` at the new widths on a 48-px synthetic scene (2 train
+    views, 1 test view), ``ANY_WIDTH_RUNS``: ``--net-width=2048`` in bf16
+    for 10 eager steps (every logged loss finite, the mean of the last
+    three below the mean of the first three) and ``run eval`` of the test
+    view restoring its checkpoint; ``--net-width=2048
+    --compute-dtype=float32`` and ``--net-width=512
+    --net-width-condition=512`` for 4 steps each (losses finite); 2
+    ``train_level`` launches a step and 2 ``render_level`` an eval chunk,
+    exact; the peak of ``torch.cuda.max_memory_allocated`` of each run.
+    Returns the launches."""
+    import csv
+
+    import torch
+
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
+
+    t0 = time.perf_counter()
+    scene = write_scene(os.path.join(work, "any_width_scene"), n_train=2,
+                        n_test=1, size=48)
+    launches = dict.fromkeys(KERNELS, 0)
+    dev = [f"--device={device.type}"]
+    for name, flags, steps, falling, with_eval in ANY_WIDTH_RUNS:
+        args = [f"--data-dir={scene}", *flags, *ANY_WIDTH_LR]
+        cfg = run.parse_flags(args)
+        ckpt = os.path.join(work, f"any_width_{name}_ckpt")
+        torch.cuda.reset_peak_memory_stats()
+        train_s = run_main(
+            f"any_width: {name} run train",
+            ["train", *args, f"--checkpoint-dir={ckpt}",
+             f"--max-steps={steps}", "--print-every=1",
+             f"--save-every={steps}", "--test-render-interval=0", *dev],
+            step_launches(cfg, steps))
+        peak = torch.cuda.max_memory_allocated()
+        launches = added(launches, step_launches(cfg, steps))
+        with open(os.path.join(ckpt, "train_stats.csv")) as f:
+            losses = [float(r["loss"]) for r in csv.DictReader(f)]
+        ok = {"finite": len(losses) == steps
+              and all(math.isfinite(v) for v in losses)}
+        if falling:
+            ok["falling"] = sum(losses[-3:]) < sum(losses[:3])
+        res = {"phase": "any_width", "check": f"{name}_path",
+               "config": f"Config(net_width={cfg.net_width}, "
+                         f"net_width_condition={cfg.net_width_condition}, "
+                         f"compute_dtype={cfg.compute_dtype})",
+               "flags": args[1:], "steps": steps, "train_s": train_s,
+               "max_memory_allocated": peak, "logged_losses": losses,
+               "checks": ok}
+        if with_eval:
+            dims = test_dims(scene, cfg, 1)
+            res["eval_s"] = run_main(
+                f"any_width: {name} run eval",
+                ["eval", *args, f"--checkpoint-dir={ckpt}", "--max-images=1",
+                 *dev], render_launches(cfg, dims))
+            res["eval_images"] = dims
+            launches = added(launches, render_launches(cfg, dims))
+        emit(res)
+        if not all(ok.values()):
+            raise AssertionError(f"any_width: {name} run train: {ok}, "
+                                 f"losses {losses}")
+        release_memory()
+    emit({"phase": "any_width", "check": "paths",
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
+def any_width_phase(peaks, device, work: str):
+    """``any_width_kernels`` and ``any_width_paths``, timed. Returns the kernel cases and the paths' launches."""
+    t0 = time.perf_counter()
+    cases = any_width_kernels(peaks, device)
+    kernels_s = time.perf_counter() - t0
+    launches = any_width_paths(device, work)
+    emit({"phase": "any_width", "kernels_s": kernels_s,
           "seconds": time.perf_counter() - t0, "launches": launches})
     return cases, launches
 
@@ -3503,6 +3717,7 @@ def main() -> int:
     wide_launches = added(wide_launches, wide_mlp_paths(peaks, device, scene))
     wide_f32_cases, wide_f32_launches = wide_f32_phase(peaks, device, work)
     padded_cases, padded_launches = padded_phase(peaks, device, work)
+    any_cases, any_launches = any_width_phase(peaks, device, work)
 
     mlp_fwd_main = mlp_fwd_case("config_r16384_s128", base, 16384, peaks,
                                 device)
@@ -3569,7 +3784,7 @@ def main() -> int:
             "source": f"nerf_or_nothing_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
             "launches": (n + mesh_launches[name] + padded_launches[name]
-                         + wide_f32_launches[name]),
+                         + wide_f32_launches[name] + any_launches[name]),
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
@@ -3586,6 +3801,13 @@ def main() -> int:
             "case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "fma_bound_ms", "matmul_ms")}
         out["wide_f32"]["launches"] = wide_f32_launches[name]
+        out["any_width"] = {"launches": any_launches[name], **{
+            f"{row}_{dtype}": {k: any_cases[(row, dtype)][name][k]
+                               for k in ("case", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "matmul_ms")}
+            for row in ("2048_256", "2048_1056")
+            for dtype in ("bfloat16", "float32")}}
         out["padded"] = {"launches": padded_launches[name], **{
             dtype: {k: padded_cases[(name, dtype)][k] for k in (
                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",

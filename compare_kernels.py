@@ -33,7 +33,8 @@ path's launch), bf16 R=1000 x S=64 mode "t", f32 R=16384 x S=128;
 mlp_fwd bf16 R=16384 x S=128 (a render chunk) and R=1024 x S=128 (a train
 level), f32 R=16384 x S=128; train_level and train_level_twopass bf16
 R=1024 x S=128 mode "t" (a train step's level), R=777 with Multicam's
-loss weights (1/4/16/64, every seventh ray masked) and f32 R=1024 x S=128;
+loss weights (1/4/16/64, every seventh ray masked), f32 R=1024 x S=128,
+and both dtypes at net_width 1024 (the wide route) R=1024 x S=128;
 mlp_bwd bf16 R=1024 x S=128 with input_grads (level 1 of the slice
 config) and without (level 0), f32 with input_grads.
 Prints one JSON line per build and case; a source's name is its file name
@@ -128,7 +129,11 @@ def cases(kernel: str):
         return [("bf16_r1024_s128_t", Config(), 1024, "t", True, False),
                 ("bf16_r777_s128_t_multicam", Config(), 777, "t", False,
                  True),
-                ("f32_r1024_s128_t", f32, 1024, "t", True, False)]
+                ("f32_r1024_s128_t", f32, 1024, "t", True, False),
+                ("bf16_w1024_r1024_s128_t", Config(net_width=1024), 1024,
+                 "t", True, False),
+                ("f32_w1024_r1024_s128_t", f32.replace(net_width=1024), 1024,
+                 "t", True, False)]
     if kernel == "render_level":
         return [("bf16_r16384_s128_mv", Config(), 16384, "mv", True, False),
                 ("bf16_r1000_s64_t", Config(num_samples=64), 1000, "t", False,
@@ -148,6 +153,7 @@ DIGEST_CONFIGS = {
     "64_32_f32": {"net_width": 64, "net_width_condition": 32,
                   "compute_dtype": "float32"},
     "w1024_bf16": {"net_width": 1024},
+    "w1024_f32": {"net_width": 1024, "compute_dtype": "float32"},
 }
 
 

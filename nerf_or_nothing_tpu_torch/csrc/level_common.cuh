@@ -136,6 +136,23 @@ __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(
 // Workspace areas start at multiples of 256 bytes.
 inline long long round256(long long n) { return (n + 255) / 256 * 256; }
 
+// The per-ray kernels that run a thread a column of a row of Wc columns
+// (wide_dir_kernel, g_ray_kernel, g_ray_f32_kernel; one block a ray) go
+// in launches of up to kColumnBlock columns, the most threads a block may
+// have: launch(n0, n) launches columns n0 to n0 + n - 1 on pointers offset
+// by n0 (the row stride stays Wc), so each column's sum is the same at any
+// Wc, and up to Wc = 1024 it is one launch, as before.
+constexpr int kColumnBlock = 1024;
+template <class F>
+inline cudaError_t launch_columns(int Wc, F launch) {
+  for (int n0 = 0; n0 < Wc; n0 += kColumnBlock) {
+    launch(n0, Wc - n0 < kColumnBlock ? Wc - n0 : kColumnBlock);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // Row stride (floats) of a staged [kWK, N] weight tile: N rounded up to 32,
 // plus 8, so that the B fragments' 4 rows x 8 columns hit 32 banks.
 __host__ __device__ inline int wtile_ld(int N) { return (N + 31) / 32 * 32 + 8; }
@@ -575,8 +592,8 @@ __device__ void composite(const Params& p, const Smem<T>& sm, int ray0, int nr) 
 
 // The kernel parameters of one level (weight offsets of pack_params'
 // layout, row strides of the shared-memory tiles); false for widths the
-// kernels do not take: W, Wc multiples of 32 up to 256 (with wide, every
-// kernel's wide route in bf16 and f32, W up to 1024), Wc <= W, KX a
+// kernels do not take: W, Wc multiples of 32 up to 256 (with wide, any
+// W: every kernel's wide route above 256, in bf16 and f32), Wc <= W, KX a
 // multiple of 16 >= LX, LX = 6F in mode "mv", heads of 1-8 channels.
 // dtype: 0 = float32, 1 = bfloat16; mode: 0 = "mv" (IPE in the kernel),
 // 1 = "t" (features).
@@ -586,7 +603,7 @@ inline bool init_params(Params& p, int dtype, int mode, const float* means,
                         int D, int W, int skip, int Wc, int Dc, int LX, int KX, int Fd,
                         int min_deg, int fast, float density_bias, float rgb_padding,
                         int white_bkgd, int Cr = 3, int Cd = 1, bool wide = false) {
-  if (W % 32 || Wc % 32 || W > (wide ? 1024 : 256) || Wc > 256 || Wc > W || KX % 16 ||
+  if (W % 32 || Wc % 32 || (!wide && W > 256) || Wc > W || KX % 16 ||
       KX < LX ||
       D < 1 || Dc < 1 || skip < 1 || S < 1 || (mode == 0 && 6 * (LX / 6) != LX) ||
       Cr < 1 || Cr > 8 || Cd < 1 || Cd > 8)

@@ -37,14 +37,14 @@
 //     the fixed-order reduction.
 // No atomics: two launches on the same inputs give bit-equal dW, db, dX
 // and dD.
-// bf16 at net_width 288-1024 (wide_train.cuh): the forward recomputed by
+// bf16 at net_width 288 and above (wide_train.cuh): the forward recomputed by
 // wide_forward.cuh (a wgmma GEMM launch per layer, every activation and the
 // features kept in the workspace, no heads), then wide_train.cuh's passes
 // from the head cotangents (heads of 1-8 channels each): the g-chain GEMMs
 // on the "wgx" stream, g_ray_kernel, db partials, the dW GEMMs, the small
 // products and reduction; with input_grads, launch_wide_dx (a GEMM per x
 // layer into dX, deepest first) and mlp_dd_kernel. f32 at net_width
-// 288-1024 (launch_mlp_bwd_wide_f32): the same passes with wide_f32.cuh's
+// 288 and above (launch_mlp_bwd_wide_f32): the same passes with wide_f32.cuh's
 // 3xTF32 GEMM for the forward, the chain and dX (launch_wide_dx_f32 on
 // pack_params_tx), f32 activations, and the narrow f32 route's dW GEMM.
 // f32, every layer product as 3xTF32 mma.sync (level_common.cuh's gemm,
@@ -183,8 +183,8 @@ cudaError_t launch_wide_dx(const Params& p, const Extra& e, const WideOffsets& o
   return cudaSuccess;
 }
 
-// The bf16 route at net_width 288-1024 on the workspace (l, then x). p.w:
-// the "wg" forward stream; e.wt: the "wgx" chain stream.
+// The bf16 route at net_width 288 and above on the workspace (l, then x).
+// p.w: the "wg" forward stream; e.wt: the "wgx" chain stream.
 cudaError_t launch_mlp_bwd_wide(Params p, Extra e, const Layout& l, const WideTrainLayout& x,
                                 unsigned char* ws, float* out, long long n_out, int splits,
                                 cudaStream_t st) {
@@ -233,7 +233,7 @@ cudaError_t launch_wide_dx_f32(const Params& p, const Extra& e, cudaStream_t st)
   return cudaSuccess;
 }
 
-// The f32 route at net_width 288-1024 on the workspace (l, then x): the
+// The f32 route at net_width 288 and above on the workspace (l, then x): the
 // forward recomputed on WideF32Route (every activation and the features
 // kept, no heads), launch_wide_backward_f32 from the head cotangents, then
 // with input_grads dX and dD. p.w: pack_params' layout; e.wt:
@@ -269,7 +269,8 @@ inline long long partial_stride(long long n_out) { return n_out + (n_out & 1); }
 extern "C" {
 
 // Bytes of workspace mlp_bwd_launch needs for these shapes (bf16: with
-// the mask bits; at net_width 288-1024, both dtypes, the direction terms;
+// the mask bits; at net_width 288 and above, both dtypes, the direction
+// terms;
 // and the db partials of heads of up to 8 + 8 channels).
 long long mlp_bwd_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc, int KX,
                             int splits, long long n_out) {
@@ -283,7 +284,7 @@ long long mlp_bwd_workspace(int dtype, int R, int S, int D, int W, int Wc, int D
 
 // dtype: 0 = float32, 1 = bfloat16. x: [R * S, LX] and d: [R, Fd] in the
 // compute type; g_rgb [R * S, Cr] and g_den [R * S, Cd] f32 (W: multiples
-// of 32 up to 256, or 288-1024, the wide route, in both dtypes); bf16: w the
+// of 32 up to 256, or from 288 up, the wide route, in both dtypes); bf16: w the
 // "wg" forward slab stream (fused_level.pack_params_wg), wt the "wgx"
 // chain stream (pack_params_wgx), wtx unused; f32: w, b pack_params'
 // layout, wt pack_params_t, wtx pack_params_tx; grads: the flat f32 dW/db

@@ -22,14 +22,14 @@
 // straight to raw_rgb / raw_den. Helper warps load the next round's
 // features and each unit's direction term d @ W_dir while the consumers
 // multiply.
-// bf16 at net_width 288-1024 (wide_forward.cuh, mlp_fwd_wide_launch): one
+// bf16 at net_width 288 and above (wide_forward.cuh, mlp_fwd_wide_launch): one
 // wgmma GEMM launch per layer, in column blocks of at most 256, over
 // chunks of whole rays of at most 2^18 rows whose activations go through
 // a workspace the wrapper allocates (mlp_fwd_wide_workspace: ~1.1 GB at
 // W=1024 for any R; eval at fuse_level=False calls this on 16,384 rays x
 // 128 samples, whose one activation buffer would be 4.3 GB), then the
 // heads (1-8 channels each) straight to raw_rgb / raw_den. f32 at
-// net_width 288-1024: the same launches through mlp_fwd_wide_launch with
+// net_width 288 and above: the same launches through mlp_fwd_wide_launch with
 // wide_f32.cuh's 3xTF32 mma.sync GEMM and f32 activations (~2.2 GB of
 // workspace at W=1024).
 // f32: level_common.cuh's forward_tile<float> on pack_params' row-major
@@ -116,7 +116,7 @@ long long mlp_fwd_wide_workspace(int dtype, int R, int S, int W, int Wc, int KX)
   return wide_render_layout(R, S, W, Wc, KX, dtype == 1 ? 2 : 4).total;
 }
 
-// The route for net_width 288-1024 (a multiple of 32, Wc <= 256):
+// The route for net_width 288 and above (a multiple of 32, Wc <= W):
 // mlp_fwd_launch's arguments (bf16: w pack_params_wg's stream; f32:
 // pack_params' layout, wide_f32.cuh), and a workspace of
 // mlp_fwd_wide_workspace bytes, 256-byte aligned.

@@ -27,7 +27,7 @@
 // per ray (the transmittance scan carried across rounds), writing comp,
 // acc and weights.
 //
-// At net_width 288-1024 (render_level_wide_launch): one GEMM launch per
+// At net_width 288 and above (render_level_wide_launch): one GEMM launch per
 // layer, over chunks of whole rays whose activations go through a
 // workspace the wrapper allocates (render_level_wide_workspace), then the
 // composite; bf16 (wide_forward.cuh) on wgmma in column blocks of at most
@@ -123,7 +123,7 @@ long long render_level_wide_workspace(int dtype, int R, int S, int W, int Wc, in
   return wide_render_layout(R, S, W, Wc, KX, dtype == 1 ? 2 : 4).total;
 }
 
-// The route for net_width 288-1024 (a multiple of 32, Wc <= 256):
+// The route for net_width 288 and above (a multiple of 32, Wc <= W):
 // render_level_launch's arguments (bf16: wide_forward.cuh on the "wg"
 // stream; f32: wide_f32.cuh on pack_params' layout), and a workspace of
 // render_level_wide_workspace bytes, 256-byte aligned.

@@ -22,11 +22,11 @@
 // masks, the composite and its backward, the wgmma g-chain with per-block
 // db, then the dW GEMM over the rows, the small head and direction-row
 // products and the fixed-order reduction of level_backward.cuh.
-// bf16 at net_width 288-1024 (wide_train.cuh): one wgmma GEMM launch per
+// bf16 at net_width 288 and above (wide_train.cuh): one wgmma GEMM launch per
 // layer product, in column blocks of at most 256, every activation and
 // masked g in the workspace (a [64, 1024] tile would take 128 KB of the
 // block's shared memory), then the same composite, small products and
-// reduction. f32 at net_width 288-1024 (wide_train.cuh's
+// reduction. f32 at net_width 288 and above (wide_train.cuh's
 // launch_train_wide<WideF32Route>): the same sequence with one 3xTF32
 // mma.sync GEMM launch per forward and chain product (wide_f32.cuh,
 // column blocks of 128), f32 activations and masked g in the workspace
@@ -97,8 +97,8 @@ long long train_level_workspace(int dtype, int R, int S, int D, int W, int Wc, i
 }
 
 // dtype: 0 = float32, 1 = bfloat16. mode: 0 = "mv" (IPE in the kernel),
-// 1 = "t" (encoded features). W up to 256, or 288-1024 (the wide route,
-// both dtypes). w, wt: bf16 pack_params_wg's forward slab stream and
+// 1 = "t" (encoded features). W up to 256, or from 288 up (the wide
+// route, both dtypes; no ceiling but the card's memory). w, wt: bf16 pack_params_wg's forward slab stream and
 // pack_params_wgt's chain stream; f32 pack_params' layout and the chained
 // layers' W^T (pack_params_t); grads: the flat f32 dW/db
 // output of n_out values (see output_offsets); workspace:

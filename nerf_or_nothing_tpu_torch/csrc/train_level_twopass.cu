@@ -30,12 +30,12 @@
 // The chain reads only the forward's mask bits, not its activations, and
 // no dW product shares an SM with it. The function and the launches are
 // train_level.cu's bf16 ones, so both give the same bits.
-// bf16 at net_width 288-1024: train_level.cu's wide route
+// bf16 at net_width 288 and above: train_level.cu's wide route
 // (wide_train.cuh's launch_train_wide), whose launches also run in the
 // two phases' order: phase 0 the forward GEMMs, the composite, the g-chain
 // GEMMs, the per-ray sums and db partials; phase 1 the dW GEMMs, the small
 // products and the reduction. The same launches as train_level's wide
-// route, so the same bits. f32 at net_width 288-1024: train_level.cu's f32
+// route, so the same bits. f32 at net_width 288 and above: train_level.cu's f32
 // wide route (launch_train_wide<WideF32Route>), whose phase 1 is the dW
 // GEMM with db as its column sums, the small products and the reduction;
 // the same launches as train_level's, so the same bits.

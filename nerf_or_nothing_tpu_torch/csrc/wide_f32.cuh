@@ -1,9 +1,10 @@
 // The wide f32 route of every kernel (render_level.cu, mlp_fwd.cu, and the
 // forwards of train_level.cu, train_level_twopass.cu and mlp_bwd.cu; the
 // backward is wide_train.cuh's launch_wide_backward_f32): net_width a
-// multiple of 32 from 288 to 1024 (net_width_condition at most 256), where
-// the narrow f32 kernels' [64, W] activation tile no longer fits a block
-// (256 KB at W=1024 of the 227 KB).
+// multiple of 32 from 288 up, with no ceiling but the card's memory
+// (net_width_condition a multiple of 32 up to net_width), where the narrow
+// f32 kernels' [64, W] activation tile no longer fits a block (256 KB at
+// W=1024 of the 227 KB).
 //
 // Replaces, at these widths in f32, the same TPU kernels as its callers:
 // nerf_or_nothing_tpu/kernels/fused_level.py::_render_kernel (render),
@@ -218,30 +219,53 @@ inline cudaError_t launch_wide_gemm_f32(const WideGemmF32& g, cudaStream_t st) {
 }
 
 // out[row * ld + c] = A[row, :K] . w[c, :K] + b[c] for c < nc (1-8), one
-// warp a row: a head as pack_params stores it (transposed, [nc, K]).
+// warp a row: a head as pack_params stores it (transposed, [nc, K]),
+// staged kWideHeadK k-values at a time as wide_head_kernel stages its
+// own (each lane's k-values 4 lane + 128 i, ascending across the chunks):
+// the same bits at any chunking.
 __global__ void __launch_bounds__(kThreads) wide_head_f32_kernel(const float* A, int K,
                                                                  long long M, const float* w,
                                                                  const float* b, float* out,
                                                                  int ld, int nc) {
-  __shared__ float ws[8 * kWideMaxW];
-  for (int idx = threadIdx.x; idx < nc * K; idx += kThreads) ws[idx] = w[idx];
-  __syncthreads();
+  __shared__ float ws[8 * kWideHeadK];
+  const bool once = K <= kWideHeadK;
+  auto stage = [&](int kc, int kn) {
+    for (int idx = threadIdx.x; idx < nc * kn; idx += kThreads) {
+      const int c = idx / kn, k = idx - c * kn;
+      ws[c * kWideHeadK + k] = w[(long long)c * K + kc + k];
+    }
+  };
+  if (once) {
+    stage(0, K);
+    __syncthreads();
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (long long row = (long long)blockIdx.x * (kThreads / 32) + warp; row < M;
-       row += (long long)gridDim.x * (kThreads / 32)) {
+  for (long long row0 = (long long)blockIdx.x * (kThreads / 32); row0 < M;
+       row0 += (long long)gridDim.x * (kThreads / 32)) {
+    const long long row = row0 + warp;
+    const bool live = row < M;
     const float* a = A + row * K;
     float s[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) s[c] = 0.0f;
-    for (int k0 = lane * 4; k0 < K; k0 += 128) {
-      const float4 v = *reinterpret_cast<const float4*>(a + k0);
-      const float e[4] = {v.x, v.y, v.z, v.w};
+    for (int kc = 0; kc < K; kc += kWideHeadK) {
+      const int kn = min(kWideHeadK, K - kc);
+      if (!once) {
+        __syncthreads();  // every warp's reads of the previous chunk are done
+        stage(kc, kn);
+        __syncthreads();
+      }
+      for (int k0 = lane * 4; live && k0 < kn; k0 += 128) {
+        const float4 v = *reinterpret_cast<const float4*>(a + kc + k0);
+        const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
+        for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
-          if (c < nc) s[c] = fmaf(e[q], ws[c * K + k0 + q], s[c]);
+          for (int c = 0; c < 8; ++c)
+            if (c < nc) s[c] = fmaf(e[q], ws[c * kWideHeadK + k0 + q], s[c]);
+      }
     }
+    if (!live) continue;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       if (c >= nc) break;

@@ -1,9 +1,14 @@
 // The wide route of every kernel in bf16 (render_level.cu, mlp_fwd.cu, and
 // the forwards of train_level.cu, train_level_twopass.cu and mlp_bwd.cu):
-// net_width a multiple of 32 from 288 to 1024 (net_width_condition at most
-// 256), where the narrow kernels' activation tiles no longer fit a block
-// (one bf16 [64, 1024] tile is 128 KB of the 227 KB). The f32 route runs
-// the same launch sequence on its own GEMM (wide_f32.cuh), which reuses
+// net_width a multiple of 32 from 288 up, with no ceiling but the card's
+// memory (net_width_condition a multiple of 32 up to net_width), where the
+// narrow kernels' activation tiles no longer fit a block (one bf16
+// [64, 1024] tile is 128 KB of the 227 KB). No kernel here sizes a block
+// or a shared array by a width: the GEMMs take any N and K in column
+// blocks and 64-k stages, the per-ray kernels go in launches of up to
+// kColumnBlock columns (launch_columns), and the heads stage their
+// weights kWideHeadK k-values at a time. The f32 route runs the same
+// launch sequence on its own GEMM (wide_f32.cuh), which reuses
 // wide_composite_kernel and wide_render_layout here.
 //
 // Replaces, at these widths, the same TPU kernels as its callers:
@@ -52,7 +57,7 @@
 namespace {
 
 constexpr int kWideMinW = 288;      // narrower widths take the narrow kernels
-constexpr int kWideMaxW = 1024;
+constexpr int kWideHeadK = 1024;    // k-values of a head's weights a block stages at once
 constexpr int kWideThreads = 256;   // two warpgroups of 64 rows
 constexpr int kWideRows = 128;
 constexpr int kWideStages = 4;
@@ -410,8 +415,8 @@ __global__ void __launch_bounds__(kThreads) wide_features_kernel(Params p, T* xs
 }
 
 // dc[r, n] = d[ray0 + r, :] . W_dir[:, n] (compute-type operands, f32 FMA
-// in k order), one block of Wc threads a ray: the first view layer's
-// direction rows.
+// in k order), one block of up to kColumnBlock threads a ray, a thread a
+// column (launch_columns): the first view layer's direction rows.
 template <class T>
 __global__ void wide_dir_kernel(Params p, const T* wd, float* dc, int ray0) {
   const int r = blockIdx.x, n = threadIdx.x;
@@ -421,35 +426,63 @@ __global__ void wide_dir_kernel(Params p, const T* wd, float* dc, int ray0) {
   dc[(long long)r * p.Wc + n] = s;
 }
 
+// Head weight c at k of the forward stream's head slabs (8 rows a slab,
+// fused_level._wg_head; row c's 16-byte chunk q at position q ^ c).
+__device__ __forceinline__ float wide_head_w(const bf16* w, int c, int k) {
+  return to_f(w[(k >> 6) * kHeadN * 64 + c * 64 + ((((k & 63) >> 3) ^ c) << 3) + (k & 7)]);
+}
+
 // out[row * ld + c] = A[row, :K] . w[:, c] + b[c] for c < NC (1-8), one
-// warp a row: a head of the forward stream (8 rows a slab, fused_level.
-// _wg_head; row c's 16-byte chunk q at position q ^ c), its columns
-// unswizzled into shared memory first.
+// warp a row: a head of the forward stream, its columns unswizzled into
+// shared memory kWideHeadK k-values at a time. With K up to kWideHeadK
+// they are staged once for all the block's rows; above it the block's 8
+// warps take 8 rows a round together and stage each chunk in turn, so
+// every warp meets each chunk's barriers. Each lane sums its k-values
+// (8 lane + 256 i) in ascending order across the chunks (kWideHeadK a
+// multiple of 256), then one warp_sum: the same bits at any chunking.
 template <int NC>
 __global__ void __launch_bounds__(kThreads) wide_head_kernel(const bf16* A, int K, long long M,
                                                              const bf16* w, const float* b,
                                                              float* out, int ld) {
-  __shared__ float ws[NC * kWideMaxW];
-  for (int idx = threadIdx.x; idx < NC * K; idx += kThreads) {
-    const int c = idx / K, k = idx - c * K;
-    ws[idx] = to_f(w[(k >> 6) * kHeadN * 64 + c * 64 + ((((k & 63) >> 3) ^ c) << 3) + (k & 7)]);
+  __shared__ float ws[NC * kWideHeadK];
+  const bool once = K <= kWideHeadK;
+  auto stage = [&](int kc, int kn) {
+    for (int idx = threadIdx.x; idx < NC * kn; idx += kThreads) {
+      const int c = idx / kn, k = idx - c * kn;
+      ws[c * kWideHeadK + k] = wide_head_w(w, c, kc + k);
+    }
+  };
+  if (once) {
+    stage(0, K);
+    __syncthreads();
   }
-  __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (long long row = (long long)blockIdx.x * (kThreads / 32) + warp; row < M;
-       row += (long long)gridDim.x * (kThreads / 32)) {
+  for (long long row0 = (long long)blockIdx.x * (kThreads / 32); row0 < M;
+       row0 += (long long)gridDim.x * (kThreads / 32)) {
+    const long long row = row0 + warp;
+    const bool live = row < M;
     const bf16* a = A + row * K;
     float s[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) s[c] = 0.0f;
-    for (int k0 = lane * 8; k0 < K; k0 += 256) {
-      const uint4 v = *reinterpret_cast<const uint4*>(a + k0);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
+    for (int kc = 0; kc < K; kc += kWideHeadK) {
+      const int kn = min(kWideHeadK, K - kc);
+      if (!once) {
+        __syncthreads();  // every warp's reads of the previous chunk are done
+        stage(kc, kn);
+        __syncthreads();
+      }
+      for (int k0 = lane * 8; live && k0 < kn; k0 += 256) {
+        const uint4 v = *reinterpret_cast<const uint4*>(a + kc + k0);
+        const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
+        for (int q = 0; q < 8; ++q)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) s[c] = fmaf(to_f(e[q]), ws[c * K + k0 + q], s[c]);
+          for (int c = 0; c < NC; ++c)
+            s[c] = fmaf(to_f(e[q]), ws[c * kWideHeadK + k0 + q], s[c]);
+      }
     }
+    if (!live) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const float v = warp_sum(s[c]);
@@ -617,8 +650,9 @@ inline cudaError_t launch_forward_wide(const Params& p, unsigned char* ws, float
   T* buf[2] = {reinterpret_cast<T*>(ws + l.h0), reinterpret_cast<T*>(ws + l.h1)};
   float* heads = reinterpret_cast<float*>(ws + l.heads);
   float* dc = reinterpret_cast<float*>(ws + l.dc);
-  wide_dir_kernel<T><<<p.R, p.Wc, 0, st>>>(p, r.dir(p), dc, 0);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_columns(p.Wc, [&](int n0, int n) {
+    wide_dir_kernel<T><<<p.R, n, 0, st>>>(p, r.dir(p) + n0, dc + n0, 0);
+  });
   if (err != cudaSuccess) return err;
   // Trunk layer i writes buf[i & 1]; view layer j the other buffer of the
   // one it reads, so the density head still finds h(D - 1).

@@ -1,5 +1,5 @@
 // The wide route of train_level.cu and train_level_twopass.cu (net_width
-// 288-1024, a multiple of 32; wide_forward.cuh has the bf16 forward and
+// from 288 up, a multiple of 32; wide_forward.cuh has the bf16 forward and
 // layer product, wide_f32.cuh the f32 ones): the forward keeping every
 // activation in the workspace, the composite and its backward, the
 // g-chain, db, dW, and the small products and reduction of
@@ -322,8 +322,10 @@ inline cudaError_t launch_wide_backward(Params p, Extra e, const Layout& l,
     if ((err = launch_wide_gemm(g, st)) != cudaSuccess) return err;
   }
   // 4. the view layer's per-ray sums
-  g_ray_kernel<<<p.R, p.Wc, 0, st>>>(grad(p.D), e.g_ray, p.S, p.Wc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_columns(p.Wc, [&](int n0, int n) {
+    g_ray_kernel<<<p.R, n, 0, st>>>(grad(p.D) + n0, e.g_ray + n0, p.S, p.Wc);
+  });
+  if (err != cudaSuccess) return err;
   // 5. db partials
   long long db_blocks = (N + kWideDbRows - 1) / kWideDbRows;
   if (db_blocks > kMaxChainBlocks) db_blocks = kMaxChainBlocks;
@@ -408,8 +410,10 @@ inline cudaError_t launch_wide_backward_f32(Params p, Extra e, const Layout& l,
     g.act = act(i - 1); g.out = grad(i - 1);
     if ((err = launch_wide_gemm_f32<kF32Chain>(g, st)) != cudaSuccess) return err;
   }
-  g_ray_f32_kernel<<<p.R, p.Wc, 0, st>>>(grad(p.D), e.g_ray, p.S, p.Wc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_columns(p.Wc, [&](int n0, int n) {
+    g_ray_f32_kernel<<<p.R, n, 0, st>>>(grad(p.D) + n0, e.g_ray + n0, p.S, p.Wc);
+  });
+  if (err != cudaSuccess) return err;
   return launch_products<float>(p, e, l, ws, out, n_out, splits, nullptr, 0, st);
 }
 
@@ -427,8 +431,9 @@ inline cudaError_t wide_forward_keep(const Params& p, const Route& r, const Extr
   T* xs = static_cast<T*>(e.xs);
   auto h = [&](int i) { return acts + act_off(p, N, i); };
   auto v = [&](int j) { return acts + act_off(p, N, p.D + j); };
-  wide_dir_kernel<T><<<p.R, p.Wc, 0, st>>>(p, r.dir(p), dc, 0);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_columns(p.Wc, [&](int n0, int n) {
+    wide_dir_kernel<T><<<p.R, n, 0, st>>>(p, r.dir(p) + n0, dc + n0, 0);
+  });
   if (err != cudaSuccess) return err;
   if ((err = launch_wide_features(p, xs, 0, N, st)) != cudaSuccess) return err;
   return wide_forward<Route, kHeads>(p, r, xs, dc, N, h, v, heads ? heads + 3 : nullptr,

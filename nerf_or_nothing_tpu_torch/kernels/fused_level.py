@@ -14,11 +14,13 @@ the only mode of the two-pass kernel); rows are ray-major (row = ray * S +
 sample), features in the interleaved [sin3, cos3]-per-frequency order, so
 no weight permutation is needed.
 
-At net_width 288-1024 all three (and ``kernels/fused_mlp.py``'s two) run
-a wide route in the same libraries, a GEMM launch a layer through a
+At net_width 288 and above all three (and ``kernels/fused_mlp.py``'s two)
+run a wide route in the same libraries, a GEMM launch a layer through a
 workspace, on the same packed weights: bf16 on ``wgmma``
 (``csrc/wide_forward.cuh``, ``csrc/wide_train.cuh``), f32 as 3xTF32
-``mma.sync`` (``csrc/wide_f32.cuh``).
+``mma.sync`` (``csrc/wide_f32.cuh``). It has no width ceiling: any
+net_width and net_width_condition run, as far as the card's memory holds
+the workspace (``torch.empty`` raises when it does not).
 
 Widths that are not multiples of 32, and a net_width_condition above
 net_width, run zero-padded (``kernel_cfg``): the packers embed the weights
@@ -123,8 +125,7 @@ def padded_location_features(cfg: Config) -> int:
     return -(-cfg.location_features // 16) * 16
 
 
-MAX_WIDTH = 256        # net_width / net_width_condition of every route
-MAX_WIDE_WIDTH = 1024  # net_width of every kernel's wide route
+MAX_WIDTH = 256  # the narrow routes' widest net_width; wider takes the wide route
 
 
 def _round32(n: int) -> int:
@@ -163,8 +164,8 @@ def uses_wide(cfg: Config) -> bool:
     """Whether the kernels take their wide route (``train_level``,
     ``render_level``, ``train_level_twopass``, ``mlp_fwd`` and ``mlp_bwd``;
     bf16: ``csrc/wide_forward.cuh``, ``csrc/wide_train.cuh``, f32:
-    ``csrc/wide_f32.cuh``): a kernel net_width (``kernel_cfg``) above 256,
-    in either compute dtype."""
+    ``csrc/wide_f32.cuh``): a kernel net_width (``kernel_cfg``) above
+    ``MAX_WIDTH``, in either compute dtype."""
     return kernel_cfg(cfg).net_width > MAX_WIDTH
 
 
@@ -172,19 +173,15 @@ def check_kernel_config(cfg: Config, max_head: int = 0) -> None:
     """Raise ValueError for configs the CUDA kernels do not take. The level
     kernels composite 3 rgb / 1 density channels (``max_head`` 0); the MLP
     kernels (``kernels/fused_mlp.py``) take heads of 1 to ``max_head``
-    channels each. Widths are taken as ``kernel_cfg`` rounds them up: to
-    256, and net_width to 1024 (the wide route, ``uses_wide``, in bf16 and
-    f32); what is refused raises naming what is not ported yet."""
+    channels each. Every net_width and net_width_condition of at least 1
+    is taken, as ``kernel_cfg`` rounds them up (above ``MAX_WIDTH`` on the
+    wide route, ``uses_wide``, in bf16 and f32), with no ceiling but the
+    card's memory. Shared-memory limits of the narrow bf16 routes are
+    checked apart (``check_wg_config``, ``check_train_wg_config``,
+    ``fused_mlp.check_mlp_bwd_config``)."""
     problems = []
-    kc = kernel_cfg(cfg)
-    W, Wc = kc.net_width, kc.net_width_condition
     if min(cfg.net_width, cfg.net_width_condition) < 1:
         problems.append("net_width and net_width_condition must be >= 1")
-    if W > MAX_WIDE_WIDTH:
-        problems.append(f"net_width above {MAX_WIDE_WIDTH} is not ported yet")
-    if Wc > MAX_WIDTH:
-        problems.append(
-            f"net_width_condition above {MAX_WIDTH} is not ported yet")
     heads = (cfg.num_rgb_channels, cfg.num_density_channels)
     if max_head == 0 and heads != (3, 1):
         problems.append("heads must be 3 rgb / 1 density")
@@ -861,7 +858,7 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     result when the caller already has it; ``source`` is another version
     of ``csrc/render_level.cu`` with the same C interface, to time versions
     in turns (``compare_kernels.py``; ``packed`` then in the layout that
-    version reads, ``weight_layout``). net_width 288-1024 runs the wide
+    version reads, ``weight_layout``). net_width 288 and above runs the wide
     route (``uses_wide``, ``render_level_wide_launch``, bf16 and f32) with a
     workspace allocated here (``source`` versions have their narrow C
     interface only). Widths that are not multiples of 32 run zero-padded
@@ -1242,9 +1239,9 @@ def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
     result when the caller already has it (once per step for both
     levels); ``source`` is another version of ``csrc/train_level.cu`` with
     the same C interface, to time versions in turns (``packed`` then in
-    the layout that version reads). net_width 288-1024 runs the wide route
-    (``uses_wide``, bf16 and f32). Configs the kernel does not take, or
-    whose shared memory the bf16 kernels cannot take, raise ValueError
+    the layout that version reads). net_width 288 and above runs the wide
+    route (``uses_wide``, bf16 and f32). Configs the kernel does not take,
+    or whose shared memory the bf16 kernels cannot take, raise ValueError
     before anything runs."""
     check_kernel_config(cfg)
     if source is None:
@@ -1262,8 +1259,8 @@ def train_level_twopass_cuda(params: Params, cfg: Config, x, d, delta,
     outputs, in the TPU kernel's two phases (forward, composite and g-chain
     with db; then the dW products), on ``train_level``'s bf16 passes;
     ``packed`` is ``pack_train_level``'s result, ``source`` another version
-    of the source, as for ``train_level_cuda``. net_width 288-1024 runs
-    ``train_level``'s wide route (bf16 and f32), in the same two phases
+    of the source, as for ``train_level_cuda``. net_width 288 and above
+    runs ``train_level``'s wide route (bf16 and f32), in the same two phases
     (``uses_wide``). Configs the kernel does not take, or whose shared
     memory the bf16 passes cannot take, raise ValueError before anything
     runs."""

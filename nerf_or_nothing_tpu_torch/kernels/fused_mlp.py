@@ -18,11 +18,11 @@ heads other than 3 rgb / 1 density, a full covariance). The TPU grid
 sizes (``tile``, ``tile_bwd``, ``interleave``) are not carried over, and
 the kernels take per-ray directions for any S.
 
-At net_width 288-1024 both run their wide route
-(``fused_level.uses_wide``; bf16: ``csrc/wide_forward.cuh``,
-``csrc/wide_train.cuh``, f32: ``csrc/wide_f32.cuh``): ``mlp_fwd`` through
-``mlp_fwd_wide_launch`` and a workspace allocated here, ``mlp_bwd``
-through the same entry point.
+At net_width 288 and above, with no ceiling but the card's memory, both
+run their wide route (``fused_level.uses_wide``; bf16:
+``csrc/wide_forward.cuh``, ``csrc/wide_train.cuh``, f32:
+``csrc/wide_f32.cuh``): ``mlp_fwd`` through ``mlp_fwd_wide_launch`` and a
+workspace allocated here, ``mlp_bwd`` through the same entry point.
 Other widths run zero-padded, as the level kernels do
 (``fused_level.kernel_cfg``).
 
@@ -263,7 +263,7 @@ def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
     already has it; ``source`` is another version of ``csrc/mlp_fwd.cu``
     with the same C interface, to time versions in turns
     (``compare_kernels.py``; ``packed`` then in the layout it reads).
-    net_width 288-1024 runs the wide route (``uses_wide``,
+    net_width 288 and above runs the wide route (``uses_wide``,
     ``mlp_fwd_wide_launch``, bf16 and f32) with a workspace allocated here
     (``source`` versions have the narrow C interface only)."""
     R, S = _check_mlp_inputs(cfg, x, d, wg=True)
@@ -333,7 +333,7 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     caller already has it (once per step for both levels); ``source`` is
     another version of ``csrc/mlp_bwd.cu`` with the same C interface, to
     time versions in turns (``compare_kernels.py``; ``packed`` then in the
-    layout it reads). net_width 288-1024 runs the wide route
+    layout it reads). net_width 288 and above runs the wide route
     (``uses_wide``, bf16 and f32) in the same entry point. Configs whose
     shared memory the bf16 passes cannot take raise ValueError before
     anything runs."""

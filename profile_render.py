@@ -10,7 +10,7 @@ Prints one JSON line: the view's wall time (host clock, synchronised;
 also without the profiler), the device time summed over all kernels and
 copies, its share of the wall time and the rest (the device idle share),
 the render kernel's device time in all and per wrapper call (bf16: the
-wgmma forward of ``csrc/forward_wg.cuh``; at net_width 288-1024 the
+wgmma forward of ``csrc/forward_wg.cuh``; at net_width 288 and up the
 launches of ``csrc/wide_forward.cuh``), and the top device events with
 their counts.
 """
@@ -23,10 +23,11 @@ import tempfile
 import time
 
 # Device kernels of one render_level call: the narrow kernels' names hold
-# "render_level"; the wide route's are its own.
+# "render_level"; the wide route's are its own (bf16, then f32's).
 RENDER_KERNELS = ("render_level", "wide_features_kernel", "wide_dir_kernel",
                   "wide_gemm_kernel", "wide_head_kernel",
-                  "wide_composite_kernel")
+                  "wide_composite_kernel", "wide_gemm_f32_kernel",
+                  "wide_head_f32_kernel")
 
 
 def main(argv) -> int:

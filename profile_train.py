@@ -23,7 +23,7 @@ idle), the device time of the hand-written kernels' launches by name per
 step and per launch of the wrapper (``train_level`` and
 ``train_level_twopass`` in bf16: 7 launches, the wgmma forward, the
 composite, the wgmma g-chain, the per-ray sums, the dW GEMM, the small
-products and the reduction; every kernel at net_width 288-1024 (e.g.
+products and the reduction; every kernel at net_width 288 and up (e.g.
 ``--net-width=1024``, in f32 with ``--compute-dtype=float32``): the wide
 route's launches, a GEMM a layer product; ``mlp_bwd`` in bf16: 6, with
 input_grads 7,
@@ -48,7 +48,7 @@ import time
 TRAIN_WG = ("train_fwd_wg_kernel", "train_composite_kernel",
             "chain_wg_kernel", "g_ray_kernel", "dw_wg_kernel",
             "small_tn_kernel", "reduce_kernel")
-# the wide route's (net_width 288-1024) own launches beside the shared ones;
+# the wide route's (net_width 288 and up) own launches beside the shared ones;
 # mlp_fwd and mlp_bwd share their names there, so in one step their
 # per-launch split is the one timed alone ("alone")
 WIDE_FWD = ("wide_features_kernel", "wide_dir_kernel", "wide_gemm_kernel",

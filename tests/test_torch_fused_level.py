@@ -181,9 +181,12 @@ def test_kernel_wrapper_checks_inputs():
     delta = torch.zeros(R, S)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fl.render_level_cuda(params, cfg, xs, d, delta, True, "mv")
+    # every width is taken (the wide route has no ceiling); heads the
+    # level kernels do not composite are refused
+    fl.check_kernel_config(cfg.replace(net_width=1056))
+    fl.check_kernel_config(cfg.replace(net_width_condition=288))
     with pytest.raises(ValueError, match="not supported"):
-        fl.check_kernel_config(cfg.replace(net_width=1056))
-    with pytest.raises(ValueError, match="not supported"):
-        fl.check_kernel_config(cfg.replace(net_width_condition=288))
+        fl.check_kernel_config(cfg.replace(net_width=1056,
+                                           num_rgb_channels=4))
     fl.check_kernel_config(tiny_config())
 

@@ -287,10 +287,15 @@ def test_mlp_wrappers_check_inputs():
         fm.mlp_fwd_cuda(params, cfg, x, d)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den, True)
-    for bad in (dict(net_width=1056), dict(num_rgb_channels=9),
-                dict(num_density_channels=0)):
+    for bad in (dict(num_rgb_channels=9), dict(num_density_channels=0)):
         with pytest.raises(ValueError, match="not supported"):
             fm.mlp_fwd_cuda(params, cfg.replace(**bad), x, d)
+    # net_width 1056 is taken (the wide route has no ceiling): the config
+    # checks pass and the device check refuses the CPU tensors
+    wide = cfg.replace(net_width=1056)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fm.mlp_fwd_cuda(tmlp.init_mlp(torch.Generator().manual_seed(0),
+                                      wide), wide, x, d)
     fl.check_kernel_config(cfg.replace(num_rgb_channels=8), max_head=8)
     with pytest.raises(ValueError, match="3 rgb / 1 density"):
         fl.check_kernel_config(cfg.replace(num_rgb_channels=4))

@@ -954,20 +954,27 @@ def test_wide_route_packs_once_on_cuda(monkeypatch):
             fl.render_level.launches - before[1]) == (2, 6)
 
 
+def tensors(out):
+    """Every tensor in nested tuples and lists (None left out)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in (out or ()) for t in tensors(o)]
+
+
 def test_wide_unported_routes_raise_before_launch_on_cuda():
-    """On CUDA tensors, what the wide route does not take raises ValueError
-    naming what is not ported before any launch: every route at
-    net_width_condition 288 and at net_width 1056, in bf16 and f32; every
-    route at 288, 512 and 1024 in bf16 and f32 passes every config check
-    (``test_wide_levels_match_plain_on_cuda``,
-    ``test_wide_mlp_kernels_match_plain_on_cuda`` and
+    """The widths the wide route refused while it had a ceiling are taken
+    now: on CUDA tensors every route at net_width_condition 288 and at
+    net_width 1056, in bf16 and f32, launches its kernel once and gives
+    finite outputs of the config's shapes (held to the plain versions
+    there by ``-k any_width``); every route at 288, 512 and 1024 in bf16
+    and f32 passes every config check (``test_wide_levels_match_plain_on_
+    cuda``, ``test_wide_mlp_kernels_match_plain_on_cuda`` and
     ``test_wide_twopass_equals_train_level_on_cuda`` launch them)."""
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
     from nerf_or_nothing_tpu_torch.kernels import launch_counts
 
     dev = cuda_device()
     R = 2
-    before = launch_counts()
     for width in (288, 512, 1024):
         for dtype in ("bfloat16", "float32"):
             cfg = Config(**dict(SMALL, net_width=width, compute_dtype=dtype))
@@ -977,7 +984,8 @@ def test_wide_unported_routes_raise_before_launch_on_cuda():
             fl.check_train_wg_config(cfg, cfg.num_samples)
             for input_grads in (True, False):
                 fm.check_mlp_bwd_config(cfg, cfg.num_samples, input_grads)
-    routes = ("train", "render", "twopass", "fwd", "bwd")
+    routes = ("train_level", "render_level", "train_level_twopass",
+              "mlp_fwd", "mlp_bwd")
     for kw in (dict(net_width=512, net_width_condition=288),
                dict(net_width=1056),
                dict(net_width=512, net_width_condition=288,
@@ -985,31 +993,40 @@ def test_wide_unported_routes_raise_before_launch_on_cuda():
                dict(net_width=1056, compute_dtype="float32")):
         cfg = Config(**dict(SMALL, **kw))
         S = cfg.num_samples
-        params = tmlp.init_mlp(torch.Generator().manual_seed(0),
-                               Config(**SMALL), device=dev)
+        params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg,
+                               device=dev)
         dt = tmlp.compute_dtype(cfg)
-        x = torch.zeros(R * S, cfg.location_features, dtype=dt, device=dev)
-        d = torch.zeros(R, 27, dtype=dt, device=dev)
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn(R * S, cfg.location_features, generator=g,
+                        device=dev).to(dt)
+        d = torch.randn(R, 27, generator=g, device=dev).to(dt)
         delta = torch.ones(R, S, device=dev)
         pixels = torch.zeros(R, 3, device=dev)
         g_scale = torch.ones(R, 1, device=dev)
-        g_rgb = torch.zeros(R * S, 3, device=dev)
-        g_den = torch.zeros(R * S, 1, device=dev)
+        g_rgb = torch.randn(R * S, 3, generator=g, device=dev) * 1e-3
+        g_den = torch.randn(R * S, 1, generator=g, device=dev) * 1e-3
         calls = {
-            "train": lambda: fl.train_level_cuda(params, cfg, x, d, delta,
-                                                 pixels, g_scale, True, "t"),
-            "render": lambda: fl.render_level_cuda(params, cfg, x, d, delta,
-                                                   True, "t"),
-            "twopass": lambda: fl.train_level_twopass_cuda(
+            "train_level": lambda: fl.train_level_cuda(
+                params, cfg, x, d, delta, pixels, g_scale, True, "t"),
+            "render_level": lambda: fl.render_level_cuda(
+                params, cfg, x, d, delta, True, "t"),
+            "train_level_twopass": lambda: fl.train_level_twopass_cuda(
                 params, cfg, x, d, delta, pixels, g_scale, True),
-            "fwd": lambda: fm.mlp_fwd_cuda(params, cfg, x, d),
-            "bwd": lambda: fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den,
-                                           True),
+            "mlp_fwd": lambda: fm.mlp_fwd_cuda(params, cfg, x, d),
+            "mlp_bwd": lambda: fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb,
+                                               g_den, True),
         }
         for name in routes:
-            with pytest.raises(ValueError, match="not ported yet"):
-                calls[name]()
-    assert launch_counts() == before
+            before = launch_counts()
+            out = calls[name]()
+            torch.cuda.synchronize()
+            grown = {k: v - before[k] for k, v in launch_counts().items()}
+            assert grown == {k: int(k == name) for k in grown}, (kw, name)
+            flat = tensors(out)
+            assert flat and all(bool(torch.isfinite(t.float()).all())
+                                for t in flat), (kw, name)
+        dims = tmlp.layer_dims(cfg)
+        assert [tuple(dw.shape) for dw, _ in calls["train_level"]()[3]] == dims
 
 
 def exact_forward_inputs(cfg, R, seed, dev):
@@ -1138,6 +1155,225 @@ def test_wide_twopass_equals_train_level_on_cuda(dtype, width):
         assert torch.equal(ta, tb) and torch.equal(ta, to), k
         assert bool(torch.isfinite(ta).all())
         assert normalized_err(ta, tr, atol, rtol) < 1.0, k
+
+
+ANY_WIDTHS = [(512, 320), (1056, 288), (2048, 1056)]
+ANY_IDS = [f"{w}_{wc}" for w, wc in ANY_WIDTHS]
+
+
+def any_width_cfg(widths, dtype, **kw):
+    """``WIDE`` at net_width / net_width_condition ``widths`` (the wide
+    route with no ceiling: above 1024, above 256, a partial last slab)."""
+    return Config(**dict(WIDE, net_width=widths[0],
+                         net_width_condition=widths[1], compute_dtype=dtype,
+                         **kw))
+
+
+def any_width_inputs(cfg, R, seed, dev):
+    """(params, x [R*S, F], d [R, Fd], g_rgb, g_den) of the any_width card
+    tests. bf16: a random MLP, IPE features and the composite's
+    cotangents (``mlp_inputs``). f32: ``exact_forward_inputs``' MLP, on
+    which every f32 computation takes the same ReLU masks, so that every
+    dW / db is held; a random MLP in f32 is held by
+    ``test_any_width_f32_random_mlp_matches_plain_on_cuda``."""
+    if cfg.compute_dtype == "float32":
+        return exact_forward_inputs(cfg, R, seed, dev)
+    params = tmlp.init_mlp(torch.Generator().manual_seed(seed), cfg,
+                           device=dev)
+    return (params, *mlp_inputs(cfg, params, R, seed, dev))
+
+
+def check_close(got, ref, dtype, what):
+    """Every tensor of ``got`` finite, of ``ref``'s shape and in the
+    dtype's band of it."""
+    atol, rtol = BANDS[dtype]
+    got, ref = tensors(got), tensors(ref)
+    assert len(got) == len(ref), what
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), (what, k)
+        err = normalized_err(a.float(), b.float(), atol, rtol)
+        assert err < 1.0, (what, k, err)
+
+
+@pytest.mark.parametrize("widths", ANY_WIDTHS, ids=ANY_IDS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_any_width_levels_match_plain_on_cuda(dtype, widths):
+    """``train_level`` and ``render_level`` at net_width 512 / 320,
+    1056 / 288 and 2048 / 1056 against the plain versions in the dtype's
+    band (f32: with f64 products), ragged masked rays: in mode "t" on
+    ``any_width_inputs``, and in bf16 also in mode "mv" (the IPE in the
+    kernel; f32 mode "mv" is
+    ``test_any_width_f32_random_mlp_matches_plain_on_cuda``'s and
+    chip_smoke.py's any_width phase's)."""
+    dev = cuda_device()
+    cfg = any_width_cfg(widths, dtype)
+    assert fl.uses_wide(cfg) and fl.kernel_cfg(cfg) is cfg
+    R, S = 37, cfg.num_samples
+    params, x, d, _, _ = any_width_inputs(cfg, R, 5, dev)
+    dt = tmlp.compute_dtype(cfg)
+    x, d = x.to(dt), d.to(dt)
+    _, _, _, t_vals, dirs, pixels, g_scale = train_inputs(R, S, 5, dev)
+    delta = interval_lengths(t_vals, dirs)
+    before = (fl.train_level.launches, fl.render_level.launches)
+    out = fl.train_level_cuda(params, cfg, x, d, delta, pixels, g_scale,
+                              True, "t")
+    comp = fl.render_level_cuda(params, cfg, x, d, delta, False, "t")
+    torch.cuda.synchronize()
+    assert (fl.train_level.launches - before[0],
+            fl.render_level.launches - before[1]) == (1, 1)
+    with reference_products(cfg):
+        ref = fl.level_train_plain(params, cfg, x, d, delta, pixels,
+                                   g_scale, True, "t")
+        comp_ref = fl.render_level_plain(params, cfg, x, d, delta, False, "t")
+    check_close(out, ref, dtype, "train_level")
+    check_close(comp, comp_ref, dtype, "render_level")
+    if dtype == "bfloat16":
+        check_train(cfg, R, "mv", True, dev)
+        check_render(cfg, R, "mv", False, dev)
+
+
+@pytest.mark.parametrize("widths", ANY_WIDTHS, ids=ANY_IDS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_any_width_mlp_kernels_match_plain_on_cuda(dtype, widths):
+    """``mlp_fwd`` and ``mlp_bwd`` (with and without input_grads) at the
+    same widths on ``any_width_inputs`` against ``mlp_fwd_plain`` /
+    ``mlp_bwd_plain``: heads, every dW / db, dX and dD in the dtype's band
+    (f32: with f64 products), ``mlp_bwd`` bit-equal over two launches."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    cfg = any_width_cfg(widths, dtype)
+    R, S = 64, cfg.num_samples
+    params, x, d, g_rgb, g_den = any_width_inputs(cfg, R, 3, dev)
+    dt = tmlp.compute_dtype(cfg)
+    x, d = x.to(dt), d.to(dt)
+    packed = fm.pack_mlp_params(params, cfg, dt)
+    raw = fm.mlp_fwd(params, cfg, x, d, packed=packed)
+    with reference_products(cfg):
+        raw_ref = fm.mlp_fwd_plain(params, cfg, x, d, S)
+    check_close(raw, raw_ref, dtype, "mlp_fwd")
+    for input_grads in (True, False):
+        a, b = (fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, input_grads,
+                           packed=packed) for _ in range(2))
+        with reference_products(cfg):
+            ref = fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, S,
+                                   input_grads)
+        assert all(torch.equal(ta, tb)
+                   for ta, tb in zip(tensors(a), tensors(b))), input_grads
+        check_close(a, ref, dtype, f"mlp_bwd input_grads={input_grads}")
+
+
+@pytest.mark.parametrize("widths", ANY_WIDTHS, ids=ANY_IDS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_any_width_twopass_equals_train_level_on_cuda(dtype, widths):
+    """The two-pass kernel at the same widths on ``any_width_inputs``:
+    bit-equal to ``train_level`` on the same inputs and over two
+    launches, in the dtype's band of ``level_train_plain`` (f32: with f64
+    products), with Multicam's loss weights."""
+    dev = cuda_device()
+    cfg = any_width_cfg(widths, dtype, kernel_probes="fl_variant=twopass")
+    R, S = 64, cfg.num_samples
+    params, x, d, _, _ = any_width_inputs(cfg, R, 9, dev)
+    dt = tmlp.compute_dtype(cfg)
+    x, d = x.to(dt), d.to(dt)
+    _, _, _, t_vals, dirs, pixels, _ = train_inputs(R, S, 9, dev)
+    g_scale = multicam_g_scale(R, 10).to(dev)
+    delta = interval_lengths(t_vals, dirs)
+    packed = fl.pack_train(params, cfg, dt)
+    a, b = (fl.train_level_twopass(params, cfg, x, d, delta, pixels, g_scale,
+                                   True, packed=packed) for _ in range(2))
+    one = fl.train_level_cuda(params, cfg, x, d, delta, pixels, g_scale,
+                              True, "t", packed=packed)
+    with reference_products(cfg):
+        ref = fl.level_train_plain(params, cfg, x, d, delta, pixels, g_scale,
+                                   True, "t")
+    for ta, tb, to in zip(tensors(a), tensors(b), tensors(one)):
+        assert torch.equal(ta, tb) and torch.equal(ta, to)
+    check_close(a, ref, dtype, "train_level_twopass")
+
+
+# A hidden pre-activation within this many times its layer's rms of zero
+# in the f64 forward is a ReLU mask that an f32 computation may take on
+# the other side of zero: several times the f32 rounding of a
+# pre-activation at these widths
+MASK_MARGIN = 3e-5
+
+
+def near_zero_rows(params, cfg, x, d, margin=MASK_MARGIN):
+    """The rows [R*S] of the MLP on x [R*S, F], d [R, Fd] with a hidden
+    pre-activation of the f64 forward within ``margin`` times its layer's
+    rms of zero."""
+    D, nw, S = cfg.net_depth, cfg.net_width, cfg.num_samples
+    x, d = x.double(), d.double()
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+
+    def relu(z):
+        near.logical_or_(
+            (z.abs() < margin * z.pow(2).mean().sqrt()).any(dim=1))
+        return torch.relu(z)
+
+    h = x
+    for i in range(D):
+        w, b = (t.double() for t in params[i])
+        skip = i % cfg.skip_layer == 0 and i > 0
+        h = relu((h @ w[:nw] + x @ w[nw:] if skip else h @ w) + b)
+    for j in range(cfg.net_depth_condition):
+        w, b = (t.double() for t in params[D + 1 + j])
+        z = (h @ w[:nw] + (d @ w[nw:]).repeat_interleave(S, 0) if j == 0
+             else h @ w)
+        h = relu(z + b)
+    return near
+
+
+@pytest.mark.parametrize("widths", ANY_WIDTHS, ids=ANY_IDS)
+def test_any_width_f32_random_mlp_matches_plain_on_cuda(widths):
+    """f32 at the same widths on a random MLP (``init_mlp``) and IPE
+    features, against the plain versions with f64 products in the f32
+    band, ragged masked rays. A mask flipped at a pre-activation near
+    zero moves the forward by about that pre-activation, so
+    ``train_level``'s forward outputs (modes "t" and "mv"),
+    ``render_level`` (mode "mv") and ``mlp_fwd`` are held as they are;
+    it moves a dW column sum by its row's whole term (on these inputs in
+    mode "mv" at 512 / 320 the kernel on an H100 was 1.53 bands from the
+    f64-product version in the first view layer's dW), so the backward,
+    the wide route's
+    f32 passes that ``train_level`` and ``mlp_bwd`` share, is held
+    through ``mlp_bwd`` with input_grads on the composite's cotangents
+    with the rows of ``near_zero_rows`` set to 0 (at most half the
+    rows)."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    cfg = any_width_cfg(widths, "float32")
+    R, S = 37, cfg.num_samples
+    params = tmlp.init_mlp(torch.Generator().manual_seed(1), cfg,
+                           device=dev)
+    means, covs, d, t_vals, dirs, pixels, g_scale = train_inputs(R, S, 1,
+                                                                 dev)
+    x, _, g_rgb, g_den = mlp_inputs(cfg, params, R, 1, dev)
+    delta = interval_lengths(t_vals, dirs)
+    mv = (means.reshape(-1, 3), covs.reshape(-1, 3))
+    for mode, xs in (("t", x), ("mv", mv)):
+        out = fl.train_level_cuda(params, cfg, xs, d, delta, pixels, g_scale,
+                                  True, mode)
+        with reference_products(cfg):
+            ref = fl.level_train_plain(params, cfg, xs, d, delta, pixels,
+                                       g_scale, True, mode)
+        check_close(out[:3], ref[:3], "float32", f"train_level {mode}")
+    comp = fl.render_level_cuda(params, cfg, mv, d, delta, False, "mv")
+    raw = fm.mlp_fwd(params, cfg, x, d)
+    near = near_zero_rows(params, cfg, x, d)
+    assert 2 * int(near.sum()) <= R * S, int(near.sum())
+    g_rgb, g_den = (torch.where(near[:, None], 0.0, g) for g in (g_rgb, g_den))
+    grads = fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, True)
+    with reference_products(cfg):
+        comp_ref = fl.render_level_plain(params, cfg, mv, d, delta, False,
+                                         "mv")
+        raw_ref = fm.mlp_fwd_plain(params, cfg, x, d, S)
+        grads_ref = fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, S, True)
+    check_close(comp, comp_ref, "float32", "render_level")
+    check_close(raw, raw_ref, "float32", "mlp_fwd")
+    check_close(grads, grads_ref, "float32", "mlp_bwd input_grads=True")
 
 
 def host_batches(n_batches, R, seed):

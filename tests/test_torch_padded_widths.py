@@ -255,8 +255,9 @@ def test_guard_admits_every_row_and_refuses_the_rest():
     """Every row (in each dtype the card takes) passes the level kernels'
     guard and the MLP kernels' (heads up to ``MAX_HEAD``), with the bf16
     shared-memory checks; f32 at net_width 260 (288 after padding) takes
-    the wide route; net_width_condition 300 and net_width 1025 still raise
-    in both dtypes, naming what is not ported yet."""
+    the wide route; net_width_condition 300 (320 after padding) and
+    net_width 1025 (1056) take it too, in both dtypes, with no ceiling;
+    what is still refused, heads of 9 channels, names itself."""
     for row, dtype in CASES:
         cfg = row_cfg(row, dtype)
         for max_head in (0, fm.MAX_HEAD):
@@ -270,14 +271,19 @@ def test_guard_admits_every_row_and_refuses_the_rest():
     assert fl.uses_wide(f32_260)
     for max_head in (0, fm.MAX_HEAD):
         fl.check_kernel_config(f32_260, max_head=max_head)
-    for kw, text in ((dict(net_width=512, net_width_condition=300),
-                      "net_width_condition above 256 is not ported yet"),
-                     (dict(net_width=1025), "above 1024 is not ported yet")):
+    for kw, widths in ((dict(net_width=512, net_width_condition=300),
+                        (512, 320)),
+                       (dict(net_width=1025), (1056, 128))):
         for dtype in ("bfloat16", "float32"):
+            cfg = Config(**kw, compute_dtype=dtype)
+            kc = fl.kernel_cfg(cfg)
+            assert (kc.net_width, kc.net_width_condition) == widths
+            assert fl.uses_wide(cfg)
             for max_head in (0, fm.MAX_HEAD):
-                with pytest.raises(ValueError, match=text):
-                    fl.check_kernel_config(Config(**kw, compute_dtype=dtype),
-                                           max_head=max_head)
+                fl.check_kernel_config(cfg, max_head=max_head)
+            with pytest.raises(ValueError, match="1 to 8 channels"):
+                fl.check_kernel_config(cfg.replace(num_rgb_channels=9),
+                                       max_head=fm.MAX_HEAD)
 
 
 # ---------------------------------------------------------------------------

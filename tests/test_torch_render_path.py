@@ -163,7 +163,7 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(scene_and_ckpt):
 
 
 SCRIPTS = ["chip_smoke", "compare_kernels", "profile_forward", "profile_render",
-           "profile_train"]
+           "profile_train", "width_limit"]
 # Runs on the card, where only PyTorch is installed.
 CARD_TESTS = [REPO / "tests" / "test_torch_kernel_cuda.py"]
 

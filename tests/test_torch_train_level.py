@@ -329,9 +329,16 @@ def test_train_kernel_wrapper_checks_inputs():
         fl.train_level_cuda(params, cfg, xs, d, delta, pixels, gsc, True, "t")
     with pytest.raises(ValueError, match="unknown input mode"):
         fl.train_level_cuda(params, cfg, xs, d, delta, pixels, gsc, True, "x")
+    # net_width 1056 is taken (the wide route has no ceiling): the config
+    # checks pass and the device check refuses the CPU tensors
+    wide = cfg.replace(net_width=1056)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fl.train_level_cuda(tmlp.init_mlp(torch.Generator().manual_seed(0),
+                                          wide), wide, xs, d, delta, pixels,
+                            gsc, True, "t")
     with pytest.raises(ValueError, match="not supported"):
-        fl.train_level_cuda(params, cfg.replace(net_width=1056), xs, d, delta,
-                            pixels, gsc, True, "t")
+        fl.train_level_cuda(params, wide.replace(num_rgb_channels=4), xs, d,
+                            delta, pixels, gsc, True, "t")
     before = fl.train_level.launches
     out = fl.train_level(params, cfg, xs, d, delta, pixels, gsc, True, "t")
     assert fl.train_level.launches == before

@@ -226,12 +226,10 @@ def test_wide_widths_are_admitted_for_bf16_levels(width):
 
 
 def refused_routes(cfg):
-    """Every wrapper call that must refuse ``cfg``, on CPU tensors (a
-    config check raises before the device check)."""
-    params = tmlp.init_mlp(torch.Generator().manual_seed(0),
-                           cfg.replace(net_width=min(cfg.net_width, 1024),
-                                       net_width_condition=min(
-                                           cfg.net_width_condition, 256)))
+    """Every wrapper call at ``cfg`` on CPU tensors, each of which raises
+    ValueError: at a config check the config does not pass, else at the
+    device check ("CUDA tensor")."""
+    params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg)
     R, S = 2, cfg.num_samples
     dt = torch.bfloat16
     x = torch.zeros(R * S, cfg.location_features, dtype=dt)
@@ -268,29 +266,60 @@ def refused_routes(cfg):
       "mlp_bwd")),
 ])
 def test_routes_not_ported_still_raise(what, kw, routes):
-    """What the wide route does not take raises ValueError ("not
-    supported", naming what is not ported) in every wrapper that must
-    refuse it, before any launch, in bf16 and f32 (f32 at net_width
-    288-1024 is admitted: ``test_torch_wide_f32.py``)."""
+    """The widths the wide route refused while it had a ceiling
+    (net_width above 1024, net_width_condition above 256, in bf16 and f32)
+    are taken now: on CPU tensors every wrapper passes its config checks
+    and stops at the device check ("CUDA tensor"), nothing is launched,
+    and the dispatchers compute the plain versions at these widths
+    (finite, at the config's shapes; against JAX's there:
+    ``test_torch_any_width.py``)."""
     cfg = Config(**dict(WIDE, **kw))
+    assert fl.uses_wide(cfg) and fl.kernel_cfg(cfg) is cfg
+    counters = (fl.train_level, fl.render_level, fl.train_level_twopass,
+                fm.mlp_fwd, fm.mlp_bwd)
+    before = [fn.launches for fn in counters]
     calls = refused_routes(cfg)
-    before = {k: fn.launches for k, fn in (
-        ("train_level", fl.train_level), ("render_level", fl.render_level),
-        ("train_level_twopass", fl.train_level_twopass),
-        ("mlp_fwd", fm.mlp_fwd), ("mlp_bwd", fm.mlp_bwd))}
     for name in routes:
-        with pytest.raises(ValueError, match="not supported") as info:
+        with pytest.raises(ValueError, match="CUDA tensor"):
             calls[name]()
-        assert "not ported yet" in str(info.value), (what, name, info.value)
-    assert fl.train_level.launches == before["train_level"]
-    assert fl.render_level.launches == before["render_level"]
-    assert fm.mlp_fwd.launches == before["mlp_fwd"]
+    params = tmlp.init_mlp(torch.Generator().manual_seed(1), cfg)
+    R, S = 2, cfg.num_samples
+    rng = np.random.default_rng(3)
+    dt = tmlp.compute_dtype(cfg)
+    x = T(rng.normal(size=(R * S, cfg.location_features))
+          .astype(np.float32)).to(dt)
+    d = T(rng.normal(size=(R, 27)).astype(np.float32)).to(dt)
+    delta = T(rng.uniform(0.1, 0.5, size=(R, S)).astype(np.float32))
+    pixels = T(rng.uniform(size=(R, 3)).astype(np.float32))
+    gsc = torch.full((R, 1), 0.5)
+    g_rgb = T(rng.normal(size=(R * S, 3)).astype(np.float32))
+    g_den = T(rng.normal(size=(R * S, 1)).astype(np.float32))
+    dims = tmlp.layer_dims(cfg)
+    for level in (fl.train_level, fl.train_level_twopass):
+        args = (params, cfg, x, d, delta, pixels, gsc, True)
+        out = level(*args, "t") if level is fl.train_level else level(*args)
+        assert [tuple(dw.shape) for dw, _ in out[3]] == dims, what
+        assert all(bool(torch.isfinite(t).all()) for t in out[:3])
+        assert all(bool(torch.isfinite(dw).all() and torch.isfinite(db).all())
+                   for dw, db in out[3])
+    comp, acc, weights = fl.render_level(params, cfg, x, d, delta, True, "t")
+    assert comp.shape == (R, 3) and weights.shape == (R, S)
+    assert bool(torch.isfinite(comp).all() and torch.isfinite(weights).all())
+    rgb, den = fm.mlp_fwd(params, cfg, x, d)
+    assert rgb.shape == (R * S, 3) and den.shape == (R * S, 1)
+    d_params, dx, dd = fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, True)
+    assert [tuple(dw.shape) for dw, _ in d_params] == dims
+    assert dx.shape == x.shape and dd.shape == (R, 27)
+    assert bool(torch.isfinite(dx.float()).all() and torch.isfinite(dd).all())
+    assert [fn.launches for fn in counters] == before
 
 
 def test_wide_guard_messages():
-    """Each refused width names what is not ported yet; bf16 and f32 at
-    288-1024 pass the guard of every route (the level kernels' and, with
-    heads of up to ``MAX_HEAD`` channels, the MLP kernels')."""
+    """bf16 and f32 at 288-1024, and the widths the wide route refused
+    while it had a ceiling (net_width 2048, net_width_condition 300 and
+    384), pass the guard of every route (the level kernels' and, with
+    heads of up to ``MAX_HEAD`` channels, the MLP kernels'); what is
+    still refused, heads the kernels do not take, names itself."""
     for width in (288, 512, 1024):
         for dtype in ("bfloat16", "float32"):
             fl.check_kernel_config(Config(net_width=width,
@@ -299,16 +328,22 @@ def test_wide_guard_messages():
                                           num_density_channels=8,
                                           compute_dtype=dtype),
                                    max_head=fm.MAX_HEAD)
-    cases = [(dict(net_width=2048, compute_dtype="float32"),
-              "above 1024 is not ported yet"),
-             (dict(net_width=2048), "above 1024 is not ported yet"),
-             (dict(net_width=512, net_width_condition=384),
-              "net_width_condition above 256 is not ported yet"),
-             (dict(net_width=512, net_width_condition=300), "above 256")]
-    for kw, text in cases:
+    for kw in (dict(net_width=2048, compute_dtype="float32"),
+               dict(net_width=2048),
+               dict(net_width=512, net_width_condition=384),
+               dict(net_width=512, net_width_condition=300)):
         for max_head in (0, fm.MAX_HEAD):
-            with pytest.raises(ValueError, match=text):
-                fl.check_kernel_config(Config(**kw), max_head=max_head)
+            fl.check_kernel_config(Config(**kw), max_head=max_head)
+    cases = [(dict(net_width=2048, num_rgb_channels=4),
+              "heads must be 3 rgb / 1 density", 0),
+             (dict(net_width=2048, num_rgb_channels=9),
+              f"heads must have 1 to {fm.MAX_HEAD} channels", fm.MAX_HEAD),
+             (dict(net_width=512, net_width_condition=384,
+                   num_density_channels=9, compute_dtype="float32"),
+              f"heads must have 1 to {fm.MAX_HEAD} channels", fm.MAX_HEAD)]
+    for kw, text, max_head in cases:
+        with pytest.raises(ValueError, match=text):
+            fl.check_kernel_config(Config(**kw), max_head=max_head)
     assert not fl.uses_wide(Config())
     assert fl.uses_wide(Config(net_width=512, compute_dtype="float32"))
     # widths that are not multiples of 32 run zero-padded (kernel_cfg)
