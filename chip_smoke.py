@@ -115,12 +115,12 @@ Phases, each printing one JSON line:
            test_checkpoint_eval.py's 16 / 8, each with exact launches;
   any_width  the wide route with no width ceiling: all five kernels at
            (net_width, net_width_condition) = 512 / 512, 1056 / 288,
-           1000 / 300 (run as 1024 / 320), and at depth 4 2048 / 256 and
-           2048 / 1056, in bf16 and f32: train_level in modes "t" and "mv",
+           1000 / 300 (run as 1024 / 320), and at depth 4 2048 / 1056,
+           in bf16 and f32: train_level in modes "t" and "mv",
            train_level_twopass (bit-equal to train_level), mlp_bwd with
            and without input_grads at R=1024 x S=128 (the backward
            kernels bit-equal over two launches), render_level and mlp_fwd
-           at R=4096, against their plain versions (f32: with f64
+           at R=2048, against their plain versions (f32: with f64
            products), each beside its bound and torch.matmul of the layer
            products, timed with fewer launches (ANY_WIDTH_TIMING); then
            on a 48-px scene ``run train --net-width=2048`` for 10 steps
@@ -128,6 +128,19 @@ Phases, each printing one JSON line:
            --net-width=2048 --compute-dtype=float32`` and ``run train
            --net-width=512 --net-width-condition=512`` for 4 steps each,
            launches exact, each run's peak device memory;
+  heads_features  configs the port once refused or failed:
+           mlp_fwd and mlp_bwd (with and without input_grads) at heads
+           (9, 1), (1, 9), (16, 16), (17, 33) and (3, 64), at 64 / 32 (the
+           narrow route) and 288 / 64 (the wide one); all five kernels at
+           Config() widths at max_deg_point 44, 56, 70 and 100, at
+           frequencies 8 to 60 and at deg_view 32 (exact
+           transcendentals), each on the route fused_level.takes_wide
+           picks; R=1024 x S=128 in bf16 and f32 against their plain
+           versions, each beside its bound and torch.matmul of the layer
+           products, timed with fewer launches (HF_TIMING); then on a
+           48-px scene ``run train`` (4 steps) and ``run eval`` at 16
+           density channels (bf16), max_deg_point 70 (bf16), 96 (f32) and
+           the slice config at 48 (bf16), launches exact;
   mlp_kernel  the MLP kernels against their plain versions: mlp_fwd at
            Config() width, mode "t" features, R=16384 x S=128 in bf16 and
            f32 and R=1024 x S=128 in bf16, and a narrow ragged config with
@@ -254,9 +267,10 @@ and rank 0 of the pair, the tensor phase's ``run train
 quality phase's; under "wide" the W=1024 case of each kernel and the
 wide phase's launches, which the total includes; under "padded" the
 96 / 48 cases of each kernel in bf16 and f32 and the padded_widths phase's
-launches, which the total includes too; under "any_width" its 2048 / 256
-and 2048 / 1056 cases in bf16 and f32 and its runs' launches, in the total
-as well), the card's name and
+launches, which the total includes too; under "any_width" its 2048 / 1056
+cases in bf16 and f32 and its runs' launches, in the total as well; under
+"heads_features" the cases of ``HF_ENTRY_CASES``, each with its route,
+and the phase's launches, in the total too), the card's name and
 power limit, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: non-zero exit and no
 ``ok`` line. Without a CUDA device the script exits 1 at once.
@@ -282,6 +296,7 @@ from nerf_or_nothing_tpu_torch.utils.profiling import (
     level_flops,
     mlp_bwd_flops,
     mlp_fwd_flops,
+    mlp_kernel_bytes,
     train_level_flops,
 )
 from nerf_or_nothing_tpu_torch.utils.parity import PARITY_BANDS as BANDS
@@ -331,20 +346,18 @@ PADDED_ROWS = (("96_48", dict(net_width=96, net_width_condition=48,
                                 net_depth=8), False))
 # (row, config) of the any_width phase: net_width_condition above 256 and
 # equal to net_width, net_width above 1024 with a partial 64-row slab in
-# Wc, both padded by kernel_cfg (to 1024 / 320), W = 2048, and Wc above
-# 1024; the W = 2048 rows at depth 4 (a skip layer at 2) to keep the
-# script inside its time (at depth 8 the phase took 240 s of 1,079 on an
-# H100 80GB HBM3 at 700 W)
+# Wc, both padded by kernel_cfg (to 1024 / 320), and W = 2048 with Wc
+# above 1024, at depth 4 (a skip layer at 2) to keep the script inside
+# its time (at depth 8 the phase took 240 s of 1,079 on an H100 80GB HBM3
+# at 700 W; a 2048 / 256 row went when the heads_features phase came)
 ANY_WIDTHS = (
     ("512_512", dict(net_width=512, net_width_condition=512)),
     ("1056_288", dict(net_width=1056, net_width_condition=288)),
     ("1000_300", dict(net_width=1000, net_width_condition=300)),
-    ("2048_256", dict(net_width=2048, net_width_condition=256, net_depth=4,
-                      skip_layer=2)),
     ("2048_1056", dict(net_width=2048, net_width_condition=1056,
                        net_depth=4, skip_layer=2)),
 )
-ANY_WIDTH_RAYS = 4096  # R of render_level and mlp_fwd in the any_width phase
+ANY_WIDTH_RAYS = 2048  # R of render_level and mlp_fwd in the any_width phase
 # (timed, warm-up) launches of the any_width phase's cases: a W=2048 f32
 # train level is a half second; the plain version was just run once
 ANY_WIDTH_TIMING = {"kernel": (3, 1), "plain": (1, 0)}
@@ -358,6 +371,49 @@ ANY_WIDTH_RUNS = (
      False, False),
 )
 ANY_WIDTH_LR = ("--lr-delay-steps=0", "--lr-final=5e-4")  # lr_init held
+# The heads_features phase: heads of any channel count on the MLP kernels
+# (HF_HEADS at the narrow and wide widths of HF_HEAD_WIDTHS), location
+# features past the narrow routes' shared memory and a large deg_view at
+# Config() widths (HF_FEATURES, exact transcendentals: the polynomial
+# ones give NaN features from degree ~36 in both packages), timed with
+# fewer launches (HF_TIMING); HF_RUNS: (name, flags, steps) of its run
+# train / run eval pairs, each of which the port refused or failed before
+# (the f32 one at max_deg_point 96, past the narrow f32 tiles' 93)
+HF_HEADS = ((9, 1), (1, 9), (16, 16), (17, 33), (3, 64))
+HF_HEAD_WIDTHS = (("64_32", dict(net_width=64, net_width_condition=32)),
+                  ("288_64", dict(net_width=288, net_width_condition=64)))
+HF_FEATURES = (("deg44", dict(max_deg_point=44)),
+               ("deg56", dict(max_deg_point=56)),
+               ("deg70", dict(max_deg_point=70)),
+               ("deg100", dict(max_deg_point=100)),
+               ("deg8_60", dict(min_deg_point=8, max_deg_point=60)),
+               ("deg_view32", dict(deg_view=32)))
+HF_TIMING = {"kernel": (3, 1), "plain": (1, 0)}
+# The heads_features cases the kernels line carries, by kernel
+HF_ENTRY_CASES = {
+    "render_level": [f"features_deg70_{t}_r1024_s128_render_mv"
+                     for t in ("bf16", "f32")],
+    "train_level": [f"features_deg70_{t}_r1024_s128_t" for t in ("bf16",
+                                                                  "f32")],
+    "train_level_twopass": [f"features_deg70_{t}_r1024_s128_t_twopass"
+                            for t in ("bf16", "f32")],
+    "mlp_fwd": [f"{c}_{t}_r1024_s128_fwd" for c in ("heads_17_33_64_32",
+                                                    "heads_17_33_288_64",
+                                                    "features_deg70")
+                for t in ("bf16", "f32")],
+    "mlp_bwd": [f"{c}_{t}_r1024_s128_bwd_dx" for c in ("heads_17_33_64_32",
+                                                       "heads_17_33_288_64",
+                                                       "features_deg70")
+                for t in ("bf16", "f32")],
+}
+HF_RUNS = (
+    ("density16_bf16", ("--num-density-channels=16",), 4),
+    ("deg70_bf16", ("--max-deg-point=70", "--fast-ipe=false"), 4),
+    ("deg96_f32", ("--max-deg-point=96", "--fast-ipe=false",
+                   "--compute-dtype=float32"), 4),
+    ("slice_deg48_bf16", (*FULL_GRAD_ARGS, "--max-deg-point=48",
+                          "--fast-ipe=false"), 4),
+)
 INTEGRATION_STEPS = 600  # tests/test_integration.py's run
 SMALL_STEPS = 10  # run train at test_checkpoint_eval.py's small_cfg
 GRAPH_K = 8  # steps a multi-step call in the graph phase
@@ -538,21 +594,13 @@ def mlp_bound_ms(cfg, R: int, S: int, flops: int, in_bytes: int,
     return ms, by, flops, in_bytes + out_bytes
 
 
-def mlp_bytes(cfg, R: int, S: int):
-    """Bytes of the MLP kernels' inputs x, d, weights and biases."""
-    from nerf_or_nothing_tpu_torch.models.mlp import layer_dims
-
-    esize = 2 if cfg.compute_dtype == "bfloat16" else 4
-    dims = layer_dims(cfg)
-    return (R * S * cfg.location_features * esize
-            + R * cfg.direction_features * esize
-            + sum(i * o for i, o in dims) * esize + sum(o for _, o in dims) * 4)
-
-
-def mlp_case_inputs(cfg, R: int, seed: int, device):
+def mlp_case_inputs(cfg, R: int, seed: int, device, guard: bool = False):
     """Features, directions and, for the backward, the head cotangents the
     train level would give: the composite backward of the plain forward
-    (pixels and g_scale of ``train_inputs``, white background)."""
+    (pixels and g_scale of ``train_inputs``, white background); with other
+    heads than 3 / 1, cotangents of that size (1e-3 of a normal draw);
+    with ``guard`` zero on the rows of ``parity.near_zero_rows`` (f32: a
+    ReLU mask two f32 computations may take on opposite sides of zero)."""
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
@@ -569,15 +617,26 @@ def mlp_case_inputs(cfg, R: int, seed: int, device):
         g_rgb, g_den = fl._composite_backward(
             cfg, raw_rgb, raw_den[:, 0], delta, pixels, g_scale, True)[3:]
         g_den = g_den[:, None].contiguous()
+    else:
+        g = torch.Generator().manual_seed(seed + 2)
+        g_rgb, g_den = (
+            (torch.randn(R * S, c, generator=g) * 1e-3).to(device)
+            for c in (cfg.num_rgb_channels, cfg.num_density_channels))
+    if guard:
+        from nerf_or_nothing_tpu_torch.utils.parity import near_zero_rows
+
+        keep = ~near_zero_rows(params, cfg, x, d)[:, None]
+        g_rgb, g_den = g_rgb * keep, g_den * keep
     return params, x, d, g_rgb, g_den
 
 
-def reference(cfg, plain, out_p):
-    """The outputs a kernel case is held to: the plain version's
-    (``out_p``), or for f32 on the wide route (``parity.f64_reference``)
-    the plain version's with f64 layer products: two f32 computations of a
-    wide MLP can take one ReLU mask on opposite sides of zero and then
-    differ by about a band in a column sum, whichever is nearer exact."""
+def reference(cfg, plain, out_p, kernel, S, input_grads=False):
+    """The outputs a kernel case (a launch of ``kernel`` at ``S`` samples a
+    ray) is held to: the plain version's (``out_p``), or for f32 on the
+    wide route (``parity.f64_reference``) the plain version's with f64
+    layer products: two f32 computations of a wide MLP can take one ReLU
+    mask on opposite sides of zero and then differ by about a band in a
+    column sum, whichever is nearer exact."""
     import torch
 
     from nerf_or_nothing_tpu_torch.utils.parity import (
@@ -585,7 +644,7 @@ def reference(cfg, plain, out_p):
         f64_reference,
     )
 
-    if not f64_reference(cfg):
+    if not f64_reference(cfg, kernel, S, input_grads):
         return out_p
     with f64_products():
         out = plain()
@@ -652,14 +711,13 @@ def mlp_fwd_case(name, cfg, R, peaks, device, seed=0, phase="mlp_kernel",
     torch.cuda.synchronize()
     out_p = plain()
     torch.cuda.synchronize()
-    out_r = reference(cfg, plain, out_p)
+    out_r = reference(cfg, plain, out_p, "mlp_fwd", S)
     errs, max_abs = check_pairs(name, pairs(out_k, out_r), cfg.compute_dtype)
     ms = median_ms(kernel, *timing["kernel"])
     plain_ms = median_ms(plain, *timing["plain"])
-    out_bytes = R * S * (cfg.num_rgb_channels + cfg.num_density_channels) * 4
+    in_bytes, out_bytes = mlp_kernel_bytes(cfg, R, S)
     b_ms, b_by, flops, nbytes = mlp_bound_ms(
-        cfg, R, S, mlp_fwd_flops(cfg, R, S), mlp_bytes(cfg, R, S), out_bytes,
-        peaks)
+        cfg, R, S, mlp_fwd_flops(cfg, R, S), in_bytes, out_bytes, peaks)
     res = {
         "phase": phase, "kernel": "mlp_fwd", "case": name,
         "dtype": cfg.compute_dtype, "net_width": cfg.net_width, "R": R,
@@ -678,14 +736,15 @@ def mlp_fwd_case(name, cfg, R, peaks, device, seed=0, phase="mlp_kernel",
 
 
 def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
-                 bit_check=False, phase="mlp_kernel", timing=TIMING):
+                 bit_check=False, phase="mlp_kernel", timing=TIMING,
+                 guard=False):
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
-    from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype, num_params
+    from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype
 
     S = cfg.num_samples
-    params, x, d, g_rgb, g_den = mlp_case_inputs(cfg, R, seed, device)
+    params, x, d, g_rgb, g_den = mlp_case_inputs(cfg, R, seed, device, guard)
     packed = fm.pack_mlp_params(params, cfg, compute_dtype(cfg))
 
     def kernel():
@@ -708,7 +767,7 @@ def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
     torch.cuda.synchronize()
     out_p = plain()
     torch.cuda.synchronize()
-    out_r = reference(cfg, plain, out_p)
+    out_r = reference(cfg, plain, out_p, "mlp_bwd", S, input_grads)
     errs, max_abs = check_pairs(name, pairs(out_k, out_r), cfg.compute_dtype)
     bit_equal = None
     if bit_check:
@@ -719,12 +778,7 @@ def mlp_bwd_case(name, cfg, R, input_grads, peaks, device, seed=0,
                         for a, b in zip(flat(out_k), flat(again)))
     ms = median_ms(kernel, *timing["kernel"])
     plain_ms = median_ms(plain, *timing["plain"])
-    esize = 2 if cfg.compute_dtype == "bfloat16" else 4
-    in_bytes = mlp_bytes(cfg, R, S) + R * S * 4 * (
-        cfg.num_rgb_channels + cfg.num_density_channels)
-    out_bytes = num_params(cfg) * 4 + (
-        R * S * cfg.location_features * esize
-        + R * cfg.direction_features * 4 if input_grads else 0)
+    in_bytes, out_bytes = mlp_kernel_bytes(cfg, R, S, True, input_grads)
     b_ms, b_by, flops, nbytes = mlp_bound_ms(
         cfg, R, S, mlp_bwd_flops(cfg, R, S, input_grads), in_bytes, out_bytes,
         peaks)
@@ -792,7 +846,7 @@ def kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
     torch.cuda.synchronize()
     out_p = plain()
     torch.cuda.synchronize()
-    out_r = reference(cfg, plain, out_p)
+    out_r = reference(cfg, plain, out_p, "render_level", cfg.num_samples)
     atol, rtol = BANDS[cfg.compute_dtype]
     errs, max_abs = check_pairs(name, pairs(out_k, out_r), cfg.compute_dtype)
     ms = median_ms(kernel, *timing["kernel"])
@@ -1006,7 +1060,7 @@ def train_kernel_case(name, cfg, R, mode, white_bkgd, peaks, device, seed=0,
     torch.cuda.synchronize()
     out_p = plain()
     torch.cuda.synchronize()
-    out_r = reference(cfg, plain, out_p)
+    out_r = reference(cfg, plain, out_p, kname, cfg.num_samples)
     atol, rtol = BANDS[cfg.compute_dtype]
     errs, max_abs = check_pairs(name, level_pairs(out_k, out_r),
                                 cfg.compute_dtype)
@@ -1081,11 +1135,14 @@ def check_launches(what, got, expected):
 def render_launches(cfg, dims):
     """Kernel launches of ``render_image`` over images of ``dims``: each
     level one launch per ``render_chunk_size`` rays (the render level, or
-    the MLP forward off the fused level)."""
+    the MLP forward off the fused render: ``uses_fused_render``)."""
+    from nerf_or_nothing_tpu_torch.models.mipnerf import uses_fused_render
+
     n = cfg.num_levels * sum(math.ceil(h * w / cfg.render_chunk_size)
                              for h, w in dims)
     out = dict.fromkeys(KERNELS, 0)
-    out["render_level" if cfg.fuse_level else "mlp_fwd"] = n
+    out["render_level" if uses_fused_render(cfg, inference=True)
+        else "mlp_fwd"] = n
     return out
 
 
@@ -2368,6 +2425,156 @@ def any_width_phase(peaks, device, work: str):
     kernels_s = time.perf_counter() - t0
     launches = any_width_paths(device, work)
     emit({"phase": "any_width", "kernels_s": kernels_s,
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return cases, launches
+
+
+def heads_features_kernels(peaks, device) -> dict:
+    """The configs the port refused before it took heads of any channel
+    count and features of any count, each case against its plain version
+    (f32 on the wide route: with f64 products) and timed with
+    ``HF_TIMING`` beside its bound and ``matmul_ms``: ``mlp_fwd`` and
+    ``mlp_bwd`` (with and without input_grads, bit-equal over two
+    launches) at every head pair of ``HF_HEADS`` and both widths of
+    ``HF_HEAD_WIDTHS``; all five kernels at Config() widths at each
+    feature config of ``HF_FEATURES`` (``train_level`` in modes "t" and
+    "mv", the two-pass kernel bit-equal to it, ``render_level`` mode "mv",
+    the MLP kernels), R=1024 x S=128, in bf16 and f32; each with the route
+    it took (``fused_level.takes_wide``); f32's ``mlp_bwd`` cases give no
+    cotangent to the rows of ``parity.near_zero_rows`` (their random
+    cotangents on every row would carry a ReLU mask that two f32
+    computations take on opposite sides of zero past the band). Returns
+    the cases by name."""
+    from nerf_or_nothing_tpu_torch.config import Config
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+
+    out = {}
+    ph = dict(phase="heads_features", timing=HF_TIMING)
+    clock = [time.perf_counter()]
+
+    def record(res, cfg, kernel, ms, input_grads=False):
+        assert res["case"] not in out, res["case"]
+        res["matmul_ms"] = ms
+        res["route"] = ("wide" if fl.takes_wide(cfg, kernel, cfg.num_samples,
+                                                input_grads) else "narrow")
+        now = time.perf_counter()
+        emit({"phase": "heads_features", "case": res["case"],
+              "kernel": kernel, "route": res["route"], "matmul_ms": ms,
+              "case_s": now - clock[0]})
+        clock[0] = now
+        out[res["case"]] = res
+
+    for dtype in ("bfloat16", "float32"):
+        short = "bf16" if dtype == "bfloat16" else "f32"
+        guard = dict(guard=dtype == "float32")
+        for row, kw in HF_HEAD_WIDTHS:
+            for cr, cd in HF_HEADS:
+                cfg = Config(compute_dtype=dtype, num_rgb_channels=cr,
+                             num_density_channels=cd, **kw)
+                mm = matmul_ms(cfg, 1024, device, HF_TIMING)
+                tag = f"heads_{cr}_{cd}_{row}_{short}_r1024_s128"
+                record(mlp_fwd_case(f"{tag}_fwd", cfg, 1024, peaks, device,
+                                    seed=91, **ph), cfg, "mlp_fwd", mm)
+                for ig in (True, False):
+                    record(mlp_bwd_case(f"{tag}_bwd{'_dx' if ig else ''}", cfg,
+                                        1024, ig, peaks, device, seed=92,
+                                        bit_check=True, **ph, **guard),
+                           cfg, "mlp_bwd", mm, ig)
+        for row, kw in HF_FEATURES:
+            cfg = Config(compute_dtype=dtype, fast_ipe=False, **kw)
+            mm = matmul_ms(cfg, 1024, device, HF_TIMING)
+            tag = f"features_{row}_{short}_r1024_s128"
+            record(train_kernel_case(f"{tag}_t", cfg, 1024, "t", True, peaks,
+                                     device, seed=93, bit_check=True, **ph),
+                   cfg, "train_level", mm)
+            record(train_kernel_case(f"{tag}_mv", cfg.replace(fuse_ipe=True),
+                                     1024, "mv", True, peaks, device, seed=94,
+                                     bit_check=True, **ph),
+                   cfg, "train_level", mm)
+            two = train_kernel_case(f"{tag}_t_twopass", cfg, 1024, "t", True,
+                                    peaks, device, seed=95, bit_check=True,
+                                    twopass=True, **ph)
+            # the same launches, so the same bits, in bf16 and on the
+            # wide route (narrow f32 sums its db in another order)
+            same = (dtype == "bfloat16"
+                    or fl.takes_wide(cfg, "train_level", cfg.num_samples))
+            if same and not two["equal_to_train_level"]:
+                raise AssertionError(f"heads_features: {tag} "
+                                     "train_level_twopass differs from "
+                                     "train_level")
+            record(two, cfg, "train_level_twopass", mm)
+            record(kernel_case(f"{tag}_render_mv", cfg, 1024, "mv", True,
+                               peaks, device, seed=96, **ph),
+                   cfg, "render_level", mm)
+            record(mlp_fwd_case(f"{tag}_fwd", cfg, 1024, peaks, device,
+                                seed=97, **ph), cfg, "mlp_fwd", mm)
+            for ig in (True, False):
+                record(mlp_bwd_case(f"{tag}_bwd{'_dx' if ig else ''}", cfg, 1024,
+                                    ig, peaks, device, seed=98,
+                                    bit_check=True, **ph, **guard),
+                       cfg, "mlp_bwd", mm, ig)
+        release_memory()
+    return out
+
+
+def heads_features_paths(device, work: str) -> dict:
+    """``run train`` then ``run eval`` of each of ``HF_RUNS`` on a 48-px
+    synthetic scene (2 train views, 1 test view): every logged loss
+    finite, exact launch counts (the MLP kernels for the heads of 16
+    density channels and the slice config; ``train_level`` and
+    ``render_level`` otherwise), the eval's test view rendered. Returns the
+    launches."""
+    import csv
+
+    from nerf_or_nothing_tpu_torch import run
+    from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
+
+    t0 = time.perf_counter()
+    scene = write_scene(os.path.join(work, "heads_features_scene"), n_train=2,
+                        n_test=1, size=48)
+    launches = dict.fromkeys(KERNELS, 0)
+    dev = [f"--device={device.type}"]
+    for name, flags, steps in HF_RUNS:
+        args = [f"--data-dir={scene}", *flags, *ANY_WIDTH_LR]
+        cfg = run.parse_flags(args)
+        ckpt = os.path.join(work, f"hf_{name}_ckpt")
+        train_s = run_main(
+            f"heads_features: {name} run train",
+            ["train", *args, f"--checkpoint-dir={ckpt}",
+             f"--max-steps={steps}", "--print-every=1",
+             f"--save-every={steps}", "--test-render-interval=0", *dev],
+            step_launches(cfg, steps))
+        launches = added(launches, step_launches(cfg, steps))
+        with open(os.path.join(ckpt, "train_stats.csv")) as f:
+            losses = [float(r["loss"]) for r in csv.DictReader(f)]
+        dims = test_dims(scene, cfg, 1)
+        eval_s = run_main(
+            f"heads_features: {name} run eval",
+            ["eval", *args, f"--checkpoint-dir={ckpt}", "--max-images=1",
+             *dev], render_launches(cfg, dims))
+        launches = added(launches, render_launches(cfg, dims))
+        ok = len(losses) == steps and all(math.isfinite(v) for v in losses)
+        emit({"phase": "heads_features", "check": f"{name}_path",
+              "flags": list(flags), "steps": steps, "train_s": train_s,
+              "eval_s": eval_s, "eval_images": dims, "logged_losses": losses,
+              "finite": ok})
+        if not ok:
+            raise AssertionError(f"heads_features: {name} run train: "
+                                 f"losses {losses}")
+        release_memory()
+    emit({"phase": "heads_features", "check": "paths",
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
+def heads_features_phase(peaks, device, work: str):
+    """``heads_features_kernels`` and ``heads_features_paths``, timed.
+    Returns the kernel cases and the paths' launches."""
+    t0 = time.perf_counter()
+    cases = heads_features_kernels(peaks, device)
+    kernels_s = time.perf_counter() - t0
+    launches = heads_features_paths(device, work)
+    emit({"phase": "heads_features", "kernels_s": kernels_s,
           "seconds": time.perf_counter() - t0, "launches": launches})
     return cases, launches
 
@@ -3718,6 +3925,7 @@ def main() -> int:
     wide_f32_cases, wide_f32_launches = wide_f32_phase(peaks, device, work)
     padded_cases, padded_launches = padded_phase(peaks, device, work)
     any_cases, any_launches = any_width_phase(peaks, device, work)
+    hf_cases, hf_launches = heads_features_phase(peaks, device, work)
 
     mlp_fwd_main = mlp_fwd_case("config_r16384_s128", base, 16384, peaks,
                                 device)
@@ -3784,7 +3992,8 @@ def main() -> int:
             "source": f"nerf_or_nothing_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
             "launches": (n + mesh_launches[name] + padded_launches[name]
-                         + wide_f32_launches[name] + any_launches[name]),
+                         + wide_f32_launches[name] + any_launches[name]
+                         + hf_launches[name]),
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
@@ -3806,8 +4015,13 @@ def main() -> int:
                                for k in ("case", "max_abs_err", "ms",
                                          "plain_ms", "bound_ms", "bound_by",
                                          "matmul_ms")}
-            for row in ("2048_256", "2048_1056")
+            for row in ("2048_1056",)
             for dtype in ("bfloat16", "float32")}}
+        out["heads_features"] = {"launches": hf_launches[name], **{
+            case: {k: hf_cases[case][k] for k in (
+                "case", "route", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "matmul_ms")}
+            for case in HF_ENTRY_CASES[name]}}
         out["padded"] = {"launches": padded_launches[name], **{
             dtype: {k: padded_cases[(name, dtype)][k] for k in (
                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",

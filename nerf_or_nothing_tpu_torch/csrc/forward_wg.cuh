@@ -23,7 +23,8 @@
 //    start from the bias (and the first view layer's direction term of the
 //    row's ray), so the epilogue is one relu-and-round instruction per two
 //    values, written back in place behind a barrier of the warpgroup only.
-//    The heads are N=8 products (columns zero-padded);
+//    The heads are N=8 products, one for each group of 8 channels (the
+//    last group's columns zero-padded);
 //  - warps 9-11: the helpers. For each round they write both feature tiles
 //    (the IPE with level_common.cuh's explicitly rounded polynomials, or
 //    the features of mode "t") as soon as the consumers' last products
@@ -44,8 +45,9 @@
 // accumulator layout (what the g-chain's epilogue reads), and writes the
 // raw heads as [N, 4] rows. forward_wg<false, true, false> is mlp_bwd.cu's
 // recomputed forward: the same stores without the heads, which its
-// backward does not read (heads of up to 8 channels each would not fit
-// [N, 4]).
+// backward does not read (heads of any width would not fit [N, 4]); its
+// producer streams the first group of 8 channels of each head, which its
+// consumers multiply and discard.
 
 #pragma once
 
@@ -62,6 +64,10 @@ constexpr int kTileSlab = 8192;  // bytes of one 64-row slab of a tile
 constexpr int kHeadN = 8;
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Rows of a head of c channels in the slab streams (fused_level._wg_head):
+// whole groups of kHeadN, each group its own slabs.
+__host__ __device__ inline int head_cols(int c) { return cdiv(c, kHeadN) * kHeadN; }
 
 // Phase clocks for profile_forward.py, compiled in only with
 // FORWARD_WG_PHASES: consumer threads 0 and 128 and the first helper add
@@ -154,8 +160,8 @@ inline bool init_wg(WgParams& q, bool composite) {
   long long trunk = 0;
   for (int i = 0; i < p.D; ++i)
     trunk += (i == 0 ? 0 : q.nh) + ((i == 0 || i % p.skip == 0) ? q.nx : 0);
-  q.w_dir = (trunk * p.W + q.nh * kHeadN + (long long)q.nh * p.Wc +
-             (long long)(p.Dc - 1) * q.nc * p.Wc + q.nc * kHeadN) * 64;
+  q.w_dir = (trunk * p.W + (long long)q.nh * head_cols(p.Cd) + (long long)q.nh * p.Wc +
+             (long long)(p.Dc - 1) * q.nc * p.Wc + (long long)q.nc * head_cols(p.Cr)) * 64;
   for (int stages = 4; stages >= 2; --stages) {
     int off = stages * q.slot;
     q.off_h = off;  off += 2 * q.h_bytes;
@@ -864,8 +870,16 @@ __device__ __forceinline__ void composite_span(const Params& p, const float* out
   }
 }
 
+// How the producer streams the heads' slabs: the one group of 8 channels of
+// the level kernels' heads (kLevelHeads), every group (kAllGroups: mlp_fwd,
+// which writes every channel), or the first group of each head and not the
+// others (kFirstGroup: mlp_bwd's recomputed forward, which multiplies the
+// first group and discards it).
+enum { kLevelHeads = 0, kAllGroups = 1, kFirstGroup = 2 };
+
 // The producer: every slab of the stream, once per round of every unit of
-// this block, in the consumers' order.
+// this block, in the consumers' order (the heads' as kGroups says).
+template <int kGroups>
 __device__ __forceinline__ void produce(const WgParams& q, uint32_t slots, uint32_t full, uint32_t empty) {
   const Params& p = q.p;
   const unsigned char* w = static_cast<const unsigned char*>(p.w);
@@ -886,13 +900,23 @@ __device__ __forceinline__ void produce(const WgParams& q, uint32_t slots, uint3
           wrapped = wrapped || stage == 0;
         }
       };
+      // a head's slabs on k-slabs of its input: every group, or the first
+      auto put_head = [&](int nk, int c) {
+        if constexpr (kGroups == kAllGroups) {
+          put(nk * cdiv(c, kHeadN), kHeadN * kSlabBytes);
+        } else {
+          put(nk, kHeadN * kSlabBytes);
+          if constexpr (kGroups == kFirstGroup)
+            off += (long long)(cdiv(c, kHeadN) - 1) * nk * kHeadN * kSlabBytes;
+        }
+      };
       for (int i = 0; i < p.D; ++i)
         put((i == 0 ? 0 : q.nh) + ((i == 0 || i % p.skip == 0) ? q.nx : 0),
             p.W * kSlabBytes);
-      put(q.nh, kHeadN * kSlabBytes);
+      put_head(q.nh, p.Cd);
       put(q.nh, p.Wc * kSlabBytes);
       for (int j = 1; j < p.Dc; ++j) put(q.nc, p.Wc * kSlabBytes);
-      put(q.nc, kHeadN * kSlabBytes);
+      put_head(q.nc, p.Cr);
     }
   }
 }
@@ -1014,7 +1038,10 @@ __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* sme
 
   if (threadIdx.x >= 256) {  // producer warpgroup: the producer and the helpers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
-    if (threadIdx.x == 256) produce(q, slots, full, empty);
+    if (threadIdx.x == 256)
+      produce<kRender || (kStore && kHeads) ? kLevelHeads
+              : kStore                      ? kFirstGroup
+                                            : kAllGroups>(q, slots, full, empty);
     if (threadIdx.x >= kHelperBase) help<kRender, kStore>(q, X0, OUT, DC);
     return;
   }
@@ -1076,11 +1103,20 @@ __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* sme
         }
       });
       WG_CLOCK(t_den);
-      zero_acc<kHeadN>(acc);
-      if constexpr (kStore)
-        layer_gemm_then<kHeadN>(ring, hs, q.nh, 0, 0, acc, [&] { copy_out(p.D - 1, p.W); });
-      else
-        layer_gemm<kHeadN>(ring, hs, q.nh, 0, 0, acc);
+      if constexpr (!kRender && !kStore) {  // mlp_fwd: every group of 8 channels
+        for (int c0 = 0; c0 < p.Cd; c0 += kHeadN) {
+          zero_acc<kHeadN>(acc);
+          layer_gemm<kHeadN>(ring, hs, q.nh, 0, 0, acc);
+          head_out(acc, b + p.b_den + c0, min(kHeadN, p.Cd - c0), q.raw_den + grow0 * p.Cd + c0,
+                   p.Cd, nvalid);
+        }
+      } else {
+        zero_acc<kHeadN>(acc);
+        if constexpr (kStore)
+          layer_gemm_then<kHeadN>(ring, hs, q.nh, 0, 0, acc, [&] { copy_out(p.D - 1, p.W); });
+        else
+          layer_gemm<kHeadN>(ring, hs, q.nh, 0, 0, acc);
+      }
       WG_PHASE(2, t_den);
       if constexpr (kStore) {
         if constexpr (kHeads) head_out(acc, b + p.b_den, p.Cd, q.heads + grow0 * 4 + 3, 4, nvalid);
@@ -1089,8 +1125,6 @@ __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* sme
         if (k >= 2) bar_sync(kBarOutEmpty + (k & 1), kOutSync);
         WG_PHASE(6, t_empty);
         head_out(acc, b + p.b_den, p.Cd, out + 3, 4, nvalid);
-      } else {
-        head_out(acc, b + p.b_den, p.Cd, q.raw_den + grow0 * p.Cd, p.Cd, nvalid);
       }
       // the direction term of each row's ray (rows past the unit clamp)
       const float* dc0 = DCu + min((sub0 + row0) / p.S, q.RB - 1) * p.Wc;
@@ -1118,20 +1152,27 @@ __device__ __forceinline__ void forward_wg(const WgParams& q, unsigned char* sme
         }
       });
       WG_CLOCK(t_rgb);
-      zero_acc<kHeadN>(acc);
-      if constexpr (kStore)
-        layer_gemm_then<kHeadN>(ring, hs, q.nc, 0, 0, acc,
-                                [&] { copy_out(p.D + p.Dc - 1, p.Wc); });
-      else
-        layer_gemm<kHeadN>(ring, hs, q.nc, 0, 0, acc);
+      if constexpr (!kRender && !kStore) {
+        for (int c0 = 0; c0 < p.Cr; c0 += kHeadN) {
+          zero_acc<kHeadN>(acc);
+          layer_gemm<kHeadN>(ring, hs, q.nc, 0, 0, acc);
+          head_out(acc, b + p.b_rgb + c0, min(kHeadN, p.Cr - c0), q.raw_rgb + grow0 * p.Cr + c0,
+                   p.Cr, nvalid);
+        }
+      } else {
+        zero_acc<kHeadN>(acc);
+        if constexpr (kStore)
+          layer_gemm_then<kHeadN>(ring, hs, q.nc, 0, 0, acc,
+                                  [&] { copy_out(p.D + p.Dc - 1, p.Wc); });
+        else
+          layer_gemm<kHeadN>(ring, hs, q.nc, 0, 0, acc);
+      }
       WG_PHASE(2, t_rgb);
       if constexpr (kStore) {
         if constexpr (kHeads) head_out(acc, b + p.b_rgb, p.Cr, q.heads + grow0 * 4, 4, nvalid);
       } else if (kRender) {
         head_out(acc, b + p.b_rgb, p.Cr, out, 4, nvalid);
         bar_arrive(kBarOutFull + (k & 1), kOutSync);
-      } else {
-        head_out(acc, b + p.b_rgb, p.Cr, q.raw_rgb + grow0 * p.Cr, p.Cr, nvalid);
       }
     }
   }

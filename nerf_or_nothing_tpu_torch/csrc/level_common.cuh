@@ -187,6 +187,26 @@ __device__ Smem<T> carve(unsigned char* base, const Params& p, int S) {
   return s;
 }
 
+// The IPE of coordinate g (row * 3 + axis) at frequency i: the damped
+// sine and cosine, columns 6i + axis and 6i + axis + 3 of the row.
+__device__ __forceinline__ void ipe_item(const Params& p, long long g, int i, float* fs,
+                                         float* fc) {
+  const float scale = ldexpf(1.0f, p.min_deg + i);
+  const float y = __fmul_rn(p.means[g], scale);
+  const float v = __fmul_rn(__fmul_rn(p.vars[g], 0.5f), __fmul_rn(scale, scale));
+  float s, c, damp;
+  if (p.fast) {
+    fast_sincos(y, &s, &c);
+    damp = fast_exp_neg(v);
+  } else {
+    s = sinf(y);
+    c = cosf(y);
+    damp = expf(-v);
+  }
+  *fs = __fmul_rn(damp, s);
+  *fc = __fmul_rn(damp, c);
+}
+
 // ---- IPE / feature load into X for rows [grow0, grow0 + nvalid) ----
 template <class T>
 __device__ void load_features(const Params& p, const Smem<T>& sm, long long grow0,
@@ -200,23 +220,7 @@ __device__ void load_features(const Params& p, const Smem<T>& sm, long long grow
       const int i = rem / 3;
       const int a = rem - i * 3;
       float fs = 0.0f, fc = 0.0f;
-      if (row < nvalid) {
-        const long long g = (grow0 + row) * 3 + a;
-        const float scale = ldexpf(1.0f, p.min_deg + i);
-        const float y = __fmul_rn(p.means[g], scale);
-        const float v = __fmul_rn(__fmul_rn(p.vars[g], 0.5f), __fmul_rn(scale, scale));
-        float s, c, damp;
-        if (p.fast) {
-          fast_sincos(y, &s, &c);
-          damp = fast_exp_neg(v);
-        } else {
-          s = sinf(y);
-          c = cosf(y);
-          damp = expf(-v);
-        }
-        fs = __fmul_rn(damp, s);
-        fc = __fmul_rn(damp, c);
-      }
+      if (row < nvalid) ipe_item(p, (grow0 + row) * 3 + a, i, &fs, &fc);
       T* xr = sm.X + row * p.ldx + 6 * i + a;
       xr[0] = from_f<T>(fs);
       xr[3] = from_f<T>(fc);
@@ -590,11 +594,16 @@ __device__ void composite(const Params& p, const Smem<T>& sm, int ray0, int nr) 
   }
 }
 
+// The dtype argument of the entry points: 0 = float32, 1 = bfloat16, plus
+// kWideRoute for the wide route below kWideMinW (fused_level.route_code:
+// where the narrow kernels' shared memory does not hold the config).
+constexpr int kWideRoute = 2;
+
 // The kernel parameters of one level (weight offsets of pack_params'
 // layout, row strides of the shared-memory tiles); false for widths the
 // kernels do not take: W, Wc multiples of 32 up to 256 (with wide, any
-// W: every kernel's wide route above 256, in bf16 and f32), Wc <= W, KX a
-// multiple of 16 >= LX, LX = 6F in mode "mv", heads of 1-8 channels.
+// W: every kernel's wide route), Wc <= W, KX a multiple of 16 >= LX,
+// LX = 6F in mode "mv", heads of at least 1 channel.
 // dtype: 0 = float32, 1 = bfloat16; mode: 0 = "mv" (IPE in the kernel),
 // 1 = "t" (features).
 inline bool init_params(Params& p, int dtype, int mode, const float* means,
@@ -606,7 +615,7 @@ inline bool init_params(Params& p, int dtype, int mode, const float* means,
   if (W % 32 || Wc % 32 || (!wide && W > 256) || Wc > W || KX % 16 ||
       KX < LX ||
       D < 1 || Dc < 1 || skip < 1 || S < 1 || (mode == 0 && 6 * (LX / 6) != LX) ||
-      Cr < 1 || Cr > 8 || Cd < 1 || Cd > 8)
+      Cr < 1 || Cd < 1)
     return false;
   p.means = means; p.vars = vars; p.x = x; p.d = d; p.delta = delta;
   p.w = w; p.b = b; p.comp = nullptr; p.acc = nullptr; p.weights = nullptr;

@@ -21,7 +21,7 @@
 //     131,072 rows; sized for the rows of this call), not the raw heads,
 //     which the backward does not read;
 //  2. chain_wg_kernel<kCr, kCd, kDx>: the warp-specialised wgmma g-chain
-//     from the f32 head cotangents (heads of 1-8 channels each; 3 rgb / 1
+//     from the f32 head cotangents (heads of any width; 3 rgb / 1
 //     density is its own instantiation) on the "wgx" stream
 //     (fused_level.pack_params_wgx: the train level's chain slabs with
 //     W_x^T of layer 0 and the skip layers among them); per-block db
@@ -40,7 +40,7 @@
 // bf16 at net_width 288 and above (wide_train.cuh): the forward recomputed by
 // wide_forward.cuh (a wgmma GEMM launch per layer, every activation and the
 // features kept in the workspace, no heads), then wide_train.cuh's passes
-// from the head cotangents (heads of 1-8 channels each): the g-chain GEMMs
+// from the head cotangents (heads of any width): the g-chain GEMMs
 // on the "wgx" stream, g_ray_kernel, db partials, the dW GEMMs, the small
 // products and reduction; with input_grads, launch_wide_dx (a GEMM per x
 // layer into dX, deepest first) and mlp_dd_kernel. f32 at net_width
@@ -61,8 +61,6 @@
 #include "wide_train.cuh"
 
 namespace {
-
-constexpr int kMaxHeads = 16;  // rgb + density channels the workspace's dbpart holds
 
 // f32 pass 1: the forward of the block's rays, storing the activations.
 template <class T>
@@ -269,20 +267,20 @@ inline long long partial_stride(long long n_out) { return n_out + (n_out & 1); }
 extern "C" {
 
 // Bytes of workspace mlp_bwd_launch needs for these shapes (bf16: with
-// the mask bits; at net_width 288 and above, both dtypes, the direction
-// terms;
-// and the db partials of heads of up to 8 + 8 channels).
+// the mask bits; on the wide route, both dtypes, the direction terms; and
+// the db partials of the Cg = Cr + Cd head channels).
 long long mlp_bwd_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc, int KX,
-                            int splits, long long n_out) {
+                            int splits, long long n_out, int Cg) {
+  const bool wide = wide_route(dtype, W);
   const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits,
                           partial_stride(n_out), false);
-  if (W >= kWideMinW)
-    return wide_train_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads, false).total;
-  if (dtype == 1) return wg_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads, false).total;
+  if (wide) return wide_train_layout(l.total, R, S, D, W, Wc, Dc, Cg, false).total;
+  if (dtype == 1) return wg_layout(l.total, R, S, D, W, Wc, Dc, Cg, false).total;
   return l.total;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. x: [R * S, LX] and d: [R, Fd] in the
+// dtype: 0 = float32, 1 = bfloat16, plus kWideRoute for the wide route
+// below 288 (level_common.cuh). x: [R * S, LX] and d: [R, Fd] in the
 // compute type; g_rgb [R * S, Cr] and g_den [R * S, Cd] f32 (W: multiples
 // of 32 up to 256, or from 288 up, the wide route, in both dtypes); bf16: w the
 // "wg" forward slab stream (fused_level.pack_params_wg), wt the "wgx"
@@ -299,6 +297,7 @@ int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
                    int LX, int KX, int Fd, int Cr, int Cd, int splits, int input_grads,
                    void* stream) {
   if (R <= 0) return cudaSuccess;
+  const bool wide = wide_route(dtype, W);
   Params p;
   if (!init_params(p, dtype, 1, nullptr, nullptr, x, d, nullptr, w, b, R, S, D, W, skip, Wc,
                    Dc, LX, KX, Fd, 0, 0, 0.0f, 0.0f, 0, Cr, Cd, true) ||
@@ -315,14 +314,14 @@ int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
                              const_cast<float*>(g_den), input_grads ? dx : nullptr,
                              input_grads ? dd : nullptr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (W >= kWideMinW) {
-    const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads, false);
+  if (wide) {
+    const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc, Cr + Cd, false);
     return (int)(dtype == 1
                      ? launch_mlp_bwd_wide(p, e, l, x, ws, grads, n_out, splits, st)
                      : launch_mlp_bwd_wide_f32(p, e, l, x, ws, grads, n_out, splits, st));
   }
   if (dtype == 1)
-    return (int)launch_mlp_bwd_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc, kMaxHeads,
+    return (int)launch_mlp_bwd_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc, Cr + Cd,
                                                      false),
                                   ws, grads, n_out, splits, st);
   return (int)launch_mlp_bwd_f32(p, e, l, ws, grads, n_out, splits, st);

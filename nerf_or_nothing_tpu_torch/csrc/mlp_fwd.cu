@@ -18,7 +18,8 @@
 // slab with wgmma from shared memory (weights read from L2 once per 128
 // rows; the earlier mma.sync version read them per 64 rows), sums started
 // from the bias, one-instruction epilogues in place behind a warpgroup
-// barrier, the heads (1-8 channels each) as N=8 wgmma products written
+// barrier, the heads (any width) as N=8 wgmma products, one a group of 8
+// channels, written
 // straight to raw_rgb / raw_den. Helper warps load the next round's
 // features and each unit's direction term d @ W_dir while the consumers
 // multiply.
@@ -28,7 +29,7 @@
 // a workspace the wrapper allocates (mlp_fwd_wide_workspace: ~1.1 GB at
 // W=1024 for any R; eval at fuse_level=False calls this on 16,384 rays x
 // 128 samples, whose one activation buffer would be 4.3 GB), then the
-// heads (1-8 channels each) straight to raw_rgb / raw_den. f32 at
+// heads (8 channels a launch) straight to raw_rgb / raw_den. f32 at
 // net_width 288 and above: the same launches through mlp_fwd_wide_launch with
 // wide_f32.cuh's 3xTF32 mma.sync GEMM and f32 activations (~2.2 GB of
 // workspace at W=1024).
@@ -88,7 +89,7 @@ extern "C" {
 // (f32), b: the biases in layer order; raw_rgb [R * S, Cr] and
 // raw_den [R * S, Cd] f32. Widths must satisfy the wrapper's checks (W, Wc
 // multiples of 32 up to 256, wider bf16 through mlp_fwd_wide_launch; KX a
-// multiple of 16 >= LX; heads of 1-8).
+// multiple of 16 >= LX; heads of at least 1 channel).
 int mlp_fwd_launch(int dtype, const void* x, const void* d, const void* w, const float* b,
                    float* raw_rgb, float* raw_den, int R, int S, int D, int W, int skip,
                    int Wc, int Dc, int LX, int KX, int Fd, int Cr, int Cd, void* stream) {
@@ -116,7 +117,9 @@ long long mlp_fwd_wide_workspace(int dtype, int R, int S, int W, int Wc, int KX)
   return wide_render_layout(R, S, W, Wc, KX, dtype == 1 ? 2 : 4).total;
 }
 
-// The route for net_width 288 and above (a multiple of 32, Wc <= W):
+// The wide route: net_width 288 and above (a multiple of 32, Wc <= W),
+// and any narrower width whose config the narrow kernel's shared memory
+// does not hold (fused_level.takes_wide):
 // mlp_fwd_launch's arguments (bf16: w pack_params_wg's stream; f32:
 // pack_params' layout, wide_f32.cuh), and a workspace of
 // mlp_fwd_wide_workspace bytes, 256-byte aligned.
@@ -126,9 +129,8 @@ int mlp_fwd_wide_launch(int dtype, const void* x, const void* d, const void* w, 
                         void* stream) {
   if (R <= 0) return cudaSuccess;
   Params p;
-  if (W < kWideMinW || !init_params(p, dtype, 1, nullptr, nullptr, x, d, nullptr, w, b, R, S, D,
-                                    W, skip, Wc, Dc, LX, KX, Fd, 0, 0, 0.0f, 0.0f, 0, Cr, Cd,
-                                    true) ||
+  if (!init_params(p, dtype, 1, nullptr, nullptr, x, d, nullptr, w, b, R, S, D, W, skip, Wc, Dc,
+                   LX, KX, Fd, 0, 0, 0.0f, 0.0f, 0, Cr, Cd, true) ||
       (long long)R * S > 2147483647LL)
     return cudaErrorInvalidValue;
   unsigned char* ws = static_cast<unsigned char*>(workspace);

@@ -123,7 +123,9 @@ long long render_level_wide_workspace(int dtype, int R, int S, int W, int Wc, in
   return wide_render_layout(R, S, W, Wc, KX, dtype == 1 ? 2 : 4).total;
 }
 
-// The route for net_width 288 and above (a multiple of 32, Wc <= W):
+// The wide route: net_width 288 and above (a multiple of 32, Wc <= W),
+// and any narrower width whose config the narrow kernel's shared memory
+// does not hold (fused_level.takes_wide):
 // render_level_launch's arguments (bf16: wide_forward.cuh on the "wg"
 // stream; f32: wide_f32.cuh on pack_params' layout), and a workspace of
 // render_level_wide_workspace bytes, 256-byte aligned.
@@ -135,9 +137,8 @@ int render_level_wide_launch(int dtype, int mode, const float* means, const floa
                              float rgb_padding, int white_bkgd, void* workspace, void* stream) {
   if (R <= 0) return cudaSuccess;
   Params p;
-  if (W < kWideMinW || !init_params(p, dtype, mode, means, vars, x, d, delta, w, b, R, S, D, W,
-                                    skip, Wc, Dc, LX, KX, Fd, min_deg, fast, density_bias,
-                                    rgb_padding, white_bkgd, 3, 1, true))
+  if (!init_params(p, dtype, mode, means, vars, x, d, delta, w, b, R, S, D, W, skip, Wc, Dc, LX,
+                   KX, Fd, min_deg, fast, density_bias, rgb_padding, white_bkgd, 3, 1, true))
     return cudaErrorInvalidValue;
   p.comp = comp; p.acc = acc; p.weights = weights;
   unsigned char* ws = static_cast<unsigned char*>(workspace);

@@ -91,14 +91,16 @@ extern "C" {
 // Bytes of workspace train_level_launch needs for these shapes.
 long long train_level_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc, int KX,
                                 int splits, long long n_out) {
+  const bool wide = wide_route(dtype, W);
   const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, true);
-  if (W >= kWideMinW) return wide_train_layout(l.total, R, S, D, W, Wc, Dc).total;
+  if (wide) return wide_train_layout(l.total, R, S, D, W, Wc, Dc).total;
   return dtype == 1 ? wg_layout(l.total, R, S, D, W, Wc, Dc).total : l.total;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. mode: 0 = "mv" (IPE in the kernel),
-// 1 = "t" (encoded features). W up to 256, or from 288 up (the wide
-// route, both dtypes; no ceiling but the card's memory). w, wt: bf16 pack_params_wg's forward slab stream and
+// dtype: 0 = float32, 1 = bfloat16, plus kWideRoute for the wide route
+// below 288 (level_common.cuh). mode: 0 = "mv" (IPE in the kernel), 1 =
+// "t" (encoded features). W up to 256, or from 288 up (the wide route,
+// both dtypes; no ceiling but the card's memory). w, wt: bf16 pack_params_wg's forward slab stream and
 // pack_params_wgt's chain stream; f32 pack_params' layout and the chained
 // layers' W^T (pack_params_t); grads: the flat f32 dW/db
 // output of n_out values (see output_offsets); workspace:
@@ -112,6 +114,7 @@ int train_level_launch(int dtype, int mode, const float* means, const float* var
                        float density_bias, float rgb_padding, int white_bkgd, int splits,
                        void* stream) {
   if (R <= 0) return cudaSuccess;
+  const bool wide = wide_route(dtype, W);
   Params p;
   if (!init_params(p, dtype, mode, means, vars, x, d, delta, w, b, R, S, D, W, skip, Wc, Dc,
                    LX, KX, Fd, min_deg, fast, density_bias, rgb_padding, white_bkgd, 3, 1,
@@ -130,7 +133,7 @@ int train_level_launch(int dtype, int mode, const float* means, const float* var
                        reinterpret_cast<float*>(ws + l.g_den), nullptr, nullptr);
   e.pixels = pixels; e.gsc = gsc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (W >= kWideMinW) {
+  if (wide) {
     const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc);
     return (int)(dtype == 1
                      ? launch_train_wide<WideBf16Route>(p, e, l, x, ws, grads, n_out, splits, st)

@@ -118,14 +118,15 @@ cudaError_t launch_twopass(Params p, Extra e, const Layout& l, unsigned char* ws
 extern "C" {
 
 // Bytes of workspace train_level_twopass_launch needs for these shapes:
-// train_level's at W >= 288 (the backward's layout, then the wide route's
-// areas) and in bf16 (then the bf16 passes' areas); f32 below 288, the
+// train_level's on the wide route (W >= 288 or kWideRoute: the backward's
+// layout, then the wide route's areas) and in bf16 (then the bf16 passes' areas); f32 below 288, the
 // backward's layout, then the per-block db partials (3 rgb / 1 density
 // head).
 long long train_level_twopass_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc,
                                         int KX, int splits, long long n_out) {
+  const bool wide = wide_route(dtype, W);
   const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, true);
-  if (W >= kWideMinW) return wide_train_layout(l.total, R, S, D, W, Wc, Dc).total;
+  if (wide) return wide_train_layout(l.total, R, S, D, W, Wc, Dc).total;
   if (dtype == 1) return wg_layout(l.total, R, S, D, W, Wc, Dc).total;
   const long long nb = (long long)D * W + 1 + (long long)Dc * Wc + 3;
   return l.total + round256((long long)blocks_of(R, S) * nb * 4);
@@ -144,6 +145,7 @@ int train_level_twopass_launch(int dtype, int mode, const float* means, const fl
                                int KX, int Fd, int min_deg, int fast, float density_bias,
                                float rgb_padding, int white_bkgd, int splits, void* stream) {
   if (R <= 0) return cudaSuccess;
+  const bool wide = wide_route(dtype, W);
   Params p;
   if (mode != 1 ||
       !init_params(p, dtype, mode, means, vars, x, d, delta, w, b, R, S, D, W, skip, Wc, Dc,
@@ -163,7 +165,7 @@ int train_level_twopass_launch(int dtype, int mode, const float* means, const fl
                        reinterpret_cast<float*>(ws + l.g_den), nullptr, nullptr);
   e.pixels = pixels; e.gsc = gsc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (W >= kWideMinW) {
+  if (wide) {
     const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc);
     return (int)(dtype == 1
                      ? launch_train_wide<WideBf16Route>(p, e, l, x, ws, grads, n_out, splits, st)

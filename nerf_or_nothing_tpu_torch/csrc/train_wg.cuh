@@ -36,7 +36,7 @@
 //     partial row to dbpart, which pass 6 reduces with the rest (no
 //     atomics: bit-equal dW/db over two launches).
 //     chain_wg_kernel<kCr, kCd, kDx> is also mlp_bwd.cu's chain: heads of
-//     1-8 channels each (kCr = kCd = 0: read from the Params; 3 and 1 is
+//     any width (kCr = kCd = 0: read from the Params; 3 and 1 is
 //     the train level's instantiation), and with kDx the chain's stream
 //     (fused_level.pack_params_wgx) also holds W_x^T of layer 0 and of each
 //     skip layer, zero-padded to nxw columns (KX rounded up to 32, a width
@@ -108,14 +108,14 @@ __host__ __device__ inline long long chain_x_elems(const Params& p, int nxw) {
 // the block's db, the barriers and 1 KB of alignment
 // (fused_level.chain_wg_smem). x_stream: the stream holds the x rows'
 // slabs (pack_params_wgx), which only dx multiplies. False when not even
-// a ring of two slots fits, or the x rows are wider than 256.
+// a ring of two slots fits, or with dx the x rows are wider than 256.
 inline bool init_chain(ChainParams& c, const WgParams& q, bool x_stream = false,
                        bool dx = false) {
   const Params& p = q.p;
   c.q = q;
   c.nb = num_biases(p);
   c.nxw = x_stream ? cdiv(p.KX, 32) * 32 : 0;
-  if (c.nxw > 256) return false;
+  if (dx && c.nxw > 256) return false;
   c.slot = (dx && c.nxw > p.W ? c.nxw : p.W) * kSlabBytes;
   c.g_bytes = q.nh * kTileSlab;
   c.dx_bytes = dx ? 64 * c.nxw * 2 : 0;

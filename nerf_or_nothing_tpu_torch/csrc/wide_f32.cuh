@@ -42,7 +42,7 @@
 // WideF32Route runs wide_forward.cuh's drivers (the features and
 // direction-term kernels are theirs, instantiated in f32) on this GEMM and
 // on wide_head_f32_kernel, the heads as one warp a row from pack_params'
-// transposed head rows [C, K]. A simple design that is right first: no
+// transposed head rows [C, K], 8 channels a launch. A simple design that is right first: no
 // wgmma (its TF32 form is untried), every activation through HBM.
 
 #pragma once
@@ -320,13 +320,20 @@ struct WideF32Route {
     g.bias = bias; g.S = p.S; g.dc = dc; g.out = out;
     return launch_wide_gemm_f32<kF32Fwd>(g, st);
   }
-  // The rgb head (rgb) or the density head on A [M, K] to out (row stride ld).
+  // The rgb head (rgb) or the density head on A [M, K] to out (row stride
+  // ld), a launch for each group of 8 channels (rows c0 .. of [C, K]).
   template <int kHeads>
   cudaError_t head(const Params& p, bool rgb, const float* A, long long M, float* out, int ld,
                    cudaStream_t st) const {
+    const int C = rgb ? p.Cr : p.Cd, K = rgb ? p.Wc : p.W;
     const float* w = static_cast<const float*>(p.w) + (rgb ? p.w_rgb : p.w_den);
-    return launch_wide_head_f32(A, rgb ? p.Wc : p.W, M, w, p.b + (rgb ? p.b_rgb : p.b_den), out,
-                                ld, rgb ? p.Cr : p.Cd, st);
+    const float* b = p.b + (rgb ? p.b_rgb : p.b_den);
+    for (int c0 = 0; c0 < C; c0 += 8) {
+      const cudaError_t err = launch_wide_head_f32(A, K, M, w + (long long)c0 * K, b + c0,
+                                                   out + c0, ld, C - c0 < 8 ? C - c0 : 8, st);
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
   }
 };
 

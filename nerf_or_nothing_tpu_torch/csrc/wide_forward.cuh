@@ -3,11 +3,15 @@
 // net_width a multiple of 32 from 288 up, with no ceiling but the card's
 // memory (net_width_condition a multiple of 32 up to net_width), where the
 // narrow kernels' activation tiles no longer fit a block (one bf16
-// [64, 1024] tile is 128 KB of the 227 KB). No kernel here sizes a block
-// or a shared array by a width: the GEMMs take any N and K in column
-// blocks and 64-k stages, the per-ray kernels go in launches of up to
-// kColumnBlock columns (launch_columns), and the heads stage their
-// weights kWideHeadK k-values at a time. The f32 route runs the same
+// [64, 1024] tile is 128 KB of the 227 KB); below 288 wherever the narrow
+// kernels' shared memory does not hold the config (wide location
+// features, large heads or many biases: fused_level.takes_wide, the
+// dtype's kWideRoute). No kernel here sizes a block or a shared array by a
+// width: the GEMMs take any N and K in column blocks and 64-k stages, the
+// features go straight to global memory, the per-ray kernels go in
+// launches of up to kColumnBlock columns (launch_columns), and the heads
+// stage their weights kWideHeadK k-values at a time, a launch for each
+// group of 8 channels. The f32 route runs the same
 // launch sequence on its own GEMM (wide_f32.cuh), which reuses
 // wide_composite_kernel and wide_render_layout here.
 //
@@ -22,8 +26,8 @@
 // card's ~295 FLOP/B ridge (at W=512: 256 FLOP/B, near it). So the level
 // runs as a sequence of launches on one stream with every activation
 // parked in global memory:
-//  - wide_features_kernel: the IPE of level_common.cuh's load_features (or
-//    the features of mode "t"), zero-padded to KX columns;
+//  - wide_features_kernel: the IPE of level_common.cuh's ipe_item (or the
+//    features of mode "t"), zero-padded to KX columns;
 //  - wide_dir_kernel: the first view layer's direction term d @ W_dir, one
 //    f32 row of Wc per ray;
 //  - wide_gemm_kernel<BN>, one launch per layer: out = epilogue(A @ B) over
@@ -42,7 +46,8 @@
 //    stays readable by every column block; mlp_bwd's density term over
 //    Cd > 1 channels and its dX (round, add the deeper x layers' sum,
 //    round) are wide_gemm_mlp_kernel's epilogues;
-//  - wide_head_kernel<NC>: a head of NC = 1-8 channels as one warp per row;
+//  - wide_head_kernel<NC>: NC = 1-8 channels of a head as one warp per row
+//    (a head of more channels in groups of 8, a launch a group);
 //  - render: wide_composite_kernel, level_common.cuh's composite on the
 //    raw heads in global memory; mlp_fwd: the heads straight to raw_rgb /
 //    raw_den. The rows go in chunks of whole rays (kWideChunkRows), so two
@@ -56,12 +61,21 @@
 
 namespace {
 
-constexpr int kWideMinW = 288;      // narrower widths take the narrow kernels
+constexpr int kWideMinW = 288;      // narrower widths take the narrow kernels where they fit
 constexpr int kWideHeadK = 1024;    // k-values of a head's weights a block stages at once
 constexpr int kWideThreads = 256;   // two warpgroups of 64 rows
 constexpr int kWideRows = 128;
 constexpr int kWideStages = 4;
 constexpr long long kWideChunkRows = 1LL << 18;  // render, mlp_fwd: rows of a chunk of rays
+
+// Whether an entry point whose dtype argument is dtype takes the wide
+// route: W >= kWideMinW, or kWideRoute added (level_common.cuh); dtype
+// then holds the compute type alone (0 or 1).
+inline bool wide_route(int& dtype, int W) {
+  const bool wide = W >= kWideMinW || (dtype & kWideRoute);
+  dtype &= 1;
+  return wide;
+}
 
 enum { kWideFwd = 0, kWideChain = 1, kWideChainHeads = 2, kWideDx = 3 };
 // The heads of wide_forward: none (mlp_bwd's recompute), the level
@@ -100,8 +114,9 @@ struct WideGemmMlp {
 
 // Element offsets of every matrix in pack_params_wg's stream
 // (fused_level._layout_wg): trunk layer i (its h slabs, then its x slabs
-// for layer 0 and the skip layers), the density head (8 rows a slab), the
-// view layers, the rgb head, then the direction rows [Fd, Wc] row-major.
+// for layer 0 and the skip layers), the density head (groups of 8
+// channels, each its own slabs of 8 rows), the view layers, the rgb head,
+// then the direction rows [Fd, Wc] row-major.
 struct WideOffsets {
   long long trunk[64], view[64], den, rgb, dir;
   int nh, nc, nx;
@@ -117,13 +132,13 @@ inline bool wide_offsets(const Params& p, WideOffsets& o) {
     o.trunk[i] = off;
     off += (long long)((i == 0 ? 0 : o.nh) + ((i == 0 || i % p.skip == 0) ? o.nx : 0)) * p.W * 64;
   }
-  o.den = off;     off += (long long)o.nh * kHeadN * 64;
+  o.den = off;     off += (long long)o.nh * head_cols(p.Cd) * 64;
   o.view[0] = off; off += (long long)o.nh * p.Wc * 64;
   for (int j = 1; j < p.Dc; ++j) {
     o.view[j] = off;
     off += (long long)o.nc * p.Wc * 64;
   }
-  o.rgb = off;     off += (long long)o.nc * kHeadN * 64;
+  o.rgb = off;     off += (long long)o.nc * head_cols(p.Cr) * 64;
   o.dir = off;
   return true;
 }
@@ -397,21 +412,39 @@ inline cudaError_t launch_wide_gemm_mlp(const WideGemmMlp& m, cudaStream_t st) {
 }
 
 // xs[r, :KX] for rows r < rows, the features of level rows row0 + r: the
-// IPE of load_features (mode "mv") or the given features (mode "t"),
-// zero-padded; 64 rows a block through shared memory. T: the route's
-// activation type (bf16; float on wide_f32.cuh's route).
+// IPE of load_features (ipe_item, mode "mv": a thread an item's two
+// columns) or the given features (mode "t": a thread a column),
+// zero-padded, written straight to global memory, so that no shared
+// memory grows with KX. T: the route's activation type (bf16; float on
+// wide_f32.cuh's route).
 template <class T>
 __global__ void __launch_bounds__(kThreads) wide_features_kernel(Params p, T* xs, long long row0,
                                                                  long long rows) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<T> sm;
-  sm.H = nullptr; sm.DC = nullptr; sm.OUT = nullptr; sm.WS = nullptr;
-  sm.X = reinterpret_cast<T*>(smem_raw);
-  const long long r0 = (long long)blockIdx.x * kBM;
-  const int nvalid = (int)min((long long)kBM, rows - r0);
-  load_features<T>(p, sm, row0 + r0, nvalid);
-  __syncthreads();
-  store_rows<T>(sm.X, p.ldx, p.KX, xs, r0, nvalid);
+  const long long t0 = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long step = (long long)gridDim.x * kThreads;
+  if (p.mode == 0) {
+    const int per_row = 3 * p.F, pad = p.KX - 6 * p.F;
+    for (long long idx = t0; idx < rows * per_row; idx += step) {
+      const long long r = idx / per_row;
+      const int rem = (int)(idx - r * per_row), i = rem / 3, a = rem - 3 * i;
+      float fs, fc;
+      ipe_item(p, (row0 + r) * 3 + a, i, &fs, &fc);
+      T* xr = xs + r * p.KX + 6 * i + a;
+      xr[0] = from_f<T>(fs);
+      xr[3] = from_f<T>(fc);
+    }
+    for (long long idx = t0; idx < rows * pad; idx += step) {
+      const long long r = idx / pad;
+      xs[r * p.KX + 6 * p.F + (idx - r * pad)] = from_f<T>(0.0f);
+    }
+  } else {
+    const T* x = static_cast<const T*>(p.x);
+    for (long long idx = t0; idx < rows * p.KX; idx += step) {
+      const long long r = idx / p.KX;
+      const int col = (int)(idx - r * p.KX);
+      xs[idx] = col < p.LX ? x[(row0 + r) * p.LX + col] : from_f<T>(0.0f);
+    }
+  }
 }
 
 // dc[r, n] = d[ray0 + r, :] . W_dir[:, n] (compute-type operands, f32 FMA
@@ -550,18 +583,29 @@ struct WideBf16Route {
     g.bias = bias; g.S = p.S; g.dc = dc; g.out = out;
     return launch_wide_gemm(g, st);
   }
-  // The rgb head (rgb) or the density head on A [M, K] to out (row stride ld).
+  // The rgb head (rgb) or the density head on A [M, K] to out (row stride
+  // ld); heads of any width (kWideAnyHeads) a launch a group of kHeadN
+  // channels, on the group's slabs and column-offset pointers.
   template <int kHeads>
   cudaError_t head(const Params& p, bool rgb, const bf16* A, long long M, float* out, int ld,
                    cudaStream_t st) const {
     const int K = rgb ? p.Wc : p.W;
     const bf16* w = static_cast<const bf16*>(p.w) + (rgb ? o.rgb : o.den);
     const float* b = p.b + (rgb ? p.b_rgb : p.b_den);
-    if constexpr (kHeads == kWideLevelHeads)
+    if constexpr (kHeads == kWideLevelHeads) {
       return rgb ? launch_wide_head<3>(A, K, M, w, b, out, ld, st)
                  : launch_wide_head<1>(A, K, M, w, b, out, ld, st);
-    else
-      return launch_wide_head_n(rgb ? p.Cr : p.Cd, A, K, M, w, b, out, ld, st);
+    } else {
+      const int C = rgb ? p.Cr : p.Cd;
+      const long long group = (long long)(rgb ? o.nc : o.nh) * kHeadN * 64;
+      for (int c0 = 0; c0 < C; c0 += kHeadN) {
+        const cudaError_t err = launch_wide_head_n(C - c0 < kHeadN ? C - c0 : kHeadN, A, K, M,
+                                                   w + c0 / kHeadN * group, b + c0, out + c0,
+                                                   ld, st);
+        if (err != cudaSuccess) return err;
+      }
+      return cudaSuccess;
+    }
   }
 };
 
@@ -603,12 +647,10 @@ inline cudaError_t wide_forward(const Params& p, const Route& r, const typename 
 template <class T>
 inline cudaError_t launch_wide_features(const Params& p, T* xs, long long row0, long long rows,
                                         cudaStream_t st) {
-  const size_t smem = sizeof(T) * kBM * p.ldx;
-  cudaError_t err = cudaFuncSetAttribute(wide_features_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  wide_features_kernel<T><<<(unsigned)((rows + kBM - 1) / kBM), kThreads, smem, st>>>(p, xs, row0,
-                                                                                      rows);
+  if (rows <= 0) return cudaSuccess;
+  const long long want = (rows * p.KX + kThreads - 1) / kThreads;
+  wide_features_kernel<T><<<(unsigned)(want < (1 << 20) ? want : (1 << 20)), kThreads, 0, st>>>(
+      p, xs, row0, rows);
   return cudaGetLastError();
 }
 

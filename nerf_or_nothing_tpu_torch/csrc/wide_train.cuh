@@ -5,7 +5,7 @@
 // g-chain, db, dW, and the small products and reduction of
 // level_backward.cuh. Passes 3-7 start from the head cotangents
 // (launch_wide_backward, launch_wide_backward_f32), so mlp_bwd.cu runs them
-// after its recompute, with heads of 1-8 channels each. Passes 1-7 below
+// after its recompute, with heads of any width. Passes 1-7 below
 // are the bf16 route's; the f32 route (launch_train_wide<WideF32Route>,
 // launch_wide_backward_f32 at the end) runs the same sequence with
 // wide_f32.cuh's GEMM for every forward and chain product, f32
@@ -116,7 +116,7 @@ inline WideChainOffsets wide_chain_offsets(const Params& p, const WideOffsets& o
 }
 
 // out = the last view layer's masked g: round(round(g_rgb) @ W_rgb^T),
-// zero where its activation is not > 0; kCr rgb channels (0: Cr, 1-8),
+// zero where its activation is not > 0; kCr rgb channels (0: Cr, any),
 // summed in order.
 template <int kCr>
 __global__ void wide_rgb_chain_kernel(const float* g_rgb, const bf16* wr, const bf16* act,

@@ -14,13 +14,16 @@ the only mode of the two-pass kernel); rows are ray-major (row = ray * S +
 sample), features in the interleaved [sin3, cos3]-per-frequency order, so
 no weight permutation is needed.
 
-At net_width 288 and above all three (and ``kernels/fused_mlp.py``'s two)
-run a wide route in the same libraries, a GEMM launch a layer through a
-workspace, on the same packed weights: bf16 on ``wgmma``
-(``csrc/wide_forward.cuh``, ``csrc/wide_train.cuh``), f32 as 3xTF32
-``mma.sync`` (``csrc/wide_f32.cuh``). It has no width ceiling: any
-net_width and net_width_condition run, as far as the card's memory holds
-the workspace (``torch.empty`` raises when it does not).
+All three (and ``kernels/fused_mlp.py``'s two) have a wide route in the
+same libraries, a GEMM launch a layer through a workspace, on the same
+packed weights: bf16 on ``wgmma`` (``csrc/wide_forward.cuh``,
+``csrc/wide_train.cuh``), f32 as 3xTF32 ``mma.sync``
+(``csrc/wide_f32.cuh``). A launch takes it at net_width 288 and above, and
+wherever the narrow route's shared memory does not hold the config (wide
+location features, a large head): ``takes_wide`` picks the route before
+any launch. It has no width or feature ceiling: any config runs, as far
+as the card's memory holds the workspace (``torch.empty`` raises when it
+does not).
 
 Widths that are not multiples of 32, and a net_width_condition above
 net_width, run zero-padded (``kernel_cfg``): the packers embed the weights
@@ -58,6 +61,8 @@ from nerf_or_nothing_tpu_torch.ops.render import (
 )
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Added to a dtype code: the wide route at any width (csrc: kWideRoute).
+WIDE_ROUTE = 2
 _MODE_CODE = {"mv": 0, "t": 1}
 
 
@@ -161,32 +166,31 @@ def _padded_cfg(cfg: Config, W: int, Wc: int) -> Config:
 
 
 def uses_wide(cfg: Config) -> bool:
-    """Whether the kernels take their wide route (``train_level``,
-    ``render_level``, ``train_level_twopass``, ``mlp_fwd`` and ``mlp_bwd``;
-    bf16: ``csrc/wide_forward.cuh``, ``csrc/wide_train.cuh``, f32:
+    """Whether every kernel takes its wide route by width alone (bf16:
+    ``csrc/wide_forward.cuh``, ``csrc/wide_train.cuh``, f32:
     ``csrc/wide_f32.cuh``): a kernel net_width (``kernel_cfg``) above
-    ``MAX_WIDTH``, in either compute dtype."""
+    ``MAX_WIDTH``, in either compute dtype. ``takes_wide`` is the route of
+    one launch, which also goes wide where the narrow route's shared
+    memory does not hold the config."""
     return kernel_cfg(cfg).net_width > MAX_WIDTH
 
 
-def check_kernel_config(cfg: Config, max_head: int = 0) -> None:
+def check_kernel_config(cfg: Config, any_heads: bool = False) -> None:
     """Raise ValueError for configs the CUDA kernels do not take. The level
-    kernels composite 3 rgb / 1 density channels (``max_head`` 0); the MLP
-    kernels (``kernels/fused_mlp.py``) take heads of 1 to ``max_head``
-    channels each. Every net_width and net_width_condition of at least 1
-    is taken, as ``kernel_cfg`` rounds them up (above ``MAX_WIDTH`` on the
-    wide route, ``uses_wide``, in bf16 and f32), with no ceiling but the
-    card's memory. Shared-memory limits of the narrow bf16 routes are
-    checked apart (``check_wg_config``, ``check_train_wg_config``,
-    ``fused_mlp.check_mlp_bwd_config``)."""
+    kernels composite 3 rgb / 1 density channels; the MLP kernels
+    (``kernels/fused_mlp.py``, ``any_heads``) take heads of any channel
+    count from 1. Every net_width and net_width_condition of at least 1
+    is taken, as ``kernel_cfg`` rounds them up, and every feature count,
+    on the route ``takes_wide`` picks for each launch, with no ceiling but
+    the card's memory."""
     problems = []
     if min(cfg.net_width, cfg.net_width_condition) < 1:
         problems.append("net_width and net_width_condition must be >= 1")
     heads = (cfg.num_rgb_channels, cfg.num_density_channels)
-    if max_head == 0 and heads != (3, 1):
+    if not any_heads and heads != (3, 1):
         problems.append("heads must be 3 rgb / 1 density")
-    if max_head and not all(1 <= c <= max_head for c in heads):
-        problems.append(f"heads must have 1 to {max_head} channels each")
+    if any_heads and min(heads) < 1:
+        problems.append("heads must have at least 1 channel each")
     if cfg.net_depth < 1 or cfg.net_depth_condition < 1:
         problems.append("net_depth and net_depth_condition must be >= 1")
     if problems:
@@ -279,7 +283,7 @@ def _layout_tx(params: Params, cfg: Config, fragments: bool):
 
 
 WG_SLAB_K = 64    # K rows of one weight slab: 128 bytes of bf16
-WG_HEAD_N = 8     # the heads' columns, zero-padded: one m64n8k16 product
+WG_HEAD_N = 8     # columns of one head group: one m64n8k16 product
 
 
 def _wg_slabs(w: torch.Tensor) -> torch.Tensor:
@@ -298,11 +302,22 @@ def _wg_slabs(w: torch.Tensor) -> torch.Tensor:
     return t.permute(2, 0, 1, 3).reshape(-1)
 
 
+def _head_cols(c: int) -> int:
+    """Columns of a head of ``c`` channels in the slab stream: whole groups
+    of ``WG_HEAD_N``."""
+    return -(-c // WG_HEAD_N) * WG_HEAD_N
+
+
 def _wg_head(w: torch.Tensor) -> torch.Tensor:
-    """A head [K, C] padded to ``WG_HEAD_N`` columns, as slabs."""
-    wp = torch.zeros((w.shape[0], WG_HEAD_N), dtype=w.dtype, device=w.device)
-    wp[:, : w.shape[1]] = w
-    return _wg_slabs(wp)
+    """A head [K, C] as groups of ``WG_HEAD_N`` columns (the last one
+    zero-padded), group after group, each as slabs: the kernels run a group
+    as one N=8 product (a head of up to 8 channels is one group, as
+    before)."""
+    K, C = w.shape
+    wp = torch.zeros((K, _head_cols(C)), dtype=w.dtype, device=w.device)
+    wp[:, :C] = w
+    return torch.cat([_wg_slabs(wp[:, g:g + WG_HEAD_N])
+                      for g in range(0, wp.shape[1], WG_HEAD_N)])
 
 
 def _layout_wg(params: Params, cfg: Config, fragments: bool):
@@ -310,9 +325,10 @@ def _layout_wg(params: Params, cfg: Config, fragments: bool):
     matrix as ``_wg_slabs`` in the order the kernel multiplies them, so one
     block reads the pack front to back once per 128 rows. Trunk layer i:
     its h rows, then (layer 0 and skip layers) its x rows padded to whole
-    slabs; the density head (8 columns); the first view layer's h rows;
-    further view layers; the rgb head (8 columns). Then the first view
-    layer's direction rows, row-major [Fd, Wc], for the per-ray term.
+    slabs; the density head (``_wg_head``: groups of 8 columns); the first
+    view layer's h rows; further view layers; the rgb head (groups of 8
+    columns). Then the first view layer's direction rows, row-major
+    [Fd, Wc], for the per-ray term.
     ``fragments`` is unused: the layout is the same for every dtype."""
     D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
     parts = []
@@ -563,8 +579,9 @@ def packed_wg_size(cfg: Config) -> int:
     trunk = sum((0 if i == 0 else _slabs(W))
                 + (nx if i == 0 or i % cfg.skip_layer == 0 else 0)
                 for i in range(D)) * W * S
-    return (trunk + _slabs(W) * WG_HEAD_N * S + _slabs(W) * Wc * S
-            + (Dc - 1) * _slabs(Wc) * Wc * S + _slabs(Wc) * WG_HEAD_N * S
+    return (trunk + _slabs(W) * _head_cols(cfg.num_density_channels) * S
+            + _slabs(W) * Wc * S + (Dc - 1) * _slabs(Wc) * Wc * S
+            + _slabs(Wc) * _head_cols(cfg.num_rgb_channels) * S
             + cfg.direction_features * Wc)
 
 
@@ -626,20 +643,6 @@ def wg_smem(cfg: Config, S: int, composite: bool):
     return None, 0
 
 
-def check_wg_config(cfg: Config, S: int, composite: bool) -> None:
-    """Raise ValueError when the bf16 forward's shared memory does not fit
-    a block (``wg_smem``); nothing to check for f32, nor on the wide route
-    (``uses_wide``: its shared memory does not grow with the config)."""
-    if compute_dtype(cfg) != torch.bfloat16 or uses_wide(cfg):
-        return
-    if wg_smem(cfg, S, composite)[0] is None:
-        raise ValueError(
-            "config not supported by the bf16 forward kernel: its shared "
-            "memory (two [64, net_width] and two [64, location_features] "
-            "tiles, a ring of 2 weight slabs) exceeds "
-            f"{SMEM_LIMIT} bytes")
-
-
 def chain_wg_smem(cfg: Config, dx: bool = False):
     """(bytes, ring stages) of the bf16 g-chain's shared memory, as
     ``train_wg.cuh::init_chain`` computes it: the ring (``stages`` slots of
@@ -664,18 +667,126 @@ def chain_wg_smem(cfg: Config, dx: bool = False):
     return None, 0
 
 
-def check_train_wg_config(cfg: Config, S: int) -> None:
-    """Raise ValueError when the bf16 train kernel's forward (``wg_smem``)
-    or g-chain (``chain_wg_smem``) does not fit a block; nothing to check
-    for f32, nor on the wide route (``uses_wide``)."""
-    if compute_dtype(cfg) != torch.bfloat16 or uses_wide(cfg):
-        return
-    check_wg_config(cfg, S, False)
-    if chain_wg_smem(cfg)[0] is None:
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def f32_smem(cfg: Config, kernel: str, S: int, input_grads: bool = False):
+    """Bytes of shared memory of the largest block that ``kernel``'s narrow
+    f32 route launches at ``S`` samples a ray, as its C source computes it
+    (``level_common.cuh::smem_bytes``: the activation and feature tiles
+    [64, W + 4] and [64, KX + 4], the direction terms and raw heads of the
+    block's rays and two staged weight tiles; ``level_backward.cuh::
+    chain_smem``: the g-chain's tiles, with ``input_grads`` the dX tile,
+    and the head cotangents [64, Cr + Cd]); None when it exceeds
+    ``SMEM_LIMIT``, or with ``input_grads`` when the x rows are wider than
+    the 256 columns of one product. Widths are ``kernel_cfg``'s."""
+    kc = kernel_cfg(cfg)
+    W, Wc = kc.net_width, kc.net_width_condition
+    KX = padded_location_features(cfg)
+    RB = 1 if S >= 64 else 64 // S
+    h, x = _align16(4 * 64 * (W + 4)), _align16(4 * 64 * (KX + 4))
+
+    def stage(n):  # wstage_bytes: two [8, round32(n) + 8] f32 tiles
+        return 4 * 2 * 8 * (_round32(n) + 8)
+
+    def tiles(s):  # smem_bytes<float>(p, s)
+        return h + x + _align16(4 * RB * Wc) + _align16(16 * RB * s) + stage(W)
+
+    def chain(dx):  # chain_smem<float>(p, dx)
+        heads = cfg.num_rgb_channels + cfg.num_density_channels
+        return (h + (x if dx else 0) + stage(KX if dx and KX > W else W)
+                + 4 * (64 * heads + RB * Wc))
+
+    if kernel == "render_level":
+        sizes = [tiles(S)]
+    elif kernel == "mlp_fwd":
+        sizes = [tiles(0)]
+    elif kernel == "train_level":
+        sizes = [tiles(S) + 16 * RB * S, chain(False)]
+    elif kernel == "train_level_twopass":
+        sizes = [tiles(S) + 16 * RB * S,
+                 _align16(chain(False)) + 4 * packed_sizes(cfg)[1]]
+    else:
+        if input_grads and KX > 256:
+            return None
+        sizes = [tiles(0), chain(input_grads)]
+    return max(sizes) if max(sizes) <= SMEM_LIMIT else None
+
+
+KERNELS = ("render_level", "train_level", "train_level_twopass", "mlp_fwd",
+           "mlp_bwd")
+MAX_LAYERS = 64   # the wide route's and the backward kernels' layer tables
+MAX_DW_JOBS = 24  # products of the dW GEMM's job table (csrc: kMaxJobs)
+
+
+def dw_jobs(cfg: Config) -> int:
+    """dW products of one backward launch: one a layer, a second for each
+    skip layer's x rows (the heads' and direction rows' are apart)."""
+    return (cfg.net_depth + cfg.net_depth_condition
+            + sum(1 for i in range(1, cfg.net_depth)
+                  if i % cfg.skip_layer == 0))
+
+
+def narrow_misfit(cfg: Config, kernel: str, S: int,
+                  input_grads: bool = False) -> Optional[str]:
+    """What of ``kernel``'s narrow route does not hold ``cfg`` at ``S``
+    samples a ray (with ``input_grads``: ``mlp_bwd``'s dX), or None when it
+    takes the config: a kernel net_width above ``MAX_WIDTH``; in bf16 the
+    forward's shared memory (``wg_smem``; the render kernel's with its
+    raw heads) or the g-chain's (``chain_wg_smem``: the train kernels';
+    ``mlp_bwd``'s with the dX partials and x rows of ``input_grads``); in
+    f32 ``f32_smem``; for the backward kernels more dW products than the
+    narrow dW GEMM's job table holds (``MAX_DW_JOBS``)."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    if uses_wide(cfg):
+        return f"net_width above {MAX_WIDTH}"
+    backward = kernel in ("train_level", "train_level_twopass", "mlp_bwd")
+    over = f"shared memory above {SMEM_LIMIT} bytes"
+    if compute_dtype(cfg) != torch.bfloat16:
+        if f32_smem(cfg, kernel, S, input_grads) is None:
+            return f"the f32 tiles' {over}"
+    elif wg_smem(cfg, S, kernel == "render_level")[0] is None:
+        return f"the bf16 forward's {over}"
+    elif backward and chain_wg_smem(
+            cfg, dx=kernel == "mlp_bwd" and input_grads)[0] is None:
+        return f"the g-chain's {over}"
+    if backward and dw_jobs(cfg) > MAX_DW_JOBS:
+        return f"{dw_jobs(cfg)} dW products, above {MAX_DW_JOBS}"
+    return None
+
+
+def takes_wide(cfg: Config, kernel: str, S: int,
+               input_grads: bool = False) -> bool:
+    """The route of one launch of ``kernel`` (one of ``KERNELS``) at ``S``
+    samples a ray, picked before the launch: the wide route where the
+    narrow route does not hold the config (``narrow_misfit``: net_width
+    above ``MAX_WIDTH``, or features, heads or biases past its shared
+    memory), else the narrow route. Both read the same packed weights. Raise
+    ValueError for a config the route cannot take: more layers than
+    ``MAX_LAYERS`` in the C sources' layer tables (net_depth +
+    net_depth_condition + 2 for the backward kernels on either route; a
+    trunk or view branch of the forwards' wide route), or in f32 more dW
+    products than ``MAX_DW_JOBS`` (the f32 wide route runs the narrow dW
+    GEMM; the bf16 one launches a GEMM a product)."""
+    why = narrow_misfit(cfg, kernel, S, input_grads)
+    forward = kernel in ("render_level", "mlp_fwd")
+    layers = (max(cfg.net_depth, cfg.net_depth_condition) if forward
+              else cfg.net_depth + cfg.net_depth_condition + 2)
+    if layers > MAX_LAYERS and (why is not None or not forward):
+        held = "" if why is None else (
+            f"its narrow route does not hold it ({why}) and ")
         raise ValueError(
-            "config not supported by the bf16 train kernel: the g-chain's "
-            "shared memory (two [64, net_width] tiles, every bias, a ring "
-            f"of 2 weight slabs) exceeds {SMEM_LIMIT} bytes")
+            f"config not supported by the {kernel} kernel: {held}its "
+            f"routes take at most {MAX_LAYERS} layers, not {layers}")
+    if (not forward and compute_dtype(cfg) != torch.bfloat16
+            and dw_jobs(cfg) > MAX_DW_JOBS):
+        raise ValueError(
+            f"config not supported by the f32 {kernel} kernel: its dW GEMM "
+            f"takes at most {MAX_DW_JOBS} products, not {dw_jobs(cfg)} "
+            "(net_depth + net_depth_condition + skip layers)")
+    return why is not None
 
 
 def packed_tx_size(cfg: Config) -> int:
@@ -769,15 +880,26 @@ def _check(name: str, t: torch.Tensor, dtype, shape: Sequence[int],
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_level_inputs(cfg: Config, xs, d, delta, mode: str,
-                        wg: Optional[bool] = None):
+def route_code(cfg: Config, kernel: str, S: int, input_grads: bool = False,
+               source=None) -> int:
+    """The dtype code a launch of ``kernel`` passes to C: ``_DTYPE_CODE``,
+    plus ``WIDE_ROUTE`` where ``takes_wide`` picks the wide route below
+    net_width 288 (from 288 the C sources take it by width). A ``source``
+    version (``compare_kernels.py``) is launched on the narrow route only
+    there: an earlier version reads no route in its dtype code."""
+    code = _DTYPE_CODE[compute_dtype(cfg)]
+    if not takes_wide(cfg, kernel, S, input_grads) or uses_wide(cfg):
+        return code
+    if source is not None:
+        raise ValueError(f"{kernel}: a source version takes no wide route "
+                         "below net_width 288")
+    return code + WIDE_ROUTE
+
+
+def _check_level_inputs(cfg: Config, xs, d, delta, mode: str):
     """Validate one level's kernel inputs (the level kernels take the
-    same); with ``wg`` (True: the render kernel's composite) also the bf16
-    forward's shared memory (``check_wg_config``). Returns the (means,
-    variances, x) pointers, 0 where absent."""
+    same). Returns the (means, variances, x) pointers, 0 where absent."""
     check_kernel_config(cfg)
-    if wg is not None:
-        check_wg_config(cfg, delta.shape[1], wg)
     if mode not in _MODE_CODE:
         raise ValueError(f"unknown input mode {mode!r}")
     dt = compute_dtype(cfg)
@@ -858,13 +980,16 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     result when the caller already has it; ``source`` is another version
     of ``csrc/render_level.cu`` with the same C interface, to time versions
     in turns (``compare_kernels.py``; ``packed`` then in the layout that
-    version reads, ``weight_layout``). net_width 288 and above runs the wide
-    route (``uses_wide``, ``render_level_wide_launch``, bf16 and f32) with a
+    version reads, ``weight_layout``). The wide route (``takes_wide``:
+    net_width 288 and above, or features past the narrow route's shared
+    memory; ``render_level_wide_launch``, bf16 and f32) runs with a
     workspace allocated here (``source`` versions have their narrow C
     interface only). Widths that are not multiples of 32 run zero-padded
     (``kernel_cfg``)."""
-    wide = source is None
-    ptrs = _check_level_inputs(cfg, xs, d, delta, mode, wg=True)
+    wide = takes_wide(cfg, "render_level", delta.shape[1])
+    if wide and source is not None:
+        raise ValueError("render_level: a source version has no wide route")
+    ptrs = _check_level_inputs(cfg, xs, d, delta, mode)
     kc = kernel_cfg(cfg)
     dt = compute_dtype(cfg)
     R, S = delta.shape
@@ -892,7 +1017,7 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     outs = (d.data_ptr(), delta.data_ptr(), w_flat.data_ptr(),
             b_flat.data_ptr(), comp.data_ptr(), acc.data_ptr(),
             weights.data_ptr())
-    if wide and uses_wide(cfg):
+    if wide:
         fn, workspace_bytes = _wide_render_library()
         workspace = torch.empty(
             (workspace_bytes(_DTYPE_CODE[dt], R, S, kc.net_width,
@@ -1178,9 +1303,11 @@ def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
                   delta, pixels, g_scale, white_bkgd: bool, mode: str,
                   packed, source=None):
     """Check the inputs, launch ``csrc/<name>.cu`` (or ``source``) on the
-    current stream at the kernel widths (``kernel_cfg``) and add one to
+    current stream at the kernel widths (``kernel_cfg``) on the route
+    ``takes_wide`` picks (``route_code``) and add one to
     ``counted.launches``; the grads come back at ``cfg``'s widths
     (``unembed_grads``)."""
+    code = route_code(cfg, name, delta.shape[1], source=source)
     ptrs = _check_level_inputs(cfg, xs, d, delta, mode)
     kc = kernel_cfg(cfg)
     dt = compute_dtype(cfg)
@@ -1212,12 +1339,11 @@ def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
     kx, splits = padded_location_features(cfg), train_splits(N)
     D, W, Wc, Dc = (cfg.net_depth, kc.net_width, kc.net_width_condition,
                     cfg.net_depth_condition)
-    ws_bytes = workspace_bytes(_DTYPE_CODE[dt], R, S, D, W, Wc, Dc, kx,
-                               splits, n_out)
+    ws_bytes = workspace_bytes(code, R, S, D, W, Wc, Dc, kx, splits, n_out)
     workspace = torch.empty((ws_bytes,), dtype=torch.uint8, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = launch(
-        _DTYPE_CODE[dt], _MODE_CODE[mode], *ptrs, d.data_ptr(),
+        code, _MODE_CODE[mode], *ptrs, d.data_ptr(),
         delta.data_ptr(), pixels.data_ptr(), gsc.data_ptr(), w_flat.data_ptr(),
         wt_flat.data_ptr(), b_flat.data_ptr(), comp.data_ptr(),
         acc.data_ptr(), weights.data_ptr(), grads.data_ptr(), n_out,
@@ -1239,13 +1365,11 @@ def train_level_cuda(params: Params, cfg: Config, xs, d, delta, pixels,
     result when the caller already has it (once per step for both
     levels); ``source`` is another version of ``csrc/train_level.cu`` with
     the same C interface, to time versions in turns (``packed`` then in
-    the layout that version reads). net_width 288 and above runs the wide
-    route (``uses_wide``, bf16 and f32). Configs the kernel does not take,
-    or whose shared memory the bf16 kernels cannot take, raise ValueError
-    before anything runs."""
+    the layout that version reads). The wide route (bf16 and f32) runs at
+    net_width 288 and above, and where the narrow route's shared memory
+    does not hold the config (``takes_wide``). Configs the kernel does not
+    take raise ValueError before anything runs."""
     check_kernel_config(cfg)
-    if source is None:
-        check_train_wg_config(cfg, delta.shape[1])
     return _launch_train("train_level", train_level, params, cfg, xs, d,
                          delta, pixels, g_scale, white_bkgd, mode, packed,
                          source)
@@ -1259,14 +1383,11 @@ def train_level_twopass_cuda(params: Params, cfg: Config, x, d, delta,
     outputs, in the TPU kernel's two phases (forward, composite and g-chain
     with db; then the dW products), on ``train_level``'s bf16 passes;
     ``packed`` is ``pack_train_level``'s result, ``source`` another version
-    of the source, as for ``train_level_cuda``. net_width 288 and above
-    runs ``train_level``'s wide route (bf16 and f32), in the same two phases
-    (``uses_wide``). Configs the kernel does not take, or whose shared
-    memory the bf16 passes cannot take, raise ValueError before anything
-    runs."""
+    of the source, as for ``train_level_cuda``. Where ``takes_wide`` picks
+    it, ``train_level``'s wide route runs (bf16 and f32), in the same two
+    phases. Configs the kernel does not take raise ValueError before
+    anything runs."""
     check_kernel_config(cfg)
-    if source is None:
-        check_train_wg_config(cfg, delta.shape[1])
     return _launch_train("train_level_twopass", train_level_twopass, params,
                          cfg, x, d, delta, pixels, g_scale, white_bkgd, "t",
                          packed, source)

@@ -18,13 +18,15 @@ heads other than 3 rgb / 1 density, a full covariance). The TPU grid
 sizes (``tile``, ``tile_bwd``, ``interleave``) are not carried over, and
 the kernels take per-ray directions for any S.
 
-At net_width 288 and above, with no ceiling but the card's memory, both
-run their wide route (``fused_level.uses_wide``; bf16:
+Both take heads of any channel count. At net_width 288 and above, and
+where the narrow route's shared memory does not hold the config (wide
+location features, large heads), with no ceiling but the card's memory,
+both run their wide route (``fused_level.takes_wide``; bf16:
 ``csrc/wide_forward.cuh``, ``csrc/wide_train.cuh``, f32:
 ``csrc/wide_f32.cuh``): ``mlp_fwd`` through ``mlp_fwd_wide_launch`` and a
 workspace allocated here, ``mlp_bwd`` through the same entry point.
-Other widths run zero-padded, as the level kernels do
-(``fused_level.kernel_cfg``).
+Widths that are not multiples of 32 run zero-padded, as the level
+kernels do (``fused_level.kernel_cfg``).
 
 ``mlp_fwd`` and ``mlp_bwd`` dispatch on the device of their inputs: CPU
 tensors go to the plain version; CUDA tensors launch the kernel, or raise.
@@ -41,12 +43,8 @@ import torch
 from nerf_or_nothing_tpu_torch.config import Config
 from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     _DTYPE_CODE,
-    SMEM_LIMIT,
     _check,
-    uses_wide,
-    chain_wg_smem,
     check_kernel_config,
-    check_wg_config,
     forward_weights_size,
     kernel_cfg,
     mlp_backward_plain,
@@ -61,6 +59,8 @@ from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     packed_tx_size,
     packed_wgx_size,
     padded_location_features,
+    route_code,
+    takes_wide,
     train_splits,
     unembed_grads,
     unpack_grads,
@@ -73,9 +73,6 @@ from nerf_or_nothing_tpu_torch.models.mlp import (
     num_params,
 )
 from nerf_or_nothing_tpu_torch.ops.math_utils import exact_f32
-
-MAX_HEAD = 8  # channels of one head: one n8 tile of the kernels' products
-
 
 def mlp_fwd_plain(params: Params, cfg: Config, x, d, s: int):
     """``_fwd_kernel``'s function in plain PyTorch (``mlp_forward_acts``).
@@ -150,45 +147,24 @@ def _bwd_wg(cfg: Config, layout: str) -> bool:
     return layout == "wg" and compute_dtype(cfg) == torch.bfloat16
 
 
-def check_mlp_bwd_config(cfg: Config, S: int, input_grads: bool) -> None:
-    """Raise ValueError when ``mlp_bwd``'s bf16 passes cannot take the
-    config: the recomputed forward's shared memory (``check_wg_config``),
-    or the g-chain's (``chain_wg_smem``, with the dX partials and x rows of
-    ``input_grads``); nothing to check for f32, nor on the wide route
-    (``uses_wide``: a GEMM launch a layer, whose shared memory does not
-    grow with the config)."""
-    if compute_dtype(cfg) != torch.bfloat16 or uses_wide(cfg):
-        return
-    check_wg_config(cfg, S, False)
-    if chain_wg_smem(cfg, dx=input_grads)[0] is None:
-        raise ValueError(
-            "config not supported by the bf16 mlp_bwd kernel: the g-chain's "
-            "shared memory (two [64, net_width] tiles, every bias, a ring "
-            "of 2 weight slabs, with input_grads the dX partials, and x rows "
-            f"of at most 256 columns) exceeds {SMEM_LIMIT} bytes")
-
-
-def _check_mlp_inputs(cfg: Config, x, d, wg: bool = False,
-                      input_grads: Optional[bool] = None):
-    """Validate the kernels' x and d, with ``wg`` also the bf16 forward's
-    shared memory (``check_wg_config``), and with ``input_grads`` (not
-    None) ``mlp_bwd``'s (``check_mlp_bwd_config``); returns (R, S)."""
-    check_kernel_config(cfg, max_head=MAX_HEAD)
+def _check_mlp_inputs(cfg: Config, x, d, kernel: str,
+                      input_grads: bool = False):
+    """Validate the kernels' x and d and pick ``kernel``'s route
+    (``takes_wide``, which raises for a config no route takes); returns
+    (R, S, whether the launch takes the wide route)."""
+    check_kernel_config(cfg, any_heads=True)
     R, N = d.shape[0], x.shape[0]
     if R == 0 or N % R:
         raise ValueError(f"x has {N} rows, not a multiple of the {R} rays "
                          "of d")
-    if wg:
-        check_wg_config(cfg, N // R, False)
-    if input_grads is not None:
-        check_mlp_bwd_config(cfg, N // R, input_grads)
+    wide = takes_wide(cfg, kernel, N // R, input_grads)
     dt = compute_dtype(cfg)
     device = x.device
     if device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {device}")
     _check("x", x, dt, (N, cfg.location_features), device)
     _check("d", d, dt, (R, cfg.direction_features), device)
-    return R, N // R
+    return R, N // R, wide
 
 
 def _check_packed(cfg: Config, packed: Sequence[torch.Tensor], device,
@@ -263,10 +239,13 @@ def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
     already has it; ``source`` is another version of ``csrc/mlp_fwd.cu``
     with the same C interface, to time versions in turns
     (``compare_kernels.py``; ``packed`` then in the layout it reads).
-    net_width 288 and above runs the wide route (``uses_wide``,
-    ``mlp_fwd_wide_launch``, bf16 and f32) with a workspace allocated here
-    (``source`` versions have the narrow C interface only)."""
-    R, S = _check_mlp_inputs(cfg, x, d, wg=True)
+    The wide route (``takes_wide``: net_width 288 and above, or features
+    or heads past the narrow route's shared memory; ``mlp_fwd_wide_launch``,
+    bf16 and f32) runs with a workspace allocated here (``source`` versions
+    have the narrow C interface only)."""
+    R, S, wide = _check_mlp_inputs(cfg, x, d, "mlp_fwd")
+    if wide and source is not None:
+        raise ValueError("mlp_fwd: a source version has no wide route")
     dt = compute_dtype(cfg)
     device = x.device
     fn, layout = _fwd_library(source)
@@ -282,7 +261,7 @@ def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
     ptrs = (x.data_ptr(), d.data_ptr(), w_flat.data_ptr(), b_flat.data_ptr(),
             raw_rgb.data_ptr(), raw_den.data_ptr())
     stream = torch.cuda.current_stream(device).cuda_stream
-    if source is None and uses_wide(cfg):
+    if wide:
         fn, workspace_bytes = _wide_fwd_library()
         _, W, _, Wc = _dims(cfg)[:4]
         workspace = torch.empty(
@@ -320,8 +299,10 @@ def _bwd_library(source=None):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = ([i] + [p] * 9 + [ll] + [p] * 3 + [i] * 12 + [i, i, p])
         fn.restype = ctypes.c_int
+        # An earlier version's workspace function ignores the trailing
+        # head channels: its dbpart held 16.
         ws = lib.mlp_bwd_workspace
-        ws.argtypes = [i] * 9 + [ll]
+        ws.argtypes = [i] * 9 + [ll, i]
         ws.restype = ll
     return lib, weight_layout(lib, "mlp_bwd")
 
@@ -333,12 +314,11 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     caller already has it (once per step for both levels); ``source`` is
     another version of ``csrc/mlp_bwd.cu`` with the same C interface, to
     time versions in turns (``compare_kernels.py``; ``packed`` then in the
-    layout it reads). net_width 288 and above runs the wide route
-    (``uses_wide``, bf16 and f32) in the same entry point. Configs whose
-    shared memory the bf16 passes cannot take raise ValueError before
-    anything runs."""
-    R, S = _check_mlp_inputs(
-        cfg, x, d, input_grads=input_grads if source is None else None)
+    layout it reads). The wide route (bf16 and f32) runs in the same entry
+    point where ``takes_wide`` picks it (``route_code``). Configs no route
+    takes raise ValueError before anything runs."""
+    R, S, _ = _check_mlp_inputs(cfg, x, d, "mlp_bwd", input_grads)
+    code = route_code(cfg, "mlp_bwd", S, input_grads, source)
     dt = compute_dtype(cfg)
     device = x.device
     N = R * S
@@ -367,11 +347,12 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
                          device=device)
     splits = train_splits(N)
     D, W, _, Wc, Dc, _, kx = _dims(cfg)[:7]
-    ws_bytes = lib.mlp_bwd_workspace(_DTYPE_CODE[dt], R, S, D, W, Wc, Dc, kx,
-                                     splits, n_out)
+    ws_bytes = lib.mlp_bwd_workspace(
+        code, R, S, D, W, Wc, Dc, kx, splits, n_out,
+        cfg.num_rgb_channels + cfg.num_density_channels)
     workspace = torch.empty((ws_bytes,), dtype=torch.uint8, device=device)
     err = lib.mlp_bwd_launch(
-        _DTYPE_CODE[dt], x.data_ptr(), d.data_ptr(), g_rgb.data_ptr(),
+        code, x.data_ptr(), d.data_ptr(), g_rgb.data_ptr(),
         g_den.data_ptr(), w_flat.data_ptr(), wt_flat.data_ptr(), wtx_ptr,
         b_flat.data_ptr(), grads.data_ptr(), n_out,
         dx.data_ptr() if input_grads else 0,

@@ -16,7 +16,7 @@ both packages' oracles.
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -109,20 +109,29 @@ def f64_products():
         fused_level.dense = saved
 
 
-def f64_reference(cfg: Config) -> bool:
+def f64_reference(cfg: Config, kernel: Optional[str] = None, S: int = 0,
+                  input_grads: bool = False) -> bool:
     """Whether ``cfg``'s kernels are held to the plain version with f64
-    products (``f64_products``): f32 on the wide route (a kernel net_width
-    above 256)."""
+    products (``f64_products``): f32 on the wide route, a kernel net_width
+    above 256 or, with ``kernel`` (a launch of it at ``S`` samples a ray),
+    wherever ``fused_level.takes_wide`` picks that route."""
     from nerf_or_nothing_tpu_torch.kernels import fused_level
 
-    return cfg.compute_dtype == "float32" and fused_level.uses_wide(cfg)
+    if cfg.compute_dtype != "float32":
+        return False
+    if kernel is None:
+        return fused_level.uses_wide(cfg)
+    return fused_level.takes_wide(cfg, kernel, S, input_grads)
 
 
-def reference_products(cfg: Config):
+def reference_products(cfg: Config, kernel: Optional[str] = None, S: int = 0,
+                       input_grads: bool = False):
     """The context in which a plain version gives the reference of
-    ``cfg``'s kernels: ``f64_products()`` where ``f64_reference``, else
-    the plain version as it is."""
-    return f64_products() if f64_reference(cfg) else contextlib.nullcontext()
+    ``cfg``'s kernels (of a launch of ``kernel``, as ``f64_reference``):
+    ``f64_products()`` where ``f64_reference``, else the plain version as
+    it is."""
+    return (f64_products() if f64_reference(cfg, kernel, S, input_grads)
+            else contextlib.nullcontext())
 
 
 def level_parity_errors(dtype: str, device="cuda", atol=None,
@@ -161,3 +170,36 @@ def level_parity_errors(dtype: str, device="cuda", atol=None,
         errs[f"dw{i}"] = normalized_err(dw, grads[2 * i], atol, rtol)
         errs[f"db{i}"] = normalized_err(db, grads[2 * i + 1], atol, rtol)
     return max(errs.values()), errs
+
+
+# A hidden pre-activation within this many times its layer's rms of zero
+# in the f64 forward is a ReLU mask that an f32 computation may take on
+# the other side of zero: several times the f32 rounding of a
+# pre-activation at these widths
+MASK_MARGIN = 3e-5
+
+
+def near_zero_rows(params, cfg, x, d, margin=MASK_MARGIN):
+    """The rows [R*S] of the MLP on x [R*S, F], d [R, Fd] with a hidden
+    pre-activation of the f64 forward within ``margin`` times its layer's
+    rms of zero."""
+    D, nw, S = cfg.net_depth, cfg.net_width, cfg.num_samples
+    x, d = x.double(), d.double()
+    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+
+    def relu(z):
+        near.logical_or_(
+            (z.abs() < margin * z.pow(2).mean().sqrt()).any(dim=1))
+        return torch.relu(z)
+
+    h = x
+    for i in range(D):
+        w, b = (t.double() for t in params[i])
+        skip = i % cfg.skip_layer == 0 and i > 0
+        h = relu((h @ w[:nw] + x @ w[nw:] if skip else h @ w) + b)
+    for j in range(cfg.net_depth_condition):
+        w, b = (t.double() for t in params[D + 1 + j])
+        z = (h @ w[:nw] + (d @ w[nw:]).repeat_interleave(S, 0) if j == 0
+             else h @ w)
+        h = relu(z + b)
+    return near

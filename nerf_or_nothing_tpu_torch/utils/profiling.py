@@ -151,15 +151,17 @@ def mlp_roofline(cfg, num_rows: int, backward: bool = True,
     package's model: num_rows = rays * samples (one level); every layer
     (the view layer's direction rows too) once per row, three times with
     the backward; bytes: inputs (IPE features + direction features) and
-    rgb + sigma out per row, twice with the backward, and one pass over the
-    parameters."""
+    the heads' rgb + density channels out per row (f32 each), twice with
+    the backward, and one pass over the parameters. The JAX package counts
+    4 f32 a row, the 3 / 1 heads' count."""
     dims = layer_dims(cfg)
     matmul_flops = 2 * sum(i * o for i, o in dims) * num_rows
     total_flops = matmul_flops * (3 if backward else 1)
     param_bytes = sum(i * o + o for i, o in dims) * 4
+    heads = cfg.num_rgb_channels + cfg.num_density_channels
     io_bytes = num_rows * (
         (cfg.location_features + cfg.direction_features) * 4
-        + 4 * 4
+        + heads * 4
     ) * (2 if backward else 1) + param_bytes
     peak_flops, peak_bw = chip_peaks(device)
     t_compute = total_flops / peak_flops
@@ -172,6 +174,30 @@ def mlp_roofline(cfg, num_rows: int, backward: bool = True,
         "t_roofline_s": max(t_compute, t_memory),
         "compute_bound": t_compute >= t_memory,
     }
+
+
+def mlp_kernel_bytes(cfg, R: int, S: int, backward: bool = False,
+                     input_grads: bool = False) -> Tuple[int, int]:
+    """(bytes in, bytes out) of one ``mlp_fwd`` launch, or with
+    ``backward`` one ``mlp_bwd`` launch, over R rays of S samples, each
+    read or written once: x, d, the weights (compute type) and the biases
+    (f32) in, the heads' f32 channels out (Cr + Cd a row); the backward
+    takes those head cotangents in and gives dW / db (f32) and, with
+    ``input_grads``, dX (compute type) and dD (f32)."""
+    esize = 2 if cfg.compute_dtype == "bfloat16" else 4
+    dims = layer_dims(cfg)
+    heads = R * S * (cfg.num_rgb_channels + cfg.num_density_channels) * 4
+    params_in = (sum(i * o for i, o in dims) * esize
+                 + sum(o for _, o in dims) * 4)
+    in_bytes = (R * S * cfg.location_features * esize
+                + R * cfg.direction_features * esize + params_in)
+    if not backward:
+        return in_bytes, heads
+    out_bytes = sum(i * o + o for i, o in dims) * 4
+    if input_grads:
+        out_bytes += (R * S * cfg.location_features * esize
+                      + R * cfg.direction_features * 4)
+    return in_bytes + heads, out_bytes
 
 
 def level_flops(cfg, R: int, S: int) -> int:

@@ -224,10 +224,10 @@ def test_any_width_kernel_reads_of_the_packed_streams(widths, dtype):
 def test_any_width_guard_admits_every_width(dtype):
     """``check_kernel_config`` takes every net_width and
     net_width_condition of at least 1 (rounded up by ``kernel_cfg``; the
-    wide route above 256) with heads 3 / 1 (the level kernels) or 1-8
-    channels each (the MLP kernels), and the shared-memory checks of the
-    narrow routes pass them; it refuses heads above 8 channels (other
-    than 3 / 1 for the level kernels) and widths below 1."""
+    wide route above 256) with heads 3 / 1 (the level kernels) or of any
+    channel count (the MLP kernels), and the router places them (every
+    kernel on the wide route above 256); it refuses heads other than 3 / 1
+    for the level kernels, heads of 0 channels and widths below 1."""
     widths = (1, 7, 31, 32, 200, 256, 257, 288, 300, 1000, 1024, 1025,
               1056, 2048, 3000, 4096, 10000)
     for W in widths:
@@ -241,20 +241,27 @@ def test_any_width_guard_admits_every_width(dtype):
             fl.check_kernel_config(cfg)
             fl.check_kernel_config(cfg.replace(num_rgb_channels=8,
                                                num_density_channels=1),
-                                   max_head=fm.MAX_HEAD)
+                                   any_heads=True)
             if W in (2048, 10000) and Wc in (288, 1056, 10000):
-                fl.check_train_wg_config(cfg, 128)
-                fl.check_wg_config(cfg, 128, True)
-                for input_grads in (True, False):
-                    fm.check_mlp_bwd_config(cfg, 128, input_grads)
+                for kernel in fl.KERNELS:
+                    for input_grads in (True, False):
+                        assert fl.takes_wide(cfg, kernel, 128, input_grads)
     wide = Config(net_width=2048, net_width_condition=1056,
                   compute_dtype=dtype)
-    for heads, max_head in (((9, 1), fm.MAX_HEAD), ((1, 9), fm.MAX_HEAD),
-                            ((4, 1), 0)):
-        with pytest.raises(ValueError, match="not supported"):
-            fl.check_kernel_config(wide.replace(
-                num_rgb_channels=heads[0], num_density_channels=heads[1]),
-                max_head=max_head)
+    # heads of 9 channels are taken now (the MLP kernels run a head in
+    # groups of 8 channels); the level kernels' 3 / 1 and heads of at
+    # least 1 channel are what is still refused
+    for heads, any_heads, refused in (((9, 1), True, False),
+                                      ((1, 9), True, False),
+                                      ((4, 1), False, True),
+                                      ((3, 0), True, True)):
+        cfg = wide.replace(num_rgb_channels=heads[0],
+                           num_density_channels=heads[1])
+        if refused:
+            with pytest.raises(ValueError, match="not supported"):
+                fl.check_kernel_config(cfg, any_heads=any_heads)
+        else:
+            fl.check_kernel_config(cfg, any_heads=any_heads)
     with pytest.raises(ValueError, match=">= 1"):
         fl.check_kernel_config(wide.replace(net_width_condition=0))
 

@@ -273,9 +273,9 @@ def test_pack_params_tx_matches_kernel_layout():
 
 
 def test_mlp_wrappers_check_inputs():
-    """CPU tensors and unsupported widths are refused before any launch;
-    heads of 1-8 channels are taken; the dispatchers send CPU tensors to
-    the plain versions."""
+    """CPU tensors and heads of 0 channels are refused before any launch;
+    heads of any channel count from 1 are taken; the dispatchers send CPU
+    tensors to the plain versions."""
     cfg = Config(**dict(SMALL, net_width_condition=32,
                         compute_dtype="bfloat16"))
     params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg)
@@ -287,16 +287,23 @@ def test_mlp_wrappers_check_inputs():
         fm.mlp_fwd_cuda(params, cfg, x, d)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den, True)
-    for bad in (dict(num_rgb_channels=9), dict(num_density_channels=0)):
-        with pytest.raises(ValueError, match="not supported"):
-            fm.mlp_fwd_cuda(params, cfg.replace(**bad), x, d)
+    # heads of 9 channels are taken (groups of 8 channels): the config
+    # checks pass and the device check refuses the CPU tensors; a head of
+    # 0 channels is refused
+    nine = cfg.replace(num_rgb_channels=9)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fm.mlp_fwd_cuda(tmlp.init_mlp(torch.Generator().manual_seed(0),
+                                      nine), nine, x, d)
+    with pytest.raises(ValueError, match="not supported"):
+        fm.mlp_fwd_cuda(params, cfg.replace(num_density_channels=0), x, d)
     # net_width 1056 is taken (the wide route has no ceiling): the config
     # checks pass and the device check refuses the CPU tensors
     wide = cfg.replace(net_width=1056)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fm.mlp_fwd_cuda(tmlp.init_mlp(torch.Generator().manual_seed(0),
                                       wide), wide, x, d)
-    fl.check_kernel_config(cfg.replace(num_rgb_channels=8), max_head=8)
+    fl.check_kernel_config(cfg.replace(num_rgb_channels=8), any_heads=True)
+    fl.check_kernel_config(cfg.replace(num_rgb_channels=64), any_heads=True)
     with pytest.raises(ValueError, match="3 rgb / 1 density"):
         fl.check_kernel_config(cfg.replace(num_rgb_channels=4))
     before = (fm.mlp_fwd.launches, fm.mlp_bwd.launches)

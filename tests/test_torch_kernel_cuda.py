@@ -36,6 +36,7 @@ from nerf_or_nothing_tpu_torch.ops.render import (  # noqa: E402
     interval_lengths,
 )
 from nerf_or_nothing_tpu_torch.utils.parity import (  # noqa: E402
+    near_zero_rows,
     reference_products,
 )
 
@@ -50,12 +51,12 @@ def normalized_err(a, b, atol, rtol):
     return float(((a - b).abs() / band).max())
 
 
-def level_inputs(R, S, seed, dev):
+def level_inputs(R, S, seed, dev, fd=27, cov=0.02):
     rng = np.random.default_rng(seed)
     T = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
     means = T(rng.normal(size=(R, S, 3)))
-    covs = T(rng.uniform(0, 0.02, size=(R, S, 3)))
-    dir_enc = T(rng.normal(size=(R, 27)) * 0.5)
+    covs = T(rng.uniform(0, cov, size=(R, S, 3)))
+    dir_enc = T(rng.normal(size=(R, fd)) * 0.5)
     t_vals = T(np.sort(rng.uniform(2, 6, size=(R, S + 1)), -1))
     dirs = T(rng.normal(size=(R, 3)))
     return means, covs, dir_enc, t_vals, dirs
@@ -147,33 +148,36 @@ def test_render_fn_packs_weights_once_per_params(monkeypatch):
     assert not np.allclose(rgb, rgb2)
 
 
-def train_inputs(R, S, seed, dev):
-    """One level's inputs plus pixels and a g_scale with zeros (masked
-    rays) from numpy."""
+def train_inputs(R, S, seed, dev, fd=27, cov=0.02):
+    """One level's inputs (``fd`` direction features, covariances up to
+    ``cov``) plus pixels and a g_scale with zeros (masked rays) from
+    numpy."""
     rng = np.random.default_rng(seed + 100)
     pixels = torch.from_numpy(rng.uniform(size=(R, 3)).astype(np.float32))
     mask = rng.uniform(0.5, 2.0, size=R).astype(np.float32)
     mask[::5] = 0.0
     g_scale = torch.from_numpy((0.1 * 2.0 * mask / mask.sum())[:, None])
-    return (*level_inputs(R, S, seed, dev), pixels.to(dev), g_scale.to(dev))
+    return (*level_inputs(R, S, seed, dev, fd, cov), pixels.to(dev),
+            g_scale.to(dev))
 
 
-def check_train(cfg, R, mode, white_bkgd, dev, seed=1):
+def check_train(cfg, R, mode, white_bkgd, dev, seed=1, cov=0.02):
     """``fused_level_train`` on the card (one launch of the kernel the
     config selects) against ``level_train_plain`` (f32 on the wide route:
-    with f64 products, ``reference_products``)."""
+    with f64 products, ``reference_products``); covariances up to
+    ``cov``."""
     S = cfg.num_samples
     kernel = (fl.train_level_twopass if mode == "t"
               and cfg.probe("fl_variant") == "twopass" else fl.train_level)
     params = tmlp.init_mlp(torch.Generator().manual_seed(seed), cfg, device=dev)
     means, covs, dir_enc, t_vals, dirs, pixels, g_scale = train_inputs(
-        R, S, seed, dev)
+        R, S, seed, dev, cfg.direction_features, cov)
     kw, x = {}, None
     if mode == "mv":
         kw = dict(means_covs=(means, covs))
     else:
         x = integrated_pos_enc((means, covs), cfg.min_deg_point,
-                               cfg.max_deg_point, fast=True)
+                               cfg.max_deg_point, fast=cfg.fast_ipe)
     before = (fl.train_level.launches, fl.train_level_twopass.launches)
     out = fl.fused_level_train(params, cfg, x, dir_enc, t_vals, dirs, pixels,
                                g_scale, white_bkgd, **kw)
@@ -184,7 +188,9 @@ def check_train(cfg, R, mode, white_bkgd, dev, seed=1):
     dt = tmlp.compute_dtype(cfg)
     xs = ((means.reshape(-1, 3), covs.reshape(-1, 3)) if mode == "mv"
           else x.reshape(R * S, -1).to(dt))
-    with reference_products(cfg):
+    name = ("train_level" if kernel is fl.train_level
+            else "train_level_twopass")
+    with reference_products(cfg, name, S):
         ref = fl.level_train_plain(params, cfg, xs, dir_enc.to(dt),
                                    interval_lengths(t_vals, dirs), pixels,
                                    g_scale, white_bkgd, mode)
@@ -394,7 +400,7 @@ def test_train_step_then_render_repacks_on_cuda(monkeypatch):
     assert not np.allclose(rgb, rgb2)
 
 
-def mlp_inputs(cfg, params, R, seed, dev):
+def mlp_inputs(cfg, params, R, seed, dev, cov=0.02):
     """The MLP kernels' inputs as a train level makes them: IPE features
     [R*S, F] and view PE [R, Fd] in the compute dtype and, with 3 rgb / 1
     density heads, the head cotangents of the composite backward of the
@@ -407,9 +413,9 @@ def mlp_inputs(cfg, params, R, seed, dev):
     S = cfg.num_samples
     dt = tmlp.compute_dtype(cfg)
     means, covs, dir_enc, t_vals, dirs, pixels, g_scale = train_inputs(
-        R, S, seed, dev)
+        R, S, seed, dev, cfg.direction_features, cov)
     x = integrated_pos_enc((means, covs), cfg.min_deg_point,
-                           cfg.max_deg_point, fast=True)
+                           cfg.max_deg_point, fast=cfg.fast_ipe)
     x, d = x.reshape(R * S, -1).to(dt), dir_enc.to(dt)
     if (cfg.num_rgb_channels, cfg.num_density_channels) == (3, 1):
         raw_rgb, raw_den = fm.mlp_fwd_plain(params, cfg, x, d, S)
@@ -782,10 +788,12 @@ def test_mlp_bwd_wg_matches_plain_on_cuda(heads, input_grads):
 
 
 def test_wg_backward_configs_raise_before_launch_on_cuda():
-    """On CUDA tensors too, configs the bf16 passes cannot take raise
-    ValueError before any launch: x rows wider than 256 columns for
-    ``mlp_bwd``'s dX, more biases than the chain's shared memory holds for
-    the two-pass kernel."""
+    """On CUDA tensors, x rows wider than 256 columns for ``mlp_bwd``'s
+    dX, which the bf16 narrow passes refused, take the wide route and
+    launch once; more biases than the chain's shared memory holds and
+    more layers than any route's table raise ValueError before any launch
+    of the two-pass kernel; 25 dW products take the wide route in bf16
+    and raise in f32."""
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
 
     dev = cuda_device()
@@ -798,8 +806,12 @@ def test_wg_backward_configs_raise_before_launch_on_cuda():
     g_rgb = torch.zeros(R * S, 3, device=dev)
     g_den = torch.zeros(R * S, 1, device=dev)
     before = (fm.mlp_bwd.launches, fl.train_level_twopass.launches)
-    with pytest.raises(ValueError, match="mlp_bwd kernel"):
-        fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den, True)
+    assert fl.takes_wide(cfg, "mlp_bwd", S, True)
+    d_params, dx, dd = fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den, True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dx.float()).all())
+    assert all(bool(torch.isfinite(t).all()) for wb in d_params for t in wb)
+    before = (before[0] + 1, before[1])
     deep = Config(net_depth=100)
     delta = torch.ones(R, S, device=dev)
     pixels, g_scale = torch.zeros(R, 3, device=dev), torch.ones(R, 1, device=dev)
@@ -809,32 +821,40 @@ def test_wg_backward_configs_raise_before_launch_on_cuda():
         fl.train_level_twopass_cuda(params, deep, xd, d, delta, pixels,
                                     g_scale, True)
     assert (fm.mlp_bwd.launches, fl.train_level_twopass.launches) == before
+    # 25 dW products, past the narrow dW GEMM's job table: bf16 takes the
+    # wide route (in band of the plain version), f32 raises before a launch
+    check_train(Config(net_depth=20, net_width=64, net_width_condition=32),
+                5, "t", True, dev)
+    with pytest.raises(ValueError, match="24 products"):
+        check_train(Config(net_depth=20, compute_dtype="float32"), 5, "t",
+                    True, dev)
 
 
 WIDE = dict(net_depth=8, skip_layer=4, net_width_condition=128)
 
 
-def check_render(cfg, R, mode, white_bkgd, dev, seed=1):
+def check_render(cfg, R, mode, white_bkgd, dev, seed=1, cov=0.02):
     """``fused_level_render`` on the card (one ``render_level`` launch)
     against ``render_level_plain`` (f32 on the wide route: with f64
     products)."""
     S = cfg.num_samples
     params = tmlp.init_mlp(torch.Generator().manual_seed(seed), cfg, device=dev)
-    means, covs, dir_enc, t_vals, dirs = level_inputs(R, S, seed, dev)
+    means, covs, dir_enc, t_vals, dirs = level_inputs(
+        R, S, seed, dev, cfg.direction_features, cov)
     dt = tmlp.compute_dtype(cfg)
     if mode == "mv":
         xs, x, kw = (means.reshape(-1, 3), covs.reshape(-1, 3)), None, dict(
             means_covs=(means, covs))
     else:
         x = integrated_pos_enc((means, covs), cfg.min_deg_point,
-                               cfg.max_deg_point, fast=True)
+                               cfg.max_deg_point, fast=cfg.fast_ipe)
         xs, kw = x.reshape(R * S, -1).to(dt), {}
     before = fl.render_level.launches
     out = fl.fused_level_render(params, cfg, x, dir_enc, t_vals, dirs,
                                 white_bkgd, **kw)
     torch.cuda.synchronize()
     assert fl.render_level.launches == before + 1
-    with reference_products(cfg):
+    with reference_products(cfg, "render_level", S):
         ref = fl.render_level_plain(params, cfg, xs, dir_enc.to(dt),
                                     interval_lengths(t_vals, dirs),
                                     white_bkgd, mode)
@@ -980,10 +1000,11 @@ def test_wide_unported_routes_raise_before_launch_on_cuda():
             cfg = Config(**dict(SMALL, net_width=width, compute_dtype=dtype))
             assert fl.uses_wide(cfg)
             fl.check_kernel_config(cfg)
-            fl.check_kernel_config(cfg, max_head=fm.MAX_HEAD)
-            fl.check_train_wg_config(cfg, cfg.num_samples)
-            for input_grads in (True, False):
-                fm.check_mlp_bwd_config(cfg, cfg.num_samples, input_grads)
+            fl.check_kernel_config(cfg, any_heads=True)
+            for kernel in fl.KERNELS:
+                for input_grads in (True, False):
+                    assert fl.takes_wide(cfg, kernel, cfg.num_samples,
+                                         input_grads)
     routes = ("train_level", "render_level", "train_level_twopass",
               "mlp_fwd", "mlp_bwd")
     for kw in (dict(net_width=512, net_width_condition=288),
@@ -1290,39 +1311,6 @@ def test_any_width_twopass_equals_train_level_on_cuda(dtype, widths):
     for ta, tb, to in zip(tensors(a), tensors(b), tensors(one)):
         assert torch.equal(ta, tb) and torch.equal(ta, to)
     check_close(a, ref, dtype, "train_level_twopass")
-
-
-# A hidden pre-activation within this many times its layer's rms of zero
-# in the f64 forward is a ReLU mask that an f32 computation may take on
-# the other side of zero: several times the f32 rounding of a
-# pre-activation at these widths
-MASK_MARGIN = 3e-5
-
-
-def near_zero_rows(params, cfg, x, d, margin=MASK_MARGIN):
-    """The rows [R*S] of the MLP on x [R*S, F], d [R, Fd] with a hidden
-    pre-activation of the f64 forward within ``margin`` times its layer's
-    rms of zero."""
-    D, nw, S = cfg.net_depth, cfg.net_width, cfg.num_samples
-    x, d = x.double(), d.double()
-    near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
-
-    def relu(z):
-        near.logical_or_(
-            (z.abs() < margin * z.pow(2).mean().sqrt()).any(dim=1))
-        return torch.relu(z)
-
-    h = x
-    for i in range(D):
-        w, b = (t.double() for t in params[i])
-        skip = i % cfg.skip_layer == 0 and i > 0
-        h = relu((h @ w[:nw] + x @ w[nw:] if skip else h @ w) + b)
-    for j in range(cfg.net_depth_condition):
-        w, b = (t.double() for t in params[D + 1 + j])
-        z = (h @ w[:nw] + (d @ w[nw:]).repeat_interleave(S, 0) if j == 0
-             else h @ w)
-        h = relu(z + b)
-    return near
 
 
 @pytest.mark.parametrize("widths", ANY_WIDTHS, ids=ANY_IDS)
@@ -1818,3 +1806,118 @@ def test_padded_widths_match_plain_on_cuda(row, dtype):
     grown = {k: v - before[k] for k, v in launch_counts().items()}
     assert grown == {"render_level": 1, "train_level": 5,
                      "train_level_twopass": 3, "mlp_fwd": 1, "mlp_bwd": 3}
+
+
+# ---------------------------------------------------------------------------
+# Heads of any channel count and location features past the narrow routes'
+# shared memory (tests/test_torch_any_heads.py, tests/test_torch_any_
+# features.py hold the plain versions against the JAX package)
+# ---------------------------------------------------------------------------
+
+ANY_HEADS = [(9, 1), (1, 9), (16, 16), (17, 33), (3, 64)]
+HEAD_WIDTHS = {"narrow": (64, 32), "wide": (288, 64)}
+
+
+@pytest.mark.parametrize("width", sorted(HEAD_WIDTHS))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_any_heads_mlp_kernels_match_plain_on_cuda(dtype, width):
+    """``mlp_fwd`` and ``mlp_bwd`` (with and without input_grads) at head
+    pairs (9, 1), (1, 9), (16, 16), (17, 33) and (3, 64), at 64 / 32 (the
+    narrow route: the bf16 forward's N=8 product a group of 8 channels)
+    and 288 / 64 (the wide route: a head launch a group), against
+    ``mlp_fwd_plain`` / ``mlp_bwd_plain`` in the dtype's band (f32 on the
+    wide route: with f64 products, ``any_width_inputs``' exact MLP), one
+    launch a call, ``mlp_bwd`` bit-equal over two launches."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    W, Wc = HEAD_WIDTHS[width]
+    for heads in ANY_HEADS:
+        cfg = Config(net_width=W, net_width_condition=Wc, compute_dtype=dtype,
+                     num_rgb_channels=heads[0], num_density_channels=heads[1])
+        R, S = 48, cfg.num_samples
+        for kernel, ig in (("mlp_fwd", False), ("mlp_bwd", False),
+                           ("mlp_bwd", True)):
+            assert fl.takes_wide(cfg, kernel, S, ig) == (width == "wide")
+        params, x, d, g_rgb, g_den = any_width_inputs(cfg, R, sum(heads), dev)
+        dt = tmlp.compute_dtype(cfg)
+        x, d = x.to(dt), d.to(dt)
+        before = (fm.mlp_fwd.launches, fm.mlp_bwd.launches)
+        raw = fm.mlp_fwd(params, cfg, x, d)
+        assert fm.mlp_fwd.launches == before[0] + 1
+        assert [t.shape[1] for t in raw] == list(heads)
+        with reference_products(cfg, "mlp_fwd", S):
+            raw_ref = fm.mlp_fwd_plain(params, cfg, x, d, S)
+        check_close(raw, raw_ref, dtype, f"mlp_fwd {heads}")
+        for input_grads in (True, False):
+            a, b = (fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, input_grads)
+                    for _ in range(2))
+            with reference_products(cfg, "mlp_bwd", S, input_grads):
+                ref = fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, S,
+                                       input_grads)
+            assert all(torch.equal(ta, tb)
+                       for ta, tb in zip(tensors(a), tensors(b))), heads
+            check_close(a, ref, dtype, f"mlp_bwd {heads} {input_grads}")
+        torch.cuda.synchronize()
+        assert fm.mlp_bwd.launches == before[1] + 4
+
+
+# Covariances of the model's samples (a cone of radius ~1e-3 at t = 2-6),
+# which leave the frequencies up to ~2^9 undamped; larger ones damp every
+# feature of min_deg_point 8 to ~0, and every pre-activation with it.
+MODEL_COV = 2e-5
+ANY_FEATURES = {"44": dict(max_deg_point=44), "56": dict(max_deg_point=56),
+                "70": dict(max_deg_point=70), "100": dict(max_deg_point=100),
+                "8_60": dict(min_deg_point=8, max_deg_point=60),
+                "deg_view_32": dict(deg_view=32)}
+
+
+@pytest.mark.parametrize("deg", sorted(ANY_FEATURES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_any_features_kernels_match_plain_on_cuda(dtype, deg):
+    """All five kernels at Config() widths with ``max_deg_point`` 44, 56,
+    70 and 100, frequencies 8 to 60, and ``deg_view`` 32 (195 direction
+    features), exact transcendentals (the polynomials' features are NaN
+    from degree ~36 in both packages), covariances of the model's scale
+    (``MODEL_COV``): ``train_level`` and
+    ``render_level`` in modes "mv" and "t", the two-pass kernel,
+    ``mlp_fwd`` and ``mlp_bwd`` with and without input_grads on the route
+    ``takes_wide`` picks, against the plain versions in the dtype's band
+    (f32 on the wide route: with f64 products; f32 ``mlp_bwd`` with no
+    cotangent on the rows of ``near_zero_rows``, whose ReLU masks two f32
+    computations may take on opposite sides of zero); the backward
+    kernels bit-equal over two launches."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    cfg = Config(compute_dtype=dtype, fast_ipe=False, **ANY_FEATURES[deg])
+    R, S = 21, cfg.num_samples
+    kw = dict(cov=MODEL_COV)
+    for mode in ("mv", "t"):
+        params, a = check_train(cfg, R, mode, mode == "t", dev, **kw)
+        _, b = check_train(cfg, R, mode, mode == "t", dev, **kw)
+        assert all(torch.equal(ta, tb) for ta, tb in zip(tensors(a),
+                                                         tensors(b)))
+        check_render(cfg, R, mode, mode == "mv", dev, cov=MODEL_COV)
+    two = cfg.replace(kernel_probes="fl_variant=twopass")
+    _, a = check_train(two, R, "t", True, dev, seed=2, **kw)
+    _, b = check_train(two, R, "t", True, dev, seed=2, **kw)
+    assert all(torch.equal(ta, tb) for ta, tb in zip(tensors(a), tensors(b)))
+    params = tmlp.init_mlp(torch.Generator().manual_seed(3), cfg, device=dev)
+    x, d, g_rgb, g_den = mlp_inputs(cfg, params, R, 3, dev, cov=MODEL_COV)
+    if dtype == "float32":
+        keep = ~near_zero_rows(params, cfg, x, d)[:, None]
+        g_rgb, g_den = g_rgb * keep, g_den * keep
+    raw = fm.mlp_fwd(params, cfg, x, d)
+    with reference_products(cfg, "mlp_fwd", S):
+        check_close(raw, fm.mlp_fwd_plain(params, cfg, x, d, S), dtype,
+                    "mlp_fwd")
+    for input_grads in (True, False):
+        a, b = (fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, input_grads)
+                for _ in range(2))
+        with reference_products(cfg, "mlp_bwd", S, input_grads):
+            ref = fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, S,
+                                   input_grads)
+        assert all(torch.equal(ta, tb)
+                   for ta, tb in zip(tensors(a), tensors(b))), input_grads
+        check_close(a, ref, dtype, f"mlp_bwd input_grads={input_grads}")

@@ -270,7 +270,8 @@ def test_mlp_bwd_chain_smem_fits_every_admitted_width(dx):
     """Every width ``check_kernel_config`` admits, heads of 1-8 channels
     each, the feature widths of max_deg_point 4-32: the chain (with the dX
     partials and x-row slots of ``input_grads``) and the recomputed
-    forward fit a block, and ``check_mlp_bwd_config`` passes."""
+    forward fit a block, and the router keeps ``mlp_bwd`` on the narrow
+    route."""
     for W in range(32, 257, 32):
         for Wc in range(32, W + 1, 32):
             for deg in (4, 16, 32):
@@ -278,11 +279,12 @@ def test_mlp_bwd_chain_smem_fits_every_admitted_width(dx):
                     cfg = Config(net_width=W, net_width_condition=Wc,
                                  max_deg_point=deg, num_rgb_channels=heads[0],
                                  num_density_channels=heads[1])
-                    fl.check_kernel_config(cfg, max_head=fm.MAX_HEAD)
+                    fl.check_kernel_config(cfg, any_heads=True)
                     nbytes, stages = fl.chain_wg_smem(cfg, dx=dx)
                     assert nbytes is not None and nbytes <= fl.SMEM_LIMIT
                     assert stages >= 2
-                    fm.check_mlp_bwd_config(cfg, cfg.num_samples, dx)
+                    assert not fl.takes_wide(cfg, "mlp_bwd",
+                                             cfg.num_samples, dx)
     # without dX the chain is the train kernel's; the dX partials cost the
     # default config one of its four slots
     assert fl.chain_wg_smem(Config()) == fl.chain_wg_smem(Config(), dx=False)
@@ -290,15 +292,16 @@ def test_mlp_bwd_chain_smem_fits_every_admitted_width(dx):
 
 
 @pytest.mark.parametrize("kw,input_grads,what", [
-    (dict(max_deg_point=44), True, "mlp_bwd kernel"),
+    (dict(max_deg_point=44), True, "CUDA tensor"),
     (dict(max_deg_point=44), False, "CUDA tensor"),
     (dict(net_depth=100), False, "mlp_bwd kernel"),
-    (dict(max_deg_point=80), False, "bf16 forward")])
+    (dict(max_deg_point=80), False, "CUDA tensor")])
 def test_mlp_bwd_rejected_config_raises_before_launch(kw, input_grads, what):
-    """x rows wider than 256 columns (dX only), more biases than the
-    chain's shared memory holds, features too wide for the recomputed
-    forward: ``mlp_bwd_cuda`` raises ValueError before any launch (CPU
-    tensors reach the device check only when the config fits)."""
+    """x rows wider than 256 columns (dX) and features too wide for the
+    recomputed forward, which the bf16 narrow route refused, now take the
+    wide route (CPU tensors then reach the device check); 102 layers,
+    more than any route's layer table holds, still raise ValueError
+    before any launch."""
     cfg = Config(**kw)
     params = params_of(cfg.replace(net_depth=min(cfg.net_depth, 8)))
     R, S = 2, cfg.num_samples
@@ -309,7 +312,14 @@ def test_mlp_bwd_rejected_config_raises_before_launch(kw, input_grads, what):
     with pytest.raises(ValueError, match=what):
         fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den, input_grads)
     assert fm.mlp_bwd.launches == before
-    fm.check_mlp_bwd_config(cfg.replace(compute_dtype="float32"), S, True)
+    f32 = cfg.replace(compute_dtype="float32")
+    if "net_depth" in kw:
+        with pytest.raises(ValueError, match="64 layers"):
+            fl.takes_wide(f32, "mlp_bwd", S, True)
+    else:  # the narrow f32 dX product is at most 256 columns wide
+        wide = kw["max_deg_point"] > 64 or input_grads
+        assert fl.takes_wide(cfg, "mlp_bwd", S, input_grads) == wide
+        assert fl.takes_wide(f32, "mlp_bwd", S, True)
 
 
 def test_pack_mlp_params_per_route():

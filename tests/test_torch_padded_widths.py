@@ -43,7 +43,6 @@ from nerf_or_nothing_tpu.kernels.fused_level import (  # noqa: E402
 )
 from nerf_or_nothing_tpu_torch.config import Config  # noqa: E402
 from nerf_or_nothing_tpu_torch.kernels import fused_level as fl  # noqa: E402
-from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm  # noqa: E402
 from nerf_or_nothing_tpu_torch.models import mlp as tmlp  # noqa: E402
 from nerf_or_nothing_tpu_torch.ops.render import (  # noqa: E402
     interval_lengths,
@@ -253,24 +252,26 @@ def test_admitted_configs_pack_as_before(name):
 
 def test_guard_admits_every_row_and_refuses_the_rest():
     """Every row (in each dtype the card takes) passes the level kernels'
-    guard and the MLP kernels' (heads up to ``MAX_HEAD``), with the bf16
-    shared-memory checks; f32 at net_width 260 (288 after padding) takes
-    the wide route; net_width_condition 300 (320 after padding) and
-    net_width 1025 (1056) take it too, in both dtypes, with no ceiling;
-    what is still refused, heads of 9 channels, names itself."""
+    guard and the MLP kernels' (heads of any channel count), and takes the
+    narrow route of every kernel (400 / 200 the wide one); f32 at
+    net_width 260 (288 after padding) takes the wide route;
+    net_width_condition 300 (320 after padding) and net_width 1025 (1056)
+    take it too, in both dtypes, with no ceiling; heads of 9 channels,
+    which the MLP kernels refused while a head was one group of 8, are
+    taken."""
     for row, dtype in CASES:
         cfg = row_cfg(row, dtype)
-        for max_head in (0, fm.MAX_HEAD):
-            fl.check_kernel_config(cfg, max_head=max_head)
-        fl.check_train_wg_config(cfg, 128)
-        fl.check_wg_config(cfg, 128, True)
-        for input_grads in (True, False):
-            fm.check_mlp_bwd_config(cfg, 128, input_grads)
+        for any_heads in (False, True):
+            fl.check_kernel_config(cfg, any_heads=any_heads)
+        for kernel in fl.KERNELS:
+            for input_grads in (True, False):
+                assert (fl.takes_wide(cfg, kernel, 128, input_grads)
+                        == (row == "400_200"))
         assert fl.uses_wide(cfg) == (row == "400_200")
     f32_260 = Config(net_width=260, compute_dtype="float32")
     assert fl.uses_wide(f32_260)
-    for max_head in (0, fm.MAX_HEAD):
-        fl.check_kernel_config(f32_260, max_head=max_head)
+    for any_heads in (False, True):
+        fl.check_kernel_config(f32_260, any_heads=any_heads)
     for kw, widths in ((dict(net_width=512, net_width_condition=300),
                         (512, 320)),
                        (dict(net_width=1025), (1056, 128))):
@@ -279,11 +280,10 @@ def test_guard_admits_every_row_and_refuses_the_rest():
             kc = fl.kernel_cfg(cfg)
             assert (kc.net_width, kc.net_width_condition) == widths
             assert fl.uses_wide(cfg)
-            for max_head in (0, fm.MAX_HEAD):
-                fl.check_kernel_config(cfg, max_head=max_head)
-            with pytest.raises(ValueError, match="1 to 8 channels"):
-                fl.check_kernel_config(cfg.replace(num_rgb_channels=9),
-                                       max_head=fm.MAX_HEAD)
+            for any_heads in (False, True):
+                fl.check_kernel_config(cfg, any_heads=any_heads)
+            fl.check_kernel_config(cfg.replace(num_rgb_channels=9),
+                                   any_heads=True)
 
 
 # ---------------------------------------------------------------------------

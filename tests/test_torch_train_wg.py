@@ -297,17 +297,20 @@ def test_train_wg_smem_fits_every_admitted_width(S):
                                        fl.chain_wg_smem(cfg)):
                     assert nbytes is not None and nbytes <= fl.SMEM_LIMIT
                     assert stages >= 2
-                fl.check_train_wg_config(cfg, S)
+                for kernel in ("train_level", "train_level_twopass"):
+                    assert not fl.takes_wide(cfg, kernel, S)
     # the default config keeps a ring of 4 chain slabs
     assert fl.chain_wg_smem(Config())[1] == 4
 
 
-@pytest.mark.parametrize("kw,what", [(dict(max_deg_point=80), "bf16 forward"),
+@pytest.mark.parametrize("kw,what", [(dict(max_deg_point=80), "CUDA tensor"),
                                      (dict(net_depth=100), "g-chain")])
 def test_train_wg_rejected_config_raises_before_launch(kw, what):
-    """Features too wide for the forward's tiles, or more biases than the
-    chain's shared memory holds: ``train_level_cuda`` raises before any
-    launch (f32 has no such limit)."""
+    """Features too wide for the forward's tiles, which the bf16 narrow
+    route refused, take the wide route (CPU tensors then reach the device
+    check); more biases than the chain's shared memory holds and more
+    layers than any route's table: ``train_level_cuda`` raises before any
+    launch, naming the g-chain."""
     cfg = Config(**kw)
     S = cfg.num_samples
     assert (fl.wg_smem(cfg, S, False)[0] is None
@@ -320,7 +323,13 @@ def test_train_wg_rejected_config_raises_before_launch(kw, what):
         fl.train_level_cuda(params, cfg, (means, covs), d.to(torch.bfloat16),
                             delta, pixels, g_scale, True, "mv")
     assert fl.train_level.launches == before
-    fl.check_train_wg_config(cfg.replace(compute_dtype="float32"), S)
+    f32 = cfg.replace(compute_dtype="float32")
+    if "net_depth" in kw:
+        with pytest.raises(ValueError, match="64 layers"):
+            fl.takes_wide(f32, "train_level", S)
+    else:  # the f32 tiles still fit at 480 feature columns
+        assert fl.takes_wide(cfg, "train_level", S)
+        assert not fl.takes_wide(f32, "train_level", S)
 
 
 @pytest.mark.parametrize("probes,fuse_ipe,twopass", [

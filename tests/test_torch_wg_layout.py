@@ -242,7 +242,8 @@ def test_pack_forward_picks_the_layout_per_dtype():
 @pytest.mark.parametrize("composite", [True, False])
 def test_wg_smem_fits_every_admitted_config(composite):
     """Every width that ``check_kernel_config`` admits, at the feature
-    widths of max_deg_point 4-32 and S from 1 to 1024, fits a block."""
+    widths of max_deg_point 4-32 and S from 1 to 1024, fits a block, and
+    the router keeps the forwards on the narrow route."""
     sizes = []
     for W in range(32, 257, 32):
         for Wc in range(32, W + 1, 32):
@@ -254,7 +255,8 @@ def test_wg_smem_fits_every_admitted_config(composite):
                     nbytes, stages = fl.wg_smem(cfg, S, composite)
                     assert nbytes is not None and nbytes <= fl.SMEM_LIMIT
                     assert stages >= 2
-                    fl.check_wg_config(cfg, S, composite)
+                    assert not fl.takes_wide(
+                        cfg, "render_level" if composite else "mlp_fwd", S)
                     sizes.append(nbytes)
     # the default config keeps a ring of at least 3 slabs
     assert fl.wg_smem(Config(), 128, composite)[1] >= 3
@@ -262,17 +264,21 @@ def test_wg_smem_fits_every_admitted_config(composite):
 
 
 def test_wg_rejected_config_raises_in_the_wrappers():
-    """Features too wide for two tiles and a ring of two slabs: both
-    wrappers raise before any launch (f32 has no such limit)."""
+    """Features too wide for two tiles and a ring of two slabs, which both
+    wrappers refused, take the wide route: on CPU tensors they reach the
+    device check (f32's tiles still fit, on the narrow route)."""
     cfg = Config(max_deg_point=80)  # location_features 480: 8 slabs
     assert fl.wg_smem(cfg, 128, True)[0] is None
     R, S = 2, cfg.num_samples
     means, covs, d, delta = inputs(cfg, R, 5)
     d16 = d.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         fl.render_level_cuda(params_of(cfg), cfg, (means, covs), d16, delta,
                              True, "mv")
     x = torch.zeros((R * S, cfg.location_features), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         fm.mlp_fwd_cuda(params_of(cfg), cfg, x, d16)
-    fl.check_wg_config(cfg.replace(compute_dtype="float32"), S, True)
+    for kernel in ("render_level", "mlp_fwd"):
+        assert fl.takes_wide(cfg, kernel, S)
+        assert not fl.takes_wide(cfg.replace(compute_dtype="float32"),
+                                 kernel, S)

@@ -211,8 +211,8 @@ def test_wide_widths_are_admitted_for_bf16_levels(width):
         cfg = Config(net_width=width, net_width_condition=wc)
         assert fl.uses_wide(cfg)
         fl.check_kernel_config(cfg)
-        fl.check_train_wg_config(cfg, 128)
-        fl.check_wg_config(cfg, 128, True)
+        for kernel in ("train_level", "render_level"):
+            assert fl.takes_wide(cfg, kernel, 128)
     cfg = Config(**dict(WIDE, net_width=width))
     params = tmlp.init_mlp(torch.Generator().manual_seed(0), cfg)
     R, S = 2, cfg.num_samples
@@ -318,8 +318,10 @@ def test_wide_guard_messages():
     """bf16 and f32 at 288-1024, and the widths the wide route refused
     while it had a ceiling (net_width 2048, net_width_condition 300 and
     384), pass the guard of every route (the level kernels' and, with
-    heads of up to ``MAX_HEAD`` channels, the MLP kernels'); what is
-    still refused, heads the kernels do not take, names itself."""
+    heads of any channel count, the MLP kernels'); so do heads of 9
+    channels, which the MLP kernels refused while a head was one group of
+    8 channels; what is still refused, heads the kernels do not take,
+    names itself."""
     for width in (288, 512, 1024):
         for dtype in ("bfloat16", "float32"):
             fl.check_kernel_config(Config(net_width=width,
@@ -327,29 +329,33 @@ def test_wide_guard_messages():
             fl.check_kernel_config(Config(net_width=width, num_rgb_channels=8,
                                           num_density_channels=8,
                                           compute_dtype=dtype),
-                                   max_head=fm.MAX_HEAD)
+                                   any_heads=True)
     for kw in (dict(net_width=2048, compute_dtype="float32"),
                dict(net_width=2048),
                dict(net_width=512, net_width_condition=384),
                dict(net_width=512, net_width_condition=300)):
-        for max_head in (0, fm.MAX_HEAD):
-            fl.check_kernel_config(Config(**kw), max_head=max_head)
+        for any_heads in (False, True):
+            fl.check_kernel_config(Config(**kw), any_heads=any_heads)
+    for kw in (dict(net_width=2048, num_rgb_channels=9),
+               dict(net_width=512, net_width_condition=384,
+                    num_density_channels=9, compute_dtype="float32")):
+        fl.check_kernel_config(Config(**kw), any_heads=True)
     cases = [(dict(net_width=2048, num_rgb_channels=4),
-              "heads must be 3 rgb / 1 density", 0),
-             (dict(net_width=2048, num_rgb_channels=9),
-              f"heads must have 1 to {fm.MAX_HEAD} channels", fm.MAX_HEAD),
+              "heads must be 3 rgb / 1 density", False),
+             (dict(net_width=2048, num_rgb_channels=0),
+              "heads must have at least 1 channel", True),
              (dict(net_width=512, net_width_condition=384,
-                   num_density_channels=9, compute_dtype="float32"),
-              f"heads must have 1 to {fm.MAX_HEAD} channels", fm.MAX_HEAD)]
-    for kw, text, max_head in cases:
+                   num_density_channels=0, compute_dtype="float32"),
+              "heads must have at least 1 channel", True)]
+    for kw, text, any_heads in cases:
         with pytest.raises(ValueError, match=text):
-            fl.check_kernel_config(Config(**kw), max_head=max_head)
+            fl.check_kernel_config(Config(**kw), any_heads=any_heads)
     assert not fl.uses_wide(Config())
     assert fl.uses_wide(Config(net_width=512, compute_dtype="float32"))
     # widths that are not multiples of 32 run zero-padded (kernel_cfg)
-    for max_head in (0, fm.MAX_HEAD):
+    for any_heads in (False, True):
         fl.check_kernel_config(Config(net_width=48, net_width_condition=32),
-                               max_head=max_head)
+                               any_heads=any_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +365,8 @@ def test_wide_guard_messages():
 
 def wide_offsets(cfg):
     """``csrc/wide_forward.cuh::wide_offsets``: element offsets of each
-    matrix in ``pack_params_wg``'s stream."""
+    matrix in ``pack_params_wg``'s stream (a head of C channels as
+    ceil(C / 8) groups of 8 rows a slab)."""
     D, Dc, W, Wc = (cfg.net_depth, cfg.net_depth_condition, cfg.net_width,
                     cfg.net_width_condition)
     kx = fl.padded_location_features(cfg)
@@ -371,14 +378,14 @@ def wide_offsets(cfg):
         off += ((0 if i == 0 else nh)
                 + (nx if i == 0 or i % cfg.skip_layer == 0 else 0)) * W * 64
     o["den"] = off
-    off += nh * 8 * 64
+    off += nh * -(-cfg.num_density_channels // 8) * 8 * 64
     o["view"].append(off)
     off += nh * Wc * 64
     for _ in range(1, Dc):
         o["view"].append(off)
         off += nc * Wc * 64
     o["rgb"] = off
-    off += nc * 8 * 64
+    off += nc * -(-cfg.num_rgb_channels // 8) * 8 * 64
     o["dir"] = off
     return o
 

@@ -280,8 +280,8 @@ ADMITTED = [
 def test_f32_wide_routes_are_admitted(what, kw):
     """f32 at a kernel net_width of 288-1024 (260 and 400 / 200 through
     ``kernel_cfg``'s padding) takes the wide route and passes every config
-    check of every route (the level kernels' heads and, with heads of up
-    to ``MAX_HEAD`` channels, the MLP kernels'); on CPU tensors each
+    check of every route (the level kernels' heads and, with heads of any
+    channel count, the MLP kernels'); on CPU tensors each
     wrapper gets to its device check, and nothing is launched."""
     cfg = Config(**dict(WIDE, compute_dtype="float32", **kw))
     S = cfg.num_samples
@@ -291,11 +291,10 @@ def test_f32_wide_routes_are_admitted(what, kw):
     fl.check_kernel_config(cfg)
     fl.check_kernel_config(cfg.replace(num_rgb_channels=8,
                                        num_density_channels=8),
-                           max_head=fm.MAX_HEAD)
-    fl.check_train_wg_config(cfg, S)
-    fl.check_wg_config(cfg, S, True)
-    for input_grads in (True, False):
-        fm.check_mlp_bwd_config(cfg, S, input_grads)
+                           any_heads=True)
+    for kernel in fl.KERNELS:
+        for input_grads in (True, False):
+            assert fl.takes_wide(cfg, kernel, S, input_grads), what
     counters = (fl.train_level, fl.render_level, fl.train_level_twopass,
                 fm.mlp_fwd, fm.mlp_bwd)
     before = [fn.launches for fn in counters]

@@ -247,15 +247,16 @@ def test_wide_mlp_and_twopass_routes_are_admitted(width):
     """bf16 ``mlp_fwd``, ``mlp_bwd`` (with and without input_grads, heads
     of 1-8 channels) and ``train_level_twopass`` take net_width 288-1024:
     on CPU tensors their wrappers get past every config check to the
-    device check, and ``check_mlp_bwd_config`` has nothing to refuse."""
+    device check, and the router sends ``mlp_bwd`` to the wide route."""
     for heads in ((3, 1), (8, 8), (1, 5)):
         cfg = Config(**dict(WIDE, net_width=width,
                             num_rgb_channels=heads[0],
                             num_density_channels=heads[1]))
         assert fl.uses_wide(cfg)
-        fl.check_kernel_config(cfg, max_head=fm.MAX_HEAD)
+        fl.check_kernel_config(cfg, any_heads=True)
         for input_grads in (True, False):
-            fm.check_mlp_bwd_config(cfg, cfg.num_samples, input_grads)
+            assert fl.takes_wide(cfg, "mlp_bwd", cfg.num_samples,
+                                 input_grads)
     cfg = Config(**dict(WIDE, net_width=width))
     calls = refused_routes(cfg)
     for name in ("mlp_fwd", "mlp_bwd", "train_level_twopass"):

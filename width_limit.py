@@ -118,7 +118,8 @@ def workspace_sizes() -> None:
                   "train_level_bytes": train_ws(code, R, S, D, W, Wc, Dc, kx,
                                                 splits, n_out),
                   "mlp_bwd_bytes": bwd_lib.mlp_bwd_workspace(
-                      code, R, S, D, W, Wc, Dc, kx, splits, n_out),
+                      code, R, S, D, W, Wc, Dc, kx, splits, n_out,
+                      cfg.num_rgb_channels + cfg.num_density_channels),
                   "split_partials_bytes": splits * n_out * 4,
                   "render_R": R_render,
                   "render_level_bytes": render_ws(code, R_render, S, W, Wc,
