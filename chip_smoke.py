@@ -7,9 +7,11 @@ Phases, each printing one JSON line:
   env      torch / CUDA / nvcc versions, the card, whether triton imports;
   build    nvcc builds csrc/render_level.cu, csrc/train_level.cu,
            csrc/train_level_twopass.cu, csrc/mlp_fwd.cu and csrc/mlp_bwd.cu,
-           and the mma.sync versions of all five at commit 815018d
-           (mma_sources), one process each, started together (ptxas
-           register/spill lines);
+           the layer GEMM's harness csrc/wide_gemm.cu, the harness and
+           render_level, mlp_fwd and train_level at commit 44ad1e5, the
+           wide GEMM's parent (gemm_sources), and the mma.sync versions of
+           all five at commit 815018d (mma_sources), one process each,
+           started together (ptxas register/spill lines);
   kernel   the render kernel against its plain PyTorch version (render_level_plain)
            at Config() width: bf16 and f32, R=16384 x S=128 in mode "mv",
            R=1000 x S=64 in mode "t" without white background, and a narrow
@@ -23,6 +25,18 @@ Phases, each printing one JSON line:
            mma.sync) on the same inputs, timed in turns with the SM clock
            and power draw beside each time, after the layer products as
            torch.matmul in bf16 and full f32 (turns_phase, TURN_CASES);
+  wide_gemm  the wide bf16 route's layer GEMM alone (kernels/wide_gemm.py,
+           GEMM_CASES: W = 1024 at a render chunk's 2^18 rows, with a skip
+           layer's x part, the first view layer's direction term and as
+           the g-chain at a train level's 2^17 rows; W = 288, 512, 1056
+           and 2048 / 256; the kWideChainHeads and kWideDx epilogues)
+           against its plain version in the bf16 band, bit-equal to the
+           44ad1e5 GEMM (gemm_sources) and timed in turns with it (old,
+           new, new, old), TFLOP/s, the bound, the column block and
+           torch.matmul of the same operands beside each; then
+           render_level (R=16384, mode "mv"), mlp_fwd (R=16384) and
+           train_level (R=1024, mode "t") at Config(net_width=1024) in
+           turns with 44ad1e5's, outputs bit-equal;
   main     a synthetic 400x400 Blender scene and a seeded checkpoint at
            Config(), then the port's ``run.main(["eval", ...])`` and
            ``run.main(["render", ...])`` on the card; the kernel's launch
@@ -141,6 +155,14 @@ Phases, each printing one JSON line:
            48-px scene ``run train`` (4 steps) and ``run eval`` at 16
            density channels (bf16), max_deg_point 70 (bf16), 96 (f32) and
            the slice config at 48 (bf16), launches exact;
+  deep     configs past the C sources' former tables, which the port
+           refused: 25 dW products (net_depth 20, f32) and 66 layers
+           (net_depth 63, net_depth_condition 1, f32 and bf16) at Config()
+           widths, R=1024 x S=128: train_level, train_level_twopass and
+           mlp_bwd (input_grads) against their plain versions, bit-equal
+           over two launches; then on a 48-px scene ``run train
+           --net-depth=20 --compute-dtype=float32`` (4 steps) and its
+           ``run eval``, launches exact;
   mlp_kernel  the MLP kernels against their plain versions: mlp_fwd at
            Config() width, mode "t" features, R=16384 x S=128 in bf16 and
            f32 and R=1024 x S=128 in bf16, and a narrow ragged config with
@@ -312,6 +334,50 @@ TPU_TWOPASS_KERNEL = "nerf_or_nothing_tpu/kernels/fused_level.py:500"
 MMA_COMMIT = "815018d"
 MMA_DIR = ".local_runs/mma_sync"
 MMA_HEADERS = ("level_common.cuh", "level_backward.cuh")
+# The wide route's layer GEMM before its Hopper redesign (the cp.async
+# wide_gemm_kernel of 44ad1e5), timed in turns with the checkout's through
+# csrc/wide_gemm.cu: its commit, where the copy is written (gitignored)
+# and the headers of that commit the harness includes
+GEMM_COMMIT = "44ad1e5"
+GEMM_DIR = ".local_runs/csrc_44ad1e5"
+# The wide kernels timed in turns with that commit's (the same launches
+# on the other GEMM; compare_kernels.cases by name), outputs bit-equal
+GEMM_KERNEL_TURNS = (("render_level", "bf16_w1024_r16384_s128_mv"),
+                     ("mlp_fwd", "bf16_w1024_r16384_s128"),
+                     ("train_level", "bf16_w1024_r1024_s128_t"))
+# The wide_gemm phase's products: (name, kind, M, N, K0, K1, options of
+# wide_gemm.gemm_case). A render chunk is 2^18 rows, a train level 2^17.
+GEMM_CASES = (
+    ("w1024_fwd", "fwd", 1 << 18, 1024, 1024, 0, {}),
+    ("w1024_skip_fwd", "fwd", 1 << 18, 1024, 1024, 96, {}),
+    ("w1024_view_dc_fwd", "fwd", 1 << 18, 128, 1024, 0, {"dc": True}),
+    ("w1024_chain", "chain", 1 << 17, 1024, 1024, 0, {}),
+    ("w288_fwd", "fwd", 1 << 18, 288, 288, 0, {}),
+    ("w512_fwd", "fwd", 1 << 18, 512, 512, 0, {}),
+    ("w1056_fwd", "fwd", 1 << 18, 1056, 1056, 0, {}),
+    ("w2048_fwd", "fwd", 1 << 17, 2048, 2048, 0, {}),
+    ("w2048_256_view_dc_fwd", "fwd", 1 << 17, 256, 2048, 0, {"dc": True}),
+    ("w1024_chain_heads", "chain_heads", 1 << 17, 1024, 1024, 0, {"cd": 2}),
+    ("w1024_dx", "dx", 1 << 17, 96, 1024, 0, {"ldo": 90, "accum": True}),
+)
+GEMM_TIMING = (5, 2)  # (timed, warm-up) calls of each version in a turn
+GEMM_LAUNCHES = 4  # back-to-back launches a timed call, so the host's
+# work between launches stays off the card's clock
+# The deep phase: configs past the C sources' former tables (more than
+# 24 dW products; more than 64 layers), their kernels and a run train /
+# run eval on a 48-px scene: (name, flags, steps)
+DEEP_CONFIGS = (
+    ("depth20_f32", dict(net_depth=20, compute_dtype="float32")),
+    ("layers66_f32", dict(net_depth=63, net_depth_condition=1,
+                          compute_dtype="float32")),
+    ("layers66_bf16", dict(net_depth=63, net_depth_condition=1)),
+)
+# The deep cases the kernels line carries, by kernel (a case name's part)
+DEEP_ENTRY = {"train_level": "_t", "train_level_twopass": "_t_twopass",
+              "mlp_bwd": "_bwd_dx"}
+DEEP_RUNS = (
+    ("depth20_f32", ("--net-depth=20", "--compute-dtype=float32"), 4),
+)
 TRAIN_STEPS = 40
 FULL_GRAD_STEPS = 20
 FULL_GRAD_ARGS = ("--fuse-level=false", "--stop-level-grad=false")
@@ -894,6 +960,131 @@ def mma_sources():
                 f.write(got.stdout)
     return {name: os.path.join(root, MMA_DIR, f"{name}_mma.cu")
             for name in KERNELS}
+
+
+def gemm_sources():
+    """The ``csrc/`` of ``GEMM_COMMIT`` (the wide GEMM before its Hopper
+    redesign), written from git into ``GEMM_DIR``, with the checkout's
+    ``csrc/wide_gemm.cu`` copied beside it (a quoted include finds those
+    headers before ``csrc/``): the sources by name (``wide_gemm`` and the
+    kernels of ``GEMM_KERNEL_TURNS``); None where neither the copy nor the
+    history exists."""
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, GEMM_DIR)
+    if not os.path.exists(os.path.join(out, "wide_forward.cuh")):
+        ls = subprocess.run(["git", "ls-tree", "--name-only", GEMM_COMMIT,
+                             "nerf_or_nothing_tpu_torch/csrc/"],
+                            cwd=root, capture_output=True, text=True)
+        if ls.returncode != 0:
+            return None
+        os.makedirs(out, exist_ok=True)
+        for path in ls.stdout.split():
+            got = subprocess.run(["git", "show", f"{GEMM_COMMIT}:{path}"],
+                                 cwd=root, capture_output=True, text=True)
+            if got.returncode != 0:
+                return None
+            with open(os.path.join(out, os.path.basename(path)), "w") as f:
+                f.write(got.stdout)
+    shutil.copyfile(os.path.join(root, "nerf_or_nothing_tpu_torch", "csrc",
+                                 "wide_gemm.cu"),
+                    os.path.join(out, "wide_gemm.cu"))
+    names = ["wide_gemm"] + [k for k, _ in GEMM_KERNEL_TURNS]
+    return {n: os.path.join(out, f"{n}.cu") for n in names}
+
+
+def gemm_phase(peaks, device, parent=None) -> list:
+    """The layer GEMM alone (``kernels/wide_gemm.py``) at ``GEMM_CASES``:
+    each product against ``wide_gemm_plain`` in the bf16 band, then, with
+    ``GEMM_COMMIT``'s copy (``gemm_sources``), both versions bit-equal and
+    timed in turns (old, new, new, old; median of ``GEMM_TIMING``, the SM
+    clock and power draw beside each; a call is ``GEMM_LAUNCHES``
+    launches, its time over that count), with TFLOP/s, the bound (the larger
+    of the products at the bf16 peak and the bytes each input read once
+    and the output written once at the memory rate), the column block
+    (``wide_bn``) and ``torch.matmul`` of the same bf16 operands as a
+    yardstick; then the wide kernels of ``GEMM_KERNEL_TURNS`` in turns with
+    that commit's (``compare_kernels.in_turns``, outputs bit-equal).
+    ``parent``: the sources to time against (default ``gemm_sources()``;
+    another version's ``wide_gemm`` harness alone times the GEMM alone).
+    Returns the records."""
+    import torch
+
+    import compare_kernels as ck
+    from nerf_or_nothing_tpu_torch.kernels import build
+    from nerf_or_nothing_tpu_torch.kernels import wide_gemm as wg
+
+    parent = parent or gemm_sources() or {}
+    old = parent.get("wide_gemm")
+    atol, rtol = BANDS["bfloat16"]
+    out = []
+    for k, (name, kind, M, N, K0, K1, kw) in enumerate(GEMM_CASES):
+        c = wg.gemm_case(kind, M, N, K0, K1, seed=k, device=device, **kw)
+        got = wg.wide_gemm_cuda(c)
+        ref = wg.wide_gemm_plain(c)
+        torch.cuda.synchronize()
+        flop, nbytes = wg.flops(c), wg.min_bytes(c)
+        b_ms, b_by = op_bound(flop, nbytes, peaks[0], peaks[2])
+        res = {"phase": "wide_gemm", "case": name, "kind": kind, "M": M,
+               "N": N, "K": K0 + K1, "BN": wg.wide_bn(N, kind),
+               "stages": wg.stages(wg.wide_bn(N, kind)), "flop": flop,
+               "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+               "max_abs_err": float((got.float() - ref.float()).abs().max()),
+               "err": normalized_err(got.float(), ref.float(), atol, rtol)}
+        del ref
+        versions = {"new": None}
+        if old is not None:
+            versions = {"old": old, "new": None}
+            res["bit_equal_to_old"] = torch.equal(got, wg.wide_gemm_cuda(c, old))
+        order = list(versions) + list(versions)[::-1]
+        def launches(fn):
+            return median_ms(lambda: [fn() for _ in range(GEMM_LAUNCHES)],
+                             *GEMM_TIMING) / GEMM_LAUNCHES
+
+        for turn, v in enumerate(order):
+            res[f"{v}_ms_{turn}"] = launches(
+                lambda: wg.wide_gemm_cuda(c, versions[v]))
+            res[f"{v}_clock_power_{turn}"] = clock_power()
+        for v in versions:
+            ms = [res[f"{v}_ms_{t}"] for t, u in enumerate(order) if u == v]
+            res[f"{v}_ms"] = sum(ms) / len(ms)
+            res[f"{v}_tflops"] = flop / res[f"{v}_ms"] / 1e9
+            res[f"{v}_bound_share"] = b_ms / res[f"{v}_ms"]
+
+        def matmul():
+            torch.matmul(c["a0"], c["w0"])
+            if K1:
+                torch.matmul(c["a1"], c["w1"])
+
+        res["library_ms"] = launches(matmul)
+        emit(res)
+        out.append(res)
+        if not res["err"] < 1.0:
+            raise AssertionError(f"wide_gemm: {name} disagrees with plain: "
+                                 f"{res['err']}")
+        if res.get("bit_equal_to_old") is False:
+            raise AssertionError(f"wide_gemm: {name} differs from "
+                                 f"{GEMM_COMMIT}'s GEMM")
+        del c, got
+        torch.cuda.empty_cache()
+    for kernel, name in GEMM_KERNEL_TURNS:
+        if kernel not in parent:
+            continue
+        res = ck.in_turns(kernel, {"old": parent[kernel],
+                                   "new": build.source_path(kernel)},
+                          ck.case(kernel, name), device, plain=False)
+        old_ms = (res["old_ms_0"] + res["old_ms_3"]) / 2
+        new_ms = (res["new_ms_1"] + res["new_ms_2"]) / 2
+        res.update({"phase": "wide_gemm", "old_ms": old_ms, "new_ms": new_ms,
+                    "speedup": old_ms / new_ms})
+        emit(res)
+        out.append(res)
+        if not res["new_equal_to_old"]:
+            raise AssertionError(f"wide_gemm: {kernel} {name} differs from "
+                                 f"{GEMM_COMMIT}'s")
+        torch.cuda.empty_cache()
+    return out
 
 
 def matmul_ms(cfg, R: int, device, timing=TIMING) -> float:
@@ -2517,29 +2708,28 @@ def heads_features_kernels(peaks, device) -> dict:
     return out
 
 
-def heads_features_paths(device, work: str) -> dict:
-    """``run train`` then ``run eval`` of each of ``HF_RUNS`` on a 48-px
-    synthetic scene (2 train views, 1 test view): every logged loss
-    finite, exact launch counts (the MLP kernels for the heads of 16
-    density channels and the slice config; ``train_level`` and
-    ``render_level`` otherwise), the eval's test view rendered. Returns the
-    launches."""
+def run_paths(phase: str, runs, device, work: str) -> dict:
+    """``run train`` then ``run eval`` of each of ``runs`` ((name, flags,
+    steps)) on a 48-px synthetic scene (2 train views, 1 test view): every
+    logged loss finite, exact launch counts (the MLP kernels off the fused
+    level, ``train_level`` and ``render_level`` otherwise), the eval's
+    test view rendered. Returns the launches."""
     import csv
 
     from nerf_or_nothing_tpu_torch import run
     from nerf_or_nothing_tpu_torch.utils.synthetic import write_scene
 
     t0 = time.perf_counter()
-    scene = write_scene(os.path.join(work, "heads_features_scene"), n_train=2,
+    scene = write_scene(os.path.join(work, f"{phase}_scene"), n_train=2,
                         n_test=1, size=48)
     launches = dict.fromkeys(KERNELS, 0)
     dev = [f"--device={device.type}"]
-    for name, flags, steps in HF_RUNS:
+    for name, flags, steps in runs:
         args = [f"--data-dir={scene}", *flags, *ANY_WIDTH_LR]
         cfg = run.parse_flags(args)
-        ckpt = os.path.join(work, f"hf_{name}_ckpt")
+        ckpt = os.path.join(work, f"{phase}_{name}_ckpt")
         train_s = run_main(
-            f"heads_features: {name} run train",
+            f"{phase}: {name} run train",
             ["train", *args, f"--checkpoint-dir={ckpt}",
              f"--max-steps={steps}", "--print-every=1",
              f"--save-every={steps}", "--test-render-interval=0", *dev],
@@ -2549,32 +2739,74 @@ def heads_features_paths(device, work: str) -> dict:
             losses = [float(r["loss"]) for r in csv.DictReader(f)]
         dims = test_dims(scene, cfg, 1)
         eval_s = run_main(
-            f"heads_features: {name} run eval",
+            f"{phase}: {name} run eval",
             ["eval", *args, f"--checkpoint-dir={ckpt}", "--max-images=1",
              *dev], render_launches(cfg, dims))
         launches = added(launches, render_launches(cfg, dims))
         ok = len(losses) == steps and all(math.isfinite(v) for v in losses)
-        emit({"phase": "heads_features", "check": f"{name}_path",
+        emit({"phase": phase, "check": f"{name}_path",
               "flags": list(flags), "steps": steps, "train_s": train_s,
               "eval_s": eval_s, "eval_images": dims, "logged_losses": losses,
               "finite": ok})
         if not ok:
-            raise AssertionError(f"heads_features: {name} run train: "
+            raise AssertionError(f"{phase}: {name} run train: "
                                  f"losses {losses}")
         release_memory()
-    emit({"phase": "heads_features", "check": "paths",
+    emit({"phase": phase, "check": "paths",
           "seconds": time.perf_counter() - t0, "launches": launches})
     return launches
 
 
 def heads_features_phase(peaks, device, work: str):
-    """``heads_features_kernels`` and ``heads_features_paths``, timed.
+    """``heads_features_kernels`` and ``run_paths`` of ``HF_RUNS``, timed.
     Returns the kernel cases and the paths' launches."""
     t0 = time.perf_counter()
     cases = heads_features_kernels(peaks, device)
     kernels_s = time.perf_counter() - t0
-    launches = heads_features_paths(device, work)
+    launches = run_paths("heads_features", HF_RUNS, device, work)
     emit({"phase": "heads_features", "kernels_s": kernels_s,
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return cases, launches
+
+
+def deep_phase(peaks, device, work: str):
+    """The configs past the C sources' former tables (``DEEP_CONFIGS``:
+    25 dW products in f32, past one dW launch's 24; 66 layers, past the
+    former 64-layer tables, in f32 and bf16) at Config() widths, R=1024 x
+    S=128, each against its plain version and timed with ``HF_TIMING``:
+    ``train_level`` in mode "t" and the two-pass kernel (bit-equal over
+    two launches, and to ``train_level`` in bf16 and on the wide route),
+    ``mlp_bwd`` with input_grads (bit-equal over two launches; f32 gives no
+    cotangent to ``parity.near_zero_rows``' rows); then ``run_paths`` of
+    ``DEEP_RUNS``. Returns the cases by name and the paths' launches."""
+    from nerf_or_nothing_tpu_torch.config import Config
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+
+    t0 = time.perf_counter()
+    ph = dict(phase="deep", timing=HF_TIMING)
+    cases = {}
+    for name, kw in DEEP_CONFIGS:
+        cfg = Config(**kw)
+        tag = f"deep_{name}_r1024_s128"
+        cases[f"{tag}_t"] = train_kernel_case(
+            f"{tag}_t", cfg, 1024, "t", True, peaks, device, seed=101,
+            bit_check=True, **ph)
+        two = train_kernel_case(f"{tag}_t_twopass", cfg, 1024, "t", True,
+                                peaks, device, seed=101, bit_check=True,
+                                twopass=True, **ph)
+        same = (cfg.compute_dtype == "bfloat16"
+                or fl.takes_wide(cfg, "train_level", cfg.num_samples))
+        if same and not two["equal_to_train_level"]:
+            raise AssertionError(f"deep: {tag} train_level_twopass differs "
+                                 "from train_level")
+        cases[f"{tag}_t_twopass"] = two
+        cases[f"{tag}_bwd_dx"] = mlp_bwd_case(
+            f"{tag}_bwd_dx", cfg, 1024, True, peaks, device, seed=102,
+            bit_check=True, guard=cfg.compute_dtype == "float32", **ph)
+        release_memory()
+    kernels_s = time.perf_counter() - t0
+    launches = run_paths("deep", DEEP_RUNS, device, work)
+    emit({"phase": "deep", "kernels_s": kernels_s,
           "seconds": time.perf_counter() - t0, "launches": launches})
     return cases, launches
 
@@ -3856,11 +4088,13 @@ def main() -> int:
                   "f32_flops": f32_peak(peaks)},
     })
     t0 = time.perf_counter()
-    sources = build.SOURCES
+    sources = (*build.SOURCES, "wide_gemm")
     old = mma_sources() or {}
-    build.build_all(sources, list(old.items()))
+    parent = gemm_sources() or {}
+    others = list(old.items()) + list(parent.items())
+    build.build_all(sources, others)
     seconds = time.perf_counter() - t0
-    for src in [build.source_path(n) for n in sources] + list(old.values()):
+    for src in [build.source_path(n) for n in sources] + [s for _, s in others]:
         info = build.BUILD_INFO[str(src)]
         emit({
             "phase": "build", "source": os.path.relpath(src),
@@ -3888,6 +4122,7 @@ def main() -> int:
                     peaks, device, seed=3)
 
     turns_phase(device)
+    gemm_phase(peaks, device, parent)
 
     launches = main_path(peaks, device)
 
@@ -3926,6 +4161,7 @@ def main() -> int:
     padded_cases, padded_launches = padded_phase(peaks, device, work)
     any_cases, any_launches = any_width_phase(peaks, device, work)
     hf_cases, hf_launches = heads_features_phase(peaks, device, work)
+    deep_cases, deep_launches = deep_phase(peaks, device, work)
 
     mlp_fwd_main = mlp_fwd_case("config_r16384_s128", base, 16384, peaks,
                                 device)
@@ -3993,7 +4229,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": (n + mesh_launches[name] + padded_launches[name]
                          + wide_f32_launches[name] + any_launches[name]
-                         + hf_launches[name]),
+                         + hf_launches[name] + deep_launches[name]),
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None,
@@ -4022,6 +4258,12 @@ def main() -> int:
                 "case", "route", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "matmul_ms")}
             for case in HF_ENTRY_CASES[name]}}
+        out["deep"] = {"launches": deep_launches[name], **{
+            case: {k: deep_cases[case][k] for k in (
+                "case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by")}
+            for case in deep_cases
+            if name in DEEP_ENTRY and case.endswith(DEEP_ENTRY[name])}}
         out["padded"] = {"launches": padded_launches[name], **{
             dtype: {k: padded_cases[(name, dtype)][k] for k in (
                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -60,6 +60,15 @@ those that differ, and those in one build only with their lines
         --digest ../../old.json)
     python3 compare_kernels.py --same old.json new.json
 
+    python3 compare_kernels.py --gemm [old/wide_gemm.cu]
+
+times the wide bf16 route's layer GEMM alone (``kernels/wide_gemm.py``)
+at ``chip_smoke.GEMM_CASES``, the checkout's against another version's
+(``csrc/wide_gemm.cu`` copied beside that version's headers; default
+``chip_smoke.gemm_sources()``, the ``csrc/`` of ``chip_smoke.GEMM_COMMIT``,
+whose wide kernels are then timed against the checkout's too), in turns,
+bit-equal and against the plain version (``chip_smoke.gemm_phase``).
+
 ``--digest`` writes the SHA-256 of every output of the five kernels and of
 every packed weight tensor (``pack_forward``, ``pack_train_level``,
 ``pack_mlp_params``) on seeded inputs (``chip_smoke``'s, R=1024 x S=128:
@@ -134,14 +143,18 @@ def cases(kernel: str):
                  "t", True, False),
                 ("f32_w1024_r1024_s128_t", f32.replace(net_width=1024), 1024,
                  "t", True, False)]
+    w1024 = Config(net_width=1024)
     if kernel == "render_level":
         return [("bf16_r16384_s128_mv", Config(), 16384, "mv", True, False),
                 ("bf16_r1000_s64_t", Config(num_samples=64), 1000, "t", False,
                  False),
-                ("f32_r16384_s128_mv", f32, 16384, "mv", True, False)]
+                ("f32_r16384_s128_mv", f32, 16384, "mv", True, False),
+                ("bf16_w1024_r16384_s128_mv", w1024, 16384, "mv", True,
+                 False)]
     return [("bf16_r16384_s128", Config(), 16384, "t", None, False),
             ("bf16_r1024_s128", Config(), 1024, "t", None, False),
-            ("f32_r16384_s128", f32, 16384, "t", None, False)]
+            ("f32_r16384_s128", f32, 16384, "t", None, False),
+            ("bf16_w1024_r16384_s128", w1024, 16384, "t", None, False)]
 
 
 # The configs of --digest: Config() in bf16 and f32, a narrow width, and
@@ -251,11 +264,12 @@ def flat(out):
 
 
 def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
-             profile: bool = False):
+             profile: bool = False, plain: bool = True):
     """Check each version against the plain version (the backward
-    kernels: and two launches for bit-equal outputs) and time them in the
-    order given, then in reverse, reading the SM clock and power draw after
-    each. Returns the case's record."""
+    kernels: and two launches for bit-equal outputs; without ``plain``,
+    each version's outputs against the first version's, bit for bit,
+    instead) and time them in the order given, then in reverse, reading
+    the SM clock and power draw after each. Returns the case's record."""
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
@@ -269,8 +283,10 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
     packs = packs_by_layout(kernel, params, cfg)
     if kernel in TRAIN:
         pixels, g_scale = cs.train_inputs(cfg, R, seed + 2, device, multicam)
-        ref = fl.level_train_plain(params, cfg, xs, d, delta, pixels, g_scale,
-                                   white_bkgd, mode)
+
+        def plain_out():
+            return fl.level_train_plain(params, cfg, xs, d, delta, pixels,
+                                        g_scale, white_bkgd, mode)
 
         def run(name):
             kw = dict(packed=packs[kinds[name]], source=sources[name])
@@ -283,23 +299,27 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
     elif kernel == "mlp_bwd":
         input_grads = white_bkgd
         _, _, _, g_rgb, g_den = cs.mlp_case_inputs(cfg, R, seed, device)
-        ref = fm.mlp_bwd_plain(params, cfg, xs, d, g_rgb, g_den,
-                               cfg.num_samples, input_grads)
+
+        def plain_out():
+            return fm.mlp_bwd_plain(params, cfg, xs, d, g_rgb, g_den,
+                                    cfg.num_samples, input_grads)
 
         def run(name):
             return fm.mlp_bwd_cuda(params, cfg, xs, d, g_rgb, g_den,
                                    input_grads, packed=packs[kinds[name]],
                                    source=sources[name])
     elif kernel == "render_level":
-        ref = fl.render_level_plain(params, cfg, xs, d, delta, white_bkgd,
-                                    mode)
+        def plain_out():
+            return fl.render_level_plain(params, cfg, xs, d, delta,
+                                         white_bkgd, mode)
 
         def run(name):
             return fl.render_level_cuda(params, cfg, xs, d, delta, white_bkgd,
                                         mode, packed=packs[kinds[name]],
                                         source=sources[name])
     else:
-        ref = fm.mlp_fwd_plain(params, cfg, xs, d, cfg.num_samples)
+        def plain_out():
+            return fm.mlp_fwd_plain(params, cfg, xs, d, cfg.num_samples)
 
         def run(name):
             return fm.mlp_fwd_cuda(params, cfg, xs, d,
@@ -310,9 +330,23 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
     names = list(sources)
     res = {"kernel": kernel, "case": name_, "R": R, "S": cfg.num_samples,
            "layouts": kinds}
+    refs = []
+
+    def ref_of():
+        if not refs:
+            refs.append(plain_out())
+        return refs[0]
+
+    first = None
     for name in names:
         out = run(name)
         torch.cuda.synchronize()
+        if not plain:
+            first = out if first is None else first
+            res[f"{name}_equal_to_{names[0]}"] = all(
+                torch.equal(a, b) for a, b in zip(flat(out), flat(first)))
+            continue
+        ref = ref_of()
         res[f"{name}_err"] = max(cs.normalized_err(a, b, atol, rtol)
                                  for a, b in zip(flat(out), flat(ref)))
         if kernel in TRAIN or kernel == "mlp_bwd":
@@ -459,6 +493,18 @@ def main(argv) -> int:
         return 1
     if argv[:1] == ["--digest"] and len(argv) == 2:
         return digest(argv[1])
+    if argv[:1] == ["--gemm"] and len(argv) <= 2:
+        from nerf_or_nothing_tpu_torch.kernels import build
+        from nerf_or_nothing_tpu_torch.utils.profiling import card_peaks
+
+        parent = ({"wide_gemm": str(Path(argv[1]).resolve())}
+                  if len(argv) == 2 else cs.gemm_sources() or {})
+        build.build_all(["wide_gemm"] + [k for k in parent if k in KERNELS],
+                        list(parent.items()))
+        print(cs.nvidia_smi_line(), flush=True)
+        _, peaks = card_peaks(torch.cuda.get_device_name(0))
+        cs.gemm_phase(peaks, torch.device("cuda"), parent)
+        return 0
     from nerf_or_nothing_tpu_torch.kernels import build
 
     kernel = "render_level"

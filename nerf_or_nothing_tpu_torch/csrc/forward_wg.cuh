@@ -604,6 +604,10 @@ __device__ __forceinline__ void layer_gemm(Ring& r, uint32_t a0, int n0, uint32_
 }
 
 // bf16x2 of relu(lo), relu(hi), rounded to nearest even: one instruction.
+__device__ __forceinline__ float round_bf(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 __device__ __forceinline__ uint32_t relu_bf16x2(float lo, float hi) {
   uint32_t out;
   asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(out) : "f"(hi), "f"(lo));

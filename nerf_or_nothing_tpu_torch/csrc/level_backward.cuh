@@ -39,6 +39,9 @@ constexpr int kGemmThreads = 128;
 // f32 dW tile: 64 x 64 outputs, 32 rows a stage (the split chunks of rows
 // are multiples of kTK); 128 x 128 tiles of 8 warps ran slower on the card.
 constexpr int kTM = 64, kTN = 64, kTK = 32;
+// Products of one dW launch (a kernel parameter, so a fixed table): a
+// backward with more goes in launches of kMaxJobs, each product into its
+// own out_off block, so the sums are the same at any batching.
 constexpr int kMaxJobs = 24;
 constexpr int kSmallThreads = 256;
 
@@ -645,10 +648,14 @@ inline Layout layout(int esize, long long R, long long S, int D, int W, int Wc, 
 }
 
 // Flat output: dW of every layer ([fan_in, fan_out] row-major, layer
-// order), then every bias. w_off / b_off per layer.
-inline long long output_offsets(const Params& p, long long* w_off, long long* b_off) {
+// order), then every bias. w_off / b_off per layer (resized to the D + 2 +
+// Dc layers).
+inline long long output_offsets(const Params& p, std::vector<long long>& w_off,
+                                std::vector<long long>& b_off) {
   const int L = p.D + 2 + p.Dc;
-  int fin[64], fout[64];
+  std::vector<int> fin(L), fout(L);
+  w_off.resize(L);
+  b_off.resize(L);
   for (int i = 0; i < p.D; ++i) {
     fin[i] = (i == 0 ? 0 : p.W) + ((i == 0 || i % p.skip == 0) ? p.LX : 0);
     fout[i] = p.W;
@@ -679,14 +686,12 @@ inline cudaError_t set_smem(const void* kernel, size_t smem) {
 template <class T>
 cudaError_t launch_dw(Params p, Extra e, const Layout& l, unsigned char* ws, long long n_out,
                       int splits, const float* dbpart, cudaStream_t st) {
-  const int L = p.D + 2 + p.Dc;
-  if (L > 64) return cudaErrorInvalidValue;
   const long long N = e.N;
   const T* acts = reinterpret_cast<const T*>(ws + l.acts);
   const T* grads = reinterpret_cast<const T*>(ws + l.grads);
 
-  // 3. dW (/ db) GEMMs over the rows
-  long long w_off[64], b_off[64];
+  // 3. dW (/ db) GEMMs over the rows, kMaxJobs products a launch
+  std::vector<long long> w_off, b_off;
   output_offsets(p, w_off, b_off);
   float* part = reinterpret_cast<float*>(ws + l.part);
   const T* x = reinterpret_cast<const T*>(ws + l.xs);
@@ -695,19 +700,26 @@ cudaError_t launch_dw(Params p, Extra e, const Layout& l, unsigned char* ws, lon
   GemmJobs gj;
   gj.part = part; gj.n_out = n_out; gj.n = 0; gj.splits = splits;
   int nblocks = 0;
+  auto flush = [&]() {
+    if (gj.n == 0) return cudaSuccess;
+    dw_gemm_f32_kernel<<<nblocks, kGemmThreads, 0, st>>>(gj);
+    gj.n = 0;
+    nblocks = 0;
+    return cudaGetLastError();
+  };
+  cudaError_t err = cudaSuccess;
   auto add = [&](const T* A, int lda, const T* B, int ldb, int M, int Nn, long long out_off,
                  int out_ld, long long db_off) {
+    if (err != cudaSuccess) return;
     GemmJob& j = gj.job[gj.n++];
     j.A = A; j.B = B; j.lda = lda; j.ldb = ldb; j.M = M; j.Nn = Nn; j.K = (int)N;
     j.out_off = out_off; j.out_ld = out_ld; j.db_off = dbpart ? -1 : db_off;
     j.tiles_m = (M + tile - 1) / tile;
     j.block0 = nblocks;
     nblocks += j.tiles_m * ((Nn + tile - 1) / tile) * splits;
+    if (gj.n == kMaxJobs) err = flush();
   };
   const long long tW = (long long)N * p.W;
-  int n_jobs = p.Dc;
-  for (int i = 0; i < p.D; ++i) n_jobs += (i > 0 && i % p.skip == 0) ? 2 : 1;
-  if (n_jobs > kMaxJobs) return cudaErrorInvalidValue;
   for (int i = 0; i < p.D; ++i) {
     const T* g = grads + (long long)i * tW;
     if (i == 0) {
@@ -725,8 +737,8 @@ cudaError_t launch_dw(Params p, Extra e, const Layout& l, unsigned char* ws, lon
     add(a, j == 0 ? p.W : p.Wc, g, p.Wc, j == 0 ? p.W : p.Wc, p.Wc, w_off[layer], p.Wc,
         b_off[layer]);
   }
-  dw_gemm_f32_kernel<<<nblocks, kGemmThreads, 0, st>>>(gj);
-  return cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return flush();
 }
 
 // Passes 4-5 of launch_products.
@@ -735,11 +747,10 @@ cudaError_t launch_small_reduce(Params p, Extra e, const Layout& l, unsigned cha
                                 float* out, long long n_out, int splits, const float* dbpart,
                                 int db_blocks, cudaStream_t st) {
   const int L = p.D + 2 + p.Dc;
-  if (L > 64) return cudaErrorInvalidValue;
   const long long N = e.N;
   const T* acts = reinterpret_cast<const T*>(ws + l.acts);
   const long long tW = (long long)N * p.W;
-  long long w_off[64], b_off[64];
+  std::vector<long long> w_off, b_off;
   output_offsets(p, w_off, b_off);
   float* part = reinterpret_cast<float*>(ws + l.part);
   cudaError_t err;

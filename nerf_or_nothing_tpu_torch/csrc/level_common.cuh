@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <vector>
+
 namespace {
 
 constexpr int kThreads = 256;

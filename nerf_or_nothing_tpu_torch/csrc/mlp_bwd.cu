@@ -157,7 +157,7 @@ cudaError_t launch_mlp_bwd_wg(Params p, Extra e, const Layout& l, const WgLayout
 }
 
 // dX [N, LX] (e.dx, bf16) on the wide route: for x layer i = D-1 .. 0 (the
-// skip layers, then layer 0) one wide_gemm_mlp_kernel, grad(i) @ W_x,i^T
+// skip layers, then layer 0) one kWideDx wide_gemm_kernel, grad(i) @ W_x,i^T
 // from the x slabs of pack_params_wgx (nxw columns, those past LX zero; co
 // from wide_chain_offsets with nxw), the first term rounded into dX, each
 // later one rounded and added to dX in bf16 (mlp_backward_plain's order
@@ -304,8 +304,8 @@ int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
       splits < 1 || (long long)R * S > 2147483647LL || (input_grads && (!dx || !dd)) ||
       (input_grads && LX % 2))
     return cudaErrorInvalidValue;
-  long long w_off[64], b_off[64];
-  if (D + 2 + Dc > 64 || output_offsets(p, w_off, b_off) != n_out)
+  std::vector<long long> w_off, b_off;
+  if (output_offsets(p, w_off, b_off) != n_out)
     return cudaErrorInvalidValue;
   n_out = partial_stride(n_out);
   const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, false);

@@ -122,8 +122,8 @@ int train_level_launch(int dtype, int mode, const float* means, const float* var
       splits < 1 || (long long)R * S > 2147483647LL)
     return cudaErrorInvalidValue;
   p.comp = comp; p.acc = acc; p.weights = weights;
-  long long w_off[64], b_off[64];
-  if (D + 2 + Dc > 64 || output_offsets(p, w_off, b_off) != n_out)
+  std::vector<long long> w_off, b_off;
+  if (output_offsets(p, w_off, b_off) != n_out)
     return cudaErrorInvalidValue;
   const int esize = dtype == 1 ? 2 : 4;
   const Layout l = layout(esize, R, S, D, W, Wc, Dc, KX, splits, n_out, true);

@@ -138,10 +138,6 @@ inline bool init_chain(ChainParams& c, const WgParams& q, bool x_stream = false,
   return false;
 }
 
-__device__ __forceinline__ float round_bf(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // The producer: the chain's slabs, once per round of every unit of this
 // block, in the consumers' order; a stream's x rows are skipped unless
 // the consumers multiply them (dx).
@@ -903,11 +899,13 @@ __global__ void __launch_bounds__(kDwThreads, 1) dw_wg_kernel(DwJobs js) {
 }
 
 // Pass 5: the dW jobs of launch_dw (layer 0 and the skip layers' x rows
-// from xs, every other product from the activations) on dw_wg_kernel.
+// from xs, every other product from the activations) on dw_wg_kernel, in
+// launches of kMaxJobs products (each into its own out_off block: the same
+// sums at any batching).
 inline cudaError_t launch_dw_wg(const Params& p, const Extra& e, const Layout& l,
                                 unsigned char* ws, long long n_out, int splits,
                                 cudaStream_t st) {
-  long long w_off[64], b_off[64];
+  std::vector<long long> w_off, b_off;
   output_offsets(p, w_off, b_off);
   const bf16* acts = reinterpret_cast<const bf16*>(ws + l.acts);
   const bf16* grads = reinterpret_cast<const bf16*>(ws + l.grads);
@@ -917,17 +915,27 @@ inline cudaError_t launch_dw_wg(const Params& p, const Extra& e, const Layout& l
   js.part = reinterpret_cast<float*>(ws + l.part);
   js.n_out = n_out; js.n = 0; js.splits = splits; js.K = (int)e.N;
   js.stage_bytes = (2 + cdiv(p.W, 64)) * kTileSlab;
+  const int smem = kDwStages * js.stage_bytes + 1024;
+  cudaError_t err =
+      cudaFuncSetAttribute(dw_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   int nblocks = 0;
+  auto flush = [&]() {
+    if (js.n == 0) return cudaSuccess;
+    dw_wg_kernel<<<nblocks, kDwThreads, smem, st>>>(js);
+    js.n = 0;
+    nblocks = 0;
+    return cudaGetLastError();
+  };
   auto add = [&](const bf16* A, int lda, const bf16* B, int M, int Nn, long long out_off) {
+    if (err != cudaSuccess) return;
     DwJob& j = js.job[js.n++];
     j.A = A; j.B = B; j.lda = lda; j.M = M; j.Nn = Nn; j.out_off = out_off; j.out_ld = Nn;
     j.tiles_m = cdiv(M, 128);
     j.block0 = nblocks;
     nblocks += j.tiles_m * splits;
+    if (js.n == kMaxJobs) err = flush();
   };
-  int n_jobs = p.Dc;
-  for (int i = 0; i < p.D; ++i) n_jobs += (i > 0 && i % p.skip == 0) ? 2 : 1;
-  if (n_jobs > kMaxJobs) return cudaErrorInvalidValue;
   for (int i = 0; i < p.D; ++i) {
     const bf16* g = grads + i * tW;
     if (i == 0) {
@@ -942,12 +950,8 @@ inline cudaError_t launch_dw_wg(const Params& p, const Extra& e, const Layout& l
     const bf16* a = j == 0 ? acts + (p.D - 1) * tW : acts + act_off(p, e.N, p.D + j - 1);
     add(a, j == 0 ? p.W : p.Wc, g, j == 0 ? p.W : p.Wc, p.Wc, w_off[p.D + 1 + j]);
   }
-  const int smem = kDwStages * js.stage_bytes + 1024;
-  cudaError_t err =
-      cudaFuncSetAttribute(dw_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dw_wg_kernel<<<nblocks, kDwThreads, smem, st>>>(js);
-  return cudaGetLastError();
+  return flush();
 }
 
 __global__ void __launch_bounds__(kWgThreads, 1) train_fwd_wg_kernel(WgParams q) {

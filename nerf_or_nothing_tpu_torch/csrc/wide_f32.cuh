@@ -293,9 +293,9 @@ inline cudaError_t launch_wide_head_f32(const float* A, int K, long long M, cons
 struct WideF32Route {
   using T = float;
   static constexpr bool kBf16 = false;
-  long long trunk[64];
+  std::vector<long long> trunk;
   bool init(const Params& p) {
-    if (p.D > 64) return false;
+    trunk.resize(p.D);
     long long off = 0;
     for (int i = 0; i < p.D; ++i) {
       trunk[i] = off;

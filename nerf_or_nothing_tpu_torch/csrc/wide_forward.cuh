@@ -30,42 +30,31 @@
 //    features of mode "t"), zero-padded to KX columns;
 //  - wide_dir_kernel: the first view layer's direction term d @ W_dir, one
 //    f32 row of Wc per ray;
-//  - wide_gemm_kernel<BN>, one launch per layer: out = epilogue(A @ B) over
-//    blocks of 128 rows x BN columns (a layer of N columns takes
-//    ceil(N / BN) column blocks, so no product is wider than the m64n256
-//    wgmma). A is one or two row-major bf16 activations (the skip layers'
-//    [h | x]), B the layer's slabs of the packed stream (fused_level.
-//    pack_params_wg for the forward, pack_params_wgt for the g-chain: W^T
-//    rows of 64 k-values in the 128-byte swizzle, the K-major operand
-//    wgmma reads). All 256 threads copy each 64-k stage by cp.async (A
-//    rows into the swizzle, B slab rows as stored), four stages, two in
-//    flight; the two warpgroups each multiply 64 rows. The epilogue is the
-//    forward's (direction term, bias, ReLU, round), the g-chain's
-//    (round, the density head's rounded term, the mask of the layer
-//    below's activation > 0), written to a separate buffer, so the input
-//    stays readable by every column block; mlp_bwd's density term over
-//    Cd > 1 channels and its dX (round, add the deeper x layers' sum,
-//    round) are wide_gemm_mlp_kernel's epilogues;
+//  - wide_gemm_kernel<BN, kKind> (wide_gemm.cuh), one launch per layer
+//    product: out = epilogue(A @ B), A one or two row-major bf16
+//    activations (the skip layers' [h | x]), B the layer's slabs of the
+//    packed stream; the epilogue is the forward's (direction term, bias,
+//    ReLU, round), the g-chain's (round, the density head's term, the mask
+//    of the layer below's activation > 0), mlp_bwd's density term over
+//    Cd > 1 channels or its dX, written to a separate buffer, so the input
+//    stays readable by every column block;
 //  - wide_head_kernel<NC>: NC = 1-8 channels of a head as one warp per row
 //    (a head of more channels in groups of 8, a launch a group);
 //  - render: wide_composite_kernel, level_common.cuh's composite on the
 //    raw heads in global memory; mlp_fwd: the heads straight to raw_rgb /
 //    raw_den. The rows go in chunks of whole rays (kWideChunkRows), so two
 //    activation buffers stay ~0.5 GB at W=1024 whatever R is.
-// A simple design that is right first: no persistent blocks, no producer
-// warp, every activation through HBM (making it fast is later work).
+// Every activation goes through HBM; the layer GEMM is the part built for
+// speed (persistent blocks, a TMA producer, wide_gemm.cuh).
 
 #pragma once
 
-#include "forward_wg.cuh"
+#include "wide_gemm.cuh"
 
 namespace {
 
 constexpr int kWideMinW = 288;      // narrower widths take the narrow kernels where they fit
 constexpr int kWideHeadK = 1024;    // k-values of a head's weights a block stages at once
-constexpr int kWideThreads = 256;   // two warpgroups of 64 rows
-constexpr int kWideRows = 128;
-constexpr int kWideStages = 4;
 constexpr long long kWideChunkRows = 1LL << 18;  // render, mlp_fwd: rows of a chunk of rays
 
 // Whether an entry point whose dtype argument is dtype takes the wide
@@ -77,40 +66,9 @@ inline bool wide_route(int& dtype, int W) {
   return wide;
 }
 
-enum { kWideFwd = 0, kWideChain = 1, kWideChainHeads = 2, kWideDx = 3 };
 // The heads of wide_forward: none (mlp_bwd's recompute), the level
 // kernels' 3 rgb / 1 density into [M, 4], or 1-8 channels each (mlp_fwd).
 enum { kWideNoHeads = 0, kWideLevelHeads = 1, kWideAnyHeads = 2 };
-
-// One layer product and its epilogue (wide_gemm_kernel).
-struct WideGemm {
-  const bf16* a0;      // A, first part: [M, lda0], columns [0, ka0) read, ns0 slabs of 64
-  const bf16* a1;      // second part (the features of layer 0's and the skip layers' x
-                       // rows), ns1 slabs (0: none)
-  int lda0, ka0, ns0, lda1, ka1, ns1;
-  const bf16* b;       // the product's ns0 + ns1 slabs, each [N rows x 64] swizzled
-  int N;               // columns of the product and of out
-  long long M;         // rows
-  int kind;            // kWideFwd or kWideChain
-  const float* bias;   // forward: [N]
-  const float* dc;     // forward, first view layer: [rays, N] f32, ray = row / S
-  int S;
-  const bf16* act;     // chain: the layer below's activation [M, N]; g is kept where > 0
-  const float* gden;   // chain into the trunk: the density cotangent [M] (one channel)
-  const bf16* wden;    // its weights W_den^T [1, N]
-  bf16* out;           // [M, N]
-};
-
-// A product of wide_gemm_mlp_kernel (mlp_bwd's epilogues): g's operands,
-// and the epilogue's own fields. WideGemm stays as it is: three more
-// fields in it changed wide_gemm_kernel's registers (132 -> 130 at BN 128)
-// and brought ptxas's note that it serializes the kernel's wgmma (C7515).
-struct WideGemmMlp {
-  WideGemm g;
-  int cd;              // kWideChainHeads: g.gden is [M, cd], g.wden [cd, N]
-  int ldo;             // kWideDx: g.out is [M, ldo] (location_features), columns < ldo
-  int accum;           // kWideDx: g.out already holds the deeper x layers' sum
-};
 
 // Element offsets of every matrix in pack_params_wg's stream
 // (fused_level._layout_wg): trunk layer i (its h slabs, then its x slabs
@@ -118,12 +76,14 @@ struct WideGemmMlp {
 // channels, each its own slabs of 8 rows), the view layers, the rgb head,
 // then the direction rows [Fd, Wc] row-major.
 struct WideOffsets {
-  long long trunk[64], view[64], den, rgb, dir;
+  std::vector<long long> trunk, view;
+  long long den, rgb, dir;
   int nh, nc, nx;
 };
 
 inline bool wide_offsets(const Params& p, WideOffsets& o) {
-  if (p.D > 64 || p.Dc > 64) return false;
+  o.trunk.resize(p.D);
+  o.view.resize(p.Dc);
   o.nh = cdiv(p.W, 64);
   o.nc = cdiv(p.Wc, 64);
   o.nx = cdiv(p.KX, 64);
@@ -141,274 +101,6 @@ inline bool wide_offsets(const Params& p, WideOffsets& o) {
   o.rgb = off;     off += (long long)o.nc * head_cols(p.Cr) * 64;
   o.dir = off;
   return true;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~uintptr_t(1023));
-}
-
-template <int BN>
-__host__ __device__ constexpr int wide_stage_bytes() {
-  return 2 * kTileSlab + BN * kSlabBytes;
-}
-
-template <int BN>
-__host__ __device__ constexpr int wide_gemm_smem() {
-  return kWideStages * wide_stage_bytes<BN>() + 1024;
-}
-
-// Stage kt (64 k-values) of block (m0, n0): A rows m0 .. m0 + 127 into two
-// swizzled [64, 64] slabs (chunk c of row r at c ^ (r & 7)), zeros past M
-// and past the part's ka columns; B rows n0 .. n0 + BN - 1 of the slab as
-// stored (already swizzled), zeros past N.
-template <int BN>
-__device__ __forceinline__ void wide_load(const WideGemm& g, unsigned char* st, int kt,
-                                          long long m0, int n0) {
-  const bool first = kt < g.ns0;
-  const bf16* a = first ? g.a0 : g.a1;
-  const int lda = first ? g.lda0 : g.lda1, ka = first ? g.ka0 : g.ka1;
-  const int k0 = (first ? kt : kt - g.ns0) * 64;
-  for (int idx = threadIdx.x; idx < kWideRows * 8; idx += kWideThreads) {
-    const int r = idx >> 3, c = idx & 7;
-    const bool v = m0 + r < g.M && k0 + c * 8 < ka;
-    cp_async16(st + (r >> 6) * kTileSlab + (r & 63) * kSlabBytes + ((c ^ (r & 7)) << 4),
-               v ? a + (m0 + r) * lda + k0 + c * 8 : a, v);
-  }
-  const bf16* b = g.b + (long long)kt * g.N * 64;
-  unsigned char* bs = st + 2 * kTileSlab;
-  for (int idx = threadIdx.x; idx < BN * 8; idx += kWideThreads) {
-    const int r = idx >> 3, c = idx & 7;
-    const bool v = n0 + r < g.N;
-    cp_async16(bs + r * kSlabBytes + (c << 4), v ? b + (long long)(n0 + r) * 64 + c * 8 : b, v);
-  }
-}
-
-// The forward's epilogue of two columns (n, n + 1) of one row: the
-// direction term of the row's ray (first view layer), the bias, ReLU,
-// rounded to bf16 (the plain version's (acc + dc) + b).
-__device__ __forceinline__ void wide_fwd_pair(const WideGemm& g, long long row, int n, float v0,
-                                              float v1) {
-  if (g.dc) {
-    const float* dr = g.dc + (row / g.S) * g.N + n;
-    v0 += dr[0];
-    v1 += dr[1];
-  }
-  v0 += __ldg(g.bias + n);
-  v1 += __ldg(g.bias + n + 1);
-  *reinterpret_cast<uint32_t*>(g.out + row * g.N + n) = relu_bf16x2(v0, v1);
-}
-
-// The g-chain's epilogue of two columns: g = round(acc), plus (into the
-// trunk) round(round(g_den) w_den) added and rounded, then zero where the
-// layer below's activation is not > 0.
-__device__ __forceinline__ void wide_chain_pair(const WideGemm& g, long long row, int n,
-                                                float v0, float v1) {
-  v0 = __bfloat162float(__float2bfloat16_rn(v0));
-  v1 = __bfloat162float(__float2bfloat16_rn(v1));
-  if (g.gden) {
-    const float gd = __bfloat162float(__float2bfloat16_rn(g.gden[row]));
-    v0 = v0 + __bfloat162float(__float2bfloat16_rn(gd * __bfloat162float(g.wden[n])));
-    v1 = v1 + __bfloat162float(__float2bfloat16_rn(gd * __bfloat162float(g.wden[n + 1])));
-  }
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(g.act + row * g.N + n);
-  __nv_bfloat162 o;
-  o.x = __bfloat162float(a.x) > 0.0f ? __float2bfloat16_rn(v0) : __float2bfloat16_rn(0.0f);
-  o.y = __bfloat162float(a.y) > 0.0f ? __float2bfloat16_rn(v1) : __float2bfloat16_rn(0.0f);
-  *reinterpret_cast<__nv_bfloat162*>(g.out + row * g.N + n) = o;
-}
-
-// kWideChainHeads' epilogue of two columns: wide_chain_pair with the
-// density term round(round(g_den) . w_den) an f32 sum over the cd channels
-// in order (from -0, so one channel's term is its product exactly, sign of
-// zero included).
-__device__ __forceinline__ void wide_chain_heads_pair(const WideGemmMlp& m, long long row,
-                                                      int n, float v0, float v1) {
-  const WideGemm& g = m.g;
-  v0 = __bfloat162float(__float2bfloat16_rn(v0));
-  v1 = __bfloat162float(__float2bfloat16_rn(v1));
-  float t0 = -0.0f, t1 = -0.0f;
-  for (int k = 0; k < m.cd; ++k) {
-    const float gd = __bfloat162float(__float2bfloat16_rn(g.gden[row * m.cd + k]));
-    const bf16* w = g.wden + (long long)k * g.N + n;
-    t0 = fmaf(gd, __bfloat162float(w[0]), t0);
-    t1 = fmaf(gd, __bfloat162float(w[1]), t1);
-  }
-  v0 = v0 + __bfloat162float(__float2bfloat16_rn(t0));
-  v1 = v1 + __bfloat162float(__float2bfloat16_rn(t1));
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(g.act + row * g.N + n);
-  __nv_bfloat162 o;
-  o.x = __bfloat162float(a.x) > 0.0f ? __float2bfloat16_rn(v0) : __float2bfloat16_rn(0.0f);
-  o.y = __bfloat162float(a.y) > 0.0f ? __float2bfloat16_rn(v1) : __float2bfloat16_rn(0.0f);
-  *reinterpret_cast<__nv_bfloat162*>(g.out + row * g.N + n) = o;
-}
-
-// kWideDx's epilogue of two columns (n, n + 1 < ldo): t = round(acc), and
-// unless this is the first (deepest) x layer, t = round(out + t), with out
-// the sum of the deeper x layers' terms; each element is one thread's.
-__device__ __forceinline__ void wide_dx_pair(const WideGemmMlp& m, long long row, int n,
-                                             float v0, float v1) {
-  if (n >= m.ldo) return;  // zero-padded columns of W_x^T
-  v0 = __bfloat162float(__float2bfloat16_rn(v0));
-  v1 = __bfloat162float(__float2bfloat16_rn(v1));
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(m.g.out + row * m.ldo + n);
-  if (m.accum) {
-    const float2 s = __bfloat1622float2(*o);
-    v0 = s.x + v0;
-    v1 = s.y + v1;
-  }
-  *o = __floats2bfloat162_rn(v0, v1);
-}
-
-// One block: rows m0 .. m0 + 127 (blockIdx.x) by columns n0 .. n0 + BN - 1
-// (blockIdx.y) of the product, m64nBNk16 wgmma from the staged tiles.
-template <int BN>
-__global__ void __launch_bounds__(kWideThreads, 1) wide_gemm_kernel(WideGemm g) {
-  extern __shared__ __align__(1024) unsigned char smem_wide[];
-  unsigned char* base = align1024(smem_wide);
-  const long long m0 = (long long)blockIdx.x * kWideRows;
-  const int n0 = blockIdx.y * BN;
-  const int nk = g.ns0 + g.ns1;
-  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
-  auto stage = [&](int kt) { return base + (kt % kWideStages) * wide_stage_bytes<BN>(); };
-  auto load = [&](int kt) {
-    if (kt < nk) wide_load<BN>(g, stage(kt), kt, m0, n0);
-    cp_async_commit();
-  };
-  float acc[BN / 2];
-  zero_acc<BN>(acc);
-  load(0);
-  load(1);
-  for (int kt = 0; kt < nk; ++kt) {
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    fence_proxy_async();
-    __syncthreads();  // stage kt is in; both warpgroups' products of kt - 2 are done
-    const uint32_t a = opaque(smem_u32(stage(kt)) + wg * kTileSlab);
-    const uint32_t b = opaque(smem_u32(stage(kt)) + 2 * kTileSlab);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma<BN>(acc, sdesc(a + kk * 32), sdesc(b + kk * 32), 1);
-    wgmma_commit();
-    wgmma_wait<1>();
-    load(kt + 2);
-  }
-  wgmma_wait<0>();
-  fence_acc<BN / 2>(acc);
-  const long long row0 = m0 + wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
-  const int qd = t & 3;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int n = n0 + 8 * j + 2 * qd;
-    if (n >= g.N) continue;  // N is a multiple of 32: n + 1 < N too
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = row0 + 8 * h;
-      if (row >= g.M) continue;
-      if (g.kind == kWideFwd)
-        wide_fwd_pair(g, row, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-      else
-        wide_chain_pair(g, row, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  }
-}
-
-// wide_gemm_kernel's stages and products with the epilogue kKind
-// (kWideChainHeads or kWideDx: mlp_bwd's), a kernel of its own: with these
-// epilogues as more branches of wide_gemm_kernel's, every wide layer
-// product ran ~20% slower (train_level at W=1024 42.6 -> 52.2 ms).
-template <int BN, int kKind>
-__global__ void __launch_bounds__(kWideThreads, 1) wide_gemm_mlp_kernel(WideGemmMlp m) {
-  extern __shared__ __align__(1024) unsigned char smem_wide[];
-  const WideGemm& g = m.g;
-  unsigned char* base = align1024(smem_wide);
-  const long long m0 = (long long)blockIdx.x * kWideRows;
-  const int n0 = blockIdx.y * BN;
-  const int nk = g.ns0 + g.ns1;
-  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
-  auto stage = [&](int kt) { return base + (kt % kWideStages) * wide_stage_bytes<BN>(); };
-  auto load = [&](int kt) {
-    if (kt < nk) wide_load<BN>(g, stage(kt), kt, m0, n0);
-    cp_async_commit();
-  };
-  float acc[BN / 2];
-  zero_acc<BN>(acc);
-  load(0);
-  load(1);
-  for (int kt = 0; kt < nk; ++kt) {
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    fence_proxy_async();
-    __syncthreads();  // stage kt is in; both warpgroups' products of kt - 2 are done
-    const uint32_t a = opaque(smem_u32(stage(kt)) + wg * kTileSlab);
-    const uint32_t b = opaque(smem_u32(stage(kt)) + 2 * kTileSlab);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma<BN>(acc, sdesc(a + kk * 32), sdesc(b + kk * 32), 1);
-    wgmma_commit();
-    wgmma_wait<1>();
-    load(kt + 2);
-  }
-  wgmma_wait<0>();
-  fence_acc<BN / 2>(acc);
-  const long long row0 = m0 + wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
-  const int qd = t & 3;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int n = n0 + 8 * j + 2 * qd;
-    if (n >= g.N) continue;  // N is a multiple of 32: n + 1 < N too
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = row0 + 8 * h;
-      if (row >= g.M) continue;
-      if constexpr (kKind == kWideChainHeads)
-        wide_chain_heads_pair(m, row, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-      else
-        wide_dx_pair(m, row, n, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  }
-}
-
-// Launch one layer product: blocks of 128 rows by 256 columns when N is a
-// multiple of 256, else by 128 (the last column block zero-filled past N).
-inline cudaError_t launch_wide_gemm(const WideGemm& g, cudaStream_t st) {
-  if (g.M <= 0) return cudaSuccess;
-  const unsigned rows = (unsigned)((g.M + kWideRows - 1) / kWideRows);
-  cudaError_t err;
-  if (g.N % 256 == 0) {
-    constexpr int smem = wide_gemm_smem<256>();
-    if ((err = cudaFuncSetAttribute(wide_gemm_kernel<256>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
-        cudaSuccess)
-      return err;
-    wide_gemm_kernel<256><<<dim3(rows, g.N / 256), kWideThreads, smem, st>>>(g);
-  } else {
-    constexpr int smem = wide_gemm_smem<128>();
-    if ((err = cudaFuncSetAttribute(wide_gemm_kernel<128>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
-        cudaSuccess)
-      return err;
-    wide_gemm_kernel<128><<<dim3(rows, cdiv(g.N, 128)), kWideThreads, smem, st>>>(g);
-  }
-  return cudaGetLastError();
-}
-
-template <int BN, int kKind>
-inline cudaError_t launch_wide_gemm_mlp_bn(const WideGemmMlp& m, cudaStream_t st) {
-  constexpr int smem = wide_gemm_smem<BN>();
-  const cudaError_t err = cudaFuncSetAttribute(wide_gemm_mlp_kernel<BN, kKind>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  wide_gemm_mlp_kernel<BN, kKind>
-      <<<dim3((unsigned)((m.g.M + kWideRows - 1) / kWideRows), cdiv(m.g.N, BN)), kWideThreads,
-         smem, st>>>(m);
-  return cudaGetLastError();
-}
-
-// launch_wide_gemm for wide_gemm_mlp_kernel's epilogue kKind.
-template <int kKind>
-inline cudaError_t launch_wide_gemm_mlp(const WideGemmMlp& m, cudaStream_t st) {
-  if (m.g.M <= 0) return cudaSuccess;
-  return m.g.N % 256 == 0 ? launch_wide_gemm_mlp_bn<256, kKind>(m, st)
-                          : launch_wide_gemm_mlp_bn<128, kKind>(m, st);
 }
 
 // xs[r, :KX] for rows r < rows, the features of level rows row0 + r: the
@@ -572,7 +264,8 @@ struct WideBf16Route {
   long long view_off(const Params&, int j) const { return o.view[j]; }
   const bf16* dir(const Params& p) const { return static_cast<const bf16*>(p.w) + o.dir; }
   // out [M, N] = ReLU(a0 @ B + a1 @ B_x + dc + bias), a0 [M, k0], a1 the
-  // features of an x layer (or null), B at w_off in the stream.
+  // features of an x layer (or null), B at w_off in the stream (the
+  // forward epilogue alone, so the forward kernels build no other).
   cudaError_t fwd(const Params& p, const bf16* a0, int k0, const bf16* a1, int N, long long M,
                   long long w_off, const float* bias, const float* dc, bf16* out,
                   cudaStream_t st) const {
@@ -581,7 +274,7 @@ struct WideBf16Route {
     if (a1) { g.a1 = a1; g.lda1 = g.ka1 = p.KX; g.ns1 = o.nx; }
     g.b = static_cast<const bf16*>(p.w) + w_off; g.N = N; g.M = M; g.kind = kWideFwd;
     g.bias = bias; g.S = p.S; g.dc = dc; g.out = out;
-    return launch_wide_gemm(g, st);
+    return launch_wide_gemm_mlp<kWideFwd>(WideGemmMlp{g, 1, 0, 0}, st);
   }
   // The rgb head (rgb) or the density head on A [M, K] to out (row stride
   // ld); heads of any width (kWideAnyHeads) a launch a group of kHeadN

@@ -34,7 +34,7 @@
 //     wide_gemm_kernel per chained layer, top layer first, g @ W^T from
 //     pack_params_wgt's slabs (mlp_bwd: pack_params_wgx's) with the g-chain
 //     epilogue (the density head's term on the way into the trunk; mlp_bwd
-//     with a density head of Cd > 1 channels: wide_gemm_mlp_kernel's);
+//     with a density head of Cd > 1 channels: the kWideChainHeads epilogue);
 //  4. g_ray_kernel (train_wg.cuh): the first view layer's g summed per ray;
 //  5. wide_db_kernel: every bias's db as column sums of the masked g (and
 //     of the f32 head cotangents) over fixed chunks of rows, one partial
@@ -88,11 +88,15 @@ inline WideTrainLayout wide_train_layout(long long base, int R, int S, int D, in
 // With nxw (pack_params_wgx, fused_level._layout_wgx), x layer i's W_x^T
 // [W, nxw] slabs (x[i]) sit before trunk layer i's h rows.
 struct WideChainOffsets {
-  long long view[64], trunk[64], x[64], rgb, den;
+  std::vector<long long> view, trunk, x;
+  long long rgb, den;
 };
 
 inline WideChainOffsets wide_chain_offsets(const Params& p, const WideOffsets& o, int nxw = 0) {
   WideChainOffsets c;
+  c.view.resize(p.Dc);
+  c.trunk.resize(p.D);
+  c.x.resize(p.D);
   long long off = 0;
   for (int j = p.Dc - 1; j >= 1; --j) {
     c.view[j] = off;
@@ -334,7 +338,7 @@ inline cudaError_t launch_wide_backward(Params p, Extra e, const Layout& l,
       p, grads, e.g_rgb, e.g_den, dbpart, N, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // 6. dW of every layer product
-  long long w_off[64], b_off[64];
+  std::vector<long long> w_off, b_off;
   output_offsets(p, w_off, b_off);
   auto dw = [&](const bf16* A, int lda, int M, const bf16* B, int ldb, int Nn,
                 long long out_off, int out_ld) {

@@ -716,8 +716,6 @@ def f32_smem(cfg: Config, kernel: str, S: int, input_grads: bool = False):
 
 KERNELS = ("render_level", "train_level", "train_level_twopass", "mlp_fwd",
            "mlp_bwd")
-MAX_LAYERS = 64   # the wide route's and the backward kernels' layer tables
-MAX_DW_JOBS = 24  # products of the dW GEMM's job table (csrc: kMaxJobs)
 
 
 def dw_jobs(cfg: Config) -> int:
@@ -736,8 +734,7 @@ def narrow_misfit(cfg: Config, kernel: str, S: int,
     forward's shared memory (``wg_smem``; the render kernel's with its
     raw heads) or the g-chain's (``chain_wg_smem``: the train kernels';
     ``mlp_bwd``'s with the dX partials and x rows of ``input_grads``); in
-    f32 ``f32_smem``; for the backward kernels more dW products than the
-    narrow dW GEMM's job table holds (``MAX_DW_JOBS``)."""
+    f32 ``f32_smem``."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}")
     if uses_wide(cfg):
@@ -752,8 +749,6 @@ def narrow_misfit(cfg: Config, kernel: str, S: int,
     elif backward and chain_wg_smem(
             cfg, dx=kernel == "mlp_bwd" and input_grads)[0] is None:
         return f"the g-chain's {over}"
-    if backward and dw_jobs(cfg) > MAX_DW_JOBS:
-        return f"{dw_jobs(cfg)} dW products, above {MAX_DW_JOBS}"
     return None
 
 
@@ -763,30 +758,10 @@ def takes_wide(cfg: Config, kernel: str, S: int,
     samples a ray, picked before the launch: the wide route where the
     narrow route does not hold the config (``narrow_misfit``: net_width
     above ``MAX_WIDTH``, or features, heads or biases past its shared
-    memory), else the narrow route. Both read the same packed weights. Raise
-    ValueError for a config the route cannot take: more layers than
-    ``MAX_LAYERS`` in the C sources' layer tables (net_depth +
-    net_depth_condition + 2 for the backward kernels on either route; a
-    trunk or view branch of the forwards' wide route), or in f32 more dW
-    products than ``MAX_DW_JOBS`` (the f32 wide route runs the narrow dW
-    GEMM; the bf16 one launches a GEMM a product)."""
-    why = narrow_misfit(cfg, kernel, S, input_grads)
-    forward = kernel in ("render_level", "mlp_fwd")
-    layers = (max(cfg.net_depth, cfg.net_depth_condition) if forward
-              else cfg.net_depth + cfg.net_depth_condition + 2)
-    if layers > MAX_LAYERS and (why is not None or not forward):
-        held = "" if why is None else (
-            f"its narrow route does not hold it ({why}) and ")
-        raise ValueError(
-            f"config not supported by the {kernel} kernel: {held}its "
-            f"routes take at most {MAX_LAYERS} layers, not {layers}")
-    if (not forward and compute_dtype(cfg) != torch.bfloat16
-            and dw_jobs(cfg) > MAX_DW_JOBS):
-        raise ValueError(
-            f"config not supported by the f32 {kernel} kernel: its dW GEMM "
-            f"takes at most {MAX_DW_JOBS} products, not {dw_jobs(cfg)} "
-            "(net_depth + net_depth_condition + skip layers)")
-    return why is not None
+    memory), else the narrow route. Both read the same packed weights; the
+    routes take any depth (the C layer tables are sized from the config,
+    and the dW GEMMs go in launches of a fixed number of products)."""
+    return narrow_misfit(cfg, kernel, S, input_grads) is not None
 
 
 def packed_tx_size(cfg: Config) -> int:
@@ -956,11 +931,14 @@ def _library(source=None):
     return fn, weight_layout(lib, "render_level")
 
 
-def _wide_render_library():
-    """(launch, workspace) of the wide route of ``csrc/render_level.cu``."""
+def _wide_render_library(source=None):
+    """(launch, workspace) of the wide route of ``csrc/render_level.cu`` or
+    of another version of it (ValueError for a version without one)."""
     from nerf_or_nothing_tpu_torch.kernels import build
 
-    lib = build.load("render_level")
+    lib = build.load("render_level", source)
+    if not hasattr(lib, "render_level_wide_workspace"):
+        raise ValueError("render_level: this source version has no wide route")
     fn, ws = lib.render_level_wide_launch, lib.render_level_wide_workspace
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -983,12 +961,10 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     version reads, ``weight_layout``). The wide route (``takes_wide``:
     net_width 288 and above, or features past the narrow route's shared
     memory; ``render_level_wide_launch``, bf16 and f32) runs with a
-    workspace allocated here (``source`` versions have their narrow C
-    interface only). Widths that are not multiples of 32 run zero-padded
+    workspace allocated here (a ``source`` version's own, where it has
+    one). Widths that are not multiples of 32 run zero-padded
     (``kernel_cfg``)."""
     wide = takes_wide(cfg, "render_level", delta.shape[1])
-    if wide and source is not None:
-        raise ValueError("render_level: a source version has no wide route")
     ptrs = _check_level_inputs(cfg, xs, d, delta, mode)
     kc = kernel_cfg(cfg)
     dt = compute_dtype(cfg)
@@ -1018,7 +994,7 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
             b_flat.data_ptr(), comp.data_ptr(), acc.data_ptr(),
             weights.data_ptr())
     if wide:
-        fn, workspace_bytes = _wide_render_library()
+        fn, workspace_bytes = _wide_render_library(source)
         workspace = torch.empty(
             (workspace_bytes(_DTYPE_CODE[dt], R, S, kc.net_width,
                              kc.net_width_condition,

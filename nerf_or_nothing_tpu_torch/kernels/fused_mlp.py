@@ -216,11 +216,14 @@ def _fwd_library(source=None):
     return fn, weight_layout(lib, "mlp_fwd")
 
 
-def _wide_fwd_library():
-    """(launch, workspace) of the wide route of ``csrc/mlp_fwd.cu``."""
+def _wide_fwd_library(source=None):
+    """(launch, workspace) of the wide route of ``csrc/mlp_fwd.cu`` or of
+    another version of it (ValueError for a version without one)."""
     from nerf_or_nothing_tpu_torch.kernels import build
 
-    lib = build.load("mlp_fwd")
+    lib = build.load("mlp_fwd", source)
+    if not hasattr(lib, "mlp_fwd_wide_workspace"):
+        raise ValueError("mlp_fwd: this source version has no wide route")
     fn, ws = lib.mlp_fwd_wide_launch, lib.mlp_fwd_wide_workspace
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -241,11 +244,9 @@ def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
     (``compare_kernels.py``; ``packed`` then in the layout it reads).
     The wide route (``takes_wide``: net_width 288 and above, or features
     or heads past the narrow route's shared memory; ``mlp_fwd_wide_launch``,
-    bf16 and f32) runs with a workspace allocated here (``source`` versions
-    have the narrow C interface only)."""
+    bf16 and f32) runs with a workspace allocated here (a ``source``
+    version's own, where it has one)."""
     R, S, wide = _check_mlp_inputs(cfg, x, d, "mlp_fwd")
-    if wide and source is not None:
-        raise ValueError("mlp_fwd: a source version has no wide route")
     dt = compute_dtype(cfg)
     device = x.device
     fn, layout = _fwd_library(source)
@@ -262,7 +263,7 @@ def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
             raw_rgb.data_ptr(), raw_den.data_ptr())
     stream = torch.cuda.current_stream(device).cuda_stream
     if wide:
-        fn, workspace_bytes = _wide_fwd_library()
+        fn, workspace_bytes = _wide_fwd_library(source)
         _, W, _, Wc = _dims(cfg)[:4]
         workspace = torch.empty(
             (workspace_bytes(_DTYPE_CODE[dt], R, S, W, Wc,

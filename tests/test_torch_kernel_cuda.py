@@ -790,10 +790,11 @@ def test_mlp_bwd_wg_matches_plain_on_cuda(heads, input_grads):
 def test_wg_backward_configs_raise_before_launch_on_cuda():
     """On CUDA tensors, x rows wider than 256 columns for ``mlp_bwd``'s
     dX, which the bf16 narrow passes refused, take the wide route and
-    launch once; more biases than the chain's shared memory holds and
-    more layers than any route's table raise ValueError before any launch
-    of the two-pass kernel; 25 dW products take the wide route in bf16
-    and raise in f32."""
+    launch once; so do more biases than the chain's shared memory holds
+    (102 layers, which every route once refused before any launch: the
+    two-pass kernel launches once, in band of its plain version); 25 dW
+    products, past one dW launch's job table, keep the narrow route in
+    both dtypes, in band of the plain version."""
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
 
     dev = cuda_device()
@@ -805,29 +806,88 @@ def test_wg_backward_configs_raise_before_launch_on_cuda():
     d = torch.zeros(R, 27, dtype=torch.bfloat16, device=dev)
     g_rgb = torch.zeros(R * S, 3, device=dev)
     g_den = torch.zeros(R * S, 1, device=dev)
-    before = (fm.mlp_bwd.launches, fl.train_level_twopass.launches)
+    before = fm.mlp_bwd.launches
     assert fl.takes_wide(cfg, "mlp_bwd", S, True)
     d_params, dx, dd = fm.mlp_bwd_cuda(params, cfg, x, d, g_rgb, g_den, True)
     torch.cuda.synchronize()
+    assert fm.mlp_bwd.launches == before + 1
     assert bool(torch.isfinite(dx.float()).all())
     assert all(bool(torch.isfinite(t).all()) for wb in d_params for t in wb)
-    before = (before[0] + 1, before[1])
-    deep = Config(net_depth=100)
-    delta = torch.ones(R, S, device=dev)
-    pixels, g_scale = torch.zeros(R, 3, device=dev), torch.ones(R, 1, device=dev)
-    xd = torch.zeros(R * S, deep.location_features, dtype=torch.bfloat16,
-                     device=dev)
-    with pytest.raises(ValueError, match="g-chain"):
-        fl.train_level_twopass_cuda(params, deep, xd, d, delta, pixels,
-                                    g_scale, True)
-    assert (fm.mlp_bwd.launches, fl.train_level_twopass.launches) == before
-    # 25 dW products, past the narrow dW GEMM's job table: bf16 takes the
-    # wide route (in band of the plain version), f32 raises before a launch
-    check_train(Config(net_depth=20, net_width=64, net_width_condition=32),
-                5, "t", True, dev)
-    with pytest.raises(ValueError, match="24 products"):
-        check_train(Config(net_depth=20, compute_dtype="float32"), 5, "t",
-                    True, dev)
+    deep = Config(net_depth=100, num_samples=16,
+                  kernel_probes="fl_variant=twopass")
+    assert fl.takes_wide(deep, "train_level_twopass", 16)
+    check_train(deep, 3, "t", True, dev)
+    for dtype in ("bfloat16", "float32"):
+        deeper = Config(net_depth=20, compute_dtype=dtype)
+        assert fl.dw_jobs(deeper) == 25
+        assert not fl.takes_wide(deeper, "train_level", deeper.num_samples)
+        check_train(deeper, 5, "t", True, dev)
+
+
+# Configs past the C sources' former tables: 25 dW products (one dW
+# launch takes 24) and 66 layers (the layer tables held 64).
+DEEP_CASES = {
+    "depth20_f32": dict(net_depth=20, compute_dtype="float32"),
+    "layers66_f32": dict(net_depth=63, net_depth_condition=1, net_width=64,
+                         net_width_condition=32, compute_dtype="float32"),
+    "layers66_bf16": dict(net_depth=63, net_depth_condition=1, net_width=64,
+                          net_width_condition=32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DEEP_CASES))
+def test_deep_backward_kernels_match_plain_on_cuda(name):
+    """``train_level``, ``train_level_twopass`` and ``mlp_bwd`` (with and
+    without input_grads) at the deep configs against their plain versions
+    in the dtype's band (f32: with f64 products; ``mlp_bwd``'s cotangents
+    0 on ``near_zero_rows``' rows), each bit-equal over two launches; the
+    two-pass kernel bit-equal to ``train_level`` where they run the same
+    launches (bf16, and the wide route; the narrow f32 two-pass kernel
+    sums db in another order)."""
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+
+    dev = cuda_device()
+    cfg = Config(**dict(DEEP_CASES[name], num_samples=32))
+    dtype, R, S = cfg.compute_dtype, 37, 32
+    params = tmlp.init_mlp(torch.Generator().manual_seed(3), cfg, device=dev)
+    x, d, g_rgb, g_den = mlp_inputs(cfg, params, R, 3, dev)
+    _, _, _, t_vals, dirs, pixels, g_scale = train_inputs(R, S, 3, dev)
+    delta = interval_lengths(t_vals, dirs)
+    dt = tmlp.compute_dtype(cfg)
+    packed = fl.pack_train(params, cfg, dt)
+    before = (fl.train_level.launches, fl.train_level_twopass.launches)
+    a, b = (fl.train_level_cuda(params, cfg, x, d, delta, pixels, g_scale,
+                                True, "t", packed=packed) for _ in range(2))
+    two, two_b = (fl.train_level_twopass(params, cfg, x, d, delta, pixels,
+                                         g_scale, True, packed=packed)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    assert (fl.train_level.launches - before[0],
+            fl.train_level_twopass.launches - before[1]) == (2, 2)
+    same = dtype == "bfloat16" or fl.takes_wide(cfg, "train_level", S)
+    for ta, tb, tt, tu in zip(*map(tensors, (a, b, two, two_b))):
+        assert torch.equal(ta, tb) and torch.equal(tt, tu)
+        assert torch.equal(ta, tt) or not same
+    with reference_products(cfg):
+        ref = fl.level_train_plain(params, cfg, x, d, delta, pixels, g_scale,
+                                   True, "t")
+    check_close(a, ref, dtype, f"{name} train_level")
+    check_close(two, ref, dtype, f"{name} train_level_twopass")
+    if dtype == "float32":
+        near = near_zero_rows(params, cfg, x, d)
+        assert 2 * int(near.sum()) <= R * S, int(near.sum())
+        g_rgb, g_den = (torch.where(near[:, None], 0.0, g)
+                        for g in (g_rgb, g_den))
+    mpacked = fm.pack_mlp_params(params, cfg, dt)
+    for input_grads in (True, False):
+        ga, gb = (fm.mlp_bwd(params, cfg, x, d, g_rgb, g_den, input_grads,
+                             packed=mpacked) for _ in range(2))
+        with reference_products(cfg):
+            gref = fm.mlp_bwd_plain(params, cfg, x, d, g_rgb, g_den, S,
+                                    input_grads)
+        assert all(torch.equal(ta, tb)
+                   for ta, tb in zip(tensors(ga), tensors(gb))), input_grads
+        check_close(ga, gref, dtype, f"{name} mlp_bwd {input_grads}")
 
 
 WIDE = dict(net_depth=8, skip_layer=4, net_width_condition=128)
@@ -1921,3 +1981,50 @@ def test_any_features_kernels_match_plain_on_cuda(dtype, deg):
         assert all(torch.equal(ta, tb)
                    for ta, tb in zip(tensors(a), tensors(b))), input_grads
         check_close(a, ref, dtype, f"mlp_bwd input_grads={input_grads}")
+
+
+# The layer GEMM of the wide bf16 route alone (kernels/wide_gemm.py):
+# (name, kind, M, N, K0, K1, gemm_case options). M tails, N of 288, 1056
+# and 2048 (and 64, below a column block), two-part A, K past whole
+# slabs, every epilogue kind.
+WIDE_GEMM_CASES = [
+    ("fwd_288_tail", "fwd", 5077, 288, 288, 0, {}),
+    ("fwd_1056_skip", "fwd", 3001, 1056, 1056, 96, {}),
+    ("fwd_2048", "fwd", 1029, 2048, 2048, 0, {}),
+    ("fwd_512_k96_x112", "fwd", 777, 512, 96, 112, {}),
+    ("fwd_64", "fwd", 300, 64, 64, 16, {}),
+    ("fwd_view_dc", "fwd", 4160, 256, 1024, 0, {"dc": True, "S": 64}),
+    ("chain_1024_den", "chain", 2049, 1024, 1024, 0, {}),
+    ("chain_288", "chain", 1000, 288, 288, 0, {"den": False}),
+    ("chain_heads_1056", "chain_heads", 1500, 1056, 1056, 0, {"cd": 3}),
+    ("dx_96_accum", "dx", 1999, 96, 1024, 0, {"ldo": 90, "accum": True}),
+    ("dx_288", "dx", 777, 288, 512, 0, {"ldo": 270}),
+]
+
+
+@pytest.mark.parametrize("name,kind,M,N,K0,K1,kw", WIDE_GEMM_CASES,
+                         ids=[c[0] for c in WIDE_GEMM_CASES])
+def test_wide_gemm_matches_parent_and_plain_on_cuda(name, kind, M, N, K0, K1,
+                                                    kw):
+    """The redesigned layer GEMM (``csrc/wide_gemm.cuh``) bit-equal to the
+    cp.async GEMM it replaced (``chip_smoke.gemm_sources``: that commit's
+    headers beside ``csrc/wide_gemm.cu``) and over two launches, and in
+    the bf16 band of ``wide_gemm_plain``."""
+    from nerf_or_nothing_tpu_torch.kernels import wide_gemm as wg
+
+    dev = cuda_device()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as smoke
+
+    parent = smoke.gemm_sources()
+    if parent is None:
+        pytest.skip("no copy of the parent GEMM and no git history")
+    old = parent["wide_gemm"]
+    c = wg.gemm_case(kind, M, N, K0, K1, seed=M, device=dev, **kw)
+    a, b = wg.wide_gemm_cuda(c), wg.wide_gemm_cuda(c)
+    parent = wg.wide_gemm_cuda(c, old)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, parent), name
+    assert bool(torch.isfinite(a.float()).all())
+    check_close(a, wg.wide_gemm_plain(c), "bfloat16", name)

@@ -294,14 +294,14 @@ def test_mlp_bwd_chain_smem_fits_every_admitted_width(dx):
 @pytest.mark.parametrize("kw,input_grads,what", [
     (dict(max_deg_point=44), True, "CUDA tensor"),
     (dict(max_deg_point=44), False, "CUDA tensor"),
-    (dict(net_depth=100), False, "mlp_bwd kernel"),
+    (dict(net_depth=100), False, "CUDA tensor"),
     (dict(max_deg_point=80), False, "CUDA tensor")])
 def test_mlp_bwd_rejected_config_raises_before_launch(kw, input_grads, what):
     """x rows wider than 256 columns (dX) and features too wide for the
     recomputed forward, which the bf16 narrow route refused, now take the
-    wide route (CPU tensors then reach the device check); 102 layers,
-    more than any route's layer table holds, still raise ValueError
-    before any launch."""
+    wide route (CPU tensors then reach the device check); so do 102
+    layers, whose biases the bf16 g-chain's shared memory does not hold
+    (f32 keeps the narrow route there)."""
     cfg = Config(**kw)
     params = params_of(cfg.replace(net_depth=min(cfg.net_depth, 8)))
     R, S = 2, cfg.num_samples
@@ -314,8 +314,8 @@ def test_mlp_bwd_rejected_config_raises_before_launch(kw, input_grads, what):
     assert fm.mlp_bwd.launches == before
     f32 = cfg.replace(compute_dtype="float32")
     if "net_depth" in kw:
-        with pytest.raises(ValueError, match="64 layers"):
-            fl.takes_wide(f32, "mlp_bwd", S, True)
+        assert fl.takes_wide(cfg, "mlp_bwd", S, input_grads)
+        assert not fl.takes_wide(f32, "mlp_bwd", S, True)
     else:  # the narrow f32 dX product is at most 256 columns wide
         wide = kw["max_deg_point"] > 64 or input_grads
         assert fl.takes_wide(cfg, "mlp_bwd", S, input_grads) == wide
