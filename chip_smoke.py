@@ -360,6 +360,23 @@ GEMM_CASES = (
     ("w1024_chain_heads", "chain_heads", 1 << 17, 1024, 1024, 0, {"cd": 2}),
     ("w1024_dx", "dx", 1 << 17, 96, 1024, 0, {"ldo": 90, "accum": True}),
 )
+# The f32 wide route's layer GEMM before its Hopper redesign (the 3xTF32
+# mma.sync wide_gemm_f32_kernel of b3e8633), timed in turns with the
+# checkout's through csrc/wide_gemm_f32.cu (which builds against both
+# headers): its commit and where the copy is written (gitignored)
+F32_GEMM_COMMIT = "b3e8633"
+F32_GEMM_DIR = ".local_runs/csrc_b3e8633"
+# The wide f32 kernels timed in turns with that commit's (each reading its
+# own weight layout; compare_kernels.cases by name)
+F32_GEMM_KERNEL_TURNS = (("render_level", "f32_w1024_r4096_s128_mv"),)
+# The wide_f32 phase's products of the f32 GEMM alone: (name, kind, M, N,
+# K0, K1, options of wide_gemm.gemm_case)
+F32_GEMM_CASES = (
+    ("f32_w1024_fwd", "fwd", 1 << 18, 1024, 1024, 0, {}),
+    ("f32_w1024_chain", "chain", 1 << 17, 1024, 1024, 0, {}),
+    ("f32_w288_fwd", "fwd", 1 << 18, 288, 288, 0, {}),
+    ("f32_w2048_fwd", "fwd", 1 << 17, 2048, 2048, 0, {}),
+)
 GEMM_TIMING = (5, 2)  # (timed, warm-up) calls of each version in a turn
 GEMM_LAUNCHES = 4  # back-to-back launches a timed call, so the host's
 # work between launches stays off the card's clock
@@ -962,89 +979,102 @@ def mma_sources():
             for name in KERNELS}
 
 
-def gemm_sources():
-    """The ``csrc/`` of ``GEMM_COMMIT`` (the wide GEMM before its Hopper
-    redesign), written from git into ``GEMM_DIR``, with the checkout's
-    ``csrc/wide_gemm.cu`` copied beside it (a quoted include finds those
-    headers before ``csrc/``): the sources by name (``wide_gemm`` and the
-    kernels of ``GEMM_KERNEL_TURNS``); None where neither the copy nor the
-    history exists."""
+def commit_sources(commit: str, out_dir: str, harness: str, kernels):
+    """The ``csrc/`` of ``commit``, written from git into ``out_dir``, with
+    the checkout's ``csrc/<harness>.cu`` copied beside it (a quoted include
+    finds those headers before ``csrc/``): the sources by name (the harness
+    and ``kernels``); None where neither the copy nor the history
+    exists."""
     import shutil
 
     root = os.path.dirname(os.path.abspath(__file__))
-    out = os.path.join(root, GEMM_DIR)
+    out = os.path.join(root, out_dir)
     if not os.path.exists(os.path.join(out, "wide_forward.cuh")):
-        ls = subprocess.run(["git", "ls-tree", "--name-only", GEMM_COMMIT,
+        ls = subprocess.run(["git", "ls-tree", "--name-only", commit,
                              "nerf_or_nothing_tpu_torch/csrc/"],
                             cwd=root, capture_output=True, text=True)
         if ls.returncode != 0:
             return None
         os.makedirs(out, exist_ok=True)
         for path in ls.stdout.split():
-            got = subprocess.run(["git", "show", f"{GEMM_COMMIT}:{path}"],
+            got = subprocess.run(["git", "show", f"{commit}:{path}"],
                                  cwd=root, capture_output=True, text=True)
             if got.returncode != 0:
                 return None
             with open(os.path.join(out, os.path.basename(path)), "w") as f:
                 f.write(got.stdout)
     shutil.copyfile(os.path.join(root, "nerf_or_nothing_tpu_torch", "csrc",
-                                 "wide_gemm.cu"),
-                    os.path.join(out, "wide_gemm.cu"))
-    names = ["wide_gemm"] + [k for k, _ in GEMM_KERNEL_TURNS]
-    return {n: os.path.join(out, f"{n}.cu") for n in names}
+                                 f"{harness}.cu"),
+                    os.path.join(out, f"{harness}.cu"))
+    return {n: os.path.join(out, f"{n}.cu") for n in [harness, *kernels]}
 
 
-def gemm_phase(peaks, device, parent=None) -> list:
-    """The layer GEMM alone (``kernels/wide_gemm.py``) at ``GEMM_CASES``:
-    each product against ``wide_gemm_plain`` in the bf16 band, then, with
-    ``GEMM_COMMIT``'s copy (``gemm_sources``), both versions bit-equal and
-    timed in turns (old, new, new, old; median of ``GEMM_TIMING``, the SM
-    clock and power draw beside each; a call is ``GEMM_LAUNCHES``
-    launches, its time over that count), with TFLOP/s, the bound (the larger
-    of the products at the bf16 peak and the bytes each input read once
-    and the output written once at the memory rate), the column block
-    (``wide_bn``) and ``torch.matmul`` of the same bf16 operands as a
-    yardstick; then the wide kernels of ``GEMM_KERNEL_TURNS`` in turns with
-    that commit's (``compare_kernels.in_turns``, outputs bit-equal).
-    ``parent``: the sources to time against (default ``gemm_sources()``;
-    another version's ``wide_gemm`` harness alone times the GEMM alone).
-    Returns the records."""
+def gemm_sources():
+    """``GEMM_COMMIT``'s ``csrc/`` (the wide bf16 GEMM before its Hopper
+    redesign) with ``csrc/wide_gemm.cu`` beside it (``commit_sources``):
+    ``wide_gemm`` and the kernels of ``GEMM_KERNEL_TURNS``, or None."""
+    return commit_sources(GEMM_COMMIT, GEMM_DIR, "wide_gemm",
+                          [k for k, _ in GEMM_KERNEL_TURNS])
+
+
+def f32_gemm_sources():
+    """``F32_GEMM_COMMIT``'s ``csrc/`` (the wide f32 GEMM before its Hopper
+    redesign) with ``csrc/wide_gemm_f32.cu`` beside it: ``wide_gemm_f32``
+    and the kernels of ``F32_GEMM_KERNEL_TURNS``, or None."""
+    return commit_sources(F32_GEMM_COMMIT, F32_GEMM_DIR, "wide_gemm_f32",
+                          [k for k, _ in F32_GEMM_KERNEL_TURNS])
+
+
+def gemm_cases(phase: str, cases, dtype, peak: float, bw: float, device,
+               old=None) -> list:
+    """The layer GEMM alone (``kernels/wide_gemm.py``) at ``cases`` in
+    ``dtype`` (bf16: ``wide_gemm_cuda``; f32: ``wide_gemm_f32_cuda``): each
+    product against its plain version in the dtype's band, then, with
+    another version's harness ``old``, both versions bit-equal and timed in
+    turns (old, new, new, old; median of ``GEMM_TIMING``, the SM clock and
+    power draw beside each; a call is ``GEMM_LAUNCHES`` launches, its time
+    over that count), with TFLOP/s, the bound (the larger of the products at
+    ``peak`` and the bytes each input read once and the output written once
+    at ``bw``), the column block and ``torch.matmul`` of the same operands
+    (f32 with TF32 off) as a yardstick. Returns the records."""
     import torch
 
-    import compare_kernels as ck
-    from nerf_or_nothing_tpu_torch.kernels import build
     from nerf_or_nothing_tpu_torch.kernels import wide_gemm as wg
 
-    parent = parent or gemm_sources() or {}
-    old = parent.get("wide_gemm")
-    atol, rtol = BANDS["bfloat16"]
+    f32 = dtype == torch.float32
+    launch = wg.wide_gemm_f32_cuda if f32 else wg.wide_gemm_cuda
+    atol, rtol = BANDS["float32" if f32 else "bfloat16"]
     out = []
-    for k, (name, kind, M, N, K0, K1, kw) in enumerate(GEMM_CASES):
-        c = wg.gemm_case(kind, M, N, K0, K1, seed=k, device=device, **kw)
-        got = wg.wide_gemm_cuda(c)
+    for k, (name, kind, M, N, K0, K1, kw) in enumerate(cases):
+        c = wg.gemm_case(kind, M, N, K0, K1, seed=k, device=device,
+                         dtype=dtype, **kw)
+        got = launch(c)
         ref = wg.wide_gemm_plain(c)
         torch.cuda.synchronize()
         flop, nbytes = wg.flops(c), wg.min_bytes(c)
-        b_ms, b_by = op_bound(flop, nbytes, peaks[0], peaks[2])
-        res = {"phase": "wide_gemm", "case": name, "kind": kind, "M": M,
-               "N": N, "K": K0 + K1, "BN": wg.wide_bn(N, kind),
-               "stages": wg.stages(wg.wide_bn(N, kind)), "flop": flop,
-               "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+        b_ms, b_by = op_bound(flop, nbytes, peak, bw)
+        bn = wg.F32_BN if f32 else wg.wide_bn(N, kind)
+        res = {"phase": phase, "case": name, "kind": kind, "M": M,
+               "N": N, "K": K0 + K1, "BN": bn,
+               "stages": wg.F32_STAGES if f32 else wg.stages(bn),
+               "flop": flop, "bytes": nbytes, "bound_ms": b_ms,
+               "bound_by": b_by,
                "max_abs_err": float((got.float() - ref.float()).abs().max()),
                "err": normalized_err(got.float(), ref.float(), atol, rtol)}
         del ref
         versions = {"new": None}
         if old is not None:
             versions = {"old": old, "new": None}
-            res["bit_equal_to_old"] = torch.equal(got, wg.wide_gemm_cuda(c, old))
+            res["bit_equal_to_old"] = torch.equal(got, launch(c, old))
+        res["bit_equal_twice"] = torch.equal(got, launch(c))
         order = list(versions) + list(versions)[::-1]
+
         def launches(fn):
             return median_ms(lambda: [fn() for _ in range(GEMM_LAUNCHES)],
                              *GEMM_TIMING) / GEMM_LAUNCHES
 
         for turn, v in enumerate(order):
-            res[f"{v}_ms_{turn}"] = launches(
-                lambda: wg.wide_gemm_cuda(c, versions[v]))
+            res[f"{v}_ms_{turn}"] = launches(lambda: launch(c, versions[v]))
             res[f"{v}_clock_power_{turn}"] = clock_power()
         for v in versions:
             ms = [res[f"{v}_ms_{t}"] for t, u in enumerate(order) if u == v]
@@ -1061,30 +1091,95 @@ def gemm_phase(peaks, device, parent=None) -> list:
         emit(res)
         out.append(res)
         if not res["err"] < 1.0:
-            raise AssertionError(f"wide_gemm: {name} disagrees with plain: "
+            raise AssertionError(f"{phase}: {name} disagrees with plain: "
                                  f"{res['err']}")
-        if res.get("bit_equal_to_old") is False:
-            raise AssertionError(f"wide_gemm: {name} differs from "
+        if not res["bit_equal_twice"]:
+            raise AssertionError(f"{phase}: two {name} launches differ")
+        if res.get("bit_equal_to_old") is False and not f32:
+            raise AssertionError(f"{phase}: {name} differs from "
                                  f"{GEMM_COMMIT}'s GEMM")
         del c, got
         torch.cuda.empty_cache()
-    for kernel, name in GEMM_KERNEL_TURNS:
+    return out
+
+
+def kernel_turns(phase: str, turns, parent: dict, commit: str, device,
+                 plain: bool) -> list:
+    """The kernels of ``turns`` ((kernel, compare_kernels case name)) in
+    turns with ``parent``'s (old, new, new, old; ``compare_kernels.
+    in_turns``): without ``plain`` their outputs bit-equal to the old
+    version's (which must hold), with it each within the band of the plain
+    version; those ``parent`` lacks are skipped. Returns the records."""
+    import torch
+
+    import compare_kernels as ck
+    from nerf_or_nothing_tpu_torch.kernels import build
+
+    out = []
+    for kernel, name in turns:
         if kernel not in parent:
             continue
         res = ck.in_turns(kernel, {"old": parent[kernel],
                                    "new": build.source_path(kernel)},
-                          ck.case(kernel, name), device, plain=False)
+                          ck.case(kernel, name), device, plain=plain)
         old_ms = (res["old_ms_0"] + res["old_ms_3"]) / 2
         new_ms = (res["new_ms_1"] + res["new_ms_2"]) / 2
-        res.update({"phase": "wide_gemm", "old_ms": old_ms, "new_ms": new_ms,
-                    "speedup": old_ms / new_ms})
+        res.update({"phase": phase, "commit": commit, "old_ms": old_ms,
+                    "new_ms": new_ms, "speedup": old_ms / new_ms})
         emit(res)
         out.append(res)
-        if not res["new_equal_to_old"]:
-            raise AssertionError(f"wide_gemm: {kernel} {name} differs from "
-                                 f"{GEMM_COMMIT}'s")
+        if not plain and not res["new_equal_to_old"]:
+            raise AssertionError(f"{phase}: {kernel} {name} differs from "
+                                 f"{commit}'s")
+        for v in ("old", "new") if plain else ():
+            if not res[f"{v}_err"] < 1.0:
+                raise AssertionError(f"{phase}: {kernel} {name} {v} "
+                                     f"disagrees with plain: {res[f'{v}_err']}")
         torch.cuda.empty_cache()
     return out
+
+
+def gemm_phase(peaks, device, parent=None) -> list:
+    """The bf16 layer GEMM alone at ``GEMM_CASES`` (``gemm_cases``; with
+    ``GEMM_COMMIT``'s copy, ``gemm_sources``, bit-equal to it and in turns
+    with it), then the wide kernels of ``GEMM_KERNEL_TURNS`` in turns with
+    that commit's, outputs bit-equal. ``parent``: the sources to time
+    against (default ``gemm_sources()``; another version's ``wide_gemm``
+    harness alone times the GEMM alone). Returns the records."""
+    import torch
+
+    parent = parent or gemm_sources() or {}
+    out = gemm_cases("wide_gemm", GEMM_CASES, torch.bfloat16, peaks[0],
+                     peaks[2], device, parent.get("wide_gemm"))
+    return out + kernel_turns("wide_gemm", GEMM_KERNEL_TURNS, parent,
+                              GEMM_COMMIT, device, plain=False)
+
+
+def f32_gemm_phase(peaks, device, parent=None) -> list:
+    """The f32 layer GEMM alone at ``F32_GEMM_CASES`` (``gemm_cases``, the
+    f32 bound at ``f32_peak``, f32 ``torch.matmul`` beside it), then the
+    ptxas lines of its instantiations in every source's build (none may
+    spill); with ``F32_GEMM_COMMIT``'s copy (``f32_gemm_sources``) the
+    GEMM in turns with that commit's ``mma.sync`` one (bit-equality
+    recorded) and the kernels of ``F32_GEMM_KERNEL_TURNS`` in turns with
+    that commit's, each in the f32 band of its plain version. Returns the
+    records."""
+    import torch
+
+    parent = parent if parent is not None else (f32_gemm_sources() or {})
+    out = gemm_cases("wide_f32", F32_GEMM_CASES, torch.float32,
+                     f32_peak(peaks), peaks[2], device,
+                     parent.get("wide_gemm_f32"))
+    ptxas = wide_f32_ptxas()
+    emit({"phase": "wide_f32", "ptxas": ptxas})
+    bad = {name: [ln for ln in lines if "C75" in ln or "spill" in ln and not
+                  ln.startswith("0 bytes stack frame, 0 bytes spill stores")]
+           for name, lines in ptxas.items() if lines is not None}
+    if any(bad.values()) or [] in ptxas.values():
+        raise AssertionError("wide_f32: the f32 GEMM spills, is serialized "
+                             f"or was not built: {bad}")
+    return out + kernel_turns("wide_f32", F32_GEMM_KERNEL_TURNS, parent,
+                              F32_GEMM_COMMIT, device, plain=True)
 
 
 def matmul_ms(cfg, R: int, device, timing=TIMING) -> float:
@@ -1965,18 +2060,25 @@ def wide_path(peaks, device, scene: str, size: int = 400):
 
 def wide_f32_ptxas() -> dict:
     """The ptxas lines of ``wide_gemm_f32_kernel``'s instantiations in each
-    source's build (registers, spills), by source."""
+    source's build (registers, spills; any C75xx note on it, such as a
+    serialized wgmma), by source; None for a library loaded from the
+    build cache (no ptxas ran)."""
     from nerf_or_nothing_tpu_torch.kernels import build
 
     out = {}
-    for name in build.SOURCES:
+    for name in (*build.SOURCES, "wide_gemm_f32"):
+        log = build.BUILD_INFO[str(build.source_path(name))]["log"]
+        if log == "cached":
+            out[name] = None
+            continue
         lines, keep = [], False
-        for ln in ptxas_lines(build.BUILD_INFO[str(build.source_path(name))]
-                              ["log"]):
+        for ln in ptxas_lines(log):
             if ln.startswith("kernel "):
                 keep = ln == "kernel wide_gemm_f32_kernel"
             elif keep:
                 lines.append(ln)
+        lines += [ln.strip() for ln in log.splitlines()
+                  if "C75" in ln and "wide_gemm_f32_kernel" in ln]
         out[name] = lines
     return out
 
@@ -2004,7 +2106,7 @@ def wide_f32_kernels(peaks, device) -> dict:
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("wide_f32: the yardstick needs TF32 off")
-    emit({"phase": "wide_f32", "ptxas": wide_f32_ptxas()})
+    f32_gemm_phase(peaks, device)
     out = {}
 
     def yardstick(res, ms):
@@ -4088,10 +4190,12 @@ def main() -> int:
                   "f32_flops": f32_peak(peaks)},
     })
     t0 = time.perf_counter()
-    sources = (*build.SOURCES, "wide_gemm")
+    sources = (*build.SOURCES, "wide_gemm", "wide_gemm_f32")
     old = mma_sources() or {}
     parent = gemm_sources() or {}
-    others = list(old.items()) + list(parent.items())
+    f32_parent = f32_gemm_sources() or {}
+    others = (list(old.items()) + list(parent.items())
+              + list(f32_parent.items()))
     build.build_all(sources, others)
     seconds = time.perf_counter() - t0
     for src in [build.source_path(n) for n in sources] + [s for _, s in others]:

@@ -14,13 +14,16 @@ train_level_twopass or mlp_bwd) on one card, in turns.
 
 With one source, the checkout's ``csrc/<kernel>.cu`` is the second. All
 must keep the C interface (``<kernel>_launch``). Each version reads the
-weight layout it declares: a library that exports
-``<kernel>_weight_layout`` reads the bf16 slab streams (``pack_forward``;
-``pack_train_level``, which adds the g-chain's stream; ``pack_mlp_params``,
-whose chain stream holds the x rows), one that does not (the earlier
-``mma.sync`` versions) ``pack_params``' fragments (and ``pack_params_t``'s
-for the train kernels and mlp_bwd, ``pack_params_tx``'s for mlp_bwd); f32
-reads the row-major layouts in every version. Each is built by
+weight layout it declares (``fused_level.weight_layout``): a library
+whose ``<kernel>_weight_layout`` returns ``"wg"`` or ``"wf"`` reads the
+bf16 slab streams (``pack_forward``; ``pack_train_level``, which adds the
+g-chain's stream; ``pack_mlp_params``, whose chain stream holds the x
+rows), one that exports none (the earlier ``mma.sync`` versions)
+``pack_params``' fragments (and ``pack_params_t``'s for the train kernels
+and mlp_bwd, ``pack_params_tx``'s for mlp_bwd); f32 reads the row-major
+layouts in every version but on the wide route of ``"wf"`` (the 3xTF32
+``wgmma`` GEMM), which reads the hi / lo slab streams
+(``pack_params_wf``, ``_wft``, ``_wfx``). Each is built by
 ``kernels/build.py`` with the package's nvcc flags, launched through
 ``render_level_cuda`` / ``mlp_fwd_cuda`` / ``train_level_cuda`` /
 ``train_level_twopass_cuda`` / ``mlp_bwd_cuda`` with ``source=...``,
@@ -36,7 +39,9 @@ R=1024 x S=128 mode "t" (a train step's level), R=777 with Multicam's
 loss weights (1/4/16/64, every seventh ray masked), f32 R=1024 x S=128,
 and both dtypes at net_width 1024 (the wide route) R=1024 x S=128;
 mlp_bwd bf16 R=1024 x S=128 with input_grads (level 1 of the slice
-config) and without (level 0), f32 with input_grads.
+config) and without (level 0), f32 with input_grads, also at net_width
+1024; and render_level / mlp_fwd at net_width 1024, bf16 R=16384 and f32
+R=4096 (``chip_smoke.WIDE_F32_RAYS``).
 Prints one JSON line per build and case; a source's name is its file name
 without the suffix. With ``--profile``, each case also gives every
 version's device time per launch by kernel name (``torch.profiler``, 5
@@ -60,14 +65,20 @@ those that differ, and those in one build only with their lines
         --digest ../../old.json)
     python3 compare_kernels.py --same old.json new.json
 
-    python3 compare_kernels.py --gemm [old/wide_gemm.cu]
+    python3 compare_kernels.py --gemm [old/wide_gemm.cu | old/wide_gemm_f32.cu]
 
-times the wide bf16 route's layer GEMM alone (``kernels/wide_gemm.py``)
-at ``chip_smoke.GEMM_CASES``, the checkout's against another version's
-(``csrc/wide_gemm.cu`` copied beside that version's headers; default
-``chip_smoke.gemm_sources()``, the ``csrc/`` of ``chip_smoke.GEMM_COMMIT``,
-whose wide kernels are then timed against the checkout's too), in turns,
-bit-equal and against the plain version (``chip_smoke.gemm_phase``).
+times the wide routes' layer GEMMs alone (``kernels/wide_gemm.py``), the
+checkout's against another version's, in turns and against the plain
+version: the bf16 GEMM at ``chip_smoke.GEMM_CASES``, bit-equal
+(``chip_smoke.gemm_phase``; ``csrc/wide_gemm.cu`` copied beside the other
+version's headers; default ``chip_smoke.gemm_sources()``, the ``csrc/``
+of ``chip_smoke.GEMM_COMMIT``, whose wide kernels are then timed against
+the checkout's too), and the f32 GEMM at ``chip_smoke.F32_GEMM_CASES``
+(``chip_smoke.f32_gemm_phase``: ``csrc/wide_gemm_f32.cu``; default
+``chip_smoke.f32_gemm_sources()``, ``F32_GEMM_COMMIT``'s ``mma.sync``
+GEMM and its ``render_level``, bit-equality recorded), with the ptxas
+lines of every build's f32 instantiations. A path times the GEMM its
+file name names.
 
 ``--digest`` writes the SHA-256 of every output of the five kernels and of
 every packed weight tensor (``pack_forward``, ``pack_train_level``,
@@ -94,21 +105,24 @@ KERNELS = ("render_level", "mlp_fwd", "train_level", "train_level_twopass",
 TRAIN = ("train_level", "train_level_twopass")
 
 
-def packs_by_layout(kernel, params, cfg):
-    """The weights in both layouts the versions of ``kernel`` may read."""
+LAYOUTS = ("wf", "wg", "fwd")  # fused_level.weight_layout's values
+
+
+def packs_by_layout(kernel, params, cfg, kinds=LAYOUTS):
+    """The weights in each layout of ``kinds`` that the versions of
+    ``kernel`` may read."""
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
     from nerf_or_nothing_tpu_torch.models.mlp import compute_dtype
 
     dt = compute_dtype(cfg)
     if kernel in TRAIN:
-        return {k: fl.pack_train_level(params, cfg, dt, k)
-                for k in ("wg", "fwd")}
+        return {k: fl.pack_train_level(params, cfg, dt, k) for k in kinds}
     if kernel == "mlp_bwd":
         return {k: fm.pack_mlp_params(params, cfg, dt, layout=k)
-                for k in ("wg", "fwd")}
-    return {"wg": fl.pack_forward(params, cfg, dt),
-            "fwd": fl.pack_params(params, cfg, dt)}
+                for k in kinds}
+    return {k: fl.pack_params(params, cfg, dt) if k == "fwd"
+            else fl.pack_forward(params, cfg, dt, k) for k in kinds}
 
 
 def layouts(kernel: str, sources: dict) -> dict:
@@ -133,7 +147,9 @@ def cases(kernel: str):
     if kernel == "mlp_bwd":
         return [("bf16_r1024_s128_dx", Config(), 1024, "t", True, False),
                 ("bf16_r1024_s128", Config(), 1024, "t", False, False),
-                ("f32_r1024_s128_dx", f32, 1024, "t", True, False)]
+                ("f32_r1024_s128_dx", f32, 1024, "t", True, False),
+                ("f32_w1024_r1024_s128_dx", f32.replace(net_width=1024),
+                 1024, "t", True, False)]
     if kernel in TRAIN:
         return [("bf16_r1024_s128_t", Config(), 1024, "t", True, False),
                 ("bf16_r777_s128_t_multicam", Config(), 777, "t", False,
@@ -150,11 +166,15 @@ def cases(kernel: str):
                  False),
                 ("f32_r16384_s128_mv", f32, 16384, "mv", True, False),
                 ("bf16_w1024_r16384_s128_mv", w1024, 16384, "mv", True,
-                 False)]
+                 False),
+                ("f32_w1024_r4096_s128_mv", f32.replace(net_width=1024), 4096,
+                 "mv", True, False)]
     return [("bf16_r16384_s128", Config(), 16384, "t", None, False),
             ("bf16_r1024_s128", Config(), 1024, "t", None, False),
             ("f32_r16384_s128", f32, 16384, "t", None, False),
-            ("bf16_w1024_r16384_s128", w1024, 16384, "t", None, False)]
+            ("bf16_w1024_r16384_s128", w1024, 16384, "t", None, False),
+            ("f32_w1024_r4096_s128", f32.replace(net_width=1024), 4096, "t",
+             None, False)]
 
 
 # The configs of --digest: Config() in bf16 and f32, a narrow width, and
@@ -265,7 +285,8 @@ def flat(out):
 
 def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
              profile: bool = False, plain: bool = True):
-    """Check each version against the plain version (the backward
+    """Check each version against the plain version (with f64 products on
+    the f32 wide route, ``utils/parity.reference_products``; the backward
     kernels: and two launches for bit-equal outputs; without ``plain``,
     each version's outputs against the first version's, bit for bit,
     instead) and time them in the order given, then in reverse, reading
@@ -275,18 +296,20 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
     from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
     from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
     from nerf_or_nothing_tpu_torch.models.mlp import init_mlp
+    from nerf_or_nothing_tpu_torch.utils.parity import reference_products
 
     name_, cfg, R, mode, white_bkgd, multicam = case
     kinds = layouts(kernel, sources)
     params = init_mlp(torch.Generator().manual_seed(seed), cfg, device=device)
     xs, d, delta = cs.level_inputs(cfg, R, mode, seed + 1, device)
-    packs = packs_by_layout(kernel, params, cfg)
+    packs = packs_by_layout(kernel, params, cfg, set(kinds.values()))
     if kernel in TRAIN:
         pixels, g_scale = cs.train_inputs(cfg, R, seed + 2, device, multicam)
 
         def plain_out():
-            return fl.level_train_plain(params, cfg, xs, d, delta, pixels,
-                                        g_scale, white_bkgd, mode)
+            with reference_products(cfg):
+                return fl.level_train_plain(params, cfg, xs, d, delta, pixels,
+                                            g_scale, white_bkgd, mode)
 
         def run(name):
             kw = dict(packed=packs[kinds[name]], source=sources[name])
@@ -301,8 +324,9 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
         _, _, _, g_rgb, g_den = cs.mlp_case_inputs(cfg, R, seed, device)
 
         def plain_out():
-            return fm.mlp_bwd_plain(params, cfg, xs, d, g_rgb, g_den,
-                                    cfg.num_samples, input_grads)
+            with reference_products(cfg):
+                return fm.mlp_bwd_plain(params, cfg, xs, d, g_rgb, g_den,
+                                        cfg.num_samples, input_grads)
 
         def run(name):
             return fm.mlp_bwd_cuda(params, cfg, xs, d, g_rgb, g_den,
@@ -310,8 +334,9 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
                                    source=sources[name])
     elif kernel == "render_level":
         def plain_out():
-            return fl.render_level_plain(params, cfg, xs, d, delta,
-                                         white_bkgd, mode)
+            with reference_products(cfg):
+                return fl.render_level_plain(params, cfg, xs, d, delta,
+                                             white_bkgd, mode)
 
         def run(name):
             return fl.render_level_cuda(params, cfg, xs, d, delta, white_bkgd,
@@ -319,7 +344,8 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
                                         source=sources[name])
     else:
         def plain_out():
-            return fm.mlp_fwd_plain(params, cfg, xs, d, cfg.num_samples)
+            with reference_products(cfg):
+                return fm.mlp_fwd_plain(params, cfg, xs, d, cfg.num_samples)
 
         def run(name):
             return fm.mlp_fwd_cuda(params, cfg, xs, d,
@@ -497,13 +523,22 @@ def main(argv) -> int:
         from nerf_or_nothing_tpu_torch.kernels import build
         from nerf_or_nothing_tpu_torch.utils.profiling import card_peaks
 
-        parent = ({"wide_gemm": str(Path(argv[1]).resolve())}
-                  if len(argv) == 2 else cs.gemm_sources() or {})
-        build.build_all(["wide_gemm"] + [k for k in parent if k in KERNELS],
-                        list(parent.items()))
+        given = Path(argv[1]).resolve() if len(argv) == 2 else None
+        runs = []  # (parent sources, phase) of the bf16 and the f32 GEMM
+        for harness, sources, phase in (
+                ("wide_gemm", cs.gemm_sources, cs.gemm_phase),
+                ("wide_gemm_f32", cs.f32_gemm_sources, cs.f32_gemm_phase)):
+            if given is None:
+                runs.append((sources() or {}, phase))
+            elif given.stem == harness:
+                runs.append(({harness: str(given)}, phase))
+        build.build_all([*build.SOURCES, "wide_gemm", "wide_gemm_f32"],
+                        [kv for parent, _ in runs for kv in parent.items()])
         print(cs.nvidia_smi_line(), flush=True)
         _, peaks = card_peaks(torch.cuda.get_device_name(0))
-        cs.gemm_phase(peaks, torch.device("cuda"), parent)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for parent, phase in runs:
+            phase(peaks, torch.device("cuda"), parent)
         return 0
     from nerf_or_nothing_tpu_torch.kernels import build
 

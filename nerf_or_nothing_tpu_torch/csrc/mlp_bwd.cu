@@ -45,8 +45,8 @@
 // products and reduction; with input_grads, launch_wide_dx (a GEMM per x
 // layer into dX, deepest first) and mlp_dd_kernel. f32 at net_width
 // 288 and above (launch_mlp_bwd_wide_f32): the same passes with wide_f32.cuh's
-// 3xTF32 GEMM for the forward, the chain and dX (launch_wide_dx_f32 on
-// pack_params_tx), f32 activations, and the narrow f32 route's dW GEMM.
+// 3xTF32 wgmma GEMM for the forward, the chain and dX (launch_wide_dx_f32
+// on pack_params_wfx), f32 activations, and the narrow f32 route's dW GEMM.
 // f32, every layer product as 3xTF32 mma.sync (level_common.cuh's gemm,
 // level_backward.cuh's dW GEMM): mlp_act_kernel (level_common.cuh's forward
 // storing the activations), then passes 2-5 of level_backward.cuh (the
@@ -211,7 +211,7 @@ cudaError_t launch_mlp_bwd_wide(Params p, Extra e, const Layout& l, const WideTr
 
 // dX [N, LX] (e.dx, f32) on the f32 route: for x layer i = D-1 .. 0 (the
 // skip layers, then layer 0) one kF32Dx GEMM, grad(i) @ W_x,i^T from
-// pack_params_tx's [W, KX] rows (e.wtx at wtx_off, columns past LX zero),
+// pack_params_wfx's hi / lo slabs (e.wtx at wtx_off, columns past LX zero),
 // the first term added to 0, each later one to the sum so far (the narrow
 // chain's order; each element one thread's, no atomics).
 cudaError_t launch_wide_dx_f32(const Params& p, const Extra& e, cudaStream_t st) {
@@ -222,7 +222,7 @@ cudaError_t launch_wide_dx_f32(const Params& p, const Extra& e, cudaStream_t st)
     if (!x_layer(p, i)) continue;
     WideGemmF32 g{};
     g.a0 = grads + act_off(p, e.N, i); g.lda0 = g.ka0 = p.W;
-    g.b = wtx + wtx_off(p, i); g.N = p.KX; g.M = e.N;
+    g.b = wtx + wtx_off(p, i); g.blo = g.b + wide_f32_dx_len(p); g.N = p.KX; g.M = e.N;
     g.out = static_cast<float*>(e.dx); g.ldo = p.LX; g.accum = !first;
     const cudaError_t err = launch_wide_gemm_f32<kF32Dx>(g, st);
     if (err != cudaSuccess) return err;
@@ -234,8 +234,8 @@ cudaError_t launch_wide_dx_f32(const Params& p, const Extra& e, cudaStream_t st)
 // The f32 route at net_width 288 and above on the workspace (l, then x): the
 // forward recomputed on WideF32Route (every activation and the features
 // kept, no heads), launch_wide_backward_f32 from the head cotangents, then
-// with input_grads dX and dD. p.w: pack_params' layout; e.wt:
-// pack_params_t; e.wtx: pack_params_tx.
+// with input_grads dX and dD. p.w: pack_params_wf; e.wt: pack_params_wft;
+// e.wtx: pack_params_wfx.
 cudaError_t launch_mlp_bwd_wide_f32(Params p, Extra e, const Layout& l, const WideTrainLayout& x,
                                     unsigned char* ws, float* out, long long n_out, int splits,
                                     cudaStream_t st) {
@@ -285,7 +285,8 @@ long long mlp_bwd_workspace(int dtype, int R, int S, int D, int W, int Wc, int D
 // of 32 up to 256, or from 288 up, the wide route, in both dtypes); bf16: w the
 // "wg" forward slab stream (fused_level.pack_params_wg), wt the "wgx"
 // chain stream (pack_params_wgx), wtx unused; f32: w, b pack_params'
-// layout, wt pack_params_t, wtx pack_params_tx; grads: the flat f32 dW/db
+// layout, wt pack_params_t, wtx pack_params_tx (the wide route: w
+// pack_params_wf, wt pack_params_wft, wtx pack_params_wfx); grads: the flat f32 dW/db
 // output of n_out values (output_offsets), with room for n_out rounded up
 // to even (partial_stride; the last is scratch); dx [R * S, LX] in the compute
 // type and dd [R, Fd] f32 when input_grads (else unused); workspace:
@@ -327,8 +328,9 @@ int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
   return (int)launch_mlp_bwd_f32(p, e, l, ws, grads, n_out, splits, st);
 }
 
-// The weights the bf16 route reads: the "wg" forward slab stream and the
-// "wgx" chain stream (fused_mlp.pack_mlp_params).
-const char* mlp_bwd_weight_layout() { return "wg"; }
+// The weights it reads (fused_mlp.pack_mlp_params): in bf16 the "wg"
+// forward slab stream and the "wgx" chain stream; in f32 on the wide route
+// the "wf" hi / lo slab streams (pack_params_wf, _wft, _wfx).
+const char* mlp_bwd_weight_layout() { return "wf"; }
 
 }  // extern "C"

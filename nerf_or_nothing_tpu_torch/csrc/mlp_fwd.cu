@@ -31,7 +31,7 @@
 // 128 samples, whose one activation buffer would be 4.3 GB), then the
 // heads (8 channels a launch) straight to raw_rgb / raw_den. f32 at
 // net_width 288 and above: the same launches through mlp_fwd_wide_launch with
-// wide_f32.cuh's 3xTF32 mma.sync GEMM and f32 activations (~2.2 GB of
+// wide_f32.cuh's 3xTF32 wgmma GEMM and f32 activations (~2.2 GB of
 // workspace at W=1024).
 // f32: level_common.cuh's forward_tile<float> on pack_params' row-major
 // layout, every layer product as 3xTF32 mma.sync (render_level.cu's f32
@@ -109,8 +109,9 @@ int mlp_fwd_launch(int dtype, const void* x, const void* d, const void* w, const
   return (int)launch_wg(mlp_fwd_wg_kernel, q, st);
 }
 
-// The weight layout the bf16 kernel reads: pack_params_wg's slab stream.
-const char* mlp_fwd_weight_layout() { return "wg"; }
+// The weight layout it reads: in bf16 pack_params_wg's slab stream, in f32
+// on the wide route pack_params_wf's (fused_level.pack_forward).
+const char* mlp_fwd_weight_layout() { return "wf"; }
 
 // Bytes of workspace mlp_fwd_wide_launch needs for these shapes.
 long long mlp_fwd_wide_workspace(int dtype, int R, int S, int W, int Wc, int KX) {
@@ -121,7 +122,7 @@ long long mlp_fwd_wide_workspace(int dtype, int R, int S, int W, int Wc, int KX)
 // and any narrower width whose config the narrow kernel's shared memory
 // does not hold (fused_level.takes_wide):
 // mlp_fwd_launch's arguments (bf16: w pack_params_wg's stream; f32:
-// pack_params' layout, wide_f32.cuh), and a workspace of
+// pack_params_wf, wide_f32.cuh), and a workspace of
 // mlp_fwd_wide_workspace bytes, 256-byte aligned.
 int mlp_fwd_wide_launch(int dtype, const void* x, const void* d, const void* w, const float* b,
                         float* raw_rgb, float* raw_den, int R, int S, int D, int W, int skip,

@@ -31,7 +31,7 @@
 // layer, over chunks of whole rays whose activations go through a
 // workspace the wrapper allocates (render_level_wide_workspace), then the
 // composite; bf16 (wide_forward.cuh) on wgmma in column blocks of at most
-// 256, f32 (wide_f32.cuh) as 3xTF32 mma.sync in column blocks of 128.
+// 256, f32 (wide_f32.cuh) as 3xTF32 wgmma in column blocks of 128.
 //
 // f32: forward_tile<float> of level_common.cuh on pack_params' row-major
 // layout, each layer product as three TF32 tensor-core passes (3xTF32
@@ -115,8 +115,9 @@ int render_level_launch(int dtype, int mode, const float* means, const float* va
   return (int)launch_wg(render_level_wg_kernel, q, st);
 }
 
-// The weight layout the bf16 kernel reads: pack_params_wg's slab stream.
-const char* render_level_weight_layout() { return "wg"; }
+// The weight layout it reads: in bf16 pack_params_wg's slab stream, in f32
+// on the wide route pack_params_wf's (fused_level.pack_forward).
+const char* render_level_weight_layout() { return "wf"; }
 
 // Bytes of workspace render_level_wide_launch needs for these shapes.
 long long render_level_wide_workspace(int dtype, int R, int S, int W, int Wc, int KX) {
@@ -127,7 +128,7 @@ long long render_level_wide_workspace(int dtype, int R, int S, int W, int Wc, in
 // and any narrower width whose config the narrow kernel's shared memory
 // does not hold (fused_level.takes_wide):
 // render_level_launch's arguments (bf16: wide_forward.cuh on the "wg"
-// stream; f32: wide_f32.cuh on pack_params' layout), and a workspace of
+// stream; f32: wide_f32.cuh on pack_params_wf), and a workspace of
 // render_level_wide_workspace bytes, 256-byte aligned.
 int render_level_wide_launch(int dtype, int mode, const float* means, const float* vars,
                              const void* x, const void* d, const float* delta, const void* w,

@@ -28,7 +28,7 @@
 // block's shared memory), then the same composite, small products and
 // reduction. f32 at net_width 288 and above (wide_train.cuh's
 // launch_train_wide<WideF32Route>): the same sequence with one 3xTF32
-// mma.sync GEMM launch per forward and chain product (wide_f32.cuh,
+// wgmma GEMM launch per forward and chain product (wide_f32.cuh,
 // column blocks of 128), f32 activations and masked g in the workspace
 // (~8.7 GB at Config(net_width=1024)), then passes 3-5 of the narrow f32
 // route.
@@ -102,7 +102,8 @@ long long train_level_workspace(int dtype, int R, int S, int D, int W, int Wc, i
 // "t" (encoded features). W up to 256, or from 288 up (the wide route,
 // both dtypes; no ceiling but the card's memory). w, wt: bf16 pack_params_wg's forward slab stream and
 // pack_params_wgt's chain stream; f32 pack_params' layout and the chained
-// layers' W^T (pack_params_t); grads: the flat f32 dW/db
+// layers' W^T (pack_params_t), on the wide route pack_params_wf's and
+// pack_params_wft's hi / lo slabs; grads: the flat f32 dW/db
 // output of n_out values (see output_offsets); workspace:
 // train_level_workspace bytes, 256-byte aligned.
 int train_level_launch(int dtype, int mode, const float* means, const float* vars,
@@ -145,8 +146,9 @@ int train_level_launch(int dtype, int mode, const float* means, const float* var
   return (int)launch_train_f32(p, e, l, ws, grads, n_out, splits, st);
 }
 
-// The weights the bf16 kernel reads: the "wg" forward slab stream and the
-// "wgt" chain stream (fused_level.pack_train_level).
-const char* train_level_weight_layout() { return "wg"; }
+// The weights it reads (fused_level.pack_train_level): in bf16 the "wg"
+// forward slab stream and the "wgt" chain stream; in f32 on the wide route
+// the "wf" hi / lo slab streams (pack_params_wf, pack_params_wft).
+const char* train_level_weight_layout() { return "wf"; }
 
 }  // extern "C"

@@ -135,7 +135,8 @@ long long train_level_twopass_workspace(int dtype, int R, int S, int D, int W, i
 // The arguments of train_level_launch; mode must be 1 ("t"): the means and
 // vars pointers are not read. w, wt: bf16 pack_params_wg's forward slab
 // stream and pack_params_wgt's chain stream (fused_level.
-// pack_train_level); f32 pack_params' layout and pack_params_t.
+// pack_train_level); f32 pack_params' layout and pack_params_t, on the
+// wide route pack_params_wf and pack_params_wft.
 int train_level_twopass_launch(int dtype, int mode, const float* means, const float* vars,
                                const void* x, const void* d, const float* delta,
                                const float* pixels, const float* gsc, const void* w,
@@ -178,8 +179,8 @@ int train_level_twopass_launch(int dtype, int mode, const float* means, const fl
   return (int)launch_twopass<float>(p, e, l, ws, dbpart, grads, n_out, splits, st);
 }
 
-// The weights the bf16 route reads: the "wg" forward slab stream and the
-// "wgt" chain stream (fused_level.pack_train_level), as train_level.
-const char* train_level_twopass_weight_layout() { return "wg"; }
+// The weights it reads, as train_level's: bf16 "wg" / "wgt", f32 on the
+// wide route "wf" (fused_level.pack_train_level).
+const char* train_level_twopass_weight_layout() { return "wf"; }
 
 }  // extern "C"

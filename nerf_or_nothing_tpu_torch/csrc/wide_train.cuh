@@ -375,9 +375,9 @@ inline cudaError_t launch_wide_backward(Params p, Extra e, const Layout& l,
 // The f32 route's passes from the head cotangents e.g_rgb [N, Cr] and
 // e.g_den [N, Cd] on the f32 activations and features in the workspace
 // (l): wide_rgb_chain_f32_kernel, then one kF32Chain GEMM per chained
-// layer, top layer first, g @ W^T from pack_params_t's rows (e.wt, at
-// wt_off) with the density term on the way into the trunk (the heads' W^T
-// from p.w: pack_params' transposed head rows); g_ray_f32_kernel; then
+// layer, top layer first, g @ W^T from pack_params_wft's hi / lo slabs
+// (e.wt, at wt_off) with the density term on the way into the trunk (the
+// heads' W^T from p.w: pack_params' transposed head rows); g_ray_f32_kernel; then
 // level_backward.cuh's launch_products<float> as the narrow f32 route runs
 // it (dw_gemm_f32_kernel: dW over the rows with db as column sums of g in
 // the same pass, the small products, the fixed-order reduction).
@@ -391,6 +391,7 @@ inline cudaError_t launch_wide_backward_f32(Params p, Extra e, const Layout& l,
   float* grads = static_cast<float*>(e.grads);
   auto act = [&](int L) { return acts + act_off(p, N, L); };
   auto grad = [&](int L) { return grads + act_off(p, N, L); };
+  const long long lo = wide_f32_chain_len(p);  // B lo after B hi
   cudaError_t err;
   {
     const long long blocks = (N * p.Wc + 255) / 256;
@@ -401,7 +402,7 @@ inline cudaError_t launch_wide_backward_f32(Params p, Extra e, const Layout& l,
   for (int j = p.Dc - 1; j >= 0; --j) {
     WideGemmF32 g{};
     g.a0 = grad(p.D + j); g.lda0 = g.ka0 = p.Wc;
-    g.b = wt + wt_off(p, p.D + j); g.N = j == 0 ? p.W : p.Wc; g.M = N;
+    g.b = wt + wt_off(p, p.D + j); g.blo = g.b + lo; g.N = j == 0 ? p.W : p.Wc; g.M = N;
     g.act = j == 0 ? act(p.D - 1) : act(p.D + j - 1);
     if (j == 0) { g.gden = e.g_den; g.wden = w + p.w_den; g.cd = p.Cd; }
     g.out = j == 0 ? grad(p.D - 1) : grad(p.D + j - 1);
@@ -410,7 +411,7 @@ inline cudaError_t launch_wide_backward_f32(Params p, Extra e, const Layout& l,
   for (int i = p.D - 1; i >= 1; --i) {
     WideGemmF32 g{};
     g.a0 = grad(i); g.lda0 = g.ka0 = p.W;
-    g.b = wt + wt_off(p, i); g.N = p.W; g.M = N;
+    g.b = wt + wt_off(p, i); g.blo = g.b + lo; g.N = p.W; g.M = N;
     g.act = act(i - 1); g.out = grad(i - 1);
     if ((err = launch_wide_gemm_f32<kF32Chain>(g, st)) != cudaSuccess) return err;
   }
@@ -447,8 +448,8 @@ inline cudaError_t wide_forward_keep(const Params& p, const Route& r, const Extr
 // The train level on the wide route, on the workspace (l, then x):
 // 1. the forward (wide_forward_keep); 2. the composite and its backward;
 // 3-7. bf16: launch_wide_backward (p.w: pack_params_wg's stream; e.wt:
-// pack_params_wgt's), f32: launch_wide_backward_f32 (p.w: pack_params'
-// layout; e.wt: pack_params_t).
+// pack_params_wgt's), f32: launch_wide_backward_f32 (p.w: pack_params_wf;
+// e.wt: pack_params_wft).
 template <class Route>
 inline cudaError_t launch_train_wide(Params p, Extra e, const Layout& l,
                                      const WideTrainLayout& x, unsigned char* ws, float* out,

@@ -15,10 +15,13 @@ sample), features in the interleaved [sin3, cos3]-per-frequency order, so
 no weight permutation is needed.
 
 All three (and ``kernels/fused_mlp.py``'s two) have a wide route in the
-same libraries, a GEMM launch a layer through a workspace, on the same
-packed weights: bf16 on ``wgmma`` (``csrc/wide_forward.cuh``,
-``csrc/wide_train.cuh``), f32 as 3xTF32 ``mma.sync``
-(``csrc/wide_f32.cuh``). A launch takes it at net_width 288 and above, and
+same libraries, a GEMM launch a layer through a workspace: bf16 on
+``wgmma`` on the same packed weights (``csrc/wide_forward.cuh``,
+``csrc/wide_train.cuh``), f32 as 3xTF32 ``wgmma`` (``csrc/wide_f32.cuh``)
+on the weights split once a step into TF32 hi / lo slab streams
+(``pack_params_wf``, ``_wft``, ``_wfx``; the f32 packers lay them out
+where every launch takes the wide route, ``f32_slabs``). A launch takes it
+at net_width 288 and above, and
 wherever the narrow route's shared memory does not hold the config (wide
 location features, a large head): ``takes_wide`` picks the route before
 any launch. It has no width or feature ceiling: any config runs, as far
@@ -54,7 +57,11 @@ from nerf_or_nothing_tpu_torch.models.mlp import (
     num_params,
 )
 from nerf_or_nothing_tpu_torch.ops.fastmath import fast_exp_neg, fast_sincos
-from nerf_or_nothing_tpu_torch.ops.math_utils import exact_f32, softplus
+from nerf_or_nothing_tpu_torch.ops.math_utils import (
+    exact_f32,
+    softplus,
+    split_tf32,
+)
 from nerf_or_nothing_tpu_torch.ops.render import (
     composite_weights,
     interval_lengths,
@@ -251,51 +258,62 @@ def _layout(params: Params, cfg: Config, fragments: bool):
     return torch.cat(parts)
 
 
-def _layout_t(params: Params, cfg: Config, fragments: bool):
+def _chain_mats(params: Params, cfg: Config):
     """W^T of the layers the train kernel's g-chain multiplies through:
     trunk layers 1..D-1 (their h rows) as [W, W], the first view layer's h
-    rows as [Wc, W], further view layers as [Wc, Wc]
-    (``csrc/train_level.cu``: wt_off)."""
+    rows as [Wc, W], further view layers as [Wc, Wc]."""
     D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
-    nwc = cfg.net_width_condition
-    parts = [_pack_mat(params[i][0][:nw].t(), nw, fragments)
-             for i in range(1, D)]
-    parts.append(_pack_mat(params[D + 1][0][:nw].t(), nwc, fragments))
-    for j in range(1, Dc):
-        parts.append(_pack_mat(params[D + 1 + j][0].t(), nwc, fragments))
-    return torch.cat(parts)
+    return ([params[i][0][:nw].t() for i in range(1, D)]
+            + [params[D + 1][0][:nw].t()]
+            + [params[D + 1 + j][0].t() for j in range(1, Dc)])
 
 
-def _layout_tx(params: Params, cfg: Config, fragments: bool):
-    """W^T of the x rows, for the MLP backward's dX (``csrc/
-    level_backward.cuh``: wtx_off): layer 0, then each skip layer's x rows,
-    zero-padded to ``padded_location_features`` and transposed to [W, KX]."""
+def _dx_mats(params: Params, cfg: Config):
+    """W^T of the x rows, for the MLP backward's dX: layer 0, then each
+    skip layer's x rows, zero-padded to ``padded_location_features`` and
+    transposed to [W, KX]."""
     D, nw = cfg.net_depth, cfg.net_width
     lx, kx = cfg.location_features, padded_location_features(cfg)
-    parts = []
+    out = []
     for i in range(D):
         if i == 0 or i % cfg.skip_layer == 0:
             w = params[i][0]
             xrows = torch.zeros((kx, nw), dtype=w.dtype, device=w.device)
             xrows[:lx] = w if i == 0 else w[nw:]
-            parts.append(_pack_mat(xrows.t(), nw, fragments))
-    return torch.cat(parts)
+            out.append(xrows.t())
+    return out
+
+
+def _layout_t(params: Params, cfg: Config, fragments: bool):
+    """``_chain_mats`` as ``_pack_mat`` (``csrc/train_level.cu``: wt_off)."""
+    return torch.cat([_pack_mat(m, m.shape[0], fragments)
+                      for m in _chain_mats(params, cfg)])
+
+
+def _layout_tx(params: Params, cfg: Config, fragments: bool):
+    """``_dx_mats`` as ``_pack_mat`` (``csrc/level_backward.cuh``:
+    wtx_off)."""
+    return torch.cat([_pack_mat(m, m.shape[0], fragments)
+                      for m in _dx_mats(params, cfg)])
 
 
 WG_SLAB_K = 64    # K rows of one weight slab: 128 bytes of bf16
+F32_SLAB_K = 32   # K rows of one f32 slab: 128 bytes of f32
 WG_HEAD_N = 8     # columns of one head group: one m64n8k16 product
 
 
-def _wg_slabs(w: torch.Tensor) -> torch.Tensor:
-    """A [K, N] matrix as the ``wgmma`` B operand of ``csrc/forward_wg.cuh``:
-    K zero-padded to whole slabs of ``WG_SLAB_K``; slab s holds W^T rows
-    n = 0..N-1 of 64 k-values each (128 bytes), the 16-byte chunk c of row n
-    stored at chunk position c ^ (n % 8) (the 128-byte swizzle)."""
+def _wg_slabs(w: torch.Tensor, k: int = WG_SLAB_K) -> torch.Tensor:
+    """A [K, N] matrix as the ``wgmma`` B operand of ``csrc/forward_wg.cuh``
+    (``k`` = ``WG_SLAB_K``, bf16) or of ``csrc/wide_f32.cuh`` (``k`` =
+    ``F32_SLAB_K``, f32): K zero-padded to whole slabs of ``k``; slab s
+    holds W^T rows n = 0..N-1 of k k-values each (128 bytes), the 16-byte
+    chunk c of row n stored at chunk position c ^ (n % 8) (the 128-byte
+    swizzle)."""
     K, N = w.shape
-    ns = -(-K // WG_SLAB_K)
-    wp = torch.zeros((ns * WG_SLAB_K, N), dtype=w.dtype, device=w.device)
+    ns = -(-K // k)
+    wp = torch.zeros((ns * k, N), dtype=w.dtype, device=w.device)
     wp[:K] = w
-    t = wp.t().reshape(N, ns, 8, 8)                  # [n, slab, chunk, e]
+    t = wp.t().reshape(N, ns, 8, k // 8)             # [n, slab, chunk, e]
     pos = torch.arange(8, device=w.device)
     src = pos[None, :] ^ (torch.arange(N, device=w.device)[:, None] % 8)
     t = t[torch.arange(N, device=w.device)[:, None], :, src]  # [n, pos, slab, e]
@@ -395,8 +413,47 @@ def _layout_wgx(params: Params, cfg: Config, fragments: bool):
     return torch.cat(parts)
 
 
+def _layout_wfs(params: Params, cfg: Config, fragments: bool):
+    """The f32 wide route's forward slabs (``csrc/wide_f32.cuh``:
+    ``WideF32Route``), one copy: every product's B as ``_wg_slabs`` of
+    ``F32_SLAB_K`` in the order the forward multiplies them: trunk layer i
+    (its h rows for i >= 1, then its x rows for layer 0 and the skip
+    layers, each part padded to whole slabs), the first view layer's h
+    rows, further view layers. ``fragments`` is unused."""
+    D, Dc, nw = cfg.net_depth, cfg.net_depth_condition, cfg.net_width
+    parts = []
+    for i in range(D):
+        w = params[i][0]
+        if i > 0:
+            parts.append(_wg_slabs(w[:nw], F32_SLAB_K))
+        if i == 0 or i % cfg.skip_layer == 0:
+            parts.append(_wg_slabs(w if i == 0 else w[nw:], F32_SLAB_K))
+    parts.append(_wg_slabs(params[D + 1][0][:nw], F32_SLAB_K))
+    for j in range(1, Dc):
+        parts.append(_wg_slabs(params[D + 1 + j][0], F32_SLAB_K))
+    return torch.cat(parts)
+
+
+def _layout_wfts(params: Params, cfg: Config, fragments: bool):
+    """The f32 wide g-chain's slabs, one copy: ``_chain_mats`` as
+    ``_wg_slabs`` of ``F32_SLAB_K`` (their K-major rows are W's own); every
+    K is a multiple of 32, so each matrix starts where ``_layout_t`` puts it
+    (``wt_off``). ``fragments`` is unused."""
+    return torch.cat([_wg_slabs(m, F32_SLAB_K)
+                      for m in _chain_mats(params, cfg)])
+
+
+def _layout_wfxs(params: Params, cfg: Config, fragments: bool):
+    """The f32 wide dX's slabs, one copy: ``_dx_mats`` as ``_wg_slabs`` of
+    ``F32_SLAB_K``, at ``_layout_tx``'s offsets (``wtx_off``).
+    ``fragments`` is unused."""
+    return torch.cat([_wg_slabs(m, F32_SLAB_K)
+                      for m in _dx_mats(params, cfg)])
+
+
 _LAYOUTS = {"fwd": _layout, "t": _layout_t, "tx": _layout_tx, "wg": _layout_wg,
-            "wgt": _layout_wgt, "wgx": _layout_wgx}
+            "wgt": _layout_wgt, "wgx": _layout_wgx, "wfs": _layout_wfs,
+            "wfts": _layout_wfts, "wfxs": _layout_wfxs}
 
 
 def _layer_blocks(cfg: Config):
@@ -557,17 +614,90 @@ def pack_params_wgx(params: Params, cfg: Config, dt: torch.dtype):
     return _gather(params, cfg, dt, "wgx")
 
 
-def pack_forward(params: Params, cfg: Config, dt: torch.dtype):
+def tf32_pair(stream: torch.Tensor) -> torch.Tensor:
+    """An f32 slab stream split as the f32 wide GEMM takes its B: hi =
+    rna_tf32(w) (``ops/math_utils.tf32_round``, a NaN as the quiet NaN, which
+    the tensor core's truncation keeps a NaN), then lo = rna_tf32(w - hi),
+    each the whole stream: hi + lo is w within 2^-22 of |w|."""
+    hi, _ = split_tf32(stream)
+    hi = torch.where(torch.isnan(hi), float("nan"), hi)
+    return torch.cat([hi, split_tf32(stream.float() - hi)[0]])
+
+
+def pack_params_wf(params: Params, cfg: Config, dt: torch.dtype):
+    """The f32 wide route's weights (``csrc/wide_f32.cuh``) and the biases:
+    ``pack_params``' layout (the heads and the direction rows are read
+    there), then ``_layout_wfs``' forward slabs as ``tf32_pair``; two
+    gathers with cached indices. ``dt`` must be f32."""
+    w = torch.cat([_gather(params, cfg, dt, "fwd"),
+                   tf32_pair(_gather(params, cfg, dt, "wfs"))])
+    return w, _pack_biases(params, cfg)
+
+
+def pack_params_wft(params: Params, cfg: Config, dt: torch.dtype):
+    """The f32 wide g-chain's slabs, ``_layout_wfts`` as ``tf32_pair``."""
+    return tf32_pair(_gather(params, cfg, dt, "wfts"))
+
+
+def pack_params_wfx(params: Params, cfg: Config, dt: torch.dtype):
+    """The f32 wide dX's slabs, ``_layout_wfxs`` as ``tf32_pair``."""
+    return tf32_pair(_gather(params, cfg, dt, "wfxs"))
+
+
+def f32_slabs(cfg: Config, layout: str = "wf",
+              wide: Optional[bool] = None) -> bool:
+    """Whether f32 weights are packed as the wide route's slab streams
+    (``pack_params_wf``, ``_wft``, ``_wfx``): for a kernel reading
+    ``layout`` ``"wf"`` (``weight_layout``; earlier versions read the
+    row-major layouts on both f32 routes) on the wide route: ``wide``, or
+    by default ``uses_wide(cfg)``, where every launch takes it. A launch
+    that takes the wide route below that (its features or heads past the
+    narrow route's shared memory) packs the streams itself
+    (``repack_f32``)."""
+    if compute_dtype(cfg) != torch.float32 or layout != "wf":
+        return False
+    return uses_wide(cfg) if wide is None else wide
+
+
+def repack_f32(cfg: Config, layout: str, wide: bool) -> bool:
+    """Whether a launch on route ``wide`` reading ``layout`` needs other f32
+    weights than the default packing gives (``f32_slabs``): the wide route
+    below a kernel net_width of 288."""
+    return f32_slabs(cfg, layout, wide) != f32_slabs(cfg, layout)
+
+
+def pack_forward(params: Params, cfg: Config, dt: torch.dtype,
+                 layout: str = "wf", wide: Optional[bool] = None):
     """The forward kernels' (``render_level``, ``mlp_fwd``) weights: the
-    ``"wg"`` slab stream for bf16, ``pack_params``' row-major layout for
-    the f32 instantiation."""
+    ``"wg"`` slab stream for bf16; for f32 ``pack_params_wf``'s slab
+    streams where ``f32_slabs`` says so (the wide route of a kernel reading
+    ``layout``), else ``pack_params``' row-major layout."""
     if dt == torch.bfloat16:
         return pack_params_wg(params, cfg, dt)
+    if f32_slabs(cfg, layout, wide):
+        return pack_params_wf(params, cfg, dt)
     return pack_params(params, cfg, dt)
 
 
 def _slabs(k: int) -> int:
     return -(-k // WG_SLAB_K)
+
+
+def packed_wfs_size(cfg: Config) -> int:
+    """Length of one copy of ``_layout_wfs``' slabs (``WideF32Route::len``)."""
+    cfg = kernel_cfg(cfg)
+    D, Dc = cfg.net_depth, cfg.net_depth_condition
+    W, Wc, K = cfg.net_width, cfg.net_width_condition, F32_SLAB_K
+    nh, nc = -(-W // K), -(-Wc // K)
+    nx = -(-padded_location_features(cfg) // K)
+    trunk = sum((0 if i == 0 else nh) + (nx if i == 0 or i % cfg.skip_layer == 0
+                                         else 0) for i in range(D)) * W * K
+    return trunk + (nh * Wc + (Dc - 1) * nc * Wc) * K
+
+
+def packed_wf_size(cfg: Config) -> int:
+    """Length of ``pack_params_wf``'s weight buffer."""
+    return packed_sizes(cfg)[0] + 2 * packed_wfs_size(cfg)
 
 
 def packed_wg_size(cfg: Config) -> int:
@@ -780,32 +910,46 @@ def packed_t_size(cfg: Config) -> int:
 
 
 def pack_train_params(params: Params, cfg: Config, dt: torch.dtype):
-    """(weights, biases, W^T) in the f32 train kernels' layouts (and the
-    earlier ``mma.sync`` kernels'): ``pack_params``' and
+    """(weights, biases, W^T) in the narrow f32 train kernels' layouts (and
+    the earlier ``mma.sync`` kernels'): ``pack_params``' and
     ``pack_params_t``'."""
     w_flat, b_flat = pack_params(params, cfg, dt)
     return w_flat, b_flat, pack_params_t(params, cfg, dt)
 
 
+def slab_streams(layout: str) -> bool:
+    """Whether a kernel reading ``layout`` (``weight_layout``) takes the
+    bf16 slab streams: ``"wg"``, and ``"wf"``, which adds the f32 wide
+    route's (``f32_slabs``)."""
+    return layout in ("wg", "wf")
+
+
 def pack_train_level(params: Params, cfg: Config, dt: torch.dtype,
-                     layout: str = "wg"):
+                     layout: str = "wf", wide: Optional[bool] = None):
     """(weights, biases, chain weights) of ``train_level`` (and
-    ``train_level_twopass``) reading
-    ``layout`` (``weight_layout``): in bf16 with ``"wg"`` the forward's slab
-    stream (``pack_params_wg``) and the g-chain's (``pack_params_wgt``),
-    else ``pack_train_params``' layouts (f32, and the earlier ``mma.sync``
-    kernel)."""
-    if layout == "wg" and dt == torch.bfloat16:
+    ``train_level_twopass``) reading ``layout`` (``weight_layout``): in
+    bf16 with the slab streams (``slab_streams``) the forward's
+    (``pack_params_wg``) and the g-chain's (``pack_params_wgt``); in f32
+    where ``f32_slabs`` says so (route ``wide``) ``pack_params_wf`` and
+    ``pack_params_wft``; else ``pack_train_params``' layouts (the narrow f32
+    route, and the earlier kernels)."""
+    if slab_streams(layout) and dt == torch.bfloat16:
         w_flat, b_flat = pack_params_wg(params, cfg, dt)
         return w_flat, b_flat, pack_params_wgt(params, cfg, dt)
+    if f32_slabs(cfg, layout, wide):
+        w_flat, b_flat = pack_params_wf(params, cfg, dt)
+        return w_flat, b_flat, pack_params_wft(params, cfg, dt)
     return pack_train_params(params, cfg, dt)
 
 
-def train_weight_sizes(cfg: Config, layout: str) -> Tuple[int, int]:
+def train_weight_sizes(cfg: Config, layout: str,
+                       wide: Optional[bool] = None) -> Tuple[int, int]:
     """Lengths of ``pack_train_level``'s weight and chain-weight buffers
     in ``cfg``'s compute dtype."""
-    if layout == "wg" and compute_dtype(cfg) == torch.bfloat16:
+    if slab_streams(layout) and compute_dtype(cfg) == torch.bfloat16:
         return packed_wg_size(cfg), packed_wgt_size(cfg)
+    if f32_slabs(cfg, layout, wide):
+        return packed_wf_size(cfg), 2 * packed_t_size(cfg)
     return packed_sizes(cfg)[0], packed_t_size(cfg)
 
 
@@ -897,10 +1041,13 @@ def _check_level_inputs(cfg: Config, xs, d, delta, mode: str):
 
 
 def weight_layout(lib, name: str) -> str:
-    """The weights a built forward kernel reads in bf16: ``"wg"`` when its
-    library exports ``<name>_weight_layout`` (``pack_params_wg``'s slab
-    stream), else ``"fwd"`` (``pack_params``' fragments, which the
-    earlier ``mma.sync`` kernels read)."""
+    """The weights a built kernel reads: what its library's
+    ``<name>_weight_layout`` returns, ``"wf"`` (the bf16 slab streams, and
+    in f32 on the wide route ``pack_params_wf``'s hi / lo slabs) or
+    ``"wg"`` (the bf16 slab streams, f32 row-major: the versions before the
+    f32 wide GEMM took ``wgmma``); ``"fwd"`` where it exports none
+    (``pack_params``' fragments, which the earlier ``mma.sync`` kernels
+    read)."""
     try:
         fn = getattr(lib, f"{name}_weight_layout")
     except AttributeError:
@@ -909,11 +1056,14 @@ def weight_layout(lib, name: str) -> str:
     return fn().decode()
 
 
-def forward_weights_size(cfg: Config, layout: str) -> int:
+def forward_weights_size(cfg: Config, layout: str,
+                         wide: Optional[bool] = None) -> int:
     """Length of the packed weights of a forward kernel reading ``layout``
-    in ``cfg``'s compute dtype (f32 always reads ``pack_params``)."""
-    if layout == "wg" and compute_dtype(cfg) == torch.bfloat16:
+    in ``cfg``'s compute dtype (``pack_forward``)."""
+    if slab_streams(layout) and compute_dtype(cfg) == torch.bfloat16:
         return packed_wg_size(cfg)
+    if f32_slabs(cfg, layout, wide):
+        return packed_wf_size(cfg)
     return packed_sizes(cfg)[0]
 
 
@@ -977,11 +1127,11 @@ def render_level_cuda(params: Params, cfg: Config, xs, d, delta,
     if R == 0:
         return comp, acc, weights
     fn, layout = _library(source)
-    if packed is None:
-        packed = pack_forward(params, cfg, dt)
+    if packed is None or repack_f32(cfg, layout, wide):
+        packed = pack_forward(params, cfg, dt, layout, wide)
     w_flat, b_flat = packed
-    _check("packed weights", w_flat, dt, (forward_weights_size(cfg, layout),),
-           device)
+    _check("packed weights", w_flat, dt,
+           (forward_weights_size(cfg, layout, wide),), device)
     _check("packed biases", b_flat, torch.float32, (packed_sizes(cfg)[1],),
            device)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -1257,9 +1407,11 @@ def _train_library(name: str, source=None):
     """(launch, workspace, weight layout) of ``csrc/<name>.cu`` or of
     another version of it (``source``); both train kernels have the same C
     interface, and each reads the layout its library declares
-    (``weight_layout``: ``"wg"`` for the bf16 ``wgmma`` passes of
-    ``train_level`` and ``train_level_twopass``, ``"fwd"`` for
-    ``pack_train_params``, which the earlier ``mma.sync`` versions read)."""
+    (``weight_layout``: ``"wf"`` for the bf16 ``wgmma`` passes of
+    ``train_level`` and ``train_level_twopass`` and their f32 wide route's
+    slab streams, ``"wg"`` for a version whose f32 wide route reads
+    ``pack_train_params``, ``"fwd"`` for the earlier ``mma.sync`` versions,
+    which read ``pack_train_params`` in both dtypes)."""
     from nerf_or_nothing_tpu_torch.kernels import build
 
     lib = build.load(name, source)
@@ -1304,10 +1456,11 @@ def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
     n_out = num_params(kc)
     grads = torch.empty((n_out,), dtype=torch.float32, device=device)
     launch, workspace_bytes, layout = _train_library(name, source)
-    if packed is None:
-        packed = pack_train_level(params, cfg, dt, layout)
+    wide = takes_wide(cfg, name, S)
+    if packed is None or repack_f32(cfg, layout, wide):
+        packed = pack_train_level(params, cfg, dt, layout, wide)
     w_flat, b_flat, wt_flat = packed
-    n_w, n_wt = train_weight_sizes(cfg, layout)
+    n_w, n_wt = train_weight_sizes(cfg, layout, wide)
     _check("packed weights", w_flat, dt, (n_w,), device)
     _check("packed biases", b_flat, torch.float32, (packed_sizes(cfg)[1],),
            device)

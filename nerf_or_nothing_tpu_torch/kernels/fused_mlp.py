@@ -45,6 +45,7 @@ from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     _DTYPE_CODE,
     _check,
     check_kernel_config,
+    f32_slabs,
     forward_weights_size,
     kernel_cfg,
     mlp_backward_plain,
@@ -53,13 +54,18 @@ from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     pack_params,
     pack_params_t,
     pack_params_tx,
+    pack_params_wft,
+    pack_params_wfx,
     pack_params_wgx,
     packed_sizes,
     packed_t_size,
     packed_tx_size,
+    packed_wf_size,
     packed_wgx_size,
     padded_location_features,
+    repack_f32,
     route_code,
+    slab_streams,
     takes_wide,
     train_splits,
     unembed_grads,
@@ -118,23 +124,29 @@ def mlp_bwd_plain(params: Params, cfg: Config, x, d, g_rgb, g_den, s: int,
 
 
 def pack_mlp_params(params: Params, cfg: Config, dt: torch.dtype,
-                    backward: bool = True, layout: str = "wg"):
+                    backward: bool = True, layout: str = "wf",
+                    wide: Optional[bool] = None):
     """The kernels' weights, packed once for both levels: (weights,
     biases) of ``pack_forward`` for ``mlp_fwd`` (bf16: the ``"wg"`` slab
-    stream), and with ``backward`` what ``mlp_bwd`` reading ``layout``
-    (``weight_layout``) needs besides: in bf16 with ``"wg"`` the g-chain
-    stream with the x rows (``pack_params_wgx``; the recomputed forward
-    reads the forward's stream); else its recompute weights
-    (``pack_params``' layout; for f32 the same tensor as the forward's),
-    the chained layers' W^T (``pack_params_t``) and the x rows' W^T
-    (``pack_params_tx``): f32, and the earlier ``mma.sync`` kernel. No
-    autograd graph is kept."""
+    stream; f32: ``pack_params_wf`` where ``f32_slabs`` says so, route
+    ``wide``), and with ``backward`` what ``mlp_bwd`` reading ``layout``
+    (``weight_layout``) needs besides: in bf16 with the slab streams the
+    g-chain stream with the x rows (``pack_params_wgx``; the recomputed
+    forward reads the forward's stream); else its recompute weights (the
+    forward's tensor in f32; ``pack_params``' layout for the earlier bf16
+    ``mma.sync`` kernel), the chained layers' W^T and the x rows' W^T:
+    ``pack_params_wft`` and ``pack_params_wfx`` on the f32 wide route,
+    else ``pack_params_t`` and ``pack_params_tx``. No autograd graph is
+    kept."""
     with torch.no_grad():
-        w_fwd, b_flat = pack_forward(params, cfg, dt)
+        w_fwd, b_flat = pack_forward(params, cfg, dt, layout, wide)
         if not backward:
             return w_fwd, b_flat
         if _bwd_wg(cfg, layout):
             return w_fwd, b_flat, pack_params_wgx(params, cfg, dt)
+        if f32_slabs(cfg, layout, wide):
+            return (w_fwd, b_flat, w_fwd, pack_params_wft(params, cfg, dt),
+                    pack_params_wfx(params, cfg, dt))
         w_flat = (pack_params(params, cfg, dt)[0] if dt == torch.bfloat16
                   else w_fwd)
         return (w_fwd, b_flat, w_flat, pack_params_t(params, cfg, dt),
@@ -144,7 +156,7 @@ def pack_mlp_params(params: Params, cfg: Config, dt: torch.dtype,
 def _bwd_wg(cfg: Config, layout: str) -> bool:
     """Whether ``mlp_bwd`` reading ``layout`` runs the bf16 ``wgmma``
     passes (which read the forward's stream and ``pack_params_wgx``)."""
-    return layout == "wg" and compute_dtype(cfg) == torch.bfloat16
+    return slab_streams(layout) and compute_dtype(cfg) == torch.bfloat16
 
 
 def _check_mlp_inputs(cfg: Config, x, d, kernel: str,
@@ -168,18 +180,24 @@ def _check_mlp_inputs(cfg: Config, x, d, kernel: str,
 
 
 def _check_packed(cfg: Config, packed: Sequence[torch.Tensor], device,
-                  fwd_layout: str = "wg", bwd_layout: Optional[str] = None):
+                  fwd_layout: str = "wf", bwd_layout: Optional[str] = None,
+                  wide: Optional[bool] = None):
     """``pack_mlp_params``' tensors: the forward's weights in
     ``fwd_layout`` and the biases, and with ``bwd_layout`` what ``mlp_bwd``
     reading it takes besides (the chain stream with the x rows; or the
-    recompute weights, W^T and x-row W^T)."""
+    recompute weights, W^T and x-row W^T, as hi / lo slabs on the f32 wide
+    route ``wide``)."""
     dt = compute_dtype(cfg)
     n_w, n_b = packed_sizes(cfg)
-    sizes = [forward_weights_size(cfg, fwd_layout), n_b]
+    sizes = [forward_weights_size(cfg, fwd_layout, wide), n_b]
     names = ["packed forward weights", "packed biases"]
     if bwd_layout is not None and _bwd_wg(cfg, bwd_layout):
         sizes.append(packed_wgx_size(cfg))
         names.append("packed chain weights")
+    elif bwd_layout is not None and f32_slabs(cfg, bwd_layout, wide):
+        sizes += [packed_wf_size(cfg), 2 * packed_t_size(cfg),
+                  2 * packed_tx_size(cfg)]
+        names += ["packed weights", "packed W^T", "packed x-row W^T"]
     elif bwd_layout is not None:
         sizes += [n_w, packed_t_size(cfg), packed_tx_size(cfg)]
         names += ["packed weights", "packed W^T", "packed x-row W^T"]
@@ -250,10 +268,11 @@ def mlp_fwd_cuda(params: Params, cfg: Config, x, d, packed=None,
     dt = compute_dtype(cfg)
     device = x.device
     fn, layout = _fwd_library(source)
-    if packed is None:
-        packed = pack_mlp_params(params, cfg, dt, backward=False)
+    if packed is None or repack_f32(cfg, layout, wide):
+        packed = pack_mlp_params(params, cfg, dt, backward=False,
+                                 layout=layout, wide=wide)
     w_flat, b_flat = packed[:2]
-    _check_packed(cfg, (w_flat, b_flat), device, layout)
+    _check_packed(cfg, (w_flat, b_flat), device, layout, wide=wide)
     N = R * S
     raw_rgb = torch.empty((N, cfg.num_rgb_channels), dtype=torch.float32,
                           device=device)
@@ -318,7 +337,7 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     layout it reads). The wide route (bf16 and f32) runs in the same entry
     point where ``takes_wide`` picks it (``route_code``). Configs no route
     takes raise ValueError before anything runs."""
-    R, S, _ = _check_mlp_inputs(cfg, x, d, "mlp_bwd", input_grads)
+    R, S, wide = _check_mlp_inputs(cfg, x, d, "mlp_bwd", input_grads)
     code = route_code(cfg, "mlp_bwd", S, input_grads, source)
     dt = compute_dtype(cfg)
     device = x.device
@@ -327,9 +346,9 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     _check("g_den", g_den, torch.float32, (N, cfg.num_density_channels),
            device)
     lib, layout = _bwd_library(source)
-    if packed is None or len(packed) == 2:
-        packed = pack_mlp_params(params, cfg, dt, layout=layout)
-    _check_packed(cfg, packed, device, bwd_layout=layout)
+    if packed is None or len(packed) == 2 or repack_f32(cfg, layout, wide):
+        packed = pack_mlp_params(params, cfg, dt, layout=layout, wide=wide)
+    _check_packed(cfg, packed, device, layout, layout, wide)
     if _bwd_wg(cfg, layout):  # the forward's stream and the chain stream
         w_flat, b_flat, wt_flat = packed
         wtx_ptr = 0

@@ -1,18 +1,24 @@
-"""The wide route's bf16 layer GEMM alone, beside its plain PyTorch version.
+"""The wide routes' layer GEMMs alone, beside their plain PyTorch versions.
 
 Every layer product of the five kernels' wide bf16 routes runs on one
 kernel, ``csrc/wide_gemm.cuh::wide_gemm_kernel`` (a persistent block an SM,
 a TMA producer, a ring of stages on mbarriers, two consumer warpgroups on
-``wgmma``); the kernels' wrappers reach it through their own launches.
-``wide_gemm_cuda`` launches it alone through ``csrc/wide_gemm.cu``'s C
-entry, or an earlier version of it (``source``: that version's
-``wide_gemm.cu`` beside its headers), for the card tests and for timing
-versions in turns (``chip_smoke.py``'s ``wide_gemm`` phase,
-``compare_kernels.py --gemm``). ``gemm_case`` makes seeded operands the
-way the wide route lays them out (row-major bf16 activations, the
-weights as ``fused_level._wg_slabs``); ``wide_gemm_plain`` computes the
-same product and epilogue in PyTorch (f32 sums in another order: the
-bf16 band, not the bits). Nothing here runs at import time.
+``wgmma``), and every one of their wide f32 routes on
+``csrc/wide_f32.cuh::wide_gemm_f32_kernel`` (the same structure, each
+product as three TF32 ``wgmma`` passes on split operands); the kernels'
+wrappers reach them through their own launches. ``wide_gemm_cuda`` and
+``wide_gemm_f32_cuda`` launch them alone through ``csrc/wide_gemm.cu``'s
+and ``csrc/wide_gemm_f32.cu``'s C entries, or an earlier version of them
+(``source``: that version's entry beside its headers), for the card tests
+and for timing versions in turns (``chip_smoke.py``'s ``wide_gemm`` and
+``wide_f32`` phases, ``compare_kernels.py --gemm``). ``gemm_case`` makes
+seeded operands the way the wide route lays them out (row-major
+activations; bf16 weights as ``fused_level._wg_slabs``, f32 weights as
+slabs of 32 k-values split into TF32 hi / lo, ``fused_level.tf32_pair``,
+and row-major for the earlier f32 version); ``wide_gemm_plain`` computes
+the same product and epilogue in PyTorch (bf16: f32 sums in another order,
+the bf16 band, not the bits; f32: f64 products rounded to f32, the f32
+band). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,9 +29,15 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from nerf_or_nothing_tpu_torch.kernels.fused_level import WG_SLAB_K, _wg_slabs
+from nerf_or_nothing_tpu_torch.kernels.fused_level import (
+    F32_SLAB_K,
+    WG_SLAB_K,
+    _wg_slabs,
+    tf32_pair,
+)
 
 KINDS = {"fwd": 0, "chain": 1, "chain_heads": 2, "dx": 3}
+F32_KINDS = {"fwd": 0, "chain": 1, "dx": 2}  # wide_f32.cuh's kF32Fwd, ...
 BLOCK_ROWS = 128                      # rows of an output tile
 BLOCK_COLS = tuple(range(128, 257, 16))  # the column blocks the kernel is built for
 SMEM_LIMIT = 232448                   # bytes of shared memory a block may use
@@ -42,6 +54,17 @@ def wide_bn(N: int, kind: str = "fwd") -> int:
     32), the wider at a tie."""
     cols = BLOCK_COLS if kind in ("fwd", "chain") else (128, 256)
     return min(cols[::-1], key=lambda bn: -(-N // bn) * (bn + 32))
+
+
+F32_BN = 128  # the f32 GEMM's column block (wide_f32.cuh::kF32BN)
+F32_STAGES = 4
+
+
+def f32_smem_bytes() -> int:
+    """Dynamic shared memory of an f32 GEMM block (``kF32Smem``):
+    ``F32_STAGES`` stages of A [128 x 32] and B hi and lo [``F32_BN`` x 32]
+    f32, the barriers, 1 KB of alignment."""
+    return 1024 + F32_STAGES * (128 * 128 + 2 * F32_BN * 128) + 16 * F32_STAGES
 
 
 def stage_bytes(bn: int) -> int:
@@ -67,31 +90,37 @@ def flops(c: Dict) -> int:
 
 def min_bytes(c: Dict) -> int:
     """Bytes the case must move: each input read once, the output written
-    once (A, B, the epilogue's operands, out)."""
+    once (A, B, the epilogue's operands, out; f32 B once, not as its hi / lo
+    halves)."""
     n = sum(c[k].numel() * c[k].element_size()
             for k in ("a0", "a1", "w0", "w1", "bias", "dc", "act", "gden",
                       "wden") if c.get(k) is not None)
-    out = c["M"] * (c["ldo"] if c["kind"] == "dx" else c["N"]) * 2
+    out = (c["M"] * (c["ldo"] if c["kind"] == "dx" else c["N"])
+           * c["a0"].element_size())
     return n + out * (2 if c["kind"] == "dx" and c["accum"] else 1)
 
 
 def gemm_case(kind: str, M: int, N: int, K0: int, K1: int = 0, S: int = 128,
               cd: int = 1, ldo: Optional[int] = None, dc: bool = False,
               accum: bool = False, den: bool = True, seed: int = 0,
-              device="cpu") -> Dict:
+              device="cpu", dtype: torch.dtype = torch.bfloat16) -> Dict:
     """Seeded operands of one product: a0 [M, K0] (and a1 [M, K1] when K1)
-    bf16, w0 [K0, N] (w1 [K1, N]) bf16 packed as the slab stream b, and the
-    epilogue's: ``fwd`` bias [N] f32 and with ``dc`` the direction terms
-    [M / S, N]; ``chain`` act [M, N] bf16 (about half > 0) and the density
-    term of one channel, gden [M] f32 and wden [1, N] (none without
-    ``den``: the chain's layers above the trunk); ``chain_heads`` cd
-    channels, gden [M, cd]; ``dx`` out [M, ldo] and with ``accum`` a
-    starting sum in it."""
+    in ``dtype``, w0 [K0, N] (w1 [K1, N]) packed as the slab stream b
+    (bf16: ``_wg_slabs``; f32: slabs of ``F32_SLAB_K`` as ``tf32_pair``, hi
+    then lo, and besides the row-major [K0 + K1, N] b_rows), and the
+    epilogue's: ``fwd`` bias [N] f32 (for f32 at an odd offset of its
+    buffer) and with ``dc`` the direction terms
+    [M / S, N]; ``chain`` act [M, N] (about half > 0) and the density term
+    of one channel (bf16: gden [M] f32 and wden [1, N]; f32: cd channels,
+    gden [M, cd], wden [cd, N]; none without ``den``: the chain's layers
+    above the trunk); ``chain_heads`` (bf16) cd channels, gden [M, cd];
+    ``dx`` out [M, ldo] and with ``accum`` a starting sum in it."""
     rng = np.random.default_rng(seed)
+    f32 = dtype == torch.float32
 
-    def t(shape, scale, dtype=torch.bfloat16):
+    def t(shape, scale, dt=dtype):
         a = rng.standard_normal(size=shape).astype(np.float32) * scale
-        return torch.from_numpy(a).to(dtype).to(device)
+        return torch.from_numpy(a).to(dt).to(device)
 
     c = {"kind": kind, "M": M, "N": N, "K0": K0, "K1": K1, "S": S, "cd": cd,
          "ldo": ldo if ldo is not None else N, "accum": accum}
@@ -102,22 +131,27 @@ def gemm_case(kind: str, M: int, N: int, K0: int, K1: int = 0, S: int = 128,
     c["w0"] = t((K0, N), K0 ** -0.5)
     c["a1"] = t((M, K1), 1.0) if K1 else None
     c["w1"] = t((K1, N), K1 ** -0.5) if K1 else None
-    parts = [_wg_slabs(c["w0"])]
-    if K1:
-        parts.append(_wg_slabs(c["w1"]))
-    c["b"] = torch.cat(parts)
+    ws = [c["w0"]] + ([c["w1"]] if K1 else [])
+    if f32:
+        c["b"] = tf32_pair(torch.cat([_wg_slabs(w, F32_SLAB_K) for w in ws]))
+        c["b_rows"] = torch.cat(ws).contiguous()
+    else:
+        c["b"] = torch.cat([_wg_slabs(w) for w in ws])
     for k in ("bias", "dc", "act", "gden", "wden", "out0"):
         c[k] = None
     if kind == "fwd":
-        c["bias"] = t((N,), 0.1, torch.float32)
+        # f32: at an odd offset, as a view layer's biases lie after the
+        # density head's in the packed biases
+        c["bias"] = (t((N + 1,), 0.1, torch.float32)[1:] if f32
+                     else t((N,), 0.1, torch.float32))
         if dc:
             c["dc"] = t((-(-M // S), N), 0.5, torch.float32)
     elif kind in ("chain", "chain_heads"):
         c["act"] = t((M, N), 1.0)
-        nd = 1 if kind == "chain" else cd
+        nd = cd if kind == "chain_heads" or f32 else 1
         if den or kind == "chain_heads":
-            c["gden"] = t((M, nd) if kind == "chain_heads" else (M,), 1e-2,
-                          torch.float32)
+            c["gden"] = t((M, nd) if kind == "chain_heads" or f32 else (M,),
+                          1e-2, torch.float32)
             c["wden"] = t((nd, N), 0.1)
     else:
         c["out0"] = t((M, c["ldo"]), 1e-2) if accum else None
@@ -128,10 +162,41 @@ def _round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def wide_gemm_f32_plain(c: Dict) -> torch.Tensor:
+    """An f32 case's product and epilogue in PyTorch: the products in f64
+    rounded to f32 (``utils/parity.reference_products``' reference), then
+    ``wide_f32.cuh``'s epilogue in f32: the forward's (acc + dc) + bias and
+    ReLU, the g-chain's density term (an FMA sum over the cd channels in
+    order from -0) and mask, dX's columns below ldo added to the starting
+    sum."""
+    acc = c["a0"].double() @ c["w0"].double()
+    if c["K1"]:
+        acc = acc + c["a1"].double() @ c["w1"].double()
+    acc = acc.float()
+    kind = c["kind"]
+    if kind == "fwd":
+        if c["dc"] is not None:
+            acc = acc + c["dc"].repeat_interleave(c["S"], 0)[:c["M"]]
+        return torch.relu(acc + c["bias"])
+    if kind == "dx":
+        v = acc[:, :c["ldo"]]
+        return c["out0"] + v if c["accum"] else v
+    if c["gden"] is not None:
+        term = torch.full_like(acc, -0.0)
+        for k in range(c["gden"].shape[1]):
+            term = torch.addcmul(term, c["gden"][:, k:k + 1],
+                                 c["wden"][k][None, :])
+        acc = acc + term
+    return torch.where(c["act"] > 0, acc, 0.0)
+
+
 def wide_gemm_plain(c: Dict) -> torch.Tensor:
     """The case's product and epilogue in PyTorch: f32 sums of the bf16
     operands, then the kernel's epilogue (``wide_gemm.cuh``'s pair
-    functions), the output in bf16."""
+    functions), the output in bf16; an f32 case through
+    ``wide_gemm_f32_plain``."""
+    if c["a0"].dtype == torch.float32:
+        return wide_gemm_f32_plain(c)
     acc = c["a0"].float() @ c["w0"].float()
     if c["K1"]:
         acc = acc + c["a1"].float() @ c["w1"].float()
@@ -191,4 +256,46 @@ def wide_gemm_cuda(c: Dict, source=None) -> torch.Tensor:
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wide_gemm_launch failed with CUDA error {rc}")
+    return out
+
+
+def _f32_library(source=None):
+    from nerf_or_nothing_tpu_torch.kernels import build
+
+    fn = build.load("wide_gemm_f32", source).wide_gemm_f32_launch
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([i, p, i, i, p, i, i, p, p, p, i, ll, p, p, i, p, p,
+                        p, i, p, i, i, p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def wide_gemm_f32_cuda(c: Dict, source=None) -> torch.Tensor:
+    """An f32 case on the card through ``wide_gemm_f32_launch`` (of
+    ``source``'s build when given; B passed both as the hi / lo slabs and
+    row-major, each version reads its own): one launch of the GEMM, the
+    output [M, N] (dx: [M, ldo]) in f32. The operands must lie on a CUDA
+    device."""
+    if not c["a0"].is_cuda:
+        raise ValueError("wide_gemm_f32_cuda needs CUDA tensors")
+    fn = _f32_library(source)
+    M, N, kind = c["M"], c["N"], c["kind"]
+    dev = c["a0"].device
+    if kind == "dx":
+        out = (c["out0"].clone() if c["accum"]
+               else torch.empty(M, c["ldo"], dtype=torch.float32, device=dev))
+    else:
+        out = torch.empty(M, N, dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    half = c["b"].numel() // 2
+    cd = c["gden"].shape[1] if c["gden"] is not None else 0
+    rc = fn(F32_KINDS[kind], ptr(c["a0"]), c["K0"], c["K0"], ptr(c["a1"]),
+            c["K1"], c["K1"], ptr(c["b_rows"]), ptr(c["b"]),
+            ptr(c["b"][half:]), N, M, ptr(c["bias"]), ptr(c["dc"]), c["S"],
+            ptr(c["act"]), ptr(c["gden"]), ptr(c["wden"]), cd, ptr(out),
+            c["ldo"], int(c["accum"]),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wide_gemm_f32_launch failed with CUDA error {rc}")
     return out

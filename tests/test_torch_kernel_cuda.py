@@ -2028,3 +2028,51 @@ def test_wide_gemm_matches_parent_and_plain_on_cuda(name, kind, M, N, K0, K1,
     assert torch.equal(a, b) and torch.equal(a, parent), name
     assert bool(torch.isfinite(a.float()).all())
     check_close(a, wg.wide_gemm_plain(c), "bfloat16", name)
+
+
+# The layer GEMM of the wide f32 route alone (kernels/wide_gemm.py): (name,
+# kind, M, N, K0, K1, gemm_case options). Each epilogue at N = 288 (two
+# column blocks of 144), 1024 (eight of 128), 1056 and 2048 (blocks of
+# 160, the last partial), M tails, two-part A, K past whole slabs, the
+# first view layer's direction term, density terms of 1 and 3 channels.
+WIDE_GEMM_F32_CASES = [
+    ("fwd_288_tail", "fwd", 5077, 288, 288, 0, {}),
+    ("fwd_1024_skip", "fwd", 2049, 1024, 1024, 96, {}),
+    ("fwd_1056_dc", "fwd", 3001, 1056, 1056, 0, {"dc": True, "S": 64}),
+    ("fwd_2048", "fwd", 1029, 2048, 2048, 0, {}),
+    ("chain_288", "chain", 1000, 288, 288, 0, {"den": False}),
+    ("chain_1024_den", "chain", 2049, 1024, 1024, 0, {"cd": 1}),
+    ("chain_1056_cd3", "chain", 1500, 1056, 1056, 0, {"cd": 3}),
+    ("chain_2048", "chain", 777, 2048, 2048, 0, {"cd": 1}),
+    ("dx_288", "dx", 777, 288, 512, 0, {"ldo": 270}),
+    ("dx_96_accum", "dx", 1999, 96, 1024, 0, {"ldo": 90, "accum": True}),
+    ("dx_1056", "dx", 300, 1056, 2048, 0, {"ldo": 1050, "accum": True}),
+    ("dx_2048", "dx", 300, 2048, 1024, 0, {"ldo": 2048}),
+]
+
+
+@pytest.mark.parametrize("name,kind,M,N,K0,K1,kw", WIDE_GEMM_F32_CASES,
+                         ids=[c[0] for c in WIDE_GEMM_F32_CASES])
+def test_wide_gemm_f32_matches_plain_on_cuda(name, kind, M, N, K0, K1, kw):
+    """The f32 layer GEMM (``csrc/wide_f32.cuh``: 3xTF32 ``wgmma`` on the
+    packer's hi / lo slabs) gives the same bits over two launches, lies in
+    the f32 band of ``wide_gemm_f32_plain`` (f64 products), and, where the
+    ``mma.sync`` GEMM it replaced can be built (``chip_smoke.
+    f32_gemm_sources``: that commit's headers beside ``csrc/
+    wide_gemm_f32.cu``), gives that GEMM's bits."""
+    from nerf_or_nothing_tpu_torch.kernels import wide_gemm as wg
+
+    dev = cuda_device()
+    c = wg.gemm_case(kind, M, N, K0, K1, seed=M, device=dev,
+                     dtype=torch.float32, **kw)
+    a, b = wg.wide_gemm_f32_cuda(c), wg.wide_gemm_f32_cuda(c)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all()), name
+    check_close(a, wg.wide_gemm_f32_plain(c), "float32", name)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as smoke
+
+    parent = smoke.f32_gemm_sources()
+    if parent is not None:
+        assert torch.equal(a, wg.wide_gemm_f32_cuda(c, parent["wide_gemm_f32"]))

@@ -75,7 +75,7 @@ KERNEL_WIDTHS = {"16_8": (32, 32), "32_16": (32, 32), "48_16": (64, 32),
                  "96_48": (96, 64), "32_64": (64, 64), "400_200": (416, 224)}
 # (row, dtype) pairs the card takes: every row in both dtypes
 CASES = [(r, dt) for r in sorted(ROWS) for dt in ("float32", "bfloat16")]
-KINDS = ("fwd", "t", "tx", "wg", "wgt", "wgx")
+KINDS = ("fwd", "t", "tx", "wg", "wgt", "wgx", "wfs", "wfts", "wfxs")
 R = 4
 
 
@@ -119,7 +119,7 @@ def block_embedded(e, m, rows, krows):
 
 @pytest.mark.parametrize("row", sorted(ROWS))
 def test_streams_embed_the_real_layers(row):
-    """Each of the six layouts, in both dtypes, packed at the real config is
+    """Each of the nine layouts, in both dtypes, packed at the real config is
     that layout of the embedded weights at ``kernel_cfg``; the slab stream
     models unpack it at ``kernel_cfg`` to the real layers embedded in
     zeros; the biases are zero on the padded columns; every size is the
@@ -148,7 +148,7 @@ def test_streams_embed_the_real_layers(row):
         w_fwd, b_flat = fl.pack_forward(params, c, dt)
         assert torch.equal(b_flat, torch.cat([b for _, b in ep]))
         assert (w_fwd.numel(), b_flat.numel()) == (
-            fl.forward_weights_size(c, "wg"), fl.packed_sizes(c)[1])
+            fl.forward_weights_size(c, "wf"), fl.packed_sizes(c)[1])
     # the slab stream models at the kernel config, in f32
     dt = torch.float32
     P = [w.double().numpy() for w, _ in ep]

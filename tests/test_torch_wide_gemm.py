@@ -1,4 +1,5 @@
 """The wide route's bf16 layer GEMM on the CPU (``kernels/wide_gemm.py``;
+the f32 GEMM's column blocks and shared memory too;
 the kernel itself, ``csrc/wide_gemm.cuh``, runs only on the card: the
 card tests ``-k wide_gemm``): the column block picked per width and the
 shared memory it takes, a Python model of the kernel's reads of the slab
@@ -49,6 +50,27 @@ def test_column_block_of_mlp_bwd_epilogues(N):
     """``chain_heads`` and ``dx`` take 128 or 256 columns a block only."""
     bn = wg.wide_bn(N, "dx")
     assert bn == wg.wide_bn(N, "chain_heads") == (256 if N >= 1024 else 128)
+
+
+# Widths the f32 GEMM runs (N of its products) and the rows of its last,
+# partial column block of ``F32_BN`` = 128 columns (0: none).
+F32_LAST_BLOCK = {64: 64, 96: 96, 128: 0, 256: 0, 288: 32, 320: 64, 512: 0,
+                  1024: 0, 1056: 32, 2048: 0, 3328: 0}
+
+
+@pytest.mark.parametrize("N", sorted(F32_LAST_BLOCK))
+def test_f32_column_blocks_per_width(N):
+    """The f32 GEMM's column blocks (``wide_f32.cuh``: 128 columns, two sets
+    of 64 sums a thread in the 168 registers a consumer has) at the widths
+    the f32 wide route runs: the producer's bulk copies of each block's B
+    rows (min(128, N - n0) rows of 128 bytes, hi and lo) cover N rows once,
+    the last block partial where 128 does not divide N; the 4 stages fit
+    the 227 KB a block may use, each stage 1024-aligned."""
+    rows = [min(wg.F32_BN, N - n0) for n0 in range(0, N, wg.F32_BN)]
+    assert sum(rows) == N and all(r % 16 == 0 for r in rows)
+    assert (rows[-1] if rows[-1] < wg.F32_BN else 0) == F32_LAST_BLOCK[N]
+    assert wg.f32_smem_bytes() <= wg.SMEM_LIMIT
+    assert (128 * 128 + 2 * wg.F32_BN * 128) % 1024 == 0
 
 
 def test_every_block_width_fits():
