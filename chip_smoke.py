@@ -9,7 +9,9 @@ Phases, each printing one JSON line:
            csrc/train_level_twopass.cu, csrc/mlp_fwd.cu and csrc/mlp_bwd.cu,
            the layer GEMM's harness csrc/wide_gemm.cu, the harness and
            render_level, mlp_fwd and train_level at commit 44ad1e5, the
-           wide GEMM's parent (gemm_sources), and the mma.sync versions of
+           wide GEMM's parent (gemm_sources), the dW GEMMs' harness
+           csrc/wide_dw.cu and its copy beside commit 02b6fbf's headers
+           (dw_sources), and the mma.sync versions of
            all five at commit 815018d (mma_sources), one process each,
            started together (ptxas register/spill lines);
   kernel   the render kernel against its plain PyTorch version (render_level_plain)
@@ -36,7 +38,17 @@ Phases, each printing one JSON line:
            torch.matmul of the same operands beside each; then
            render_level (R=16384, mode "mv"), mlp_fwd (R=16384) and
            train_level (R=1024, mode "t") at Config(net_width=1024) in
-           turns with 44ad1e5's, outputs bit-equal;
+           turns with 44ad1e5's, outputs bit-equal; then the bf16 dW GEMM
+           alone (csrc/wide_dw.cuh's wide_dw_kernel<BN>, DW_CASES: one
+           product over a train level's 2^17 rows at W = 1024, 288 and
+           2048) against its plain version, bit-equal over two launches
+           and to 02b6fbf's cp.async wide_dw_kernel (dw_sources) and timed
+           in turns with it, TFLOP/s, the bound, the plain version's time
+           and torch.matmul(act^T, g) beside each (dw_cases; the f32 dW
+           GEMM the same way in the wide_f32 phase, against 02b6fbf's
+           mma.sync dw_gemm_f32_kernel); the kernels line carries the W =
+           1024 cases of both under train_level, train_level_twopass and
+           mlp_bwd ("dw");
   main     a synthetic 400x400 Blender scene and a seeded checkpoint at
            Config(), then the port's ``run.main(["eval", ...])`` and
            ``run.main(["render", ...])`` on the card; the kernel's launch
@@ -100,7 +112,9 @@ Phases, each printing one JSON line:
            those beside), the backward kernels bit-equal over two
            launches, each beside its bound, its f32 FMA bound and the
            layer products as f32 torch.matmul with TF32 off (matmul_ms, a
-           yardstick), with the ptxas lines of wide_gemm_f32_kernel; all
+           yardstick), with the ptxas lines of wide_gemm_f32_kernel, and
+           the f32 dW GEMM alone (csrc/wide_dw.cuh's wide_dw_f32_kernel,
+           with db) as the wide_gemm phase's dW cases; all
            five at 260 and at 400 / 200 (R=1024, run as 288 and
            416 / 224, each with its padding check); then on a 48-px scene ``run train --net-width=1024
            --compute-dtype=float32`` for 10 eager steps (losses finite and
@@ -377,7 +391,21 @@ F32_GEMM_CASES = (
     ("f32_w288_fwd", "fwd", 1 << 18, 288, 288, 0, {}),
     ("f32_w2048_fwd", "fwd", 1 << 17, 2048, 2048, 0, {}),
 )
-GEMM_TIMING = (5, 2)  # (timed, warm-up) calls of each version in a turn
+# The wide routes' dW GEMMs before their Hopper redesign (wide_train.cuh's
+# cp.async wide_dw_kernel in bf16, level_backward.cuh's mma.sync
+# dw_gemm_f32_kernel in f32, of 02b6fbf), timed in turns with the
+# checkout's through csrc/wide_dw.cu: its commit and where the copy is
+# written (gitignored)
+DW_COMMIT = "02b6fbf"
+DW_DIR = ".local_runs/csrc_02b6fbf"
+# The dW GEMMs alone in the wide_gemm (bf16) and wide_f32 phases: (name,
+# M, Nn, K) of one product over a train level's 2^17 rows (32 splits)
+DW_CASES = (
+    ("dw_w1024", 1024, 1024, 1 << 17),
+    ("dw_w288", 288, 288, 1 << 17),
+    ("dw_w2048", 2048, 2048, 1 << 17),
+)
+GEMM_TIMING = (3, 1)  # (timed, warm-up) calls of each version in a turn
 GEMM_LAUNCHES = 4  # back-to-back launches a timed call, so the host's
 # work between launches stays off the card's clock
 # The deep phase: configs past the C sources' former tables (more than
@@ -508,7 +536,7 @@ TRAIN_WG_KERNELS = ("train_fwd_wg_kernel", "chain_wg_kernel", "dw_wg_kernel")
 TIMED_BATCHES = 13  # steps of the rays/s measurement, the first 3 warm-up
 # CUDA-event timing of the case functions (their ``timing`` argument):
 # (timed, warm-up) launches of the kernel and of its plain version
-TIMING = {"kernel": (7, 2), "plain": (5, 1)}
+TIMING = {"kernel": (7, 2), "plain": (3, 1)}
 MESH_STEPS = 4  # eager sharded steps of each case of the gloo pair
 MESH_CASES = (("Config()", ()), ("slice", FULL_GRAD_ARGS),
               ("multicam_twopass", MULTICAM_ARGS))
@@ -1025,6 +1053,12 @@ def f32_gemm_sources():
                           [k for k, _ in F32_GEMM_KERNEL_TURNS])
 
 
+def dw_sources():
+    """``DW_COMMIT``'s ``csrc/`` (the dW GEMMs before their Hopper
+    redesign) with ``csrc/wide_dw.cu`` beside it: ``wide_dw``, or None."""
+    return commit_sources(DW_COMMIT, DW_DIR, "wide_dw", [])
+
+
 def gemm_cases(phase: str, cases, dtype, peak: float, bw: float, device,
                old=None) -> list:
     """The layer GEMM alone (``kernels/wide_gemm.py``) at ``cases`` in
@@ -1103,6 +1137,93 @@ def gemm_cases(phase: str, cases, dtype, peak: float, bw: float, device,
     return out
 
 
+def dw_cases(phase: str, dtype, peak: float, bw: float, device,
+             old=None) -> list:
+    """The dW GEMM of ``dtype`` alone (``kernels/wide_gemm.py``: bf16
+    ``wide_dw_cuda``, f32 ``wide_dw_f32_cuda`` with db) at ``DW_CASES``:
+    each product against its plain version in the dtype's band, bit-equal
+    over two launches and, with another version's harness ``old``, to that
+    version (which must hold) and timed in turns with it (old, new, new,
+    old; the kernel's launch alone, ``wide_dw_partials``, median of
+    ``GEMM_TIMING`` calls of ``GEMM_LAUNCHES`` launches, the SM clock and
+    power draw beside each), with TFLOP/s, the bound (the products at
+    ``peak``, the operands read once and the partials written once at
+    ``bw``), the plain version's time and ``torch.matmul(act^T, g)`` (f32
+    with TF32 off) as a yardstick. Returns the records."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch.kernels import wide_gemm as wg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dtype == torch.float32
+    run = wg.wide_dw_f32_cuda if f32 else wg.wide_dw_cuda
+    plain = wg.wide_dw_f32_plain if f32 else wg.wide_dw_plain
+    atol, rtol = BANDS["float32" if f32 else "bfloat16"]
+    out = []
+    for k, (name, M, Nn, K) in enumerate(DW_CASES):
+        c = wg.dw_case(M, Nn, K, seed=k, device=device, dtype=dtype)
+        got = run(c)
+        got = list(got) if f32 else [got]
+        ref = plain(c)
+        ref = list(ref) if f32 else [ref]
+        torch.cuda.synchronize()
+        flop, nbytes = wg.dw_flops(c), wg.dw_min_bytes(c)
+        b_ms, b_by = op_bound(flop, nbytes, peak, bw)
+        res = {"phase": phase, "case": name, "kernel": "wide_dw_f32_kernel"
+               if f32 else f"wide_dw_kernel<{wg.dw_bn(Nn)}>", "M": M,
+               "Nn": Nn, "K": K, "splits": c["splits"], "flop": flop,
+               "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+               "max_abs_err": max(float((a - b).abs().max())
+                                  for a, b in zip(got, ref)),
+               "err": max(normalized_err(a, b, atol, rtol)
+                          for a, b in zip(got, ref))}
+        twice = run(c)
+        res["bit_equal_twice"] = all(torch.equal(a, b) for a, b in zip(
+            got, list(twice) if f32 else [twice]))
+        versions = {"new": None}
+        if old is not None:
+            versions = {"old": old, "new": None}
+            prev = run(c, old)
+            res["bit_equal_to_old"] = all(torch.equal(a, b) for a, b in zip(
+                got, list(prev) if f32 else [prev]))
+            del prev
+        del ref, twice
+        order = list(versions) + list(versions)[::-1]
+
+        def launches(fn):
+            return median_ms(lambda: [fn() for _ in range(GEMM_LAUNCHES)],
+                             *GEMM_TIMING) / GEMM_LAUNCHES
+
+        for turn, v in enumerate(order):
+            res[f"{v}_ms_{turn}"] = launches(
+                lambda: wg.wide_dw_partials(c, versions[v]))
+            res[f"{v}_clock_power_{turn}"] = clock_power()
+        for v in versions:
+            ms = [res[f"{v}_ms_{t}"] for t, u in enumerate(order) if u == v]
+            res[f"{v}_ms"] = sum(ms) / len(ms)
+            res[f"{v}_tflops"] = flop / res[f"{v}_ms"] / 1e9
+            res[f"{v}_bound_share"] = b_ms / res[f"{v}_ms"]
+        if old is not None:
+            res["speedup"] = res["old_ms"] / res["new_ms"]
+        res["ms"] = res["new_ms"]
+        res["plain_ms"] = median_ms(lambda: plain(c), 1, 1)
+        act = c["act"][:, :M]
+        res["library_ms"] = launches(lambda: torch.matmul(act.t(), c["g"]))
+        emit(res)
+        out.append(res)
+        if not res["err"] < 1.0:
+            raise AssertionError(f"{phase}: {name} disagrees with plain: "
+                                 f"{res['err']}")
+        if not res["bit_equal_twice"]:
+            raise AssertionError(f"{phase}: two {name} launches differ")
+        if res.get("bit_equal_to_old") is False:
+            raise AssertionError(f"{phase}: {name} differs from "
+                                 f"{DW_COMMIT}'s dW GEMM")
+        del c, got, act
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_turns(phase: str, turns, parent: dict, commit: str, device,
                  plain: bool) -> list:
     """The kernels of ``turns`` ((kernel, compare_kernels case name)) in
@@ -1139,30 +1260,38 @@ def kernel_turns(phase: str, turns, parent: dict, commit: str, device,
     return out
 
 
-def gemm_phase(peaks, device, parent=None) -> list:
+def gemm_phase(peaks, device, parent=None, dw_parent=None) -> list:
     """The bf16 layer GEMM alone at ``GEMM_CASES`` (``gemm_cases``; with
     ``GEMM_COMMIT``'s copy, ``gemm_sources``, bit-equal to it and in turns
     with it), then the wide kernels of ``GEMM_KERNEL_TURNS`` in turns with
-    that commit's, outputs bit-equal. ``parent``: the sources to time
-    against (default ``gemm_sources()``; another version's ``wide_gemm``
-    harness alone times the GEMM alone). Returns the records."""
+    that commit's, outputs bit-equal, then the bf16 dW GEMM alone at
+    ``DW_CASES`` (``dw_cases``; with ``DW_COMMIT``'s copy, ``dw_sources``,
+    bit-equal to it and in turns with it). ``parent`` / ``dw_parent``: the
+    sources to time against (default ``gemm_sources()`` /
+    ``dw_sources()``; another version's ``wide_gemm`` harness alone times
+    the GEMM alone). Returns the dW records."""
     import torch
 
     parent = parent or gemm_sources() or {}
-    out = gemm_cases("wide_gemm", GEMM_CASES, torch.bfloat16, peaks[0],
-                     peaks[2], device, parent.get("wide_gemm"))
-    return out + kernel_turns("wide_gemm", GEMM_KERNEL_TURNS, parent,
-                              GEMM_COMMIT, device, plain=False)
+    dw_parent = dw_parent if dw_parent is not None else (dw_sources() or {})
+    gemm_cases("wide_gemm", GEMM_CASES, torch.bfloat16, peaks[0], peaks[2],
+               device, parent.get("wide_gemm"))
+    kernel_turns("wide_gemm", GEMM_KERNEL_TURNS, parent, GEMM_COMMIT, device,
+                 plain=False)
+    return dw_cases("wide_gemm", torch.bfloat16, peaks[0], peaks[2], device,
+                    dw_parent.get("wide_dw"))
 
 
-def f32_gemm_phase(peaks, device, parent=None) -> list:
+def f32_gemm_phase(peaks, device, parent=None, dw_parent=None) -> list:
     """The f32 layer GEMM alone at ``F32_GEMM_CASES`` (``gemm_cases``, the
     f32 bound at ``f32_peak``, f32 ``torch.matmul`` beside it), then the
     ptxas lines of its instantiations in every source's build (none may
     spill); with ``F32_GEMM_COMMIT``'s copy (``f32_gemm_sources``) the
     GEMM in turns with that commit's ``mma.sync`` one (bit-equality
     recorded) and the kernels of ``F32_GEMM_KERNEL_TURNS`` in turns with
-    that commit's, each in the f32 band of its plain version. Returns the
+    that commit's, each in the f32 band of its plain version; then the f32
+    dW GEMM alone at ``DW_CASES`` (``dw_cases``; with ``DW_COMMIT``'s copy,
+    ``dw_sources``, bit-equal to it and in turns with it). Returns the
     records."""
     import torch
 
@@ -1178,8 +1307,11 @@ def f32_gemm_phase(peaks, device, parent=None) -> list:
     if any(bad.values()) or [] in ptxas.values():
         raise AssertionError("wide_f32: the f32 GEMM spills, is serialized "
                              f"or was not built: {bad}")
-    return out + kernel_turns("wide_f32", F32_GEMM_KERNEL_TURNS, parent,
-                              F32_GEMM_COMMIT, device, plain=True)
+    out += kernel_turns("wide_f32", F32_GEMM_KERNEL_TURNS, parent,
+                        F32_GEMM_COMMIT, device, plain=True)
+    dw_parent = dw_parent if dw_parent is not None else (dw_sources() or {})
+    return out + dw_cases("wide_f32", torch.float32, f32_peak(peaks),
+                          peaks[2], device, dw_parent.get("wide_dw"))
 
 
 def matmul_ms(cfg, R: int, device, timing=TIMING) -> float:
@@ -2098,15 +2230,16 @@ def wide_f32_kernels(peaks, device) -> dict:
     run zero-padded at 288 and 416 / 224), each with its
     ``padded_zero_check``. Every case is held to the plain version with
     f64 products (``reference``) and records the f32 plain version's error
-    against it. Returns the W=1024 cases by kernel and the padding checks'
-    launches."""
+    against it. Returns the W=1024 cases by kernel (and under "dw" the f32
+    dW GEMM's cases by name) and the padding checks' launches."""
     import torch
 
     from nerf_or_nothing_tpu_torch.config import Config
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("wide_f32: the yardstick needs TF32 off")
-    f32_gemm_phase(peaks, device)
+    dw = {r["case"]: r for r in f32_gemm_phase(peaks, device)
+          if r.get("kernel") == "wide_dw_f32_kernel"}
     out = {}
 
     def yardstick(res, ms):
@@ -2164,6 +2297,7 @@ def wide_f32_kernels(peaks, device) -> dict:
                      phase="wide_f32")
         launches = added(launches, padded_zero_check(tag, cfg, 1024, device,
                                                      "wide_f32"))
+    out["dw"] = dw
     return out, launches
 
 
@@ -4190,12 +4324,13 @@ def main() -> int:
                   "f32_flops": f32_peak(peaks)},
     })
     t0 = time.perf_counter()
-    sources = (*build.SOURCES, "wide_gemm", "wide_gemm_f32")
+    sources = (*build.SOURCES, "wide_gemm", "wide_gemm_f32", "wide_dw")
     old = mma_sources() or {}
     parent = gemm_sources() or {}
     f32_parent = f32_gemm_sources() or {}
+    dw_parent = dw_sources() or {}
     others = (list(old.items()) + list(parent.items())
-              + list(f32_parent.items()))
+              + list(f32_parent.items()) + list(dw_parent.items()))
     build.build_all(sources, others)
     seconds = time.perf_counter() - t0
     for src in [build.source_path(n) for n in sources] + [s for _, s in others]:
@@ -4226,7 +4361,7 @@ def main() -> int:
                     peaks, device, seed=3)
 
     turns_phase(device)
-    gemm_phase(peaks, device, parent)
+    dw_bf16 = gemm_phase(peaks, device, parent, dw_parent)
 
     launches = main_path(peaks, device)
 
@@ -4368,6 +4503,19 @@ def main() -> int:
                 "bound_by")}
             for case in deep_cases
             if name in DEEP_ENTRY and case.endswith(DEEP_ENTRY[name])}}
+        if name in ("train_level", "train_level_twopass", "mlp_bwd"):
+            # the dW GEMMs alone at W = 1024 (DW_CASES); each wide launch of
+            # the kernel runs them
+            keys = ("kernel", "case", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "new_tflops",
+                    "old_ms", "speedup")
+            out["dw"] = {
+                "source": "nerf_or_nothing_tpu_torch/csrc/wide_dw.cuh",
+                "launches": (wide_launches.get(name, 0)
+                             + wide_f32_launches[name]),
+                "bf16": {k: dw_bf16[0].get(k) for k in keys},
+                "f32": {k: wide_f32_cases["dw"]["dw_w1024"].get(k)
+                        for k in keys}}
         out["padded"] = {"launches": padded_launches[name], **{
             dtype: {k: padded_cases[(name, dtype)][k] for k in (
                 "case", "max_abs_err", "ms", "plain_ms", "bound_ms",

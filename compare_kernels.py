@@ -39,8 +39,8 @@ R=1024 x S=128 mode "t" (a train step's level), R=777 with Multicam's
 loss weights (1/4/16/64, every seventh ray masked), f32 R=1024 x S=128,
 and both dtypes at net_width 1024 (the wide route) R=1024 x S=128;
 mlp_bwd bf16 R=1024 x S=128 with input_grads (level 1 of the slice
-config) and without (level 0), f32 with input_grads, also at net_width
-1024; and render_level / mlp_fwd at net_width 1024, bf16 R=16384 and f32
+config) and without (level 0), f32 with input_grads, and both dtypes
+with input_grads at net_width 1024; and render_level / mlp_fwd at net_width 1024, bf16 R=16384 and f32
 R=4096 (``chip_smoke.WIDE_F32_RAYS``).
 Prints one JSON line per build and case; a source's name is its file name
 without the suffix. With ``--profile``, each case also gives every
@@ -77,8 +77,10 @@ the checkout's too), and the f32 GEMM at ``chip_smoke.F32_GEMM_CASES``
 (``chip_smoke.f32_gemm_phase``: ``csrc/wide_gemm_f32.cu``; default
 ``chip_smoke.f32_gemm_sources()``, ``F32_GEMM_COMMIT``'s ``mma.sync``
 GEMM and its ``render_level``, bit-equality recorded), with the ptxas
-lines of every build's f32 instantiations. A path times the GEMM its
-file name names.
+lines of every build's f32 instantiations, and the dW GEMMs alone in both
+dtypes (``chip_smoke.dw_cases``: ``csrc/wide_dw.cu`` beside
+``chip_smoke.dw_sources()``, the ``csrc/`` of ``chip_smoke.DW_COMMIT``),
+bit-equal, in turns. A path times the GEMM its file name names.
 
 ``--digest`` writes the SHA-256 of every output of the five kernels and of
 every packed weight tensor (``pack_forward``, ``pack_train_level``,
@@ -149,7 +151,9 @@ def cases(kernel: str):
                 ("bf16_r1024_s128", Config(), 1024, "t", False, False),
                 ("f32_r1024_s128_dx", f32, 1024, "t", True, False),
                 ("f32_w1024_r1024_s128_dx", f32.replace(net_width=1024),
-                 1024, "t", True, False)]
+                 1024, "t", True, False),
+                ("bf16_w1024_r1024_s128_dx", Config(net_width=1024), 1024,
+                 "t", True, False)]
     if kernel in TRAIN:
         return [("bf16_r1024_s128_t", Config(), 1024, "t", True, False),
                 ("bf16_r777_s128_t_multicam", Config(), 777, "t", False,
@@ -532,13 +536,16 @@ def main(argv) -> int:
                 runs.append((sources() or {}, phase))
             elif given.stem == harness:
                 runs.append(({harness: str(given)}, phase))
-        build.build_all([*build.SOURCES, "wide_gemm", "wide_gemm_f32"],
-                        [kv for parent, _ in runs for kv in parent.items()])
+        dw_parent = cs.dw_sources() or {}
+        build.build_all([*build.SOURCES, "wide_gemm", "wide_gemm_f32",
+                         "wide_dw"],
+                        [kv for parent, _ in runs for kv in parent.items()]
+                        + list(dw_parent.items()))
         print(cs.nvidia_smi_line(), flush=True)
         _, peaks = card_peaks(torch.cuda.get_device_name(0))
         torch.backends.cuda.matmul.allow_tf32 = False
         for parent, phase in runs:
-            phase(peaks, torch.device("cuda"), parent)
+            phase(peaks, torch.device("cuda"), parent, dw_parent)
         return 0
     from nerf_or_nothing_tpu_torch.kernels import build
 

@@ -9,8 +9,8 @@
 // are the bf16 route's; the f32 route (launch_train_wide<WideF32Route>,
 // launch_wide_backward_f32 at the end) runs the same sequence with
 // wide_f32.cuh's GEMM for every forward and chain product, f32
-// activations and masked g, and level_backward.cuh's f32 dW GEMM
-// (dw_gemm_f32_kernel, db as its column sums) in place of passes 5-6.
+// activations and masked g, and wide_dw.cuh's f32 dW GEMM
+// (wide_dw_f32_kernel, db as its column sums) in place of passes 5-6.
 //
 // Replaces, at these widths: nerf_or_nothing_tpu/kernels/fused_level.py::
 // _level_kernel and _level_kernel_twopass (the same launches: their order
@@ -39,10 +39,11 @@
 //  5. wide_db_kernel: every bias's db as column sums of the masked g (and
 //     of the f32 head cotangents) over fixed chunks of rows, one partial
 //     row a chunk;
-//  6. wide_dw_kernel<BN>, one launch per product: dW = act^T g over the
-//     backward's fixed split of the rows, both operands MN-major on wgmma
-//     (dw_wg_kernel's design, with the output columns in blocks of at most
-//     256);
+//  6. wide_dw.cuh's launch_wide_dw: dW = act^T g of every product over
+//     the backward's fixed split of the rows, both operands MN-major on
+//     wgmma, in one launch of the persistent wide_dw_kernel<BN> for each
+//     column block (BN = 256 where it divides the product's columns, else
+//     128) from a job table;
 //  7. launch_small_reduce (level_backward.cuh): the heads' dW, the view
 //     layer's direction rows, db from the partial rows, then every split
 //     partial summed in a fixed order.
@@ -55,6 +56,7 @@
 #pragma once
 
 #include "train_wg.cuh"
+#include "wide_dw.cuh"
 #include "wide_f32.cuh"
 #include "wide_forward.cuh"
 
@@ -166,110 +168,6 @@ __global__ void wide_db_kernel(Params p, const bf16* grads, const float* g_rgb,
   dbpart[(long long)blockIdx.y * nb + col] = s;
 }
 
-// ---- dW = A^T B over the rows, output columns in blocks of BN ----
-struct WideDw {
-  const bf16* A;      // [K, lda], columns [0, M) are the output rows
-  const bf16* B;      // [K, ldb], columns [0, Nn) are the output columns
-  int lda, M, ldb, Nn, out_ld;
-  long long out_off;  // the dW block [M, Nn] (row stride out_ld) in the flat output
-  float* part;        // [splits, n_out]
-  long long n_out;
-  int splits, K;
-};
-
-template <int BN>
-__host__ __device__ constexpr int wide_dw_stage_bytes() {
-  return (2 + BN / 64) * kTileSlab;
-}
-
-// Block (blockIdx.x, y, z): output rows m0 .. m0 + 127 (two warpgroups of
-// m64) by columns n0 .. n0 + BN - 1, over split z of the rows: stages of 64
-// rows of A [:, m0 : m0 + 128] and B [:, n0 : n0 + BN] copied as stored
-// (cp.async, four stages, two in flight) into swizzled tiles whose rows
-// are K, multiplied as MN-major operands (dw_wg_kernel's stages).
-template <int BN>
-__global__ void __launch_bounds__(kDwThreads, 1) wide_dw_kernel(WideDw js) {
-  extern __shared__ __align__(1024) unsigned char smem_dw[];
-  unsigned char* base = align1024(smem_dw);
-  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * BN, split = blockIdx.z;
-  const long long chunk = split_rows(js.K, js.splits);
-  const long long k_lo = split * chunk;
-  const long long k_hi = min((long long)js.K, k_lo + chunk);
-  const int nk = k_hi > k_lo ? (int)((k_hi - k_lo + kDwRows - 1) / kDwRows) : 0;
-  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
-  auto stage = [&](int kt) { return base + (kt % kDwStages) * wide_dw_stage_bytes<BN>(); };
-  auto load = [&](int kt) {
-    if (kt < nk) {
-      unsigned char* As = stage(kt);
-      unsigned char* Bs = As + 2 * kTileSlab;
-      const long long k0 = k_lo + (long long)kt * kDwRows;
-      for (int idx = threadIdx.x; idx < kDwRows * 16; idx += kDwThreads) {
-        const int r = idx >> 4, c = idx & 15;
-        const bool v = k0 + r < k_hi && m0 + c * 8 < js.lda;
-        cp_async16(As + (c >> 3) * kTileSlab + r * kSlabBytes + (((c & 7) ^ (r & 7)) << 4),
-                   v ? js.A + (k0 + r) * js.lda + m0 + c * 8 : js.A, v);
-      }
-      constexpr int CB = BN / 8;
-      for (int idx = threadIdx.x; idx < kDwRows * CB; idx += kDwThreads) {
-        const int r = idx / CB, c = idx - r * CB;
-        const bool v = k0 + r < k_hi && n0 + c * 8 < js.Nn;
-        cp_async16(Bs + (c >> 3) * kTileSlab + r * kSlabBytes + (((c & 7) ^ (r & 7)) << 4),
-                   v ? js.B + (k0 + r) * js.ldb + n0 + c * 8 : js.B, v);
-      }
-    }
-    cp_async_commit();
-  };
-  float acc[BN / 2];
-  zero_acc<BN>(acc);
-  load(0);
-  load(1);
-  for (int kt = 0; kt < nk; ++kt) {
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    fence_proxy_async();
-    __syncthreads();  // stage kt is in; both warpgroups' products of kt - 2 are done
-    const uint32_t a = opaque(smem_u32(stage(kt)) + wg * kTileSlab);
-    const uint32_t b = opaque(smem_u32(stage(kt)) + 2 * kTileSlab);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_mn<BN>(acc, sdesc_mn(a + kk * 16 * kSlabBytes), sdesc_mn(b + kk * 16 * kSlabBytes),
-                   1);
-    wgmma_commit();
-    wgmma_wait<1>();
-    load(kt + 2);
-  }
-  wgmma_wait<0>();
-  fence_acc<BN / 2>(acc);
-  float* part = js.part + split * js.n_out + js.out_off;
-  const int row0 = m0 + wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2), qd = t & 3;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int n = n0 + 8 * j + 2 * qd;
-    if (n >= js.Nn) continue;
-    if (row0 < js.M)
-      *reinterpret_cast<float2*>(part + (long long)row0 * js.out_ld + n) =
-          make_float2(acc[4 * j], acc[4 * j + 1]);
-    if (row0 + 8 < js.M)
-      *reinterpret_cast<float2*>(part + (long long)(row0 + 8) * js.out_ld + n) =
-          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-}
-
-template <int BN>
-inline cudaError_t launch_wide_dw_bn(const WideDw& js, cudaStream_t st) {
-  constexpr int smem = kDwStages * wide_dw_stage_bytes<BN>() + 1024;
-  cudaError_t err =
-      cudaFuncSetAttribute(wide_dw_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  wide_dw_kernel<BN><<<dim3(cdiv(js.M, 128), cdiv(js.Nn, BN), js.splits), kDwThreads, smem,
-                       st>>>(js);
-  return cudaGetLastError();
-}
-
-inline cudaError_t launch_wide_dw(const WideDw& js, cudaStream_t st) {
-  return js.Nn % 256 == 0 ? launch_wide_dw_bn<256>(js, st) : launch_wide_dw_bn<128>(js, st);
-}
-
 // Passes 3-7 above from the head cotangents e.g_rgb [N, Cr] and e.g_den
 // [N, Cd] (kCr: 3, the train level's, or 0, any), on the activations and
 // features in the workspace (l; the direction terms and db partials in
@@ -285,7 +183,6 @@ inline cudaError_t launch_wide_backward(Params p, Extra e, const Layout& l,
   const bf16* wt = static_cast<const bf16*>(e.wt);
   bf16* acts = static_cast<bf16*>(e.acts);
   bf16* grads = static_cast<bf16*>(e.grads);
-  bf16* xs = static_cast<bf16*>(e.xs);
   float* dbpart = reinterpret_cast<float*>(ws + x.dbpart);
   auto act = [&](int L) { return acts + act_off(p, N, L); };
   auto grad = [&](int L) { return grads + act_off(p, N, L); };
@@ -337,34 +234,9 @@ inline cudaError_t launch_wide_backward(Params p, Extra e, const Layout& l,
   wide_db_kernel<<<dim3(cdiv(num_biases(p), 256), (unsigned)db_blocks), 256, 0, st>>>(
       p, grads, e.g_rgb, e.g_den, dbpart, N, chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // 6. dW of every layer product
-  std::vector<long long> w_off, b_off;
-  output_offsets(p, w_off, b_off);
-  auto dw = [&](const bf16* A, int lda, int M, const bf16* B, int ldb, int Nn,
-                long long out_off, int out_ld) {
-    WideDw js;
-    js.A = A; js.B = B; js.lda = lda; js.M = M; js.ldb = ldb; js.Nn = Nn;
-    js.out_ld = out_ld; js.out_off = out_off;
-    js.part = reinterpret_cast<float*>(ws + l.part); js.n_out = n_out;
-    js.splits = splits; js.K = (int)N;
-    return launch_wide_dw(js, st);
-  };
-  for (int i = 0; i < p.D; ++i) {
-    if (i == 0) {
-      err = dw(xs, p.KX, p.LX, grad(0), p.W, p.W, w_off[0], p.W);
-    } else {
-      err = dw(h(i - 1), p.W, p.W, grad(i), p.W, p.W, w_off[i], p.W);
-      if (err == cudaSuccess && i % p.skip == 0)
-        err = dw(xs, p.KX, p.LX, grad(i), p.W, p.W, w_off[i] + (long long)p.W * p.W, p.W);
-    }
-    if (err != cudaSuccess) return err;
-  }
-  for (int j = 0; j < p.Dc; ++j) {
-    const int fan_in = j == 0 ? p.W : p.Wc;
-    err = dw(j == 0 ? h(p.D - 1) : v(j - 1), fan_in, fan_in, grad(p.D + j), p.Wc, p.Wc,
-             w_off[p.D + 1 + j], p.Wc);
-    if (err != cudaSuccess) return err;
-  }
+  // 6. dW of every layer product (wide_dw.cuh)
+  err = launch_wide_dw(p, e, false, reinterpret_cast<float*>(ws + l.part), n_out, splits, st);
+  if (err != cudaSuccess) return err;
   // 7. small products, db from the partial rows, the reduction
   return launch_small_reduce<bf16>(p, e, l, ws, out, n_out, splits, dbpart, (int)db_blocks,
                                    st);
@@ -378,9 +250,10 @@ inline cudaError_t launch_wide_backward(Params p, Extra e, const Layout& l,
 // layer, top layer first, g @ W^T from pack_params_wft's hi / lo slabs
 // (e.wt, at wt_off) with the density term on the way into the trunk (the
 // heads' W^T from p.w: pack_params' transposed head rows); g_ray_f32_kernel; then
-// level_backward.cuh's launch_products<float> as the narrow f32 route runs
-// it (dw_gemm_f32_kernel: dW over the rows with db as column sums of g in
-// the same pass, the small products, the fixed-order reduction).
+// wide_dw.cuh's launch_wide_dw (wide_dw_f32_kernel: dW over the rows with
+// db as column sums of g in the same pass) and level_backward.cuh's
+// launch_small_reduce<float> (the small products, the fixed-order
+// reduction), as the narrow f32 route's launch_products runs them.
 inline cudaError_t launch_wide_backward_f32(Params p, Extra e, const Layout& l,
                                             unsigned char* ws, float* out, long long n_out,
                                             int splits, cudaStream_t st) {
@@ -419,7 +292,9 @@ inline cudaError_t launch_wide_backward_f32(Params p, Extra e, const Layout& l,
     g_ray_f32_kernel<<<p.R, n, 0, st>>>(grad(p.D) + n0, e.g_ray + n0, p.S, p.Wc);
   });
   if (err != cudaSuccess) return err;
-  return launch_products<float>(p, e, l, ws, out, n_out, splits, nullptr, 0, st);
+  err = launch_wide_dw(p, e, true, reinterpret_cast<float*>(ws + l.part), n_out, splits, st);
+  if (err != cudaSuccess) return err;
+  return launch_small_reduce<float>(p, e, l, ws, out, n_out, splits, nullptr, 0, st);
 }
 
 // Pass 1 of the train level and of mlp_bwd on route r (WideBf16Route,

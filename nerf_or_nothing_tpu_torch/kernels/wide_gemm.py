@@ -18,7 +18,14 @@ slabs of 32 k-values split into TF32 hi / lo, ``fused_level.tf32_pair``,
 and row-major for the earlier f32 version); ``wide_gemm_plain`` computes
 the same product and epilogue in PyTorch (bf16: f32 sums in another order,
 the bf16 band, not the bits; f32: f64 products rounded to f32, the f32
-band). Nothing here runs at import time.
+band). The wide routes' dW GEMMs likewise (``csrc/wide_dw.cuh``:
+``wide_dw_kernel<BN>`` in bf16, ``wide_dw_f32_kernel`` in f32 with db):
+``dw_case`` makes seeded activations and masked g the way the wide route
+lays them out, ``wide_dw_plain`` / ``wide_dw_f32_plain`` compute dW (f32:
+and db) over the train level's row splits, ``wide_dw_cuda`` /
+``wide_dw_f32_cuda`` launch one product through ``csrc/wide_dw.cu``, and
+``dw_products`` / ``dw_items`` model the kernels' job table and work
+items. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -29,11 +36,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from nerf_or_nothing_tpu_torch.config import Config
 from nerf_or_nothing_tpu_torch.kernels.fused_level import (
     F32_SLAB_K,
     WG_SLAB_K,
     _wg_slabs,
     tf32_pair,
+    train_splits,
 )
 
 KINDS = {"fwd": 0, "chain": 1, "chain_heads": 2, "dx": 3}
@@ -299,3 +308,240 @@ def wide_gemm_f32_cuda(c: Dict, source=None) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"wide_gemm_f32_launch failed with CUDA error {rc}")
     return out
+
+
+# ---- the dW GEMMs (csrc/wide_dw.cuh) ----
+
+DW_ROWS = 32            # a split's rows are a multiple of these (split_rows)
+DW_STAGE_ROWS = 64      # rows of a bf16 stage: two TMA boxes of DW_ROWS
+DW_MAX_JOBS = 48        # products a launch (kDwMaxJobs)
+DW_F32_STAGES = 3
+DW_F32_PART = 128 * 32 * 4  # A, raw B, B hi or B lo of an f32 stage
+
+
+def split_rows(K: int, splits: int) -> int:
+    """Rows of each split of K rows (``level_backward.cuh::split_rows``):
+    ceil(K / splits) rounded up to ``DW_ROWS``; the last splits may be
+    short or empty."""
+    return (-(-K // splits) + DW_ROWS - 1) // DW_ROWS * DW_ROWS
+
+
+def split_bounds(K: int, splits: int):
+    """[(k_lo, k_hi)] of each split (k_hi <= k_lo: empty)."""
+    chunk = split_rows(K, splits)
+    return [(s * chunk, min(K, (s + 1) * chunk)) for s in range(splits)]
+
+
+def dw_bn(Nn: int) -> int:
+    """The bf16 dW GEMM's column block: 256 where it divides the product's
+    columns, else 128 (the f32 one: 128 always)."""
+    return 256 if Nn % 256 == 0 else 128
+
+
+def dw_stage_bytes(bn: int) -> int:
+    """A bf16 stage: A's two slabs of 64 rows x 64 columns, B's bn / 64."""
+    return (2 + bn // 64) * 64 * 128
+
+
+def dw_stages(bn: int) -> int:
+    """Stages of the bf16 ring (``dw_stages``): 4 at 256 columns, 6 at
+    128."""
+    n = (SMEM_LIMIT - 1024 - 16 * MAX_STAGES) // dw_stage_bytes(bn)
+    return min(n, MAX_STAGES)
+
+
+def dw_smem_bytes(bn: int) -> int:
+    """Dynamic shared memory of a bf16 dW block (``dw_smem``)."""
+    return 1024 + dw_stages(bn) * dw_stage_bytes(bn) + 16 * dw_stages(bn)
+
+
+def dw_f32_smem_bytes() -> int:
+    """Dynamic shared memory of an f32 dW block (``kDwF32Smem``): 3 stages
+    of A, raw B, B hi and B lo, three barriers a stage."""
+    return 1024 + DW_F32_STAGES * (4 * DW_F32_PART + 24)
+
+
+def dw_products(cfg: Config):
+    """A level's dW products at the kernel widths of ``cfg`` as
+    ``csrc/wide_dw.cuh::dw_products`` lists them (launch_dw's order):
+    (A operand, its layer, M, B operand, its layer, Nn, db) with operands
+    "acts" (trunk activations), "view_acts", "x" (the features, LX
+    columns), "grads", "view_grads"; db: the product carries its layer's
+    bias (the f32 kernel's column sums)."""
+    D, Dc, skip = cfg.net_depth, cfg.net_depth_condition, cfg.skip_layer
+    W, Wc, LX = cfg.net_width, cfg.net_width_condition, cfg.location_features
+    out = []
+    for i in range(D):
+        if i == 0:
+            out.append(("x", 0, LX, "grads", 0, W, True))
+        else:
+            out.append(("acts", i - 1, W, "grads", i, W, True))
+            if i % skip == 0:
+                out.append(("x", 0, LX, "grads", i, W, False))
+    for j in range(Dc):
+        if j == 0:
+            out.append(("acts", D - 1, W, "view_grads", 0, Wc, True))
+        else:
+            out.append(("view_acts", j - 1, Wc, "view_grads", j, Wc, True))
+    return out
+
+
+def dw_launch_groups(products, f32: bool):
+    """The launches of a level's products: (column block, products), the
+    bf16 products whose columns 256 divides first, kDwMaxJobs a launch."""
+    groups = [(128, list(products))] if f32 else [
+        (256, [p for p in products if dw_bn(p[5]) == 256]),
+        (128, [p for p in products if dw_bn(p[5]) == 128])]
+    return [(bn, ps[j:j + DW_MAX_JOBS]) for bn, ps in groups
+            for j in range(0, len(ps), DW_MAX_JOBS)]
+
+
+def dw_items(products, bn: int, splits: int):
+    """The work items of one launch in the kernel's order (``dw_tile``:
+    split-major, a split's tiles job by job, row blocks fastest) as
+    (job, row origin, column origin, split)."""
+    tiles = []
+    for jn, p in enumerate(products):
+        tm, tn = -(-p[2] // BLOCK_ROWS), -(-p[5] // bn)
+        tiles += [(jn, (t % tm) * BLOCK_ROWS, (t // tm) * bn)
+                  for t in range(tm * tn)]
+    return [(jn, m0, n0, s) for s in range(splits) for jn, m0, n0 in tiles]
+
+
+def dw_box_rows(k_lo: int, k_hi: int, K: int):
+    """The row of each 32-row TMA box the bf16 producer loads for the split
+    [k_lo, k_hi) of K rows (``wide_dw_kernel``): two a 64-row stage; a box
+    past the split's end at row K, which the map reads as zeros."""
+    rows = []
+    for k0 in range(k_lo, k_hi, DW_STAGE_ROWS):
+        rows += [k0 + h * DW_ROWS if k0 + h * DW_ROWS < k_hi else K
+                 for h in range(2)]
+    return rows
+
+
+def dw_case(M: int, Nn: int, K: int, lda: Optional[int] = None,
+            splits: Optional[int] = None, seed: int = 0, device="cpu",
+            dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """Seeded operands of one dW product as the wide route lays them out:
+    act [K, lda] a layer's activations after ReLU (about half zero; its
+    columns [0, M) the output rows; the features' x rows have lda = KX
+    above M = LX), g [K, Nn] its masked g (zero where the layer's own
+    activation is not > 0, about half), in ``dtype``; ``splits``
+    defaults to ``fused_level.train_splits(K)``."""
+    rng = np.random.default_rng(seed)
+    lda = M if lda is None else lda
+    a = np.maximum(rng.standard_normal((K, lda)).astype(np.float32), 0.0)
+    g = (rng.standard_normal((K, Nn)).astype(np.float32) * 1e-2
+         * (rng.random((K, Nn)) > 0.5))
+    to = lambda x: torch.from_numpy(x).to(dtype).to(device)  # noqa: E731
+    return {"M": M, "Nn": Nn, "K": K, "lda": lda, "act": to(a), "g": to(g),
+            "splits": train_splits(K) if splits is None else splits}
+
+
+def _split_parts(c: Dict, f64: bool):
+    """Each split's act^T g (f32 sums, or f64 rounded to f32) and column
+    sums of g."""
+    act, g = c["act"][:, :c["M"]], c["g"]
+    dt = torch.float64 if f64 else torch.float32
+    for k_lo, k_hi in split_bounds(c["K"], c["splits"]):
+        if k_hi <= k_lo:
+            yield (torch.zeros(c["M"], c["Nn"], device=g.device),
+                   torch.zeros(c["Nn"], device=g.device))
+            continue
+        a, b = act[k_lo:k_hi].to(dt), g[k_lo:k_hi].to(dt)
+        yield (a.t() @ b).float(), b.sum(0).float()
+
+
+def wide_dw_plain(c: Dict) -> torch.Tensor:
+    """dW [M, Nn] of a bf16 case: each split's f32 sums of the bf16
+    products, the partials added in split order (the bf16 band, not the
+    kernel's bits)."""
+    out = torch.zeros(c["M"], c["Nn"], device=c["g"].device)
+    for part, _ in _split_parts(c, False):
+        out = out + part
+    return out
+
+
+def wide_dw_f32_plain(c: Dict):
+    """(dW [M, Nn], db [Nn]) of an f32 case: each split's products and
+    column sums in f64 rounded to f32, the partials added in f32 in split
+    order (the f32 band)."""
+    dw = torch.zeros(c["M"], c["Nn"], device=c["g"].device)
+    db = torch.zeros(c["Nn"], device=c["g"].device)
+    for part, col in _split_parts(c, True):
+        dw, db = dw + part, db + col
+    return dw, db
+
+
+def dw_flops(c: Dict) -> int:
+    """FLOP of the case's product (2 M Nn K)."""
+    return 2 * c["M"] * c["Nn"] * c["K"]
+
+
+def dw_min_bytes(c: Dict) -> int:
+    """Bytes the case must move: act's M columns and g read once, each
+    split's partial (f32: and its db row) written once."""
+    es = c["g"].element_size()
+    out = c["M"] * c["Nn"] + (c["Nn"] if c["g"].dtype == torch.float32
+                              else 0)
+    return c["K"] * (c["M"] + c["Nn"]) * es + c["splits"] * out * 4
+
+
+def _dw_library(source=None):
+    from nerf_or_nothing_tpu_torch.kernels import build
+
+    fn = build.load("wide_dw", source).wide_dw_launch
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [i, p, i, i, p, i, i, i, i, p, ll, ll, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def wide_dw_partials(c: Dict, source=None) -> torch.Tensor:
+    """One launch of the case's dW GEMM on the card through
+    ``wide_dw_launch`` (of ``source``'s build when given): each split's
+    partial, [splits, M * Nn] (f32: and its Nn column sums after). The
+    operands must lie on a CUDA device."""
+    act, g = c["act"], c["g"]
+    if not (act.is_cuda and g.is_cuda):
+        raise ValueError("the dW GEMMs need CUDA tensors")
+    M, Nn, K = c["M"], c["Nn"], c["K"]
+    if (act.dtype != g.dtype or g.dtype not in (torch.bfloat16, torch.float32)
+            or not (act.is_contiguous() and g.is_contiguous())
+            or act.shape != (K, c["lda"]) or g.shape != (K, Nn)
+            or not 0 < M <= c["lda"]):
+        raise ValueError("dW case: act [K, lda] and g [K, Nn], contiguous, "
+                         "both bf16 or both f32, M <= lda")
+    f32 = g.dtype == torch.float32
+    n_out = M * Nn + (Nn if f32 else 0)
+    part = torch.empty(c["splits"], n_out, device=g.device)
+    rc = _dw_library(source)(
+        int(f32), act.data_ptr(), c["lda"], M, g.data_ptr(), Nn, Nn, K,
+        c["splits"], part.data_ptr(), n_out, M * Nn if f32 else -1,
+        torch.cuda.current_stream(g.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wide_dw_launch failed with CUDA error {rc}")
+    return part
+
+
+def _reduce(part: torch.Tensor) -> torch.Tensor:
+    """The partials summed in split order (``reduce_kernel``'s)."""
+    out = torch.zeros_like(part[0])
+    for p in part:
+        out = out + p
+    return out
+
+
+def wide_dw_cuda(c: Dict, source=None) -> torch.Tensor:
+    """dW [M, Nn] of a bf16 case on the card: ``wide_dw_partials`` summed
+    in split order."""
+    return _reduce(wide_dw_partials(c, source)).view(c["M"], c["Nn"])
+
+
+def wide_dw_f32_cuda(c: Dict, source=None):
+    """(dW [M, Nn], db [Nn]) of an f32 case on the card:
+    ``wide_dw_partials`` summed in split order."""
+    out = _reduce(wide_dw_partials(c, source))
+    n = c["M"] * c["Nn"]
+    return out[:n].view(c["M"], c["Nn"]), out[n:]

@@ -57,10 +57,10 @@ WIDE_TRAIN = WIDE_FWD + ("wide_rgb_chain_kernel", "wide_db_kernel",
                          "wide_dw_kernel")
 # the f32 wide route's (csrc/wide_f32.cuh): its layer GEMM and small
 # kernels (the features and direction kernels are WIDE_FWD's, instantiated
-# in f32), dW on the narrow f32 route's GEMM
+# in f32), dW and db on csrc/wide_dw.cuh's f32 GEMM
 WIDE_F32_FWD = ("wide_gemm_f32_kernel", "wide_head_f32_kernel")
 WIDE_F32_TRAIN = WIDE_F32_FWD + ("wide_rgb_chain_f32_kernel",
-                                 "g_ray_f32_kernel", "dw_gemm_f32_kernel")
+                                 "g_ray_f32_kernel", "wide_dw_f32_kernel")
 KERNELS = {
     "train_level": TRAIN_WG + WIDE_TRAIN + WIDE_F32_TRAIN,
     "train_level_twopass": TRAIN_WG + WIDE_TRAIN + WIDE_F32_TRAIN,

@@ -2076,3 +2076,51 @@ def test_wide_gemm_f32_matches_plain_on_cuda(name, kind, M, N, K0, K1, kw):
     parent = smoke.f32_gemm_sources()
     if parent is not None:
         assert torch.equal(a, wg.wide_gemm_f32_cuda(c, parent["wide_gemm_f32"]))
+
+
+# The dW GEMMs of the wide routes alone (kernels/wide_gemm.py): (name, M,
+# Nn, K, lda, splits). W = 288 (a partial 128-column block), 1024 and
+# 2048, a view layer's 128 columns, the features' x rows (a partial row
+# block, lda = KX above M = LX), splits that end off a 64-row stage
+# (5000 rows in 3: 1,696 a split), empty splits (100 rows in 32).
+WIDE_DW_CASES = [
+    ("w288", 288, 288, 9000, None, None),
+    ("w1024", 1024, 1024, 1 << 15, None, None),
+    ("w2048", 2048, 2048, 8192, None, None),
+    ("view_128", 1024, 128, 4160, None, None),
+    ("x90", 90, 1024, 5000, 96, 3),
+    ("split_off_stage", 512, 256, 5000, None, 3),
+    ("empty_splits", 128, 256, 100, None, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name,M,Nn,K,lda,splits", WIDE_DW_CASES,
+                         ids=[c[0] for c in WIDE_DW_CASES])
+def test_wide_dw_matches_parent_and_plain_on_cuda(name, M, Nn, K, lda,
+                                                  splits, dtype):
+    """The redesigned dW GEMMs (``csrc/wide_dw.cuh``: ``wide_dw_kernel<BN>``,
+    ``wide_dw_f32_kernel`` with db) give the same bits over two launches
+    and the bits of the kernels they replaced (``chip_smoke.dw_sources``:
+    that commit's headers beside ``csrc/wide_dw.cu``), and lie in the
+    dtype's band of ``wide_dw_plain`` / ``wide_dw_f32_plain``."""
+    from nerf_or_nothing_tpu_torch.kernels import wide_gemm as wg
+
+    dev = cuda_device()
+    f32 = dtype == "float32"
+    c = wg.dw_case(M, Nn, K, lda=lda, splits=splits, seed=K + M, device=dev,
+                   dtype=getattr(torch, dtype))
+    run = wg.wide_dw_f32_cuda if f32 else wg.wide_dw_cuda
+    a, b = tensors(run(c)), tensors(run(c))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b)), name
+    ref = wg.wide_dw_f32_plain(c) if f32 else wg.wide_dw_plain(c)
+    check_close(a, ref, dtype, name)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as smoke
+
+    parent = smoke.dw_sources()
+    if parent is not None:
+        old = tensors(run(c, parent["wide_dw"]))
+        assert all(torch.equal(x, y) for x, y in zip(a, old)), name
