@@ -10,7 +10,7 @@ Phases, each printing one JSON line:
            the layer GEMM's harness csrc/wide_gemm.cu, the harness and
            render_level, mlp_fwd and train_level at commit 44ad1e5, the
            wide GEMM's parent (gemm_sources), the dW GEMMs' harness
-           csrc/wide_dw.cu and its copy beside commit 02b6fbf's headers
+           csrc/wide_dw.cu and its copy beside commit 78485df's headers
            (dw_sources), and the mma.sync versions of
            all five at commit 815018d (mma_sources), one process each,
            started together (ptxas register/spill lines);
@@ -39,16 +39,17 @@ Phases, each printing one JSON line:
            render_level (R=16384, mode "mv"), mlp_fwd (R=16384) and
            train_level (R=1024, mode "t") at Config(net_width=1024) in
            turns with 44ad1e5's, outputs bit-equal; then the bf16 dW GEMM
-           alone (csrc/wide_dw.cuh's wide_dw_kernel<BN>, DW_CASES: one
-           product over a train level's 2^17 rows at W = 1024, 288 and
-           2048) against its plain version, bit-equal over two launches
-           and to 02b6fbf's cp.async wide_dw_kernel (dw_sources) and timed
-           in turns with it, TFLOP/s, the bound, the plain version's time
-           and torch.matmul(act^T, g) beside each (dw_cases; the f32 dW
-           GEMM the same way in the wide_f32 phase, against 02b6fbf's
-           mma.sync dw_gemm_f32_kernel); the kernels line carries the W =
-           1024 cases of both under train_level, train_level_twopass and
-           mlp_bwd ("dw");
+           alone (csrc/wide_dw.cuh's wide_dw_kernel<BN>, with db, the
+           splits added in order in the kernel, DW_CASES: one product over
+           a train level's 2^17 rows at W = 1024, 288, 512 and 2048) against
+           its plain version, db bit-equal to wide_db_plain, bit-equal
+           over two launches, dW bit-equal to 78485df's split partials
+           summed in order (dw_sources) and timed in turns with that
+           kernel, TFLOP/s, the bound, the plain version's time and
+           torch.matmul(act^T, g) beside each (dw_cases; the f32 dW GEMM
+           the same way in the wide_f32 phase, db bit-equal to 78485df's
+           too); the kernels line carries the W = 1024 cases of both
+           under train_level, train_level_twopass and mlp_bwd ("dw");
   main     a synthetic 400x400 Blender scene and a seeded checkpoint at
            Config(), then the port's ``run.main(["eval", ...])`` and
            ``run.main(["render", ...])`` on the card; the kernel's launch
@@ -391,18 +392,19 @@ F32_GEMM_CASES = (
     ("f32_w288_fwd", "fwd", 1 << 18, 288, 288, 0, {}),
     ("f32_w2048_fwd", "fwd", 1 << 17, 2048, 2048, 0, {}),
 )
-# The wide routes' dW GEMMs before their Hopper redesign (wide_train.cuh's
-# cp.async wide_dw_kernel in bf16, level_backward.cuh's mma.sync
-# dw_gemm_f32_kernel in f32, of 02b6fbf), timed in turns with the
-# checkout's through csrc/wide_dw.cu: its commit and where the copy is
+# The wide routes' dW GEMMs before they added their splits in order
+# themselves (wide_dw.cuh's kernels of 78485df, each split's partial
+# written for reduce_kernel to sum, bf16 db apart), timed in turns with
+# the checkout's through csrc/wide_dw.cu: its commit and where the copy is
 # written (gitignored)
-DW_COMMIT = "02b6fbf"
-DW_DIR = ".local_runs/csrc_02b6fbf"
+DW_COMMIT = "78485df"
+DW_DIR = ".local_runs/csrc_78485df"
 # The dW GEMMs alone in the wide_gemm (bf16) and wide_f32 phases: (name,
 # M, Nn, K) of one product over a train level's 2^17 rows (32 splits)
 DW_CASES = (
     ("dw_w1024", 1024, 1024, 1 << 17),
     ("dw_w288", 288, 288, 1 << 17),
+    ("dw_w512", 512, 512, 1 << 17),
     ("dw_w2048", 2048, 2048, 1 << 17),
 )
 GEMM_TIMING = (3, 1)  # (timed, warm-up) calls of each version in a turn
@@ -1054,8 +1056,8 @@ def f32_gemm_sources():
 
 
 def dw_sources():
-    """``DW_COMMIT``'s ``csrc/`` (the dW GEMMs before their Hopper
-    redesign) with ``csrc/wide_dw.cu`` beside it: ``wide_dw``, or None."""
+    """``DW_COMMIT``'s ``csrc/`` (the dW GEMMs writing split partials) with
+    ``csrc/wide_dw.cu`` beside it: ``wide_dw``, or None."""
     return commit_sources(DW_COMMIT, DW_DIR, "wide_dw", [])
 
 
@@ -1139,33 +1141,39 @@ def gemm_cases(phase: str, cases, dtype, peak: float, bw: float, device,
 
 def dw_cases(phase: str, dtype, peak: float, bw: float, device,
              old=None) -> list:
-    """The dW GEMM of ``dtype`` alone (``kernels/wide_gemm.py``: bf16
-    ``wide_dw_cuda``, f32 ``wide_dw_f32_cuda`` with db) at ``DW_CASES``:
-    each product against its plain version in the dtype's band, bit-equal
-    over two launches and, with another version's harness ``old``, to that
-    version (which must hold) and timed in turns with it (old, new, new,
-    old; the kernel's launch alone, ``wide_dw_partials``, median of
+    """The dW GEMM of ``dtype`` alone (``kernels/wide_gemm.py``'s
+    ``wide_dw_cuda``, with db, the splits added in order in the kernel) at
+    ``DW_CASES``: each product against its
+    plain version in the dtype's band, db bit-equal to ``wide_db_plain``,
+    both bit-equal over two launches and, with another version's harness
+    ``old`` (whose kernel writes split partials), dW (and f32 db) bit-equal
+    to that version's partials summed in split order (which must hold) and
+    timed in turns with it (old, new, new, old; each version's launch
+    alone, ``dw_launch``: the old one without its reduction, median of
     ``GEMM_TIMING`` calls of ``GEMM_LAUNCHES`` launches, the SM clock and
     power draw beside each), with TFLOP/s, the bound (the products at
-    ``peak``, the operands read once and the partials written once at
-    ``bw``), the plain version's time and ``torch.matmul(act^T, g)`` (f32
-    with TF32 off) as a yardstick. Returns the records."""
+    ``peak``, the operands read once and dW and db written once at ``bw``),
+    the plain version's time and ``torch.matmul(act^T, g)`` (f32 with TF32
+    off) as a yardstick. Returns the records."""
     import torch
 
     from nerf_or_nothing_tpu_torch.kernels import wide_gemm as wg
 
     torch.backends.cuda.matmul.allow_tf32 = False
     f32 = dtype == torch.float32
-    run = wg.wide_dw_f32_cuda if f32 else wg.wide_dw_cuda
-    plain = wg.wide_dw_f32_plain if f32 else wg.wide_dw_plain
+    run = wg.wide_dw_cuda
     atol, rtol = BANDS["float32" if f32 else "bfloat16"]
     out = []
     for k, (name, M, Nn, K) in enumerate(DW_CASES):
         c = wg.dw_case(M, Nn, K, seed=k, device=device, dtype=dtype)
-        got = run(c)
-        got = list(got) if f32 else [got]
-        ref = plain(c)
-        ref = list(ref) if f32 else [ref]
+        got = list(run(c))
+        db = wg.wide_db_plain(c)
+
+        def plain():
+            return (list(wg.wide_dw_f32_plain(c)) if f32
+                    else [wg.wide_dw_plain(c), wg.wide_db_plain(c)])
+
+        ref = plain()
         torch.cuda.synchronize()
         flop, nbytes = wg.dw_flops(c), wg.dw_min_bytes(c)
         b_ms, b_by = op_bound(flop, nbytes, peak, bw)
@@ -1176,18 +1184,19 @@ def dw_cases(phase: str, dtype, peak: float, bw: float, device,
                "max_abs_err": max(float((a - b).abs().max())
                                   for a, b in zip(got, ref)),
                "err": max(normalized_err(a, b, atol, rtol)
-                          for a, b in zip(got, ref))}
-        twice = run(c)
-        res["bit_equal_twice"] = all(torch.equal(a, b) for a, b in zip(
-            got, list(twice) if f32 else [twice]))
+                          for a, b in zip(got, ref)),
+               "db_equal_to_model": torch.equal(got[1], db)}
+        twice = list(run(c))
+        res["bit_equal_twice"] = all(torch.equal(a, b)
+                                     for a, b in zip(got, twice))
         versions = {"new": None}
         if old is not None:
             versions = {"old": old, "new": None}
-            prev = run(c, old)
-            res["bit_equal_to_old"] = all(torch.equal(a, b) for a, b in zip(
-                got, list(prev) if f32 else [prev]))
+            prev = [t for t in run(c, old) if t is not None]
+            res["bit_equal_to_old"] = all(torch.equal(a, b)
+                                          for a, b in zip(got, prev))
             del prev
-        del ref, twice
+        del ref, twice, db
         order = list(versions) + list(versions)[::-1]
 
         def launches(fn):
@@ -1196,7 +1205,7 @@ def dw_cases(phase: str, dtype, peak: float, bw: float, device,
 
         for turn, v in enumerate(order):
             res[f"{v}_ms_{turn}"] = launches(
-                lambda: wg.wide_dw_partials(c, versions[v]))
+                lambda: wg.dw_launch(c, versions[v]))
             res[f"{v}_clock_power_{turn}"] = clock_power()
         for v in versions:
             ms = [res[f"{v}_ms_{t}"] for t, u in enumerate(order) if u == v]
@@ -1206,7 +1215,7 @@ def dw_cases(phase: str, dtype, peak: float, bw: float, device,
         if old is not None:
             res["speedup"] = res["old_ms"] / res["new_ms"]
         res["ms"] = res["new_ms"]
-        res["plain_ms"] = median_ms(lambda: plain(c), 1, 1)
+        res["plain_ms"] = median_ms(plain, 1, 1)
         act = c["act"][:, :M]
         res["library_ms"] = launches(lambda: torch.matmul(act.t(), c["g"]))
         emit(res)
@@ -1214,6 +1223,9 @@ def dw_cases(phase: str, dtype, peak: float, bw: float, device,
         if not res["err"] < 1.0:
             raise AssertionError(f"{phase}: {name} disagrees with plain: "
                                  f"{res['err']}")
+        if not res["db_equal_to_model"]:
+            raise AssertionError(f"{phase}: {name}'s db is not "
+                                 "wide_db_plain's")
         if not res["bit_equal_twice"]:
             raise AssertionError(f"{phase}: two {name} launches differ")
         if res.get("bit_equal_to_old") is False:

@@ -82,6 +82,18 @@ dtypes (``chip_smoke.dw_cases``: ``csrc/wide_dw.cu`` beside
 ``chip_smoke.dw_sources()``, the ``csrc/`` of ``chip_smoke.DW_COMMIT``),
 bit-equal, in turns. A path times the GEMM its file name names.
 
+    python3 compare_kernels.py --dw-levels
+
+times ``train_level`` (bf16 and f32 at net_width 288, 512, 1024 and 2048,
+and at Config()), ``train_level_twopass`` and ``mlp_bwd`` (W = 1024, both
+dtypes) against the versions of ``chip_smoke.DW_COMMIT`` (the dW GEMMs
+writing split partials; ``chip_smoke.dw_sources``' copy of its
+``csrc/``), in turns with each one's device time by kernel
+(``in_turns``), and checks each case's dW bit-equal to that version's, and
+its db bit-equal (f32) or its error against it as a fraction of the
+dtype's band (bf16, whose db the dW kernel now sums over other row
+chunks).
+
 ``--digest`` writes the SHA-256 of every output of the five kernels and of
 every packed weight tensor (``pack_forward``, ``pack_train_level``,
 ``pack_mlp_params``) on seeded inputs (``chip_smoke``'s, R=1024 x S=128:
@@ -90,7 +102,10 @@ every packed weight tensor (``pack_forward``, ``pack_train_level``,
 ``DIGEST_CONFIGS``, through the package on ``sys.path`` (``-P`` keeps
 this script's directory off it, so the run above reads the other
 checkout's package and ``chip_smoke``); ``--same`` prints the entries
-that differ between two such files and exits 1 if any does.
+that differ between two such files and exits 1 if any does (``--same
+old.json new.json --allow REGEX``: but those whose key matches REGEX,
+listed apart; ``BF16_DB_DIGESTS`` names the db that the bf16 dW kernel's
+column sums changed).
 """
 
 from __future__ import annotations
@@ -181,17 +196,40 @@ def cases(kernel: str):
              None, False)]
 
 
-# The configs of --digest: Config() in bf16 and f32, a narrow width, and
-# the bf16 wide route.
+# The configs of --digest: Config() in bf16 and f32, a narrow width, the
+# wide routes at 288 (a partial column block), 512, 1024 and 2048, 66
+# layers (bf16: the wide route) and depth 20 (f32), location features of
+# degree 70, and heads of 17 / 33 channels on the wide route (the MLP
+# kernels alone: DIGEST_KERNELS).
 DIGEST_CONFIGS = {
     "config_bf16": {},
     "config_f32": {"compute_dtype": "float32"},
     "64_32_bf16": {"net_width": 64, "net_width_condition": 32},
     "64_32_f32": {"net_width": 64, "net_width_condition": 32,
                   "compute_dtype": "float32"},
-    "w1024_bf16": {"net_width": 1024},
-    "w1024_f32": {"net_width": 1024, "compute_dtype": "float32"},
+    **{f"w{w}_{t}": {"net_width": w, "compute_dtype": dt}
+       for w in (288, 512, 1024, 2048)
+       for t, dt in (("bf16", "bfloat16"), ("f32", "float32"))},
+    "layers66_bf16": {"net_depth": 63, "net_depth_condition": 1},
+    "depth20_f32": {"net_depth": 20, "compute_dtype": "float32"},
+    **{f"deg70_{t}": {"max_deg_point": 70, "fast_ipe": False,
+                      "compute_dtype": dt}
+       for t, dt in (("bf16", "bfloat16"), ("f32", "float32"))},
+    **{f"heads_17_33_288_64_{t}": {
+        "net_width": 288, "net_width_condition": 64,
+        "num_rgb_channels": 17, "num_density_channels": 33,
+        "compute_dtype": dt}
+       for t, dt in (("bf16", "bfloat16"), ("f32", "float32"))},
 }
+# The kernels of a --digest config that the level kernels do not take
+DIGEST_KERNELS = {f"heads_17_33_288_64_{t}": ("mlp_fwd", "mlp_bwd")
+                  for t in ("bf16", "f32")}
+# The digests that the dW GEMMs' bf16 db changed (the column sums of the
+# dW splits in row order, then in split order, in place of 2,048-row
+# chunks): db of every layer (index 1 of a layer's pair) of the bf16
+# configs on the wide route, which --same --allow takes as allowed
+BF16_DB_DIGESTS = (r"^(w\d+|layers66|deg70|heads_17_33_288_64)_bf16\."
+                   r"(train_level(_twopass)?\.3|mlp_bwd\.0)\.\d+\.1$")
 
 
 def digests(obj, key: str, out: dict) -> None:
@@ -250,7 +288,8 @@ def digest(path: str) -> int:
                                                g_den, True),
         }
         for kernel, run in runs.items():
-            digests(run(), f"{name}.{kernel}", out)
+            if kernel in DIGEST_KERNELS.get(name, KERNELS):
+                digests(run(), f"{name}.{kernel}", out)
         torch.cuda.synchronize()
     with open(path, "w") as f:
         json.dump(out, f, indent=0, sort_keys=True)
@@ -258,16 +297,20 @@ def digest(path: str) -> int:
     return 0
 
 
-def same(old_path: str, new_path: str) -> int:
-    """Compare two ``--digest`` files (see the module docstring)."""
+def same(old_path: str, new_path: str, allow: str = None) -> int:
+    """Compare two ``--digest`` files (see the module docstring); entries
+    whose key matches ``allow`` may differ (listed apart)."""
     with open(old_path) as f:
         old = json.load(f)
     with open(new_path) as f:
         new = json.load(f)
     differ = sorted(k for k in set(old) & set(new) if old[k] != new[k])
+    allowed = [k for k in differ if allow and re.search(allow, k)]
+    differ = [k for k in differ if k not in allowed]
     only = sorted(set(old) ^ set(new))
-    cs.emit({"same": len(set(old) & set(new)) - len(differ),
-             "differ": differ, "in_one_only": only})
+    cs.emit({"same": len(set(old) & set(new)) - len(differ) - len(allowed),
+             "differ": differ, "allowed_to_differ": allowed,
+             "in_one_only": only})
     return 1 if differ or only else 0
 
 
@@ -394,6 +437,84 @@ def in_turns(kernel: str, sources: dict, case, device, seed: int = 0,
     return res
 
 
+def dw_level_cases():
+    """``--dw-levels``' (kernel, case) pairs (``in_turns``' cases)."""
+    from nerf_or_nothing_tpu_torch.config import Config
+
+    out = []
+    for dtype in ("bfloat16", "float32"):
+        t = "bf16" if dtype == "bfloat16" else "f32"
+        cfg = Config(compute_dtype=dtype)
+        for w in (288, 512, 1024, 2048):
+            out.append(("train_level", (f"{t}_w{w}_r1024_s128_t",
+                                        cfg.replace(net_width=w), 1024, "t",
+                                        True, False)))
+        out.append(("train_level_twopass",
+                    case("train_level_twopass", f"{t}_w1024_r1024_s128_t")))
+        out.append(("mlp_bwd", case("mlp_bwd", f"{t}_w1024_r1024_s128_dx")))
+        out.append(("train_level", case("train_level", f"{t}_r1024_s128_t")))
+    return out
+
+
+def dw_levels() -> int:
+    """``--dw-levels`` (see the module docstring)."""
+    import torch
+
+    from nerf_or_nothing_tpu_torch.kernels import build
+    from nerf_or_nothing_tpu_torch.kernels import fused_level as fl
+    from nerf_or_nothing_tpu_torch.kernels import fused_mlp as fm
+    from nerf_or_nothing_tpu_torch.models.mlp import init_mlp
+
+    kernels = (*TRAIN, "mlp_bwd")
+    parent = cs.commit_sources(cs.DW_COMMIT, cs.DW_DIR, "wide_dw",
+                               list(kernels))
+    if parent is None:
+        raise SystemExit(f"--dw-levels: no copy of {cs.DW_COMMIT}'s csrc/ "
+                         "and no git history")
+    build.build_all(build.SOURCES, [(k, parent[k]) for k in kernels])
+    print(cs.nvidia_smi_line(), flush=True)
+    device = torch.device("cuda")
+    for kernel, c in dw_level_cases():
+        sources = {"old": parent[kernel], "new": build.source_path(kernel)}
+        res = in_turns(kernel, sources, c, device, profile=True, plain=False)
+        name_, cfg, R, mode, white_bkgd, multicam = c
+        params = init_mlp(torch.Generator().manual_seed(0), cfg,
+                          device=device)
+        xs, d, delta = cs.level_inputs(cfg, R, mode, 1, device)
+        packs = packs_by_layout(kernel, params, cfg,
+                                set(layouts(kernel, sources).values()))
+        pairs = {}
+        for v, src in sources.items():
+            kw = dict(packed=packs[layouts(kernel, sources)[v]], source=src)
+            if kernel == "mlp_bwd":
+                *_, g_rgb, g_den = cs.mlp_case_inputs(cfg, R, 0, device)
+                pairs[v] = fm.mlp_bwd_cuda(params, cfg, xs, d, g_rgb, g_den,
+                                           white_bkgd, **kw)[0]
+                continue
+            pixels, g_scale = cs.train_inputs(cfg, R, 2, device, multicam)
+            if kernel == "train_level":
+                out = fl.train_level_cuda(params, cfg, xs, d, delta, pixels,
+                                          g_scale, white_bkgd, mode, **kw)
+            else:
+                out = fl.train_level_twopass_cuda(params, cfg, xs, d, delta,
+                                                  pixels, g_scale, white_bkgd,
+                                                  **kw)
+            pairs[v] = out[3]
+        atol, rtol = cs.BANDS[cfg.compute_dtype]
+        old, new = pairs["old"], pairs["new"]
+        res["dw_equal_to_old"] = all(torch.equal(a[0], b[0])
+                                     for a, b in zip(old, new))
+        res["db_equal_to_old"] = all(torch.equal(a[1], b[1])
+                                     for a, b in zip(old, new))
+        res["db_err_vs_old"] = max(cs.normalized_err(b[1], a[1], atol, rtol)
+                                   for a, b in zip(old, new))
+        res.pop("old_timeline", None)
+        res.pop("new_timeline", None)
+        cs.emit(res)
+        torch.cuda.empty_cache()
+    return 0
+
+
 def timeline(fn) -> dict:
     """One call of ``fn`` on the device's clock (``torch.profiler``, after
     one warm-up): each kernel's name, start and duration in ms from the
@@ -516,13 +637,16 @@ def main(argv) -> int:
 
     if argv[:1] == ["--ptxas"] and len(argv) == 2:
         return ptxas_compare(Path(argv[1]).resolve())
-    if argv[:1] == ["--same"] and len(argv) == 3:
-        return same(argv[1], argv[2])
+    if argv[:1] == ["--same"] and len(argv) in (3, 5) and (
+            len(argv) == 3 or argv[3] == "--allow"):
+        return same(argv[1], argv[2], argv[4] if len(argv) == 5 else None)
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
         return 1
     if argv[:1] == ["--digest"] and len(argv) == 2:
         return digest(argv[1])
+    if argv == ["--dw-levels"]:
+        return dw_levels()
     if argv[:1] == ["--gemm"] and len(argv) <= 2:
         from nerf_or_nothing_tpu_torch.kernels import build
         from nerf_or_nothing_tpu_torch.utils.profiling import card_peaks

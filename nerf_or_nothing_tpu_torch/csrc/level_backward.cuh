@@ -563,14 +563,15 @@ dw_gemm_f32_kernel(GemmJobs js) {
 struct SmallJob {
   const void* A;      // [K, lda] compute type, or null: column sums of B
   const float* B;     // [K, ldb] f32
-  long long out_off;
-  int lda, ldb, KA, NB, K, out_ld, block0, nblk;
+  long long out_off;  // [KA, NB] (or [NB]) at out_off of the output
+  long long part_off; // and at part_off of each split's partial row
+  int lda, ldb, KA, NB, K, block0, nblk;
 };
 
 struct SmallJobs {
   SmallJob job[8];
   float* part;
-  long long n_out;
+  long long n_out;  // the partial rows' stride
   int n, splits;
 };
 
@@ -610,7 +611,21 @@ small_tn_kernel(SmallJobs js) {
     float t = red[0][lane];
 #pragma unroll
     for (int w = 1; w < nw; ++w) t += red[w][lane];
-    js.part[split * js.n_out + jb.out_off + (long long)a * jb.out_ld + c] = t;
+    js.part[split * js.n_out + jb.part_off + (long long)a * jb.NB + c] = t;
+  }
+}
+
+// The wide routes' reduction: out at each small job's offsets = its n
+// partials of js.part [splits, n] (small_tn_kernel's, at part_off) summed
+// in split order (reduce_kernel's sum, for the small products only).
+__global__ void small_sum_kernel(SmallJobs js, float* out, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    int jn = 0;
+    while (jn + 1 < js.n && i >= js.job[jn + 1].part_off) ++jn;
+    float s = 0.0f;
+    for (int k = 0; k < js.splits; ++k) s += js.part[k * n + i];
+    out[js.job[jn].out_off + (i - js.job[jn].part_off)] = s;
   }
 }
 
@@ -741,53 +756,99 @@ cudaError_t launch_dw(Params p, Extra e, const Layout& l, unsigned char* ws, lon
   return flush();
 }
 
-// Passes 4-5 of launch_products.
+// The small products of a level: the density head's dW, the view layer's
+// direction rows (over the rays' summed g), the rgb head's dW, and db:
+// with dbpart the column sums of its db_blocks rows, else the heads' db
+// as column sums of their cotangents (the other biases' db then come with
+// dW). Their partials at their outputs' offsets of part rows n_out apart,
+// or with packed one after another (part_off), and *n_small the outputs.
 template <class T>
-cudaError_t launch_small_reduce(Params p, Extra e, const Layout& l, unsigned char* ws,
-                                float* out, long long n_out, int splits, const float* dbpart,
-                                int db_blocks, cudaStream_t st) {
+SmallJobs small_jobs(const Params& p, const Extra& e, const Layout& l, unsigned char* ws,
+                     long long n_out, int splits, const float* dbpart, int db_blocks, bool packed,
+                     int* blocks, long long* n_small) {
   const int L = p.D + 2 + p.Dc;
   const long long N = e.N;
   const T* acts = reinterpret_cast<const T*>(ws + l.acts);
   const long long tW = (long long)N * p.W;
   std::vector<long long> w_off, b_off;
   output_offsets(p, w_off, b_off);
-  float* part = reinterpret_cast<float*>(ws + l.part);
-  cudaError_t err;
-
-  // 4. heads, the view layer's direction rows (and db)
   SmallJobs sj;
-  sj.part = part; sj.n_out = n_out; sj.n = 0; sj.splits = splits;
+  sj.part = reinterpret_cast<float*>(ws + l.part); sj.n_out = n_out; sj.n = 0;
+  sj.splits = splits;
   int sblocks = 0;
+  long long packed_off = 0;
   auto add_small = [&](const T* A, int lda, const float* B, int ldb, int KA, int NB, int K,
-                       long long out_off, int out_ld) {
+                       long long out_off) {
     SmallJob& j = sj.job[sj.n++];
     j.A = A; j.B = B; j.lda = lda; j.ldb = ldb; j.KA = KA; j.NB = NB; j.K = K;
-    j.out_off = out_off; j.out_ld = out_ld;
+    j.out_off = out_off;
+    j.part_off = packed ? packed_off : out_off;
+    packed_off += (long long)(A ? KA : 1) * NB;
     j.nblk = ((A ? KA : 1) * NB + 31) / 32;
     j.block0 = sblocks;
     sblocks += j.nblk * splits;
   };
   const T* h_last = acts + (long long)(p.D - 1) * tW;
   const T* v_last = acts + act_off(p, N, p.D + p.Dc - 1);
-  add_small(h_last, p.W, e.g_den, p.Cd, p.W, p.Cd, (int)N, w_off[p.D], p.Cd);
+  add_small(h_last, p.W, e.g_den, p.Cd, p.W, p.Cd, (int)N, w_off[p.D]);
   add_small(static_cast<const T*>(p.d), p.Fd, e.g_ray, p.Wc, p.Fd, p.Wc, p.R,
-            w_off[p.D + 1] + (long long)p.W * p.Wc, p.Wc);
-  add_small(v_last, p.Wc, e.g_rgb, p.Cr, p.Wc, p.Cr, (int)N, w_off[L - 1], p.Cr);
+            w_off[p.D + 1] + (long long)p.W * p.Wc);
+  add_small(v_last, p.Wc, e.g_rgb, p.Cr, p.Wc, p.Cr, (int)N, w_off[L - 1]);
   if (dbpart) {
     const int nb = num_biases(p);
-    add_small(nullptr, 0, dbpart, nb, 1, nb, db_blocks, b_off[0], nb);
+    add_small(nullptr, 0, dbpart, nb, 1, nb, db_blocks, b_off[0]);
   } else {
-    add_small(nullptr, 0, e.g_den, p.Cd, 1, p.Cd, (int)N, b_off[p.D], p.Cd);
-    add_small(nullptr, 0, e.g_rgb, p.Cr, 1, p.Cr, (int)N, b_off[L - 1], p.Cr);
+    add_small(nullptr, 0, e.g_den, p.Cd, 1, p.Cd, (int)N, b_off[p.D]);
+    add_small(nullptr, 0, e.g_rgb, p.Cr, 1, p.Cr, (int)N, b_off[L - 1]);
   }
-  small_tn_kernel<T><<<sblocks, kSmallThreads, 0, st>>>(sj);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  *blocks = sblocks;
+  *n_small = packed_off;
+  return sj;
+}
 
-  // 5. the split partials, summed in order
+// The outputs of the wide routes' small products (small_jobs without
+// dbpart): the density head's dW [W, Cd], the direction rows [Fd, Wc], the
+// rgb head's dW [Wc, Cr] and the heads' db.
+inline long long small_outputs(int W, int Wc, int Fd, int Cr, int Cd) {
+  return (long long)W * Cd + (long long)Fd * Wc + (long long)Wc * Cr + Cr + Cd;
+}
+
+// Passes 4-5 of launch_products: the small products, then every split
+// partial (n_out a row: the dW GEMM's and the small products') summed in
+// order into out.
+template <class T>
+cudaError_t launch_small_reduce(Params p, Extra e, const Layout& l, unsigned char* ws,
+                                float* out, long long n_out, int splits, const float* dbpart,
+                                int db_blocks, cudaStream_t st) {
+  int sblocks = 0;
+  long long n_small = 0;
+  const SmallJobs sj =
+      small_jobs<T>(p, e, l, ws, n_out, splits, dbpart, db_blocks, false, &sblocks, &n_small);
+  small_tn_kernel<T><<<sblocks, kSmallThreads, 0, st>>>(sj);
+  cudaError_t err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long rblocks = (n_out + 255) / 256;
-  reduce_kernel<<<(int)(rblocks < 4096 ? rblocks : 4096), 256, 0, st>>>(part, out, n_out,
+  reduce_kernel<<<(int)(rblocks < 4096 ? rblocks : 4096), 256, 0, st>>>(sj.part, out, n_out,
                                                                         splits);
+  return cudaGetLastError();
+}
+
+// The wide routes' passes after dW (which adds its splits into out
+// itself): the small products with the heads' db, their partials packed
+// in l.part (small_outputs a row), summed in split order into out.
+template <class T>
+cudaError_t launch_small_sum(Params p, Extra e, const Layout& l, unsigned char* ws, float* out,
+                             int splits, cudaStream_t st) {
+  const long long n = small_outputs(p.W, p.Wc, p.Fd, p.Cr, p.Cd);
+  int sblocks = 0;
+  long long n_small = 0;
+  const SmallJobs sj = small_jobs<T>(p, e, l, ws, n, splits, nullptr, 0, true, &sblocks, &n_small);
+  if (n_small != n) return cudaErrorInvalidValue;
+  small_tn_kernel<T><<<sblocks, kSmallThreads, 0, st>>>(sj);
+  cudaError_t err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long blocks = (n + 255) / 256;
+  small_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(sj, out, n);
   return cudaGetLastError();
 }
 

@@ -184,8 +184,7 @@ cudaError_t launch_wide_dx(const Params& p, const Extra& e, const WideOffsets& o
 // The bf16 route at net_width 288 and above on the workspace (l, then x).
 // p.w: the "wg" forward stream; e.wt: the "wgx" chain stream.
 cudaError_t launch_mlp_bwd_wide(Params p, Extra e, const Layout& l, const WideTrainLayout& x,
-                                unsigned char* ws, float* out, long long n_out, int splits,
-                                cudaStream_t st) {
+                                unsigned char* ws, float* out, int splits, cudaStream_t st) {
   WideBf16Route r;
   if (!r.init(p)) return cudaErrorInvalidValue;
   const WideOffsets& o = r.o;
@@ -196,9 +195,8 @@ cudaError_t launch_mlp_bwd_wide(Params p, Extra e, const Layout& l, const WideTr
   // 1. forward, keeping the activations and features
   cudaError_t err = wide_forward_keep<WideBf16Route, kWideNoHeads>(p, r, e, dc, nullptr, st);
   if (err != cudaSuccess) return err;
-  // 2-7. g-chain, per-ray sums, db, dW, small products and reduction
-  if ((err = launch_wide_backward<0>(p, e, l, x, o, co, ws, out, n_out, splits, st)) !=
-      cudaSuccess)
+  // 2-6. g-chain, per-ray sums, dW and db, small products
+  if ((err = launch_wide_backward<0>(p, e, l, x, o, co, ws, out, splits, st)) != cudaSuccess)
     return err;
   // dX and dD
   if (e.dx && (err = launch_wide_dx(p, e, o, co, nxw, st)) != cudaSuccess) return err;
@@ -237,15 +235,14 @@ cudaError_t launch_wide_dx_f32(const Params& p, const Extra& e, cudaStream_t st)
 // with input_grads dX and dD. p.w: pack_params_wf; e.wt: pack_params_wft;
 // e.wtx: pack_params_wfx.
 cudaError_t launch_mlp_bwd_wide_f32(Params p, Extra e, const Layout& l, const WideTrainLayout& x,
-                                    unsigned char* ws, float* out, long long n_out, int splits,
-                                    cudaStream_t st) {
+                                    unsigned char* ws, float* out, int splits, cudaStream_t st) {
   WideF32Route r;
   if (!r.init(p)) return cudaErrorInvalidValue;
   const float* w = static_cast<const float*>(p.w);
   float* dc = reinterpret_cast<float*>(ws + x.dc);
   cudaError_t err = wide_forward_keep<WideF32Route, kWideNoHeads>(p, r, e, dc, nullptr, st);
   if (err != cudaSuccess) return err;
-  if ((err = launch_wide_backward_f32(p, e, l, ws, out, n_out, splits, st)) != cudaSuccess)
+  if ((err = launch_wide_backward_f32(p, e, l, x, ws, out, splits, st)) != cudaSuccess)
     return err;
   if (e.dx && (err = launch_wide_dx_f32(p, e, st)) != cudaSuccess) return err;
   if (e.dd) {
@@ -256,10 +253,11 @@ cudaError_t launch_mlp_bwd_wide_f32(Params p, Extra e, const Layout& l, const Wi
   return cudaSuccess;
 }
 
-// The row stride of the split partials (and the values the reduction
-// writes): n_out rounded up to even, so that each row starts 8-byte
-// aligned for the dW GEMMs' float2 stores (n_out is odd when the heads'
-// channels Cr + Cd are).
+// The row stride of the narrow routes' split partials (and the values the
+// reduction writes): n_out rounded up to even, so that each row starts
+// 8-byte aligned for the dW GEMMs' float2 stores (n_out is odd when the
+// heads' channels Cr + Cd are). The wide routes' partials hold the small
+// products' outputs only (small_outputs), which no float2 store writes.
 inline long long partial_stride(long long n_out) { return n_out + (n_out & 1); }
 
 }  // namespace
@@ -267,14 +265,17 @@ inline long long partial_stride(long long n_out) { return n_out + (n_out & 1); }
 extern "C" {
 
 // Bytes of workspace mlp_bwd_launch needs for these shapes (bf16: with
-// the mask bits; on the wide route, both dtypes, the direction terms; and
-// the db partials of the Cg = Cr + Cd head channels).
+// the mask bits and the db partials of the Cg = Cr + Cd head channels; on
+// the wide route, both dtypes, the direction terms and the split
+// counters, and split partials of the small products' outputs only: Fd
+// direction features, Cd density channels).
 long long mlp_bwd_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc, int KX,
-                            int splits, long long n_out, int Cg) {
+                            int splits, long long n_out, int Cg, int Fd, int Cd) {
   const bool wide = wide_route(dtype, W);
   const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits,
-                          partial_stride(n_out), false);
-  if (wide) return wide_train_layout(l.total, R, S, D, W, Wc, Dc, Cg, false).total;
+                          wide ? small_outputs(W, Wc, Fd, Cg - Cd, Cd) : partial_stride(n_out),
+                          false);
+  if (wide) return wide_train_layout(l.total, R, S, D, W, Wc, Dc, KX, false).total;
   if (dtype == 1) return wg_layout(l.total, R, S, D, W, Wc, Dc, Cg, false).total;
   return l.total;
 }
@@ -309,17 +310,17 @@ int mlp_bwd_launch(int dtype, const void* x, const void* d, const float* g_rgb,
   if (output_offsets(p, w_off, b_off) != n_out)
     return cudaErrorInvalidValue;
   n_out = partial_stride(n_out);
-  const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, false);
+  const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits,
+                          wide ? small_outputs(W, Wc, Fd, Cr, Cd) : n_out, false);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   const Extra e = make_extra(ws, l, (long long)R * S, wt, wtx, const_cast<float*>(g_rgb),
                              const_cast<float*>(g_den), input_grads ? dx : nullptr,
                              input_grads ? dd : nullptr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wide) {
-    const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc, Cr + Cd, false);
-    return (int)(dtype == 1
-                     ? launch_mlp_bwd_wide(p, e, l, x, ws, grads, n_out, splits, st)
-                     : launch_mlp_bwd_wide_f32(p, e, l, x, ws, grads, n_out, splits, st));
+    const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc, KX, false);
+    return (int)(dtype == 1 ? launch_mlp_bwd_wide(p, e, l, x, ws, grads, splits, st)
+                            : launch_mlp_bwd_wide_f32(p, e, l, x, ws, grads, splits, st));
   }
   if (dtype == 1)
     return (int)launch_mlp_bwd_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc, Cr + Cd,

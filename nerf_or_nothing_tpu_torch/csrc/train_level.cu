@@ -88,12 +88,15 @@ cudaError_t launch_train_f32(Params p, Extra e, const Layout& l, unsigned char* 
 
 extern "C" {
 
-// Bytes of workspace train_level_launch needs for these shapes.
+// Bytes of workspace train_level_launch needs for these shapes (Fd: the
+// direction features; on the wide route the split partials hold the small
+// products' outputs only).
 long long train_level_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc, int KX,
-                                int splits, long long n_out) {
+                                int splits, long long n_out, int Fd) {
   const bool wide = wide_route(dtype, W);
-  const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, true);
-  if (wide) return wide_train_layout(l.total, R, S, D, W, Wc, Dc).total;
+  const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits,
+                          wide ? small_outputs(W, Wc, Fd, 3, 1) : n_out, true);
+  if (wide) return wide_train_layout(l.total, R, S, D, W, Wc, Dc, KX).total;
   return dtype == 1 ? wg_layout(l.total, R, S, D, W, Wc, Dc).total : l.total;
 }
 
@@ -127,7 +130,8 @@ int train_level_launch(int dtype, int mode, const float* means, const float* var
   if (output_offsets(p, w_off, b_off) != n_out)
     return cudaErrorInvalidValue;
   const int esize = dtype == 1 ? 2 : 4;
-  const Layout l = layout(esize, R, S, D, W, Wc, Dc, KX, splits, n_out, true);
+  const Layout l = layout(esize, R, S, D, W, Wc, Dc, KX, splits,
+                          wide ? small_outputs(W, Wc, Fd, 3, 1) : n_out, true);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   Extra e = make_extra(ws, l, (long long)R * S, wt, nullptr,
                        reinterpret_cast<float*>(ws + l.g_rgb),
@@ -135,10 +139,9 @@ int train_level_launch(int dtype, int mode, const float* means, const float* var
   e.pixels = pixels; e.gsc = gsc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wide) {
-    const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc);
-    return (int)(dtype == 1
-                     ? launch_train_wide<WideBf16Route>(p, e, l, x, ws, grads, n_out, splits, st)
-                     : launch_train_wide<WideF32Route>(p, e, l, x, ws, grads, n_out, splits, st));
+    const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc, KX);
+    return (int)(dtype == 1 ? launch_train_wide<WideBf16Route>(p, e, l, x, ws, grads, splits, st)
+                            : launch_train_wide<WideF32Route>(p, e, l, x, ws, grads, splits, st));
   }
   if (dtype == 1)
     return (int)launch_train_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc), ws, grads,

@@ -121,12 +121,13 @@ extern "C" {
 // train_level's on the wide route (W >= 288 or kWideRoute: the backward's
 // layout, then the wide route's areas) and in bf16 (then the bf16 passes' areas); f32 below 288, the
 // backward's layout, then the per-block db partials (3 rgb / 1 density
-// head).
+// head). Fd: the direction features (the wide route's small products).
 long long train_level_twopass_workspace(int dtype, int R, int S, int D, int W, int Wc, int Dc,
-                                        int KX, int splits, long long n_out) {
+                                        int KX, int splits, long long n_out, int Fd) {
   const bool wide = wide_route(dtype, W);
-  const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits, n_out, true);
-  if (wide) return wide_train_layout(l.total, R, S, D, W, Wc, Dc).total;
+  const Layout l = layout(dtype == 1 ? 2 : 4, R, S, D, W, Wc, Dc, KX, splits,
+                          wide ? small_outputs(W, Wc, Fd, 3, 1) : n_out, true);
+  if (wide) return wide_train_layout(l.total, R, S, D, W, Wc, Dc, KX).total;
   if (dtype == 1) return wg_layout(l.total, R, S, D, W, Wc, Dc).total;
   const long long nb = (long long)D * W + 1 + (long long)Dc * Wc + 3;
   return l.total + round256((long long)blocks_of(R, S) * nb * 4);
@@ -159,7 +160,8 @@ int train_level_twopass_launch(int dtype, int mode, const float* means, const fl
   if (output_offsets(p, w_off, b_off) != n_out)
     return cudaErrorInvalidValue;
   const int esize = dtype == 1 ? 2 : 4;
-  const Layout l = layout(esize, R, S, D, W, Wc, Dc, KX, splits, n_out, true);
+  const Layout l = layout(esize, R, S, D, W, Wc, Dc, KX, splits,
+                          wide ? small_outputs(W, Wc, Fd, 3, 1) : n_out, true);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   Extra e = make_extra(ws, l, (long long)R * S, wt, nullptr,
                        reinterpret_cast<float*>(ws + l.g_rgb),
@@ -167,10 +169,9 @@ int train_level_twopass_launch(int dtype, int mode, const float* means, const fl
   e.pixels = pixels; e.gsc = gsc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wide) {
-    const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc);
-    return (int)(dtype == 1
-                     ? launch_train_wide<WideBf16Route>(p, e, l, x, ws, grads, n_out, splits, st)
-                     : launch_train_wide<WideF32Route>(p, e, l, x, ws, grads, n_out, splits, st));
+    const WideTrainLayout x = wide_train_layout(l.total, R, S, D, W, Wc, Dc, KX);
+    return (int)(dtype == 1 ? launch_train_wide<WideBf16Route>(p, e, l, x, ws, grads, splits, st)
+                            : launch_train_wide<WideF32Route>(p, e, l, x, ws, grads, splits, st));
   }
   if (dtype == 1)
     return (int)launch_train_wg(p, e, l, wg_layout(l.total, R, S, D, W, Wc, Dc), ws, grads,

@@ -1,21 +1,22 @@
 // The wide routes' dW GEMMs: dW[i, n] = sum over the rows r of a split of
 // act[r, i] g[r, n], for every layer product of a level in one launch (a
-// launch for each column block in bf16), each split's partial into its own
-// row of part [splits, n_out] (launch_small_reduce in level_backward.cuh
-// then sums the rows in split order). wide_train.cuh's
-// launch_wide_backward runs wide_dw_kernel<BN> (bf16) as its pass 6, and
-// launch_wide_backward_f32 runs wide_dw_f32_kernel (f32, db in the same
-// pass) in place of the narrow route's dw_gemm_f32_kernel.
+// launch for each column block in bf16), and db[n] = the column sums of g
+// in the product that owns the layer's bias; each split's tile added into
+// the output in split order, which is level_backward.cuh's reduce_kernel's
+// sum of the split partials, bit for bit, without the partials.
+// wide_train.cuh's launch_wide_backward runs wide_dw_kernel<BN> (bf16) and
+// launch_wide_backward_f32 runs wide_dw_f32_kernel (f32) in place of the
+// narrow route's dw_gemm_f32_kernel, both with db.
 //
-// Replaces, at the wide widths, the dW products of nerf_or_nothing_tpu/
-// kernels/fused_level.py::_level_kernel and ::_level_kernel_twopass (the
-// train level) and of fused_mlp.py::_bwd_kernel (mlp_bwd), as a part of
-// their callers' launches.
+// Replaces, at the wide widths, the dW and db products of
+// nerf_or_nothing_tpu/kernels/fused_level.py::_level_kernel and
+// ::_level_kernel_twopass (the train level) and of fused_mlp.py::_bwd_kernel
+// (mlp_bwd), as a part of their callers' launches.
 //
 // Bound: the products. A level at Config(net_width=1024) and 2^17 rows is
 // ~2.0 TFLOP of dW against ~2.1 GB of bf16 activations and masked g read
-// once and ~1 GB of f32 partials written: ~2.0 ms at the bf16 989 TFLOP/s
-// (~0.9 ms of bytes at 3.35 TB/s), ~12 ms at the 3xTF32 165 TFLOP/s.
+// once and 31 MB of dW written: ~2.0 ms at the bf16 989 TFLOP/s (~0.6 ms
+// of bytes at 3.35 TB/s), ~12 ms at the 3xTF32 165 TFLOP/s.
 //
 // Both kernels have the structure of wide_gemm.cuh's layer GEMM:
 //  - one persistent block an SM walks the work items (product, row block,
@@ -30,10 +31,30 @@
 //    in the k-loop;
 //  - two consumer warpgroups (output rows 0-63 and 64-127 of a tile) on
 //    wgmma, in the parent kernels' k-order and over the same splits
-//    (split_rows: each split a multiple of 32 rows), so every output has
-//    the parent's bits.
-// Every partial is written by exactly one block: no atomics, so two
-// launches on the same inputs give the same bits.
+//    (split_rows: each split a multiple of 32 rows), so every split's sums
+//    have the parent's bits;
+//  - db by the other warps of warpgroup 2 in a product with a bias, each
+//    column's rows of the split added in row order in f32 (bf16: a column
+//    block's columns spread over its row blocks' tiles, a thread a column;
+//    f32: the transposers, in row block 0).
+//
+// The split order (split_wait, split_sums2, split_done): split 0 of a
+// tile stores 0.0f + its sums (reduce_kernel's start from +0), split k > 0
+// waits until split k - 1 of the same tile has stored, loads the sums so
+// far (ld.global.cg: another SM wrote them; the producer thread, done with
+// the item's loads, has asked L2 for them; each thread's loads go in
+// batches of kDwLoads ahead of their adds) and stores them plus its own, a
+// plain f32 add. One counter a (tile, part) in t.flags (parts: consumer
+// warpgroups 0 and 1, db) orders them: the writer's warpgroup stores,
+// meets at a named barrier, then one thread adds 1 with release semantics
+// at gpu scope; the reader's thread spins on an acquire load until the
+// counter reaches k, then its warpgroup meets. Each launch starts with the counters
+// zeroed (a memset on the stream, which a CUDA graph captures). A wait is
+// only ever on the item tiles earlier in the split-major order, which a
+// block took in an earlier round or the same one: every block is resident
+// (one an SM, gridDim.x at most the SMs), so the lowest unfinished item
+// always runs on, and no launch can deadlock. Two launches on the same
+// inputs give the same bits.
 //
 // bf16 (wide_dw_kernel<BN>): tiles of 128 output rows x BN = 256 columns
 // (128 where 256 does not divide N), 64-row stages of A [64 x 128] and B
@@ -43,10 +64,11 @@
 // rows: a split ends on a multiple of 32 rows, and a half past its end is
 // read at a row past the tensor's, as zeros (the parent's zero fill), so
 // every stage is four k16 steps of m64nBNk16 and no branch sits near the
-// wgmma. 4 stages at BN = 256, 6 at 128. The partials are stored from the
-// registers (a split's rows of part are n_out apart, which is only even in
-// general: no 16-byte TMA store), while the producer loads the next
-// tile's first stages.
+// wgmma. 4 stages at BN = 256, 6 at 128. The sums are added from the
+// registers (float2 by float2 in the fragment layout), while the producer
+// loads the next tile's first stages. The db warps wait for every stage
+// (a stage is released by the two consumers and by them) and sum the
+// tile's slice of the block's columns, 1 / tiles_m of them (dw_db_cols).
 //
 // f32 (wide_dw_f32_kernel): TF32 wgmma takes K-major operands only (and
 // would truncate f32 that it read from shared memory), so
@@ -82,9 +104,9 @@
 #include "train_wg.cuh"
 #include "wide_f32.cuh"
 
-// The dW GEMMs take a job table (csrc/wide_dw.cu reads this to build
-// against a version without it).
-#define WIDE_DW_TABLE 1
+// The dW GEMMs add the splits into the output (csrc/wide_dw.cu reads this
+// to build against a version whose kernels write each split's partial).
+#define WIDE_DW_REDUCED 1
 
 namespace {
 
@@ -95,7 +117,9 @@ constexpr int kDwRowsBf16 = 64;   // rows of a bf16 stage: four k16 steps
 constexpr int kDwF32Stages = 3;
 constexpr int kDwF32Part = 16384;  // A, raw B, B hi or B lo of a 32-row f32 stage
 constexpr int kDwF32Smem = 1024 + kDwF32Stages * (4 * kDwF32Part + 24);
-constexpr int kDwTransposers = 96;  // threads 288-383
+constexpr int kDwTransposers = 96;  // threads 288-383 (bf16: the db warps)
+constexpr int kDwParts = 3;         // split counters a tile: consumers 0 and 1, db
+constexpr int kDwBarDb = 3;         // named barrier of the db warps (1, 2: the consumers)
 
 // A level's operands: the activations [D layers x N rows x W], the view
 // layers' [Dc x N x Wc], the features [N x KX] (LX columns read), and the
@@ -103,8 +127,8 @@ constexpr int kDwTransposers = 96;  // threads 288-383
 enum { kDwActs = 0, kDwViewActs = 1, kDwX = 2, kDwGrads = 3, kDwViewGrads = 4 };
 
 struct WideDwJob {
-  long long out_off;  // dW [M, Nn] (row stride Nn) in each split's partial row
-  long long db_off;   // f32: B's column sums there, or -1
+  long long out_off;  // dW [M, Nn] (row stride Nn) in the output
+  long long db_off;   // B's column sums there, or -1
   int a, a_layer;     // A: layer a_layer of map a, its columns [0, M) the output rows
   int b, b_layer;     // B: layer b_layer of map b, [K rows x Nn columns]
   int M, Nn, tiles_m, tile0;  // row blocks; the job's first tile among a split's
@@ -113,8 +137,8 @@ struct WideDwJob {
 struct WideDwTable {
   CUtensorMap map[kDwMaps];
   WideDwJob job[kDwMaxJobs];
-  float* part;  // [splits, n_out]
-  long long n_out;
+  float* out;   // dW and db at the jobs' offsets
+  int* flags;   // [tiles x kDwParts] split counters, zero at the launch's start
   int n, splits, K, tiles;  // jobs, row splits, rows, tiles of a split
 };
 
@@ -130,15 +154,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 }
 
 // Work item `item` (split-major; a split's tiles job by job, row blocks
-// fastest): its job, split and tile origin.
+// fastest): its job, split, tile of the split and tile origin.
 struct WideDwTile {
-  int jn, split, m0, n0;
+  int jn, split, tile, m0, n0;
 };
 
 __device__ __forceinline__ WideDwTile dw_tile(const WideDwTable& t, long long item, int bn) {
   WideDwTile x;
   x.split = (int)(item / t.tiles);
   int r = (int)(item - (long long)x.split * t.tiles);
+  x.tile = r;
   int jn = 0;
   while (jn + 1 < t.n && r >= t.job[jn + 1].tile0) ++jn;
   r -= t.job[jn].tile0;
@@ -146,6 +171,54 @@ __device__ __forceinline__ WideDwTile dw_tile(const WideDwTable& t, long long it
   x.m0 = (r % t.job[jn].tiles_m) * kWideRows;
   x.n0 = (r / t.job[jn].tiles_m) * bn;
   return x;
+}
+
+// The split order: wait (thread `lead` of the `count` threads at named
+// barrier `bar`) until the counter at flag shows split k - 1 stored;
+// after the stores, split_done lets split k + 1 go. A wait of more than
+// 2^28 polls traps, as mbar_wait does.
+__device__ __forceinline__ void split_wait(const int* flag, int k, bool lead, int bar, int count) {
+  if (k == 0) return;
+  if (lead) {
+    int got = 0;
+    for (uint32_t n = 0;; ++n) {
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(got) : "l"(flag) : "memory");
+      if (got >= k) break;
+      if (n == (1u << 28)) __trap();
+    }
+  }
+  bar_sync(bar, count);
+}
+
+__device__ __forceinline__ void split_done(int* flag, bool lead, int bar, int count) {
+  bar_sync(bar, count);
+  if (lead)
+    asm volatile("fence.acq_rel.gpu;\nred.relaxed.gpu.global.add.s32 [%0], 1;\n" ::"l"(flag)
+                 : "memory");
+}
+
+// The sums so far of a split k > 0, read past L1 (another SM wrote them),
+// or split 0's +0 (reduce_kernel's sum from +0, so a -0 partial gives
+// +0); a thread's reads are issued in batches of kDwLoads float2 before
+// their adds, so that their latency is paid once a batch.
+constexpr int kDwLoads = 8;
+
+__device__ __forceinline__ float2 split_sums2(const float* out, bool add) {
+  return add ? __ldcg(reinterpret_cast<const float2*>(out)) : make_float2(0.0f, 0.0f);
+}
+
+__device__ __forceinline__ float split_sums1(const float* out, bool add) {
+  return add ? __ldcg(out) : 0.0f;
+}
+
+// Rows [row0, row0 + rows) x columns [c0, c0 + cols) of the row-major
+// out (ld columns) into L2 (the producer, for the consumers' reads of the
+// sums so far of a tile it has just loaded the last stage of).
+__device__ __forceinline__ void prefetch_rows(const float* out, long long ld, int row0, int rows,
+                                              int c0, int cols) {
+  for (int r = row0; r < row0 + rows; ++r)
+    for (int c = c0; c < c0 + cols; c += 32)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(out + r * ld + c));
 }
 
 // The stages of `rows` rows of work item `item`'s split.
@@ -174,9 +247,64 @@ __host__ __device__ constexpr int dw_smem() {
   return 1024 + dw_stages<BN>() * dw_stage_bytes<BN>() + 16 * dw_stages<BN>();
 }
 
+// Columns 4g .. 4g + 3 of rows r8 .. r8 + 7 of a stage's B slabs (at
+// shared address b) into v: slab g / 16, box r8 / 32, the half g % 2 of
+// 16-byte chunk (g % 16) / 2 of the box's row r, at chunk ((g % 16) / 2)
+// ^ (r % 8).
+__device__ __forceinline__ void dw_quad_rows(uint32_t b, int g, int r8, uint32_t (&v)[8][2]) {
+  const uint32_t row = b + (g >> 4) * kTileSlab + (g & 1) * 8 + (r8 >> 5) * (kTileSlab / 2) +
+                       (r8 & 31) * kSlabBytes;
+  const int q = (g & 15) >> 1;
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                 : "=r"(v[u][0]), "=r"(v[u][1])
+                 : "r"(row + u * kSlabBytes + ((q ^ u) << 4)));
+}
+
+// Rows of a column that a db thread loads before it adds them: a stage's
+// loads wait behind the wgmma's operand reads, so a stage takes two round
+// trips (at 8 or 16 rows, the db warps set the pace of a W = 1024 level).
+constexpr int kDwDbRows = 32;
+
+// Column c of rows r0 .. r0 + kDwDbRows - 1 of a stage's B slabs (at
+// shared address b) into v: slab c / 64, box r0 / 32, byte 2 (c % 8) of
+// 16-byte chunk (c % 64) / 8 of the box's row r, at chunk ((c % 64) / 8) ^
+// (r % 8).
+__device__ __forceinline__ void dw_col_rows(uint32_t b, int c, int r0,
+                                            unsigned short (&v)[kDwDbRows]) {
+  const uint32_t row = b + (c >> 6) * kTileSlab + (c & 7) * 2 + (r0 >> 5) * (kTileSlab / 2) +
+                       (r0 & 31) * kSlabBytes;
+  const int q = (c & 63) >> 3;
+#pragma unroll
+  for (int u = 0; u < kDwDbRows; ++u)
+    asm volatile("ld.shared.u16 %0, [%1];\n"
+                 : "=h"(v[u])
+                 : "r"(row + u * kSlabBytes + ((q ^ (u & 7)) << 4)));
+}
+
+// The columns [x, y) of its column block's db that a tile sums: the
+// block's columns spread over its row blocks in runs of a multiple of
+// four, so that each tile's db warps read 1 / tiles_m of a stage (a tile
+// past the columns sums none).
+__device__ __forceinline__ int2 dw_db_cols(const WideDwJob& jb, const WideDwTile& x, int bn) {
+  const int cols = min(bn, jb.Nn - x.n0);
+  const int per = ((cols + jb.tiles_m - 1) / jb.tiles_m + 3) & ~3;
+  const int lo = min(cols, x.m0 / kWideRows * per);
+  return make_int2(lo, min(cols, lo + per));
+}
+
 // A stage: A's two slabs of 64 output rows (consumer warpgroup w reads
 // slab w), then B's BN / 64 slabs, each [64 rows x 64 columns] as two
-// boxes of 32 rows.
+// boxes of 32 rows. The empty barrier takes three arrivals a use: the two
+// consumer warpgroups and the db warps (which wait for every stage and sum
+// it where the tile has db columns, so they never run ahead of the ring
+// or fall a phase behind). A thread's loads of a stage wait behind the
+// wgmma's reads of it, so the db warps' time a stage is their round trips
+// and adds: with a column block's db in its row-block-0 tile, four
+// columns a thread, 8 rows a round trip, dW with db took 4.5-4.7 ms a W =
+// 1024 level against 3.30 without db; spread over the row blocks, a
+// column a thread, 5.4 at 8 or 16 rows a round trip, 3.5 at 32.
 template <int BN>
 __global__ void __launch_bounds__(kWideThreads, 1)
     wide_dw_kernel(__grid_constant__ const WideDwTable t) {
@@ -190,49 +318,122 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 2);
+      mbar_init(empty + 8 * s, 3);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   int stage = 0;
   uint32_t phase = 0;
-  if (threadIdx.x >= 256) {  // the producer warpgroup: thread 256 copies
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x != 256) return;
+  if (threadIdx.x >= 256) {  // the producer warpgroup: thread 256 copies, warps 9-11 sum db
+    // 56 registers (kDwDbRows loads in flight); with the consumers' 224
+    // the block's 168 x 384 it was launched with
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    if (threadIdx.x == 256) {
+      for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+        const WideDwTile x = dw_tile(t, item, BN);
+        const WideDwJob& jb = t.job[x.jn];
+        const CUtensorMap* ma = &t.map[jb.a];
+        const CUtensorMap* mb = &t.map[jb.b];
+        const long long k_lo = x.split * chunk;
+        const long long k_hi = min((long long)t.K, k_lo + chunk);
+        for (long long k0 = k_lo; k0 < k_hi; k0 += kDwRowsBf16) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);  // the consumers released the slot
+          const uint32_t bar = full + 8 * stage, dst = smem_u32(base + stage * kStage);
+          mbar_expect_tx(bar, kStage);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // rows past the split: the box at row K, all zeros
+            const int row = k0 + h * kDwBoxRows < k_hi ? (int)(k0 + h * kDwBoxRows) : t.K;
+            const uint32_t d = dst + h * (kTileSlab / 2);
+            tma_load_3d(d, ma, x.m0, row, jb.a_layer, bar);
+            tma_load_3d(d + kTileSlab, ma, x.m0 + 64, row, jb.a_layer, bar);
+#pragma unroll
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load_3d(d + (2 + c) * kTileSlab, mb, x.n0 + 64 * c, row, jb.b_layer, bar);
+          }
+          advance(stage, phase, kStages);
+        }
+        if (x.split > 0) {  // the sums so far, which the epilogue adds to
+          const int rows = min(kWideRows, jb.M - x.m0), cols = min(BN, jb.Nn - x.n0);
+          prefetch_rows(t.out + jb.out_off, jb.Nn, x.m0, rows, x.n0, cols);
+          if (jb.db_off >= 0) {
+            const int2 dc = dw_db_cols(jb, x, BN);
+            if (dc.x < dc.y) prefetch_rows(t.out + jb.db_off, 0, 0, 1, x.n0 + dc.x, dc.y - dc.x);
+          }
+        }
+      }
+      return;
+    }
+    if (threadIdx.x < 256 + 32) return;
+    // db: each column's rows in order (a stage's rows past the split or K
+    // are zeros, and adding a zero to a sum that started from +0 leaves it
+    // as it is) over the tile's columns of dw_db_cols: a thread a column,
+    // or four (4 tt ..) where they are more than the 96 threads (a product
+    // of one or two row blocks)
+    const int tt = threadIdx.x - 288;
+    const bool lead = tt == 0;
     for (long long item = blockIdx.x; item < items; item += gridDim.x) {
       const WideDwTile x = dw_tile(t, item, BN);
       const WideDwJob& jb = t.job[x.jn];
-      const CUtensorMap* ma = &t.map[jb.a];
-      const CUtensorMap* mb = &t.map[jb.b];
-      const long long k_lo = x.split * chunk;
-      const long long k_hi = min((long long)t.K, k_lo + chunk);
-      for (long long k0 = k_lo; k0 < k_hi; k0 += kDwRowsBf16) {
-        mbar_wait(empty + 8 * stage, phase ^ 1);  // the consumers released the slot
-        const uint32_t bar = full + 8 * stage, dst = smem_u32(base + stage * kStage);
-        mbar_expect_tx(bar, kStage);
+      const int2 dc = jb.db_off >= 0 ? dw_db_cols(jb, x, BN) : make_int2(0, 0);
+      const bool db = dc.x < dc.y, quads = dc.y - dc.x > kDwTransposers;
+      const int c = dc.x + (quads ? 4 * tt : tt);
+      const bool mine = db && c < dc.y;
+      const int nk = dw_split_stages(t, item, chunk, kDwRowsBf16);
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(full + 8 * stage, phase);
+        if (mine) {
+          const uint32_t b = smem_u32(base + stage * kStage + 2 * kTileSlab);
+          if (quads) {
+            for (int r8 = 0; r8 < kDwRowsBf16; r8 += 8) {
+              uint32_t v[8][2];
+              dw_quad_rows(b, c >> 2, r8, v);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          // rows past the split: the box at row K, all zeros
-          const int row = k0 + h * kDwBoxRows < k_hi ? (int)(k0 + h * kDwBoxRows) : t.K;
-          const uint32_t d = dst + h * (kTileSlab / 2);
-          tma_load_3d(d, ma, x.m0, row, jb.a_layer, bar);
-          tma_load_3d(d + kTileSlab, ma, x.m0 + 64, row, jb.a_layer, bar);
+              for (int u = 0; u < 8; ++u) {
+                s[0] += __uint_as_float(v[u][0] << 16);
+                s[1] += __uint_as_float(v[u][0] & 0xffff0000u);
+                s[2] += __uint_as_float(v[u][1] << 16);
+                s[3] += __uint_as_float(v[u][1] & 0xffff0000u);
+              }
+            }
+          } else {
+            for (int r0 = 0; r0 < kDwRowsBf16; r0 += kDwDbRows) {
+              unsigned short v[kDwDbRows];
+              dw_col_rows(b, c, r0, v);
 #pragma unroll
-          for (int c = 0; c < BN / 64; ++c)
-            tma_load_3d(d + (2 + c) * kTileSlab, mb, x.n0 + 64 * c, row, jb.b_layer, bar);
+              for (int u = 0; u < kDwDbRows; ++u) s[0] += __uint_as_float((uint32_t)v[u] << 16);
+            }
+          }
         }
+        bar_sync(kDwBarDb, kDwTransposers);  // every db thread read the stage
+        if (lead) mbar_arrive(empty + 8 * stage);
         advance(stage, phase, kStages);
+      }
+      if (db) {
+        int* flag = t.flags + (long long)x.tile * kDwParts + 2;
+        split_wait(flag, x.split, lead, kDwBarDb, kDwTransposers);
+        // a bias row may start at an odd offset (a view layer's, after Cd
+        // density biases): one float at a time
+        float* out = t.out + jb.db_off + x.n0 + c;
+        const int n = mine ? min(quads ? 4 : 1, dc.y - c) : 0;
+        const bool add = x.split > 0;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = e < n ? split_sums1(out + e, add) : 0.0f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (e < n) out[e] = v[e] + s[e];
+        split_done(flag, lead, kDwBarDb, kDwTransposers);
       }
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
   float acc[BN / 2];
   for (long long item = blockIdx.x; item < items; item += gridDim.x) {
-    const WideDwTile x = dw_tile(t, item, BN);
-    const WideDwJob& jb = t.job[x.jn];
     const int nk = dw_split_stages(t, item, chunk, kDwRowsBf16);
     zero_acc<BN>(acc);
     int prev = 0;
@@ -254,19 +455,40 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     wgmma_wait<0>();
     if (nk > 0 && tid == 0) mbar_arrive(empty + 8 * prev);
     fence_acc<BN / 2>(acc);
-    float* part = t.part + x.split * t.n_out + jb.out_off;
+    // the tile decoded again here: nothing of it is held through the k-loop
+    const WideDwTile x = dw_tile(t, item, BN);
+    const WideDwJob& jb = t.job[x.jn];
+    int* flag = t.flags + (long long)x.tile * kDwParts + wg;
+    split_wait(flag, x.split, tid == 0, 1 + wg, 128);
+    const bool add = x.split > 0;
     const int row0 = x.m0 + wg * 64 + (tid >> 5) * 16 + ((tid & 31) >> 2), qd = tid & 3;
+    const bool r0 = row0 < jb.M, r1 = row0 + 8 < jb.M;
+    float* o0 = t.out + jb.out_off + (long long)row0 * jb.Nn + x.n0 + 2 * qd;
+    float* o1 = o0 + 8 * (long long)jb.Nn;
+    const int nn = jb.Nn - x.n0 - 2 * qd;  // columns left from this thread's first
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int n = x.n0 + 8 * j + 2 * qd;
-      if (n >= jb.Nn) continue;
-      if (row0 < jb.M)
-        *reinterpret_cast<float2*>(part + (long long)row0 * jb.Nn + n) =
-            make_float2(acc[4 * j], acc[4 * j + 1]);
-      if (row0 + 8 < jb.M)
-        *reinterpret_cast<float2*>(part + (long long)(row0 + 8) * jb.Nn + n) =
-            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    for (int j0 = 0; j0 < BN / 8; j0 += kDwLoads / 2) {
+      float2 v[kDwLoads];
+#pragma unroll
+      for (int u = 0; u < kDwLoads / 2; ++u) {
+        const int j = j0 + u;
+        const bool in = 8 * j < nn;
+        v[2 * u] = split_sums2(o0 + 8 * j, add && in && r0);
+        v[2 * u + 1] = split_sums2(o1 + 8 * j, add && in && r1);
+      }
+#pragma unroll
+      for (int u = 0; u < kDwLoads / 2; ++u) {
+        const int j = j0 + u;
+        if (8 * j >= nn) continue;
+        if (r0)
+          *reinterpret_cast<float2*>(o0 + 8 * j) =
+              make_float2(v[2 * u].x + acc[4 * j], v[2 * u].y + acc[4 * j + 1]);
+        if (r1)
+          *reinterpret_cast<float2*>(o1 + 8 * j) =
+              make_float2(v[2 * u + 1].x + acc[4 * j + 2], v[2 * u + 1].y + acc[4 * j + 3]);
+      }
     }
+    split_done(flag, tid == 0, 1 + wg, 128);
   }
 }
 
@@ -357,11 +579,17 @@ __global__ void __launch_bounds__(kWideThreads, 1)
           tma_load_3d(dst + kDwF32Part, mb, x.n0, (int)k0, jb.b_layer, bar);
           advance(stage, phase, kStages);
         }
+        if (x.split > 0) {  // the sums so far, which the epilogue adds to
+          const int rows = min(kWideRows, jb.M - x.m0), cols = min(128, jb.Nn - x.n0);
+          prefetch_rows(t.out + jb.out_off, jb.Nn, x.m0, rows, x.n0, cols);
+          if (jb.db_off >= 0 && x.m0 == 0) prefetch_rows(t.out + jb.db_off, 0, 0, 1, x.n0, cols);
+        }
       }
       return;
     }
     // the transposers: column tt of every stage, and column 96 + tt for tt < 32
     const int tt = threadIdx.x - 288;
+    const bool lead = tt == 0;
     for (long long item = blockIdx.x; item < items; item += gridDim.x) {
       const WideDwTile x = dw_tile(t, item, 128);
       const WideDwJob& jb = t.job[x.jn];
@@ -380,9 +608,16 @@ __global__ void __launch_bounds__(kWideThreads, 1)
         advance(stage, phase, kStages);
       }
       if (db) {
-        float* part = t.part + x.split * t.n_out + jb.db_off + x.n0;
-        if (x.n0 + tt < jb.Nn) part[tt] = s0;
-        if (tt < 32 && x.n0 + 96 + tt < jb.Nn) part[96 + tt] = s1;
+        int* flag = t.flags + (long long)x.tile * kDwParts + 2;
+        split_wait(flag, x.split, lead, kDwBarDb, kDwTransposers);
+        float* out = t.out + jb.db_off + x.n0;
+        const bool add = x.split > 0;
+        const bool p0 = x.n0 + tt < jb.Nn, p1 = tt < 32 && x.n0 + 96 + tt < jb.Nn;
+        const float v0 = p0 ? split_sums1(out + tt, add) : 0.0f;
+        const float v1 = p1 ? split_sums1(out + 96 + tt, add) : 0.0f;
+        if (p0) out[tt] = v0 + s0;
+        if (p1) out[96 + tt] = v1 + s1;
+        split_done(flag, lead, kDwBarDb, kDwTransposers);
       }
     }
     return;
@@ -431,19 +666,30 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     // the tile decoded again here: nothing of it is held through the k-loop
     const WideDwTile x = dw_tile(t, item, 128);
     const WideDwJob& jb = t.job[x.jn];
-    float* part = t.part + x.split * t.n_out + jb.out_off;
+    int* flag = t.flags + (long long)x.tile * kDwParts + wg;
+    split_wait(flag, x.split, tid == 0, 1 + wg, 128);
+    const bool add = x.split > 0;
+    const int nn = jb.Nn - x.n0 - 2 * tq;  // columns left from this thread's first
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = x.m0 + 32 * box + lc + 4 * h;
       if (row >= jb.M) continue;
+      float* o = t.out + jb.out_off + (long long)row * jb.Nn + x.n0 + 2 * tq;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int n = x.n0 + 8 * j + 2 * tq;
-        if (n < jb.Nn)
-          *reinterpret_cast<float2*>(part + (long long)row * jb.Nn + n) =
-              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      for (int j0 = 0; j0 < 16; j0 += kDwLoads) {
+        float2 v[kDwLoads];
+#pragma unroll
+        for (int u = 0; u < kDwLoads; ++u) v[u] = split_sums2(o + 8 * (j0 + u), add && 8 * (j0 + u) < nn);
+#pragma unroll
+        for (int u = 0; u < kDwLoads; ++u) {
+          const int j = j0 + u;
+          if (8 * j < nn)
+            *reinterpret_cast<float2*>(o + 8 * j) =
+                make_float2(v[u].x + acc[4 * j + 2 * h], v[u].y + acc[4 * j + 2 * h + 1]);
+        }
       }
     }
+    split_done(flag, tid == 0, 1 + wg, 128);
   }
 }
 
@@ -470,12 +716,24 @@ inline bool dw_map(CUtensorMap* map, const void* a, int esize, int ld, int cols,
 }
 
 // One dW product: A = layer a_layer of map a (M output rows), B = layer
-// b_layer of map b (Nn output columns), its block at out_off of a split's
-// partial row, db (f32) at db_off or none (-1).
+// b_layer of map b (Nn output columns), dW at out_off of the output, db
+// (B's column sums) at db_off or none (-1).
 struct WideDwProduct {
   int a, a_layer, M, b, b_layer, Nn;
   long long out_off, db_off;
 };
+
+// The tiles of a product at the smallest column block (128): the split
+// counters a launch of it needs are kDwParts of them.
+inline long long dw_tiles(int M, int Nn) { return (long long)cdiv(M, kWideRows) * cdiv(Nn, 128); }
+
+// Split counters enough for any launch of a level of D trunk layers of W
+// (each with a product from the previous layer and at most one from the
+// KX feature columns), the first view layer from W and Dc - 1 of Wc.
+inline long long dw_flag_bound(int D, int W, int Wc, int Dc, int KX) {
+  return kDwParts * ((long long)D * (dw_tiles(W, W) + dw_tiles(KX, W)) + dw_tiles(W, Wc) +
+                     (long long)(Dc > 1 ? Dc - 1 : 0) * dw_tiles(Wc, Wc));
+}
 
 // A level's dW products in launch_dw's order (level_backward.cuh): trunk
 // layer 0 from the features, layer i from layer i - 1's activation (and
@@ -505,9 +763,12 @@ inline std::vector<WideDwProduct> dw_products(const Params& p) {
 }
 
 // The products prods (all in column blocks of bn), kDwMaxJobs a launch of
-// launch(grid, table): one persistent block an SM, at most one a work item.
+// launch(grid, table): one persistent block an SM, at most one a work
+// item; the split counters (n_flags of them at t.flags) zeroed on the
+// stream before each launch.
 template <class F>
-inline cudaError_t dw_launches(WideDwTable& t, const std::vector<WideDwProduct>& prods, int bn, bool db,
+inline cudaError_t dw_launches(WideDwTable& t, long long n_flags,
+                               const std::vector<WideDwProduct>& prods, int bn, cudaStream_t st,
                                F&& launch) {
   int dev = 0, sms = 0;
   cudaError_t err;
@@ -520,11 +781,14 @@ inline cudaError_t dw_launches(WideDwTable& t, const std::vector<WideDwProduct>&
     for (size_t j = j0; j < prods.size() && j < j0 + kDwMaxJobs; ++j) {
       const WideDwProduct& d = prods[j];
       WideDwJob& jb = t.job[t.n++];
-      jb.out_off = d.out_off; jb.db_off = db ? d.db_off : -1;
+      jb.out_off = d.out_off; jb.db_off = d.db_off;
       jb.a = d.a; jb.a_layer = d.a_layer; jb.b = d.b; jb.b_layer = d.b_layer;
       jb.M = d.M; jb.Nn = d.Nn; jb.tiles_m = cdiv(d.M, kWideRows); jb.tile0 = t.tiles;
       t.tiles += jb.tiles_m * cdiv(d.Nn, bn);
     }
+    const long long flags = (long long)kDwParts * t.tiles;
+    if (!t.flags || flags > n_flags) return cudaErrorInvalidValue;
+    if ((err = cudaMemsetAsync(t.flags, 0, flags * sizeof(int), st)) != cudaSuccess) return err;
     const long long items = (long long)t.splits * t.tiles;
     launch((unsigned)(items < sms ? items : sms), t);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -534,8 +798,8 @@ inline cudaError_t dw_launches(WideDwTable& t, const std::vector<WideDwProduct>&
 
 // bf16: the products whose columns 256 divides on wide_dw_kernel<256>,
 // the others on wide_dw_kernel<128> (the parent's column blocks).
-inline cudaError_t dw_run_bf16(WideDwTable& t, const std::vector<WideDwProduct>& prods,
-                               cudaStream_t st) {
+inline cudaError_t dw_run_bf16(WideDwTable& t, long long n_flags,
+                               const std::vector<WideDwProduct>& prods, cudaStream_t st) {
   std::vector<WideDwProduct> p256, p128;
   for (const WideDwProduct& d : prods) (d.Nn % 256 == 0 ? p256 : p128).push_back(d);
   cudaError_t err;
@@ -543,7 +807,7 @@ inline cudaError_t dw_run_bf16(WideDwTable& t, const std::vector<WideDwProduct>&
     if ((err = cudaFuncSetAttribute(wide_dw_kernel<256>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     dw_smem<256>())) != cudaSuccess ||
-        (err = dw_launches(t, p256, 256, false, [&](unsigned grid, const WideDwTable& tt) {
+        (err = dw_launches(t, n_flags, p256, 256, st, [&](unsigned grid, const WideDwTable& tt) {
            wide_dw_kernel<256><<<grid, kWideThreads, dw_smem<256>(), st>>>(tt);
          })) != cudaSuccess)
       return err;
@@ -552,7 +816,7 @@ inline cudaError_t dw_run_bf16(WideDwTable& t, const std::vector<WideDwProduct>&
     if ((err = cudaFuncSetAttribute(wide_dw_kernel<128>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     dw_smem<128>())) != cudaSuccess ||
-        (err = dw_launches(t, p128, 128, false, [&](unsigned grid, const WideDwTable& tt) {
+        (err = dw_launches(t, n_flags, p128, 128, st, [&](unsigned grid, const WideDwTable& tt) {
            wide_dw_kernel<128><<<grid, kWideThreads, dw_smem<128>(), st>>>(tt);
          })) != cudaSuccess)
       return err;
@@ -560,11 +824,12 @@ inline cudaError_t dw_run_bf16(WideDwTable& t, const std::vector<WideDwProduct>&
   return cudaSuccess;
 }
 
-inline cudaError_t dw_run_f32(WideDwTable& t, const std::vector<WideDwProduct>& prods, cudaStream_t st) {
+inline cudaError_t dw_run_f32(WideDwTable& t, long long n_flags,
+                              const std::vector<WideDwProduct>& prods, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
       wide_dw_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDwF32Smem);
   if (err != cudaSuccess) return err;
-  return dw_launches(t, prods, 128, true, [&](unsigned grid, const WideDwTable& tt) {
+  return dw_launches(t, n_flags, prods, 128, st, [&](unsigned grid, const WideDwTable& tt) {
     wide_dw_f32_kernel<<<grid, kWideThreads, kDwF32Smem, st>>>(tt);
   });
 }
@@ -586,37 +851,40 @@ inline bool dw_level_maps(const Params& p, const Extra& e, bool f32, CUtensorMap
          dw_map(&map[kDwViewGrads], grads + view, es, p.Wc, p.Wc, N, p.Dc, bb, bs);
 }
 
-// Pass 6 of the wide routes: every dW product of the level (f32: with db)
+// Pass 5 of the wide routes: dW and db of every product of the level
 // over the rows e.N of the activations, features and masked g in the
-// workspace (e.acts, e.xs, e.grads at act_off), each split's partial into
-// part [splits, n_out] at output_offsets' offsets.
-inline cudaError_t launch_wide_dw(const Params& p, const Extra& e, bool f32, float* part,
-                                  long long n_out, int splits, cudaStream_t st) {
+// workspace (e.acts, e.xs, e.grads at act_off), the splits added in order
+// into out at output_offsets' offsets; n_flags split counters at flags
+// (dw_flag_bound).
+inline cudaError_t launch_wide_dw(const Params& p, const Extra& e, bool f32, float* out,
+                                  int* flags, long long n_flags, int splits, cudaStream_t st) {
   WideDwTable t{};
   if (!dw_level_maps(p, e, f32, t.map)) return cudaErrorInvalidValue;
-  t.part = part; t.n_out = n_out; t.splits = splits; t.K = (int)e.N;
+  t.out = out; t.flags = flags; t.splits = splits; t.K = (int)e.N;
   const std::vector<WideDwProduct> prods = dw_products(p);
-  return f32 ? dw_run_f32(t, prods, st) : dw_run_bf16(t, prods, st);
+  return f32 ? dw_run_f32(t, n_flags, prods, st) : dw_run_bf16(t, n_flags, prods, st);
 }
 
 // One product alone (csrc/wide_dw.cu): A [K, lda] (M columns read), B [K,
-// ldb] (Nn columns), each split's partial at 0 of its row of part
-// [splits, n_out], f32 db at db_off (or none, -1).
+// ldb] (Nn columns), dW summed over the splits at 0 of out (row stride Nn)
+// and db at db_off (or none, -1); n_flags split counters at flags
+// (kDwParts dw_tiles(M, Nn)).
 inline cudaError_t launch_wide_dw_one(bool f32, const void* A, int lda, int M, const void* B,
-                                      int ldb, int Nn, int K, int splits, float* part,
-                                      long long n_out, long long db_off, cudaStream_t st) {
+                                      int ldb, int Nn, int K, int splits, float* out,
+                                      long long db_off, int* flags, long long n_flags,
+                                      cudaStream_t st) {
   WideDwTable t{};
   const int es = f32 ? 4 : 2;
   if (!dw_map(&t.map[kDwActs], A, es, lda, M, K, 1, f32 ? 32 : 64, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !dw_map(&t.map[kDwGrads], B, es, ldb, Nn, K, 1, f32 ? 128 : 64,
               f32 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B) ||
-      splits < 1 || Nn % 32)
+      splits < 1 || Nn % 32 || !out || (reinterpret_cast<uintptr_t>(out) & 7))
     return cudaErrorInvalidValue;
   t.map[kDwViewActs] = t.map[kDwX] = t.map[kDwActs];
   t.map[kDwViewGrads] = t.map[kDwGrads];
-  t.part = part; t.n_out = n_out; t.splits = splits; t.K = K;
+  t.out = out; t.flags = flags; t.splits = splits; t.K = K;
   const std::vector<WideDwProduct> prods{{kDwActs, 0, M, kDwGrads, 0, Nn, 0, db_off}};
-  return f32 ? dw_run_f32(t, prods, st) : dw_run_bf16(t, prods, st);
+  return f32 ? dw_run_f32(t, n_flags, prods, st) : dw_run_bf16(t, n_flags, prods, st);
 }
 
 }  // namespace

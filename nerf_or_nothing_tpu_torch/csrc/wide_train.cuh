@@ -2,15 +2,14 @@
 // from 288 up, a multiple of 32; wide_forward.cuh has the bf16 forward and
 // layer product, wide_f32.cuh the f32 ones): the forward keeping every
 // activation in the workspace, the composite and its backward, the
-// g-chain, db, dW, and the small products and reduction of
-// level_backward.cuh. Passes 3-7 start from the head cotangents
-// (launch_wide_backward, launch_wide_backward_f32), so mlp_bwd.cu runs them
-// after its recompute, with heads of any width. Passes 1-7 below
-// are the bf16 route's; the f32 route (launch_train_wide<WideF32Route>,
-// launch_wide_backward_f32 at the end) runs the same sequence with
-// wide_f32.cuh's GEMM for every forward and chain product, f32
-// activations and masked g, and wide_dw.cuh's f32 dW GEMM
-// (wide_dw_f32_kernel, db as its column sums) in place of passes 5-6.
+// g-chain, dW and db, and the small products of level_backward.cuh. Passes
+// 3-6 start from the head cotangents (launch_wide_backward,
+// launch_wide_backward_f32), so mlp_bwd.cu runs them after its recompute,
+// with heads of any width. Passes 1-6 below are the bf16 route's; the f32
+// route (launch_train_wide<WideF32Route>, launch_wide_backward_f32 at the
+// end) runs the same sequence with wide_f32.cuh's GEMM for every forward
+// and chain product, f32 activations and masked g, and wide_dw.cuh's f32
+// dW GEMM (wide_dw_f32_kernel) in pass 5.
 //
 // Replaces, at these widths: nerf_or_nothing_tpu/kernels/fused_level.py::
 // _level_kernel and _level_kernel_twopass (the same launches: their order
@@ -36,20 +35,19 @@
 //     epilogue (the density head's term on the way into the trunk; mlp_bwd
 //     with a density head of Cd > 1 channels: the kWideChainHeads epilogue);
 //  4. g_ray_kernel (train_wg.cuh): the first view layer's g summed per ray;
-//  5. wide_db_kernel: every bias's db as column sums of the masked g (and
-//     of the f32 head cotangents) over fixed chunks of rows, one partial
-//     row a chunk;
-//  6. wide_dw.cuh's launch_wide_dw: dW = act^T g of every product over
+//  5. wide_dw.cuh's launch_wide_dw: dW = act^T g of every product over
 //     the backward's fixed split of the rows, both operands MN-major on
 //     wgmma, in one launch of the persistent wide_dw_kernel<BN> for each
 //     column block (BN = 256 where it divides the product's columns, else
-//     128) from a job table;
-//  7. launch_small_reduce (level_backward.cuh): the heads' dW, the view
-//     layer's direction rows, db from the partial rows, then every split
-//     partial summed in a fixed order.
+//     128) from a job table; each hidden bias's db as the column sums of
+//     its product's masked g in the same pass; each split's tile added
+//     into the output in split order;
+//  6. launch_small_sum (level_backward.cuh): the heads' dW and db and the
+//     view layer's direction rows, their split partials summed in order.
 // mlp_bwd.cu with input_grads adds dX (launch_wide_dx there).
-// Every partial is written by exactly one block and reduced in order: no
-// atomics, so two launches on the same inputs give bit-equal dW, db and dX.
+// Every partial is written by exactly one block and added in a fixed
+// order: no atomics, so two launches on the same inputs give bit-equal
+// dW, db and dX.
 // The rounding is the narrow route's: bf16 after every product, the
 // density term rounded and added in bf16, the mask after rounding.
 
@@ -62,24 +60,24 @@
 
 namespace {
 
-constexpr int kWideDbRows = 2048;  // rows of one db partial (at most kMaxChainBlocks of them)
-
 // Byte offsets of the wide route's own areas after the backward's layout
-// (level_backward.cuh::layout, which ends at base): the raw heads (unless
-// heads is false: mlp_bwd), the direction terms and the db partial rows
-// (Cg head channels: 3 rgb and 1 density in the train level).
+// (level_backward.cuh::layout, which ends at base; its split partials
+// there only the small products', small_outputs a row): the raw heads
+// (unless heads is false: mlp_bwd), the direction terms and the dW GEMMs'
+// split counters (dw_flag_bound of them).
 struct WideTrainLayout {
-  long long heads, dc, dbpart, total;
+  long long heads, dc, flags, total;
+  long long n_flags;
 };
 
 inline WideTrainLayout wide_train_layout(long long base, int R, int S, int D, int W, int Wc,
-                                         int Dc, int Cg = 4, bool heads = true) {
-  const long long nb = (long long)D * W + (long long)Dc * Wc + Cg;
+                                         int Dc, int KX, bool heads = true) {
   WideTrainLayout x;
+  x.n_flags = dw_flag_bound(D, W, Wc, Dc, KX);
   long long off = base;
   x.heads = off;  off += heads ? round256((long long)R * S * 16) : 0;
   x.dc = off;     off += round256((long long)R * Wc * 4);
-  x.dbpart = off; off += round256(kMaxChainBlocks * nb * 4);
+  x.flags = off;  off += round256(x.n_flags * 4);
   x.total = off;
   return x;
 }
@@ -139,51 +137,20 @@ __global__ void wide_rgb_chain_kernel(const float* g_rgb, const bf16* wr, const 
   }
 }
 
-// dbpart[blockIdx.y, col] = the f32 sum over rows [y * chunk, (y + 1) *
-// chunk) of bias col's cotangent: a hidden layer's masked g column, or the
-// heads' f32 cotangents; a thread a bias, in row order.
-__global__ void wide_db_kernel(Params p, const bf16* grads, const float* g_rgb,
-                               const float* g_den, float* dbpart, long long N, long long chunk) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nb = num_biases(p);
-  if (col >= nb) return;
-  const long long r0 = (long long)blockIdx.y * chunk;
-  const long long r1 = min(N, r0 + chunk);
-  float s = 0.0f;
-  if (col < p.b_den || (col >= p.b_v0 && col < p.b_rgb)) {
-    const bool trunk = col < p.b_den;
-    const int width = trunk ? p.W : p.Wc;
-    const int c = trunk ? col : col - p.b_v0;
-    const int layer = c / width;
-    const bf16* g = grads + act_off(p, N, trunk ? layer : p.D + layer) + (c - layer * width);
-#pragma unroll 8
-    for (long long r = r0; r < r1; ++r) s += __bfloat162float(g[r * width]);
-  } else {
-    const bool den = col < p.b_v0;
-    const float* g = den ? g_den + (col - p.b_den) : g_rgb + (col - p.b_rgb);
-    const int ld = den ? p.Cd : p.Cr;
-#pragma unroll 8
-    for (long long r = r0; r < r1; ++r) s += g[r * ld];
-  }
-  dbpart[(long long)blockIdx.y * nb + col] = s;
-}
-
-// Passes 3-7 above from the head cotangents e.g_rgb [N, Cr] and e.g_den
+// Passes 3-6 above from the head cotangents e.g_rgb [N, Cr] and e.g_den
 // [N, Cd] (kCr: 3, the train level's, or 0, any), on the activations and
-// features in the workspace (l; the direction terms and db partials in
-// x). e.wt: pack_params_wgt's stream, or pack_params_wgx's (co then has
-// its x slabs, which only launch_wide_dx reads).
+// features in the workspace (l; the split counters in x). e.wt:
+// pack_params_wgt's stream, or pack_params_wgx's (co then has its x slabs,
+// which only launch_wide_dx reads).
 template <int kCr>
 inline cudaError_t launch_wide_backward(Params p, Extra e, const Layout& l,
                                         const WideTrainLayout& x, const WideOffsets& o,
                                         const WideChainOffsets& co, unsigned char* ws,
-                                        float* out, long long n_out, int splits,
-                                        cudaStream_t st) {
+                                        float* out, int splits, cudaStream_t st) {
   const long long N = e.N;
   const bf16* wt = static_cast<const bf16*>(e.wt);
   bf16* acts = static_cast<bf16*>(e.acts);
   bf16* grads = static_cast<bf16*>(e.grads);
-  float* dbpart = reinterpret_cast<float*>(ws + x.dbpart);
   auto act = [&](int L) { return acts + act_off(p, N, L); };
   auto grad = [&](int L) { return grads + act_off(p, N, L); };
   auto h = [&](int i) { return act(i); };
@@ -227,36 +194,29 @@ inline cudaError_t launch_wide_backward(Params p, Extra e, const Layout& l,
     g_ray_kernel<<<p.R, n, 0, st>>>(grad(p.D) + n0, e.g_ray + n0, p.S, p.Wc);
   });
   if (err != cudaSuccess) return err;
-  // 5. db partials
-  long long db_blocks = (N + kWideDbRows - 1) / kWideDbRows;
-  if (db_blocks > kMaxChainBlocks) db_blocks = kMaxChainBlocks;
-  const long long chunk = (N + db_blocks - 1) / db_blocks;
-  wide_db_kernel<<<dim3(cdiv(num_biases(p), 256), (unsigned)db_blocks), 256, 0, st>>>(
-      p, grads, e.g_rgb, e.g_den, dbpart, N, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // 6. dW of every layer product (wide_dw.cuh)
-  err = launch_wide_dw(p, e, false, reinterpret_cast<float*>(ws + l.part), n_out, splits, st);
+  // 5. dW and db of every layer product (wide_dw.cuh), summed into out
+  err = launch_wide_dw(p, e, false, out, reinterpret_cast<int*>(ws + x.flags), x.n_flags, splits,
+                       st);
   if (err != cudaSuccess) return err;
-  // 7. small products, db from the partial rows, the reduction
-  return launch_small_reduce<bf16>(p, e, l, ws, out, n_out, splits, dbpart, (int)db_blocks,
-                                   st);
+  // 6. the small products and the heads' db
+  return launch_small_sum<bf16>(p, e, l, ws, out, splits, st);
 }
 
 // ---- the f32 route (wide_f32.cuh's GEMM) ----
 
 // The f32 route's passes from the head cotangents e.g_rgb [N, Cr] and
 // e.g_den [N, Cd] on the f32 activations and features in the workspace
-// (l): wide_rgb_chain_f32_kernel, then one kF32Chain GEMM per chained
-// layer, top layer first, g @ W^T from pack_params_wft's hi / lo slabs
-// (e.wt, at wt_off) with the density term on the way into the trunk (the
-// heads' W^T from p.w: pack_params' transposed head rows); g_ray_f32_kernel; then
-// wide_dw.cuh's launch_wide_dw (wide_dw_f32_kernel: dW over the rows with
-// db as column sums of g in the same pass) and level_backward.cuh's
-// launch_small_reduce<float> (the small products, the fixed-order
-// reduction), as the narrow f32 route's launch_products runs them.
+// (l; the split counters in x): wide_rgb_chain_f32_kernel, then one
+// kF32Chain GEMM per chained layer, top layer first, g @ W^T from
+// pack_params_wft's hi / lo slabs (e.wt, at wt_off) with the density term
+// on the way into the trunk (the heads' W^T from p.w: pack_params'
+// transposed head rows); g_ray_f32_kernel; then wide_dw.cuh's
+// launch_wide_dw (wide_dw_f32_kernel: dW over the rows with db as column
+// sums of g in the same pass, the splits added in order into out) and
+// level_backward.cuh's launch_small_sum<float> (the small products).
 inline cudaError_t launch_wide_backward_f32(Params p, Extra e, const Layout& l,
-                                            unsigned char* ws, float* out, long long n_out,
-                                            int splits, cudaStream_t st) {
+                                            const WideTrainLayout& x, unsigned char* ws,
+                                            float* out, int splits, cudaStream_t st) {
   const long long N = e.N;
   const float* w = static_cast<const float*>(p.w);
   const float* wt = static_cast<const float*>(e.wt);
@@ -292,9 +252,10 @@ inline cudaError_t launch_wide_backward_f32(Params p, Extra e, const Layout& l,
     g_ray_f32_kernel<<<p.R, n, 0, st>>>(grad(p.D) + n0, e.g_ray + n0, p.S, p.Wc);
   });
   if (err != cudaSuccess) return err;
-  err = launch_wide_dw(p, e, true, reinterpret_cast<float*>(ws + l.part), n_out, splits, st);
+  err = launch_wide_dw(p, e, true, out, reinterpret_cast<int*>(ws + x.flags), x.n_flags, splits,
+                       st);
   if (err != cudaSuccess) return err;
-  return launch_small_reduce<float>(p, e, l, ws, out, n_out, splits, nullptr, 0, st);
+  return launch_small_sum<float>(p, e, l, ws, out, splits, st);
 }
 
 // Pass 1 of the train level and of mlp_bwd on route r (WideBf16Route,
@@ -322,13 +283,13 @@ inline cudaError_t wide_forward_keep(const Params& p, const Route& r, const Extr
 
 // The train level on the wide route, on the workspace (l, then x):
 // 1. the forward (wide_forward_keep); 2. the composite and its backward;
-// 3-7. bf16: launch_wide_backward (p.w: pack_params_wg's stream; e.wt:
+// 3-6. bf16: launch_wide_backward (p.w: pack_params_wg's stream; e.wt:
 // pack_params_wgt's), f32: launch_wide_backward_f32 (p.w: pack_params_wf;
 // e.wt: pack_params_wft).
 template <class Route>
 inline cudaError_t launch_train_wide(Params p, Extra e, const Layout& l,
                                      const WideTrainLayout& x, unsigned char* ws, float* out,
-                                     long long n_out, int splits, cudaStream_t st) {
+                                     int splits, cudaStream_t st) {
   Route r;
   if (!r.init(p)) return cudaErrorInvalidValue;
   float* heads = reinterpret_cast<float*>(ws + x.heads);
@@ -341,10 +302,10 @@ inline cudaError_t launch_train_wide(Params p, Extra e, const Layout& l,
   train_composite_kernel<<<cdiv(p.R, kThreads / 32), kThreads, smem_c, st>>>(p, e, heads);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if constexpr (Route::kBf16)
-    return launch_wide_backward<3>(p, e, l, x, r.o, wide_chain_offsets(p, r.o), ws, out, n_out,
-                                   splits, st);
+    return launch_wide_backward<3>(p, e, l, x, r.o, wide_chain_offsets(p, r.o), ws, out, splits,
+                                   st);
   else
-    return launch_wide_backward_f32(p, e, l, ws, out, n_out, splits, st);
+    return launch_wide_backward_f32(p, e, l, x, ws, out, splits, st);
 }
 
 }  // namespace

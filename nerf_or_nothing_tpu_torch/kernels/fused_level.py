@@ -1422,7 +1422,9 @@ def _train_library(name: str, source=None):
                        ctypes.c_longlong)
         fn.argtypes = [i, i] + [p] * 14 + [ll, p] + [i] * 12 + [f, f, i, i, p]
         fn.restype = ctypes.c_int
-        ws.argtypes = [i] * 9 + [ll]
+        # An earlier version's workspace function ignores the trailing
+        # direction features: its split partials held every output.
+        ws.argtypes = [i] * 9 + [ll, i]
         ws.restype = ll
     return fn, ws, weight_layout(lib, name)
 
@@ -1468,7 +1470,8 @@ def _launch_train(name: str, counted, params: Params, cfg: Config, xs, d,
     kx, splits = padded_location_features(cfg), train_splits(N)
     D, W, Wc, Dc = (cfg.net_depth, kc.net_width, kc.net_width_condition,
                     cfg.net_depth_condition)
-    ws_bytes = workspace_bytes(code, R, S, D, W, Wc, Dc, kx, splits, n_out)
+    ws_bytes = workspace_bytes(code, R, S, D, W, Wc, Dc, kx, splits, n_out,
+                               fd)
     workspace = torch.empty((ws_bytes,), dtype=torch.uint8, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = launch(

@@ -320,9 +320,11 @@ def _bwd_library(source=None):
         fn.argtypes = ([i] + [p] * 9 + [ll] + [p] * 3 + [i] * 12 + [i, i, p])
         fn.restype = ctypes.c_int
         # An earlier version's workspace function ignores the trailing
-        # head channels: its dbpart held 16.
+        # arguments: the head channels (its dbpart held 16), then the
+        # direction features and density channels (its split partials held
+        # every output).
         ws = lib.mlp_bwd_workspace
-        ws.argtypes = [i] * 9 + [ll, i]
+        ws.argtypes = [i] * 9 + [ll, i, i, i]
         ws.restype = ll
     return lib, weight_layout(lib, "mlp_bwd")
 
@@ -369,7 +371,8 @@ def mlp_bwd_cuda(params: Params, cfg: Config, x, d, g_rgb, g_den,
     D, W, _, Wc, Dc, _, kx = _dims(cfg)[:7]
     ws_bytes = lib.mlp_bwd_workspace(
         code, R, S, D, W, Wc, Dc, kx, splits, n_out,
-        cfg.num_rgb_channels + cfg.num_density_channels)
+        cfg.num_rgb_channels + cfg.num_density_channels,
+        cfg.direction_features, cfg.num_density_channels)
     workspace = torch.empty((ws_bytes,), dtype=torch.uint8, device=device)
     err = lib.mlp_bwd_launch(
         code, x.data_ptr(), d.data_ptr(), g_rgb.data_ptr(),

@@ -19,13 +19,15 @@ and row-major for the earlier f32 version); ``wide_gemm_plain`` computes
 the same product and epilogue in PyTorch (bf16: f32 sums in another order,
 the bf16 band, not the bits; f32: f64 products rounded to f32, the f32
 band). The wide routes' dW GEMMs likewise (``csrc/wide_dw.cuh``:
-``wide_dw_kernel<BN>`` in bf16, ``wide_dw_f32_kernel`` in f32 with db):
+``wide_dw_kernel<BN>`` in bf16, ``wide_dw_f32_kernel`` in f32, both with
+db, each split's tile added into the output in split order):
 ``dw_case`` makes seeded activations and masked g the way the wide route
 lays them out, ``wide_dw_plain`` / ``wide_dw_f32_plain`` compute dW (f32:
-and db) over the train level's row splits, ``wide_dw_cuda`` /
-``wide_dw_f32_cuda`` launch one product through ``csrc/wide_dw.cu``, and
-``dw_products`` / ``dw_items`` model the kernels' job table and work
-items. Nothing here runs at import time.
+and db) over the train level's row splits and ``wide_db_plain`` db the
+kernels' way, ``wide_dw_cuda`` launches one product through
+``csrc/wide_dw.cu``, and ``dw_products`` / ``dw_items`` / ``dw_waits_on``
+model the kernels' job table, work items and split order.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -408,6 +410,32 @@ def dw_items(products, bn: int, splits: int):
     return [(jn, m0, n0, s) for s in range(splits) for jn, m0, n0 in tiles]
 
 
+DW_PARTS = 3  # split counters a tile: consumer warpgroups 0 and 1, db (kDwParts)
+
+
+def dw_flag_count(M: int, Nn: int) -> int:
+    """Split counters (ints) a launch of one product of M rows and Nn
+    columns needs (``wide_dw_flag_count``): ``DW_PARTS`` a tile at the
+    smallest column block, 128."""
+    return DW_PARTS * -(-M // BLOCK_ROWS) * -(-Nn // 128)
+
+
+def dw_flag_bound(D: int, W: int, Wc: int, Dc: int, KX: int) -> int:
+    """Split counters the wide level's workspace holds
+    (``wide_dw.cuh::dw_flag_bound``): ``DW_PARTS`` a tile at 128 columns of
+    D trunk products from W and D from the KX feature columns, the first
+    view layer's from W and Dc - 1 from Wc."""
+    return (D * (dw_flag_count(W, W) + dw_flag_count(KX, W))
+            + dw_flag_count(W, Wc) + max(Dc - 1, 0) * dw_flag_count(Wc, Wc))
+
+
+def dw_waits_on(item: int, tiles: int):
+    """The work item whose stores item ``item`` of a launch of ``tiles``
+    tiles a split waits for before it adds its own (the same tile's
+    previous split, ``tiles`` items earlier), or None (split 0)."""
+    return item - tiles if item >= tiles else None
+
+
 def dw_box_rows(k_lo: int, k_hi: int, K: int):
     """The row of each 32-row TMA box the bf16 producer loads for the split
     [k_lo, k_hi) of K rows (``wide_dw_kernel``): two a 64-row stage; a box
@@ -462,6 +490,30 @@ def wide_dw_plain(c: Dict) -> torch.Tensor:
     return out
 
 
+def wide_db_plain(c: Dict) -> torch.Tensor:
+    """db [Nn] the dW kernels' way, in either dtype: each split's column
+    sums of g in row order in f32 from +0, the splits' sums then added in
+    split order from +0 (``wide_dw_kernel``'s db warps and
+    ``wide_dw_f32_kernel``'s transposers with the ordered add; bit for bit,
+    since f32 adds of the same values in the same order round the same)."""
+    g = c["g"]
+    bounds = split_bounds(c["K"], c["splits"])
+    rows = max(hi - lo for lo, hi in bounds)
+    chunk = torch.zeros(len(bounds), max(rows, 0), c["Nn"], device=g.device)
+    for k, (lo, hi) in enumerate(bounds):
+        if hi > lo:
+            chunk[k, :hi - lo] = g[lo:hi].float()
+    # rows past a split's end are +0: adding them to a sum that started
+    # from +0 leaves it as it is
+    per_split = torch.zeros(len(bounds), c["Nn"], device=g.device)
+    for r in range(chunk.shape[1]):
+        per_split = per_split + chunk[:, r]
+    db = torch.zeros(c["Nn"], device=g.device)
+    for s in per_split:
+        db = db + s
+    return db
+
+
 def wide_dw_f32_plain(c: Dict):
     """(dW [M, Nn], db [Nn]) of an f32 case: each split's products and
     column sums in f64 rounded to f32, the partials added in f32 in split
@@ -479,30 +531,39 @@ def dw_flops(c: Dict) -> int:
 
 
 def dw_min_bytes(c: Dict) -> int:
-    """Bytes the case must move: act's M columns and g read once, each
-    split's partial (f32: and its db row) written once."""
+    """Bytes the case must move: act's M columns and g read once, dW and db
+    written once."""
     es = c["g"].element_size()
-    out = c["M"] * c["Nn"] + (c["Nn"] if c["g"].dtype == torch.float32
-                              else 0)
-    return c["K"] * (c["M"] + c["Nn"]) * es + c["splits"] * out * 4
+    return (c["K"] * (c["M"] + c["Nn"]) * es
+            + (c["M"] * c["Nn"] + c["Nn"]) * 4)
 
 
 def _dw_library(source=None):
+    """``csrc/wide_dw.cu``'s library (or ``source``'s build): with its
+    reduced entry ``wide_dw_reduced_launch``, or a version's partials entry
+    ``wide_dw_launch``."""
     from nerf_or_nothing_tpu_torch.kernels import build
 
-    fn = build.load("wide_dw", source).wide_dw_launch
+    lib = build.load("wide_dw", source)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if hasattr(lib, "wide_dw_reduced_launch"):
+        fn = lib.wide_dw_reduced_launch
+        if fn.argtypes is None:
+            fn.argtypes = [i, p, i, i, p, i, i, i, i, p, ll, p, ll, p]
+            fn.restype = ctypes.c_int
+            lib.wide_dw_flag_count.argtypes = [i, i]
+            lib.wide_dw_flag_count.restype = ll
+        return lib
+    fn = lib.wide_dw_launch
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [i, p, i, i, p, i, i, i, i, p, ll, ll, p]
         fn.restype = ctypes.c_int
-    return fn
+    return lib
 
 
-def wide_dw_partials(c: Dict, source=None) -> torch.Tensor:
-    """One launch of the case's dW GEMM on the card through
-    ``wide_dw_launch`` (of ``source``'s build when given): each split's
-    partial, [splits, M * Nn] (f32: and its Nn column sums after). The
-    operands must lie on a CUDA device."""
+def _check_dw_case(c: Dict) -> bool:
+    """Whether the case is f32; raises on operands the kernels do not take
+    (CPU tensors first)."""
     act, g = c["act"], c["g"]
     if not (act.is_cuda and g.is_cuda):
         raise ValueError("the dW GEMMs need CUDA tensors")
@@ -513,16 +574,64 @@ def wide_dw_partials(c: Dict, source=None) -> torch.Tensor:
             or not 0 < M <= c["lda"]):
         raise ValueError("dW case: act [K, lda] and g [K, Nn], contiguous, "
                          "both bf16 or both f32, M <= lda")
-    f32 = g.dtype == torch.float32
+    return g.dtype == torch.float32
+
+
+def wide_dw_partials(c: Dict, source=None) -> torch.Tensor:
+    """One launch of a version's dW GEMM whose kernels write each split's
+    partial (``source``'s build of ``wide_dw_launch``): [splits, M * Nn]
+    (f32: and its Nn column sums after). The operands must lie on a CUDA
+    device."""
+    f32 = _check_dw_case(c)
+    M, Nn, g = c["M"], c["Nn"], c["g"]
     n_out = M * Nn + (Nn if f32 else 0)
     part = torch.empty(c["splits"], n_out, device=g.device)
-    rc = _dw_library(source)(
-        int(f32), act.data_ptr(), c["lda"], M, g.data_ptr(), Nn, Nn, K,
-        c["splits"], part.data_ptr(), n_out, M * Nn if f32 else -1,
+    rc = _dw_library(source).wide_dw_launch(
+        int(f32), c["act"].data_ptr(), c["lda"], M, g.data_ptr(), Nn, Nn,
+        c["K"], c["splits"], part.data_ptr(), n_out, M * Nn if f32 else -1,
         torch.cuda.current_stream(g.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wide_dw_launch failed with CUDA error {rc}")
     return part
+
+
+def wide_dw_reduced(c: Dict, flags: Optional[torch.Tensor] = None,
+                    source=None) -> torch.Tensor:
+    """One launch of the case's dW GEMM with db, the splits added in order
+    in the kernel (``wide_dw_reduced_launch``): [M * Nn + Nn], dW then db.
+    ``flags``: the split counters (``dw_flag_count`` int32), made here when
+    not given. The operands must lie on a CUDA device."""
+    f32 = _check_dw_case(c)
+    M, Nn, g = c["M"], c["Nn"], c["g"]
+    lib = _dw_library(source)
+    n_flags = int(lib.wide_dw_flag_count(M, Nn))
+    if flags is None:
+        flags = torch.empty(n_flags, dtype=torch.int32, device=g.device)
+    out = torch.empty(M * Nn + Nn, device=g.device)
+    rc = lib.wide_dw_reduced_launch(
+        int(f32), c["act"].data_ptr(), c["lda"], M, g.data_ptr(), Nn, Nn,
+        c["K"], c["splits"], out.data_ptr(), M * Nn, flags.data_ptr(),
+        flags.numel(), torch.cuda.current_stream(g.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wide_dw_reduced_launch failed with CUDA error "
+                           f"{rc}")
+    return out
+
+
+def has_reduced(source=None) -> bool:
+    """Whether the build of ``source`` (default: the checkout's) adds the
+    splits in its kernels (else it writes each split's partial)."""
+    return hasattr(_dw_library(source), "wide_dw_reduced_launch")
+
+
+def dw_launch(c: Dict, source=None):
+    """One launch of the version's kernel alone, as the levels run it: the
+    reduced launch, or a partials version's launch (the reduction
+    then outside it)."""
+    _check_dw_case(c)
+    if has_reduced(source):
+        return wide_dw_reduced(c, source=source)
+    return wide_dw_partials(c, source)
 
 
 def _reduce(part: torch.Tensor) -> torch.Tensor:
@@ -533,15 +642,16 @@ def _reduce(part: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def wide_dw_cuda(c: Dict, source=None) -> torch.Tensor:
-    """dW [M, Nn] of a bf16 case on the card: ``wide_dw_partials`` summed
-    in split order."""
-    return _reduce(wide_dw_partials(c, source)).view(c["M"], c["Nn"])
-
-
-def wide_dw_f32_cuda(c: Dict, source=None):
-    """(dW [M, Nn], db [Nn]) of an f32 case on the card:
-    ``wide_dw_partials`` summed in split order."""
-    out = _reduce(wide_dw_partials(c, source))
+def wide_dw_cuda(c: Dict, source=None):
+    """(dW [M, Nn], db [Nn]) of a case on the card, in either dtype: the
+    kernel's sums (a version that writes partials: summed in split order
+    here by ``_reduce``, and bf16 db None, since that version's bf16
+    kernel took none)."""
+    _check_dw_case(c)
     n = c["M"] * c["Nn"]
-    return out[:n].view(c["M"], c["Nn"]), out[n:]
+    if has_reduced(source):
+        out = wide_dw_reduced(c, source=source)
+        return out[:n].view(c["M"], c["Nn"]), out[n:]
+    out = _reduce(wide_dw_partials(c, source))
+    db = out[n:] if c["g"].dtype == torch.float32 else None
+    return out[:n].view(c["M"], c["Nn"]), db

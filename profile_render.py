@@ -11,8 +11,11 @@ also without the profiler), the device time summed over all kernels and
 copies, its share of the wall time and the rest (the device idle share),
 the render kernel's device time in all and per wrapper call (bf16: the
 wgmma forward of ``csrc/forward_wg.cuh``; at net_width 288 and up the
-launches of ``csrc/wide_forward.cuh``), and the top device events with
-their counts.
+launches of ``csrc/wide_forward.cuh``), the top device events with
+their counts, and for each helper kernel of the wide route's launches
+(the features, direction terms, heads and composite:
+``profile_train.helper_model`` at the rays a launch takes) its launches,
+its time a launch and its bound.
 """
 
 from __future__ import annotations
@@ -88,6 +91,27 @@ def main(argv) -> int:
     device_s = sum(r[1] for r in rows) / 1e6
     mine = [r for r in rows if any(k in r[0] for k in RENDER_KERNELS)]
     kernel_s = sum(r[1] for r in mine) / 1e6
+    helpers = {}
+    from profile_train import helper_model
+    from nerf_or_nothing_tpu_torch.utils.profiling import card_peaks
+
+    _, peaks = card_peaks(torch.cuda.get_device_name(0))
+    kc = fl.kernel_cfg(cfg)
+    rays = size * size * cfg.num_levels
+    for k in ("wide_features_kernel", "wide_dir_kernel", "wide_head_kernel",
+              "wide_composite_kernel", "wide_head_f32_kernel"):
+        hit = [r for r in rows if f"namespace)::{k}" in r[0]]
+        n = sum(r[2] for r in hit)
+        if not n:
+            continue
+        per = -(-rays // (n // 2 if "head" in k else n))  # rays a launch
+        m = helper_model(kc, per, cfg.num_samples, 1, 0,
+                         fl.padded_location_features(cfg))[k]
+        helpers[k] = {"launches": n, "rays_per_launch": per,
+                      "ms_per_launch": sum(r[1] for r in hit) / 1e3 / n,
+                      "bytes": m["bytes"],
+                      "bound_ms": max(m["bytes"] / peaks[2],
+                                      m["flops"] / peaks[1]) * 1e3}
     print(json.dumps({
         "view": [size, size], "config": "Config()", "flags": argv,
         "wall_s": wall, "wall_s_unprofiled": plain_wall,
@@ -101,6 +125,7 @@ def main(argv) -> int:
         "other_device_s": device_s - kernel_s,
         "top": [{"name": n[:80], "device_ms": us / 1e3, "count": c}
                 for n, us, c in rows[:15]],
+        "helpers": helpers,
         "card": nvidia_smi_line(),
     }), flush=True)
     return 0

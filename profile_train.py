@@ -35,7 +35,15 @@ fused MLP's node holds the ``mlp_bwd`` launches, the others are the eager
 backward of the composite, IPE, cast_rays and resampling), and, timed
 alone with CUDA events (median of 7), the weight packing of one step, the
 gradient clipping plus Adam update of one step, and one call of each
-kernel wrapper the step uses.
+kernel wrapper the step uses; and for each helper kernel of the step's
+launches (``helper_model``: the composite, the per-ray sums, the heads,
+the small products and the split reductions, ...) its launches a step,
+its time a launch, its bound (the bytes it must move, each input read
+once and each output written once, over the card's memory rate, or its
+FLOPs over the f32 rate, the larger: its sums are f32 in both dtypes)
+and, where one PyTorch
+call computes the same function, that call's time (CUDA events, median
+of 7, on seeded tensors of the same shapes).
 """
 
 from __future__ import annotations
@@ -53,8 +61,9 @@ TRAIN_WG = ("train_fwd_wg_kernel", "train_composite_kernel",
 # per-launch split is the one timed alone ("alone")
 WIDE_FWD = ("wide_features_kernel", "wide_dir_kernel", "wide_gemm_kernel",
             "wide_head_kernel")
+# (wide_db_kernel: the bf16 db before the dW GEMM took it, none since)
 WIDE_TRAIN = WIDE_FWD + ("wide_rgb_chain_kernel", "wide_db_kernel",
-                         "wide_dw_kernel")
+                         "wide_dw_kernel", "small_sum_kernel")
 # the f32 wide route's (csrc/wide_f32.cuh): its layer GEMM and small
 # kernels (the features and direction kernels are WIDE_FWD's, instantiated
 # in f32), dW and db on csrc/wide_dw.cuh's f32 GEMM
@@ -72,6 +81,81 @@ KERNELS = {
                 + WIDE_FWD + WIDE_F32_FWD),
 }
 BACKWARD_NODE = "autograd::engine::evaluate_function: "
+
+
+def helper_model(cfg, R: int, S: int, splits: int, n_out: int,
+                 kx: int) -> dict:
+    """The helper kernels of one level's launches at ``cfg`` (its kernel
+    widths), R rays x S samples and ``splits`` row splits: by kernel name,
+    the bytes a launch must move (each input read once, each output
+    written once), its FLOPs, and the shapes of the one PyTorch call that
+    computes the same function (``library``: (kind, shapes)) or None.
+    ``wide_head_kernel`` is the level's two head launches' mean."""
+    N = R * S
+    W, Wc = cfg.net_width, cfg.net_width_condition
+    D, Dc = cfg.net_depth, cfg.net_depth_condition
+    Fd, LX = cfg.direction_features, cfg.location_features
+    Cr, Cd = cfg.num_rgb_channels, cfg.num_density_channels
+    es = 2 if cfg.compute_dtype == "bfloat16" else 4
+    n_small = W * Cd + Fd * Wc + Wc * Cr + Cr + Cd
+    wide = {
+        "train_composite_kernel": (N * 16 + N * 4 + R * 16 + R * 16
+                                   + N * (4 + 4 * Cr + 4 * Cd), 0, None),
+        "wide_composite_kernel": (N * 16 + N * 4 + R * 16 + N * 4, 0, None),
+        "g_ray_kernel": (N * Wc * es + R * Wc * 4, N * Wc,
+                         ("ray_sum", (R, S, Wc))),
+        "wide_rgb_chain_kernel": (N * Cr * 4 + 2 * N * Wc * es + Cr * Wc * es,
+                                  2 * N * Wc * Cr, None),
+        "wide_head_kernel": ((N * (W + Wc) * es + 2 * N * 16) // 2,
+                             N * (W * Cd + Wc * Cr), None),
+        "wide_features_kernel": (N * LX * es + N * kx * es, 0, None),
+        "wide_dir_kernel": (R * Fd * es + Fd * Wc * es + Wc * 4 + R * Wc * 4,
+                            2 * R * Fd * Wc, None),
+        "small_tn_kernel": (N * (W + Wc) * es + N * (Cr + Cd) * 4
+                            + R * Fd * es + R * Wc * 4
+                            + splits * n_small * 4,
+                            2 * (N * W * Cd + R * Fd * Wc + N * Wc * Cr),
+                            None),
+        "small_sum_kernel": ((splits + 1) * n_small * 4, splits * n_small,
+                             ("split_sum", (splits, n_small))),
+        "reduce_kernel": ((splits + 1) * n_out * 4, splits * n_out,
+                          ("split_sum", (splits, n_out))),
+        "wide_db_kernel": (N * (D * W + Dc * Wc) * es + N * (Cr + Cd) * 4
+                           + min(256, -(-N // 2048)) * (D * W + Dc * Wc
+                                                        + Cr + Cd) * 4,
+                           N * (D * W + Dc * Wc + Cr + Cd),
+                           ("column_sum", (N, D * W + Dc * Wc))),
+        "mlp_dd_kernel": (R * Wc * 4 + Fd * Wc * es + R * Fd * 4,
+                          2 * R * Wc * Fd, ("matmul_dd", (R, Wc, Fd))),
+    }
+    wide["g_ray_f32_kernel"] = wide["g_ray_kernel"]
+    wide["wide_rgb_chain_f32_kernel"] = wide["wide_rgb_chain_kernel"]
+    wide["wide_head_f32_kernel"] = wide["wide_head_kernel"]
+    wide["wide_dd_f32_kernel"] = wide["mlp_dd_kernel"]
+    return {k: {"bytes": b, "flops": f, "library": lib}
+            for k, (b, f, lib) in wide.items()}
+
+
+def library_ms(lib, dtype, device, median_ms) -> float:
+    """The time of the one PyTorch call of ``helper_model``'s ``library``
+    on seeded tensors (CUDA events, median of 7)."""
+    import torch
+
+    kind, shape = lib
+    gen = torch.Generator(device=device).manual_seed(0)
+    if kind == "ray_sum":  # g [R, S, Wc] summed per ray in f32
+        g = torch.randn(shape, generator=gen, device=device).to(dtype)
+        return median_ms(lambda: g.sum(1, dtype=torch.float32))
+    if kind == "split_sum":  # [splits, n] f32 partials summed
+        part = torch.randn(shape, generator=gen, device=device)
+        return median_ms(lambda: part.sum(0))
+    if kind == "column_sum":  # masked g [N, n] column sums in f32
+        g = torch.randn(shape, generator=gen, device=device).to(dtype)
+        return median_ms(lambda: g.sum(0, dtype=torch.float32))
+    R, Wc, Fd = shape  # dD = g_ray [R, Wc] @ W_dir^T [Wc, Fd]
+    g = torch.randn((R, Wc), generator=gen, device=device)
+    w = torch.randn((Wc, Fd), generator=gen, device=device)
+    return median_ms(lambda: torch.matmul(g, w))
 
 
 def main(argv) -> int:
@@ -188,8 +272,15 @@ def main(argv) -> int:
     backward.sort(key=lambda r: -r[1])
     device_s = sum(r[1] for r in rows) / 1e6
     names = [k for w in wrappers for k in KERNELS[w]]
-    by_kernel = {k: sum(r[1] for r in rows if k in r[0]) / 1e6 / n
+    # the port's kernels by name in their anonymous namespace (PyTorch's
+    # own reduce_kernel templates are not ours)
+    def ours(k, key):
+        return f"namespace)::{k}" in key
+
+    by_kernel = {k: sum(r[1] for r in rows if ours(k, r[0])) / 1e6 / n
                  for k in names}
+    by_kernel_launches = {k: sum(r[2] for r in rows if ours(k, r[0])) / n
+                          for k in names}
     kernel_s = sum(by_kernel.values())
     per_call = {w: sum(by_kernel[k] for k in KERNELS[w]) / calls[w] * 1e3
                 for w in wrappers}
@@ -251,6 +342,30 @@ def main(argv) -> int:
             alone[f"mlp_bwd_call_input_grads_{ig}"] = median_ms(
                 lambda: fm.mlp_bwd_cuda(p, cfg, x, d, g_rgb, g_den, ig,
                                         packed=packed))
+    # The helper kernels: a launch's time beside its bound and library call.
+    from nerf_or_nothing_tpu_torch.models.mlp import num_params
+    from nerf_or_nothing_tpu_torch.utils.profiling import card_peaks
+
+    kc = fl.kernel_cfg(cfg)
+    _, peaks = card_peaks(torch.cuda.get_device_name(0))
+    peak = peaks[1]  # the helpers' sums are f32 FMA in both dtypes
+    S = cfg.num_samples
+    model = helper_model(kc, R, S, fl.train_splits(R * S), num_params(kc),
+                         fl.padded_location_features(cfg))
+    helpers = {}
+    for k, m in model.items():
+        launches = by_kernel_launches.get(k, 0.0)
+        if not launches:
+            continue
+        b_ms = max(m["bytes"] / peaks[2] * 1e3, m["flops"] / peak * 1e3)
+        helpers[k] = {
+            "launches_per_step": launches,
+            "ms_per_launch": by_kernel[k] * 1e3 / launches,
+            "bytes": m["bytes"], "flops": m["flops"], "bound_ms": b_ms,
+            "bound_by": ("bytes" if m["bytes"] / peaks[2]
+                         >= m["flops"] / peak else "operations"),
+            "library_ms": (library_ms(m["library"], dt, device, median_ms)
+                           if m["library"] else None)}
     print(json.dumps({
         "config": "Config()", "flags": argv, "fused_level": fused,
         "batch_size": cfg.batch_size, "steps": n,
@@ -260,6 +375,8 @@ def main(argv) -> int:
         "device_idle_share": 1.0 - device_s / wall,
         "kernels_s_per_step": kernel_s,
         "by_kernel_s_per_step": by_kernel,
+        "by_kernel_launches_per_step": by_kernel_launches,
+        "helpers": helpers,
         "launches_per_step": calls, "ms_per_launch": per_call,
         "other_device_s_per_step": device_s / n - kernel_s,
         "backward_nodes_ms_per_step": {

@@ -2099,22 +2099,27 @@ WIDE_DW_CASES = [
                          ids=[c[0] for c in WIDE_DW_CASES])
 def test_wide_dw_matches_parent_and_plain_on_cuda(name, M, Nn, K, lda,
                                                   splits, dtype):
-    """The redesigned dW GEMMs (``csrc/wide_dw.cuh``: ``wide_dw_kernel<BN>``,
-    ``wide_dw_f32_kernel`` with db) give the same bits over two launches
-    and the bits of the kernels they replaced (``chip_smoke.dw_sources``:
-    that commit's headers beside ``csrc/wide_dw.cu``), and lie in the
-    dtype's band of ``wide_dw_plain`` / ``wide_dw_f32_plain``."""
+    """The dW GEMMs (``csrc/wide_dw.cuh``: ``wide_dw_kernel<BN>``,
+    ``wide_dw_f32_kernel``, both with db, the splits added into the output
+    in order) give the same bits over two launches; dW the bits of the
+    kernels before (``chip_smoke.dw_sources``: that commit's headers beside
+    ``csrc/wide_dw.cu``, whose split partials ``_reduce`` sums in order, as
+    ``reduce_kernel`` did), and f32 db too; db the bits of
+    ``wide_db_plain``; both in the dtype's band of ``wide_dw_plain`` /
+    ``wide_dw_f32_plain``."""
     from nerf_or_nothing_tpu_torch.kernels import wide_gemm as wg
 
     dev = cuda_device()
     f32 = dtype == "float32"
     c = wg.dw_case(M, Nn, K, lda=lda, splits=splits, seed=K + M, device=dev,
                    dtype=getattr(torch, dtype))
-    run = wg.wide_dw_f32_cuda if f32 else wg.wide_dw_cuda
+    run = wg.wide_dw_cuda
     a, b = tensors(run(c)), tensors(run(c))
     torch.cuda.synchronize()
-    assert all(torch.equal(x, y) for x, y in zip(a, b)), name
-    ref = wg.wide_dw_f32_plain(c) if f32 else wg.wide_dw_plain(c)
+    assert len(a) == 2 and all(torch.equal(x, y) for x, y in zip(a, b)), name
+    db = wg.wide_db_plain(c)
+    assert torch.equal(a[1], db), name
+    ref = wg.wide_dw_f32_plain(c) if f32 else (wg.wide_dw_plain(c), db)
     check_close(a, ref, dtype, name)
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -2123,4 +2128,54 @@ def test_wide_dw_matches_parent_and_plain_on_cuda(name, M, Nn, K, lda,
     parent = smoke.dw_sources()
     if parent is not None:
         old = tensors(run(c, parent["wide_dw"]))
+        assert len(old) == (2 if f32 else 1), name
         assert all(torch.equal(x, y) for x, y in zip(a, old)), name
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_wide_dw_split_order_in_graphs_on_cuda(dtype):
+    """The ordered add of the splits across launches and CUDA graph
+    replays: a graph of two products' launches (W = 288, whose 3 x 3 tiles
+    a split are fewer than the blocks, so splits of one tile run at once;
+    and W = 1024 / 128, a view layer's) on shared split counters, replayed
+    three times, gives the eager launches' bits each time, and those are
+    the parent's summed partials (dW) and ``wide_db_plain`` (db)."""
+    from nerf_or_nothing_tpu_torch.kernels import wide_gemm as wg
+
+    dev = cuda_device()
+    dt = getattr(torch, dtype)
+    cases = [wg.dw_case(288, 288, 1 << 15, seed=1, device=dev, dtype=dt),
+             wg.dw_case(1024, 128, 20000, seed=2, device=dev, dtype=dt)]
+    flags = torch.zeros(max(wg.dw_flag_count(c["M"], c["Nn"]) for c in cases),
+                        dtype=torch.int32, device=dev)
+    eager = [wg.wide_dw_reduced(c, flags) for c in cases]
+    torch.cuda.synchronize()
+    for c, e in zip(cases, eager):
+        n = c["M"] * c["Nn"]
+        assert torch.equal(e[n:], wg.wide_db_plain(c))
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        wg.wide_dw_reduced(cases[0], flags)  # warm-up off the capture
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            outs = [wg.wide_dw_reduced(c, flags) for c in cases]
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    for _ in range(3):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as smoke
+
+    parent = smoke.dw_sources()
+    if parent is not None:
+        for c, e in zip(cases, eager):
+            n = c["M"] * c["Nn"]
+            old = wg.wide_dw_cuda(c, parent["wide_dw"])
+            assert torch.equal(e[:n].view(c["M"], c["Nn"]), old[0])

@@ -20,7 +20,14 @@ run only on the card (card tests ``-k wide_dw``):
   rows and past ``DW_MAX_JOBS`` products; the bf16 producer's 32-row
   boxes read each row of a split once, zeros past its end, where a split
   ends off a 64-row stage;
-- each kernel's shared memory and its job table.
+- each kernel's shared memory and its job table;
+- bf16 db: ``wide_db_plain`` (each split's column sums in row order, then
+  the splits in order, the kernels' sums bit for bit against the model of
+  their reads) against JAX's db in the bf16 band;
+- the split order: a model of the persistent grid (132, 114 and 7
+  blocks) over a level's work items, every (tile, split) added once and
+  in split order, every wait on an item of an earlier or the same round,
+  the sums ``_reduce``'s bit for bit; the split counters' bound.
 
 Tolerance: the parity bands of ``nerf_or_nothing_tpu/utils/parity.py``
 (f32 (1e-6, 1e-3), bf16 (2e-3, 3e-2)) as a normalized error < 1;
@@ -444,6 +451,164 @@ def test_dw_harness_needs_cuda_tensors():
     tensors before it loads a library, in both dtypes."""
     for dtype in (torch.bfloat16, torch.float32):
         c = wg.dw_case(96, 128, 64, splits=2, dtype=dtype)
-        run = wg.wide_dw_f32_cuda if dtype == torch.float32 else wg.wide_dw_cuda
         with pytest.raises(ValueError, match="CUDA"):
-            run(c)
+            wg.wide_dw_cuda(c)
+
+
+# ---- db in bf16 and the split order ----
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_plain_bf16_db_matches_jax_train_level(monkeypatch, splits):
+    """Every product of the port's plain bf16 train level at net_width 288
+    (``fused_level.dense`` on a^T, g) through ``wide_db_plain``, the db the
+    bf16 dW kernel now takes as its column sums (each split's rows in
+    order, then the splits in order): each in the bf16 band of JAX's db of
+    that layer from the interpreted ``fused_level_train``."""
+    tc, tp, c, ref = level_case("bfloat16")
+    N = R * tc.num_samples
+    dbs = []
+    dense = fl.dense
+
+    def split_dense(h, w, d):
+        if h.shape[-1] == N and h.stride(-2) == 1 and not h.is_contiguous():
+            case = {"M": h.shape[0], "Nn": w.shape[1], "K": N,
+                    "lda": h.shape[0], "act": h.t().to(d), "g": w.to(d),
+                    "splits": splits}
+            dbs.append(wg.wide_db_plain(case))
+            return wg.wide_dw_plain(case)
+        return dense(h, w, d)
+
+    monkeypatch.setattr(fl, "dense", split_dense)
+    keys = ("dir_enc", "t_vals", "dirs", "pixels", "g_scale")
+    fl.fused_level_train(tp, tc, T(c["x"]), *(T(c[k]) for k in keys), True)
+    order = layer_of_calls(tc)
+    assert len(dbs) == len(order)
+    for layer, db in zip(order, dbs):
+        close(db.numpy(), ref[layer][1], "bfloat16", f"kernel db{layer}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_db_plain_is_row_order_then_split_order(dtype):
+    """``wide_db_plain`` is bit for bit the transposers' (f32) and the db
+    warps' (bf16) sums: each split's rows in order from +0 (the model of
+    the kernel's reads, ``kernel_dw``, over 3 splits of 200 rows, the last
+    stage past the rows), then the splits added in order from +0; and
+    not the exact sum rounded once."""
+    c = wg.dw_case(128, 128, 200, splits=3, seed=6, dtype=dtype)
+    g = c["g"].float()
+    g[5] *= 1e6  # magnitudes where the order of the adds shows
+    c["g"] = g.to(dtype)
+    _, k_db = kernel_dw(c["act"].float(), c["g"].float(), 3)
+    want = torch.zeros(128)
+    for s in k_db:
+        want = want + s
+    got = wg.wide_db_plain(c)
+    assert torch.equal(got, want)
+    exact = c["g"].double().sum(0).float()
+    assert not torch.equal(got, exact)
+
+
+ORDER_CASES = [("w288", dict(net_width=288)), ("w512", dict(net_width=512)),
+               ("w1024", dict(net_width=1024)),
+               ("w2048", dict(net_width=2048)),
+               ("depth63", dict(net_width=288, net_depth=63))]
+
+
+def run_split_order(items, tiles: int, grid: int, part=None):
+    """The kernels' schedule and split order as a model: block b of the
+    persistent grid takes items b, b + grid, ... in turn, one a round; an
+    item of split k > 0 adds only once the item it waits on
+    (``dw_waits_on``) has added. Returns each tile's splits in the order
+    they added, each wait as (its item, the waited item), the rounds it
+    took, and with ``part`` [splits, tiles, e] f32 the sums: split 0 stores
+    0.0 + its partial, split k the sum so far plus its own."""
+    mine = [list(range(b, len(items), grid)) for b in range(grid)]
+    at = [0] * grid
+    done = set()
+    order = {t: [] for t in range(tiles)}
+    waits = []
+    out = None if part is None else np.zeros(part.shape[1:], np.float32)
+    rounds = 0
+    while len(done) < len(items):
+        ready = []
+        for b in range(grid):
+            if at[b] == len(mine[b]):
+                continue
+            i = mine[b][at[b]]
+            w = wg.dw_waits_on(i, tiles)
+            if w is None or w in done:
+                ready.append((b, i, w))
+        assert ready, "no block can go on: the schedule deadlocks"
+        for b, i, w in ready:
+            split, tile = divmod(i, tiles)
+            assert items[i][3] == split
+            if w is not None:
+                waits.append((i, w))
+            order[tile].append(split)
+            if part is not None:
+                base = np.float32(0.0) if split == 0 else out[tile]
+                out[tile] = base + part[split, tile]
+            done.add(i)
+            at[b] += 1
+        rounds += 1
+    return order, waits, rounds, out
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+@pytest.mark.parametrize("grid", [132, 114, 7])
+@pytest.mark.parametrize("name,kw", ORDER_CASES, ids=[s[0] for s in ORDER_CASES])
+def test_split_order_model(name, kw, grid, f32):
+    """Over every launch of a level (``dw_launch_groups``, past
+    ``DW_MAX_JOBS`` products at depth 63) and a persistent grid of
+    ``grid`` blocks: every (tile, split) adds once and each tile's splits
+    add in split order; every wait is on an item the grid took in an
+    earlier round or the same one, so the lowest item always goes on (the
+    model never stalls); and on random partials with -0.0 entries and
+    magnitudes 2^-60 to 2^60, the sums are ``_reduce``'s bit for bit."""
+    cfg = Config(**kw)
+    splits = fl.train_splits(1 << 17)
+    rng = np.random.default_rng(grid)
+    groups = wg.dw_launch_groups(wg.dw_products(cfg), f32)
+    if name == "depth63":
+        assert len(groups) > 1
+    for bn, ps in groups:
+        items = wg.dw_items(ps, bn, splits)
+        tiles = len(items) // splits
+        g = min(len(items), grid)
+        part = (rng.standard_normal((splits, tiles, 2))
+                * np.exp2(rng.uniform(-60, 60, (splits, tiles, 2))))
+        part = part.astype(np.float32)
+        part[:, ::5, 0] = -0.0          # every split -0: the sum is +0
+        part[rng.random(part.shape) < 0.1] = -0.0
+        order, waits, rounds, out = run_split_order(items, tiles, g, part)
+        assert all(v == list(range(splits)) for v in order.values())
+        assert len(waits) == len(items) - tiles
+        assert all(w // g <= i // g for i, w in waits)
+        assert rounds >= -(-len(items) // g)
+        ref = wg._reduce(torch.from_numpy(part.reshape(splits, -1)))
+        assert torch.equal(torch.from_numpy(out.reshape(-1)), ref)
+        assert not np.signbit(out[::5, 0]).any()
+
+
+def test_flag_counts_cover_every_launch():
+    """The split counters a launch needs (``DW_PARTS`` a tile of the
+    launch) fit ``dw_flag_count`` for one product at either column block,
+    and the level's bound (``dw_flag_bound``, ``wide_dw.cuh``'s: every
+    product's tiles at 128 columns, a feature product for each trunk
+    layer) covers every launch of a level in both dtypes, at the widths
+    above and depth 63."""
+    for M, Nn in ((1024, 1024), (288, 288), (90, 1024), (1024, 128)):
+        for bn in (128, 256):
+            tiles = -(-M // wg.BLOCK_ROWS) * -(-Nn // bn)
+            assert wg.DW_PARTS * tiles <= wg.dw_flag_count(M, Nn)
+    for _, kw in ORDER_CASES:
+        cfg = Config(**kw)
+        bound = wg.dw_flag_bound(cfg.net_depth, cfg.net_width,
+                                 cfg.net_width_condition,
+                                 cfg.net_depth_condition,
+                                 fl.padded_location_features(cfg))
+        for f32 in (False, True):
+            for bn, ps in wg.dw_launch_groups(wg.dw_products(cfg), f32):
+                tiles = len(wg.dw_items(ps, bn, 1))
+                assert wg.DW_PARTS * tiles <= bound

@@ -4,7 +4,9 @@ workspace each kernel asks for at ``Config(net_width=W)`` (depth 8,
 net_width_condition 128) for W in ``WORKSPACE_WIDTHS``, from the kernels'
 own workspace functions (``train_level``, the same as
 ``train_level_twopass``, and ``mlp_bwd`` at R=1024 x S=128, a level of a
-train step, with the dW split partials' share; ``render_level`` and
+train step, with the split partials' share: since the dW GEMMs add their
+splits into the output, those of the small products only (the heads'
+dW and db, the direction rows); ``render_level`` and
 ``mlp_fwd`` at R=16384, a render chunk), then the widest of these MLPs
 whose train step fits: ``run train`` (batch 1024 x 128 samples a level)
 for one step on a 48-px synthetic scene, with W searched in multiples of
@@ -116,11 +118,17 @@ def workspace_sizes() -> None:
             emit({"workspace": f"net_width={W}", "dtype": dtype, "R": R,
                   "S": S, "n_params": n_out,
                   "train_level_bytes": train_ws(code, R, S, D, W, Wc, Dc, kx,
-                                                splits, n_out),
+                                                splits, n_out,
+                                                cfg.direction_features),
                   "mlp_bwd_bytes": bwd_lib.mlp_bwd_workspace(
                       code, R, S, D, W, Wc, Dc, kx, splits, n_out,
-                      cfg.num_rgb_channels + cfg.num_density_channels),
-                  "split_partials_bytes": splits * n_out * 4,
+                      cfg.num_rgb_channels + cfg.num_density_channels,
+                      cfg.direction_features, cfg.num_density_channels),
+                  "split_partials_bytes": splits * 4 * (
+                      W * cfg.num_density_channels
+                      + cfg.direction_features * Wc
+                      + Wc * cfg.num_rgb_channels
+                      + cfg.num_rgb_channels + cfg.num_density_channels),
                   "render_R": R_render,
                   "render_level_bytes": render_ws(code, R_render, S, W, Wc,
                                                   kx),
